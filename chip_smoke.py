@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA H100.
+
+Phases (any failure raises and exits non-zero):
+  1. device  — the card's name and power limit (nvidia-smi), torch and
+               CUDA versions; exit non-zero without a CUDA device.
+  2. build   — compile the CUDA kernels of `kernels/csrc/` with nvcc
+               (sm_90a, one process per source, in parallel).
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               main-path shapes plus head dims {16, 20, 64, 128}, pages
+               {16, 64}, GQA rep {1, 3}, lengths 1 / page boundary / full /
+               parked, fp (bf16, f32) and int8 (per page, per token) pools,
+               causal and not, kv_offset > 0, Sq {1, 17, 128, 512}; the
+               device time (torch.profiler, L2 flushed before each call)
+               of the kernel, the plain version and a library yardstick.
+  4. engine  — SmolLM-360M at published widths (random seeded weights,
+               bf16) served by `ServingEngine` on a 16-request chat trace:
+               every request finishes, the three kernels are launched and
+               no plain version runs; then the same trace with the plain
+               versions on the card (`force_backend("reference")`) must
+               agree per request (lockstep greedy tokens) >= 0.5, on int8
+               and on fp pools; one more int8 run under torch.profiler
+               prints the device's busy share and the host's busiest ops.
+The last lines are the kernels' JSON record, the nvidia-smi line and
+{"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py                 # one card, no arguments
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# data-sheet peaks of one H100 SXM (the least time a kernel could take is
+# the larger of bytes / HBM rate and operations / peak rate for the type)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+# bf16 outputs: kernel and plain version accumulate in f32 in another
+# order and round once to bf16, so they may differ by one bf16 ulp
+BF16_TOL = dict(atol=2e-2, rtol=0.0)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Time of one call of a callable over `reps` calls,
+    with the 50 MB L2 flushed (a 96 MB device-to-device copy) before
+    each call, because the serving path finds its pool cold.
+
+    `device_ms` is the mean over the calls of the kernels' device time
+    from the `torch.profiler` trace (the flush copies excluded); where
+    the profiler records no device activity it falls back to CUDA events
+    around the call. `event_ms` is the median CUDA-events time around a
+    call, which also counts host time between its launches."""
+
+    def __init__(self, torch, reps: int = 15):
+        self.torch = torch
+        self.reps = reps
+        self.src = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+        self.dst = torch.empty_like(self.src)
+        self.profiled = True
+
+    def _flush(self):
+        self.dst.copy_(self.src)
+
+    def event_ms(self, fn) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        events = []
+        for _ in range(self.reps):
+            self._flush()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
+
+    def device_ms(self, fn) -> float:
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(self.reps):
+                self._flush()
+                torch.cuda.synchronize()
+                fn()
+                torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "memcpy" not in e.name.lower()]
+        if not kern:
+            self.profiled = False
+            return self.event_ms(fn)
+        return sum(e.time_range.elapsed_us() for e in kern) / self.reps / 1e3
+
+    def __call__(self, fn) -> float:
+        """Device ms per call (mean); the events ms per call (median,
+        host gaps included) is kept in `self.last_event_ms`."""
+        self.last_event_ms = self.event_ms(fn)
+        return self.device_ms(fn)
+
+
+def max_err(torch, out, ref, tol) -> tuple[float, bool]:
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    ok = bool((err <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+    ok = ok and bool(torch.isfinite(out).all())
+    return float(err.max()), ok
+
+
+# ------------------------------------------------------------- kernels
+def kernel_cases(torch, timer):
+    """Returns the JSON records of the three kernels (timed at the main
+    path's shapes); raises if any case disagrees."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.page_io import ops as pops
+
+    F = torch.nn.functional
+    gen = torch.Generator("cuda").manual_seed(0)
+    failures = []
+
+    def report(name, case, err, ok, tol):
+        flag = "ok  " if ok else "FAIL"
+        print(f"  {flag} {name:18s} {case:58s} max_abs_err={err:.3e} "
+              f"tol(atol={tol['atol']:g},rtol={tol['rtol']:g})")
+        if not ok:
+            failures.append(f"{name} {case}")
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def timed(kernel, plain):
+        ms = timer(kernel)
+        op_ms = timer.last_event_ms
+        return dict(ms=ms, plain_ms=timer(plain), op_ms=op_ms)
+
+    records = []
+
+    # --- A: page writer -------------------------------------------------
+    print("kernel write_pages (exact)")
+    nb, P, page, KV, D = 32, 128, 16, 5, 64      # SmolLM-360M pool
+    main_a = None
+    for kind, n_wp in (("int8 payload", 8), ("int8 payload", 4),
+                       ("f32 sz rows", 8), ("bf16 fp payload", 8)):
+        if kind == "int8 payload":
+            shape, dt = (page, KV, D), torch.int8
+        elif kind == "f32 sz rows":
+            shape, dt = (KV, 2), torch.float32
+        else:
+            shape, dt = (page, KV, D), torch.bfloat16
+        if dt == torch.int8:
+            pool = torch.randint(-127, 128, (nb, P, *shape), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+            tiles = torch.randint(-127, 128, (nb, n_wp, *shape),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int8)
+        else:
+            pool = randn(nb, P, *shape, dtype=dt)
+            tiles = randn(nb, n_wp, *shape, dtype=dt)
+        phys = torch.randperm(P, generator=gen, device="cuda")[:n_wp].to(
+            torch.int32)
+        a, b = pool.clone(), pool.clone()
+        pops.write_pages(a, tiles, phys, impl="cuda")
+        pops.write_pages(b, tiles, phys, impl="reference")
+        ok = torch.equal(a, b)
+        report("write_pages", f"{kind} nb={nb} P={P} n_wp={n_wp} "
+               f"M={tiles[0, 0].numel() * tiles.element_size()}B",
+               0.0 if ok else float("inf"), ok, dict(atol=0, rtol=0))
+        if main_a is None:
+            main_a = (pool, tiles, phys)
+    pool, tiles, phys = main_a
+    M = tiles[0, 0].numel() * tiles.element_size()
+    n_wp = tiles.shape[1]
+    a = pool.clone()
+    phys64 = phys.long()
+    bytes_a = 2 * nb * n_wp * M + phys.numel() * 4
+    records.append(dict(
+        name="write_pages", route="cuda",
+        source="src/repro_torch/kernels/csrc/page_io.cu",
+        replaces="src/repro/kernels/page_io/page_io.py:33",
+        max_abs_err=0.0,
+        **timed(lambda: pops.write_pages(a, tiles, phys, impl="cuda"),
+                lambda: pops.write_pages(a, tiles, phys, impl="reference")),
+        bound_ms=bytes_a / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=timer(lambda: a.index_copy_(1, phys64, tiles)),
+        shape=f"int8 pool ({nb},{P},{page},{KV},{D}) n_wp={n_wp}",
+    ))
+
+    # --- B: flash attention forward --------------------------------------
+    print("kernel flash_mha (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
+    flash_cases = [
+        # (B, Sq, Skv, H, KV, D, causal, kv_offset, dtype)
+        (1, 128, 128, 15, 5, 64, True, 0, torch.bfloat16),   # main path
+        (1, 64, 64, 15, 5, 64, True, 0, torch.bfloat16),     # main path
+        (1, 128, 128, 15, 5, 64, True, 0, torch.float32),
+        (2, 1, 1, 3, 1, 20, True, 0, torch.float32),
+        (2, 17, 17, 3, 1, 20, True, 0, torch.float32),
+        (2, 17, 40, 4, 4, 16, False, 0, torch.float32),
+        (1, 128, 160, 6, 2, 128, True, 32, torch.float32),
+        (1, 512, 512, 6, 2, 128, True, 0, torch.bfloat16),
+        (1, 512, 512, 4, 4, 64, False, 0, torch.float32),
+        (2, 17, 49, 3, 3, 16, True, 32, torch.bfloat16),
+        (1, 128, 128, 3, 1, 20, True, 0, torch.bfloat16),
+    ]
+    main_b = None
+    for (B, Sq, Skv, H, KV_, D_, causal, off, dt) in flash_cases:
+        q = randn(B, Sq, H, D_, dtype=dt)
+        k = randn(B, Skv, KV_, D_, dtype=dt)
+        v = randn(B, Skv, KV_, D_, dtype=dt, scale=0.5)
+        out = fops.mha(q, k, v, causal=causal, kv_offset=off, impl="cuda")
+        ref = fops.mha(q, k, v, causal=causal, kv_offset=off,
+                       impl="reference")
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        err, ok = max_err(torch, out, ref, tol)
+        report("flash_mha", f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV_} "
+               f"D={D_} causal={causal} off={off} {str(dt)[6:]}", err, ok,
+               tol)
+        if main_b is None:
+            main_b = (q, k, v, err)
+    q, k, v, err_b = main_b
+    B, Sq, H, D_ = q.shape
+    Skv, KV_ = k.shape[1], k.shape[2]
+    pairs = sum(min(Skv, i + 1) for i in range(Sq)) * B * H
+    ops_b = 4 * D_ * pairs
+    bytes_b = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * Sq
+    t_bytes, t_ops = bytes_b / HBM_BYTES_PER_S, ops_b / PEAK_OPS["bfloat16"]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        lib_b = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    except TypeError:          # torch without enable_gqa
+        lib_b = None
+    records.append(dict(
+        name="flash_mha", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:75",
+        max_abs_err=err_b,
+        **timed(lambda: fops.mha(q, k, v, impl="cuda"),
+                lambda: fops.mha(q, k, v, impl="reference")),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=lib_b,
+        shape=f"bf16 causal B={B} Sq=Skv={Sq} H={H} KV={KV_} D={D_}",
+    ))
+
+    # --- C: paged flash decode -------------------------------------------
+    print("kernel paged_flash_decode (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
+
+    def decode_inputs(B, H, KV_, D_, page_, n_pages, pool, qdt, lengths):
+        P_ = B * n_pages
+        q = randn(B, H, D_, dtype=qdt)
+        bt = torch.stack([torch.randperm(P_, generator=gen, device="cuda")
+                          [:n_pages] for _ in range(B)]).to(torch.int32)
+        shape = (P_, page_, KV_, D_)
+        if pool in ("bf16", "f32"):
+            dt = torch.bfloat16 if pool == "bf16" else torch.float32
+            return (q, randn(*shape, dtype=dt), randn(*shape, dtype=dt,
+                                                      scale=0.5),
+                    bt, lengths, {})
+        kp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        sz_shape = (P_, KV_) if pool == "int8/page" else (P_, page_, KV_)
+
+        def sz():
+            scale = torch.rand(sz_shape, generator=gen, device="cuda")
+            zero = torch.rand(sz_shape, generator=gen, device="cuda") - 0.5
+            return torch.stack([0.005 + 0.015 * scale, zero], -1)
+
+        return q, kp, vp, bt, lengths, dict(k_sz=sz(), v_sz=sz())
+
+    main_lengths = torch.tensor([70, 100, 129, 160, 200, 240, 256, 257],
+                                dtype=torch.int32, device="cuda")
+    cases = [(8, 15, 5, 64, 16, 16, "int8/page", torch.bfloat16,
+              main_lengths)]                                  # main path
+    for D_ in (16, 20, 64, 128):
+        for page_ in (16, 64):
+            for rep in (1, 3):
+                for pool in ("bf16", "f32", "int8/page", "int8/token"):
+                    n_pages = 3
+                    full = n_pages * page_
+                    lens = torch.tensor([1, page_, full, full + 7],
+                                        dtype=torch.int32, device="cuda")
+                    qdt = torch.bfloat16 if pool == "bf16" else (
+                        torch.float32 if pool == "f32" else
+                        (torch.bfloat16 if D_ == 64 else torch.float32))
+                    cases.append((4, 2 * rep, 2, D_, page_, n_pages, pool,
+                                  qdt, lens))
+    main_c = None
+    for (B, H, KV_, D_, page_, n_pages, pool, qdt, lens) in cases:
+        q, kp, vp, bt, lens, sz = decode_inputs(B, H, KV_, D_, page_,
+                                                n_pages, pool, qdt, lens)
+        out = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda", **sz)
+        ref = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="reference",
+                                    **sz)
+        exact = qdt == torch.float32 and pool != "bf16"
+        tol = F32_TOL if exact else BF16_TOL
+        err, ok = max_err(torch, out, ref, tol)
+        report("paged_flash_decode",
+               f"B={B} H={H} KV={KV_} D={D_} page={page_} pool={pool} "
+               f"q={str(qdt)[6:]} len={lens.tolist()}"[:58], err, ok, tol)
+        if main_c is None:
+            main_c = (q, kp, vp, bt, lens, sz, err)
+    q, kp, vp, bt, lens, sz, err_c = main_c
+    B, H, D_ = q.shape
+    page_, KV_ = kp.shape[1], kp.shape[2]
+    n_pages = bt.shape[1]
+    keys = lens.clamp(max=n_pages * page_)
+    n_keys = int(keys.sum())
+    n_page_reads = int((-(-keys // page_)).sum())
+    bytes_c = (2 * n_keys * KV_ * D_ * kp.element_size()     # K and V
+               + 2 * n_page_reads * KV_ * 2 * 4               # (scale, zero)
+               + 2 * q.numel() * q.element_size()             # q and out
+               + n_page_reads * 4 + B * 4)                    # table, lens
+    ops_c = 4 * D_ * H * n_keys
+    t_bytes, t_ops = bytes_c / HBM_BYTES_PER_S, ops_c / PEAK_OPS["bfloat16"]
+    records.append(dict(
+        name="paged_flash_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/decode_attention/paged.py:106",
+        max_abs_err=err_c,
+        **timed(lambda: dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                              impl="cuda", **sz),
+                lambda: dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                              impl="reference", **sz)),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None,
+        shape=(f"int8/page pool B={B} H={H} KV={KV_} D={D_} page={page_} "
+               f"n_pages={n_pages} lengths={lens.tolist()}"),
+    ))
+    if failures:
+        raise AssertionError(f"{len(failures)} kernel cases disagree: "
+                             f"{failures}")
+    for r in records:
+        print(f"  time {r['name']:18s} kernel {r['ms']:.4f} ms (op with "
+              f"host gaps {r.pop('op_ms'):.4f} ms)  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+              f"[{r['shape']}]")
+    print(f"  device times from {'torch.profiler' if timer.profiled else 'CUDA events'}, "
+          f"L2 flushed before each call")
+    return records
+
+
+# -------------------------------------------------------------- engine
+def agreement(a, b) -> float:
+    n = max(len(a), len(b))
+    return sum(x == y for x, y in zip(a, b)) / n if n else 1.0
+
+
+def engine_phase(torch):
+    """Serve the chat trace at full width; returns the kernel launches of
+    the int8 kernel run (the main path)."""
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
+                                     ServingEngine, make_scenario)
+
+    cfg = configs.get("smollm_360m")              # bf16 activations
+    assert cfg.dtype == "bfloat16"
+    base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
+                        page_tokens=16, pool_dtype="int8")
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    print(f"engine {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"ff={cfg.d_ff} vocab={cfg.vocab_size}, random weights seed 0")
+
+    def serve(pool_dtype, backend, profiled=False):
+        kernels.force_backend(backend)
+        try:
+            eng = ServingEngine.build(
+                cfg, dataclasses.replace(base, pool_dtype=pool_dtype),
+                params=params)
+            reqs = make_scenario("chat", 16, cfg.vocab_size, seed=0,
+                                 prompt_buckets=(64, 128),
+                                 gen_range=(16, 32), arrival_rate=1e5)
+            torch.cuda.synchronize()
+            kernels.reset_counters()
+            if profiled:
+                return profile_run(torch, eng, reqs)
+            stats = eng.run(reqs)
+            launches = dict(kernels.LAUNCHES)
+            plain = dict(kernels.REFERENCE_CALLS)
+        finally:
+            kernels.force_backend(None)
+        assert stats.n_requests == len(reqs)
+        for r in reqs:
+            assert len(r.output) == r.max_new_tokens, r.request_id
+        s = stats.summary()
+        print(f"  pool={pool_dtype:4s} backend={backend or 'kernels':9s} "
+              f"requests={s['n_requests']} tokens={s['tokens']} "
+              f"steps={s['steps']} wall_s={stats.wall_s:.3f} "
+              f"tok_per_s_wall={s['tok_per_s_wall']:.1f} "
+              f"max_concurrency={s['max_concurrency']} "
+              f"launches={launches} plain_calls={plain}")
+        return reqs, launches, plain
+
+    main_launches = None
+    for pool in ("int8", "fp"):
+        kreqs, launches, plain = serve(pool, None)
+        assert all(n > 0 for n in launches.values()), launches
+        assert not any(plain.values()), plain
+        if pool == "int8":
+            main_launches = launches
+        rreqs, rlaunch, _ = serve(pool, "reference")
+        assert not any(rlaunch.values()), rlaunch
+        agree = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
+        print(f"  pool={pool}: per-request token agreement kernels vs "
+              f"plain: min={min(agree):.3f} mean="
+              f"{sum(agree) / len(agree):.3f} (gate >= "
+              f"{INT8_TOKEN_AGREEMENT})")
+        assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
+    serve("int8", None, profiled=True)
+    return main_launches
+
+
+def profile_run(torch, eng, reqs) -> None:
+    """Serve `reqs` under torch.profiler and print where the time goes:
+    the device's busy share of the run's wall time (union of kernel
+    intervals), device time by kernel group, the host's busiest ops and
+    the host syncs. Profiling slows the host, so the run's wall time here
+    is longer than the unprofiled run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for e in kern:
+        s0, s1 = e.time_range.start, e.time_range.end
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    groups = {"paged_flash_decode": "paged_decode_kernel",
+              "flash_mha": "flash_fwd_kernel",
+              "write_pages": "write_pages_kernel"}
+    by_group: dict = {}
+    for e in kern:
+        name = e.name.lower()
+        g = next((k for k, v in groups.items() if v in name), None)
+        if g is None:
+            g = "matmul" if ("gemm" in name or "sm90" in name
+                             or "cutlass" in name) else "other"
+        by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us()
+    host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
+                  reverse=True)[:6]
+    syncs = sum(a.count for a in prof.key_averages()
+                if "synchronize" in a.key or a.key == "aten::nonzero")
+    print(f"  profile int8 kernels run: wall {wall_us / 1e3:.1f} ms over "
+          f"{stats.steps} decode steps, device busy "
+          f"{busy / wall_us:.3f} of wall (idle {1 - busy / wall_us:.3f}); "
+          "device ms by group " + json.dumps(
+              {k: round(v / 1e3, 3) for k, v in sorted(by_group.items())}))
+    print("  profile host ops by self CPU ms: " + json.dumps(
+        {a.key: round(a.self_cpu_time_total / 1e3, 1) for a in host})
+        + f"; nonzero/sync calls {syncs}")
+
+
+# ---------------------------------------------------------------- main
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = smi_line()
+    print(f"device: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} "
+          f"devices={torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import build
+
+    paths = build.build_all()
+    print(f"build: {len(paths)} libraries in {build.LAST_BUILD_S:.1f} s")
+    for name, path in paths.items():
+        log = path.with_suffix(".log").read_text().splitlines()
+        regs = [line for line in log if "registers" in line]
+        spills = [line for line in log
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        print(f"  {name}: {len(regs)} kernels; "
+              f"{regs[-1].strip() if regs else ''}; "
+              f"{len(spills)} with spills")
+    records = kernel_cases(torch, Timer(torch))
+    launches = engine_phase(torch)
+    for r in records:
+        r["launches"] = launches[r["name"]]
+        r.pop("shape")
+    print(json.dumps({"kernels": records}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""Hand-written Hopper kernels for the perf-critical layers, behind
+device-dispatching ops (the port's counterpart of `repro.kernels`).
+
+Each kernel package has three modules, as in the reference:
+  <name>.py  - the ctypes wrapper of the CUDA C++ kernel (source under
+               `csrc/`, built by `build.py` with nvcc for sm_90a); it
+               checks device, dtype, shape and contiguity and counts its
+               launches in `LAUNCHES`
+  ops.py     - the public op: dispatches by the tensor's device
+  ref.py     - the plain PyTorch version, with the reference's semantics
+
+Dispatch goes by the device of the tensor an op is given: a CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version.
+There is no fallback from a kernel that fails to build or launch.
+`force_backend("reference")` exists so that a caller can run the plain
+versions on the card to compare against (`chip_smoke.py`).
+
+Kernels on the serving path: `page_io` (pool insert), `flash_attention`
+(bucket prefill), `decode_attention` (paged decode over the block table).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_FORCED: str | None = None
+
+# launches of each kernel since the last reset (incremented by the
+# wrapper right after it launches, nowhere else) and calls that took the
+# plain version
+LAUNCHES = {"write_pages": 0, "flash_mha": 0, "paged_flash_decode": 0}
+REFERENCE_CALLS = {"write_pages": 0, "mha": 0, "paged_decode_mha": 0}
+
+
+def force_backend(name: str | None) -> None:
+    """Force 'cuda' | 'reference' | None (dispatch by tensor device)."""
+    if name not in (None, "cuda", "reference"):
+        raise ValueError(f"unknown kernel backend {name!r}")
+    global _FORCED
+    _FORCED = name
+
+
+def reset_counters() -> None:
+    for counts in (LAUNCHES, REFERENCE_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def select_impl(x: torch.Tensor, impl: str | None = None) -> str:
+    """Resolve an op's implementation for input tensor `x`: "cuda" (launch
+    the kernel) or "reference" (the plain PyTorch version). With no
+    request and nothing forced, the tensor's device decides. Asking for
+    the kernel on a CPU tensor raises."""
+    impl = impl or _FORCED or (
+        "cuda" if x.device.type == "cuda" else "reference")
+    if impl not in ("cuda", "reference"):
+        raise ValueError(f"unknown kernel impl {impl!r}")
+    if impl == "cuda" and x.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs CUDA tensors, got {x.device}")
+    return impl

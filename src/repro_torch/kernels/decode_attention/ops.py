@@ -1,0 +1,48 @@
+"""Public paged decode-attention op (the serving hot loop): a CUDA tensor
+launches the paged flash-decode kernel, a CPU tensor takes the plain
+gather-then-softmax version."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.decode_attention import ref
+
+
+def clamp_dead_entries(block_tables: torch.Tensor, n_pages: int, page: int,
+                       frontier: torch.Tensor) -> torch.Tensor:
+    """Clamp block-table entries at/past the per-sequence `frontier`
+    (valid token count) to physical page 0 so every gather stays in
+    bounds; the length masks keep them out of the math."""
+    live = (torch.arange(n_pages, dtype=torch.int32,
+                         device=block_tables.device)[None, :] * page
+            < frontier[:, None])
+    return torch.where(live, block_tables.to(torch.int32), 0)
+
+
+def paged_decode_mha(q, k_pages, v_pages, block_tables, lengths, *,
+                     k_sz=None, v_sz=None, scale: Optional[float] = None,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """q (B,H,D) vs a PAGED cache: k/v (P_phys, page, KV, D) physical page
+    pool + (B, n_logical) block tables (`KVPager.block_table` layout) with
+    per-sequence valid `lengths` (scalar or (B,)). `k_sz`/`v_sz` float32
+    switch the pool to int8 block quantization, per page (P_phys, KV, 2)
+    or per token (P_phys, page, KV, 2)."""
+    n_pages = block_tables.shape[1]
+    page = k_pages.shape[1]
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=q.device).broadcast_to((q.shape[0],))
+    block_tables = clamp_dead_entries(block_tables, n_pages, page, lengths)
+    if kernels.select_impl(q, impl) == "reference":
+        kernels.REFERENCE_CALLS["paged_decode_mha"] += 1
+        return ref.paged_decode_mha(q, k_pages, v_pages, block_tables,
+                                    lengths, k_sz=k_sz, v_sz=v_sz,
+                                    scale=scale)
+    from repro_torch.kernels.decode_attention import paged
+
+    return paged.paged_flash_decode_cuda(
+        q.contiguous(), k_pages, v_pages, block_tables.contiguous(),
+        lengths.contiguous(), k_sz=k_sz, v_sz=v_sz, scale=scale)

@@ -1,0 +1,163 @@
+"""GQA self-attention for prefill and paged decode (port of the serving
+path of `repro.models.attention`).
+
+The contraction is delegated to `kernels.flash_attention` (prefill) and
+`kernels.decode_attention` (paged decode), which launch the CUDA kernels
+on CUDA tensors and the plain versions on CPU tensors.
+
+The paged KV pool is updated IN PLACE where the reference's jitted cells
+return new (donated) arrays: every insert below writes into the pool
+tensor it is given and returns that same tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.kernels import quant
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.module import Initializer
+
+
+def attn_init(init: Initializer, cfg: ModelConfig):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    init.param("wq", (d, h, hd))
+    init.param("wk", (d, kv, hd))
+    init.param("wv", (d, kv, hd))
+    init.param("wo", (h, hd, d))
+    if cfg.qkv_bias:
+        init.param("bq", (h, hd), init="zeros")
+        init.param("bk", (kv, hd), init="zeros")
+        init.param("bv", (kv, hd), init="zeros")
+
+
+def _qkv(params, x, cfg: ModelConfig, positions, rope: bool):
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def self_attention(params, x, cfg: ModelConfig, positions=None,
+                   causal: bool = True, rope: bool = True,
+                   return_kv: bool = False):
+    """Full-sequence self-attention (prefill): x (B, S, d)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = _qkv(params, x, cfg, positions, rope)
+    out = flash_ops.mha(q, k, v, causal=causal)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ------------------------------------------------------- paged KV cache
+def _t_vec(t, B: int, device) -> torch.Tensor:
+    """Per-slot positions (B,) int64 from a scalar or a (B,) vector."""
+    return torch.as_tensor(t, device=device).to(torch.int64).broadcast_to(
+        (B,))
+
+
+def _page_coords(t_vec, block_table, page_tokens: int):
+    """Per-slot (physical page, in-range mask, in-page offset) of write
+    position(s) `t_vec` through the block table."""
+    n_pages = block_table.shape[1]
+    pidx = t_vec // page_tokens
+    off = t_vec % page_tokens
+    in_range = pidx < n_pages
+    phys = torch.gather(block_table, 1,
+                        pidx.clamp(0, n_pages - 1)[:, None])[:, 0]
+    return phys.to(torch.int64), in_range, off
+
+
+def _live_rows(in_range: torch.Tensor) -> torch.Tensor:
+    """Indices of the slots whose write lands inside the table. Parked
+    slots (cursor past the table) are dropped, as the reference's
+    `mode="drop"` scatter drops them: an out-of-range index would raise
+    on the CPU and assert on the card. On a CUDA tensor this waits for
+    the device (one host sync per call)."""
+    return in_range.nonzero()[:, 0]
+
+
+def paged_cache_insert(pool, new, t, block_table, page_tokens: int):
+    """Write one token of K or V per slot into a PHYSICAL page pool, in
+    place. pool (P_phys, page, KV, hd); new (B, 1, KV, hd); t scalar or
+    (B,) absolute position(s); block_table (B, n_pages). The write lands
+    at pool[bt[b, t//page], t%page]; parked positions write nothing."""
+    t_vec = _t_vec(t, new.shape[0], pool.device)
+    phys, in_range, off = _page_coords(t_vec, block_table, page_tokens)
+    rows = _live_rows(in_range)
+    pool[phys[rows], off[rows]] = new[rows, 0].to(pool.dtype)
+    return pool
+
+
+def paged_quant_cache_insert(pool, sz, new, t, block_table,
+                             page_tokens: int):
+    """int8 twin of `paged_cache_insert`, in place. Per-page (scale, zero)
+    quantization cannot splice one int8 row into a page whose range it
+    may move, so the insert is a read-modify-write of the slot's tail
+    page: dequantize it, zero the rows past the write cursor, land the
+    token, requantize with a fresh (scale, zero). With per-token
+    sub-scales (`sz` ranked like the pool) the token row quantizes on
+    its own and lands as a plain scatter. Returns (pool, sz)."""
+    B = new.shape[0]
+    t_vec = _t_vec(t, B, pool.device)
+    phys, in_range, off = _page_coords(t_vec, block_table, page_tokens)
+    rows = _live_rows(in_range)
+    if sz.dim() == pool.dim():               # per-token sub-scales
+        q8, tsz = quant.quantize_tokens(new[:, 0].float())
+        pool[phys[rows], off[rows]] = q8[rows]
+        sz[phys[rows], off[rows]] = tsz[rows]
+        return pool, sz
+    phys_r = torch.where(in_range, phys, 0)  # safe gather, discarded
+    page_f = quant.dequantize_pages(pool[phys_r], sz[phys_r])
+    iota = torch.arange(page_tokens, device=pool.device)[None, :, None, None]
+    off_b = off[:, None, None, None]
+    page_f = torch.where(iota < off_b, page_f, 0.0)
+    page_f = torch.where(iota == off_b, new.float(), page_f)
+    q8, new_sz = quant.quantize_pages(page_f)
+    pool[phys[rows]] = q8[rows]
+    sz[phys[rows]] = new_sz[rows]
+    return pool, sz
+
+
+def paged_decode_self_attention(params, x, cfg: ModelConfig, cache, t,
+                                block_table, page_tokens: int,
+                                rope: bool = True):
+    """Single-token decode against the paged cache: insert the new K/V
+    through the block table (in place), then gather-attend through the
+    paged decode op. x (B, 1, d); cache {"k", "v"} pools
+    (P_phys, page, KV, hd) plus "k_sz"/"v_sz" when int8; t scalar or
+    (B,). Returns (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    t_vec = _t_vec(t, B, x.device)
+    q, k, v = _qkv(params, x, cfg, t_vec[:, None], rope)
+    if "k_sz" in cache:
+        paged_quant_cache_insert(cache["k"], cache["k_sz"], k, t_vec,
+                                 block_table, page_tokens)
+        paged_quant_cache_insert(cache["v"], cache["v_sz"], v, t_vec,
+                                 block_table, page_tokens)
+        out = decode_ops.paged_decode_mha(
+            q[:, 0], cache["k"], cache["v"], block_table, t_vec + 1,
+            k_sz=cache["k_sz"], v_sz=cache["v_sz"],
+        )
+    else:
+        paged_cache_insert(cache["k"], k, t_vec, block_table, page_tokens)
+        paged_cache_insert(cache["v"], v, t_vec, block_table, page_tokens)
+        out = decode_ops.paged_decode_mha(
+            q[:, 0], cache["k"], cache["v"], block_table, t_vec + 1)
+    out = torch.einsum("bhk,hkd->bd", out, params["wo"].to(x.dtype))
+    return out[:, None, :], cache

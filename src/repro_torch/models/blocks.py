@@ -1,0 +1,224 @@
+"""Layer pattern, stacked init and the layer loops (port of the serving
+path of `repro.models.blocks`).
+
+Parameters and caches keep the reference's stacked layout: every block
+leaf carries a leading `nb` layer axis under `pos{j}` (j = position in the
+layer-pattern period). Where the reference `lax.scan`s over that axis,
+the port runs a Python loop; decode updates the `pool[layer]` views of the
+caches in place instead of rebuilding a stacked tree.
+
+Only attention-only dense stacks are ported; SSM, MoE, hybrid and
+encoder-decoder stacks arrive with ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.models.module import Initializer, layer_slice, torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    kind: str            # "attn" | "ssm"
+    moe: bool
+    cross: bool = False  # enc-dec decoder layer with cross-attention
+    causal: bool = True
+
+
+def super_period(cfg: ModelConfig) -> int:
+    p = 1
+    if cfg.num_experts:
+        p = math.lcm(p, cfg.moe_layer_period)
+    if cfg.family == "hybrid" and cfg.attn_layer_period:
+        p = math.lcm(p, cfg.attn_layer_period)
+    return p
+
+
+def pattern(cfg: ModelConfig, cross: bool = False, causal: bool = True):
+    per = super_period(cfg)
+    if cfg.num_layers % per:
+        raise ValueError(f"num_layers {cfg.num_layers} not a multiple of "
+                         f"the layer period {per}")
+    return [
+        LayerDesc(
+            kind="attn" if cfg.is_attn_layer(j) else "ssm",
+            moe=cfg.is_moe_layer(j),
+            cross=cross,
+            causal=causal,
+        )
+        for j in range(per)
+    ]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for stacks the port does not run yet."""
+    if (cfg.num_encoder_layers or cfg.frontend
+            or any(d.kind != "attn" or d.moe for d in pattern(cfg))):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense attention-only decoder stacks are "
+            "ported; SSM, MoE, hybrid, frontend and encoder archs wait for "
+            "ROADMAP A11"
+        )
+
+
+# ------------------------------------------------------------------ init
+def stack_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """All layers' parameters, stacked by position-in-period on a leading
+    `nb` axis."""
+    check_supported(cfg)
+    descs = pattern(cfg)
+    nb = cfg.num_layers // len(descs)
+    params = {}
+    for j, _ in enumerate(descs):
+        init = Initializer(generator, torch_dtype(cfg.param_dtype),
+                           lead=(nb,))
+        rmsnorm_init(init.child("pre_norm"), cfg.d_model)
+        attn.attn_init(init.child("attn"), cfg)
+        rmsnorm_init(init.child("ffn_norm"), cfg.d_model)
+        if cfg.d_ff:
+            mlp_init(init.child("mlp"), cfg)
+        params[f"pos{j}"] = init.collect()
+    return params
+
+
+# --------------------------------------------------------------- caches
+# pool payload dtypes: "fp" stores cfg.dtype exactly, "bf16" a 2-byte
+# cast, "int8" adds per-page float32 (scale, zero) tensors ("k_sz"/"v_sz",
+# `kernels.quant` layout), quantize-on-insert and dequantize-in-kernel
+POOL_DTYPES = ("fp", "bf16", "int8")
+
+
+def pool_kv_dtype(cfg: ModelConfig, pool_dtype: str) -> torch.dtype:
+    """The K/V payload dtype of a pool-dtype name."""
+    if pool_dtype not in POOL_DTYPES:
+        raise ValueError(f"unknown pool_dtype {pool_dtype!r}; "
+                         f"expected one of {POOL_DTYPES}")
+    if pool_dtype == "fp":
+        return torch_dtype(cfg.dtype)
+    return {"bf16": torch.bfloat16, "int8": torch.int8}[pool_dtype]
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
+                kv_shape=None, kv_dtype=None, kv_sz_shape=None,
+                device=None) -> dict:
+    """Decode caches mirroring the stacked params. `kv_shape`/`kv_dtype`
+    override the K/V leaf shape and dtype (the paged pool layout);
+    `kv_sz_shape` adds the float32 (scale, zero) tensors of an int8
+    pool."""
+    check_supported(cfg)
+    descs = pattern(cfg)
+    nb = cfg.num_layers // len(descs)
+    dtype = torch_dtype(cfg.dtype)
+    caches = {}
+    for j, _ in enumerate(descs):
+        shape = kv_shape or (nb, batch, max_seq, cfg.num_kv_heads,
+                             cfg.head_dim)
+        c = {
+            "k": torch.zeros(shape, dtype=kv_dtype or dtype, device=device),
+            "v": torch.zeros(shape, dtype=kv_dtype or dtype, device=device),
+        }
+        if kv_sz_shape is not None:
+            c["k_sz"] = torch.zeros(kv_sz_shape, dtype=torch.float32,
+                                    device=device)
+            c["v_sz"] = torch.zeros(kv_sz_shape, dtype=torch.float32,
+                                    device=device)
+        caches[f"pos{j}"] = c
+    return caches
+
+
+def init_paged_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
+                      page_tokens: int, *, pool_dtype: str = "fp",
+                      sz_granularity: str = "page", device=None) -> dict:
+    """Decode caches with self-attention K/V laid out as a PHYSICAL page
+    pool (nb, n_slots * n_pages, page_tokens, KV, hd); int8 pools add
+    (nb, P_phys, KV, 2) per-page or (nb, P_phys, page_tokens, KV, 2)
+    per-token (scale, zero) tensors."""
+    if sz_granularity not in ("page", "token"):
+        raise ValueError(f"unknown sz_granularity {sz_granularity!r}; "
+                         "expected 'page' or 'token'")
+    nb = cfg.num_layers // len(pattern(cfg))
+    n_pages = -(-max_seq // page_tokens)       # ceil
+    p_phys = n_slots * n_pages
+    if pool_dtype != "int8":
+        sz_shape = None
+    elif sz_granularity == "token":
+        sz_shape = (nb, p_phys, page_tokens, cfg.num_kv_heads, 2)
+    else:
+        sz_shape = (nb, p_phys, cfg.num_kv_heads, 2)
+    return init_caches(
+        cfg, n_slots, max_seq,
+        kv_shape=(nb, p_phys, page_tokens, cfg.num_kv_heads, cfg.head_dim),
+        kv_dtype=pool_kv_dtype(cfg, pool_dtype),
+        kv_sz_shape=sz_shape, device=device,
+    )
+
+
+# ------------------------------------------------------------------ apply
+def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
+                        block_table, page_tokens: int):
+    """One layer, one token per slot, against the paged pool views `c`
+    (updated in place). Returns x."""
+    h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+    h, _ = attn.paged_decode_self_attention(
+        p["attn"], h, cfg, c, t, block_table, page_tokens)
+    x = x + h
+    h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+    if cfg.d_ff:
+        h = mlp(p["mlp"], h, cfg)
+    else:
+        h = torch.zeros_like(x)
+    return x + h
+
+
+def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
+                 page_tokens: int):
+    """One decode step through the whole stack, x (B, 1, d), against the
+    paged caches (written in place, layer by layer). The contiguous
+    per-slot layout (`block_table=None`) waits for ROADMAP A7b."""
+    if block_table is None:
+        raise NotImplementedError(
+            "the contiguous cache layout is not ported yet (ROADMAP A7b)")
+    descs = pattern(cfg)
+    nb = cfg.num_layers // len(descs)
+    for i in range(nb):
+        for j, desc in enumerate(descs):
+            c = layer_slice(caches[f"pos{j}"], i)
+            x = _apply_layer_decode(layer_slice(params[f"pos{j}"], i), c,
+                                    x, t, cfg, desc, block_table,
+                                    page_tokens)
+    return x, caches
+
+
+def stack_prefill(params, x, cfg: ModelConfig, max_seq: int):
+    """Prefill: full-sequence forward that also materializes the per-slot
+    decode caches {"pos{j}": {"k", "v"}} of shape (nb, B, max_seq, KV,
+    hd), zero-padded past the prompt."""
+    descs = pattern(cfg)
+    nb = cfg.num_layers // len(descs)
+    B, S, _ = x.shape
+    ks = {j: [] for j in range(len(descs))}
+    vs = {j: [] for j in range(len(descs))}
+    for i in range(nb):
+        for j, desc in enumerate(descs):
+            p = layer_slice(params[f"pos{j}"], i)
+            h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+            h, (k, v) = attn.self_attention(p["attn"], h, cfg,
+                                            causal=desc.causal,
+                                            return_kv=True)
+            pad = (0, 0, 0, 0, 0, max_seq - S)
+            ks[j].append(torch.nn.functional.pad(k, pad))
+            vs[j].append(torch.nn.functional.pad(v, pad))
+            x = x + h
+            h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+            x = x + (mlp(p["mlp"], h, cfg) if cfg.d_ff
+                     else torch.zeros_like(x))
+    caches = {f"pos{j}": {"k": torch.stack(ks[j]), "v": torch.stack(vs[j])}
+              for j in range(len(descs))}
+    return x, caches

@@ -1,0 +1,102 @@
+"""Shared layers: RMSNorm, embedding, RoPE, dense MLP (port of
+`repro.models.layers`, same dtype handling)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models.module import Initializer, torch_dtype
+
+
+# ---------------------------------------------------------------- norms
+def rmsnorm_init(init: Initializer, d: int, name: str = "scale"):
+    init.param(name, (d,), init="ones")
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------- embedding
+def embed_init(init: Initializer, cfg: ModelConfig):
+    init.param("embedding", (cfg.vocab_size, cfg.d_model), init="embedding")
+
+
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = torch_dtype(cfg.dtype)
+    table = params["embedding"]
+    out = table.index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, table.shape[1])
+    return out.to(dt) * torch.sqrt(
+        torch.tensor(cfg.d_model, dtype=dt, device=out.device))
+
+
+def unembed(params, x: torch.Tensor, cfg: ModelConfig, head_params=None):
+    """Project to vocab logits. Uses the tied embedding when configured."""
+    if cfg.tie_embeddings:
+        w = params["embedding"]   # (V, d)
+        return torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
+    w = head_params["lm_head"]    # (d, V)
+    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+
+def lm_head_init(init: Initializer, cfg: ModelConfig):
+    if not cfg.tie_embeddings:
+        init.param("lm_head", (cfg.d_model, cfg.vocab_size), init="normal")
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, D) with positions (..., S)."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, device=x.device)             # (D/2,)
+    angles = positions[..., None].float() * freqs             # (...,S,D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (...,S,1,D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- dense MLP
+GATED_ACTS = ("swiglu", "geglu")
+
+
+def mlp_init(init: Initializer, cfg: ModelConfig, d_ff: Optional[int] = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act in GATED_ACTS:
+        init.param("w_gate", (d, ff))
+    init.param("w_up", (d, ff))
+    init.param("w_down", (ff, d))
+
+
+def _gelu(x):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(dt))
+    if cfg.act in GATED_ACTS:
+        gate = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(dt))
+        nl = F.silu if cfg.act == "swiglu" else _gelu
+        h = nl(gate) * up
+    else:
+        h = _gelu(up)
+    return torch.einsum("bsf,fd->bsd", h, params["w_down"].to(dt))

@@ -1,0 +1,87 @@
+"""Top-level model API of the port (serving path of `repro.models.model`).
+
+  init_model(cfg, generator)                    -> params
+  prefill(params, batch, cfg, max_seq)          -> (caches, logits_last)
+  decode_step(params, token, caches, t, cfg,
+              block_table, page_tokens)         -> (logits, caches)
+  make_paged_decode_caches(cfg, n_slots, ...)   -> paged caches
+
+Decode writes the paged caches in place (the reference donates them to
+its jitted cell and gets new arrays back).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.layers import (
+    embed,
+    embed_init,
+    lm_head_init,
+    rmsnorm,
+    rmsnorm_init,
+    unembed,
+)
+from repro_torch.models.module import Initializer, torch_dtype
+
+
+# ------------------------------------------------------------------ init
+def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+               *, device=None, seed: int = 0) -> dict:
+    """Seeded float32 master weights with the reference's tree, shapes
+    and initializer scales, on the generator's device. Without a
+    generator one is made on `device` (the card by default) from
+    `seed`."""
+    blocks.check_supported(cfg)
+    if generator is None:
+        generator = torch.Generator(resolve_device(device)).manual_seed(seed)
+    init = Initializer(generator, torch_dtype(cfg.param_dtype))
+    embed_init(init.child("embed"), cfg)
+    lm_head_init(init.child("head"), cfg)
+    rmsnorm_init(init.child("final_norm"), cfg.d_model)
+    params = init.collect()
+    params["blocks"] = blocks.stack_init(generator, cfg)
+    return params
+
+
+# ----------------------------------------------------------------- serve
+def prefill(params, batch, cfg: ModelConfig, max_seq: int):
+    """Process the prompt batch["tokens"] (B, S), build the per-slot decode
+    caches (seq extent `max_seq`), return last-token logits (B, V)."""
+    blocks.check_supported(cfg)
+    x = embed(params["embed"], batch["tokens"], cfg)
+    x, caches = blocks.stack_prefill(params["blocks"], x, cfg, max_seq)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    return caches, logits[:, 0, :]
+
+
+def decode_step(params, token, caches, t, cfg: ModelConfig,
+                block_table=None, page_tokens: int = 0):
+    """One decode step. token (B,) int; t a scalar position shared by the
+    batch or a (B,) vector of per-slot positions; `block_table`
+    (B, n_pages) int32 and `caches` the paged physical page pool
+    (`make_paged_decode_caches`), written in place."""
+    x = embed(params["embed"], token[:, None], cfg)
+    x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
+                                    block_table, page_tokens)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    return logits[:, 0, :], caches
+
+
+def make_paged_decode_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
+                             page_tokens: int, *, pool_dtype: str = "fp",
+                             sz_granularity: str = "page",
+                             device=None) -> dict:
+    """Decode caches with self-attention K/V as a physical page pool
+    (`blocks.init_paged_caches`); the serving engine's layout."""
+    return blocks.init_paged_caches(
+        cfg, n_slots, max_seq, page_tokens, pool_dtype=pool_dtype,
+        sz_granularity=sz_granularity, device=device,
+    )

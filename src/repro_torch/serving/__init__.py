@@ -1,0 +1,54 @@
+"""Tier-aware continuous-batching serving on the card (port of the main
+path of `repro.serving`).
+
+The KV cache is a PHYSICAL page pool end to end: self-attention K/V lives
+as (stack, n_slots * n_pages, page_tokens, heads, head_dim) tensors on the
+device, and every cell — bucket prefill insert, decode — reads and writes
+it through the live (n_slots, n_pages) block table the `KVPager` emits.
+The default pool is int8 with one float32 (scale, zero) pair per
+(page, KV head), quantized on insert and dequantized inside the paged
+decode kernel.
+"""
+
+from repro_torch.serving.batcher import ContinuousBatcher, Slot
+from repro_torch.serving.engine import (
+    INT8_TOKEN_AGREEMENT,
+    AdmissionController,
+    EngineConfig,
+    ServeStats,
+    ServingEngine,
+)
+from repro_torch.serving.kv_pager import KVPager, PagerConfig, StepTraffic
+from repro_torch.serving.queue import (
+    SCENARIOS,
+    Request,
+    RequestQueue,
+    bursty_stream,
+    chat_stream,
+    long_context_stream,
+    make_scenario,
+    multi_tenant_stream,
+    shared_prefix_stream,
+)
+
+__all__ = [
+    "AdmissionController",
+    "ContinuousBatcher",
+    "EngineConfig",
+    "INT8_TOKEN_AGREEMENT",
+    "KVPager",
+    "PagerConfig",
+    "Request",
+    "RequestQueue",
+    "SCENARIOS",
+    "ServeStats",
+    "ServingEngine",
+    "Slot",
+    "StepTraffic",
+    "bursty_stream",
+    "chat_stream",
+    "long_context_stream",
+    "make_scenario",
+    "multi_tenant_stream",
+    "shared_prefix_stream",
+]

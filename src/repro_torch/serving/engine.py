@@ -1,0 +1,604 @@
+"""Tier-aware continuous-batching serving engine over the physical paged
+KV runtime (port of the main path of `repro.serving.engine`).
+
+The engine is an event loop over the cells of `runtime.serve.
+make_engine_cells`:
+
+  admit   — pop arrived requests while slots are free AND the admission
+            controller projects the pool link below the M/D/1 knee; run
+            the bucketed prefill cell, land the request's K/V in the page
+            pool through the insert cell, emit its first greedy token;
+  decode  — one step of the whole slot batch with per-slot positions
+            (inactive slots are masked by parked write cursors);
+  retire  — completed requests free their slot and their KV pages.
+
+The KV cache IS a physical page pool: the `KVPager` is the single
+allocator, its `block_table()` is what the decode and insert cells read
+and write through, and its tier tags price every byte. The clock is dual:
+wall time measures what the host and the card actually do; virtual time
+prices each step on the target tier topology (compute from the decode
+roofline at the chip's data-sheet peak, local/pool bytes from the pager).
+
+Ported configuration: `EngineConfig()` means the same main path as in the
+reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
+LoI admission — except `substrate`, which defaults to "off" here until
+the substrate slice lands (ROADMAP A9). Options outside the slice raise
+`NotImplementedError` naming the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common import hw
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import leaf_bytes
+from repro_torch.core import interference as itf
+from repro_torch.core import roofline as rl
+from repro_torch.core import tiers as tr
+from repro_torch.models import blocks as blk
+from repro_torch.models import model as M
+from repro_torch.models.module import cast_params
+from repro_torch.runtime import serve as serve_rt
+from repro_torch.serving.batcher import ContinuousBatcher
+from repro_torch.serving.kv_pager import KVPager, PagerConfig
+from repro_torch.serving.queue import Request, RequestQueue
+
+# Minimum per-request greedy-token agreement an int8 pool must keep vs the
+# fp reference (lockstep positions): per-page block quantization bounds
+# logit drift, but a near-tie can flip a token and diverge the suffix.
+INT8_TOKEN_AGREEMENT = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    n_slots: int = 8
+    max_seq: int = 128              # prompt+gen per slot
+    prefill_buckets: tuple = (32,)
+    # --- paged-KV runtime ---
+    paged: bool = True              # cache = physical page pool + block
+    # tables end-to-end (False, the contiguous layout: ROADMAP A7b)
+    pool_dtype: str = "int8"        # "int8" per-page block quantization
+    # (quantize-on-insert, dequantize-in-kernel), "fp" stores cfg.dtype
+    # exactly, "bf16" a 2-byte cast
+    prefill_chunk: Optional[int] = None   # chunked prefill: ROADMAP A7a
+    # --- pager ---
+    page_tokens: int = 16
+    local_budget_frac: Optional[float] = 0.5   # of peak KV bytes; None=all
+    local_budget_bytes: Optional[float] = None  # absolute local budget,
+    # overriding the fraction
+    pager_policy: str = "hotness"              # hotness | static | none
+    hot_window: int = 32
+    cold_touch: float = 0.05
+    prefetch: Optional[str] = None   # prediction-driven page-in: ROADMAP A13
+    prefetch_degree: int = 8
+    # --- shared-prefix radix cache: ROADMAP A7a ---
+    prefix_cache: bool = False
+    prefix_cache_pages: Optional[int] = None
+    # --- physical memory substrate ---
+    substrate: str = "off"          # off | emulated | physical | auto — the
+    # reference defaults to "auto"; the port keeps "off" until the pinned
+    # host twin ports (ROADMAP A9), the one default that differs
+    # --- admission ---
+    admission: str = "loi"                     # loi | greedy
+    knee_excess: float = 0.75
+    catalog_arch: Optional[str] = None         # profile_for prior: ROADMAP
+    catalog_shape: str = "decode_32k"          # A13 (core.quantify)
+    # --- speculative decoding: ROADMAP A8 ---
+    speculative: str = "off"
+    speculative_k: int = 4
+    draft_arch: Optional[str] = None
+    # --- virtual clock ---
+    step_overhead_s: float = 5e-6              # host dispatch/launch floor
+
+
+def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
+    """Raise `NotImplementedError` for what the port does not run yet."""
+    blk.check_supported(cfg)
+    todo = [
+        (not ecfg.paged, "paged=False (contiguous layout)", "A7b"),
+        (ecfg.prefill_chunk, "prefill_chunk (chunked prefill)", "A7a"),
+        (ecfg.prefix_cache, "prefix_cache", "A7a"),
+        (ecfg.speculative != "off", "speculative decoding", "A8"),
+        (ecfg.substrate != "off", f"substrate={ecfg.substrate!r}", "A9"),
+        (ecfg.prefetch is not None, "prefetch (prediction-driven page-in)",
+         "A13"),
+        (ecfg.catalog_arch is not None, "catalog_arch admission prior",
+         "A13"),
+    ]
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP {item})")
+
+
+class AdmissionController:
+    """Throttle slot admissions at the projected pool-link LoI knee.
+
+    Per-slot LoI is seeded from a prior and refined online with an EMA of
+    the pager's measured pool time per step. Admitting slot n+1 is allowed
+    while (n+1) * per_slot_loi plus the measured prefetch-excess LoI stays
+    under the corridor budget (`core.interference.corridor_budget`)."""
+
+    EMA = 0.5
+
+    def __init__(self, topo: tr.TierTopology, *, mode: str = "loi",
+                 knee_excess: float = 0.75, prior_loi: float = 0.0):
+        if mode not in ("loi", "greedy"):
+            raise ValueError(f"unknown admission mode {mode!r}")
+        self.mode = mode
+        self.budget = itf.corridor_budget(topo, knee_excess)
+        self.per_slot_loi = float(prior_loi)
+        self.excess_loi = 0.0
+        self.blocks = 0
+
+    @classmethod
+    def from_catalog(cls, topo, arch: Optional[str], shape_name: str,
+                     **kw) -> "AdmissionController":
+        if arch is not None:
+            raise NotImplementedError(
+                "the catalog admission prior (core.quantify.profile_for) "
+                "is not ported yet (ROADMAP A13)")
+        return cls(topo, prior_loi=0.0, **kw)
+
+    def observe(self, n_active: int, t_pool: float, dt: float,
+                t_excess: float = 0.0) -> None:
+        if n_active < 1 or dt <= 0.0:
+            return
+        measured = min(1.0, t_pool / dt) / n_active
+        self.per_slot_loi = (
+            (1 - self.EMA) * self.per_slot_loi + self.EMA * measured
+        )
+        self.excess_loi = (
+            (1 - self.EMA) * self.excess_loi
+            + self.EMA * min(1.0, max(t_excess, 0.0) / dt)
+        )
+
+    def projected_loi(self, n_slots: int) -> float:
+        return min(1.0, n_slots * self.per_slot_loi)
+
+    def admit(self, n_active: int) -> bool:
+        if self.mode == "greedy" or n_active == 0:
+            return True     # never deadlock an idle engine
+        ok = (self.projected_loi(n_active + 1) + self.excess_loi
+              <= self.budget)
+        if not ok:
+            self.blocks += 1
+        return ok
+
+
+@dataclasses.dataclass
+class ServeStats:
+    n_requests: int
+    tokens: int
+    steps: int
+    wall_s: float
+    virtual_s: float
+    ttft: np.ndarray               # per request, virtual seconds
+    tpot: np.ndarray               # per generated token (after the first)
+    decode_stall: np.ndarray       # virtual gap between decode steps
+    pager: dict
+    admission_blocks: int
+    max_concurrency: int
+
+    def summary(self) -> Dict[str, float]:
+        def pct(a, q):
+            return float(np.percentile(a, q)) if len(a) else float("nan")
+
+        return {
+            "n_requests": self.n_requests,
+            "tokens": self.tokens,
+            "steps": self.steps,
+            "tok_per_s_wall": self.tokens / max(self.wall_s, 1e-9),
+            "tok_per_s_virtual": self.tokens / max(self.virtual_s, 1e-12),
+            "ttft_p50_s": pct(self.ttft, 50),
+            "tpot_p50_s": pct(self.tpot, 50),
+            "tpot_p99_s": pct(self.tpot, 99),
+            "stall_p95_s": pct(self.decode_stall, 95),
+            "remote_share": self.pager["remote_share"],
+            "demand_share": self.pager.get("demand_share", 0.0),
+            "admission_blocks": self.admission_blocks,
+            "max_concurrency": self.max_concurrency,
+        }
+
+
+_PAGED_KEYS = ("k", "v", "k_sz", "v_sz")
+
+
+def _kv_bytes_per_token(acaches) -> float:
+    """Self-attention K/V bytes per cached token per slot from the cache
+    tree, dtype-aware (int8 payload plus the float32 (scale, zero) rows
+    amortized over the page's tokens)."""
+    total = 0.0
+    for c in acaches.values():
+        if "k" not in c:
+            continue
+        k = c["k"]
+        tokens = k.shape[1] * k.shape[2]   # P_phys * page_tokens
+        for key in _PAGED_KEYS:
+            if key in c:
+                total += leaf_bytes(c[key]) / tokens
+    return total
+
+
+def _resident_bytes_per_slot(acaches) -> float:
+    """Per-slot bytes of non-paged decode state (none on the ported
+    attention-only stacks)."""
+    total = 0.0
+    for c in acaches.values():
+        for key, leaf in c.items():
+            if key not in _PAGED_KEYS:
+                total += leaf_bytes(leaf) / leaf.shape[1]
+    return total
+
+
+class ServingEngine:
+    """Continuous-batching serve loop over the paged cells."""
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params,
+                 cells: serve_rt.EngineCells,
+                 topo: Optional[tr.TierTopology] = None,
+                 chip: Optional[hw.ChipSpec] = None):
+        check_slice(cfg, ecfg)
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.cells = cells
+        self.device = cells.device
+        # serving copy of the master weights, cast once to cfg.dtype
+        self.params = cast_params(params, cfg.dtype)
+        self.topo = topo or tr.h100_topology()
+        self.chip = chip or hw.H100
+
+        self.npfx = cells.n_prefix
+        # park PAST the pool's page-aligned position space: a parked
+        # position inside the last partial logical page would pass the
+        # page-range guard and scribble into physical page 0 through the
+        # slot's zeroed block-table row
+        park = cells.n_pages * cells.page_tokens
+        self.batcher = ContinuousBatcher(
+            ecfg.n_slots, ecfg.prefill_buckets, park_pos=park,
+        )
+        kv_tok = _kv_bytes_per_token(cells.abstract_caches)
+        resident = _resident_bytes_per_slot(cells.abstract_caches)
+        budget = None
+        if ecfg.local_budget_bytes is not None:
+            budget = float(ecfg.local_budget_bytes)
+        elif ecfg.local_budget_frac is not None:
+            peak = kv_tok * cells.max_seq_total * ecfg.n_slots
+            budget = ecfg.local_budget_frac * peak
+        self.pager = KVPager(
+            ecfg.n_slots, cells.max_seq_total, kv_tok, resident,
+            PagerConfig(
+                page_tokens=ecfg.page_tokens,
+                local_budget_bytes=budget,
+                policy=ecfg.pager_policy,
+                hot_window=ecfg.hot_window,
+                cold_touch=ecfg.cold_touch,
+                prefetch=ecfg.prefetch,
+                prefetch_degree=ecfg.prefetch_degree,
+            ),
+            topo=self.topo,
+        )
+        self.admission = AdmissionController.from_catalog(
+            self.topo, ecfg.catalog_arch, ecfg.catalog_shape,
+            mode=ecfg.admission, knee_excess=ecfg.knee_excess,
+        )
+        self.caches = M.make_paged_decode_caches(
+            cfg, ecfg.n_slots, cells.max_seq_total, cells.page_tokens,
+            pool_dtype=cells.pool_dtype,
+            sz_granularity=cells.sz_granularity, device=self.device,
+        )
+        self.tokens = np.zeros(ecfg.n_slots, dtype=np.int32)
+        self._active_params = cfg.active_param_count()
+        self.steps = 0
+        self.virtual_s = 0.0
+        self._t_compute_s = 0.0
+        self._prev_excess_b = 0.0      # pager excess fed to admission
+        self._decode_gaps: List[float] = []
+        self._last_decode_end: Optional[float] = None
+        self._bt_host = None           # block-table upload cache: the
+        self._bt_dev = None            # pager returns the SAME array
+        # object until the mapping changes, so steady-state decode skips
+        # the per-step host->device copy by identity
+        self._max_conc = 0
+        self.cancelled = 0             # in-flight cancellations swept
+
+    # ------------------------------------------------------------- build
+    @classmethod
+    def build(cls, cfg: ModelConfig, ecfg: EngineConfig, *, params=None,
+              seed: int = 0, topo=None, chip=None,
+              device=None) -> "ServingEngine":
+        """Engine on `device` (the card by default; raises without one).
+        Without `params`, float32 master weights are drawn from `seed`."""
+        check_slice(cfg, ecfg)
+        device = resolve_device(device)
+        cells = serve_rt.make_engine_cells(
+            cfg, n_slots=ecfg.n_slots, max_seq=ecfg.max_seq,
+            buckets=ecfg.prefill_buckets, paged=ecfg.paged,
+            page_tokens=ecfg.page_tokens,
+            prefill_chunk=ecfg.prefill_chunk or 0,
+            pool_dtype=ecfg.pool_dtype, speculative=ecfg.speculative,
+            device=device,
+        )
+        if params is None:
+            params = M.init_model(
+                cfg, torch.Generator(device).manual_seed(seed))
+        return cls(cfg, ecfg, params, cells, topo=topo, chip=chip)
+
+    # ------------------------------------------------------------ admit
+    def _admit(self, req: Request, now: float) -> None:
+        if req.output:
+            raise ValueError(
+                f"request {req.request_id} was already served — build a "
+                "fresh trace per run (Request objects are consumed)"
+            )
+        if req.prompt_len + req.max_new_tokens > self.ecfg.max_seq:
+            raise ValueError(
+                f"request {req.request_id}: prompt+gen exceeds max_seq "
+                f"{self.ecfg.max_seq}"
+            )
+        bucket = self.batcher.bucket_for(req.prompt_len)
+        batch = {"tokens": torch.tensor(req.tokens[None, :],
+                                        device=self.device)}
+        slot_caches, tok = self.cells.prefill_fns[bucket](self.params, batch)
+        start = self.npfx + req.prompt_len
+        slot = self.batcher.admit(req, start_pos=start)
+        # the pager allocates BEFORE the insert: the insert cell writes
+        # through the block table, so the slot's pages must be owned
+        self.pager.admit(slot.index, start)
+        self.caches = self.cells.insert_fns[bucket](
+            self.caches, slot_caches, slot.index, self._block_table_dev(),
+        )
+        self.virtual_s += self._prefill_dt(start)
+        first = int(tok[0])
+        self.tokens[slot.index] = first
+        req.admitted = now
+        req.output.append(first)
+        req.token_times.append(self.virtual_s)
+        if req.done:                      # max_new_tokens == 1
+            req.finished = self.virtual_s
+            self._retire(slot)
+
+    def _pages_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.ecfg.page_tokens)
+
+    def _ensure_pages_for(self, req: Request) -> bool:
+        """True when the free list can supply `req`'s prompt pages; else
+        `req` stays queued (slot preemption, which would free pages here,
+        ports with ROADMAP A10)."""
+        need = self._pages_needed(self.npfx + req.prompt_len)
+        return self.pager.counters()["free_pages"] >= need
+
+    def _prefill_dt(self, n_tokens: int) -> float:
+        """Virtual cost of prefilling `n_tokens` on the target topology:
+        prefill compute at the chip's peak + writing the new KV (and the
+        resident state) into the local tier, plus the host dispatch
+        floor."""
+        t_comp = (
+            rl.model_flops_decode(self._active_params, n_tokens)
+            / self.chip.peak_flops_bf16
+        )
+        write = (
+            self.pager.bytes_per_token * n_tokens
+            + self.pager.resident_bytes
+        ) / self.topo.local.bandwidth
+        return max(t_comp, write) + self.ecfg.step_overhead_s
+
+    def _retire(self, slot) -> Request:
+        req = self.batcher.release(slot)
+        self.pager.release(slot.index)
+        return req
+
+    def _block_table_dev(self) -> torch.Tensor:
+        bt = self.pager.block_table()
+        if bt is not self._bt_host:
+            self._bt_host = bt
+            self._bt_dev = torch.tensor(bt, device=self.device)
+        return self._bt_dev
+
+    # ------------------------------------------------------------- step
+    def _step_decode(self) -> None:
+        """One fixed-shape decode step over all slots + accounting."""
+        if self._last_decode_end is not None:
+            self._decode_gaps.append(
+                self.virtual_s - self._last_decode_end
+            )
+        active = self.batcher.active_mask()
+        n_active = int(active.sum())
+        t_vec = self.batcher.t_vector()
+        # the write-position page must be live AND private BEFORE the
+        # cell runs: the block table it receives is the layout it writes
+        # through (a shared tail page splits here and the copy cell
+        # materializes the private duplicate)
+        for old, new in self.pager.ensure_tail_pages(active):
+            self.caches = self.cells.copy_fn(self.caches, old, new)
+        next_tok, finite, self.caches = self.cells.decode_fn(
+            self.params, torch.tensor(self.tokens, device=self.device),
+            self.caches, torch.tensor(t_vec, device=self.device),
+            self._block_table_dev(),
+        )
+        next_np = next_tok.cpu().numpy()
+        if not bool(finite.cpu().numpy()[active].all()):
+            raise FloatingPointError(
+                f"non-finite decode logits at step {self.steps} "
+                f"(active slots: {n_active})"
+            )
+
+        traffic = self.pager.step(active)
+        t_compute = (
+            rl.model_flops_decode(self._active_params, n_active)
+            / self.chip.peak_flops_bf16
+        )
+        t_local = traffic.local_bytes / self.topo.local.bandwidth
+        # staged pool transfers overlap compute (all pool traffic is
+        # assumed prefetchable) -> roofline max; demand page-ins serialize
+        t_staged = traffic.prefetch_pool_bytes / self.topo.pool.bandwidth
+        t_demand = traffic.demand_pool_bytes / self.topo.pool.bandwidth
+        t_pool = t_staged + t_demand
+        dt = float(
+            itf.step_time_vec(t_staged, t_local, t_compute, 0.0)
+        ) + t_demand + self.ecfg.step_overhead_s
+        self.virtual_s += dt
+        self._last_decode_end = self.virtual_s
+        self.steps += 1
+        self._t_compute_s += t_compute
+        excess_b = (
+            (self.pager.prefetch_issued - self.pager.prefetch_useful)
+            * self.pager.page_bytes
+        )
+        t_excess = max(0.0, excess_b - self._prev_excess_b) \
+            / self.topo.pool.bandwidth
+        self._prev_excess_b = excess_b
+        self.admission.observe(n_active, t_pool, dt, t_excess=t_excess)
+
+        self.batcher.advance()
+        for slot in self.batcher.slots:
+            if not slot.active:
+                continue
+            req = slot.request
+            tok = int(next_np[slot.index])
+            self.tokens[slot.index] = tok
+            req.output.append(tok)
+            req.token_times.append(self.virtual_s)
+            if req.done:
+                req.finished = self.virtual_s
+                self._retire(slot)
+
+    # -------------------------------------------------------- tick layer
+    def advance_to(self, t: float) -> None:
+        """Advance the virtual clock to `t` (idle wait, never backwards);
+        the decode-gap origin moves past the wait."""
+        if t > self.virtual_s:
+            self.virtual_s = t
+            if self._last_decode_end is not None:
+                self._last_decode_end = self.virtual_s
+
+    def sweep_cancelled(self) -> int:
+        """Retire every occupied slot whose request is cancelled,
+        releasing its KV pages."""
+        n = 0
+        for slot in self.batcher.slots:
+            if (slot.occupied
+                    and slot.request.is_cancelled(self.virtual_s)):
+                slot.request.finished = self.virtual_s
+                self._retire(slot)
+                n += 1
+        self.cancelled += n
+        return n
+
+    def pump(self, q: RequestQueue) -> str:
+        """One engine-loop iteration against `q`: sweep cancellations,
+        admit while slots/admission allow, then one decode step if any
+        slot is live. Returns "decode" | "admit" | "idle"."""
+        self.sweep_cancelled()
+        admitted = False
+        while self.batcher.n_free:
+            req = q.peek(self.virtual_s)
+            if req is None or not self.admission.admit(self.batcher.n_busy):
+                break
+            if not self._ensure_pages_for(req):
+                break       # stays queued until pages free up
+            self._admit(q.pop(self.virtual_s), self.virtual_s)
+            admitted = True
+        if self.batcher.n_active == 0:
+            return "admit" if admitted else "idle"
+        self._max_conc = max(self._max_conc, self.batcher.n_active)
+        self._step_decode()
+        return "decode"
+
+    def begin_capture(self) -> dict:
+        """Snapshot every per-run counter (`run()`'s stats are deltas, so
+        the engine object stays reusable across traces)."""
+        self._max_conc = 0
+        return {
+            "now0": self.virtual_s,
+            "steps0": self.steps,
+            "blocks0": self.admission.blocks,
+            "gaps0": len(self._decode_gaps),
+            "pager0": self.pager.counters(),
+            "wall0": time.perf_counter(),
+        }
+
+    # -------------------------------------------------------------- run
+    def run(self, requests: List[Request],
+            max_steps: Optional[int] = None) -> ServeStats:
+        """Serve a request trace to completion (deterministic for a fixed
+        trace). Per-request outputs/latencies are left on the `Request`
+        objects."""
+        q = RequestQueue(requests)
+        cap = self.begin_capture()
+        while len(q) or self.batcher.n_busy:
+            act = self.pump(q)
+            if act == "decode":
+                if max_steps is not None and self.steps >= max_steps:
+                    break
+            elif act == "idle":
+                nxt = q.next_arrival()
+                if not np.isfinite(nxt):
+                    break
+                if nxt <= self.virtual_s:
+                    raise RuntimeError(
+                        "engine starved: an arrived request cannot be "
+                        "admitted (its prompt exceeds the free pool)")
+                self.advance_to(nxt)
+        return self.capture_stats(cap, requests)
+
+    def capture_stats(self, cap: dict, requests: List[Request],
+                      ) -> ServeStats:
+        """Aggregate stats since `cap = begin_capture()` over `requests`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - cap["wall0"]
+        done = [r for r in requests if r.output]
+        ttft = np.array([r.token_times[0] - r.arrival for r in done])
+        tpot = np.concatenate(
+            [np.diff(r.token_times) for r in done if len(r.token_times) > 1]
+            or [np.zeros(0)]
+        )
+        pager0, pager1 = cap["pager0"], self.pager.counters()
+        dlocal = pager1["local_bytes"] - pager0["local_bytes"]
+        dpool = pager1["pool_bytes"] - pager0["pool_bytes"]
+        ddemand = (pager1["demand_pool_bytes"]
+                   - pager0["demand_pool_bytes"])
+        pager_delta = {
+            "steps": pager1["steps"] - pager0["steps"],
+            "local_bytes": dlocal,
+            "pool_bytes": dpool,
+            "demand_pool_bytes": ddemand,
+            "prefetch_pool_bytes": (pager1["prefetch_pool_bytes"]
+                                    - pager0["prefetch_pool_bytes"]),
+            "remote_share": dpool / (dlocal + dpool) if dlocal + dpool
+            else 0.0,
+            "demand_share": ddemand / (dlocal + dpool) if dlocal + dpool
+            else 0.0,
+            "evictions": pager1["evictions"] - pager0["evictions"],
+            "promotions": pager1["promotions"] - pager0["promotions"],
+            "prefetch_issued": (pager1["prefetch_issued"]
+                                - pager0["prefetch_issued"]),
+            "prefetch_useful": (pager1["prefetch_useful"]
+                                - pager0["prefetch_useful"]),
+            "local_used": pager1["local_used"],
+            "pool_used": pager1["pool_used"],
+            "cow_splits": pager1["cow_splits"] - pager0["cow_splits"],
+            "shared_mapped_pages": (pager1["shared_mapped_pages"]
+                                    - pager0["shared_mapped_pages"]),
+        }
+        return ServeStats(
+            n_requests=len(done),
+            tokens=sum(len(r.output) for r in done),
+            steps=self.steps - cap["steps0"],
+            wall_s=wall,
+            virtual_s=self.virtual_s - cap["now0"],
+            ttft=ttft,
+            tpot=tpot,
+            decode_stall=np.array(self._decode_gaps[cap["gaps0"]:]),
+            pager=pager_delta,
+            admission_blocks=self.admission.blocks - cap["blocks0"],
+            max_concurrency=self._max_conc,
+        )

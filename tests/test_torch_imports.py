@@ -1,0 +1,110 @@
+"""The port stands alone: every `repro_torch` module imports without JAX
+and without the reference package; entry points run on the card unless
+told otherwise (and raise here, where there is none); options outside the
+ported slice raise `NotImplementedError`; no library attention kernel,
+compiler or Triton is called from the port."""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.common.device import resolve_device  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.runtime import serve as serve_rt  # noqa: E402
+from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 30
+
+
+def test_port_calls_no_library_kernels():
+    banned = ("scaled_dot_product_attention", "torch.compile",
+              "import triton", "cpp_extension")
+    for path in (SRC / "repro_torch").rglob("*"):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            text = path.read_text()
+            for word in banned:
+                assert word not in text, (path, word)
+
+
+def _cfg():
+    return dataclasses.replace(configs.reduced("smollm_360m"),
+                               dtype="float32")
+
+
+@pytest.mark.parametrize("entry", ["engine", "cells", "init", "device"])
+def test_entry_points_default_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "engine":
+            ServingEngine.build(_cfg(), EngineConfig())
+        elif entry == "cells":
+            serve_rt.make_engine_cells(_cfg(), n_slots=2, max_seq=32,
+                                       buckets=(16,))
+        elif entry == "init":
+            M.init_model(_cfg())
+        else:
+            resolve_device()
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(paged=False), "A7b"),
+    (dict(prefill_chunk=16), "A7a"),
+    (dict(prefix_cache=True), "A7a"),
+    (dict(speculative="ngram"), "A8"),
+    (dict(substrate="auto"), "A9"),
+    (dict(prefetch="stride"), "A13"),
+    (dict(catalog_arch="smollm_360m"), "A13"),
+])
+def test_options_outside_the_slice_raise(override, item):
+    ecfg = dataclasses.replace(EngineConfig(), **override)
+    with pytest.raises(NotImplementedError, match=item):
+        ServingEngine.build(_cfg(), ecfg, device="cpu")
+
+
+def test_unported_archs_raise():
+    with pytest.raises(NotImplementedError, match="A11"):
+        configs.get("mamba2_780m")
+    moe = dataclasses.replace(_cfg(), num_experts=4, experts_per_token=2,
+                              moe_d_ff=64)
+    with pytest.raises(NotImplementedError, match="A11"):
+        M.init_model(moe, device="cpu")
+
+
+def test_engine_defaults_match_reference_main_path():
+    """`EngineConfig()` is the reference's main path; only `substrate`
+    differs (off until ROADMAP A9)."""
+    e = EngineConfig()
+    assert (e.paged, e.pool_dtype, e.page_tokens, e.prefill_chunk,
+            e.admission, e.substrate) == (True, "int8", 16, None, "loi",
+                                          "off")
