@@ -11,20 +11,36 @@ Phases (any failure raises and exits non-zero):
                {16, 64}, GQA rep {1, 3}, lengths 1 / page boundary / full /
                parked, fp (bf16, f32) and int8 (per page, per token) pools,
                causal and not, kv_offset > 0, Sq {1, 17, 128, 512}; the
-               device time (torch.profiler, L2 flushed before each call)
-               of the kernel, the plain version and a library yardstick.
+               three paged chunked-prefill kernels over chunks of 1, 2 and
+               8 pages at chunk starts 0 / one page / deep in one batch,
+               with garbage table entries above the frontier, their
+               written pools equal to the plain version's; the device
+               time (torch.profiler, L2 flushed before each call) of each
+               kernel, its plain version and a library yardstick.
   4. engine  — SmolLM-360M at published widths (random seeded weights,
                bf16) served by `ServingEngine` on a 16-request chat trace:
-               every request finishes, the three kernels are launched and
-               no plain version runs; then the same trace with the plain
-               versions on the card (`force_backend("reference")`) must
-               agree per request (lockstep greedy tokens) >= 0.5, on int8
-               and on fp pools; one more int8 run under torch.profiler
-               prints the device's busy share and the host's busiest ops.
+               every request finishes, the three bucket-path kernels are
+               launched and no plain version runs; then the same trace
+               with the plain versions on the card
+               (`force_backend("reference")`) must agree per request
+               (lockstep greedy tokens) >= 0.5, on int8 and on fp pools;
+               one more int8 run under torch.profiler prints the device's
+               busy share and the host's busiest ops.
+  5. chunked — the same model with `prefill_chunk=128` and the prefix
+               cache on a 16-request shared-prefix trace (prompts 256/512
+               behind a 128-token system prompt): int8 runs launch
+               paged_prefill_insert_flash_q8, fp runs
+               paged_prefill_insert_flash, no plain version runs, and each
+               agrees >= 0.5 with its plain run; prefix hits, shared pages
+               and the pages the live slots map (with the cache off too);
+               a profiled int8 run; then the chunk cell of a per-token
+               int8 pool over one 512-token prompt launches
+               paged_prefill_flash and agrees with the plain cell.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py                 # one card, no arguments
+    python3 chip_smoke.py                 # one card, every phase
+    python3 chip_smoke.py --phases device,build,kernels   # no engine
 """
 
 from __future__ import annotations
@@ -133,8 +149,8 @@ def max_err(torch, out, ref, tol) -> tuple[float, bool]:
 
 # ------------------------------------------------------------- kernels
 def kernel_cases(torch, timer):
-    """Returns the JSON records of the three kernels (timed at the main
-    path's shapes); raises if any case disagrees."""
+    """Returns the JSON records of the six kernels (timed at the main
+    paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.page_io import ops as pops
@@ -357,6 +373,8 @@ def kernel_cases(torch, timer):
         shape=(f"int8/page pool B={B} H={H} KV={KV_} D={D_} page={page_} "
                f"n_pages={n_pages} lengths={lens.tolist()}"),
     ))
+    records += prefill_kernel_cases(torch, timer, gen, randn, report,
+                                    timed)
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree: "
                              f"{failures}")
@@ -371,15 +389,214 @@ def kernel_cases(torch, timer):
     return records
 
 
+def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
+    """The three paged chunked-prefill kernels against their plain
+    versions: head dims {16, 20, 64, 128} x pages {16, 64} x GQA rep
+    {1, 3}, chunks of one page, two pages and 128 tokens, three batch
+    rows per case at chunk starts 0 / one page / deep, garbage table
+    entries above each row's frontier; gather-only over bf16, f32,
+    int8/page and int8/token pools, fused over bf16 and f32 pools and
+    the int8/page pool, whose written pools must equal the plain
+    version's exactly. Then each kernel is timed at SmolLM-360M's chunk
+    shape (B=1, C=128, c0=384, 15/5 heads, D=64, page 16, bf16 q)."""
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    F = torch.nn.functional
+    print("kernels paged_prefill_flash / paged_prefill_insert_flash / "
+          "paged_prefill_insert_flash_q8 (f32 atol=rtol=1e-5; bf16 "
+          "atol=2e-2; written pools exact)")
+
+    def sz(shape):
+        scale = torch.rand(shape, generator=gen, device="cuda")
+        zero = torch.rand(shape, generator=gen, device="cuda") - 0.5
+        return torch.stack([0.005 + 0.015 * scale, zero], -1)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def inputs(B, C, H, KV, D, page, n_pages, pool, qdt, c0s):
+        """q, pools (+ sz) with pages scattered through unique table
+        entries, garbage ids above each row's frontier, and the chunk
+        operands of the fused kernels."""
+        P = B * n_pages
+        q = randn(B, C, H, D, dtype=qdt)
+        bt = torch.randperm(P, generator=gen, device="cuda")[
+            :B * n_pages].view(B, n_pages).to(torch.int32)
+        c0 = torch.tensor(c0s, dtype=torch.int32, device="cuda")
+        dead = (torch.arange(n_pages, device="cuda")[None, :] * page
+                >= (c0 + C)[:, None])
+        bt = torch.where(dead, P + 1000, bt).to(torch.int32)
+        shape = (P, page, KV, D)
+        if pool in ("bf16", "f32"):
+            dt = torch.bfloat16 if pool == "bf16" else torch.float32
+            return dict(q=q, bt=bt, c0=c0, kp=randn(*shape, dtype=dt),
+                        vp=randn(*shape, dtype=dt, scale=0.5),
+                        kn=randn(B, C, KV, D, dtype=dt),
+                        vn=randn(B, C, KV, D, dtype=dt, scale=0.5))
+        sz_shape = (P, KV) if pool == "int8/page" else (P, page, KV)
+        return dict(q=q, bt=bt, c0=c0, kp=i8(*shape), vp=i8(*shape),
+                    ksz=sz(sz_shape), vsz=sz(sz_shape),
+                    kn=i8(B, C, KV, D), vn=i8(B, C, KV, D),
+                    kszn=sz((B, C // page, KV)), vszn=sz((B, C // page, KV)))
+
+    def clone(x):
+        return {k: v.clone() for k, v in x.items()}
+
+    def call(kind, x, impl):
+        """Run one kernel (or its plain version) on `x` in place;
+        returns (out, written pools)."""
+        if kind == "paged_prefill_flash":
+            out = fops.paged_prefill_mha(
+                x["q"], x["kp"], x["vp"], x["bt"], x["c0"],
+                k_sz=x.get("ksz"), v_sz=x.get("vsz"), impl=impl)
+            return out, ()
+        if kind == "paged_prefill_insert_flash":
+            out = fops.paged_prefill_insert_mha(
+                x["q"], x["kp"], x["vp"], x["kn"], x["vn"], x["bt"],
+                x["c0"], impl=impl)
+            return out[0], (x["kp"], x["vp"])
+        out = fops.paged_prefill_insert_mha_q8(
+            x["q"], x["kp"], x["vp"], x["ksz"], x["vsz"], x["kn"], x["vn"],
+            x["kszn"], x["vszn"], x["bt"], x["c0"], impl=impl)
+        return out[0], (x["kp"], x["vp"], x["ksz"], x["vsz"])
+
+    summary: dict = {}
+
+    def check(kind, x, case):
+        """Kernel vs plain version on copies of `x`; prints a failing
+        case, tallies the passing ones."""
+        a, b = clone(x), clone(x)
+        out, pools_a = call(kind, a, "cuda")
+        ref, pools_b = call(kind, b, "reference")
+        exact = x["q"].dtype == torch.float32 and x["kp"].dtype != \
+            torch.bfloat16
+        tol = F32_TOL if exact else BF16_TOL
+        err, ok = max_err(torch, out, ref, tol)
+        same = all(torch.equal(p, r) for p, r in zip(pools_a, pools_b))
+        if not (ok and same):
+            report(kind, case + ("" if same else " POOLS DIFFER"), err,
+                   False, tol)
+        s = summary.setdefault(kind, {"cases": 0, "max_err_f32": 0.0,
+                                      "max_err_bf16": 0.0})
+        s["cases"] += 1
+        key = "max_err_f32" if exact else "max_err_bf16"
+        s[key] = max(s[key], err)
+        return err
+
+    chunks = {16: (16, 32, 128), 64: (64, 128)}
+    for D in (16, 20, 64, 128):
+        for page in (16, 64):
+            for rep in (1, 3):
+                for C in chunks[page]:
+                    n_pages = C // page + 5
+                    deep = n_pages * page - C
+                    c0s = [0, page, deep]
+                    for pool in ("bf16", "f32", "int8/page", "int8/token"):
+                        qdt = torch.bfloat16 if pool == "bf16" else (
+                            torch.float32 if pool == "f32" else
+                            (torch.bfloat16 if D == 64 else torch.float32))
+                        x = inputs(3, C, 2 * rep, 2, D, page, n_pages, pool,
+                                   qdt, c0s)
+                        kinds = ["paged_prefill_flash"]
+                        if pool in ("bf16", "f32"):
+                            kinds.append("paged_prefill_insert_flash")
+                        elif pool == "int8/page":
+                            kinds.append("paged_prefill_insert_flash_q8")
+                        for kind in kinds:
+                            check(kind, x,
+                                  f"C={C} D={D} page={page} rep={rep} "
+                                  f"{pool} q={str(qdt)[6:]} c0={c0s}")
+    for kind, s in summary.items():
+        print(f"  {kind}: {s['cases']} cases; max_abs_err f32 "
+              f"{s['max_err_f32']:.3e}, bf16 {s['max_err_bf16']:.3e}; "
+              "written pools equal")
+
+    # --- main shape: SmolLM-360M chunk 4 of a 512-token prompt ----------
+    B, C, H, KV, D, page, c0 = 1, 128, 15, 5, 64, 16, 384
+    n_pages = 544 // page
+    records = []
+    for kind, pool in (("paged_prefill_insert_flash_q8", "int8/page"),
+                       ("paged_prefill_insert_flash", "bf16"),
+                       ("paged_prefill_flash", "int8/token")):
+        x = inputs(B, C, H, KV, D, page, n_pages, pool, torch.bfloat16,
+                   [c0])
+        err = check(kind, x, f"main C={C} c0={c0} H={H} KV={KV} D={D} "
+                    f"page={page} {pool} q=bfloat16")
+        kb = x["kp"].element_size()
+        n_keys = c0 + C
+        old = c0 if kind != "paged_prefill_flash" else n_keys
+        bytes_ = (2 * x["q"].numel() * 2                 # q and o, bf16
+                  + 2 * old * KV * D * kb + 4 * n_pages)  # pages read, bt
+        if kind != "paged_prefill_flash":
+            bytes_ += 2 * 2 * C * KV * D * kb            # chunk in and out
+        if pool == "int8/page":
+            bytes_ += 2 * (c0 // page) * KV * 2 * 4      # old (scale, zero)
+            bytes_ += 2 * 2 * (C // page) * KV * 2 * 4   # chunk rows in, out
+        elif pool == "int8/token":
+            bytes_ += 2 * n_keys * KV * 2 * 4
+        pairs = H * sum(c0 + i + 1 for i in range(C))
+        ops_ = 4 * D * pairs
+        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
+        # library yardstick: SDPA over the K/V gathered and dequantized
+        # beforehand (the gather is excluded from its time)
+        bt_live = x["bt"][:, :n_keys // page]
+        if pool == "bf16":
+            kd = dref.gather_pages(x["kp"], bt_live)
+            vd = dref.gather_pages(x["vp"], bt_live)
+        else:
+            kd = dref.gather_pages_q8(x["kp"], x["ksz"], bt_live)
+            vd = dref.gather_pages_q8(x["vp"], x["vsz"], bt_live)
+        qt = x["q"].transpose(1, 2)
+        kt = kd.to(torch.bfloat16).transpose(1, 2).contiguous()
+        vt = vd.to(torch.bfloat16).transpose(1, 2).contiguous()
+        mask = (torch.arange(C, device="cuda")[:, None] + c0
+                >= torch.arange(n_keys, device="cuda")[None, :])
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        except TypeError:          # torch without enable_gqa
+            lib = None
+        a, b = clone(x), clone(x)
+        records.append(dict(
+            name=kind, route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_prefill.cu",
+            replaces={"paged_prefill_flash":
+                      "src/repro/kernels/flash_attention/paged_prefill.py"
+                      ":264",
+                      "paged_prefill_insert_flash":
+                      "src/repro/kernels/flash_attention/paged_prefill.py"
+                      ":343",
+                      "paged_prefill_insert_flash_q8":
+                      "src/repro/kernels/flash_attention/paged_prefill.py"
+                      ":402"}[kind],
+            max_abs_err=err,
+            **timed(lambda: call(kind, a, "cuda"),
+                    lambda: call(kind, b, "reference")),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib,
+            shape=(f"{pool} pool B={B} C={C} c0={c0} H={H} KV={KV} D={D} "
+                   f"page={page}; library = SDPA, gather excluded"),
+        ))
+    return records
+
+
 # -------------------------------------------------------------- engine
 def agreement(a, b) -> float:
     n = max(len(a), len(b))
     return sum(x == y for x, y in zip(a, b)) / n if n else 1.0
 
 
+BUCKET_KERNELS = ("write_pages", "flash_mha", "paged_flash_decode")
+
+
 def engine_phase(torch):
-    """Serve the chat trace at full width; returns the kernel launches of
-    the int8 kernel run (the main path)."""
+    """Serve the chat trace at full width; returns the launches of the
+    bucket path's kernels in the int8 kernel run (the main path)."""
     from repro_torch import configs, kernels
     from repro_torch.models import model as M
     from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
@@ -427,7 +644,7 @@ def engine_phase(torch):
     main_launches = None
     for pool in ("int8", "fp"):
         kreqs, launches, plain = serve(pool, None)
-        assert all(n > 0 for n in launches.values()), launches
+        assert all(launches[k] > 0 for k in BUCKET_KERNELS), launches
         assert not any(plain.values()), plain
         if pool == "int8":
             main_launches = launches
@@ -440,15 +657,172 @@ def engine_phase(torch):
               f"{INT8_TOKEN_AGREEMENT})")
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
     serve("int8", None, profiled=True)
-    return main_launches
+    return {k: main_launches[k] for k in BUCKET_KERNELS}
 
 
-def profile_run(torch, eng, reqs) -> None:
+def chunked_phase(torch):
+    """Serve SmolLM-360M's shared-prefix trace with chunked prefill and
+    the prefix cache (int8, then fp pools), each against the same trace
+    on the plain versions; then drive the chunk cell of a per-token int8
+    pool directly. Returns the launches of each chunked-prefill kernel
+    in its own path's run."""
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.models.module import cast_params
+    from repro_torch.runtime import serve as serve_rt
+    from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
+                                     ServingEngine, make_scenario)
+
+    cfg = configs.get("smollm_360m")              # bf16 activations
+    base = EngineConfig(n_slots=8, max_seq=544, prefill_buckets=(256, 512),
+                        page_tokens=16, pool_dtype="int8", prefill_chunk=128,
+                        prefix_cache=True)
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    print(f"chunked {cfg.name}: prefill_chunk={base.prefill_chunk} "
+          f"prefix_cache=True n_slots={base.n_slots} "
+          f"max_seq={base.max_seq} page={base.page_tokens}; shared_prefix "
+          "trace of 16 requests, system prompt 128 tokens, prompts "
+          "256/512, 16-32 new tokens")
+
+    def serve(backend, profiled=False, **over):
+        kernels.force_backend(backend)
+        try:
+            ecfg = dataclasses.replace(base, **over)
+            eng = ServingEngine.build(cfg, ecfg, params=params)
+            reqs = make_scenario("shared_prefix", 16, cfg.vocab_size, seed=0,
+                                 system_tokens=128,
+                                 prompt_buckets=(256, 512),
+                                 gen_range=(16, 32), arrival_rate=1e5)
+            peak = [0]
+            step = eng.pager.step
+
+            def counted_step(active, *a, **k):
+                # distinct pages the live slots map (trie-only pages are
+                # reclaimable copies and not counted)
+                pg = eng.pager
+                peak[0] = max(peak[0], len(set(pg.phys[pg.valid].tolist())))
+                return step(active, *a, **k)
+
+            eng.pager.step = counted_step
+            torch.cuda.synchronize()
+            kernels.reset_counters()
+            if profiled:
+                return profile_run(torch, eng, reqs,
+                                   "chunked int8 prefix kernels run")
+            stats = eng.run(reqs)
+            launches = dict(kernels.LAUNCHES)
+            plain = dict(kernels.REFERENCE_CALLS)
+        finally:
+            kernels.force_backend(None)
+        assert stats.n_requests == len(reqs)
+        for r in reqs:
+            assert len(r.output) == r.max_new_tokens, r.request_id
+        s = stats.summary()
+        print(f"  pool={ecfg.pool_dtype:4s} prefix={ecfg.prefix_cache!s:5s} "
+              f"backend={backend or 'kernels':9s} requests="
+              f"{s['n_requests']} tokens={s['tokens']} steps={s['steps']} "
+              f"wall_s={stats.wall_s:.3f} tok_per_s_wall="
+              f"{s['tok_per_s_wall']:.1f} prefix_hits="
+              f"{stats.prefix.get('hits')} shared_mapped_pages="
+              f"{stats.pager['shared_mapped_pages']} peak_slot_pages="
+              f"{peak[0]} of {eng.pager.n_phys} "
+              f"launches={ {k: v for k, v in launches.items() if v} } "
+              f"plain_calls={ {k: v for k, v in plain.items() if v} }")
+        return reqs, launches, plain
+
+    out = {}
+    for pool, kernel in (("int8", "paged_prefill_insert_flash_q8"),
+                         ("fp", "paged_prefill_insert_flash")):
+        kreqs, launches, plain = serve(None, pool_dtype=pool)
+        assert launches[kernel] > 0 and launches["paged_flash_decode"] > 0, \
+            launches
+        assert not any(plain.values()), plain
+        out[kernel] = launches[kernel]
+        rreqs, rlaunch, _ = serve("reference", pool_dtype=pool)
+        assert not any(rlaunch.values()), rlaunch
+        agree = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
+        print(f"  pool={pool}: per-request token agreement kernels vs "
+              f"plain: min={min(agree):.3f} mean="
+              f"{sum(agree) / len(agree):.3f} (gate >= "
+              f"{INT8_TOKEN_AGREEMENT})")
+        assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
+        if pool == "int8":
+            serve(None, prefix_cache=False)      # pages used without sharing
+    serve(None, profiled=True)
+
+    # the per-token int8 pool reaches the engine only with speculation
+    # (ROADMAP A8): drive its chunk cell over one 512-token prompt
+    cells = serve_rt.make_engine_cells(
+        cfg, n_slots=2, max_seq=544, buckets=(512,), page_tokens=16,
+        prefill_chunk=128, pool_dtype="int8", sz_granularity="token")
+    sparams = cast_params(params, cfg.dtype)
+    gen = torch.Generator("cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    bt = torch.zeros((2, cells.n_pages), dtype=torch.int32, device="cuda")
+    bt[0] = torch.randperm(2 * cells.n_pages, generator=gen,
+                           device="cuda")[:cells.n_pages].to(torch.int32)
+    runs = {}
+    for backend in (None, "reference"):
+        kernels.force_backend(backend)
+        try:
+            caches = M.make_paged_decode_caches(
+                cfg, 2, cells.max_seq_total, 16, pool_dtype="int8",
+                sz_granularity="token", device="cuda")
+            torch.cuda.synchronize()
+            kernels.reset_counters()
+            picks = [int(cells.chunk_fn(sparams, toks[:, i * 128:(i + 1) * 128],
+                                        caches, 0, i, bt)[0][0])
+                     for i in range(4)]
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            plain = dict(kernels.REFERENCE_CALLS)
+            # the final chunk again through the cell's body for its logits
+            # (the per-token scatter rewrites the same values)
+            logits, _ = M.prefill_chunk(sparams, toks[:, 384:], caches, 3,
+                                        cfg, bt[0:1], 16)
+        finally:
+            kernels.force_backend(None)
+        runs[backend] = (picks, logits.float(), caches, launches, plain)
+    (kp, kl, kc, kla, kpl), (rp, rl, rc, rla, rpl) = runs[None], \
+        runs["reference"]
+    assert kla["paged_prefill_flash"] == 4 * cfg.num_layers, kla
+    assert not any(kpl.values()) and not any(rla.values()), (kpl, rla)
+    out["paged_prefill_flash"] = kla["paged_prefill_flash"]
+    logit_err = float((kl - rl).abs().max())
+    logit_tol = 0.05 * float(rl.abs().max())
+    # pools: dequantize every layer's written pages and compare (the
+    # chunks' K/V come from two attention implementations, so the int8
+    # grids may differ by one step where a value sits on a boundary)
+    pages = bt[0].long()
+    pool_err = pool_max = 0.0
+    for key in ("k", "v"):
+        a, b = (c["pos0"][key][:, pages].float()
+                * c["pos0"][key + "_sz"][:, pages][..., 0:1]
+                + c["pos0"][key + "_sz"][:, pages][..., 1:2]
+                for c in (kc, rc))
+        pool_err = max(pool_err, float((a - b).abs().max()))
+        pool_max = max(pool_max, float(b.abs().max()))
+    print(f"  per-token int8 chunk cell, 512-token prompt in 4 chunks: "
+          f"launches paged_prefill_flash={kla['paged_prefill_flash']}; "
+          f"picks kernels {kp} plain {rp}; last-chunk logits max_abs_err "
+          f"{logit_err:.4f} (tol {logit_tol:.4f} = 5% of max |logit|); "
+          f"dequantized pools max_abs_err {pool_err:.4f} (max |K/V| "
+          f"{pool_max:.3f})")
+    assert agreement(kp, rp) >= INT8_TOKEN_AGREEMENT, (kp, rp)
+    assert logit_err <= logit_tol, (logit_err, logit_tol)
+    assert pool_err <= 0.05 * pool_max, (pool_err, pool_max)
+    return out
+
+
+def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
     """Serve `reqs` under torch.profiler and print where the time goes:
-    the device's busy share of the run's wall time (union of kernel
-    intervals), device time by kernel group, the host's busiest ops and
-    the host syncs. Profiling slows the host, so the run's wall time here
-    is longer than the unprofiled run's."""
+    the device's busy share of the run's wall time (union of device
+    intervals), device time by kernel group, the host's busiest ops by
+    total CPU time and the host syncs. It reads the profiler's raw event
+    list: building its event tree takes minutes for a trace this long.
+    Profiling slows the host, so the run's wall time here is longer than
+    the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -457,42 +831,69 @@ def profile_run(torch, eng, reqs) -> None:
         stats = eng.run(reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
-    busy, end = 0.0, float("-inf")
-    for e in kern:
-        s0, s1 = e.time_range.start, e.time_range.end
+    t1 = time.perf_counter()
+    raw = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = sorted((e.start_ns(), e.end_ns(), e.name().lower()) for e in raw
+                  if e.device_type() == cuda)
+    busy_ns, end = 0, float("-inf")
+    for s0, s1, _ in kern:
         if s1 > end:
-            busy += s1 - max(s0, end)
+            busy_ns += s1 - max(s0, end)
             end = s1
+    busy = busy_ns / 1e3 / wall_us
     groups = {"paged_flash_decode": "paged_decode_kernel",
               "flash_mha": "flash_fwd_kernel",
-              "write_pages": "write_pages_kernel"}
+              "write_pages": "write_pages_kernel",
+              "paged_prefill_flash/insert_flash/insert_flash_q8":
+              "paged_prefill_kernel"}
     by_group: dict = {}
-    for e in kern:
-        name = e.name.lower()
+    for s0, s1, name in kern:
         g = next((k for k, v in groups.items() if v in name), None)
         if g is None:
-            g = "matmul" if ("gemm" in name or "sm90" in name
-                             or "cutlass" in name) else "other"
-        by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us()
-    host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
-                  reverse=True)[:6]
-    syncs = sum(a.count for a in prof.key_averages()
-                if "synchronize" in a.key or a.key == "aten::nonzero")
-    print(f"  profile int8 kernels run: wall {wall_us / 1e3:.1f} ms over "
-          f"{stats.steps} decode steps, device busy "
-          f"{busy / wall_us:.3f} of wall (idle {1 - busy / wall_us:.3f}); "
-          "device ms by group " + json.dumps(
-              {k: round(v / 1e3, 3) for k, v in sorted(by_group.items())}))
-    print("  profile host ops by self CPU ms: " + json.dumps(
-        {a.key: round(a.self_cpu_time_total / 1e3, 1) for a in host})
-        + f"; nonzero/sync calls {syncs}")
+            g = "matmul" if any(w in name for w in (
+                "gemm", "nvjet", "cutlass", "cublas")) else "other"
+        by_group[g] = by_group.get(g, 0) + (s1 - s0)
+    host: dict = {}
+    syncs = 0
+    for e in raw:
+        if e.device_type() != cuda:
+            name = e.name()
+            host[name] = host.get(name, 0) + e.duration_ns()
+            syncs += "synchronize" in name or name == "aten::nonzero"
+    top = sorted(host.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    print(f"  profile {label}: wall {wall_us / 1e3:.1f} ms over "
+          f"{stats.steps} decode steps, device busy {busy:.3f} of wall "
+          f"(idle {1 - busy:.3f}); device ms by group " + json.dumps(
+              {k: round(v / 1e6, 3) for k, v in sorted(by_group.items())}))
+    print("  profile host ops by total CPU ms: " + json.dumps(
+        {k: round(v / 1e6, 1) for k, v in top})
+        + f"; nonzero/sync calls {syncs}; {len(raw)} events read in "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 # ---------------------------------------------------------------- main
-def main() -> int:
+PHASES = ("device", "build", "kernels", "engine", "chunked")
+
+
+def parse_phases(argv) -> set:
+    """`--phases a,b,...` (default: all). `device` always runs: the last
+    line names the card."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES))
+    names = {p for p in ap.parse_args(argv).phases.split(",") if p}
+    unknown = names - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phase(s) {sorted(unknown)}; known: "
+                 f"{', '.join(PHASES)}")
+    return names | {"device"}
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -502,28 +903,49 @@ def main() -> int:
     print(f"device: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
-          f"devices={torch.cuda.device_count()}")
+          f"devices={torch.cuda.device_count()}; phases "
+          f"{[p for p in PHASES if p in phases]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build
 
-    paths = build.build_all()
-    print(f"build: {len(paths)} libraries in {build.LAST_BUILD_S:.1f} s")
-    for name, path in paths.items():
-        log = path.with_suffix(".log").read_text().splitlines()
-        regs = [line for line in log if "registers" in line]
-        spills = [line for line in log
-                  if "spill" in line and " 0 bytes spill stores" not in line]
-        print(f"  {name}: {len(regs)} kernels; "
-              f"{regs[-1].strip() if regs else ''}; "
-              f"{len(spills)} with spills")
-    records = kernel_cases(torch, Timer(torch))
-    launches = engine_phase(torch)
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase:.1f} s")
+        t_phase = now
+
+    if "build" in phases:
+        paths = build.build_all()
+        print(f"build: {len(paths)} libraries in {build.LAST_BUILD_S:.1f} s")
+        for name, path in paths.items():
+            log = path.with_suffix(".log").read_text().splitlines()
+            regs = [line for line in log if "registers" in line]
+            spills = [line for line in log if "spill" in line
+                      and " 0 bytes spill stores" not in line]
+            print(f"  {name}: {len(regs)} kernels; "
+                  f"{regs[-1].strip() if regs else ''}; "
+                  f"{len(spills)} with spills")
+        phase_done("build")
+    records = []
+    if "kernels" in phases:
+        records = kernel_cases(torch, Timer(torch))
+        phase_done("kernels")
+    launches = {}
+    if "engine" in phases:
+        launches.update(engine_phase(torch))
+        phase_done("engine")
+    if "chunked" in phases:
+        launches.update(chunked_phase(torch))
+        phase_done("chunked")
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches.get(r["name"])
         r.pop("shape")
-    print(json.dumps({"kernels": records}))
+    if records:
+        print(json.dumps({"kernels": records}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -532,4 +954,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,7 +16,9 @@ There is no fallback from a kernel that fails to build or launch.
 versions on the card to compare against (`chip_smoke.py`).
 
 Kernels on the serving path: `page_io` (pool insert), `flash_attention`
-(bucket prefill), `decode_attention` (paged decode over the block table).
+(bucket prefill: `flash_mha`; chunked prefill: `paged_prefill_flash`,
+`paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
+`decode_attention` (paged decode over the block table).
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ _FORCED: str | None = None
 # launches of each kernel since the last reset (incremented by the
 # wrapper right after it launches, nowhere else) and calls that took the
 # plain version
-LAUNCHES = {"write_pages": 0, "flash_mha": 0, "paged_flash_decode": 0}
-REFERENCE_CALLS = {"write_pages": 0, "mha": 0, "paged_decode_mha": 0}
+LAUNCHES = {"write_pages": 0, "flash_mha": 0, "paged_flash_decode": 0,
+            "paged_prefill_flash": 0, "paged_prefill_insert_flash": 0,
+            "paged_prefill_insert_flash_q8": 0}
+REFERENCE_CALLS = {"write_pages": 0, "mha": 0, "paged_decode_mha": 0,
+                   "paged_prefill_mha": 0, "paged_prefill_insert_mha": 0,
+                   "paged_prefill_insert_mha_q8": 0}
 
 
 def force_backend(name: str | None) -> None:

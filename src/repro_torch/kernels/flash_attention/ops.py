@@ -1,5 +1,22 @@
-"""Public dense attention op (bucket prefill): a CUDA tensor launches the
-flash kernel, a CPU tensor takes the plain masked softmax."""
+"""Public attention ops: dense prefill and paged chunked prefill. A CUDA
+tensor launches the hand-written kernel, a CPU tensor takes the plain
+version.
+
+The paged chunked-prefill surface has two tiers, as in the reference:
+
+* `paged_prefill_mha` — gather-only attention over a pool whose chunk
+  K/V was already scattered (the per-token int8 pool's path, and the
+  parity oracle).
+* `paged_prefill_insert_mha` / `paged_prefill_insert_mha_q8` — the FUSED
+  ops: the chunk's K/V (int8: pre-quantized payload + (scale, zero) rows)
+  goes in as an operand and the kernel writes it into the pool tensors
+  in place while the chunk attends. The plain versions scatter, then
+  attend, so either target keeps the one-call contract the chunk cell is
+  built on.
+
+`c0` (the chunk starts, (B,) int32) stays on the device: no op here reads
+it on the host.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.decode_attention.ops import clamp_dead_entries
 from repro_torch.kernels.flash_attention import ref
 
 
@@ -25,3 +43,102 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                v.contiguous(), causal=causal, scale=scale,
                                kv_offset=kv_offset)
     return out
+
+
+def _c0_vec(c0, B: int, device) -> torch.Tensor:
+    """Chunk starts as a contiguous (B,) int32 device tensor (a scalar
+    broadcasts)."""
+    return torch.as_tensor(c0, device=device).to(torch.int32).broadcast_to(
+        (B,)).contiguous()
+
+
+def _clamp_frontier(block_tables, n_pages, page, c0, C):
+    """Clamp block-table entries above the causal frontier c0+C to
+    physical page 0 (`decode_attention.ops.clamp_dead_entries`); the
+    causal mask keeps them out of the math."""
+    return clamp_dead_entries(block_tables, n_pages, page, c0 + C)
+
+
+def paged_prefill_mha(q, k_pages, v_pages, block_tables, c0, *,
+                      k_sz=None, v_sz=None, scale: Optional[float] = None,
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """Chunked prefill vs a PAGED cache: q (B, C, H, D) — C prompt tokens
+    at absolute positions [c0, c0+C) — against the pool k/v
+    (P_phys, page, KV, D) through (B, n_logical) block tables, causal.
+    The chunk's own K/V must already be in the pool. `k_sz`/`v_sz`
+    float32 switch to an int8 pool, per page (P_phys, KV, 2) or per
+    token (P_phys, page, KV, 2)."""
+    B, C = q.shape[0], q.shape[1]
+    n_pages = block_tables.shape[1]
+    page = k_pages.shape[1]
+    c0 = _c0_vec(c0, B, q.device)
+    block_tables = _clamp_frontier(block_tables, n_pages, page, c0, C)
+    if kernels.select_impl(q, impl) == "reference":
+        kernels.REFERENCE_CALLS["paged_prefill_mha"] += 1
+        return ref.paged_prefill_mha(q, k_pages, v_pages, block_tables, c0,
+                                     k_sz=k_sz, v_sz=v_sz, scale=scale)
+    from repro_torch.kernels.flash_attention import paged_prefill as pp
+
+    return pp.paged_prefill_flash_cuda(
+        q.contiguous(), k_pages, v_pages, block_tables, c0, k_sz=k_sz,
+        v_sz=v_sz, scale=scale)
+
+
+def paged_prefill_insert_mha(q, k_pages, v_pages, k_new, v_new,
+                             block_tables, c0, *,
+                             scale: Optional[float] = None,
+                             impl: Optional[str] = None):
+    """FUSED chunk insert + attention (fp pools): write the chunk's K/V
+    (B, C, KV, D) into the pools at the block table's pages, in place,
+    AND attend the chunk queries in one pass. Returns (o, k_pages,
+    v_pages). C and c0 must be page-aligned and the chunk's table entries
+    live and uniquely owned."""
+    B, C = q.shape[0], q.shape[1]
+    n_pages = block_tables.shape[1]
+    page = k_pages.shape[1]
+    c0 = _c0_vec(c0, B, q.device)
+    block_tables = _clamp_frontier(block_tables, n_pages, page, c0, C)
+    # pre-cast so the in-chunk attention sees exactly the stored values
+    k_new = k_new.to(k_pages.dtype)
+    v_new = v_new.to(v_pages.dtype)
+    if kernels.select_impl(q, impl) == "reference":
+        kernels.REFERENCE_CALLS["paged_prefill_insert_mha"] += 1
+        return ref.paged_prefill_insert_mha(
+            q, k_pages, v_pages, k_new, v_new, block_tables, c0,
+            scale=scale)
+    from repro_torch.kernels.flash_attention import paged_prefill as pp
+
+    o = pp.paged_prefill_insert_flash_cuda(
+        q.contiguous(), k_pages, v_pages, k_new.contiguous(),
+        v_new.contiguous(), block_tables, c0, scale=scale)
+    return o, k_pages, v_pages
+
+
+def paged_prefill_insert_mha_q8(q, k_pages, v_pages, k_sz, v_sz,
+                                k8_new, v8_new, ksz_new, vsz_new,
+                                block_tables, c0, *,
+                                scale: Optional[float] = None,
+                                impl: Optional[str] = None):
+    """FUSED chunk insert + attention for int8 pools: the pre-quantized
+    chunk payload (B, C, KV, D) and its per-page (scale, zero) rows
+    (B, C//page, KV, 2) land in the pool tensors in place while the chunk
+    attends — older pages dequantize through `k_sz`/`v_sz`, the chunk's
+    own pages through the fresh rows. Returns
+    (o, k_pages, v_pages, k_sz, v_sz)."""
+    B, C = q.shape[0], q.shape[1]
+    n_pages = block_tables.shape[1]
+    page = k_pages.shape[1]
+    c0 = _c0_vec(c0, B, q.device)
+    block_tables = _clamp_frontier(block_tables, n_pages, page, c0, C)
+    if kernels.select_impl(q, impl) == "reference":
+        kernels.REFERENCE_CALLS["paged_prefill_insert_mha_q8"] += 1
+        return ref.paged_prefill_insert_mha_q8(
+            q, k_pages, v_pages, k_sz, v_sz, k8_new, v8_new, ksz_new,
+            vsz_new, block_tables, c0, scale=scale)
+    from repro_torch.kernels.flash_attention import paged_prefill as pp
+
+    o = pp.paged_prefill_insert_flash_q8_cuda(
+        q.contiguous(), k_pages, v_pages, k_sz, v_sz, k8_new.contiguous(),
+        v8_new.contiguous(), ksz_new.contiguous(), vsz_new.contiguous(),
+        block_tables, c0, scale=scale)
+    return o, k_pages, v_pages, k_sz, v_sz

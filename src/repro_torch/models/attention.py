@@ -1,9 +1,10 @@
-"""GQA self-attention for prefill and paged decode (port of the serving
-path of `repro.models.attention`).
+"""GQA self-attention for prefill, chunked prefill and paged decode (port
+of the serving path of `repro.models.attention`).
 
-The contraction is delegated to `kernels.flash_attention` (prefill) and
-`kernels.decode_attention` (paged decode), which launch the CUDA kernels
-on CUDA tensors and the plain versions on CPU tensors.
+The contraction is delegated to `kernels.flash_attention` (bucket and
+chunked prefill) and `kernels.decode_attention` (paged decode), which
+launch the CUDA kernels on CUDA tensors and the plain versions on CPU
+tensors.
 
 The paged KV pool is updated IN PLACE where the reference's jitted cells
 return new (donated) arrays: every insert below writes into the pool
@@ -132,6 +133,73 @@ def paged_quant_cache_insert(pool, sz, new, t, block_table,
     pool[phys[rows]] = q8[rows]
     sz[phys[rows]] = new_sz[rows]
     return pool, sz
+
+
+def paged_chunk_insert(pool, new, c0, block_row, page_tokens: int):
+    """Write a page-aligned CHUNK of K or V (or its per-token (scale,
+    zero) rows) through the block table, in place. pool (P_phys, page,
+    ...); new (1, C, ...) with C a multiple of `page_tokens`; c0 the
+    chunk start (device scalar or (1,), page-aligned); block_row
+    (1, n_pages) the prefilling slot's table row. Whole pages land at
+    once. Returns `pool`."""
+    C = new.shape[1]
+    n_wp = C // page_tokens
+    p0 = torch.as_tensor(c0, device=pool.device).reshape(-1)[:1].long() \
+        // page_tokens
+    phys = block_row[0].long()[p0 + torch.arange(n_wp, device=pool.device)]
+    tiles = new[0].reshape((n_wp, page_tokens) + tuple(new.shape[2:]))
+    pool[phys] = tiles.to(pool.dtype)
+    return pool
+
+
+def paged_prefill_chunk_attention(params, x, cfg: ModelConfig, cache, c0,
+                                  block_row, page_tokens: int,
+                                  rope: bool = True):
+    """One prompt chunk x (1, C, d) at positions [c0, c0+C) against the
+    paged cache, through the paged-prefill kernels. `c0` is a device
+    tensor (scalar or (1,)), read by the kernels on the device; C and c0
+    are page-aligned (the engine enforces `prefill_chunk % page_tokens ==
+    0`). Three branches, by the pool:
+
+    * int8 with per-token sub-scales (`k_sz` ranked like the pool): each
+      chunk row quantizes on its own, payload and sz rows are scattered
+      whole-page, then the gather-only kernel attends;
+    * int8 with per-page (scale, zero): the chunk quantizes by page
+      (`quant.quantize_pages`, elementwise), and the fused int8 kernel
+      writes payload and rows while it attends;
+    * fp: the fused kernel writes the chunk's K/V while it attends.
+
+    The pool tensors in `cache` are written in place. Returns
+    (out (1, C, d), cache)."""
+    B, C, _ = x.shape
+    c0 = torch.as_tensor(c0, device=x.device).to(torch.int32).reshape(-1)
+    positions = c0[:, None].long() + torch.arange(C, device=x.device)[None]
+    q, k, v = _qkv(params, x, cfg, positions.expand(B, C), rope)
+    if "k_sz" in cache and cache["k_sz"].dim() == cache["k"].dim():
+        k8, ksz = quant.quantize_tokens(k.float())
+        v8, vsz = quant.quantize_tokens(v.float())
+        for key, val in (("k", k8), ("v", v8), ("k_sz", ksz),
+                         ("v_sz", vsz)):
+            paged_chunk_insert(cache[key], val, c0, block_row, page_tokens)
+        out = flash_ops.paged_prefill_mha(
+            q, cache["k"], cache["v"], block_row, c0,
+            k_sz=cache["k_sz"], v_sz=cache["v_sz"])
+    elif "k_sz" in cache:
+        n_wp = C // page_tokens
+        KV, hd = k.shape[2], k.shape[3]
+        k8, ksz = quant.quantize_pages(k.reshape(B, n_wp, page_tokens, KV,
+                                                 hd))
+        v8, vsz = quant.quantize_pages(v.reshape(B, n_wp, page_tokens, KV,
+                                                 hd))
+        out = flash_ops.paged_prefill_insert_mha_q8(
+            q, cache["k"], cache["v"], cache["k_sz"], cache["v_sz"],
+            k8.reshape(B, C, KV, hd), v8.reshape(B, C, KV, hd), ksz, vsz,
+            block_row, c0)[0]
+    else:
+        out = flash_ops.paged_prefill_insert_mha(
+            q, cache["k"], cache["v"], k, v, block_row, c0)[0]
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return out, cache
 
 
 def paged_decode_self_attention(params, x, cfg: ModelConfig, cache, t,

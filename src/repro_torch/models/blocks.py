@@ -162,12 +162,18 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
 
 # ------------------------------------------------------------------ apply
 def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
-                        block_table, page_tokens: int):
-    """One layer, one token per slot, against the paged pool views `c`
-    (updated in place). Returns x."""
+                        block_table, page_tokens: int, attn_override=None):
+    """One layer, one token per slot (or, via `attn_override`, one prompt
+    chunk), against the paged pool views `c` (updated in place). Returns
+    x. `attn_override(p_attn, h, c) -> (h, c)` swaps the attention
+    contraction while the rest of the layer body stays shared, so the
+    chunked and the decode streams cannot diverge in a layer change."""
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-    h, _ = attn.paged_decode_self_attention(
-        p["attn"], h, cfg, c, t, block_table, page_tokens)
+    if attn_override is not None:
+        h, _ = attn_override(p["attn"], h, c)
+    else:
+        h, _ = attn.paged_decode_self_attention(
+            p["attn"], h, cfg, c, t, block_table, page_tokens)
     x = x + h
     h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     if cfg.d_ff:
@@ -193,6 +199,32 @@ def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
             x = _apply_layer_decode(layer_slice(params[f"pos{j}"], i), c,
                                     x, t, cfg, desc, block_table,
                                     page_tokens)
+    return x, caches
+
+
+def stack_prefill_chunk(params, caches, x, c0, cfg: ModelConfig, block_row,
+                        page_tokens: int):
+    """One page-aligned prompt chunk x (1, C, d) through the whole stack
+    against the PAGED caches: each attention layer writes the chunk's KV
+    through the block row (in place) and attends to everything prefilled
+    so far. `c0` is the chunk start as a device tensor. Only
+    attention-only decoder stacks chunk (see
+    `runtime.serve.chunked_prefill_supported`)."""
+    descs = pattern(cfg)
+    if any(d.kind != "attn" or d.cross for d in descs):
+        raise ValueError("chunked prefill needs an attention-only stack")
+
+    def chunk_attn(p_attn, h, c):
+        return attn.paged_prefill_chunk_attention(
+            p_attn, h, cfg, c, c0, block_row, page_tokens)
+
+    nb = cfg.num_layers // len(descs)
+    for i in range(nb):
+        for j, desc in enumerate(descs):
+            c = layer_slice(caches[f"pos{j}"], i)
+            x = _apply_layer_decode(layer_slice(params[f"pos{j}"], i), c,
+                                    x, None, cfg, desc, None, page_tokens,
+                                    attn_override=chunk_attn)
     return x, caches
 
 

@@ -4,10 +4,12 @@
   prefill(params, batch, cfg, max_seq)          -> (caches, logits_last)
   decode_step(params, token, caches, t, cfg,
               block_table, page_tokens)         -> (logits, caches)
+  prefill_chunk(params, tokens, caches, chunk_idx, cfg,
+                block_row, page_tokens)         -> (logits, caches)
   make_paged_decode_caches(cfg, n_slots, ...)   -> paged caches
 
-Decode writes the paged caches in place (the reference donates them to
-its jitted cell and gets new arrays back).
+Decode and chunked prefill write the paged caches in place (the
+reference donates them to its jitted cells and gets new arrays back).
 """
 
 from __future__ import annotations
@@ -71,6 +73,26 @@ def decode_step(params, token, caches, t, cfg: ModelConfig,
     x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
                                     block_table, page_tokens)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    return logits[:, 0, :], caches
+
+
+def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,
+                  block_row, page_tokens: int):
+    """One page-aligned prompt chunk against the PAGED caches: tokens
+    (1, C) at absolute positions [chunk_idx*C, (chunk_idx+1)*C), written
+    through `block_row` (1, n_pages), the prefilling slot's table row, in
+    place. `chunk_idx` may be an int or a device tensor; the chunk start
+    reaches the kernels as a device tensor. Returns (last-token logits,
+    caches); the engine uses the logits only on the final chunk."""
+    blocks.check_supported(cfg)
+    C = tokens.shape[1]
+    c0 = torch.as_tensor(chunk_idx, device=tokens.device).to(
+        torch.int32) * C
+    x = embed(params["embed"], tokens, cfg)
+    x, caches = blocks.stack_prefill_chunk(params["blocks"], caches, x, c0,
+                                           cfg, block_row, page_tokens)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg, params.get("head"))
     return logits[:, 0, :], caches
 

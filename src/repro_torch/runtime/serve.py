@@ -3,7 +3,10 @@ meshless paged path of `repro.runtime.serve.make_engine_cells`).
 
 The cells are plain functions over tensors: one greedy decode cell over
 the whole slot batch with per-slot positions, one prefill cell per prompt
-bucket, one paged insert cell per bucket and a copy-on-write page copy.
+bucket, one paged insert cell per bucket, a copy-on-write page copy and,
+with `prefill_chunk` set, a chunked-prefill cell that runs one
+page-aligned prompt chunk through the paged-prefill kernels (the chunk's
+K/V write is fused into the kernel on per-page pools).
 The self-attention KV cache IS a physical page pool (nb, n_slots *
 n_pages, page_tokens, KV, hd) and every cell takes the live
 (n_slots, n_pages) block table from `serving.kv_pager.KVPager`. PyTorch
@@ -11,8 +14,7 @@ runs eagerly, so there is no compile step; the cells write the pool in
 place where the reference's jitted cells donate and return it.
 
 Not ported yet: the contiguous layout (`paged=False`, ROADMAP A7b),
-chunked prefill (`prefill_chunk`, A7a), speculative verify/draft cells
-(A8) and mesh sharding (A16).
+speculative verify/draft cells (A8) and mesh sharding (A16).
 """
 
 from __future__ import annotations
@@ -28,6 +30,16 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.page_io import ops as page_ops
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
+
+
+def chunked_prefill_supported(cfg: ModelConfig) -> bool:
+    """Chunked prefill needs a pure-attention decoder with no frontend
+    prefix and no encoder: an SSM/conv layer's prompt pass is a
+    sequential reduction that cannot restart mid-stream from paged KV
+    alone."""
+    if cfg.num_encoder_layers or cfg.frontend:
+        return False
+    return all(cfg.is_attn_layer(j) for j in range(blk.super_period(cfg)))
 
 
 def build_prefill_greedy(cfg: ModelConfig, bucket: int):
@@ -113,6 +125,22 @@ def build_page_copy():
     return copy
 
 
+def build_prefill_chunk(cfg: ModelConfig, page_tokens: int):
+    """Chunked-prefill cell: one page-aligned chunk of one request's
+    prompt against the global PAGED caches — no per-request caches, no
+    insert step; the chunk's K/V goes straight through the slot's block
+    row into the pool, in place. Returns the chunk's last-token greedy
+    pick (the engine uses it only on the final chunk)."""
+
+    def cell(params, tokens, caches, slot, chunk_idx, block_table):
+        row = block_table[int(slot):int(slot) + 1]      # (1, n_pages)
+        logits, caches = M.prefill_chunk(
+            params, tokens, caches, chunk_idx, cfg, row, page_tokens)
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+    return cell
+
+
 @dataclasses.dataclass
 class EngineCells:
     """The cells of the continuous-batching engine (paged layout).
@@ -120,8 +148,10 @@ class EngineCells:
     `decode_fn(params, tok (S,), caches, t (S,), bt) -> (next_tok (S,),
     finite (S,), caches)`; `prefill_fns[bucket](params, batch) ->
     (slot_caches, tok (1,))`; `insert_fns[bucket](caches, slot_caches,
-    slot, bt) -> caches`; `copy_fn(caches, src, dst) -> caches`. Caches
-    are written in place."""
+    slot, bt) -> caches`; `copy_fn(caches, src, dst) -> caches`;
+    `chunk_fn(params, tokens (1, C), caches, slot, chunk_idx, bt) ->
+    (tok (1,), caches)` when chunked prefill is on. Caches are written in
+    place."""
 
     decode_fn: Any
     prefill_fns: Dict[int, Any]
@@ -136,6 +166,8 @@ class EngineCells:
     n_pages: int = 0               # logical pages per slot
     pool_dtype: str = "fp"
     sz_granularity: str = "page"
+    chunk_fn: Any = None           # chunked-prefill cell
+    chunk: int = 0                 # tokens per prefill chunk
 
 
 def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
@@ -143,16 +175,34 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                       page_tokens: int = 16, prefill_chunk: int = 0,
                       pool_dtype: str = "fp", sz_granularity: str = "page",
                       speculative: str = "off", device=None) -> EngineCells:
-    """Build the engine's cells for `device` (the card by default)."""
+    """Build the engine's cells for `device` (the card by default).
+    `prefill_chunk > 0` (paged, attention-only archs) adds the
+    chunked-prefill cell."""
     blk.check_supported(cfg)
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
+    if prefill_chunk and not paged:
+        raise ValueError("chunked prefill requires the paged layout")
     if not paged:
         raise NotImplementedError(
             "the contiguous cache layout (paged=False) is not ported yet "
             "(ROADMAP A7b)")
     if prefill_chunk:
-        raise NotImplementedError(
-            "chunked prefill is not ported yet (ROADMAP A7a)")
+        if not chunked_prefill_supported(cfg):
+            raise ValueError(
+                f"{cfg.name}: chunked prefill needs an attention-only "
+                "decoder without frontend/encoder"
+            )
+        if prefill_chunk % page_tokens:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be a multiple of "
+                f"page_tokens {page_tokens} (chunks write whole pages)"
+            )
+        bad = [b for b in buckets if b % prefill_chunk]
+        if bad:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must divide every prompt "
+                f"bucket (got {bad}): prompts advance whole chunks"
+            )
     if speculative != "off":
         raise NotImplementedError(
             "speculative decoding is not ported yet (ROADMAP A8)")
@@ -186,4 +236,7 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         n_pages=n_pages,
         pool_dtype=pool_dtype,
         sz_granularity=sz_granularity,
+        chunk_fn=(build_prefill_chunk(cfg, page_tokens) if prefill_chunk
+                  else None),
+        chunk=prefill_chunk,
     )

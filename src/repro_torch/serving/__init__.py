@@ -4,7 +4,10 @@ path of `repro.serving`).
 The KV cache is a PHYSICAL page pool end to end: self-attention K/V lives
 as (stack, n_slots * n_pages, page_tokens, heads, head_dim) tensors on the
 device, and every cell — bucket prefill insert, decode — reads and writes
-it through the live (n_slots, n_pages) block table the `KVPager` emits.
+it through the live (n_slots, n_pages) block table the `KVPager` emits;
+with `prefill_chunk` set, prompts advance one page-aligned chunk at a
+time between decode steps, and `prefix_cache` shares the pages of a
+common prompt prefix across requests (`PrefixCache`).
 The default pool is int8 with one float32 (scale, zero) pair per
 (page, KV head), quantized on insert and dequantized inside the paged
 decode kernel.
@@ -19,6 +22,7 @@ from repro_torch.serving.engine import (
     ServingEngine,
 )
 from repro_torch.serving.kv_pager import KVPager, PagerConfig, StepTraffic
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixHit
 from repro_torch.serving.queue import (
     SCENARIOS,
     Request,
@@ -38,6 +42,8 @@ __all__ = [
     "INT8_TOKEN_AGREEMENT",
     "KVPager",
     "PagerConfig",
+    "PrefixCache",
+    "PrefixHit",
     "Request",
     "RequestQueue",
     "SCENARIOS",

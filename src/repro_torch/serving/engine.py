@@ -7,10 +7,22 @@ make_engine_cells`:
   admit   — pop arrived requests while slots are free AND the admission
             controller projects the pool link below the M/D/1 knee; run
             the bucketed prefill cell, land the request's K/V in the page
-            pool through the insert cell, emit its first greedy token;
+            pool through the insert cell, emit its first greedy token
+            (or, with `prefill_chunk` set, park the request in a
+            prefilling slot);
+  chunk   — with chunked prefill, at most one page-aligned prompt chunk
+            advances between decode steps, so a long prompt never stalls
+            in-flight decode for more than one chunk;
   decode  — one step of the whole slot batch with per-slot positions
-            (inactive slots are masked by parked write cursors);
+            (inactive and prefilling slots are masked by parked write
+            cursors);
   retire  — completed requests free their slot and their KV pages.
+
+With `prefix_cache` on, a radix trie over page-aligned prompt blocks
+(`serving.prefix_cache`) maps a request's cached prefix pages into its
+block table, shared and refcounted: the bucket path dedupes after its
+insert (a shared partial tail page splits copy-on-write on its first
+decode write), the chunked path starts at the first divergent chunk.
 
 The KV cache IS a physical page pool: the `KVPager` is the single
 allocator, its `block_table()` is what the decode and insert cells read
@@ -21,7 +33,8 @@ roofline at the chip's data-sheet peak, local/pool bytes from the pager).
 
 Ported configuration: `EngineConfig()` means the same main path as in the
 reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
-LoI admission — except `substrate`, which defaults to "off" here until
+LoI admission; chunked prefill and the prefix cache are its options —
+except `substrate`, which defaults to "off" here until
 the substrate slice lands (ROADMAP A9). Options outside the slice raise
 `NotImplementedError` naming the ROADMAP item that will port them.
 """
@@ -48,6 +61,7 @@ from repro_torch.models.module import cast_params
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_pager import KVPager, PagerConfig
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.queue import Request, RequestQueue
 
 # Minimum per-request greedy-token agreement an int8 pool must keep vs the
@@ -67,7 +81,9 @@ class EngineConfig:
     pool_dtype: str = "int8"        # "int8" per-page block quantization
     # (quantize-on-insert, dequantize-in-kernel), "fp" stores cfg.dtype
     # exactly, "bf16" a 2-byte cast
-    prefill_chunk: Optional[int] = None   # chunked prefill: ROADMAP A7a
+    prefill_chunk: Optional[int] = None   # tokens per prefill chunk:
+    # interleave prompt chunks with decode steps instead of serializing
+    # whole prompts against the batch
     # --- pager ---
     page_tokens: int = 16
     local_budget_frac: Optional[float] = 0.5   # of peak KV bytes; None=all
@@ -78,9 +94,10 @@ class EngineConfig:
     cold_touch: float = 0.05
     prefetch: Optional[str] = None   # prediction-driven page-in: ROADMAP A13
     prefetch_degree: int = 8
-    # --- shared-prefix radix cache: ROADMAP A7a ---
-    prefix_cache: bool = False
-    prefix_cache_pages: Optional[int] = None
+    # --- shared-prefix radix cache (serving.prefix_cache) ---
+    prefix_cache: bool = False      # dedup page-aligned shared prompt
+    # prefixes across requests (refcounted pages, COW tail splits)
+    prefix_cache_pages: Optional[int] = None   # trie capacity cap (pages)
     # --- physical memory substrate ---
     substrate: str = "off"          # off | emulated | physical | auto — the
     # reference defaults to "auto"; the port keeps "off" until the pinned
@@ -99,12 +116,18 @@ class EngineConfig:
 
 
 def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
-    """Raise `NotImplementedError` for what the port does not run yet."""
+    """Raise `NotImplementedError` for what the port does not run yet
+    (after the reference's own `ValueError`s for chunking or sharing
+    without the paged layout)."""
     blk.check_supported(cfg)
+    if not ecfg.paged and ecfg.prefill_chunk:
+        raise ValueError("chunked prefill requires the paged layout")
+    if not ecfg.paged and ecfg.prefix_cache:
+        raise ValueError(
+            "prefix_cache needs paged=True: sharing happens by aliasing "
+            "block-table rows onto one physical page")
     todo = [
         (not ecfg.paged, "paged=False (contiguous layout)", "A7b"),
-        (ecfg.prefill_chunk, "prefill_chunk (chunked prefill)", "A7a"),
-        (ecfg.prefix_cache, "prefix_cache", "A7a"),
         (ecfg.speculative != "off", "speculative decoding", "A8"),
         (ecfg.substrate != "off", f"substrate={ecfg.substrate!r}", "A9"),
         (ecfg.prefetch is not None, "prefetch (prediction-driven page-in)",
@@ -186,12 +209,14 @@ class ServeStats:
     pager: dict
     admission_blocks: int
     max_concurrency: int
+    prefix: dict = dataclasses.field(default_factory=dict)   # prefix-cache
+    # counter deltas for this run (empty when the cache is off)
 
     def summary(self) -> Dict[str, float]:
         def pct(a, q):
             return float(np.percentile(a, q)) if len(a) else float("nan")
 
-        return {
+        out = {
             "n_requests": self.n_requests,
             "tokens": self.tokens,
             "steps": self.steps,
@@ -206,6 +231,10 @@ class ServeStats:
             "admission_blocks": self.admission_blocks,
             "max_concurrency": self.max_concurrency,
         }
+        if self.prefix:
+            out["prefix_hit_rate"] = self.prefix["hit_rate"]
+            out["cow_splits"] = self.pager.get("cow_splits", 0)
+        return out
 
 
 _PAGED_KEYS = ("k", "v", "k_sz", "v_sz")
@@ -285,6 +314,28 @@ class ServingEngine:
             ),
             topo=self.topo,
         )
+        self.prefix_cache: Optional[PrefixCache] = None
+        if ecfg.prefix_cache:
+            if cfg.frontend or cfg.num_encoder_layers:
+                raise ValueError(
+                    "prefix_cache requires token-only decoder archs: "
+                    "frontend embeds and encoder cross-KV are per-request "
+                    "state, so identical prompt tokens do not imply "
+                    "identical cached KV"
+                )
+            if not serve_rt.chunked_prefill_supported(cfg):
+                raise ValueError(
+                    f"{cfg.name}: prefix_cache needs an attention-only "
+                    "decoder stack — SSM/conv state is a per-slot "
+                    "recurrence, not page-addressable KV, so aliasing "
+                    "block-table rows shares nothing there"
+                )
+            self.prefix_cache = PrefixCache(
+                ecfg.page_tokens, capacity_pages=ecfg.prefix_cache_pages,
+            )
+            # the allocator evicts LRU trie leaves before declaring the
+            # pool exhausted
+            self.pager.prefix_cache = self.prefix_cache
         self.admission = AdmissionController.from_catalog(
             self.topo, ecfg.catalog_arch, ecfg.catalog_shape,
             mode=ecfg.admission, knee_excess=ecfg.knee_excess,
@@ -343,7 +394,18 @@ class ServingEngine:
                 f"request {req.request_id}: prompt+gen exceeds max_seq "
                 f"{self.ecfg.max_seq}"
             )
+        if self.cells.chunk_fn is not None:
+            self._admit_chunked(req, now)
+            return
         bucket = self.batcher.bucket_for(req.prompt_len)
+        # shared-prefix match BEFORE any allocation, guard-pinned so the
+        # admission's own page allocation cannot reclaim the matched trie
+        # pages out from under the hit
+        hit = None
+        if self.prefix_cache is not None:
+            hit = self.prefix_cache.match(req.tokens)
+            if hit is not None:
+                self.pager.pin(hit.all_pages)
         batch = {"tokens": torch.tensor(req.tokens[None, :],
                                         device=self.device)}
         slot_caches, tok = self.cells.prefill_fns[bucket](self.params, batch)
@@ -355,7 +417,21 @@ class ServingEngine:
         self.caches = self.cells.insert_fns[bucket](
             self.caches, slot_caches, slot.index, self._block_table_dev(),
         )
-        self.virtual_s += self._prefill_dt(start)
+        n_matched = 0
+        if self.prefix_cache is not None:
+            if hit is not None:
+                # insert-then-dedupe: the insert wrote the full prompt into
+                # private pages; the matched prefix now remaps onto the
+                # trie's identical pages and the duplicates free, so the
+                # matched pages cost no pool capacity and no prefill time
+                self.pager.remap_shared(slot.index, hit.all_pages)
+                self.pager.unpin(hit.all_pages)
+                n_matched = hit.n_tokens
+            self.prefix_cache.insert(
+                req.tokens, self.pager.phys[slot.index], self.pager,
+                include_partial=True,
+            )
+        self.virtual_s += self._prefill_dt(start - n_matched)
         first = int(tok[0])
         self.tokens[slot.index] = first
         req.admitted = now
@@ -365,30 +441,123 @@ class ServingEngine:
             req.finished = self.virtual_s
             self._retire(slot)
 
+    def _admit_chunked(self, req: Request, now: float) -> None:
+        """Chunked admission: the request only claims a slot; its prompt
+        advances chunk by chunk in `_prefill_tick`, interleaved with
+        decode steps."""
+        C = self.cells.chunk
+        if req.prompt_len <= 0 or req.prompt_len % C:
+            raise ValueError(
+                f"request {req.request_id}: prompt_len {req.prompt_len} "
+                f"must be a positive multiple of prefill_chunk {C}"
+            )
+        # prefix-cache hit: map the matched full pages shared and start
+        # chunking at the first divergent CHUNK — those chunks never tick,
+        # so their compute and virtual prefill time are skipped. The final
+        # chunk always runs (its logits emit the first token), so the
+        # chunk write never lands in a shared page
+        n_share = 0
+        shared_pages: List[int] = []
+        if self.prefix_cache is not None:
+            hit = self.prefix_cache.match(req.tokens)
+            if hit is not None:
+                n_share = (min(hit.n_full_tokens, req.prompt_len - C)
+                           // C) * C
+                if n_share > 0:
+                    shared_pages = hit.pages[
+                        :n_share // self.ecfg.page_tokens]
+                    self.pager.pin(shared_pages)   # guard pin
+                else:
+                    n_share = 0
+        slot = self.batcher.admit(req, start_pos=0, phase="prefill",
+                                  prefill_pos=n_share)
+        if n_share:
+            self.pager.map_shared(slot.index, shared_pages, n_share)
+            self.pager.unpin(shared_pages)
+        req.admitted = now
+
+    def _prefill_tick(self) -> bool:
+        """Advance the oldest mid-prefill request by ONE chunk (chunked
+        mode only). Returns True if a chunk ran — at most one per engine
+        loop iteration, so prefill interleaves with decode instead of
+        serializing a whole prompt against the batch."""
+        if self.cells.chunk_fn is None:
+            return False
+        slots = self.batcher.prefilling_slots()
+        if not slots:
+            return False
+        slot = slots[0]
+        req = slot.request
+        C = self.cells.chunk
+        end = slot.prefill_pos + C
+        # own the chunk's pages first: the cell writes through the table
+        # it is handed, so the block-table upload must follow the extend
+        self.pager.extend(slot.index, end)
+        toks = torch.tensor(req.tokens[None, slot.prefill_pos:end],
+                            device=self.device)
+        tok, self.caches = self.cells.chunk_fn(
+            self.params, toks, self.caches, slot.index,
+            slot.prefill_pos // C, self._block_table_dev(),
+        )
+        self.virtual_s += self._prefill_dt(C, final=(end == req.prompt_len))
+        slot.prefill_pos = end
+        if end == req.prompt_len:
+            if self.prefix_cache is not None:
+                # chunked prompts are page multiples: full blocks only
+                self.prefix_cache.insert(
+                    req.tokens, self.pager.phys[slot.index], self.pager,
+                    include_partial=False,
+                )
+            first = int(tok[0])
+            req.output.append(first)
+            req.token_times.append(self.virtual_s)
+            self.batcher.begin_decode(slot, start_pos=req.prompt_len)
+            if req.done:                  # max_new_tokens == 1
+                req.finished = self.virtual_s
+                self._retire(slot)
+            else:
+                self.tokens[slot.index] = first
+        return True
+
     def _pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.ecfg.page_tokens)
 
-    def _ensure_pages_for(self, req: Request) -> bool:
-        """True when the free list can supply `req`'s prompt pages; else
-        `req` stays queued (slot preemption, which would free pages here,
-        ports with ROADMAP A10)."""
-        need = self._pages_needed(self.npfx + req.prompt_len)
-        return self.pager.counters()["free_pages"] >= need
+    def _reclaimable(self, need: int) -> bool:
+        """Can `need` pages be produced without preempting anyone? Free
+        pages plus trie-cached pages (LRU-reclaimable clean copies). This
+        over-estimates — trie pages aliased by live slots survive
+        reclaim — exactly as the reference does."""
+        free = self.pager.counters()["free_pages"]
+        cached = (self.prefix_cache.counters()["cached_pages"]
+                  if self.prefix_cache is not None else 0)
+        return free + cached >= need
 
-    def _prefill_dt(self, n_tokens: int) -> float:
+    def _ensure_pages_for(self, req: Request) -> bool:
+        """True when the pool can supply `req`'s prompt pages; else `req`
+        stays queued (slot preemption, which would free pages here, ports
+        with ROADMAP A10). The chunked path allocates per chunk and is
+        not gated here."""
+        if self.cells.chunk_fn is not None:
+            return True
+        return self._reclaimable(
+            self._pages_needed(self.npfx + req.prompt_len))
+
+    def _prefill_dt(self, n_tokens: int, final: bool = True) -> float:
         """Virtual cost of prefilling `n_tokens` on the target topology:
-        prefill compute at the chip's peak + writing the new KV (and the
-        resident state) into the local tier, plus the host dispatch
-        floor."""
+        prefill compute at the chip's peak + writing the new KV into the
+        local tier. The resident-state write and the host dispatch floor
+        are charged once per prompt (on the final/only chunk):
+        interleaved chunks ride the engine's running step cadence."""
         t_comp = (
             rl.model_flops_decode(self._active_params, n_tokens)
             / self.chip.peak_flops_bf16
         )
         write = (
             self.pager.bytes_per_token * n_tokens
-            + self.pager.resident_bytes
+            + (self.pager.resident_bytes if final else 0.0)
         ) / self.topo.local.bandwidth
-        return max(t_comp, write) + self.ecfg.step_overhead_s
+        return max(t_comp, write) + (
+            self.ecfg.step_overhead_s if final else 0.0)
 
     def _retire(self, slot) -> Request:
         req = self.batcher.release(slot)
@@ -494,8 +663,9 @@ class ServingEngine:
 
     def pump(self, q: RequestQueue) -> str:
         """One engine-loop iteration against `q`: sweep cancellations,
-        admit while slots/admission allow, then one decode step if any
-        slot is live. Returns "decode" | "admit" | "idle"."""
+        admit while slots/admission allow, advance at most one prefill
+        chunk, then one decode step if any slot is live. Returns
+        "decode" | "chunk" | "admit" | "idle"."""
         self.sweep_cancelled()
         admitted = False
         while self.batcher.n_free:
@@ -506,7 +676,10 @@ class ServingEngine:
                 break       # stays queued until pages free up
             self._admit(q.pop(self.virtual_s), self.virtual_s)
             admitted = True
+        chunk_ran = self._prefill_tick()
         if self.batcher.n_active == 0:
+            if chunk_ran:
+                return "chunk"
             return "admit" if admitted else "idle"
         self._max_conc = max(self._max_conc, self.batcher.n_active)
         self._step_decode()
@@ -522,6 +695,8 @@ class ServingEngine:
             "blocks0": self.admission.blocks,
             "gaps0": len(self._decode_gaps),
             "pager0": self.pager.counters(),
+            "prefix0": (self.prefix_cache.counters()
+                        if self.prefix_cache is not None else None),
             "wall0": time.perf_counter(),
         }
 
@@ -545,7 +720,8 @@ class ServingEngine:
                 if nxt <= self.virtual_s:
                     raise RuntimeError(
                         "engine starved: an arrived request cannot be "
-                        "admitted (its prompt exceeds the free pool)")
+                        "admitted (its prompt exceeds the reclaimable "
+                        "pool)")
                 self.advance_to(nxt)
         return self.capture_stats(cap, requests)
 
@@ -589,6 +765,18 @@ class ServingEngine:
             "shared_mapped_pages": (pager1["shared_mapped_pages"]
                                     - pager0["shared_mapped_pages"]),
         }
+        prefix_delta: dict = {}
+        if cap["prefix0"] is not None:
+            prefix0, prefix1 = cap["prefix0"], self.prefix_cache.counters()
+            prefix_delta = {
+                k: prefix1[k] - prefix0[k]
+                for k in ("hits", "misses", "hit_tokens", "hit_pages",
+                          "inserted_pages", "evicted_pages")
+            }
+            n = prefix_delta["hits"] + prefix_delta["misses"]
+            prefix_delta["hit_rate"] = (
+                prefix_delta["hits"] / n if n else 0.0)
+            prefix_delta["cached_pages"] = prefix1["cached_pages"]
         return ServeStats(
             n_requests=len(done),
             tokens=sum(len(r.output) for r in done),
@@ -601,4 +789,5 @@ class ServingEngine:
             pager=pager_delta,
             admission_blocks=self.admission.blocks - cap["blocks0"],
             max_concurrency=self._max_conc,
+            prefix=prefix_delta,
         )

@@ -21,13 +21,13 @@ The pager is the serving stack's single PAGE ALLOCATOR: every valid
 read and write the pool through (the paged decode kernel, the prefill
 insert's page writer). Tables may alias (refcounted pages, `pin`/`unpin`,
 `map_shared`/`remap_shared`, copy-on-write `cow_split`); shared bytes are
-accounted once.
+accounted once. Under free-list pressure the allocator calls back into
+the engine's shared-prefix trie (`prefix_cache`) to reclaim cached pages.
 
 Not ported yet: the prediction-driven page-in of `repro.prefetch`
-(`PagerConfig.prefetch` must stay None; ROADMAP A13), the prefix-cache
-reclaim callback and slot freeze/thaw (ROADMAP A7a and A10). Pool reads
-use the expected-value weighted accounting, all of it assumed layer-ahead
-prefetchable.
+(`PagerConfig.prefetch` must stay None; ROADMAP A13) and slot
+freeze/thaw (ROADMAP A10). Pool reads use the expected-value weighted
+accounting, all of it assumed layer-ahead prefetchable.
 """
 
 from __future__ import annotations
@@ -123,6 +123,10 @@ class KVPager:
         self.pins = 0                 # non-slot refs (trie + guard pins)
         self._free_phys = list(range(self.n_phys))
         self._bt_cache: Optional[np.ndarray] = None
+        # the engine wires a `serving.prefix_cache.PrefixCache` here; the
+        # allocator calls back into it to reclaim trie-only pages when the
+        # free list runs dry (LRU leaf eviction)
+        self.prefix_cache = None
 
         self._steps = 0
         self.total_local_bytes = 0.0
@@ -184,7 +188,11 @@ class KVPager:
     def _take_free(self, k: int) -> List[int]:
         """Pop `k` physical pages off the LIFO free-list tail, in the same
         order the old per-page pop() walked it (determinism: block tables
-        replay identically across runs)."""
+        replay identically across runs). Under free-list pressure the
+        prefix trie gives back LRU cached pages first — trie-only pages
+        are clean read copies, always safe to drop."""
+        if len(self._free_phys) < k and self.prefix_cache is not None:
+            self.prefix_cache.reclaim(self, k - len(self._free_phys))
         if len(self._free_phys) < k:
             raise RuntimeError(
                 f"page pool exhausted: need {k}, "

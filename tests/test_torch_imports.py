@@ -79,8 +79,6 @@ def test_entry_points_default_to_the_card(entry):
 
 @pytest.mark.parametrize("override,item", [
     (dict(paged=False), "A7b"),
-    (dict(prefill_chunk=16), "A7a"),
-    (dict(prefix_cache=True), "A7a"),
     (dict(speculative="ngram"), "A8"),
     (dict(substrate="auto"), "A9"),
     (dict(prefetch="stride"), "A13"),
@@ -90,6 +88,21 @@ def test_options_outside_the_slice_raise(override, item):
     ecfg = dataclasses.replace(EngineConfig(), **override)
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine.build(_cfg(), ecfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [dict(prefill_chunk=16),
+                                      dict(prefix_cache=True)])
+def test_chunked_prefill_and_prefix_cache_build(override):
+    """Chunked prefill and the prefix cache are ported: the engine
+    builds with them and carries the chunk cell or the trie."""
+    ecfg = dataclasses.replace(EngineConfig(prefill_buckets=(32,)),
+                               **override)
+    eng = ServingEngine.build(_cfg(), ecfg, device="cpu")
+    if "prefill_chunk" in override:
+        assert eng.cells.chunk_fn is not None and eng.cells.chunk == 16
+    else:
+        assert eng.prefix_cache is not None
+        assert eng.pager.prefix_cache is eng.prefix_cache
 
 
 def test_unported_archs_raise():
