@@ -14,8 +14,11 @@ Phases (any failure raises and exits non-zero):
                three paged chunked-prefill kernels over chunks of 1, 2 and
                8 pages at chunk starts 0 / one page / deep in one batch,
                with garbage table entries above the frontier, their
-               written pools equal to the plain version's; the device
-               time (torch.profiler, L2 flushed before each call) of each
+               written pools equal to the plain version's; flash_decode
+               over contiguous caches, f32 and bf16, head dims {16, 20,
+               64, 112, 128, 256}, rep {1, 3, 8}, S {64, 256, 260},
+               lengths 1 / S // 2 + 3 / S / S + 1; the device time
+               (torch.profiler, L2 flushed before each call) of each
                kernel, its plain version and a library yardstick.
   4. engine  — SmolLM-360M at published widths (random seeded weights,
                bf16) served by `ServingEngine` on a 16-request chat trace:
@@ -36,11 +39,24 @@ Phases (any failure raises and exits non-zero):
                a profiled int8 run; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
+  6. contiguous — the same model on the contiguous layout (paged=False,
+               flash_decode) over 8 chat prompts of 128 tokens, 32 new
+               tokens each, against the paged fp engine, the naive
+               one-shot loop (`scripts/dev_serve_torch.py`) and its own
+               plain-version run: tokens agree >= 0.5 pairwise, and
+               whether each pair is bit-exact is printed.
+  7. speculative — speculative decoding (k=4) over the same prompts:
+               ngram on fp pools, ngram on int8 per-token pools with
+               prefill_chunk=128 (paged_prefill_flash inside the engine),
+               self-draft on fp (flash_decode on the draft's caches),
+               each against the greedy engine of its pool: verify steps,
+               acceptance, draft calls, launches, tok/s, agreement.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py                 # one card, every phase
     python3 chip_smoke.py --phases device,build,kernels   # no engine
+    python3 chip_smoke.py --phases build,contiguous,speculative
 """
 
 from __future__ import annotations
@@ -55,6 +71,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "scripts"))
 
 # data-sheet peaks of one H100 SXM (the least time a kernel could take is
 # the larger of bytes / HBM rate and operations / peak rate for the type)
@@ -149,9 +166,10 @@ def max_err(torch, out, ref, tol) -> tuple[float, bool]:
 
 # ------------------------------------------------------------- kernels
 def kernel_cases(torch, timer):
-    """Returns the JSON records of the six kernels (timed at the main
+    """Returns the JSON records of the seven kernels (timed at the main
     paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.page_io import ops as pops
 
@@ -358,6 +376,11 @@ def kernel_cases(torch, timer):
                + n_page_reads * 4 + B * 4)                    # table, lens
     ops_c = 4 * D_ * H * n_keys
     t_bytes, t_ops = bytes_c / HBM_BYTES_PER_S, ops_c / PEAK_OPS["bfloat16"]
+    # library yardstick: SDPA over the K/V gathered and dequantized to bf16
+    # beforehand (the gather is excluded from its time), lengths as a mask
+    kd = dref.gather_pages_q8(kp, sz["k_sz"], bt).to(torch.bfloat16)
+    vd = dref.gather_pages_q8(vp, sz["v_sz"], bt).to(torch.bfloat16)
+    lib_c = sdpa_decode_ms(torch, timer, q, kd, vd, lens)
     records.append(dict(
         name="paged_flash_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -369,10 +392,12 @@ def kernel_cases(torch, timer):
                                               impl="reference", **sz)),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,
+        library_ms=lib_c,
         shape=(f"int8/page pool B={B} H={H} KV={KV_} D={D_} page={page_} "
-               f"n_pages={n_pages} lengths={lens.tolist()}"),
+               f"n_pages={n_pages} lengths={lens.tolist()}; library = "
+               "SDPA, gather excluded"),
     ))
+    records.append(flash_decode_cases(torch, timer, randn, report, timed))
     records += prefill_kernel_cases(torch, timer, gen, randn, report,
                                     timed)
     if failures:
@@ -387,6 +412,93 @@ def kernel_cases(torch, timer):
     print(f"  device times from {'torch.profiler' if timer.profiled else 'CUDA events'}, "
           f"L2 flushed before each call")
     return records
+
+
+def sdpa_decode_ms(torch, timer, q, k, v, lengths):
+    """Time of `scaled_dot_product_attention` (with `enable_gqa`) for one
+    query token per row against dense K/V (B, S, KV, D) in q's dtype,
+    the valid lengths as a boolean mask: the library yardstick of the
+    decode kernels, timed only (None on a torch without enable_gqa)."""
+    F = torch.nn.functional
+    S = k.shape[1]
+    qt = q[:, :, None, :]
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=True)
+    except TypeError:
+        return None
+    return timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+
+
+def flash_decode_cases(torch, timer, randn, report, timed):
+    """flash_decode against its plain version over the contiguous cache:
+    f32 and bf16 x head dims {16, 20, 64, 112, 128, 256} x GQA rep
+    {1, 3, 8} x cache extents S {64, 256, 260} (260: the draft caches'
+    max_seq + k, a ragged last key tile), four rows per case with
+    lengths 1, S // 2 + 3, S and S + 1 (parked). Prints one summary line
+    and any failing case; returns the record timed at the contiguous
+    engine's decode shape (B=8, 15/5 heads, D=64, S=256, bf16)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    print("kernel flash_decode (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
+    n_cases, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (16, 20, 64, 112, 128, 256):
+            for rep in (1, 3, 8):
+                for S in (64, 256, 260):
+                    q = randn(4, 2 * rep, D, dtype=dt)
+                    k = randn(4, S, 2, D, dtype=dt)
+                    v = randn(4, S, 2, D, dtype=dt, scale=0.5)
+                    lens = torch.tensor([1, S // 2 + 3, S, S + 1],
+                                        dtype=torch.int32, device="cuda")
+                    out = dops.decode_mha(q, k, v, lens, impl="cuda")
+                    ref = dops.decode_mha(q, k, v, lens, impl="reference")
+                    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+                    err, ok = max_err(torch, out, ref, tol)
+                    n_cases += 1
+                    worst[dt] = max(worst[dt], err)
+                    if not ok:
+                        report("flash_decode", f"S={S} D={D} rep={rep} "
+                               f"{str(dt)[6:]} len={lens.tolist()}", err,
+                               ok, tol)
+    print(f"  flash_decode: {n_cases} cases; max_abs_err f32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+    # main shape: the contiguous engine's decode step (prompts of 128
+    # tokens, 32 new tokens each, cache extent max_seq = 256)
+    B, H, KV, D, S = 8, 15, 5, 64, 256
+    q = randn(B, H, D, dtype=torch.bfloat16)
+    k = randn(B, S, KV, D, dtype=torch.bfloat16)
+    v = randn(B, S, KV, D, dtype=torch.bfloat16, scale=0.5)
+    lens = torch.tensor([129, 133, 137, 141, 145, 150, 155, 160],
+                        dtype=torch.int32, device="cuda")
+    out = dops.decode_mha(q, k, v, lens, impl="cuda")
+    ref = dops.decode_mha(q, k, v, lens, impl="reference")
+    err, ok = max_err(torch, out, ref, BF16_TOL)
+    report("flash_decode", f"main B={B} H={H} KV={KV} D={D} S={S} bf16",
+           err, ok, BF16_TOL)
+    n_keys = int(lens.clamp(max=S).sum())
+    bytes_ = 2 * n_keys * KV * D * 2 + 2 * q.numel() * 2 + B * 4
+    ops_ = 4 * D * H * n_keys
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
+    return dict(
+        name="flash_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:57",
+        max_abs_err=err,
+        **timed(lambda: dops.decode_mha(q, k, v, lens, impl="cuda"),
+                lambda: dops.decode_mha(q, k, v, lens, impl="reference")),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=sdpa_decode_ms(torch, timer, q, k, v, lens),
+        shape=(f"bf16 contiguous B={B} H={H} KV={KV} D={D} S={S} "
+               f"lengths={lens.tolist()}; library = SDPA with a length "
+               "mask"),
+    )
 
 
 def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
@@ -815,6 +927,179 @@ def chunked_phase(torch):
     return out
 
 
+def chat_prompts(cfg, n=8, length=128, gen=32):
+    """The prompts of the contiguous and speculative phases: `n` chat
+    requests of `length` tokens (seed 0), served all at once."""
+    from repro_torch.serving import make_scenario
+
+    reqs = make_scenario("chat", n, cfg.vocab_size, seed=0,
+                         prompt_buckets=(length,), gen_range=(gen, gen))
+    return [r.tokens for r in reqs]
+
+
+def pair_line(name, c) -> str:
+    return (f"{name}: exact={c['exact']} min={c['min']:.3f} "
+            f"mean={c['mean']:.3f} first_divergence={c['first_divergence']}")
+
+
+def contiguous_phase(torch):
+    """SmolLM-360M, bf16, on the contiguous layout (`paged=False`,
+    n_slots=8, max_seq=256, one bucket of 128): 8 prompts of 128 tokens,
+    32 new tokens each, through the contiguous engine (flash_decode), the
+    paged fp engine, the naive one-shot loop and the contiguous engine on
+    the plain versions; every pair agrees >= INT8_TOKEN_AGREEMENT.
+    Returns flash_decode's launches in the contiguous engine run."""
+    import dev_serve_torch as dst
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.serving import INT8_TOKEN_AGREEMENT
+
+    cfg = configs.get("smollm_360m")
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    prompts = chat_prompts(cfg)
+    gen, max_seq = 32, 256
+    print(f"contiguous {cfg.name}: paged=False n_slots=8 max_seq={max_seq} "
+          f"bucket 128; {len(prompts)} chat prompts of 128 tokens, {gen} "
+          "new tokens each")
+
+    def run(label, backend, fn):
+        kernels.force_backend(backend)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_counters()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        finally:
+            kernels.force_backend(None)
+        toks = out[0] if isinstance(out, tuple) else out
+        tok_s = (out[1].summary()["tok_per_s_wall"] if isinstance(out, tuple)
+                 else toks.size / wall)
+        print(f"  {label:26s} tokens={toks.size} wall_s={wall:.3f} "
+              f"tok_per_s_wall={tok_s:.1f} launches={launches} "
+              f"plain_calls={plain}")
+        return toks, launches, plain
+
+    def engine(paged, **kw):
+        return lambda: dst.engine_greedy(
+            cfg, params, prompts, gen, paged=paged, max_seq=max_seq,
+            page_tokens=16, pool_dtype="fp", device="cuda", **kw)[:2]
+
+    contig, launches, plain = run("contiguous engine", None, engine(False))
+    assert launches.get("flash_decode", 0) > 0 and not plain, (launches,
+                                                               plain)
+    assert "paged_flash_decode" not in launches, launches
+    paged, pl, pp = run("paged fp engine", None, engine(True))
+    assert pl.get("paged_flash_decode", 0) > 0 and not pp, (pl, pp)
+    naive, nl, np_ = run("naive loop", None, lambda: dst.naive_greedy(
+        cfg, params, prompts, gen, max_seq=max_seq, device="cuda"))
+    assert nl.get("flash_decode", 0) > 0 and not np_, (nl, np_)
+    ref, rl, _ = run("contiguous engine, plain", "reference", engine(False))
+    assert not rl, rl
+    for name, a, b in (("contiguous vs paged fp", contig, paged),
+                       ("contiguous vs naive loop", contig, naive),
+                       ("paged fp vs naive loop", paged, naive),
+                       ("contiguous kernels vs plain", contig, ref)):
+        c = dst.compare(a, b)
+        print(f"  {pair_line(name, c)} (gate min >= "
+              f"{INT8_TOKEN_AGREEMENT})")
+        assert c["min"] >= INT8_TOKEN_AGREEMENT, (name, c)
+    return {"flash_decode": launches["flash_decode"]}
+
+
+SPEC_KERNELS = ("paged_flash_decode", "paged_prefill_flash", "flash_decode")
+
+
+def speculative_phase(torch):
+    """SmolLM-360M, bf16, speculative decoding (k=4) on the paged engine
+    (n_slots=8, max_seq=256, bucket 128) over the contiguous phase's
+    prompts: ngram on fp pools with bucket prefill, ngram on int8 pools
+    with prefill_chunk=128 (per-token sub-scales: paged_prefill_flash
+    inside the engine), and the self-draft (flash_decode on the draft's
+    contiguous caches) on fp; each against the greedy engine of the same
+    pool, agreement >= INT8_TOKEN_AGREEMENT per request (for int8 the
+    greedy run on the same per-token pool; against the per-page greedy
+    run, the reference's gate on the mean over all tokens). Returns
+    paged_prefill_flash's launches in the int8 run."""
+    import dev_serve_torch as dst
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.serving import INT8_TOKEN_AGREEMENT
+
+    cfg = configs.get("smollm_360m")
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    prompts = chat_prompts(cfg)
+    gen, k = 32, 4
+    print(f"speculative {cfg.name}: k={k} n_slots=8 max_seq=256 bucket "
+          f"128; {len(prompts)} chat prompts of 128 tokens, {gen} new "
+          "tokens each")
+
+    def serve(**kw):
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        toks, stats, eng = dst.engine_greedy(
+            cfg, params, prompts, gen, paged=True, max_seq=256,
+            page_tokens=16, device="cuda", **kw)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        plain = {n: v for n, v in kernels.REFERENCE_CALLS.items() if v}
+        assert not plain, plain
+        return toks, stats, eng, launches
+
+    # greedy baselines: fp; int8 on the engine's default per-page pool;
+    # int8 on the per-token pool speculation selects (the same pool as
+    # the speculative int8 run, so only speculation differs)
+    greedy = {}
+    for pool, gran in (("fp", None), ("int8", None), ("int8", "token")):
+        chunk = 128 if pool == "int8" else None
+        toks, stats, eng, launches = serve(pool_dtype=pool,
+                                           prefill_chunk=chunk,
+                                           sz_granularity=gran)
+        greedy[pool, eng.cells.sz_granularity] = toks
+        print(f"  greedy pool={pool} sz={eng.cells.sz_granularity} "
+              f"prefill_chunk={chunk}: steps={stats.steps} tok_per_s_wall="
+              f"{stats.summary()['tok_per_s_wall']:.1f} launches="
+              f"{ {n: v for n, v in launches.items() if v} }")
+    out = {}
+    for mode, pool, chunk in (("ngram", "fp", None), ("ngram", "int8", 128),
+                              ("draft", "fp", None)):
+        toks, stats, eng, launches = serve(
+            pool_dtype=pool, prefill_chunk=chunk, speculative=mode,
+            speculative_k=k)
+        sp = stats.spec
+        c = dst.compare(toks, greedy[pool, eng.cells.sz_granularity])
+        print(f"  {mode} pool={pool} prefill_chunk={chunk} sz="
+              f"{eng.cells.sz_granularity}: verify_steps="
+              f"{sp['verify_steps']} emitted={sp['emitted']} "
+              f"accept_len_mean={sp['accept_len_mean']:.3f} draft_calls="
+              f"{sp['draft_calls']} tok_per_s_wall="
+              f"{stats.summary()['tok_per_s_wall']:.1f} launches="
+              f"{ {n: launches[n] for n in SPEC_KERNELS} }")
+        print(f"    {pair_line('vs greedy, same pool', c)} (gate min >= "
+              f"{INT8_TOKEN_AGREEMENT})")
+        if pool == "int8":
+            # against the per-page greedy run the quantization grid
+            # differs too; the reference gates this pair on the mean over
+            # all tokens (tests/test_serving.py,
+            # test_engine_speculative_int8_token_scales)
+            cp = dst.compare(toks, greedy["int8", "page"])
+            print(f"    {pair_line('vs greedy, per-page pool', cp)} (gate "
+                  f"mean >= {INT8_TOKEN_AGREEMENT}, the reference's)")
+            assert cp["mean"] >= INT8_TOKEN_AGREEMENT, (mode, pool, cp)
+        assert launches["paged_flash_decode"] > 0, launches
+        if chunk:
+            assert launches["paged_prefill_flash"] > 0, launches
+            out["paged_prefill_flash"] = launches["paged_prefill_flash"]
+        if mode == "draft":
+            assert launches["flash_decode"] > 0 and sp["draft_calls"] > 0
+        assert sp["emitted"] == len(prompts) * (gen - 1), sp
+        assert c["min"] >= INT8_TOKEN_AGREEMENT, (mode, pool, c)
+    return out
+
+
 def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
     """Serve `reqs` under torch.profiler and print where the time goes:
     the device's busy share of the run's wall time (union of device
@@ -842,7 +1127,10 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
             busy_ns += s1 - max(s0, end)
             end = s1
     busy = busy_ns / 1e3 / wall_us
-    groups = {"paged_flash_decode": "paged_decode_kernel",
+    # the two decode kernels share one template body; its row policy
+    # (PagedRows / DenseRows) names which one ran
+    groups = {"paged_flash_decode": "pagedrows",
+              "flash_decode": "denserows",
               "flash_mha": "flash_fwd_kernel",
               "write_pages": "write_pages_kernel",
               "paged_prefill_flash/insert_flash/insert_flash_q8":
@@ -873,7 +1161,8 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
 
 
 # ---------------------------------------------------------------- main
-PHASES = ("device", "build", "kernels", "engine", "chunked")
+PHASES = ("device", "build", "kernels", "engine", "chunked", "contiguous",
+          "speculative")
 
 
 def parse_phases(argv) -> set:
@@ -941,6 +1230,14 @@ def main(argv=None) -> int:
     if "chunked" in phases:
         launches.update(chunked_phase(torch))
         phase_done("chunked")
+    if "contiguous" in phases:
+        launches.update(contiguous_phase(torch))
+        phase_done("contiguous")
+    if "speculative" in phases:
+        # paged_prefill_flash now runs inside the engine: its launches
+        # come from the int8 speculative run, not the chunk cell
+        launches.update(speculative_phase(torch))
+        phase_done("speculative")
     for r in records:
         r["launches"] = launches.get(r["name"])
         r.pop("shape")

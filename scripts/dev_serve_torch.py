@@ -1,0 +1,173 @@
+"""Dev driver for the PyTorch port's serving path (the counterpart of
+`scripts/dev_serve.py`; it imports only `repro_torch`).
+
+Gates, on fp pools:
+
+1. the continuous-batching engine emits, token for token, the greedy
+   stream of the naive one-shot loop (batched `prefill`, then scalar-t
+   `decode_step` on the contiguous caches) in both cache layouts — the
+   paged pool and the per-slot contiguous caches;
+2. the speculative engine (`--speculative ngram` or `draft`, k = 4)
+   emits the plain greedy engine's tokens; the mean acceptance length
+   per verify step is reported.
+
+    PYTHONPATH=src python scripts/dev_serve_torch.py              # on the card
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu # plain versions
+
+It serves the reduced config of each named arch (default smollm_360m) in
+float32. `tests/test_torch_contiguous.py`, `tests/test_torch_speculative.py`
+and `chip_smoke.py` (at published widths) call its functions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.module import cast_params  # noqa: E402
+from repro_torch.runtime import serve as serve_rt  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    EngineConfig,
+    Request,
+    ServingEngine,
+)
+
+B, S, GEN = 2, 8, 6
+PAGE = 4
+
+
+def naive_greedy(cfg, params, prompts, gen: int, *, max_seq: int,
+                 device=None) -> np.ndarray:
+    """The pre-engine serve loop: batched prefill of `prompts` (B, S),
+    then `gen - 1` scalar-t decode steps on the contiguous caches of
+    extent `max_seq`. `params` are the master weights, cast once to
+    cfg.dtype as the engine casts them. Returns (B, gen) tokens."""
+    p = cast_params(params, cfg.dtype)
+    toks = torch.as_tensor(np.asarray(prompts), device=device)
+    n = toks.shape[1]
+    caches, logits = M.prefill(p, {"tokens": toks}, cfg, max_seq=max_seq)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok]
+    for i in range(gen - 1):
+        logits, caches = M.decode_step(p, tok, caches, n + i, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
+def engine_greedy(cfg, params, prompts, gen: int, *, paged: bool,
+                  pool_dtype: str = "fp", max_seq: Optional[int] = None,
+                  draft_params=None, sz_granularity: Optional[str] = None,
+                  device=None, **ecfg_kw):
+    """Serve `prompts` (B, S), all arriving at once, through a
+    `ServingEngine` with B slots and one prompt bucket S, `gen` tokens
+    each. `ecfg_kw` passes further `EngineConfig` fields (page_tokens,
+    prefill_chunk, speculative, ...); `draft_params` replaces the draft
+    proposer's seeded weights; `sz_granularity="token"` gives a greedy
+    engine the per-token int8 pool that speculation selects (the engine
+    builds it only under speculation). Returns ((B, gen) tokens, stats,
+    engine)."""
+    prompts = np.asarray(prompts)
+    n_req, n = prompts.shape
+    kw = dict(n_slots=n_req, max_seq=max_seq or n + gen,
+              prefill_buckets=(n,), page_tokens=PAGE, admission="greedy",
+              paged=paged, pool_dtype=pool_dtype)
+    kw.update(ecfg_kw)
+    ecfg = EngineConfig(**kw)
+    if sz_granularity is None:
+        eng = ServingEngine.build(cfg, ecfg, params=params, device=device)
+    else:
+        cells = serve_rt.make_engine_cells(
+            cfg, n_slots=ecfg.n_slots, max_seq=ecfg.max_seq,
+            buckets=ecfg.prefill_buckets, paged=paged,
+            page_tokens=ecfg.page_tokens,
+            prefill_chunk=ecfg.prefill_chunk or 0, pool_dtype=pool_dtype,
+            sz_granularity=sz_granularity, device=device)
+        eng = ServingEngine(cfg, ecfg, params, cells)
+    if draft_params is not None:
+        eng.cells.draft_params = draft_params
+    reqs = [Request(request_id=i, tokens=prompts[i], max_new_tokens=gen,
+                    arrival=0.0) for i in range(n_req)]
+    stats = eng.run(reqs)
+    return np.stack([np.asarray(r.output) for r in reqs]), stats, eng
+
+
+def compare(a: np.ndarray, b: np.ndarray) -> dict:
+    """Lockstep agreement of two (B, gen) token arrays: the least and
+    mean per-request share of equal positions, whether all are equal and
+    the first position where any request differs (None if none)."""
+    eq = np.asarray(a) == np.asarray(b)
+    rows = eq.mean(axis=1)
+    diverged = np.nonzero(~eq.all(axis=0))[0]
+    return dict(min=float(rows.min()), mean=float(rows.mean()),
+                exact=bool(eq.all()),
+                first_divergence=int(diverged[0]) if diverged.size else None)
+
+
+def speculative_parity(cfg, params, prompts, gen: int, mode: str, *,
+                       pool_dtype: str = "fp", spec_k: int = 4,
+                       draft_params=None, device=None, **ecfg_kw) -> dict:
+    """The paged engine with speculation `mode` against the plain greedy
+    paged engine of the same pool on the same prompts. Returns the
+    comparison (`compare`) plus both runs' tokens and stats and the
+    speculative engine."""
+    base = dict(paged=True, pool_dtype=pool_dtype, device=device,
+                **ecfg_kw)
+    ref, ref_stats, _ = engine_greedy(cfg, params, prompts, gen, **base)
+    got, stats, eng = engine_greedy(
+        cfg, params, prompts, gen, speculative=mode, speculative_k=spec_k,
+        draft_params=draft_params, **base)
+    return dict(compare(got, ref), greedy=ref, tokens=got,
+                greedy_stats=ref_stats, stats=stats, engine=eng)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("archs", nargs="*", default=["smollm_360m"])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--speculative", choices=("ngram", "draft"),
+                    action="append")
+    args = ap.parse_args(argv)
+    failed = []
+    for arch in args.archs:
+        cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        params = M.init_model(cfg, device=args.device, seed=0)
+        rng = np.random.default_rng(4)
+        prompts = rng.integers(0, cfg.vocab_size, (B, S))
+        naive = naive_greedy(cfg, params, prompts, GEN, max_seq=S + GEN,
+                             device=args.device)
+        for paged in (True, False):
+            got, _, _ = engine_greedy(cfg, params, prompts, GEN,
+                                      paged=paged, device=args.device)
+            c = compare(got, naive)
+            print(f"{arch}: engine paged={paged} vs naive loop: {c}")
+            if not c["exact"]:
+                failed.append(f"{arch} paged={paged}")
+        for mode in args.speculative or ("ngram", "draft"):
+            r = speculative_parity(cfg, params, prompts, 12, mode,
+                                   device=args.device)
+            print(f"{arch}: speculative {mode} vs greedy: exact="
+                  f"{r['exact']} accept_len_mean="
+                  f"{r['stats'].spec['accept_len_mean']:.2f} verify_steps="
+                  f"{r['stats'].spec['verify_steps']}")
+            if not r["exact"]:
+                failed.append(f"{arch} speculative={mode}")
+    if failed:
+        print(f"FAILED: {failed}")
+        return 1
+    print("all gates passed")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

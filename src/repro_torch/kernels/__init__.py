@@ -18,7 +18,8 @@ versions on the card to compare against (`chip_smoke.py`).
 Kernels on the serving path: `page_io` (pool insert), `flash_attention`
 (bucket prefill: `flash_mha`; chunked prefill: `paged_prefill_flash`,
 `paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
-`decode_attention` (paged decode over the block table).
+`decode_attention` (paged decode over the block table: `paged_flash_decode`;
+decode over a contiguous cache: `flash_decode`).
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ _FORCED: str | None = None
 # plain version
 LAUNCHES = {"write_pages": 0, "flash_mha": 0, "paged_flash_decode": 0,
             "paged_prefill_flash": 0, "paged_prefill_insert_flash": 0,
-            "paged_prefill_insert_flash_q8": 0}
+            "paged_prefill_insert_flash_q8": 0, "flash_decode": 0}
 REFERENCE_CALLS = {"write_pages": 0, "mha": 0, "paged_decode_mha": 0,
                    "paged_prefill_mha": 0, "paged_prefill_insert_mha": 0,
-                   "paged_prefill_insert_mha_q8": 0}
+                   "paged_prefill_insert_mha_q8": 0, "decode_mha": 0}
 
 
 def force_backend(name: str | None) -> None:

@@ -1,6 +1,7 @@
-"""Public paged decode-attention op (the serving hot loop): a CUDA tensor
-launches the paged flash-decode kernel, a CPU tensor takes the plain
-gather-then-softmax version."""
+"""Public decode-attention ops (the serving hot loop): a CUDA tensor
+launches the flash-decode kernel (contiguous cache) or the paged
+flash-decode kernel (page pool through a block table), a CPU tensor takes
+the plain version."""
 
 from __future__ import annotations
 
@@ -10,6 +11,21 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.decode_attention import ref
+
+
+def decode_mha(q, k, v, length, *, scale: Optional[float] = None,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """q (B,H,D) vs a contiguous cache k/v (B,S,KV,D) with valid
+    `length` (scalar or (B,); values past S read the whole cache)."""
+    lengths = torch.as_tensor(length, dtype=torch.int32,
+                              device=q.device).broadcast_to((q.shape[0],))
+    if kernels.select_impl(q, impl) == "reference":
+        kernels.REFERENCE_CALLS["decode_mha"] += 1
+        return ref.decode_mha(q, k, v, lengths, scale=scale)
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    return da.flash_decode_cuda(q.contiguous(), k, v, lengths.contiguous(),
+                                scale=scale)
 
 
 def clamp_dead_entries(block_tables: torch.Tensor, n_pages: int, page: int,

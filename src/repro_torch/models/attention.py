@@ -1,14 +1,15 @@
-"""GQA self-attention for prefill, chunked prefill and paged decode (port
-of the serving path of `repro.models.attention`).
+"""GQA self-attention for prefill, chunked prefill and decode over the
+contiguous or the paged cache (port of the serving path of
+`repro.models.attention`).
 
 The contraction is delegated to `kernels.flash_attention` (bucket and
-chunked prefill) and `kernels.decode_attention` (paged decode), which
-launch the CUDA kernels on CUDA tensors and the plain versions on CPU
-tensors.
+chunked prefill) and `kernels.decode_attention` (contiguous and paged
+decode), which launch the CUDA kernels on CUDA tensors and the plain
+versions on CPU tensors.
 
-The paged KV pool is updated IN PLACE where the reference's jitted cells
-return new (donated) arrays: every insert below writes into the pool
-tensor it is given and returns that same tensor.
+The KV caches are updated IN PLACE where the reference's jitted cells
+return new (donated) arrays: every insert below writes into the cache or
+pool tensor it is given and returns that same tensor.
 """
 
 from __future__ import annotations
@@ -65,13 +66,48 @@ def self_attention(params, x, cfg: ModelConfig, positions=None,
     return out
 
 
-# ------------------------------------------------------- paged KV cache
+def _cache_insert(cache, new, t):
+    """Write `new` (B, 1, KV, hd) into the contiguous cache (B, S, KV, hd)
+    at position(s) t — a scalar shared by the batch or a (B,) vector of
+    per-slot positions — in place. A position >= S writes nothing
+    (parked slots), as the reference's iota mask does: the row at the
+    clamped position is read back and rewritten unchanged, so no host
+    sync is needed to find the live rows. Returns `cache`."""
+    B, S = cache.shape[0], cache.shape[1]
+    t_vec = _t_vec(t, B, cache.device)
+    pos = t_vec.clamp(max=S - 1)
+    rows = torch.arange(B, device=cache.device)
+    live = (t_vec < S)[:, None, None]
+    cache[rows, pos] = torch.where(live, new[:, 0].to(cache.dtype),
+                                   cache[rows, pos])
+    return cache
+
+
+def decode_self_attention(params, x, cfg: ModelConfig, k_cache, v_cache, t,
+                          rope: bool = True):
+    """Single-token decode against the contiguous caches: insert the new
+    K/V at position(s) t (in place), then attend to the prefix through
+    the decode op with valid lengths t + 1. x (B, 1, d); k/v_cache
+    (B, S_max, KV, hd); t scalar or (B,) — per-slot positions and length
+    masks for the serving engine's slot batch. Returns (out (B, 1, d),
+    (k_cache, v_cache))."""
+    B = x.shape[0]
+    t_vec = _t_vec(t, B, x.device)
+    q, k, v = _qkv(params, x, cfg, t_vec[:, None], rope)
+    _cache_insert(k_cache, k, t_vec)
+    _cache_insert(v_cache, v, t_vec)
+    out = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, t_vec + 1)
+    out = torch.einsum("bhk,hkd->bd", out, params["wo"].to(x.dtype))
+    return out[:, None, :], (k_cache, v_cache)
+
+
 def _t_vec(t, B: int, device) -> torch.Tensor:
     """Per-slot positions (B,) int64 from a scalar or a (B,) vector."""
     return torch.as_tensor(t, device=device).to(torch.int64).broadcast_to(
         (B,))
 
 
+# ------------------------------------------------------- paged KV cache
 def _page_coords(t_vec, block_table, page_tokens: int):
     """Per-slot (physical page, in-range mask, in-page offset) of write
     position(s) `t_vec` through the block table."""

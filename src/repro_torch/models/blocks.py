@@ -164,16 +164,20 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
 def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
                         block_table, page_tokens: int, attn_override=None):
     """One layer, one token per slot (or, via `attn_override`, one prompt
-    chunk), against the paged pool views `c` (updated in place). Returns
-    x. `attn_override(p_attn, h, c) -> (h, c)` swaps the attention
+    chunk), against the cache views `c` (updated in place): the paged
+    pool through `block_table`, or the contiguous per-slot caches when
+    it is None. Returns x. `attn_override(p_attn, h, c) -> (h, c)` swaps the attention
     contraction while the rest of the layer body stays shared, so the
     chunked and the decode streams cannot diverge in a layer change."""
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
     if attn_override is not None:
         h, _ = attn_override(p["attn"], h, c)
-    else:
+    elif block_table is not None:
         h, _ = attn.paged_decode_self_attention(
             p["attn"], h, cfg, c, t, block_table, page_tokens)
+    else:
+        h, _ = attn.decode_self_attention(p["attn"], h, cfg, c["k"], c["v"],
+                                          t)
     x = x + h
     h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     if cfg.d_ff:
@@ -186,11 +190,9 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
 def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
                  page_tokens: int):
     """One decode step through the whole stack, x (B, 1, d), against the
-    paged caches (written in place, layer by layer). The contiguous
-    per-slot layout (`block_table=None`) waits for ROADMAP A7b."""
-    if block_table is None:
-        raise NotImplementedError(
-            "the contiguous cache layout is not ported yet (ROADMAP A7b)")
+    caches (written in place, layer by layer): the paged pool through
+    `block_table`, or the contiguous (nb, B, S, KV, hd) caches when
+    `block_table` is None."""
     descs = pattern(cfg)
     nb = cfg.num_layers // len(descs)
     for i in range(nb):

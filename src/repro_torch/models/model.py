@@ -6,10 +6,11 @@
               block_table, page_tokens)         -> (logits, caches)
   prefill_chunk(params, tokens, caches, chunk_idx, cfg,
                 block_row, page_tokens)         -> (logits, caches)
+  make_decode_caches(cfg, batch, max_seq)       -> contiguous caches
   make_paged_decode_caches(cfg, n_slots, ...)   -> paged caches
 
-Decode and chunked prefill write the paged caches in place (the
-reference donates them to its jitted cells and gets new arrays back).
+Decode and chunked prefill write the caches in place (the reference
+donates them to its jitted cells and gets new arrays back).
 """
 
 from __future__ import annotations
@@ -66,9 +67,10 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int):
 def decode_step(params, token, caches, t, cfg: ModelConfig,
                 block_table=None, page_tokens: int = 0):
     """One decode step. token (B,) int; t a scalar position shared by the
-    batch or a (B,) vector of per-slot positions; `block_table`
-    (B, n_pages) int32 and `caches` the paged physical page pool
-    (`make_paged_decode_caches`), written in place."""
+    batch or a (B,) vector of per-slot positions. With `block_table`
+    (B, n_pages) int32, `caches` is the paged physical page pool
+    (`make_paged_decode_caches`); without, the contiguous caches
+    (`make_decode_caches`, or `prefill`'s). Written in place."""
     x = embed(params["embed"], token[:, None], cfg)
     x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
                                     block_table, page_tokens)
@@ -95,6 +97,13 @@ def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg, params.get("head"))
     return logits[:, 0, :], caches
+
+
+def make_decode_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
+                       device=None) -> dict:
+    """Contiguous per-slot decode caches (nb, batch, max_seq, KV, hd) in
+    cfg.dtype, zeroed."""
+    return blocks.init_caches(cfg, batch, max_seq, device=device)
 
 
 def make_paged_decode_caches(cfg: ModelConfig, n_slots: int, max_seq: int,

@@ -1,20 +1,34 @@
 """Engine cells of the continuous-batching serving engine (port of the
-meshless paged path of `repro.runtime.serve.make_engine_cells`).
+meshless path of `repro.runtime.serve.make_engine_cells`).
 
 The cells are plain functions over tensors: one greedy decode cell over
 the whole slot batch with per-slot positions, one prefill cell per prompt
-bucket, one paged insert cell per bucket, a copy-on-write page copy and,
-with `prefill_chunk` set, a chunked-prefill cell that runs one
-page-aligned prompt chunk through the paged-prefill kernels (the chunk's
-K/V write is fused into the kernel on per-page pools).
-The self-attention KV cache IS a physical page pool (nb, n_slots *
-n_pages, page_tokens, KV, hd) and every cell takes the live
-(n_slots, n_pages) block table from `serving.kv_pager.KVPager`. PyTorch
-runs eagerly, so there is no compile step; the cells write the pool in
-place where the reference's jitted cells donate and return it.
+bucket and one insert cell per bucket. PyTorch runs eagerly, so there is
+no compile step; the cells write the caches in place where the
+reference's jitted cells donate and return them.
 
-Not ported yet: the contiguous layout (`paged=False`, ROADMAP A7b),
-speculative verify/draft cells (A8) and mesh sharding (A16).
+Two cache layouts:
+
+* paged (the default): the self-attention KV cache IS a physical page
+  pool (nb, n_slots * n_pages, page_tokens, KV, hd), and every cell takes
+  the live (n_slots, n_pages) block table from `serving.kv_pager.KVPager`
+  — decode through the paged decode kernel, the insert through the page
+  writer, a copy-on-write page copy and, with `prefill_chunk` set, a
+  chunked-prefill cell that runs one page-aligned prompt chunk through
+  the paged-prefill kernels;
+* contiguous (`paged=False`): per-slot caches (nb, n_slots, max_seq, KV,
+  hd); decode through the flash-decode kernel, the insert a slice copy.
+
+SPECULATIVE DECODING (paged only): `build_decode_verify_paged` scores k
+candidate tokens per slot in ONE paged-decode call by flattening (S, k)
+candidates to S*k decode rows with positions t[s]+j and k-repeated
+block-table rows; the "draft" proposer decodes a draft model against its
+own contiguous scratch caches (`build_decode_draft`), whose seeded
+weights live on the `EngineCells`. int8 pools must use per-token
+sub-scales there (`sz_granularity="token"`), so a slot's k rows land in
+its tail page without a per-page requantize.
+
+Not ported yet: mesh sharding (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.page_io import ops as page_ops
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
+from repro_torch.models.module import cast_params
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -54,6 +69,19 @@ def build_prefill_greedy(cfg: ModelConfig, bucket: int):
     return cell
 
 
+def build_decode_greedy(cfg: ModelConfig):
+    """Greedy decode cell over the CONTIGUOUS caches: one token per slot,
+    the argmax and a per-slot finiteness flag computed on the device
+    (parked slots carry garbage, so the engine masks them)."""
+
+    def cell(params, token, caches, t):
+        logits, caches = M.decode_step(params, token, caches, t, cfg)
+        finite = torch.isfinite(logits).all(dim=-1)
+        return torch.argmax(logits, dim=-1).to(torch.int32), finite, caches
+
+    return cell
+
+
 def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int):
     """Greedy decode cell over the PAGED caches: one token per slot, the
     argmax and a per-slot finiteness flag computed on the device (argmax
@@ -68,6 +96,65 @@ def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int):
         )
         finite = torch.isfinite(logits).all(dim=-1)
         return torch.argmax(logits, dim=-1).to(torch.int32), finite, caches
+
+    return cell
+
+
+def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int):
+    """SPECULATIVE VERIFY cell: score k candidate tokens per slot in ONE
+    paged-decode call. `cand` (S, k) int32 with cand[s, 0] the slot's
+    last emitted (not yet inserted) token and cand[s, 1:] the proposer's
+    drafts; `t` (S,) the position cand[s, 0] will occupy. The (S, k)
+    batch flattens to S*k decode rows: row j of slot s feeds cand[s, j]
+    at position t[s]+j against the slot's own block-table row (repeated
+    k times), so the insert lands all k candidates before attention and
+    row j's length t+j+1 lets it see candidates 0..j. Returns (greedy
+    (S, k) int32, finite (S,), caches), greedy[s, j] being the model's
+    pick for position t[s]+j+1."""
+
+    def cell(params, cand, caches, t, block_table):
+        S = cand.shape[0]
+        tok_flat = cand.reshape(S * k)
+        t_flat = (t[:, None] + torch.arange(k, dtype=t.dtype,
+                                            device=t.device)[None, :]
+                  ).reshape(S * k)
+        bt_flat = torch.repeat_interleave(block_table, k, dim=0)
+        logits, caches = M.decode_step(
+            params, tok_flat, caches, t_flat, cfg,
+            block_table=bt_flat, page_tokens=page_tokens,
+        )
+        finite = torch.isfinite(logits).all(dim=-1).reshape(S, k).all(dim=1)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        return greedy.reshape(S, k), finite, caches
+
+    return cell
+
+
+def build_cache_insert():
+    """Copy a prefilled request's caches (batch 1, seq extent `bucket`)
+    into the CONTIGUOUS slot caches at slot index `slot`, positions
+    [0, bucket), in place."""
+
+    def insert(caches, slot_caches, slot):
+        for pos, c in caches.items():
+            for key, big in c.items():
+                small = slot_caches[pos][key]
+                big[:, int(slot), :small.shape[2]] = small[:, 0].to(big.dtype)
+        return caches
+
+    return insert
+
+
+def build_decode_draft(cfg: ModelConfig):
+    """Draft-model decode cell for the speculative "draft" proposer: one
+    greedy token per slot against the draft's own CONTIGUOUS caches (the
+    draft prefix is short-lived scratch, so it skips the paged pool).
+    The finite flag is dropped: a non-finite draft can only propose
+    tokens the verify cell rejects."""
+
+    def cell(params, token, caches, t):
+        logits, caches = M.decode_step(params, token, caches, t, cfg)
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
 
     return cell
 
@@ -143,50 +230,86 @@ def build_prefill_chunk(cfg: ModelConfig, page_tokens: int):
 
 @dataclasses.dataclass
 class EngineCells:
-    """The cells of the continuous-batching engine (paged layout).
+    """The cells of the continuous-batching engine.
 
-    `decode_fn(params, tok (S,), caches, t (S,), bt) -> (next_tok (S,),
-    finite (S,), caches)`; `prefill_fns[bucket](params, batch) ->
-    (slot_caches, tok (1,))`; `insert_fns[bucket](caches, slot_caches,
-    slot, bt) -> caches`; `copy_fn(caches, src, dst) -> caches`;
-    `chunk_fn(params, tokens (1, C), caches, slot, chunk_idx, bt) ->
-    (tok (1,), caches)` when chunked prefill is on. Caches are written in
-    place."""
+    `decode_fn(params, tok (S,), caches, t (S,)[, bt]) -> (next_tok (S,),
+    finite (S,), caches)` — the block table only on the paged layout;
+    `prefill_fns[bucket](params, batch) -> (slot_caches, tok (1,))`;
+    `insert_fns[bucket](caches, slot_caches, slot[, bt]) -> caches`;
+    paged only: `copy_fn(caches, src, dst) -> caches`, `chunk_fn(params,
+    tokens (1, C), caches, slot, chunk_idx, bt) -> (tok (1,), caches)`
+    when chunked prefill is on, and with speculation `verify_fn(params,
+    cand (S, k), caches, t (S,), bt) -> (greedy (S, k), finite (S,),
+    caches)`; with the draft proposer `draft_fn(params, tok (S,), caches,
+    t (S,)) -> (tok (S,), caches)`. Caches are written in place."""
 
     decode_fn: Any
     prefill_fns: Dict[int, Any]
     insert_fns: Dict[int, Any]
-    copy_fn: Any
     abstract_caches: Any           # the cache tree on the meta device
     n_prefix: int                  # frontend prefix tokens (none ported)
     max_seq_total: int             # cache seq extent incl. n_prefix
     device: torch.device
     paged: bool = True
     page_tokens: int = 0
-    n_pages: int = 0               # logical pages per slot
+    n_pages: int = 0               # logical pages per slot (paged)
     pool_dtype: str = "fp"
     sz_granularity: str = "page"
+    copy_fn: Any = None            # COW page copy (paged)
     chunk_fn: Any = None           # chunked-prefill cell
     chunk: int = 0                 # tokens per prefill chunk
+    verify_fn: Any = None          # speculative verify cell
+    spec_k: int = 0                # candidate tokens per verify call
+    draft_fn: Any = None           # draft-proposer decode cell
+    draft_params: Any = None       # draft weights (seed 0, draft dtype)
+    draft_cfg: Any = None          # draft ModelConfig (sizes its caches)
 
 
 def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                       buckets: Sequence[int], paged: bool = True,
                       page_tokens: int = 16, prefill_chunk: int = 0,
                       pool_dtype: str = "fp", sz_granularity: str = "page",
-                      speculative: str = "off", device=None) -> EngineCells:
+                      speculative: str = "off", spec_k: int = 4,
+                      draft_cfg: ModelConfig | None = None,
+                      device=None) -> EngineCells:
     """Build the engine's cells for `device` (the card by default).
-    `prefill_chunk > 0` (paged, attention-only archs) adds the
-    chunked-prefill cell."""
+    `paged=False` builds the contiguous layout's cells; `prefill_chunk >
+    0` (paged, attention-only archs) adds the chunked-prefill cell;
+    `speculative` ("off" | "ngram" | "draft") adds the k-candidate verify
+    cell and, for "draft", the draft cell and its weights (seed 0, cast
+    to `draft_cfg.dtype`)."""
     blk.check_supported(cfg)
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
-    if prefill_chunk and not paged:
-        raise ValueError("chunked prefill requires the paged layout")
-    if not paged:
-        raise NotImplementedError(
-            "the contiguous cache layout (paged=False) is not ported yet "
-            "(ROADMAP A7b)")
+    if pool_dtype != "fp" and not paged:
+        raise ValueError("pool_dtype applies to the paged layout only")
+    if sz_granularity not in ("page", "token"):
+        raise ValueError(f"unknown sz_granularity {sz_granularity!r}")
+    if sz_granularity == "token" and pool_dtype != "int8":
+        raise ValueError("sz_granularity='token' applies to int8 pools only")
+    if speculative not in ("off", "ngram", "draft"):
+        raise ValueError(f"unknown speculative mode {speculative!r}")
+    if speculative != "off":
+        if not paged:
+            raise ValueError("speculative decoding requires the paged layout")
+        if not chunked_prefill_supported(cfg):
+            raise ValueError(
+                f"{cfg.name}: speculative decoding needs an attention-only "
+                "decoder without frontend/encoder (the verify cell batches "
+                "S*k rows, which SSM/conv state cannot follow)"
+            )
+        if spec_k < 2:
+            raise ValueError("spec_k must be >= 2 (k=1 is plain greedy)")
+        if pool_dtype == "int8" and sz_granularity != "token":
+            raise ValueError(
+                "speculative + int8 pools need sz_granularity='token': the "
+                "per-page requantize round trip would make a slot's k "
+                "candidate rows read-modify-write the same tail page"
+            )
+        if speculative == "draft" and draft_cfg is None:
+            raise ValueError("speculative='draft' needs a draft_cfg")
     if prefill_chunk:
+        if not paged:
+            raise ValueError("chunked prefill requires the paged layout")
         if not chunked_prefill_supported(cfg):
             raise ValueError(
                 f"{cfg.name}: chunked prefill needs an attention-only "
@@ -203,31 +326,41 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                 f"prefill_chunk {prefill_chunk} must divide every prompt "
                 f"bucket (got {bad}): prompts advance whole chunks"
             )
-    if speculative != "off":
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP A8)")
-    if sz_granularity not in ("page", "token"):
-        raise ValueError(f"unknown sz_granularity {sz_granularity!r}")
-    if sz_granularity == "token" and pool_dtype != "int8":
-        raise ValueError("sz_granularity='token' applies to int8 pools only")
     device = resolve_device(device)
     npfx = 0
     max_seq_total = max_seq + npfx
+    prefills = {b: build_prefill_greedy(cfg, b) for b in sorted(set(buckets))}
+    if not paged:
+        return EngineCells(
+            decode_fn=build_decode_greedy(cfg),
+            prefill_fns=prefills,
+            insert_fns={b: build_cache_insert() for b in prefills},
+            abstract_caches=M.make_decode_caches(cfg, n_slots, max_seq_total,
+                                                 device="meta"),
+            n_prefix=npfx,
+            max_seq_total=max_seq_total,
+            device=device,
+            paged=False,
+        )
     n_pages = -(-max_seq_total // page_tokens)
     acaches = M.make_paged_decode_caches(
         cfg, n_slots, max_seq_total, page_tokens, pool_dtype=pool_dtype,
         sz_granularity=sz_granularity, device="meta",
     )
-    prefills, inserts = {}, {}
-    for b in sorted(set(buckets)):
-        prefills[b] = build_prefill_greedy(cfg, b)
-        inserts[b] = build_paged_cache_insert(b + npfx, page_tokens,
-                                              pool_dtype, sz_granularity)
+    inserts = {b: build_paged_cache_insert(b + npfx, page_tokens, pool_dtype,
+                                           sz_granularity)
+               for b in prefills}
+    draft_fn = draft_params = None
+    if speculative == "draft":
+        # seeded like the reference's PRNGKey(0) tree (other numbers, the
+        # same role): one deterministic draft tree per cell set
+        draft_fn = build_decode_draft(draft_cfg)
+        draft_params = cast_params(
+            M.init_model(draft_cfg, device=device, seed=0), draft_cfg.dtype)
     return EngineCells(
         decode_fn=build_decode_greedy_paged(cfg, page_tokens),
         prefill_fns=prefills,
         insert_fns=inserts,
-        copy_fn=build_page_copy(),
         abstract_caches=acaches,
         n_prefix=npfx,
         max_seq_total=max_seq_total,
@@ -236,7 +369,14 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         n_pages=n_pages,
         pool_dtype=pool_dtype,
         sz_granularity=sz_granularity,
+        copy_fn=build_page_copy(),
         chunk_fn=(build_prefill_chunk(cfg, page_tokens) if prefill_chunk
                   else None),
         chunk=prefill_chunk,
+        verify_fn=(build_decode_verify_paged(cfg, page_tokens, spec_k)
+                   if speculative != "off" else None),
+        spec_k=spec_k if speculative != "off" else 0,
+        draft_fn=draft_fn,
+        draft_params=draft_params,
+        draft_cfg=draft_cfg if speculative == "draft" else None,
     )

@@ -1,16 +1,24 @@
-"""Tier-aware continuous-batching serving on the card (port of the main
-path of `repro.serving`).
+"""Tier-aware continuous-batching serving on the card (port of
+`repro.serving`, without the substrate, fleet and faults).
 
-The KV cache is a PHYSICAL page pool end to end: self-attention K/V lives
-as (stack, n_slots * n_pages, page_tokens, heads, head_dim) tensors on the
-device, and every cell — bucket prefill insert, decode — reads and writes
-it through the live (n_slots, n_pages) block table the `KVPager` emits;
-with `prefill_chunk` set, prompts advance one page-aligned chunk at a
-time between decode steps, and `prefix_cache` shares the pages of a
-common prompt prefix across requests (`PrefixCache`).
-The default pool is int8 with one float32 (scale, zero) pair per
-(page, KV head), quantized on insert and dequantized inside the paged
-decode kernel.
+By default the KV cache is a PHYSICAL page pool end to end:
+self-attention K/V lives as (stack, n_slots * n_pages, page_tokens,
+heads, head_dim) tensors on the device, and every cell — bucket prefill
+insert, decode — reads and writes it through the live (n_slots, n_pages)
+block table the `KVPager` emits; with `prefill_chunk` set, prompts advance
+one page-aligned chunk at a time between decode steps, and `prefix_cache`
+shares the pages of a common prompt prefix across requests
+(`PrefixCache`). The default pool is int8 with one float32 (scale, zero)
+pair per (page, KV head), quantized on insert and dequantized inside the
+paged decode kernel. `paged=False` keeps per-slot contiguous caches
+instead, decoded through the flash-decode kernel.
+
+SPECULATIVE DECODING (`EngineConfig.speculative`, `serving/speculative.py`):
+a proposer guesses `speculative_k - 1` draft tokens per slot ("ngram":
+suffix matching over the slot's own history; "draft": a draft model on
+contiguous scratch caches), one paged verify call scores all k
+candidates, and `accept_greedy` commits the longest prefix greedy decode
+would have produced, so the tokens equal greedy's on fp pools.
 """
 
 from repro_torch.serving.batcher import ContinuousBatcher, Slot
@@ -34,6 +42,7 @@ from repro_torch.serving.queue import (
     multi_tenant_stream,
     shared_prefix_stream,
 )
+from repro_torch.serving.speculative import accept_greedy, ngram_propose
 
 __all__ = [
     "AdmissionController",
@@ -51,10 +60,12 @@ __all__ = [
     "ServingEngine",
     "Slot",
     "StepTraffic",
+    "accept_greedy",
     "bursty_stream",
     "chat_stream",
     "long_context_stream",
     "make_scenario",
     "multi_tenant_stream",
+    "ngram_propose",
     "shared_prefix_stream",
 ]

@@ -15,7 +15,9 @@ make_engine_cells`:
             in-flight decode for more than one chunk;
   decode  — one step of the whole slot batch with per-slot positions
             (inactive and prefilling slots are masked by parked write
-            cursors);
+            cursors); with `speculative` set, one verify step that scores
+            k candidate tokens per slot and commits the greedy-matching
+            prefix (`serving.speculative`);
   retire  — completed requests free their slot and their KV pages.
 
 With `prefix_cache` on, a radix trie over page-aligned prompt blocks
@@ -24,19 +26,21 @@ block table, shared and refcounted: the bucket path dedupes after its
 insert (a shared partial tail page splits copy-on-write on its first
 decode write), the chunked path starts at the first divergent chunk.
 
-The KV cache IS a physical page pool: the `KVPager` is the single
-allocator, its `block_table()` is what the decode and insert cells read
-and write through, and its tier tags price every byte. The clock is dual:
+By default the KV cache IS a physical page pool: the `KVPager` is the
+single allocator, its `block_table()` is what the decode and insert cells
+read and write through, and its tier tags price every byte. `paged=False`
+keeps per-slot contiguous caches instead (the pager still prices them). The clock is dual:
 wall time measures what the host and the card actually do; virtual time
 prices each step on the target tier topology (compute from the decode
 roofline at the chip's data-sheet peak, local/pool bytes from the pager).
 
 Ported configuration: `EngineConfig()` means the same main path as in the
 reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
-LoI admission; chunked prefill and the prefix cache are its options —
-except `substrate`, which defaults to "off" here until
-the substrate slice lands (ROADMAP A9). Options outside the slice raise
-`NotImplementedError` naming the ROADMAP item that will port them.
+LoI admission; chunked prefill, the prefix cache, the contiguous layout
+and speculative decoding are its options — except `substrate`, which
+defaults to "off" here until the substrate slice lands (ROADMAP A9).
+Options outside the slice raise `NotImplementedError` naming the ROADMAP
+item that will port them.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.common import hw
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
@@ -62,6 +67,7 @@ from repro_torch.runtime import serve as serve_rt
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_pager import KVPager, PagerConfig
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving import speculative as spec
 from repro_torch.serving.queue import Request, RequestQueue
 
 # Minimum per-request greedy-token agreement an int8 pool must keep vs the
@@ -77,7 +83,7 @@ class EngineConfig:
     prefill_buckets: tuple = (32,)
     # --- paged-KV runtime ---
     paged: bool = True              # cache = physical page pool + block
-    # tables end-to-end (False, the contiguous layout: ROADMAP A7b)
+    # tables end-to-end (False: per-slot contiguous caches, fp only)
     pool_dtype: str = "int8"        # "int8" per-page block quantization
     # (quantize-on-insert, dequantize-in-kernel), "fp" stores cfg.dtype
     # exactly, "bf16" a 2-byte cast
@@ -107,10 +113,14 @@ class EngineConfig:
     knee_excess: float = 0.75
     catalog_arch: Optional[str] = None         # profile_for prior: ROADMAP
     catalog_shape: str = "decode_32k"          # A13 (core.quantify)
-    # --- speculative decoding: ROADMAP A8 ---
-    speculative: str = "off"
-    speculative_k: int = 4
-    draft_arch: Optional[str] = None
+    # --- speculative decoding (serving.speculative) ---
+    speculative: str = "off"        # off | ngram | draft — propose
+    # speculative_k-1 draft tokens per slot and score all k candidates in
+    # ONE paged verify call; bit-identical tokens to greedy on fp pools
+    speculative_k: int = 4          # candidates per verify call (>= 2)
+    draft_arch: Optional[str] = None   # draft model for "draft": None =
+    # self-draft (the target drafts for itself), else the reduced config
+    # of that arch in the target's dtype
     # --- virtual clock ---
     step_overhead_s: float = 5e-6              # host dispatch/launch floor
 
@@ -127,8 +137,6 @@ def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
             "prefix_cache needs paged=True: sharing happens by aliasing "
             "block-table rows onto one physical page")
     todo = [
-        (not ecfg.paged, "paged=False (contiguous layout)", "A7b"),
-        (ecfg.speculative != "off", "speculative decoding", "A8"),
         (ecfg.substrate != "off", f"substrate={ecfg.substrate!r}", "A9"),
         (ecfg.prefetch is not None, "prefetch (prediction-driven page-in)",
          "A13"),
@@ -211,6 +219,10 @@ class ServeStats:
     max_concurrency: int
     prefix: dict = dataclasses.field(default_factory=dict)   # prefix-cache
     # counter deltas for this run (empty when the cache is off)
+    spec: dict = dataclasses.field(default_factory=dict)   # speculative-
+    # decoding deltas: verify_steps / emitted / draft_calls /
+    # accept_len_mean (tokens each slot commits per verify step). Empty
+    # when speculation is off; `tokens` already counts every accepted token
 
     def summary(self) -> Dict[str, float]:
         def pct(a, q):
@@ -234,6 +246,9 @@ class ServeStats:
         if self.prefix:
             out["prefix_hit_rate"] = self.prefix["hit_rate"]
             out["cow_splits"] = self.pager.get("cow_splits", 0)
+        if self.spec:
+            out["accept_len_mean"] = self.spec["accept_len_mean"]
+            out["verify_steps"] = self.spec["verify_steps"]
         return out
 
 
@@ -249,7 +264,8 @@ def _kv_bytes_per_token(acaches) -> float:
         if "k" not in c:
             continue
         k = c["k"]
-        tokens = k.shape[1] * k.shape[2]   # P_phys * page_tokens
+        tokens = k.shape[1] * k.shape[2]   # paged: P_phys * page_tokens;
+        # contiguous: n_slots * max_seq
         for key in _PAGED_KEYS:
             if key in c:
                 total += leaf_bytes(c[key]) / tokens
@@ -268,7 +284,7 @@ def _resident_bytes_per_slot(acaches) -> float:
 
 
 class ServingEngine:
-    """Continuous-batching serve loop over the paged cells."""
+    """Continuous-batching serve loop over fixed-shape cells."""
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params,
                  cells: serve_rt.EngineCells,
@@ -285,11 +301,13 @@ class ServingEngine:
         self.chip = chip or hw.H100
 
         self.npfx = cells.n_prefix
-        # park PAST the pool's page-aligned position space: a parked
-        # position inside the last partial logical page would pass the
-        # page-range guard and scribble into physical page 0 through the
-        # slot's zeroed block-table row
-        park = cells.n_pages * cells.page_tokens
+        # paged mode parks PAST the pool's page-aligned position space: a
+        # parked position inside the last partial logical page would pass
+        # the page-range guard and scribble into physical page 0 through
+        # the slot's zeroed block-table row; contiguous caches drop any
+        # write at or past their extent
+        park = (cells.n_pages * cells.page_tokens if cells.paged
+                else cells.max_seq_total)
         self.batcher = ContinuousBatcher(
             ecfg.n_slots, ecfg.prefill_buckets, park_pos=park,
         )
@@ -340,12 +358,38 @@ class ServingEngine:
             self.topo, ecfg.catalog_arch, ecfg.catalog_shape,
             mode=ecfg.admission, knee_excess=ecfg.knee_excess,
         )
-        self.caches = M.make_paged_decode_caches(
-            cfg, ecfg.n_slots, cells.max_seq_total, cells.page_tokens,
-            pool_dtype=cells.pool_dtype,
-            sz_granularity=cells.sz_granularity, device=self.device,
-        )
+        if cells.paged:
+            self.caches = M.make_paged_decode_caches(
+                cfg, ecfg.n_slots, cells.max_seq_total, cells.page_tokens,
+                pool_dtype=cells.pool_dtype,
+                sz_granularity=cells.sz_granularity, device=self.device,
+            )
+        else:
+            self.caches = M.make_decode_caches(
+                cfg, ecfg.n_slots, cells.max_seq_total, device=self.device)
         self.tokens = np.zeros(ecfg.n_slots, dtype=np.int32)
+        # --- speculative decoding (serving.speculative) ---
+        self.spec_verify_steps = 0     # verify calls (speculative steps)
+        self.spec_slot_steps = 0       # per-slot verify rows (sum active)
+        self.spec_emitted = 0          # tokens committed by verify steps
+        self.spec_draft_calls = 0      # draft-cell invocations
+        self.draft_caches = None
+        self._draft_fed = np.zeros(ecfg.n_slots, dtype=np.int64)
+        self._draft_park = 0
+        self._draft_tok_bytes = 0.0
+        self._draft_params_n = 0
+        if cells.draft_fn is not None:
+            # contiguous scratch caches for the draft model, sized so the
+            # k-1 self-fed proposal positions fit past max_seq_total
+            dseq = cells.max_seq_total + cells.spec_k
+            self.draft_caches = M.make_decode_caches(
+                cells.draft_cfg, ecfg.n_slots, dseq, device=self.device)
+            self._draft_park = dseq
+            total_b = sum(leaf_bytes(leaf)
+                          for c in self.draft_caches.values()
+                          for leaf in c.values())
+            self._draft_tok_bytes = total_b / (ecfg.n_slots * dseq)
+            self._draft_params_n = cells.draft_cfg.active_param_count()
         self._active_params = cfg.active_param_count()
         self.steps = 0
         self.virtual_s = 0.0
@@ -369,13 +413,27 @@ class ServingEngine:
         Without `params`, float32 master weights are drawn from `seed`."""
         check_slice(cfg, ecfg)
         device = resolve_device(device)
+        draft_cfg = None
+        if ecfg.speculative == "draft":
+            if ecfg.draft_arch is None:
+                draft_cfg = cfg      # self-draft: the target drafts for
+                # itself (perfect-proposer ceiling; parity testing)
+            else:
+                draft_cfg = dataclasses.replace(
+                    configs.reduced(ecfg.draft_arch), dtype=cfg.dtype)
+        # int8 pools flip to per-token sub-scales under speculation: the
+        # verify cell's k candidate rows land in one tail page, which the
+        # per-page requantize round trip cannot do collision-free
+        sz_gran = ("token" if ecfg.speculative != "off"
+                   and ecfg.pool_dtype == "int8" else "page")
         cells = serve_rt.make_engine_cells(
             cfg, n_slots=ecfg.n_slots, max_seq=ecfg.max_seq,
             buckets=ecfg.prefill_buckets, paged=ecfg.paged,
             page_tokens=ecfg.page_tokens,
             prefill_chunk=ecfg.prefill_chunk or 0,
-            pool_dtype=ecfg.pool_dtype, speculative=ecfg.speculative,
-            device=device,
+            pool_dtype=ecfg.pool_dtype, sz_granularity=sz_gran,
+            speculative=ecfg.speculative, spec_k=ecfg.speculative_k,
+            draft_cfg=draft_cfg, device=device,
         )
         if params is None:
             params = M.init_model(
@@ -411,12 +469,18 @@ class ServingEngine:
         slot_caches, tok = self.cells.prefill_fns[bucket](self.params, batch)
         start = self.npfx + req.prompt_len
         slot = self.batcher.admit(req, start_pos=start)
-        # the pager allocates BEFORE the insert: the insert cell writes
-        # through the block table, so the slot's pages must be owned
+        # the pager allocates BEFORE the insert: in paged mode the insert
+        # cell writes through the block table, so the slot's pages must be
+        # owned (in contiguous mode the order is irrelevant)
         self.pager.admit(slot.index, start)
-        self.caches = self.cells.insert_fns[bucket](
-            self.caches, slot_caches, slot.index, self._block_table_dev(),
-        )
+        if self.cells.paged:
+            self.caches = self.cells.insert_fns[bucket](
+                self.caches, slot_caches, slot.index,
+                self._block_table_dev(),
+            )
+        else:
+            self.caches = self.cells.insert_fns[bucket](
+                self.caches, slot_caches, slot.index)
         n_matched = 0
         if self.prefix_cache is not None:
             if hit is not None:
@@ -562,6 +626,7 @@ class ServingEngine:
     def _retire(self, slot) -> Request:
         req = self.batcher.release(slot)
         self.pager.release(slot.index)
+        self._draft_fed[slot.index] = 0
         return req
 
     def _block_table_dev(self) -> torch.Tensor:
@@ -581,17 +646,22 @@ class ServingEngine:
         active = self.batcher.active_mask()
         n_active = int(active.sum())
         t_vec = self.batcher.t_vector()
-        # the write-position page must be live AND private BEFORE the
-        # cell runs: the block table it receives is the layout it writes
-        # through (a shared tail page splits here and the copy cell
-        # materializes the private duplicate)
-        for old, new in self.pager.ensure_tail_pages(active):
-            self.caches = self.cells.copy_fn(self.caches, old, new)
-        next_tok, finite, self.caches = self.cells.decode_fn(
-            self.params, torch.tensor(self.tokens, device=self.device),
-            self.caches, torch.tensor(t_vec, device=self.device),
-            self._block_table_dev(),
-        )
+        tok = torch.tensor(self.tokens, device=self.device)
+        t_dev = torch.tensor(t_vec, device=self.device)
+        if self.cells.paged:
+            # the write-position page must be live AND private BEFORE the
+            # cell runs: the block table it receives is the layout it
+            # writes through (a shared tail page splits here and the copy
+            # cell materializes the private duplicate)
+            for old, new in self.pager.ensure_tail_pages(active):
+                self.caches = self.cells.copy_fn(self.caches, old, new)
+            next_tok, finite, self.caches = self.cells.decode_fn(
+                self.params, tok, self.caches, t_dev,
+                self._block_table_dev(),
+            )
+        else:
+            next_tok, finite, self.caches = self.cells.decode_fn(
+                self.params, tok, self.caches, t_dev)
         next_np = next_tok.cpu().numpy()
         if not bool(finite.cpu().numpy()[active].all()):
             raise FloatingPointError(
@@ -639,6 +709,195 @@ class ServingEngine:
                 req.finished = self.virtual_s
                 self._retire(slot)
 
+    # ------------------------------------------------------- speculative
+    def _history(self, slot) -> np.ndarray:
+        """The slot's committed token history: prompt + everything
+        emitted (the last element is the token the next step feeds)."""
+        req = slot.request
+        return np.concatenate([
+            np.asarray(req.tokens, dtype=np.int64),
+            np.asarray(req.output, dtype=np.int64),
+        ])
+
+    def _propose(self, cand: np.ndarray, active: np.ndarray) -> float:
+        """Fill `cand[:, 1:]` with draft tokens for active slots; returns
+        the proposal's virtual-time cost (0 for the host-side n-gram
+        proposer)."""
+        k = self.cells.spec_k
+        if self.ecfg.speculative == "ngram":
+            for slot in self.batcher.slots:
+                if slot.active:
+                    cand[slot.index, 1:] = spec.ngram_propose(
+                        self._history(slot), k - 1)
+            return 0.0
+        return self._propose_draft(cand, active)
+
+    def _propose_draft(self, cand: np.ndarray,
+                       active: np.ndarray) -> float:
+        """Draft-model proposal: catch the draft's contiguous caches up to
+        each active slot's committed history (the refeed overwrites any
+        rejected speculation; garbage past the frontier is masked by the
+        per-slot lengths), then feed the last committed token and
+        self-feed k-2 more times. `_draft_fed[s]` counts committed tokens
+        already in the draft cache."""
+        k = self.cells.spec_k
+        n_slots = self.ecfg.n_slots
+        idxs = np.nonzero(active)[0]
+        hists = {int(i): self._history(self.batcher.slots[i])
+                 for i in idxs}
+        calls = 0
+        park = self._draft_park
+
+        def draft(tok, t):
+            nxt, self.draft_caches = self.cells.draft_fn(
+                self.cells.draft_params,
+                torch.tensor(tok, device=self.device), self.draft_caches,
+                torch.tensor(t, device=self.device))
+            return nxt
+
+        # catch-up: one committed token per call, all slots in parallel,
+        # until every active slot holds all but its last token
+        while True:
+            tok = np.zeros(n_slots, dtype=np.int32)
+            t = np.full(n_slots, park, dtype=np.int32)
+            any_feed = False
+            for i in idxs:
+                h, f = hists[int(i)], int(self._draft_fed[i])
+                if f < len(h) - 1:
+                    tok[i] = h[f]
+                    t[i] = f
+                    self._draft_fed[i] = f + 1
+                    any_feed = True
+            if not any_feed:
+                break
+            draft(tok, t)
+            calls += 1
+        # proposal: feed the last committed token, then self-feed
+        cur = np.zeros(n_slots, dtype=np.int32)
+        t = np.full(n_slots, park, dtype=np.int32)
+        for i in idxs:
+            cur[i] = hists[int(i)][-1]
+            t[i] = len(hists[int(i)]) - 1
+        for j in range(1, k):
+            nxt = draft(cur, t).cpu().numpy()
+            calls += 1
+            for i in idxs:
+                cand[i, j] = nxt[i]
+            cur = np.where(active, nxt, cur).astype(np.int32)
+            t = np.where(active, t + 1, t).astype(np.int32)
+        for i in idxs:
+            # the proposal's first feed (the last committed token) counts
+            # as fed; the self-fed drafts do not — they refeed above if
+            # accepted, and are overwritten in place if not
+            self._draft_fed[i] = len(hists[int(i)])
+        self.spec_draft_calls += calls
+        # virtual cost: the draft runs serially before verify — its flops
+        # plus its contiguous-cache reads from the LOCAL tier (draft
+        # caches are slot-local scratch, never pooled)
+        n_active = int(active.sum())
+        lengths = float(sum(len(hists[int(i)]) for i in idxs))
+        t_comp = calls * (
+            rl.model_flops_decode(self._draft_params_n, n_active)
+            / self.chip.peak_flops_bf16
+        )
+        t_read = (calls * lengths * self._draft_tok_bytes
+                  / self.topo.local.bandwidth)
+        return t_comp + t_read
+
+    def _step_speculative(self) -> None:
+        """One speculative verify step: propose k-1 drafts per slot, score
+        all k candidates in ONE paged verify call, commit the
+        greedy-matching prefix, roll the page accounting back over the
+        rejected tail. Emits 1..k tokens per active slot against one pool
+        sweep, which `KVPager.step(tokens=...)` prices."""
+        k = self.cells.spec_k
+        if self._last_decode_end is not None:
+            self._decode_gaps.append(self.virtual_s - self._last_decode_end)
+        active = self.batcher.active_mask()
+        n_active = int(active.sum())
+        t_vec = self.batcher.t_vector()
+        cand = np.zeros((self.ecfg.n_slots, k), dtype=np.int32)
+        cand[:, 0] = self.tokens
+        t_draft = self._propose(cand, active)
+        # all k candidate rows write KV: their pages must be live and
+        # private BEFORE the verify cell runs (rejected tails roll back
+        # through truncate below)
+        for old, new in self.pager.ensure_tail_pages(active, lookahead=k):
+            self.caches = self.cells.copy_fn(self.caches, old, new)
+        greedy, finite, self.caches = self.cells.verify_fn(
+            self.params, torch.tensor(cand, device=self.device), self.caches,
+            torch.tensor(t_vec, device=self.device), self._block_table_dev(),
+        )
+        greedy_np = greedy.cpu().numpy()
+        if not bool(finite.cpu().numpy()[active].all()):
+            raise FloatingPointError(
+                f"non-finite verify logits at step {self.steps} "
+                f"(active slots: {n_active})"
+            )
+
+        # greedy acceptance per slot, capped by the request's remaining
+        # decode budget (the verify row may overshoot max_new_tokens)
+        counts = np.zeros(self.ecfg.n_slots, dtype=np.int64)
+        emits: Dict[int, List[int]] = {}
+        for slot in self.batcher.slots:
+            if not slot.active:
+                continue
+            i = slot.index
+            _, emit = spec.accept_greedy(cand[i], greedy_np[i])
+            budget = slot.request.max_new_tokens - len(slot.request.output)
+            emit = emit[:max(1, min(len(emit), budget))]
+            counts[i] = len(emit)
+            emits[i] = emit
+
+        traffic = self.pager.step(active, tokens=counts)
+        # ONE pool sweep (the reads in `traffic`) scored k tokens per
+        # slot: compute scales with k, memory does not
+        t_compute = (
+            rl.model_flops_decode(self._active_params, k * n_active)
+            / self.chip.peak_flops_bf16
+        )
+        t_local = traffic.local_bytes / self.topo.local.bandwidth
+        t_staged = traffic.prefetch_pool_bytes / self.topo.pool.bandwidth
+        t_demand = traffic.demand_pool_bytes / self.topo.pool.bandwidth
+        t_pool = t_staged + t_demand
+        dt = float(
+            itf.step_time_vec(t_staged, t_local, t_compute, 0.0)
+        ) + t_demand + self.ecfg.step_overhead_s + t_draft
+        self.virtual_s += dt
+        self._last_decode_end = self.virtual_s
+        self.steps += 1
+        self.spec_verify_steps += 1
+        self.spec_slot_steps += n_active
+        self.spec_emitted += int(counts.sum())
+        self._t_compute_s += t_compute
+        excess_b = (
+            (self.pager.prefetch_issued - self.pager.prefetch_useful)
+            * self.pager.page_bytes
+        )
+        t_excess = max(0.0, excess_b - self._prev_excess_b) \
+            / self.topo.pool.bandwidth
+        self._prev_excess_b = excess_b
+        self.admission.observe(n_active, t_pool, dt, t_excess=t_excess)
+
+        self.batcher.advance(counts)
+        for slot in self.batcher.slots:
+            if not slot.active:
+                continue
+            req = slot.request
+            emit = emits[slot.index]
+            self.tokens[slot.index] = emit[-1]
+            for tok in emit:
+                req.output.append(int(tok))
+                req.token_times.append(self.virtual_s)
+            if req.done:
+                req.finished = self.virtual_s
+                self._retire(slot)     # releases every page incl. lookahead
+            else:
+                # partial acceptance: free the lookahead pages past the
+                # committed frontier so the pool footprint tracks accepted
+                # tokens (the rejected KV is masked and overwritten)
+                self.pager.truncate(slot.index)
+
     # -------------------------------------------------------- tick layer
     def advance_to(self, t: float) -> None:
         """Advance the virtual clock to `t` (idle wait, never backwards);
@@ -682,7 +941,10 @@ class ServingEngine:
                 return "chunk"
             return "admit" if admitted else "idle"
         self._max_conc = max(self._max_conc, self.batcher.n_active)
-        self._step_decode()
+        if self.cells.verify_fn is not None:
+            self._step_speculative()
+        else:
+            self._step_decode()
         return "decode"
 
     def begin_capture(self) -> dict:
@@ -697,6 +959,8 @@ class ServingEngine:
             "pager0": self.pager.counters(),
             "prefix0": (self.prefix_cache.counters()
                         if self.prefix_cache is not None else None),
+            "spec0": (self.spec_verify_steps, self.spec_slot_steps,
+                      self.spec_emitted, self.spec_draft_calls),
             "wall0": time.perf_counter(),
         }
 
@@ -777,6 +1041,20 @@ class ServingEngine:
             prefix_delta["hit_rate"] = (
                 prefix_delta["hits"] / n if n else 0.0)
             prefix_delta["cached_pages"] = prefix1["cached_pages"]
+        spec_delta: dict = {}
+        if self.cells.verify_fn is not None:
+            v0, s0, e0, d0 = cap["spec0"]
+            slot_steps = self.spec_slot_steps - s0
+            emitted = self.spec_emitted - e0
+            spec_delta = {
+                "verify_steps": self.spec_verify_steps - v0,
+                "emitted": emitted,
+                "draft_calls": self.spec_draft_calls - d0,
+                # tokens each slot commits per verify step it takes part
+                # in (1 = no draft ever accepted, k = perfect proposer)
+                "accept_len_mean": (emitted / slot_steps
+                                    if slot_steps else 0.0),
+            }
         return ServeStats(
             n_requests=len(done),
             tokens=sum(len(r.output) for r in done),
@@ -790,4 +1068,5 @@ class ServingEngine:
             admission_blocks=self.admission.blocks - cap["blocks0"],
             max_concurrency=self._max_conc,
             prefix=prefix_delta,
+            spec=spec_delta,
         )

@@ -1,8 +1,9 @@
-"""The port stands alone: every `repro_torch` module imports without JAX
-and without the reference package; entry points run on the card unless
-told otherwise (and raise here, where there is none); options outside the
-ported slice raise `NotImplementedError`; no library attention kernel,
-compiler or Triton is called from the port."""
+"""The port stands alone: every `repro_torch` module, and the port's dev
+driver `scripts/dev_serve_torch.py`, imports without JAX and without the
+reference package; entry points run on the card unless told otherwise
+(and raise here, where there is none); options outside the ported slice
+raise `NotImplementedError`; no library attention kernel, compiler or
+Triton is called from the port."""
 
 import dataclasses
 import os
@@ -20,15 +21,19 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import serve as serve_rt  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+DEV_SERVE = ROOT / "scripts" / "dev_serve_torch.py"
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+spec = importlib.util.spec_from_file_location("dev_serve_torch", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -39,7 +44,8 @@ assert not bad, bad
 
 def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE)],
+                         env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
@@ -49,7 +55,7 @@ def test_port_imports_without_jax_or_reference():
 def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "import triton", "cpp_extension")
-    for path in (SRC / "repro_torch").rglob("*"):
+    for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:
@@ -78,8 +84,6 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(paged=False), "A7b"),
-    (dict(speculative="ngram"), "A8"),
     (dict(substrate="auto"), "A9"),
     (dict(prefetch="stride"), "A13"),
     (dict(catalog_arch="smollm_360m"), "A13"),
@@ -103,6 +107,34 @@ def test_chunked_prefill_and_prefix_cache_build(override):
     else:
         assert eng.prefix_cache is not None
         assert eng.pager.prefix_cache is eng.prefix_cache
+
+
+def test_contiguous_layout_builds():
+    """`paged=False` is ported: the engine builds with contiguous
+    (nb, n_slots, max_seq, KV, hd) caches and parks at max_seq."""
+    ecfg = EngineConfig(prefill_buckets=(32,), paged=False, pool_dtype="fp")
+    eng = ServingEngine.build(_cfg(), ecfg, device="cpu")
+    assert not eng.cells.paged and eng.cells.verify_fn is None
+    k = eng.caches["pos0"]["k"]
+    assert k.shape[1:3] == (ecfg.n_slots, ecfg.max_seq)
+    assert eng.batcher.t_vector()[0] == ecfg.max_seq
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_speculative_decoding_builds(mode):
+    """Speculative decoding is ported: the engine builds the verify cell
+    (and, for the draft proposer, the draft cell, its seeded weights and
+    its contiguous scratch caches of extent max_seq + k), and int8 pools
+    switch to per-token sub-scales."""
+    ecfg = EngineConfig(prefill_buckets=(32,), speculative=mode)
+    eng = ServingEngine.build(_cfg(), ecfg, device="cpu")
+    assert eng.cells.verify_fn is not None and eng.cells.spec_k == 4
+    assert eng.cells.sz_granularity == "token"
+    if mode == "draft":
+        assert eng.cells.draft_cfg == _cfg()
+        assert eng.draft_caches["pos0"]["k"].shape[2] == ecfg.max_seq + 4
+    else:
+        assert eng.cells.draft_fn is None and eng.draft_caches is None
 
 
 def test_unported_archs_raise():
