@@ -17,10 +17,25 @@ Phases (any failure raises and exits non-zero):
                written pools equal to the plain version's; flash_decode
                over contiguous caches, f32 and bf16, head dims {16, 20,
                64, 112, 128, 256}, rep {1, 3, 8}, S {64, 256, 260},
-               lengths 1 / S // 2 + 3 / S / S + 1; the device time
-               (torch.profiler, L2 flushed before each call) of each
-               kernel, its plain version and a library yardstick.
-  4. engine  — SmolLM-360M at published widths (random seeded weights,
+               lengths 1 / S // 2 + 3 / S / S + 1; LBench over nflop
+               {0, 1, 2, 5, 16, 32, 128, 1024} x sizes {1, 129, 4096,
+               2^20 + 3, 2^28} and an unaligned view (rtol = atol = 2e-5
+               up to nflop 128, nflop * 1e-7 above); W8A8 bit for bit
+               over the reference test's shapes, a ragged one,
+               SmolLM-360M's MLP shapes (M 8 and 1024) and zero operands;
+               the device time (torch.profiler, L2 flushed before each
+               call) of each kernel, its plain version and a library
+               yardstick.
+  4. quantify — the analysis path: `scripts/lbench_torch.run()` (paper
+               Fig 11: LBench on the card at 2^28 and 2^16 elements with
+               its modelled LoI, the modelled saturation sweep, and
+               `core.quantify.analyze` IC / injected LoI for every ported
+               arch on one H100), the LBench sweep at 2^28 elements out
+               to nflop 1024 (GB/s, GFLOP/s, the measured ridge against
+               the data sheet's 160, outputs against a float64 chain),
+               and one W8A8 call per SmolLM-360M MLP shape (against the
+               f32 product): both kernels launched, no plain version.
+  5. engine  — SmolLM-360M at published widths (random seeded weights,
                bf16) served by `ServingEngine` on a 16-request chat trace:
                every request finishes, the three bucket-path kernels are
                launched and no plain version runs; then the same trace
@@ -29,7 +44,7 @@ Phases (any failure raises and exits non-zero):
                (lockstep greedy tokens) >= 0.5, on int8 and on fp pools;
                one more int8 run under torch.profiler prints the device's
                busy share and the host's busiest ops.
-  5. chunked — the same model with `prefill_chunk=128` and the prefix
+  6. chunked — the same model with `prefill_chunk=128` and the prefix
                cache on a 16-request shared-prefix trace (prompts 256/512
                behind a 128-token system prompt): int8 runs launch
                paged_prefill_insert_flash_q8, fp runs
@@ -39,13 +54,13 @@ Phases (any failure raises and exits non-zero):
                a profiled int8 run; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
-  6. contiguous — the same model on the contiguous layout (paged=False,
+  7. contiguous — the same model on the contiguous layout (paged=False,
                flash_decode) over 8 chat prompts of 128 tokens, 32 new
                tokens each, against the paged fp engine, the naive
                one-shot loop (`scripts/dev_serve_torch.py`) and its own
                plain-version run: tokens agree >= 0.5 pairwise, and
                whether each pair is bit-exact is printed.
-  7. speculative — speculative decoding (k=4) over the same prompts:
+  8. speculative — speculative decoding (k=4) over the same prompts:
                ngram on fp pools, ngram on int8 per-token pools with
                prefill_chunk=128 (paged_prefill_flash inside the engine),
                self-draft on fp (flash_decode on the draft's caches),
@@ -56,6 +71,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
 
     python3 chip_smoke.py                 # one card, every phase
     python3 chip_smoke.py --phases device,build,kernels   # no engine
+    python3 chip_smoke.py --phases build,kernels,quantify # the LBench probe
     python3 chip_smoke.py --phases build,contiguous,speculative
 """
 
@@ -166,7 +182,7 @@ def max_err(torch, out, ref, tol) -> tuple[float, bool]:
 
 # ------------------------------------------------------------- kernels
 def kernel_cases(torch, timer):
-    """Returns the JSON records of the seven kernels (timed at the main
+    """Returns the JSON records of the nine kernels (timed at the main
     paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
@@ -400,6 +416,8 @@ def kernel_cases(torch, timer):
     records.append(flash_decode_cases(torch, timer, randn, report, timed))
     records += prefill_kernel_cases(torch, timer, gen, randn, report,
                                     timed)
+    records.append(lbench_cases(torch, timer, gen, report, timed))
+    records.append(w8a8_cases(torch, timer, randn, report, timed))
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree: "
                              f"{failures}")
@@ -695,6 +713,264 @@ def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
                    f"page={page}; library = SDPA, gather excluded"),
         ))
     return records
+
+
+def lbench_tol(nflop: int) -> dict:
+    """The kernel's FFMA rounds once per step where the plain version
+    rounds the product and the sum apart: rtol = atol = 2e-5 (the
+    reference's own kernel tolerance) up to nflop 128; longer chains
+    gather about one rounding per step where |x| is near 1, so
+    nflop * 1e-7 from 256 on."""
+    t = 2e-5 if nflop <= 128 else nflop * 1e-7
+    return dict(atol=t, rtol=t)
+
+
+def lbench_close(torch, out, ref, tol) -> tuple[float, float, bool, int]:
+    """(max abs error and max |err| / (1 + |ref|), the tolerance's own
+    measure since atol = rtol, over the elements finite in both; ok;
+    elements finite in one and infinite in the other). nan positions
+    must be equal; an inf compares as +-FLT_MAX, so an element that
+    overflows in one version and lands within the tolerance of FLT_MAX in
+    the other agrees (the fused and unfused chains round apart at the
+    overflow edge), and every other inf must sit at the same position."""
+    big = torch.finfo(torch.float32).max
+    o, r = out.double(), ref.double()
+    on, rn = o.isnan(), r.isnan()
+    if not torch.equal(on, rn):
+        return float("inf"), float("inf"), False, 0
+    fin = o.isfinite() & r.isfinite()
+    err = scaled = 0.0
+    if bool(fin.any()):
+        d = (o - r)[fin].abs()
+        err = float(d.max())
+        scaled = float((d / (1.0 + r[fin].abs())).max())
+    oc = torch.where(on, 0.0, o).clamp(-big, big)
+    rc = torch.where(rn, 0.0, r).clamp(-big, big)
+    ok = bool(((oc - rc).abs() <= tol["atol"] + tol["rtol"] * rc.abs())
+              .all())
+    return err, scaled, ok, int((o.isinf() != r.isinf()).sum())
+
+
+def lbench_cases(torch, timer, gen, report, timed):
+    """LBench against its plain version over nflop {0, 1, 2, 5, 16, 32,
+    128, 1024} x sizes {1, 129, 4096, 2^20 + 3, 2^28}, plus a view one
+    element in (not 16-byte aligned: the scalar path). Prints one line
+    per size and any failing case; returns the record timed at 2^28
+    elements, nflop 2 (library: `torch.addcmul(alpha, x, x)`, one
+    elementwise kernel computing the same x * x + alpha)."""
+    from repro_torch.kernels.lbench import ops as lops
+
+    print("kernel lbench (rtol=atol=2e-5 up to nflop 128, nflop*1e-7 "
+          "above; inf compares as FLT_MAX)")
+    nflops = (0, 1, 2, 5, 16, 32, 128, 1024)
+
+    def case(x, label):
+        worst, edge = [], 0
+        for nflop in nflops:
+            out = lops.lbench(x, nflop, impl="cuda")
+            ref = lops.lbench(x, nflop, impl="reference")
+            tol = lbench_tol(nflop)
+            err, scaled, ok, n_edge = lbench_close(torch, out, ref, tol)
+            worst.append(f"{nflop}:{scaled:.1e}")
+            edge += n_edge
+            if not ok:
+                report("lbench", f"{label} nflop={nflop}", err, ok, tol)
+            del out, ref
+        print(f"  lbench {label}: max |err| / (1 + |ref|) by nflop "
+              f"{' '.join(worst)}; inf vs finite {edge}")
+
+    for n in (1, 129, 4096, 2**20 + 3, 2**28):
+        case(torch.randn(n, generator=gen, device="cuda"), f"n={n}")
+    case(torch.randn(4097, generator=gen, device="cuda")[1:],
+         "n=4096 offset by one element")
+    n, nflop = 2**28, 2
+    x = torch.randn(n, generator=gen, device="cuda")
+    tol = lbench_tol(nflop)
+    err, _, ok, _ = lbench_close(torch, lops.lbench(x, nflop, impl="cuda"),
+                                 lops.lbench(x, nflop, impl="reference"),
+                                 tol)
+    report("lbench", f"main n=2^28 nflop={nflop}", err, ok, tol)
+    t_bytes = lops.bytes_moved(n) / HBM_BYTES_PER_S
+    t_ops = lops.flops(n, nflop) / PEAK_OPS["float32"]
+    alpha = torch.tensor(0.5, device="cuda")
+    return dict(
+        name="lbench", route="cuda",
+        source="src/repro_torch/kernels/csrc/lbench.cu",
+        replaces="src/repro/kernels/lbench/lbench.py:32",
+        max_abs_err=err,
+        **timed(lambda: lops.lbench(x, nflop, impl="cuda"),
+                lambda: lops.lbench(x, nflop, impl="reference")),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=timer(lambda: torch.addcmul(alpha, x, x)),
+        shape=(f"f32 n=2^28 nflop={nflop}; library = torch.addcmul(alpha, "
+               "x, x)"),
+    )
+
+
+def int_mm_ms(torch, timer, a8, b8, sa, sb, out):
+    """Time of `torch._int_mm` plus the scale epilogue (the library
+    yardstick of matmul_w8a8; None where `_int_mm` refuses the shape)
+    and whether it equals the kernel's output bit for bit."""
+    def lib():
+        return torch._int_mm(a8, b8).float() * sa[:, None] * sb[None, :]
+
+    try:
+        same = torch.equal(lib(), out)
+    except RuntimeError as e:
+        print(f"  torch._int_mm refuses {tuple(a8.shape)} @ "
+              f"{tuple(b8.shape)}: {str(e).splitlines()[0]}")
+        return None, None
+    return timer(lib), same
+
+
+def w8a8_cases(torch, timer, randn, report, timed):
+    """matmul_w8a8 against its plain version, bit for bit: the reference
+    test's shapes (128^3, 256x384x256, 130x96x200, 1x128x256), a ragged
+    33x97x203 (byte loads), SmolLM-360M's MLP shapes at published widths
+    (M in {8, 1024}; K x N = 960 x 2560 and 2560 x 960) and all-zero
+    operands. Returns the record timed at M=1024, K=960, N=2560 (library:
+    `torch._int_mm` plus the scale epilogue; bf16 `torch.matmul` printed
+    beside it)."""
+    from repro_torch.kernels.matmul_w8a8 import ops as wops
+
+    print("kernel matmul_w8a8 (exact)")
+    shapes = [(128, 128, 128), (256, 384, 256), (130, 96, 200),
+              (1, 128, 256), (33, 97, 203), (8, 960, 2560),
+              (8, 2560, 960), (1024, 2560, 960), (1024, 960, 2560)]
+    for M, K, N in shapes:
+        a8, sa = wops.quantize_rows(randn(M, K))
+        b8, sb = wops.quantize_rows(randn(K, N, scale=0.5), axis=0)
+        out = wops.matmul_w8a8(a8, b8, sa, sb, impl="cuda")
+        ref = wops.matmul_w8a8(a8, b8, sa, sb, impl="reference")
+        ok = torch.equal(out, ref)
+        report("matmul_w8a8", f"M={M} K={K} N={N}",
+               float((out - ref).abs().max()), ok, dict(atol=0, rtol=0))
+    z8, sz = wops.quantize_rows(torch.zeros(64, 128, device="cuda"))
+    w8, sw = wops.quantize_rows(torch.zeros(128, 64, device="cuda"), axis=0)
+    out = wops.matmul_w8a8(z8, w8, sz, sw, impl="cuda")
+    ok = torch.equal(out, wops.matmul_w8a8(z8, w8, sz, sw,
+                                           impl="reference"))
+    ok = ok and not bool(out.any())
+    report("matmul_w8a8", "zero operands M=64 K=128 N=64", 0.0, ok,
+           dict(atol=0, rtol=0))
+    # a8, sa, b8, sb hold the last shape of the sweep: the main one
+    M, K = a8.shape
+    N = b8.shape[1]
+    out = wops.matmul_w8a8(a8, b8, sa, sb, impl="cuda")
+    lib_ms, same = int_mm_ms(torch, timer, a8, b8, sa, sb, out)
+    af = (a8.float() * sa[:, None]).to(torch.bfloat16)
+    bf = (b8.float() * sb[None, :]).to(torch.bfloat16)
+    bf16_ms = timer(lambda: af @ bf)
+    t_bytes = (M * K + K * N + 4 * (M + N) + 4 * M * N) / HBM_BYTES_PER_S
+    t_ops = 2 * M * N * K / PEAK_OPS["int8"]
+    return dict(
+        name="matmul_w8a8", route="cuda",
+        source="src/repro_torch/kernels/csrc/matmul_w8a8.cu",
+        replaces="src/repro/kernels/matmul_w8a8/matmul_w8a8.py:53",
+        max_abs_err=0.0,
+        **timed(lambda: wops.matmul_w8a8(a8, b8, sa, sb, impl="cuda"),
+                lambda: wops.matmul_w8a8(a8, b8, sa, sb, impl="reference")),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=lib_ms,
+        shape=(f"M={M} K={K} N={N} (SmolLM-360M MLP up/gate); library = "
+               f"torch._int_mm + scale epilogue (bit-equal to the kernel: "
+               f"{same}); bf16 torch.matmul {bf16_ms:.4f} ms"),
+    )
+
+
+# ------------------------------------------------------------- quantify
+def chain_check(np, x, out, nflop: int, alpha: float = 0.5, n: int = 4096):
+    """The first `n` outputs of LBench against the chain computed on the
+    host in float64 (independent of the port's plain version): within
+    `lbench_tol(nflop)` relative to 1 + |chain| where the chain stays below
+    1e37, infinite where it passes 1e39."""
+    xs = x[:n].double().cpu().numpy()
+    o = out[:n].double().cpu().numpy()
+    with np.errstate(over="ignore", invalid="ignore"):
+        b = xs + alpha if nflop % 2 else xs.copy()
+        for _ in range(nflop // 2):
+            b = b * xs + alpha
+    tol = lbench_tol(nflop)["rtol"]
+    fin = np.abs(b) < 1e37
+    err = np.abs(o[fin] - b[fin]) / (1.0 + np.abs(b[fin]))
+    assert err.max(initial=0.0) <= tol, (nflop, float(err.max()))
+    assert not np.isfinite(o[np.abs(b) > 1e39]).any(), nflop
+
+
+def quantify_phase(torch):
+    """The analysis path on the card: the Fig 11 script
+    (`scripts/lbench_torch.py`) at 2^28 elements, the LBench sweep
+    extended past the ridge with measured GB/s, GFLOP/s and ridge, and
+    one W8A8 call per SmolLM-360M MLP shape. Returns the launches of
+    lbench and matmul_w8a8 in this run; no plain version may run."""
+    import numpy as np
+
+    import lbench_torch
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.lbench import ops as lops
+    from repro_torch.kernels.matmul_w8a8 import ops as wops
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    print("quantify: scripts/lbench_torch.run() (paper Fig 11) on the card")
+    rows = lbench_torch.run(device="cuda")
+    left = [r for r in rows if r["panel"] == "left"]
+    assert len(left) == 2 * len(lbench_torch.LEFT_NFLOPS), left
+    assert [r["arch"] for r in rows if r["panel"] == "right"] == \
+        configs.list_archs()
+
+    n = lbench_torch.HBM_ELEMENTS
+    print(f"quantify: LBench sweep at 2^28 elements (CUDA events over 10 "
+          f"calls; bound = max(8n / {HBM_BYTES_PER_S:g} B/s, nflop*n / "
+          f"{PEAK_OPS['float32']:g} flop/s))")
+    a = torch.randn(n, generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    pts = []
+    for nflop in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024):
+        p = lbench_torch.lbench_point(a, nflop)
+        chain_check(np, a, p.pop("out"), nflop)
+        bound_us = max(lops.bytes_moved(n) / HBM_BYTES_PER_S,
+                       lops.flops(n, nflop) / PEAK_OPS["float32"]) * 1e6
+        print(f"  nflop={nflop:5d} us={p['us']:10.1f} "
+              f"GB/s={p['gbps']:8.1f} GFLOP/s={p['gflops']:9.1f} "
+              f"bound_us={bound_us:9.1f} share_of_bound="
+              f"{bound_us / p['us']:.3f}")
+        pts.append(p)
+    bw = max(p["gbps"] for p in pts)
+    fl = max(p["gflops"] for p in pts)
+    ridge = 8.0 * fl / bw
+    print(f"  measured roofs {bw:.1f} GB/s and {fl:.1f} GFLOP/s: ridge at "
+          f"nflop {ridge:.1f} ({ridge / 8:.2f} flop/B) against the data "
+          f"sheet's {8 * PEAK_OPS['float32'] / HBM_BYTES_PER_S:.1f} "
+          f"({PEAK_OPS['float32'] / HBM_BYTES_PER_S:.2f} flop/B)")
+    del a
+
+    print("quantify: W8A8 at SmolLM-360M's MLP shapes (CUDA events over "
+          "10 calls; output against the f32 product of the same operands)")
+    gen = torch.Generator(dev).manual_seed(2)
+    for M in (8, 1024):
+        for K, N in ((960, 2560), (2560, 960)):
+            x = torch.randn(M, K, generator=gen, device=dev)
+            w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+            x8, sx = wops.quantize_rows(x)
+            w8, sw = wops.quantize_rows(w, axis=0)
+            out, us = lbench_torch.timed(
+                lambda: wops.matmul_w8a8(x8, w8, sx, sw), dev)
+            fp = x @ w
+            drift = float((out - fp).abs().max() / fp.abs().max())
+            assert out.shape == (M, N) and drift < 0.05, (M, K, N, drift)
+            print(f"  M={M:5d} K={K} N={N} us={us:8.1f} "
+                  f"TOP/s={2 * M * N * K / us / 1e6:7.2f} "
+                  f"drift_vs_f32={drift:.4f}")
+    launches = dict(kernels.LAUNCHES)
+    plain = dict(kernels.REFERENCE_CALLS)
+    print(f"  launches {launches} plain_calls {plain}")
+    assert launches["lbench"] > 0 and launches["matmul_w8a8"] > 0, launches
+    assert not any(plain.values()), plain
+    return {k: launches[k] for k in ("lbench", "matmul_w8a8")}
 
 
 # -------------------------------------------------------------- engine
@@ -1161,8 +1437,8 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
 
 
 # ---------------------------------------------------------------- main
-PHASES = ("device", "build", "kernels", "engine", "chunked", "contiguous",
-          "speculative")
+PHASES = ("device", "build", "kernels", "quantify", "engine", "chunked",
+          "contiguous", "speculative")
 
 
 def parse_phases(argv) -> set:
@@ -1224,6 +1500,9 @@ def main(argv=None) -> int:
         records = kernel_cases(torch, Timer(torch))
         phase_done("kernels")
     launches = {}
+    if "quantify" in phases:
+        launches.update(quantify_phase(torch))
+        phase_done("quantify")
     if "engine" in phases:
         launches.update(engine_phase(torch))
         phase_done("engine")

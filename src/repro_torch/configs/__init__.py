@@ -14,6 +14,7 @@ import importlib
 from repro_torch.common.config import ModelConfig
 
 ARCH_IDS = [
+    "mistral_nemo_12b",
     "qwen2_5_32b",
     "smollm_360m",
     "granite_3_2b",
@@ -25,7 +26,6 @@ _NOT_PORTED = [
     "kimi_k2_1t_a32b",
     "mamba2_780m",
     "jamba_1_5_large_398b",
-    "mistral_nemo_12b",
     "seamless_m4t_large_v2",
     "paligemma_3b",
 ]

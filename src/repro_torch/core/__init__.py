@@ -1,4 +1,15 @@
-"""The pieces of the paper's three-level analysis that the serving path
-calls: tier topology, access records, placement, the pool-link queueing
-model and the decode flop count. The rest of `repro.core` ports with
-ROADMAP A13."""
+"""The paper's contribution: three-level quantitative memory methodology
+(port of `repro.core`, priced with the H100 data-sheet constants).
+
+  Level 1: core.access    — intrinsic characterization (bandwidth-capacity
+                            scaling curves, arithmetic intensity)
+  Level 2: core.tiers +
+           core.placement — multi-tier capacity/bandwidth/access ratios and
+                            placement policies
+           core.roofline  — multi-tier memory roofline
+  Level 3: core.interference — LoI / IC / sensitivity on the pooled tier
+  core.quantify           — the three levels as one call, `analyze`
+
+Not ported yet: the training access profile (ROADMAP A14) and the
+dry-run roofline over a compiled step (A15).
+"""

@@ -1,4 +1,5 @@
-"""Level 2: placement policies (copy of `repro.core.placement.place`).
+"""Level 2: placement policies and the R_cap <= R_access <= R_bw corridor
+(copy of `repro.core.placement`).
 
 Policies: all_local, first_touch, hotness (hottest into HBM — what the KV
 pager runs), balanced_bw, capacity. The placement quality metric is the
@@ -28,6 +29,14 @@ class Placement:
     pool_traffic: float
     t_memory: float            # predicted memory-phase seconds (per step)
     t_memory_all_local: float  # lower bound if everything were in HBM
+
+    @property
+    def slowdown(self) -> float:
+        return (
+            self.t_memory / self.t_memory_all_local
+            if self.t_memory_all_local
+            else 1.0
+        )
 
     def tier_of(self, name: str) -> str:
         return self.assignment.get(name, "hbm")
@@ -124,3 +133,15 @@ def place(profile: list[TensorAccess], topo: TierTopology, policy: str,
 
     return _finalize(assignment, profile, topo, policy, pool_fraction,
                      per_chip_scale)
+
+
+def corridor_check(p: Placement) -> dict:
+    """The paper's §5 tuning corridor: R_cap <= R_access <= R_bw."""
+    return {
+        "r_cap_pool": p.r_cap_pool,
+        "r_access_pool": p.r_access_pool,
+        "r_bw_pool": p.r_bw_pool,
+        "below_capacity_ref": p.r_access_pool < p.r_cap_pool,
+        "above_bandwidth_ref": p.r_access_pool > p.r_bw_pool,
+        "in_corridor": p.r_cap_pool <= p.r_access_pool <= p.r_bw_pool,
+    }

@@ -1,0 +1,179 @@
+"""The paper's end-to-end quantitative workflow (Fig 4) as one API (port
+of `repro.core.quantify`).
+
+    analyze(arch, shape) ->
+      level1: intrinsic — footprint, per-step traffic, arithmetic
+              intensity, bandwidth-capacity curve
+      level2: multi-tier — placement under a policy/pool_fraction,
+              R_cap/R_access/R_bw corridor check, predicted memory time
+      level3: pooling — sensitivity(LoI) table, interference coefficient
+
+Byte counts come from the analytic access model (`core.access`) over the
+serve state's meta tensors, scaled per card by `n_chips`; compute time
+comes from the 2·N·D model at the chip's bf16 peak. Unlike the reference,
+`analyze` prices with the chip and topology it is given, by default one
+H100 and `h100_topology(chip)`, and never reads dry-run records: those
+are a TPU's compiled steps (the torch dry-run ports with ROADMAP A15).
+Train shapes need the training state (ROADMAP A14). Everything here is
+deterministic and cheap: it is the tool a user would run before
+requesting a deployment configuration, which is the paper's intent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+from repro_torch import configs
+from repro_torch.common import hw
+from repro_torch.common.config import SHAPES
+from repro_torch.core import access as acc
+from repro_torch.core import interference as itf
+from repro_torch.core import placement as plc
+from repro_torch.core import roofline as rl
+from repro_torch.core import tiers as tr
+from repro_torch.runtime import serve as serve_rt
+
+
+@dataclasses.dataclass
+class Analysis:
+    arch: str
+    shape: str
+    level1: dict
+    level2: dict
+    level3: dict
+    placement: plc.Placement
+    profile: itf.InterferenceProfile
+
+
+def _check_serve_shape(shape) -> None:
+    if shape.kind == "train":
+        raise NotImplementedError(
+            f"{shape.name}: the training access profile ports with "
+            "training (ROADMAP A14)")
+
+
+def _profile(cfg, shape) -> list[acc.TensorAccess]:
+    """Serve access profile over the meta state of `shape`."""
+    params = serve_rt.abstract_params(cfg)
+    caches = None
+    if shape.kind == "decode":
+        caches = serve_rt.abstract_caches(
+            cfg, shape.global_batch, shape.seq_len,
+            enc_len=shape.seq_len if cfg.frontend == "audio_stub" else 0,
+        )
+    return acc.serve_profile(params, caches, cfg, shape)
+
+
+def t_compute_for(cfg, shape, n_chips: int,
+                  chip: hw.ChipSpec = hw.H100) -> float:
+    """Seconds of pure compute per step per card: 2·N·D (prefill over
+    every prompt token, decode over one token per sequence) at the chip's
+    bf16 peak."""
+    _check_serve_shape(shape)
+    tokens = shape.tokens if shape.kind == "prefill" else shape.global_batch
+    mf = rl.model_flops_decode(cfg.active_param_count(), tokens)
+    return mf / n_chips / chip.peak_flops_bf16
+
+
+HBM_STATE_BUDGET = 0.6  # fraction of HBM available for resident state
+
+
+def analyze(
+    arch: str,
+    shape_name: str,
+    *,
+    policy: str = "hotness",
+    pool_fraction="auto",
+    chip: hw.ChipSpec = hw.H100,
+    topo: Optional[tr.TierTopology] = None,
+    n_chips: int = 1,
+    use_dryrun: bool = False,
+) -> Analysis:
+    """pool_fraction: float = paper-style emulated R_cap stress test;
+    "auto" = pool-by-necessity (whatever exceeds the per-card HBM budget
+    goes to the pool — the actual adoption scenario). The state is
+    sharded over `n_chips` cards of `chip`, each with `topo` (default
+    `h100_topology(chip)`)."""
+    if use_dryrun:
+        raise NotImplementedError(
+            "dry-run records price a compiled step; the torch dry-run "
+            "ports with ROADMAP A15")
+    cfg = configs.get(arch)
+    shape = SHAPES[shape_name]
+    _check_serve_shape(shape)
+    topo = topo or tr.h100_topology(chip)
+
+    profile = _profile(cfg, shape)
+    # per-card scaling: state is sharded across the cards
+    profile = [
+        dataclasses.replace(a, bytes=max(a.bytes // n_chips, 1))
+        for a in profile
+    ]
+
+    total_bytes = sum(a.bytes for a in profile)
+    if pool_fraction == "auto":
+        budget = HBM_STATE_BUDGET * chip.hbm_bytes
+        pool_fraction = max(0.0, min(0.95, 1.0 - budget / total_bytes))
+        if pool_fraction == 0.0:
+            policy = "all_local"
+    total_traffic = sum(a.traffic for a in profile)
+    t_comp = t_compute_for(cfg, shape, n_chips, chip)
+    flops_per_chip = t_comp * chip.peak_flops_bf16
+    ai = flops_per_chip / max(total_traffic, 1)
+    xs, ys = acc.bandwidth_capacity_curve(profile)
+
+    level1 = {
+        "footprint_bytes_per_chip": total_bytes,
+        "traffic_bytes_per_step_per_chip": total_traffic,
+        "arithmetic_intensity": ai,
+        "bwcap_curve": (xs.tolist(), ys.tolist()),
+        "hot50": float(ys[min(range(len(xs)),
+                              key=lambda i: abs(xs[i] - 0.5))]),
+    }
+
+    topo_e = tr.emulated(pool_fraction, total_bytes, base=topo)
+    placement = plc.place(profile, topo_e, policy, pool_fraction)
+    level2 = {
+        "policy": policy,
+        "pool_fraction": pool_fraction,
+        **plc.corridor_check(placement),
+        "t_memory_s": placement.t_memory,
+        "slowdown_vs_all_hbm": placement.slowdown,
+        "multi_tier_bw": rl.multi_tier_bandwidth(
+            [1 - placement.r_access_pool, placement.r_access_pool],
+            [topo_e.local.bandwidth, topo_e.pool.bandwidth],
+        ),
+    }
+
+    iprof = itf.profile_from_placement(arch, shape_name, placement, t_comp,
+                                       topo_e)
+    level3 = {
+        "sensitivity": {
+            f"loi_{int(100 * l)}": iprof.sensitivity(l)
+            for l in (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
+        },
+        "interference_coefficient": iprof.interference_coefficient(),
+        "injected_loi": iprof.injected_loi(),
+    }
+    return Analysis(arch, shape_name, level1, level2, level3, placement,
+                    iprof)
+
+
+@functools.lru_cache(maxsize=None)
+def _profile_for_cached(arch, shape_name, policy,
+                        pool_fraction) -> itf.InterferenceProfile:
+    return analyze(arch, shape_name, policy=policy,
+                   pool_fraction=pool_fraction).profile
+
+
+def profile_for(arch: str, shape_name: str = "decode_32k", *,
+                policy: str = "hotness",
+                pool_fraction="auto") -> itf.InterferenceProfile:
+    """Submission-time interference profile for a catalog workload on one
+    H100: what the paper's §7.2 SLURM plugin would compute once per
+    (arch, shape) when the job template is registered, cached (arguments
+    canonicalized here so kwarg spelling at call sites cannot split the
+    cache)."""
+    return _profile_for_cached(arch, shape_name, policy, pool_fraction)

@@ -3,7 +3,10 @@
 
 A `TierTopology` describes the per-card memory system: the fast HBM tier
 and the pooled host tier behind the PCIe link (the paper's rack-scale pool
-behind CXL).
+behind CXL). `emulated(pool_fraction, working_set)` mirrors the paper's
+evaluation method: rather than changing hardware, the *available*
+fast-tier capacity is restricted so that the pool holds `pool_fraction`
+of the working set (R_cap^remote = 25/50/75%).
 """
 
 from __future__ import annotations
@@ -65,4 +68,22 @@ def h100_topology(chip: hw.ChipSpec = hw.H100,
         ),
         shared_link_bw=host.pcie_shared_bw,
         chips_per_pool=host.chips_per_host,
+    )
+
+
+def emulated(pool_fraction: float, working_set: float,
+             base: Optional[TierTopology] = None) -> TierTopology:
+    """Paper-style emulation: restrict local capacity so the pool must hold
+    `pool_fraction` of the working set (per card). `base` defaults to
+    `h100_topology()`."""
+    base = base or h100_topology()
+    local_cap = min(base.local.capacity, (1.0 - pool_fraction) * working_set)
+    pool_cap = max(base.pool.capacity, pool_fraction * working_set)
+    return TierTopology(
+        tiers=(
+            dataclasses.replace(base.local, capacity=local_cap),
+            dataclasses.replace(base.pool, capacity=pool_cap),
+        ),
+        shared_link_bw=base.shared_link_bw,
+        chips_per_pool=base.chips_per_pool,
     )

@@ -20,6 +20,11 @@ Kernels on the serving path: `page_io` (pool insert), `flash_attention`
 `paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
 `decode_attention` (paged decode over the block table: `paged_flash_decode`;
 decode over a contiguous cache: `flash_decode`).
+
+Kernels of the analysis path (`core.quantify`, `scripts/lbench_torch.py`):
+`lbench` (the paper's FMA-chain roofline and interference probe) and
+`matmul_w8a8` (int8 x int8 -> int32 matmul with a per-row / per-column
+dequant epilogue).
 """
 
 from __future__ import annotations
@@ -33,10 +38,12 @@ _FORCED: str | None = None
 # plain version
 LAUNCHES = {"write_pages": 0, "flash_mha": 0, "paged_flash_decode": 0,
             "paged_prefill_flash": 0, "paged_prefill_insert_flash": 0,
-            "paged_prefill_insert_flash_q8": 0, "flash_decode": 0}
+            "paged_prefill_insert_flash_q8": 0, "flash_decode": 0,
+            "lbench": 0, "matmul_w8a8": 0}
 REFERENCE_CALLS = {"write_pages": 0, "mha": 0, "paged_decode_mha": 0,
                    "paged_prefill_mha": 0, "paged_prefill_insert_mha": 0,
-                   "paged_prefill_insert_mha_q8": 0, "decode_mha": 0}
+                   "paged_prefill_insert_mha_q8": 0, "decode_mha": 0,
+                   "lbench": 0, "matmul_w8a8": 0}
 
 
 def force_backend(name: str | None) -> None:

@@ -39,10 +39,12 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Seeded float32 master weights with the reference's tree, shapes
     and initializer scales, on the generator's device. Without a
     generator one is made on `device` (the card by default) from
-    `seed`."""
+    `seed`; `device="meta"` gives the tree's shapes and dtypes only."""
     blocks.check_supported(cfg)
     if generator is None:
-        generator = torch.Generator(resolve_device(device)).manual_seed(seed)
+        dev = resolve_device(device)
+        if dev.type != "meta":
+            generator = torch.Generator(dev).manual_seed(seed)
     init = Initializer(generator, torch_dtype(cfg.param_dtype))
     embed_init(init.child("embed"), cfg)
     lm_head_init(init.child("head"), cfg)

@@ -33,10 +33,12 @@ class Initializer:
     shape, as the reference's vmapped init does: "normal" draws
     N(0, 1/fan_in) with fan_in = shape[0], "embedding" N(0, 0.02^2).
     The numbers differ from the reference's `jax.random` draws; the
-    shapes and scales do not."""
+    shapes and scales do not. With no generator the parameters are meta
+    tensors (shapes and dtypes only, nothing allocated), the counterpart
+    of the reference's `shape_mode()`."""
 
-    def __init__(self, generator: torch.Generator, dtype=torch.float32,
-                 lead: tuple = ()):
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype=torch.float32, lead: tuple = ()):
         self._gen = generator
         self._dtype = dtype
         self._lead = tuple(lead)
@@ -45,7 +47,7 @@ class Initializer:
     def param(self, name: str, shape: tuple, init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
         full = self._lead + tuple(shape)
-        dev = self._gen.device
+        dev = torch.device("meta") if self._gen is None else self._gen.device
         if init == "zeros":
             v = torch.zeros(full, dtype=self._dtype, device=dev)
         elif init == "ones":

@@ -47,6 +47,25 @@ from repro_torch.models import model as M
 from repro_torch.models.module import cast_params
 
 
+def abstract_params(cfg: ModelConfig, serve_dtype: bool = True) -> dict:
+    """The parameter tree on the meta device (shapes and dtypes, nothing
+    allocated); serving uses inference dtype (cfg.dtype) weights. Same
+    leaf names, shapes and dtypes as the reference's `abstract_params`
+    (which also returns its logical-axis tree; the port has none)."""
+    params = M.init_model(cfg, device="meta")
+    return cast_params(params, cfg.dtype) if serve_dtype else params
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                    enc_len: int = 0) -> dict:
+    """The contiguous decode caches (batch slots of extent max_seq) on the
+    meta device."""
+    if enc_len:
+        raise NotImplementedError(
+            "encoder caches arrive with the audio arch (ROADMAP A11)")
+    return M.make_decode_caches(cfg, batch, max_seq, device="meta")
+
+
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
     """Chunked prefill needs a pure-attention decoder with no frontend
     prefix and no encoder: an SSM/conv layer's prompt pass is a

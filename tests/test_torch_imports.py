@@ -1,11 +1,13 @@
-"""The port stands alone: every `repro_torch` module, and the port's dev
-driver `scripts/dev_serve_torch.py`, imports without JAX and without the
-reference package; entry points run on the card unless told otherwise
+"""The port stands alone: every `repro_torch` module, the port's dev
+serving script `scripts/dev_serve_torch.py` and its Fig 11 script
+`scripts/lbench_torch.py` import without JAX and without the reference
+package; entry points run on the card unless told otherwise
 (and raise here, where there is none); options outside the ported slice
 raise `NotImplementedError`; no library attention kernel, compiler or
 Triton is called from the port."""
 
 import dataclasses
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -24,6 +26,7 @@ from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 DEV_SERVE = ROOT / "scripts" / "dev_serve_torch.py"
+LBENCH = ROOT / "scripts" / "lbench_torch.py"
 
 _PROBE = """
 import importlib, importlib.util, pkgutil, sys
@@ -32,8 +35,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-spec = importlib.util.spec_from_file_location("dev_serve_torch", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("script", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -44,7 +48,8 @@ assert not bad, bad
 
 def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE)],
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE),
+                          str(LBENCH)],
                          env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -54,8 +59,8 @@ def test_port_imports_without_jax_or_reference():
 
 def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
-              "import triton", "cpp_extension")
-    for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE]:
+              "import triton", "cpp_extension", "_int_mm")
+    for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:
@@ -67,7 +72,15 @@ def _cfg():
                                dtype="float32")
 
 
-@pytest.mark.parametrize("entry", ["engine", "cells", "init", "device"])
+def _lbench_script():
+    spec = importlib.util.spec_from_file_location("lbench_torch", LBENCH)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("entry", ["engine", "cells", "init", "device",
+                                   "lbench"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -79,6 +92,8 @@ def test_entry_points_default_to_the_card(entry):
                                        buckets=(16,))
         elif entry == "init":
             M.init_model(_cfg())
+        elif entry == "lbench":
+            _lbench_script().run(n_elements=128, l2_elements=128)
         else:
             resolve_device()
 

@@ -1,7 +1,8 @@
 """The port's model against the reference model on the same weights
 (carried across by `load_numpy_params`): prefill logits and caches, and one
-paged decode step on fp and int8 pools, for the three dense attention-only
-archs at reduced size in float32.
+paged decode step on fp and int8 pools, for the four dense attention-only
+archs at reduced size in float32; and the meta parameter and cache trees
+of the full configs, leaf for leaf.
 
 Tolerances: prefill and fp decode atol=rtol=1e-4 (float32, products and
 sums in another order through 2 layers); int8 decode logits 1e-3 (the
@@ -21,15 +22,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.common.parallel import ParallelCtx  # noqa: E402
+from repro.common.pytree import named_leaves as jnamed  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.common.pytree import named_leaves as tnamed  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.module import load_numpy_params  # noqa: E402
 from repro_torch.runtime import serve as tserve  # noqa: E402
 
 CTX = ParallelCtx(remat="none")
-ARCHS = ["smollm_360m", "qwen2_5_32b", "granite_3_2b"]
+ARCHS = ["smollm_360m", "qwen2_5_32b", "granite_3_2b",
+         "mistral_nemo_12b"]
 
 
 def _cfgs(arch):
@@ -76,6 +80,28 @@ def test_loader_keeps_tree_and_shapes(arch):
 
     assert flat(tp) == {k: tuple(s) for k, s in jflat.items()}
     assert flat(own) == flat(tp)            # seeded init: same tree
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_abstract_state_of_full_config_matches_reference(arch):
+    """At published widths (mistral-nemo's d_model 5120 against 32 heads
+    x 128 = 4096 is a shape no reduced config has), the meta parameter
+    tree (serve dtype and master dtype) and decode caches carry the
+    reference's leaf names, shapes and dtypes, and allocate nothing."""
+    jc, tc = jconfigs.get(arch), tconfigs.get(arch)
+
+    def leaves(tree):
+        return [(n, tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                for n, v in tree]
+
+    for serve_dtype in (True, False):
+        jp, _ = jserve.abstract_params(jc, serve_dtype)
+        tp = tserve.abstract_params(tc, serve_dtype)
+        assert leaves(tnamed(tp)) == leaves(jnamed(jp))
+        assert all(v.device.type == "meta" for _, v in tnamed(tp))
+    jcache = jserve.abstract_caches(jc, 4, 96)
+    tcache = tserve.abstract_caches(tc, 4, 96)
+    assert leaves(tnamed(tcache)) == leaves(jnamed(jcache))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
