@@ -66,6 +66,21 @@ Phases (any failure raises and exits non-zero):
                self-draft on fp (flash_decode on the draft's caches),
                each against the greedy engine of its pool: verify steps,
                acceptance, draft calls, launches, tok/s, agreement.
+  9. ssm     — mamba2-780m at published widths (seeded random bf16
+               weights) on the engine phase's configuration and chat
+               trace: ssd_scan launches 48 times per admission, no plain
+               version runs, agreement >= 0.5 with the plain-version run
+               in float32 (bf16 printed: the random 48-layer stack turns
+               bf16 rounding into token flips) and prompt-pass logit
+               drifts within bf16's own, a profiled run; the paged int8,
+               paged fp and contiguous
+               engines each equal the naive loop bit for bit on 8 prompts
+               of 128 tokens; a float32 prefill of 64 tokens plus 8 decode
+               steps against a prefill of 72 (last-token logits within
+               2e-3). The kernels phase holds ssd_scan against its plain
+               version: the reference test's shapes, mamba2's widths at
+               B {1, 8} x S {64, 128, 256}, S = 100, G = 2, D = None and
+               an initial state, in float32 and bf16.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -73,6 +88,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases device,build,kernels   # no engine
     python3 chip_smoke.py --phases build,kernels,quantify # the LBench probe
     python3 chip_smoke.py --phases build,contiguous,speculative
+    python3 chip_smoke.py --phases build,kernels,ssm      # the SSM slice
 """
 
 from __future__ import annotations
@@ -182,7 +198,7 @@ def max_err(torch, out, ref, tol) -> tuple[float, bool]:
 
 # ------------------------------------------------------------- kernels
 def kernel_cases(torch, timer):
-    """Returns the JSON records of the nine kernels (timed at the main
+    """Returns the JSON records of the ten kernels (timed at the main
     paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
@@ -418,6 +434,7 @@ def kernel_cases(torch, timer):
                                     timed)
     records.append(lbench_cases(torch, timer, gen, report, timed))
     records.append(w8a8_cases(torch, timer, randn, report, timed))
+    records.append(ssd_cases(torch, timer, gen, report, timed))
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree: "
                              f"{failures}")
@@ -881,6 +898,130 @@ def w8a8_cases(torch, timer, randn, report, timed):
 
 
 # ------------------------------------------------------------- quantify
+SSD_Q = 64          # the CUDA kernel's chunk length (csrc/ssd_scan.cu)
+
+
+def ssd_flops(B, S, H, P, N, Q=SSD_Q) -> int:
+    """Float32 operations of the chunked SSD at chunk length Q, counted
+    for this run's S (the last chunk holds what is left): per (b, h) and
+    chunk of L positions, the causal halves of the C.B^T scores and of
+    the intra-chunk product, L(L+1)/2 (N + P) multiply-adds, plus the
+    inter-chunk term and the state update, 2 L P N multiply-adds."""
+    total = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        total += 2 * (L * (L + 1) // 2 * (N + P) + 2 * L * P * N)
+    return B * H * total
+
+
+def ssd_cases(torch, timer, gen, report, timed):
+    """ssd_scan against its plain version (the chunked form of
+    `kernels/ssd_scan/chunked.py`) on the same inputs, evaluated in
+    float64 (the plain version computes in float64 for float64 inputs),
+    y and the final state: the reference test's four shapes, mamba2-780m's
+    widths (H=48, P=64, G=1, N=128) at B {1, 8} x S {64, 128, 256}, a
+    ragged S = 100, G = 2, D = None and a given initial state, each in
+    float32 and bf16 (x, B, C and y; dt, A, D and the states float32).
+    Tolerance: float32 y and every state atol = rtol = 2e-4 (the
+    reference's own, against its exact scan); bf16 y atol = 2e-2, rtol =
+    8e-3 (rounded once to bf16: one ulp is at most 2^-7 relative). The
+    float32 plain version's own distance from the float64 evaluation and
+    from the kernel are printed too: at N = 128 its float32 cumsum
+    differences lose more than 2e-4. Prints one summary line and any
+    failing case; returns the record timed at the engine's prefill shape
+    (B=1, S=128, bf16, D given, no initial state)."""
+    from repro_torch.kernels.ssd_scan import chunked
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    F = torch.nn.functional
+    f32_tol = dict(atol=2e-4, rtol=2e-4)
+    bf16_tol = dict(atol=2e-2, rtol=8e-3)
+    print("kernel ssd_scan vs the plain version in float64 (f32 "
+          "atol=rtol=2e-4; bf16 y atol=2e-2 rtol=8e-3; states 2e-4)")
+
+    def inputs(B, S, H, P, G, N, dtype, with_D=True, init=False):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        return (rn(B, S, H, P).to(dtype), F.softplus(rn(B, S, H)),
+                -torch.exp(rn(H) * 0.5), rn(B, S, G, N).to(dtype),
+                rn(B, S, G, N).to(dtype), rn(H) if with_D else None,
+                rn(B, H, P, N) * 0.1 if init else None)
+
+    plain_worst = [0.0, 0.0]      # float32 plain vs float64, vs kernel
+
+    def check(args, chunk, label):
+        y, h = sops.ssd(*args, impl="cuda")
+        y64, h64 = chunked.ssd_chunked(
+            *(None if a is None else a.double() for a in args), chunk=chunk)
+        tol = f32_tol if args[0].dtype == torch.float32 else bf16_tol
+        ey, oky = max_err(torch, y, y64.to(y.dtype), tol)
+        eh, okh = max_err(torch, h, h64, f32_tol)
+        if not (oky and okh):
+            report("ssd_scan", f"{label} y", ey, oky, tol)
+            report("ssd_scan", f"{label} state", eh, okh, f32_tol)
+        if args[0].dtype == torch.float32:
+            y32, _ = chunked.ssd_chunked(*args, chunk=chunk)
+            plain_worst[0] = max(plain_worst[0],
+                                 float((y32.double() - y64).abs().max()))
+            plain_worst[1] = max(plain_worst[1],
+                                 float((y32 - y).abs().max()))
+        return ey, eh, oky and okh
+
+    cases = [((2, 256, 4, 16, 1, 32), 64, {}), ((1, 128, 4, 32, 2, 16), 32,
+                                                {}),
+             ((2, 128, 8, 16, 1, 64), 128, {}), ((1, 192, 2, 8, 1, 8), 64,
+                                                 {})]
+    for B in (1, 8):
+        for S in (64, 128, 256):
+            cases.append(((B, S, 48, 64, 1, 128), 128, {}))
+    cases += [((1, 100, 48, 64, 1, 128), 128, {}),
+              ((2, 128, 48, 64, 2, 128), 128, {}),
+              ((2, 128, 48, 64, 1, 128), 128, dict(with_D=False)),
+              ((2, 160, 48, 64, 1, 128), 128, dict(init=True))]
+    n_cases, worst, n_bad = 0, {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, chunk, kw in cases:
+            B, S, H, P, G, N = shape
+            ey, eh, ok = check(inputs(*shape, dtype, **kw), chunk,
+                               f"B={B} S={S} H={H} P={P} G={G} N={N} "
+                               f"{str(dtype)[6:]} {kw or ''}")
+            n_cases += 1
+            n_bad += not ok
+            w = worst.setdefault(str(dtype)[6:], [0.0, 0.0])
+            w[0], w[1] = max(w[0], ey), max(w[1], eh)
+    print(f"  ssd_scan: {n_cases} cases, {n_bad} failing; max_abs_err "
+          + ", ".join(f"{k} y {v[0]:.3e} state {v[1]:.3e}"
+                      for k, v in worst.items())
+          + f"; the float32 plain version's y differs from its float64 "
+          f"evaluation by up to {plain_worst[0]:.3e} and from the kernel "
+          f"by up to {plain_worst[1]:.3e}")
+    B, S, H, P, G, N = 1, 128, 48, 64, 1, 128
+    args = inputs(B, S, H, P, G, N, torch.bfloat16)
+    err, _, ok = check(args, 128, "main")
+    report("ssd_scan", f"main B={B} S={S} H={H} P={P} N={N} bf16", err, ok,
+           bf16_tol)
+    nbytes = (2 * B * S * H * P * 2 + 2 * B * S * G * N * 2
+              + B * S * H * 4 + 2 * H * 4 + B * H * P * N * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ssd_flops(B, S, H, P, N) / PEAK_OPS["float32"]
+    return dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
+        max_abs_err=err,
+        **timed(lambda: sops.ssd(*args, impl="cuda"),
+                lambda: chunked.ssd_chunked(*args)),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None,
+        shape=(f"bf16 B={B} S={S} H={H} P={P} G={G} N={N} "
+               f"({nbytes / 1e6:.2f} MB, "
+               f"{ssd_flops(B, S, H, P, N) / 1e9:.3f} GFLOP at Q={SSD_Q}); "
+               "no single PyTorch call computes the chunked SSD"),
+    )
+
+
 def chain_check(np, x, out, nflop: int, alpha: float = 0.5, n: int = 4096):
     """The first `n` outputs of LBench against the chain computed on the
     host in float64 (independent of the port's plain version): within
@@ -1376,6 +1517,192 @@ def speculative_phase(torch):
     return out
 
 
+def ssm_phase(torch):
+    """mamba2-780m at published widths (48 SSM layers, d 1536, 48 heads of
+    dim 64, state 128; seeded random bf16 weights) served by
+    `ServingEngine` on the engine phase's configuration (paged int8,
+    n_slots=8, max_seq=256, buckets 64/128, 16-token pages) over its
+    16-request chat trace: every request finishes, ssd_scan launches 48
+    times per admission and no plain version runs; the same trace on the
+    plain versions, whose bf16 agreement is printed; in float32 (fp
+    pools) the kernel and plain runs agree per request >=
+    INT8_TOKEN_AGREEMENT; the teacher-forced prompt pass of every request
+    moves the last-token logits, kernels against plain, no further in
+    bf16 than bf16 itself moves them off float32, and within 2e-3 in
+    float32; one more run under torch.profiler. Then 8 chat prompts of
+    128 tokens, 32 new
+    tokens each: the paged int8, paged fp and contiguous engines each
+    emit the naive loop's tokens bit for bit. Last, in float32, a prefill
+    of 64 tokens and 8 decode steps against a prefill of all 72: the
+    last-token logits within 2e-3 (the reference's state-carry gate),
+    which holds the kernel's final state against the decode recurrence.
+    Returns ssd_scan's launches in the int8 engine run."""
+    import dev_serve_torch as dst
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.models.module import cast_params
+    from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
+                                     ServingEngine, make_scenario)
+
+    cfg = configs.get("mamba2_780m")
+    assert cfg.dtype == "bfloat16"
+    base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
+                        page_tokens=16, pool_dtype="int8")
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    print(f"ssm {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"d_inner={cfg.d_inner} heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
+          f"state={cfg.ssm_state} conv={cfg.conv_width} "
+          f"vocab={cfg.vocab_size}, random weights seed 0")
+
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            print(f"  FAIL {what}")
+            failures.append(what)
+
+    def serve(backend, profiled=False, model=None, **over):
+        cfg_, params_ = model or (cfg, params)
+        kernels.force_backend(backend)
+        try:
+            eng = ServingEngine.build(cfg_, dataclasses.replace(base, **over),
+                                      params=params_)
+            reqs = make_scenario("chat", 16, cfg.vocab_size, seed=0,
+                                 prompt_buckets=(64, 128),
+                                 gen_range=(16, 32), arrival_rate=1e5)
+            torch.cuda.synchronize()
+            kernels.reset_counters()
+            if profiled:
+                return profile_run(torch, eng, reqs, "mamba2 int8 run")
+            stats = eng.run(reqs)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        finally:
+            kernels.force_backend(None)
+        assert stats.n_requests == len(reqs)
+        for r in reqs:
+            assert len(r.output) == r.max_new_tokens, r.request_id
+        s = stats.summary()
+        print(f"  {cfg_.dtype} pool={eng.cells.pool_dtype:4s} backend="
+              f"{backend or 'kernels':9s} requests={s['n_requests']} "
+              f"tokens={s['tokens']} steps={s['steps']} "
+              f"wall_s={stats.wall_s:.3f} "
+              f"tok_per_s_wall={s['tok_per_s_wall']:.1f} "
+              f"max_concurrency={s['max_concurrency']} resident_MB_per_slot="
+              f"{eng.pager.resident_bytes / 1e6:.1f} launches={launches} "
+              f"plain_calls={plain}")
+        return reqs, launches, plain
+
+    kreqs, launches, plain = serve(None)
+    want = cfg.num_layers * len(kreqs)
+    print(f"  ssd_scan launches {launches.get('ssd_scan', 0)} == "
+          f"{cfg.num_layers} layers x {len(kreqs)} admissions = {want}")
+    assert launches.get("ssd_scan", 0) == want, launches
+    assert not plain, plain
+    rreqs, rlaunch, rplain = serve("reference")
+    assert not rlaunch and rplain.get("ssd", 0) == want, (rlaunch, rplain)
+    agree = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
+    print(f"  bf16: per-request token agreement kernels vs plain: min="
+          f"{min(agree):.3f} mean={sum(agree) / len(agree):.3f} (not gated: "
+          "see the prompt-pass drifts below)")
+    # (c) the gate runs in float32: the random-weight 48-layer stack
+    # amplifies bf16 rounding (one bf16 ulp in some elements of a layer's
+    # y) into logit drifts that flip near-tied greedy tokens, for any two
+    # float32 summation orders alike, so bf16 lockstep agreement measures
+    # the model's chaos, not the kernel
+    m32 = (dataclasses.replace(cfg, dtype="float32"),
+           cast_params(params, "float32"))
+    k32, _, _ = serve(None, model=m32, pool_dtype="fp")
+    r32, _, _ = serve("reference", model=m32, pool_dtype="fp")
+    a32 = [agreement(a.output, b.output) for a, b in zip(k32, r32)]
+    print(f"  float32, fp pools: per-request token agreement kernels vs "
+          f"plain: min={min(a32):.3f} mean={sum(a32) / len(a32):.3f} (gate "
+          f">= {INT8_TOKEN_AGREEMENT})")
+    gate(min(a32) >= INT8_TOKEN_AGREEMENT,
+         f"float32 kernels vs plain agreement {a32}")
+    # teacher-forced prompt pass of every request: last-token logits of
+    # the kernel and plain runs in bf16 and float32; the kernel may move
+    # bf16 logits no further than bf16 itself moves them off float32
+    p16 = cast_params(params, cfg.dtype)
+    runs = {}
+    for dt_name, (c_, p_) in (("bf16", (cfg, p16)), ("f32", m32)):
+        for backend in (None, "reference"):
+            kernels.force_backend(backend)
+            try:
+                runs[dt_name, backend] = torch.stack([
+                    M.prefill(p_, {"tokens": torch.as_tensor(
+                        r.tokens[None, :], device="cuda")}, c_,
+                        max_seq=r.prompt_len)[1][0].float() for r in kreqs])
+            finally:
+                kernels.force_backend(None)
+
+    def drift(a, b):
+        return float((runs[a] - runs[b]).abs().max())
+
+    d_kernel16 = drift(("bf16", None), ("bf16", "reference"))
+    d_dtype = drift(("bf16", "reference"), ("f32", "reference"))
+    d_kernel32 = drift(("f32", None), ("f32", "reference"))
+    flips = int((runs["bf16", None].argmax(-1)
+                 != runs["bf16", "reference"].argmax(-1)).sum())
+    print(f"  prompt pass, last-token logits max_abs_err over {len(kreqs)} "
+          f"prompts (max |logit| "
+          f"{float(runs['f32', 'reference'].abs().max()):.3f}): kernels vs "
+          f"plain in bf16 {d_kernel16:.4f} ({flips} first tokens differ), "
+          f"plain bf16 vs plain float32 {d_dtype:.4f}, kernels vs plain in "
+          f"float32 {d_kernel32:.3e} (gates: bf16 drift <= the dtype's; "
+          "float32 <= 2e-3)")
+    gate(d_kernel16 <= d_dtype, f"bf16 kernel drift {d_kernel16} > bf16 "
+         f"dtype drift {d_dtype}")
+    gate(d_kernel32 <= 2e-3, f"float32 kernel drift {d_kernel32}")
+    serve(None, profiled=True)
+
+    # (b) engine == naive loop, bit for bit, in each layout and pool
+    prompts = chat_prompts(cfg)
+    gen, max_seq = 32, 256
+    t0 = time.perf_counter()
+    naive = dst.naive_greedy(cfg, params, prompts, gen, max_seq=max_seq,
+                             device="cuda")
+    torch.cuda.synchronize()
+    print(f"  naive loop: {len(prompts)} prompts of 128 tokens, {gen} new "
+          f"tokens each, {naive.size / (time.perf_counter() - t0):.1f} "
+          "tok/s wall")
+    for label, kw in (("paged int8", dict(paged=True, pool_dtype="int8")),
+                      ("paged fp", dict(paged=True, pool_dtype="fp")),
+                      ("contiguous", dict(paged=False, pool_dtype="fp"))):
+        kernels.reset_counters()
+        toks, stats, _ = dst.engine_greedy(
+            cfg, params, prompts, gen, max_seq=max_seq, page_tokens=16,
+            device="cuda", **kw)
+        c = dst.compare(toks, naive)
+        print(f"  {pair_line(label + ' engine vs naive loop', c)} "
+              f"tok_per_s_wall={stats.summary()['tok_per_s_wall']:.1f} "
+              f"ssd_scan={kernels.LAUNCHES['ssd_scan']} (gate: exact)")
+        assert kernels.LAUNCHES["ssd_scan"] == cfg.num_layers * len(prompts)
+        gate(c["exact"], f"{label} engine vs naive loop {c}")
+
+    # (d) the kernel's final state against the decode recurrence, float32
+    cfg32, p32 = m32
+    toks = torch.stack([torch.as_tensor(p[:72]) for p in prompts[:2]]).to(
+        "cuda")
+    kernels.reset_counters()
+    caches, _ = M.prefill(p32, {"tokens": toks[:, :64]}, cfg32, max_seq=72)
+    for t in range(64, 72):
+        logits, caches = M.decode_step(p32, toks[:, t], caches, t, cfg32)
+    _, full = M.prefill(p32, {"tokens": toks}, cfg32, max_seq=72)
+    torch.cuda.synchronize()
+    err = float((logits - full).abs().max())
+    print(f"  continuation f32: prefill 64 + 8 decode steps vs prefill 72: "
+          f"last-token logits max_abs_err {err:.3e} (max |logit| "
+          f"{float(full.abs().max()):.3f}; gate 2e-3); ssd_scan "
+          f"launches {kernels.LAUNCHES['ssd_scan']}")
+    assert kernels.LAUNCHES["ssd_scan"] == 2 * cfg.num_layers
+    gate(err <= 2e-3, f"continuation max_abs_err {err}")
+    if failures:
+        raise AssertionError(f"ssm phase: {failures}")
+    return {"ssd_scan": launches["ssd_scan"]}
+
+
 def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
     """Serve `reqs` under torch.profiler and print where the time goes:
     the device's busy share of the run's wall time (union of device
@@ -1410,7 +1737,8 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
               "flash_mha": "flash_fwd_kernel",
               "write_pages": "write_pages_kernel",
               "paged_prefill_flash/insert_flash/insert_flash_q8":
-              "paged_prefill_kernel"}
+              "paged_prefill_kernel",
+              "ssd_scan": "ssd_fwd_kernel"}
     by_group: dict = {}
     for s0, s1, name in kern:
         g = next((k for k, v in groups.items() if v in name), None)
@@ -1438,7 +1766,7 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
 
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "chunked",
-          "contiguous", "speculative")
+          "contiguous", "speculative", "ssm")
 
 
 def parse_phases(argv) -> set:
@@ -1517,6 +1845,9 @@ def main(argv=None) -> int:
         # come from the int8 speculative run, not the chunk cell
         launches.update(speculative_phase(torch))
         phase_done("speculative")
+    if "ssm" in phases:
+        launches.update(ssm_phase(torch))
+        phase_done("ssm")
     for r in records:
         r["launches"] = launches.get(r["name"])
         r.pop("shape")

@@ -9,14 +9,18 @@ Gates, on fp pools:
    paged pool and the per-slot contiguous caches;
 2. the speculative engine (`--speculative ngram` or `draft`, k = 4)
    emits the plain greedy engine's tokens; the mean acceptance length
-   per verify step is reported.
+   per verify step is reported. Attention-only archs only, as in the
+   reference: an SSM arch (mamba2_780m) runs gate 1 alone.
 
     PYTHONPATH=src python scripts/dev_serve_torch.py              # on the card
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu # plain versions
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
+        --arch mamba2_780m                                        # the SSM arch
 
-It serves the reduced config of each named arch (default smollm_360m) in
-float32. `tests/test_torch_contiguous.py`, `tests/test_torch_speculative.py`
-and `chip_smoke.py` (at published widths) call its functions.
+It serves the reduced config of each `--arch` (repeatable, default
+smollm_360m) in float32. `tests/test_torch_contiguous.py`,
+`tests/test_torch_speculative.py`, `tests/test_torch_ssm.py` and
+`chip_smoke.py` (at published widths) call its functions.
 """
 
 from __future__ import annotations
@@ -133,13 +137,15 @@ def speculative_parity(cfg, params, prompts, gen: int, mode: str, *,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("archs", nargs="*", default=["smollm_360m"])
+    ap.add_argument("--arch", action="append", choices=configs.list_archs(),
+                    help="arch to serve at reduced size (repeatable; "
+                    "default smollm_360m)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--speculative", choices=("ngram", "draft"),
                     action="append")
     args = ap.parse_args(argv)
     failed = []
-    for arch in args.archs:
+    for arch in args.arch or ["smollm_360m"]:
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
         params = M.init_model(cfg, device=args.device, seed=0)
         rng = np.random.default_rng(4)
@@ -153,6 +159,8 @@ def main(argv=None) -> int:
             print(f"{arch}: engine paged={paged} vs naive loop: {c}")
             if not c["exact"]:
                 failed.append(f"{arch} paged={paged}")
+        if not serve_rt.chunked_prefill_supported(cfg):
+            continue        # speculation needs an attention-only stack
         for mode in args.speculative or ("ngram", "draft"):
             r = speculative_parity(cfg, params, prompts, 12, mode,
                                    device=args.device)

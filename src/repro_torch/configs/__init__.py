@@ -2,9 +2,9 @@
 
 Each module exposes `CONFIG` (the full, published-width config) and
 `reduced()` (a tiny same-family config for CPU tests), copied from
-`repro.configs`. Only the dense attention-only archs the serving slice
-runs are here; the SSM, MoE, hybrid, vision and audio archs arrive with
-ROADMAP A11.
+`repro.configs`. Here are the archs the port serves: the dense
+attention-only ones and the SSM arch mamba2-780m; the MoE, hybrid
+(jamba, with experts), vision and audio archs arrive with ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -18,13 +18,13 @@ ARCH_IDS = [
     "qwen2_5_32b",
     "smollm_360m",
     "granite_3_2b",
+    "mamba2_780m",
 ]
 
 # the reference registry's other archs, refused by name until they port
 _NOT_PORTED = [
     "granite_moe_1b_a400m",
     "kimi_k2_1t_a32b",
-    "mamba2_780m",
     "jamba_1_5_large_398b",
     "seamless_m4t_large_v2",
     "paligemma_3b",

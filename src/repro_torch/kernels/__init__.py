@@ -19,7 +19,8 @@ Kernels on the serving path: `page_io` (pool insert), `flash_attention`
 (bucket prefill: `flash_mha`; chunked prefill: `paged_prefill_flash`,
 `paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
 `decode_attention` (paged decode over the block table: `paged_flash_decode`;
-decode over a contiguous cache: `flash_decode`).
+decode over a contiguous cache: `flash_decode`), `ssd_scan` (the
+Mamba2 chunked SSD scan of the SSM layers' prompt pass: `ssd_scan`).
 
 Kernels of the analysis path (`core.quantify`, `scripts/lbench_torch.py`):
 `lbench` (the paper's FMA-chain roofline and interference probe) and
@@ -39,11 +40,11 @@ _FORCED: str | None = None
 LAUNCHES = {"write_pages": 0, "flash_mha": 0, "paged_flash_decode": 0,
             "paged_prefill_flash": 0, "paged_prefill_insert_flash": 0,
             "paged_prefill_insert_flash_q8": 0, "flash_decode": 0,
-            "lbench": 0, "matmul_w8a8": 0}
+            "lbench": 0, "matmul_w8a8": 0, "ssd_scan": 0}
 REFERENCE_CALLS = {"write_pages": 0, "mha": 0, "paged_decode_mha": 0,
                    "paged_prefill_mha": 0, "paged_prefill_insert_mha": 0,
                    "paged_prefill_insert_mha_q8": 0, "decode_mha": 0,
-                   "lbench": 0, "matmul_w8a8": 0}
+                   "lbench": 0, "matmul_w8a8": 0, "ssd": 0}
 
 
 def force_backend(name: str | None) -> None:

@@ -7,8 +7,11 @@ layer-pattern period). Where the reference `lax.scan`s over that axis,
 the port runs a Python loop; decode updates the `pool[layer]` views of the
 caches in place instead of rebuilding a stacked tree.
 
-Only attention-only dense stacks are ported; SSM, MoE, hybrid and
-encoder-decoder stacks arrive with ROADMAP A11.
+Ported stacks: dense attention-only decoders, SSM stacks (mamba2) and
+hybrid attention + SSM stacks without experts. MoE, frontend and
+encoder-decoder stacks arrive with ROADMAP A11. An SSM layer keeps its
+decode state slot-resident (`state`, `tail_x`, `tail_B`, `tail_C`),
+never in the page pool.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 from repro_torch.models.module import Initializer, layer_slice, torch_dtype
 
@@ -58,13 +62,14 @@ def pattern(cfg: ModelConfig, cross: bool = False, causal: bool = True):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for stacks the port does not run yet."""
+    """Raise for stacks the port does not run yet: MoE layers, frontends
+    and encoders."""
     if (cfg.num_encoder_layers or cfg.frontend
-            or any(d.kind != "attn" or d.moe for d in pattern(cfg))):
+            or any(d.moe for d in pattern(cfg))):
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention-only decoder stacks are "
-            "ported; SSM, MoE, hybrid, frontend and encoder archs wait for "
-            "ROADMAP A11"
+            f"{cfg.name}: only decoder stacks of attention and SSM layers "
+            "without experts are ported; MoE, frontend and encoder archs "
+            "wait for ROADMAP A11"
         )
 
 
@@ -76,11 +81,14 @@ def stack_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
     descs = pattern(cfg)
     nb = cfg.num_layers // len(descs)
     params = {}
-    for j, _ in enumerate(descs):
+    for j, desc in enumerate(descs):
         init = Initializer(generator, torch_dtype(cfg.param_dtype),
                            lead=(nb,))
         rmsnorm_init(init.child("pre_norm"), cfg.d_model)
-        attn.attn_init(init.child("attn"), cfg)
+        if desc.kind == "attn":
+            attn.attn_init(init.child("attn"), cfg)
+        else:
+            ssm_mod.ssm_init(init.child("ssm"), cfg)
         rmsnorm_init(init.child("ffn_norm"), cfg.d_model)
         if cfg.d_ff:
             mlp_init(init.child("mlp"), cfg)
@@ -89,6 +97,12 @@ def stack_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 # --------------------------------------------------------------- caches
+# an SSM layer's slot-resident decode state, in the reference's order
+_SSM_LEAVES = ("state", "tail_x", "tail_B", "tail_C")
+# the physical-page-pool leaves of a paged cache tree; everything else
+# (SSM state, conv tails) is slot-resident and never pooled
+PAGED_LEAF_NAMES = ("k", "v", "k_sz", "v_sz")
+
 # pool payload dtypes: "fp" stores cfg.dtype exactly, "bf16" a 2-byte
 # cast, "int8" adds per-page float32 (scale, zero) tensors ("k_sz"/"v_sz",
 # `kernels.quant` layout), quantize-on-insert and dequantize-in-kernel
@@ -111,13 +125,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
     """Decode caches mirroring the stacked params. `kv_shape`/`kv_dtype`
     override the K/V leaf shape and dtype (the paged pool layout);
     `kv_sz_shape` adds the float32 (scale, zero) tensors of an int8
-    pool."""
+    pool. SSM layers hold the float32 state (nb, batch, H, P, N) and the
+    conv tails (nb, batch, W-1, C) instead of K/V."""
     check_supported(cfg)
     descs = pattern(cfg)
     nb = cfg.num_layers // len(descs)
     dtype = torch_dtype(cfg.dtype)
     caches = {}
-    for j, _ in enumerate(descs):
+    for j, desc in enumerate(descs):
+        if desc.kind != "attn":
+            state, tails = ssm_mod.make_ssm_state(cfg, batch, nb,
+                                                  device=device)
+            caches[f"pos{j}"] = dict(zip(_SSM_LEAVES, (state, *tails)))
+            continue
         shape = kv_shape or (nb, batch, max_seq, cfg.num_kv_heads,
                              cfg.head_dim)
         c = {
@@ -166,11 +186,20 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
     """One layer, one token per slot (or, via `attn_override`, one prompt
     chunk), against the cache views `c` (updated in place): the paged
     pool through `block_table`, or the contiguous per-slot caches when
-    it is None. Returns x. `attn_override(p_attn, h, c) -> (h, c)` swaps the attention
-    contraction while the rest of the layer body stays shared, so the
-    chunked and the decode streams cannot diverge in a layer change."""
+    it is None; an SSM layer steps its slot-resident state and conv
+    tails (parked slots step garbage, which the next admission's insert
+    overwrites). Returns x. `attn_override(p_attn, h, c) -> (h, c)`
+    swaps the attention contraction while the rest of the layer body
+    stays shared, so the chunked and the decode streams cannot diverge
+    in a layer change."""
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-    if attn_override is not None:
+    if desc.kind != "attn":
+        h, (state, tails) = ssm_mod.ssm_decode_step(
+            p["ssm"], h, cfg, c["state"],
+            tuple(c[k] for k in _SSM_LEAVES[1:]))
+        for key, leaf in zip(_SSM_LEAVES, (state, *tails)):
+            c[key].copy_(leaf)
+    elif attn_override is not None:
         h, _ = attn_override(p["attn"], h, c)
     elif block_table is not None:
         h, _ = attn.paged_decode_self_attention(
@@ -232,27 +261,34 @@ def stack_prefill_chunk(params, caches, x, c0, cfg: ModelConfig, block_row,
 
 def stack_prefill(params, x, cfg: ModelConfig, max_seq: int):
     """Prefill: full-sequence forward that also materializes the per-slot
-    decode caches {"pos{j}": {"k", "v"}} of shape (nb, B, max_seq, KV,
-    hd), zero-padded past the prompt."""
+    decode caches, stacked over layers: {"k", "v"} of shape (nb, B,
+    max_seq, KV, hd), zero-padded past the prompt, for attention layers;
+    the final SSM state and conv tails for SSM layers."""
     descs = pattern(cfg)
     nb = cfg.num_layers // len(descs)
     B, S, _ = x.shape
-    ks = {j: [] for j in range(len(descs))}
-    vs = {j: [] for j in range(len(descs))}
+    leaves = [{} for _ in descs]
     for i in range(nb):
         for j, desc in enumerate(descs):
             p = layer_slice(params[f"pos{j}"], i)
             h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-            h, (k, v) = attn.self_attention(p["attn"], h, cfg,
-                                            causal=desc.causal,
-                                            return_kv=True)
-            pad = (0, 0, 0, 0, 0, max_seq - S)
-            ks[j].append(torch.nn.functional.pad(k, pad))
-            vs[j].append(torch.nn.functional.pad(v, pad))
+            if desc.kind == "attn":
+                h, (k, v) = attn.self_attention(p["attn"], h, cfg,
+                                                causal=desc.causal,
+                                                return_kv=True)
+                pad = (0, 0, 0, 0, 0, max_seq - S)
+                new = {"k": torch.nn.functional.pad(k, pad),
+                       "v": torch.nn.functional.pad(v, pad)}
+            else:
+                h, (state, tails) = ssm_mod.ssm_block(p["ssm"], h, cfg,
+                                                      return_state=True)
+                new = dict(zip(_SSM_LEAVES, (state, *tails)))
+            for key, leaf in new.items():
+                leaves[j].setdefault(key, []).append(leaf)
             x = x + h
             h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
             x = x + (mlp(p["mlp"], h, cfg) if cfg.d_ff
                      else torch.zeros_like(x))
-    caches = {f"pos{j}": {"k": torch.stack(ks[j]), "v": torch.stack(vs[j])}
+    caches = {f"pos{j}": {k: torch.stack(v) for k, v in leaves[j].items()}
               for j in range(len(descs))}
     return x, caches

@@ -188,7 +188,8 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
     prompt pages first (`quant.quantize_pages`, or `quantize_tokens` for
     per-token sub-scales) and the (scale, zero) rows land through the
     same writer. The partial last page is zero-padded: masked out of
-    attention, and under int8 it cannot widen the page's range."""
+    attention, and under int8 it cannot widen the page's range. Resident
+    leaves (SSM state, conv tails) are copied densely into the slot."""
     n_wp = -(-bucket_total // page_tokens)     # pages the prompt spans
     pad = n_wp * page_tokens - bucket_total
     quantized = pool_dtype == "int8"
@@ -203,6 +204,12 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
     def insert(caches, slot_caches, slot, block_table):
         phys = block_table[int(slot), :n_wp]
         for pos, c in caches.items():
+            for key, big in c.items():
+                if key not in blk.PAGED_LEAF_NAMES:
+                    big[:, int(slot)] = slot_caches[pos][key][:, 0].to(
+                        big.dtype)
+            if "k" not in c:
+                continue
             for key in ("k", "v"):
                 tiles = page_tiles(slot_caches[pos][key])
                 if quantized:
@@ -223,7 +230,7 @@ def build_page_copy():
 
     def copy(caches, src, dst):
         for c in caches.values():
-            for key in ("k", "v", "k_sz", "v_sz"):
+            for key in blk.PAGED_LEAF_NAMES:
                 if key in c:
                     c[key][:, int(dst)] = c[key][:, int(src)]
         return caches

@@ -39,8 +39,11 @@ reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
 LoI admission; chunked prefill, the prefix cache, the contiguous layout
 and speculative decoding are its options — except `substrate`, which
 defaults to "off" here until the substrate slice lands (ROADMAP A9).
-Options outside the slice raise `NotImplementedError` naming the ROADMAP
-item that will port them.
+It serves the dense attention-only archs and the SSM arch mamba2-780m
+(whose slot-resident state the pager prices; its pool holds nothing, so
+chunked prefill, the prefix cache and speculation refuse it as the
+reference does). Options outside the slice raise `NotImplementedError`
+naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -252,9 +255,6 @@ class ServeStats:
         return out
 
 
-_PAGED_KEYS = ("k", "v", "k_sz", "v_sz")
-
-
 def _kv_bytes_per_token(acaches) -> float:
     """Self-attention K/V bytes per cached token per slot from the cache
     tree, dtype-aware (int8 payload plus the float32 (scale, zero) rows
@@ -266,19 +266,19 @@ def _kv_bytes_per_token(acaches) -> float:
         k = c["k"]
         tokens = k.shape[1] * k.shape[2]   # paged: P_phys * page_tokens;
         # contiguous: n_slots * max_seq
-        for key in _PAGED_KEYS:
+        for key in blk.PAGED_LEAF_NAMES:
             if key in c:
                 total += leaf_bytes(c[key]) / tokens
     return total
 
 
 def _resident_bytes_per_slot(acaches) -> float:
-    """Per-slot bytes of non-paged decode state (none on the ported
-    attention-only stacks)."""
+    """Per-slot bytes of the non-paged decode state (SSM state and conv
+    tails): pinned local, streamed every step."""
     total = 0.0
     for c in acaches.values():
         for key, leaf in c.items():
-            if key not in _PAGED_KEYS:
+            if key not in blk.PAGED_LEAF_NAMES:
                 total += leaf_bytes(leaf) / leaf.shape[1]
     return total
 

@@ -154,7 +154,7 @@ def test_speculative_decoding_builds(mode):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="A11"):
-        configs.get("mamba2_780m")
+        configs.get("jamba_1_5_large_398b")
     moe = dataclasses.replace(_cfg(), num_experts=4, experts_per_token=2,
                               moe_d_ff=64)
     with pytest.raises(NotImplementedError, match="A11"):

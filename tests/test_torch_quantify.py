@@ -35,7 +35,8 @@ from repro_torch.core import roofline as trl  # noqa: E402
 from repro_torch.core import tiers as ttiers  # noqa: E402
 from repro_torch.runtime import serve as tserve  # noqa: E402
 
-DENSE = tconfigs.list_archs()
+ARCHS = tconfigs.list_archs()
+DENSE = [a for a in ARCHS if tconfigs.get(a).family == "dense"]
 SERVE_SHAPES = ["decode_32k", "prefill_32k"]
 N_CHIPS = 256
 TOL = 1e-12
@@ -252,7 +253,7 @@ def test_access_models_match_reference():
 
 
 @pytest.mark.parametrize("shape", SERVE_SHAPES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_profile_of_meta_state_matches_reference(arch, shape):
     jc, tc = jconfigs.get(arch), tconfigs.get(arch)
     js, ts = JSHAPES[shape], TSHAPES[shape]
@@ -278,7 +279,7 @@ def test_train_profile_waits_for_training():
 
 # ------------------------------------------------------------- analyze
 @pytest.mark.parametrize("shape", SERVE_SHAPES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_analyze_matches_reference(arch, shape):
     """Levels 1-3 equal the reference's (no dry-run record) at every
     pool fraction, priced with the reference's chip, topology and
@@ -325,6 +326,23 @@ def test_analyze_runs_on_its_h100_defaults(arch):
         tq.analyze(arch, "decode_32k").profile.pool_traffic
 
 
+def test_analyze_of_the_ssm_arch_on_its_h100_defaults():
+    """mamba2-780m on one H100: its decode state is a fixed SSM state and
+    conv tails per sequence, not a 32k-token KV cache, so the serve state
+    (weights included) fits the HBM budget whole at both shapes, and the
+    state leaves are priced as cache."""
+    for shape in SERVE_SHAPES:
+        an = tq.analyze("mamba2_780m", shape)
+        budget = tq.HBM_STATE_BUDGET * thw.H100.hbm_bytes
+        assert an.level1["footprint_bytes_per_chip"] < budget
+        assert an.level2["pool_fraction"] == 0.0
+        assert an.level2["policy"] == "all_local"
+    prof = tq._profile(tconfigs.get("mamba2_780m"), TSHAPES["decode_32k"])
+    kinds = {a.name.split("/")[-1]: a.category for a in prof}
+    for leaf in ("state", "tail_x", "tail_B", "tail_C"):
+        assert kinds[leaf] == "cache", (leaf, kinds)
+
+
 def test_lbench_loi_on_the_h100_topology():
     """The reference's model as it is: its 2e-10 s per flop per element
     does not saturate the H100's 64 GB/s pool link at nflop=1 (it does
@@ -340,4 +358,4 @@ def test_analyze_refuses_train_shapes_and_dry_runs():
     with pytest.raises(NotImplementedError, match="A15"):
         tq.analyze("smollm_360m", "decode_32k", use_dryrun=True)
     with pytest.raises(NotImplementedError, match="A11"):
-        tq.analyze("mamba2_780m", "decode_32k")
+        tq.analyze("jamba_1_5_large_398b", "decode_32k")
