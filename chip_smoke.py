@@ -14,7 +14,9 @@ Phases (any failure raises and exits non-zero):
                three paged chunked-prefill kernels over chunks of 1, 2 and
                8 pages at chunk starts 0 / one page / deep in one batch,
                with garbage table entries above the frontier, their
-               written pools equal to the plain version's; flash_decode
+               written pools equal to the plain version's (head dims up
+               to 256, rep {1, 3, 8}; bf16 q on the tensor-core body,
+               checked by kernel name at the main shape); flash_decode
                over contiguous caches, f32 and bf16, head dims {16, 20,
                64, 112, 128, 256}, rep {1, 3, 8}, S {64, 256, 260},
                lengths 1 / S // 2 + 3 / S / S + 1; LBench over nflop
@@ -95,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +116,20 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bf16 outputs: kernel and plain version accumulate in f32 in another
 # order and round once to bf16, so they may differ by one bf16 ulp
 BF16_TOL = dict(atol=2e-2, rtol=0.0)
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name with its template arguments, through the CUDA
+    toolkit's `cu++filt` (or `c++filt`); the mangled name without one."""
+    for tool in ("/usr/local/cuda/bin/cu++filt", "cu++filt", "c++filt"):
+        try:
+            out = subprocess.run([tool, name], capture_output=True,
+                                 text=True, timeout=30).stdout.strip()
+        except (OSError, subprocess.SubprocessError):
+            continue
+        if out:
+            return out
+    return name
 
 
 def smi_line() -> str:
@@ -186,6 +203,19 @@ class Timer:
         host gaps included) is kept in `self.last_event_ms`."""
         self.last_event_ms = self.event_ms(fn)
         return self.device_ms(fn)
+
+
+def device_kernel_names(torch, fn) -> set:
+    """Names of the device kernels one call of `fn` launches
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def max_err(torch, out, ref, tol) -> tuple[float, bool]:
@@ -538,14 +568,16 @@ def flash_decode_cases(torch, timer, randn, report, timed):
 
 def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
     """The three paged chunked-prefill kernels against their plain
-    versions: head dims {16, 20, 64, 128} x pages {16, 64} x GQA rep
-    {1, 3}, chunks of one page, two pages and 128 tokens, three batch
-    rows per case at chunk starts 0 / one page / deep, garbage table
-    entries above each row's frontier; gather-only over bf16, f32,
-    int8/page and int8/token pools, fused over bf16 and f32 pools and
-    the int8/page pool, whose written pools must equal the plain
-    version's exactly. Then each kernel is timed at SmolLM-360M's chunk
-    shape (B=1, C=128, c0=384, 15/5 heads, D=64, page 16, bf16 q)."""
+    versions: head dims {16, 20, 64, 112, 128, 256} x pages {16, 64} x
+    GQA rep {1, 3, 8}, chunks of one page, two pages and 128 tokens,
+    three batch rows per case at chunk starts 0 / one page / deep,
+    garbage table entries above each row's frontier; gather-only over
+    bf16, f32, int8/page and int8/token pools (int8 with bf16 q, and
+    float32 q at D 16, 20, 128), fused over bf16 and f32 pools and the
+    int8/page pool, whose written pools must equal the plain version's
+    exactly. Then each kernel is timed at SmolLM-360M's chunk shape
+    (B=1, C=128, c0=384, 15/5 heads, D=64, page 16, bf16 q), where it
+    must run the tensor-core kernel."""
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
 
@@ -633,28 +665,33 @@ def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
         return err
 
     chunks = {16: (16, 32, 128), 64: (64, 128)}
-    for D in (16, 20, 64, 128):
+    for D in (16, 20, 64, 112, 128, 256):
         for page in (16, 64):
-            for rep in (1, 3):
+            for rep in (1, 3, 8):
                 for C in chunks[page]:
                     n_pages = C // page + 5
                     deep = n_pages * page - C
                     c0s = [0, page, deep]
                     for pool in ("bf16", "f32", "int8/page", "int8/token"):
-                        qdt = torch.bfloat16 if pool == "bf16" else (
-                            torch.float32 if pool == "f32" else
-                            (torch.bfloat16 if D == 64 else torch.float32))
-                        x = inputs(3, C, 2 * rep, 2, D, page, n_pages, pool,
-                                   qdt, c0s)
-                        kinds = ["paged_prefill_flash"]
-                        if pool in ("bf16", "f32"):
-                            kinds.append("paged_prefill_insert_flash")
-                        elif pool == "int8/page":
-                            kinds.append("paged_prefill_insert_flash_q8")
-                        for kind in kinds:
-                            check(kind, x,
-                                  f"C={C} D={D} page={page} rep={rep} "
-                                  f"{pool} q={str(qdt)[6:]} c0={c0s}")
+                        # int8 pools: bf16 q (the tensor-core body) at
+                        # every D, float32 q (the FMA body) besides where
+                        # the first sweep had it
+                        qdts = [torch.bfloat16] if pool == "bf16" else (
+                            [torch.float32] if pool == "f32" else
+                            [torch.bfloat16] + ([torch.float32] if D in (
+                                16, 20, 128) else []))
+                        for qdt in qdts:
+                            x = inputs(3, C, 2 * rep, 2, D, page, n_pages,
+                                       pool, qdt, c0s)
+                            kinds = ["paged_prefill_flash"]
+                            if pool in ("bf16", "f32"):
+                                kinds.append("paged_prefill_insert_flash")
+                            elif pool == "int8/page":
+                                kinds.append("paged_prefill_insert_flash_q8")
+                            for kind in kinds:
+                                check(kind, x,
+                                      f"C={C} D={D} page={page} rep={rep} "
+                                      f"{pool} q={str(qdt)[6:]} c0={c0s}")
     for kind, s in summary.items():
         print(f"  {kind}: {s['cases']} cases; max_abs_err f32 "
               f"{s['max_err_f32']:.3e}, bf16 {s['max_err_bf16']:.3e}; "
@@ -708,6 +745,14 @@ def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
         except TypeError:          # torch without enable_gqa
             lib = None
         a, b = clone(x), clone(x)
+        # bf16 q must run the tensor-core body (mma.sync), not the FMA one
+        names = device_kernel_names(torch, lambda: call(kind, a, "cuda"))
+        mma = any("paged_prefill_mma_kernel" in n for n in names)
+        short = sorted({re.split(r"[\s:]+", re.split(r"[<(]", n.replace(
+            "(anonymous namespace)::", ""), maxsplit=1)[0].strip())[-1]
+            for n in names})
+        report(kind, "main shape bf16 q on the tensor-core kernel: "
+               + ", ".join(short), 0.0, mma, dict(atol=0, rtol=0))
         records.append(dict(
             name=kind, route="cuda",
             source="src/repro_torch/kernels/csrc/paged_prefill.cu",
@@ -1737,7 +1782,7 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
               "flash_mha": "flash_fwd_kernel",
               "write_pages": "write_pages_kernel",
               "paged_prefill_flash/insert_flash/insert_flash_q8":
-              "paged_prefill_kernel",
+              "paged_prefill",
               "ssd_scan": "ssd_fwd_kernel"}
     by_group: dict = {}
     for s0, s1, name in kern:
@@ -1754,10 +1799,14 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
             host[name] = host.get(name, 0) + e.duration_ns()
             syncs += "synchronize" in name or name == "aten::nonzero"
     top = sorted(host.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    total_ns = sum(by_group.values()) or 1
     print(f"  profile {label}: wall {wall_us / 1e3:.1f} ms over "
           f"{stats.steps} decode steps, device busy {busy:.3f} of wall "
           f"(idle {1 - busy:.3f}); device ms by group " + json.dumps(
-              {k: round(v / 1e6, 3) for k, v in sorted(by_group.items())}))
+              {k: round(v / 1e6, 3) for k, v in sorted(by_group.items())})
+          + "; share of device time " + json.dumps(
+              {k: round(v / total_ns, 4)
+               for k, v in sorted(by_group.items())}))
     print("  profile host ops by total CPU ms: " + json.dumps(
         {k: round(v / 1e6, 1) for k, v in top})
         + f"; nonzero/sync calls {syncs}; {len(raw)} events read in "
@@ -1822,6 +1871,10 @@ def main(argv=None) -> int:
             print(f"  {name}: {len(regs)} kernels; "
                   f"{regs[-1].strip() if regs else ''}; "
                   f"{len(spills)} with spills")
+            for i, line in enumerate(log):
+                if "spill" in line and " 0 bytes spill stores" not in line:
+                    fn = demangle(log[i - 1].split("for ")[-1].strip())
+                    print(f"    spills in {fn}: {line.strip()}")
         phase_done("build")
     records = []
     if "kernels" in phases:

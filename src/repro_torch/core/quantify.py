@@ -162,18 +162,23 @@ def analyze(
 
 
 @functools.lru_cache(maxsize=None)
-def _profile_for_cached(arch, shape_name, policy,
-                        pool_fraction) -> itf.InterferenceProfile:
+def _profile_for_cached(arch, shape_name, policy, pool_fraction, chip, topo,
+                        n_chips) -> itf.InterferenceProfile:
     return analyze(arch, shape_name, policy=policy,
-                   pool_fraction=pool_fraction).profile
+                   pool_fraction=pool_fraction, chip=chip, topo=topo,
+                   n_chips=n_chips).profile
 
 
 def profile_for(arch: str, shape_name: str = "decode_32k", *,
-                policy: str = "hotness",
-                pool_fraction="auto") -> itf.InterferenceProfile:
-    """Submission-time interference profile for a catalog workload on one
-    H100: what the paper's §7.2 SLURM plugin would compute once per
-    (arch, shape) when the job template is registered, cached (arguments
-    canonicalized here so kwarg spelling at call sites cannot split the
-    cache)."""
-    return _profile_for_cached(arch, shape_name, policy, pool_fraction)
+                policy: str = "hotness", pool_fraction="auto",
+                chip: hw.ChipSpec = hw.H100,
+                topo: Optional[tr.TierTopology] = None,
+                n_chips: int = 1) -> itf.InterferenceProfile:
+    """Submission-time interference profile for a catalog workload, priced
+    as `analyze` prices it (`n_chips` cards of `chip`, each with `topo`;
+    one H100 by default): what the paper's §7.2 SLURM plugin would
+    compute once per (arch, shape) when the job template is registered,
+    cached (arguments canonicalized here so kwarg spelling at call sites
+    cannot split the cache)."""
+    return _profile_for_cached(arch, shape_name, policy, pool_fraction,
+                               chip, topo, n_chips)

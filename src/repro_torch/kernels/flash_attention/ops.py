@@ -32,11 +32,18 @@ from repro_torch.kernels.flash_attention import ref
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, scale: Optional[float] = None,
         kv_offset: int = 0, impl: Optional[str] = None) -> torch.Tensor:
-    """Multi-head (GQA) attention: q (B,Sq,H,D), k/v (B,Skv,KV,D)."""
+    """Multi-head (GQA) attention: q (B,Sq,H,D), k/v (B,Skv,KV,D). The
+    plain version builds the full score tensor up to 256 x 256 scores and
+    goes block by block above (`chunked.mha_chunked`), as the
+    reference's does."""
     if kernels.select_impl(q, impl) == "reference":
         kernels.REFERENCE_CALLS["mha"] += 1
-        return ref.mha(q, k, v, causal=causal, scale=scale,
-                       kv_offset=kv_offset)
+        if q.shape[1] * k.shape[1] <= 256 * 256:
+            return ref.mha(q, k, v, causal=causal, scale=scale,
+                           kv_offset=kv_offset)
+        from repro_torch.kernels.flash_attention import chunked
+
+        return chunked.mha_chunked(q, k, v, causal, scale, kv_offset)
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     out, _ = fa.flash_mha_cuda(q.contiguous(), k.contiguous(),

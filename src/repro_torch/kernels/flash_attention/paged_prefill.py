@@ -6,11 +6,17 @@
 
 The fused kernels write the chunk into the pool tensors they are given,
 in place (the reference aliases them input to output); they return only
-the attention output."""
+the attention output.
+
+`launch_plan` is the kernels' launch geometry as a plain function of the
+shapes (rows per block, grid, key splits, shared-memory bytes), so that
+it can be checked without a card; the C entry recomputes the shared
+memory from its own layout and refuses a plan that disagrees."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -20,8 +26,89 @@ from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
 MAX_REP = 16             # query heads per KV head one block computes
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float] \
-    + [ctypes.c_void_p]
+SMEM_LIMIT = 232448      # dynamic shared memory a block may use (227 KB)
+KEY_TILE = 64            # keys per tile of the tensor-core body
+N_SM = 132               # streaming multiprocessors of an H100 SXM
+ROWS = 64                # (query, head) rows per tensor-core block
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Launch geometry of one call. Block (x, y, z) computes query
+    positions [x * bq, x * bq + bq) of KV head y for all rep heads of its
+    group (rows = bq * rep of its `rows` row slots), batch row z //
+    n_split, over key split z % n_split of its causal key range."""
+
+    tensor_core: bool    # bf16 q: mma body; float32 q: FMA body
+    rows: int            # row slots a block computes (16 per warp)
+    threads: int
+    bq: int              # query positions a block covers
+    grid: tuple          # (x, y, z)
+    n_split: int         # key splits merged by the combine kernel
+    n_tab: int           # block-table entries a block stages
+    stages: int          # K/V tiles in shared memory (ring depth)
+    smem_bytes: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(B: int, C: int, H: int, KV: int, D: int, page: int,
+                n_pages: int, q_dtype, kv_dtype) -> Plan:
+    """The launch geometry `csrc/paged_prefill.cu` takes for these shapes:
+    float32 q runs the FMA body (16 rows, 32-key tiles staged as f32);
+    bf16 q the tensor-core body with 64 rows per block and its key range
+    split for about two blocks per SM (the fastest plan at the main
+    shape, PERF.md)."""
+    if q_dtype == torch.float32:
+        rep = H // KV
+        bq = 1 if rep >= 16 else 16 // rep
+        pitch = D + 1 if D % 2 == 0 else D
+        return Plan(False, 16, 128, bq, (_ceil(C, bq), KV, B), 1, 0, 1,
+                    4 * (16 * D + 2 * 32 * pitch))
+    return _mma_plan(B, C, H, KV, D, page, n_pages, kv_dtype)
+
+
+def _mma_plan(B: int, C: int, H: int, KV: int, D: int, page: int,
+              n_pages: int, kv_dtype, rows: int = ROWS,
+              n_split: Optional[int] = None) -> Plan:
+    """The tensor-core body's plan with `rows` (32 or 64) rows per block
+    and `n_split` key splits (default: enough for two blocks per SM);
+    other values than the defaults only time the options
+    (`scripts/paged_prefill_plans.py`)."""
+    rep = H // KV
+    if rows not in (32, 64) or rep > rows:
+        raise ValueError(f"rows {rows} per block with rep {rep}")
+    bq = rows // rep
+    n_tiles = max(1, _ceil(n_pages * page, KEY_TILE))
+    blocks = _ceil(C, bq) * KV * B
+    if n_split is None:              # about two blocks per SM
+        n_split = _ceil(2 * N_SM, blocks)
+    n_split = max(1, min(n_split, n_tiles))
+    t_max = _ceil(n_tiles, n_split)
+    n_tab = max(1, min(n_pages, _ceil(t_max * KEY_TILE, page) + 1))
+    dp = _ceil(D, 16) * 16
+    qp = 2 * (dp + 8)                  # bf16 row pitch, bytes
+    i8 = kv_dtype == torch.int8
+    smem = (rows * qp                                 # q rows
+            + 2 * 2 * KEY_TILE * (dp if i8 else qp)   # K/V ring
+            + (2 * KEY_TILE * qp if i8 else 0)        # bf16 copy of int8
+            + (2 * 2 * KEY_TILE * 8 if i8 else 0)     # (scale, zero) rows
+            + _ceil(n_tab * 4, 16) * 16)              # block-table slice
+    return Plan(True, rows, 2 * rows, bq,
+                (_ceil(C, bq), KV, B * n_split), n_split, n_tab, 2, smem)
+
+
+def _copy_width(row_bytes: int, *ptrs: int) -> int:
+    """Widest cp.async (16 or 4 bytes) that divides a row and every base
+    address; 1 means synchronous byte copies."""
+    for w in (16, 4):
+        if row_bytes % w == 0 and all(p % w == 0 for p in ptrs):
+            return w
+    return 1
 
 
 def _check(name: str, cond: bool, msg: str) -> None:
@@ -31,9 +118,10 @@ def _check(name: str, cond: bool, msg: str) -> None:
 
 def _launch(name, q, k_pages, v_pages, block_tables, c0, *, k_sz=None,
             v_sz=None, k_new=None, v_new=None, ksz_new=None, vsz_new=None,
-            scale=None) -> torch.Tensor:
+            scale=None, plan: Optional[Plan] = None) -> torch.Tensor:
     """Check the operands of one of the three kernels and launch it on
-    the current stream; `k_new` given selects a fused kernel."""
+    the current stream; `k_new` given selects a fused kernel. `plan`
+    replaces `launch_plan`'s (only to time the options)."""
     fused = k_new is not None
     dev = q.device
     tensors = [q, k_pages, v_pages, block_tables, c0]
@@ -93,11 +181,30 @@ def _launch(name, q, k_pages, v_pages, block_tables, c0, *, k_sz=None,
                    and vsz_new.dtype == torch.float32,
                    "ksz_new/vsz_new (B,C/page,KV,2) float32")
     scale = scale if scale is not None else D ** -0.5
+    plan = plan or launch_plan(B, C, H, KV, D, page, n_pages, q.dtype,
+                               k_pages.dtype)
+    _check(name, plan.smem_bytes <= SMEM_LIMIT
+           and plan.grid[2] <= 65535,
+           f"plan {plan} exceeds the card's limits")
     out = torch.empty_like(q)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    kv_ptrs = [t.data_ptr() for t in (k_pages, v_pages, k_new, v_new)
+               if t is not None]
+    vb = _copy_width(D * k_pages.element_size(), *kv_ptrs)
+    if quantized and any(t.data_ptr() % 8 for t in (
+            k_sz, v_sz, ksz_new, vsz_new) if t is not None):
+        vb = 1                         # (scale, zero) rows copy 8 bytes
+    vbq = _copy_width(D * q.element_size(), q.data_ptr())
+    part = part_ml = None
+    if plan.n_split > 1:
+        rows_out = B * C * H
+        part = torch.empty((plan.n_split, rows_out, _ceil(D, 16) * 16),
+                           dtype=torch.float32, device=dev)
+        part_ml = torch.empty((plan.n_split, rows_out, 2),
+                              dtype=torch.float32, device=dev)
     fn = build.library("paged_prefill").repro_paged_prefill
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -105,7 +212,8 @@ def _launch(name, q, k_pages, v_pages, block_tables, c0, *, k_sz=None,
              ptr(vsz_new), block_tables.data_ptr(), c0.data_ptr(),
              out.data_ptr(), B, C, H, KV, D, page, n_pages,
              build.dtype_code(q.dtype), build.dtype_code(k_pages.dtype),
-             sz_mode, int(fused), float(scale),
+             sz_mode, int(fused), float(scale), plan.rows, plan.n_split,
+             plan.n_tab, vb, vbq, plan.smem_bytes, ptr(part), ptr(part_ml),
              torch.cuda.current_stream(dev).cuda_stream)
     kernels.LAUNCHES[name] += 1
     build.check(err, name)

@@ -57,7 +57,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.common import hw
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import SHAPES, ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import leaf_bytes
 from repro_torch.core import interference as itf
@@ -114,8 +114,8 @@ class EngineConfig:
     # --- admission ---
     admission: str = "loi"                     # loi | greedy
     knee_excess: float = 0.75
-    catalog_arch: Optional[str] = None         # profile_for prior: ROADMAP
-    catalog_shape: str = "decode_32k"          # A13 (core.quantify)
+    catalog_arch: Optional[str] = None         # profile_for prior (paper
+    catalog_shape: str = "decode_32k"          # §7.2, core.quantify)
     # --- speculative decoding (serving.speculative) ---
     speculative: str = "off"        # off | ngram | draft — propose
     # speculative_k-1 draft tokens per slot and score all k candidates in
@@ -142,8 +142,6 @@ def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
     todo = [
         (ecfg.substrate != "off", f"substrate={ecfg.substrate!r}", "A9"),
         (ecfg.prefetch is not None, "prefetch (prediction-driven page-in)",
-         "A13"),
-        (ecfg.catalog_arch is not None, "catalog_arch admission prior",
          "A13"),
     ]
     for bad, what, item in todo:
@@ -173,13 +171,21 @@ class AdmissionController:
         self.blocks = 0
 
     @classmethod
-    def from_catalog(cls, topo, arch: Optional[str], shape_name: str,
+    def from_catalog(cls, topo, arch: Optional[str], shape_name: str, *,
+                     chip: Optional[hw.ChipSpec] = None, n_chips: int = 1,
                      **kw) -> "AdmissionController":
+        """Seed the per-slot LoI with a catalog workload's prior: its
+        injected LoI (`core.quantify.profile_for`, priced on `n_chips`
+        cards of `chip` with `topo`) over the shape's global batch; 0
+        without `arch`."""
+        prior = 0.0
         if arch is not None:
-            raise NotImplementedError(
-                "the catalog admission prior (core.quantify.profile_for) "
-                "is not ported yet (ROADMAP A13)")
-        return cls(topo, prior_loi=0.0, **kw)
+            from repro_torch.core.quantify import profile_for
+
+            prof = profile_for(arch, shape_name, chip=chip or hw.H100,
+                               topo=topo, n_chips=n_chips)
+            prior = prof.injected_loi() / SHAPES[shape_name].global_batch
+        return cls(topo, prior_loi=prior, **kw)
 
     def observe(self, n_active: int, t_pool: float, dt: float,
                 t_excess: float = 0.0) -> None:
@@ -290,6 +296,8 @@ class ServingEngine:
                  cells: serve_rt.EngineCells,
                  topo: Optional[tr.TierTopology] = None,
                  chip: Optional[hw.ChipSpec] = None):
+        """`topo`/`chip` price the virtual clock and the catalog admission
+        prior (one H100 by default)."""
         check_slice(cfg, ecfg)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -355,7 +363,7 @@ class ServingEngine:
             # pool exhausted
             self.pager.prefix_cache = self.prefix_cache
         self.admission = AdmissionController.from_catalog(
-            self.topo, ecfg.catalog_arch, ecfg.catalog_shape,
+            self.topo, ecfg.catalog_arch, ecfg.catalog_shape, chip=self.chip,
             mode=ecfg.admission, knee_excess=ecfg.knee_excess,
         )
         if cells.paged:

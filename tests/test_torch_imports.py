@@ -101,12 +101,26 @@ def test_entry_points_default_to_the_card(entry):
 @pytest.mark.parametrize("override,item", [
     (dict(substrate="auto"), "A9"),
     (dict(prefetch="stride"), "A13"),
-    (dict(catalog_arch="smollm_360m"), "A13"),
 ])
 def test_options_outside_the_slice_raise(override, item):
     ecfg = dataclasses.replace(EngineConfig(), **override)
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine.build(_cfg(), ecfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "granite_3_2b"])
+def test_catalog_arch_seeds_the_admission_prior(arch):
+    """`catalog_arch` is ported: the engine builds and its admission
+    controller starts from the catalog workload's prior on the engine's
+    own chip and topology (one H100 by default)."""
+    from repro_torch.core import tiers as ttiers
+    from repro_torch.serving.engine import AdmissionController
+
+    ecfg = dataclasses.replace(EngineConfig(), catalog_arch=arch)
+    eng = ServingEngine.build(_cfg(), ecfg, device="cpu")
+    want = AdmissionController.from_catalog(
+        ttiers.h100_topology(), arch, ecfg.catalog_shape).per_slot_loi
+    assert want > 0.0 and eng.admission.per_slot_loi == want
 
 
 @pytest.mark.parametrize("override", [dict(prefill_chunk=16),

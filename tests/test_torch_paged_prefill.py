@@ -230,3 +230,67 @@ def test_prefill_chunk_walk_matches_reference(pool):
             "int8_token": "paged_prefill_mha"}[pool]
     assert tk.REFERENCE_CALLS[name] == layers
     assert sum(tk.LAUNCHES.values()) == 0
+
+
+# ------------------------------------------------------ launch plan
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("rep", [1, 3, 8, 16])
+@pytest.mark.parametrize("D", [16, 20, 64, 112, 128, 256])
+def test_launch_plan_fits_and_covers_every_row(D, rep, page):
+    """The CUDA kernels' launch geometry (`paged_prefill.launch_plan`, and
+    the 32-row plan the timing script launches), checked here because a
+    refused launch shows only on the card: every
+    plan fits a block's 227 KB of shared memory and 1024 threads; every
+    (query position, head) row of a chunk is computed by exactly one
+    block (one row slot per warp lane pair, within the block's slots);
+    the key splits partition each block's key tiles, and each split's
+    pages fit the block-table slice it stages."""
+    from collections import Counter
+
+    from repro_torch.kernels.flash_attention import paged_prefill as pp
+
+    B, KV = 2, 2
+    H = KV * rep
+    for q_dt, kv_dt in ((torch.bfloat16, torch.bfloat16),
+                        (torch.bfloat16, torch.int8),
+                        (torch.float32, torch.float32),
+                        (torch.float32, torch.int8)):
+        for rows in ((None, 32) if q_dt == torch.bfloat16 else (None,)):
+            for C, n_pages in ((1, 3), (5, 40), (page, 9), (128, 544 // page
+                               + 2), (128, 32768 // page)):
+                plan = (pp._mma_plan(B, C, H, KV, D, page, n_pages, kv_dt,
+                                     rows=rows) if rows else
+                        pp.launch_plan(B, C, H, KV, D, page, n_pages, q_dt,
+                                       kv_dt))
+                assert rows or plan.rows == (pp.ROWS if plan.tensor_core
+                                             else 16)
+                assert plan.tensor_core == (q_dt == torch.bfloat16)
+                assert plan.smem_bytes <= pp.SMEM_LIMIT, plan
+                assert plan.threads <= 1024 and plan.threads % 32 == 0
+                assert plan.bq >= 1 and plan.bq * rep <= plan.rows
+                assert plan.grid[1] == KV
+                assert plan.grid[2] == B * plan.n_split <= 65535
+                covered = Counter()
+                for x in range(plan.grid[0]):
+                    for qi in range(x * plan.bq, min(x * plan.bq + plan.bq,
+                                                     C)):
+                        for h in range(rep):
+                            covered[qi, h] += 1
+                assert len(covered) == C * rep
+                assert set(covered.values()) == {1}
+                # the kernel's split of a block's key tiles (its causal
+                # frontier k_end <= n_pages * page) over n_split blocks
+                top = n_pages * page
+                for k_end in {k for k in (1, 64, 65, top // 2, top)
+                              if k <= top}:
+                    n_tiles = -(-k_end // pp.KEY_TILE)
+                    tiles = []
+                    for s in range(plan.n_split):
+                        lo = s * n_tiles // plan.n_split
+                        hi = (s + 1) * n_tiles // plan.n_split
+                        tiles += range(lo, hi)
+                        if hi > lo and plan.tensor_core:
+                            pg_lo = lo * pp.KEY_TILE // page
+                            pg_hi = (min(hi * pp.KEY_TILE, k_end) - 1) // page
+                            assert pg_hi - pg_lo + 1 <= plan.n_tab
+                    assert tiles == list(range(n_tiles))

@@ -24,6 +24,7 @@ from repro.core import quantify as jq  # noqa: E402
 from repro.core import roofline as jrl  # noqa: E402
 from repro.core import tiers as jtiers  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
+from repro.serving.engine import AdmissionController as JAdmission  # noqa
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.common import hw as thw  # noqa: E402
 from repro_torch.common.config import SHAPES as TSHAPES  # noqa: E402
@@ -34,6 +35,7 @@ from repro_torch.core import quantify as tq  # noqa: E402
 from repro_torch.core import roofline as trl  # noqa: E402
 from repro_torch.core import tiers as ttiers  # noqa: E402
 from repro_torch.runtime import serve as tserve  # noqa: E402
+from repro_torch.serving.engine import AdmissionController as TAdmission  # noqa
 
 ARCHS = tconfigs.list_archs()
 DENSE = [a for a in ARCHS if tconfigs.get(a).family == "dense"]
@@ -359,3 +361,43 @@ def test_analyze_refuses_train_shapes_and_dry_runs():
         tq.analyze("smollm_360m", "decode_32k", use_dryrun=True)
     with pytest.raises(NotImplementedError, match="A11"):
         tq.analyze("jamba_1_5_large_398b", "decode_32k")
+
+
+# ---------------------------------------------- catalog admission prior
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+@pytest.mark.parametrize("arch", DENSE)
+def test_catalog_prior_matches_reference(arch, shape):
+    """`profile_for` priced with the reference's chip, topology and mesh
+    gives the reference's profile, and the admission prior seeded from
+    it (injected LoI over the shape's global batch) equals the
+    reference's to 1e-9: 0 on that mesh, where 256 v5e cards hold every
+    serve state in HBM."""
+    jp = jq.profile_for(arch, shape)
+    tp = tq.profile_for(arch, shape, chip=_ref_chip(), topo=_ref_topology(),
+                        n_chips=N_CHIPS)
+    for name in ("pool_traffic", "local_traffic", "t_compute"):
+        assert math.isclose(getattr(tp, name), getattr(jp, name),
+                            rel_tol=1e-9, abs_tol=1e-12), name
+    for loi in (0.0, 0.3, 0.9):
+        assert tp.sensitivity(loi) == pytest.approx(jp.sensitivity(loi),
+                                                    rel=1e-9)
+    assert tp.interference_coefficient() == pytest.approx(
+        jp.interference_coefficient(), rel=1e-9)
+    ja = JAdmission.from_catalog(jtiers.v5e_topology(), arch, shape)
+    ta = TAdmission.from_catalog(_ref_topology(), arch, shape,
+                                 chip=_ref_chip(), n_chips=N_CHIPS)
+    assert math.isclose(ta.per_slot_loi, ja.per_slot_loi, rel_tol=1e-9,
+                        abs_tol=1e-12)
+    assert ta.budget == pytest.approx(ja.budget, rel=1e-9)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_catalog_prior_on_its_h100_defaults(arch):
+    """One H100: the decode_32k state spills to the pool, so the prior is
+    the workload's injected LoI per sequence of the shape's batch, > 0."""
+    ctl = TAdmission.from_catalog(ttiers.h100_topology(), arch, "decode_32k")
+    want = (tq.analyze(arch, "decode_32k").profile.injected_loi()
+            / TSHAPES["decode_32k"].global_batch)
+    assert want > 0.0 and ctl.per_slot_loi == pytest.approx(want, rel=TOL)
+    assert TAdmission.from_catalog(ttiers.h100_topology(), None,
+                                   "decode_32k").per_slot_loi == 0.0

@@ -28,6 +28,8 @@ from repro.serving import KVPager as JKVPager  # noqa: E402
 from repro.serving import PagerConfig as JPagerConfig  # noqa: E402
 from repro.serving import ServingEngine as JServingEngine  # noqa: E402
 from repro.serving import make_scenario as jmake_scenario  # noqa: E402
+from repro.serving.engine import \
+    AdmissionController as JAdmission  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.common import hw as thw  # noqa: E402
 from repro_torch.core import tiers as ttiers  # noqa: E402
@@ -38,6 +40,8 @@ from repro_torch.serving import KVPager as TKVPager  # noqa: E402
 from repro_torch.serving import PagerConfig as TPagerConfig  # noqa: E402
 from repro_torch.serving import ServingEngine as TServingEngine  # noqa: E402
 from repro_torch.serving import make_scenario as tmake_scenario  # noqa: E402
+from repro_torch.serving.engine import \
+    AdmissionController as TAdmission  # noqa: E402
 
 CTX = ParallelCtx(remat="none")
 
@@ -129,10 +133,10 @@ def _agreement(a, b):
     return sum(x == y for x, y in zip(a, b)) / n if n else 1.0
 
 
-@pytest.mark.parametrize("admission", ["greedy", "loi"])
-@pytest.mark.parametrize("pool_dtype", ["fp", "int8"])
-def test_engine_matches_reference(pool_dtype, admission):
-    assert T_AGREE == INT8_TOKEN_AGREEMENT
+def _engines(**kw):
+    """The reference's engine and the port's on the same reduced float32
+    smollm weights, the port priced with the reference's topology and
+    chip."""
     jc = dataclasses.replace(jconfigs.reduced("smollm_360m"),
                              dtype="float32")
     tc = dataclasses.replace(tconfigs.reduced("smollm_360m"),
@@ -141,15 +145,22 @@ def test_engine_matches_reference(pool_dtype, admission):
     tparams = load_numpy_params(jax.tree.map(np.asarray, jparams),
                                 device="cpu")
     kw = dict(n_slots=4, max_seq=48, prefill_buckets=(16, 32),
-              page_tokens=8, hot_window=16, local_budget_frac=0.5,
-              pool_dtype=pool_dtype, admission=admission)
-    trace = dict(n=8, vocab=jc.vocab_size, seed=3, prompt_buckets=(16, 32),
-                 gen_range=(4, 12), arrival_rate=2e5)
+              page_tokens=8, hot_window=16, local_budget_frac=0.5, **kw)
     jeng = JServingEngine.build(jc, CTX, JEngineConfig(substrate="off", **kw),
                                 params=jparams)
     teng = TServingEngine.build(tc, TEngineConfig(**kw), params=tparams,
                                 topo=_ref_topology(), chip=_ref_chip(),
                                 device="cpu")
+    return jc, jeng, teng
+
+
+@pytest.mark.parametrize("admission", ["greedy", "loi"])
+@pytest.mark.parametrize("pool_dtype", ["fp", "int8"])
+def test_engine_matches_reference(pool_dtype, admission):
+    assert T_AGREE == INT8_TOKEN_AGREEMENT
+    jc, jeng, teng = _engines(pool_dtype=pool_dtype, admission=admission)
+    trace = dict(n=8, vocab=jc.vocab_size, seed=3, prompt_buckets=(16, 32),
+                 gen_range=(4, 12), arrival_rate=2e5)
     jreqs = jmake_scenario("chat", **trace)
     treqs = tmake_scenario("chat", **trace)
     js, ts = jeng.run(jreqs), teng.run(treqs)
@@ -165,6 +176,45 @@ def test_engine_matches_reference(pool_dtype, admission):
     assert tsum == pytest.approx(jsum, rel=1e-9)
     assert ts.pager == pytest.approx(js.pager, rel=1e-9)
     assert js.max_concurrency > 1            # the trace really batches
+
+
+@pytest.mark.parametrize("prior", ["catalog", "budget"])
+def test_engine_with_catalog_prior_matches_reference(prior):
+    """`catalog_arch` set: the port's engine seeds admission with the
+    catalog prior priced on its own chip and topology (here the
+    reference's v5e, one chip: non-zero at decode_32k), as
+    `AdmissionController.from_catalog` computes it. The JAX engine prices
+    the catalog on its 256-chip mesh, where the prior is 0, so both
+    engines' admission controllers are then seeded with the same
+    non-zero prior: the catalog one, or the whole corridor budget (which
+    refuses a second slot until the measured LoI refines the prior). The
+    trace gives the same tokens, virtual metrics, admission blocks and
+    pager deltas (rel=1e-9)."""
+    jc, jeng, teng = _engines(pool_dtype="fp", admission="loi",
+                              catalog_arch="smollm_360m",
+                              catalog_shape="decode_32k")
+    own = TAdmission.from_catalog(_ref_topology(), "smollm_360m",
+                                  "decode_32k", chip=_ref_chip())
+    assert teng.admission.per_slot_loi == own.per_slot_loi > 0.0
+    assert teng.admission.budget == pytest.approx(jeng.admission.budget,
+                                                  rel=1e-9)
+    loi = (own.per_slot_loi if prior == "catalog"
+           else teng.admission.budget)
+    jeng.admission = JAdmission(jeng.topo, prior_loi=loi, mode="loi")
+    teng.admission = TAdmission(teng.topo, prior_loi=loi, mode="loi")
+    trace = dict(n=8, vocab=jc.vocab_size, seed=4, prompt_buckets=(16, 32),
+                 gen_range=(4, 12), arrival_rate=2e5)
+    jreqs = jmake_scenario("chat", **trace)
+    treqs = tmake_scenario("chat", **trace)
+    js, ts = jeng.run(jreqs), teng.run(treqs)
+    for jr, tr_ in zip(jreqs, treqs):
+        assert tr_.output == jr.output, jr.request_id
+    jsum, tsum = js.summary(), ts.summary()
+    jsum.pop("tok_per_s_wall"), tsum.pop("tok_per_s_wall")
+    assert tsum == pytest.approx(jsum, rel=1e-9)
+    assert ts.pager == pytest.approx(js.pager, rel=1e-9)
+    assert teng.admission.blocks == jeng.admission.blocks
+    assert (teng.admission.blocks > 0) == (prior == "budget")
 
 
 def test_engine_config_defaults_match_reference():
