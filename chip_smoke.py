@@ -7,10 +7,17 @@ Phases (any failure raises and exits non-zero):
   2. build   — compile the CUDA kernels of `kernels/csrc/` with nvcc
                (sm_90a, one process per source, in parallel).
   3. kernels — each kernel against its plain PyTorch version on the card:
-               main-path shapes plus head dims {16, 20, 64, 128}, pages
-               {16, 64}, GQA rep {1, 3}, lengths 1 / page boundary / full /
-               parked, fp (bf16, f32) and int8 (per page, per token) pools,
-               causal and not, kv_offset > 0, Sq {1, 17, 128, 512}; the
+               flash_mha at the main-path shapes plus head dims {16, 17,
+               20, 64, 112, 128, 256}, GQA rep {1, 3, 8}, causal and not,
+               kv_offset > 0, Sq {1, 17, 33, 40, 64, 128, 512}, its lse
+               against the plain version's (bf16 on the tensor-core
+               kernel, checked by name); paged decode over head dims {16,
+               20, 64, 112, 128, 256}, pages {16, 64}, GQA rep {1, 3, 8},
+               lengths 1 / the split's span edges / a page edge / full /
+               parked, garbage table entries past each length, fp (bf16,
+               f32) and int8 (per page, per token) pools, each case
+               called three times (bit-equal: the ticket reset and the
+               span-ordered merge), one launch per op call; the
                three paged chunked-prefill kernels over chunks of 1, 2 and
                8 pages at chunk starts 0 / one page / deep in one batch,
                with garbage table entries above the frontier, their
@@ -19,7 +26,8 @@ Phases (any failure raises and exits non-zero):
                checked by kernel name at the main shape); flash_decode
                over contiguous caches, f32 and bf16, head dims {16, 20,
                64, 112, 128, 256}, rep {1, 3, 8}, S {64, 256, 260},
-               lengths 1 / S // 2 + 3 / S / S + 1; LBench over nflop
+               lengths 1 / span edges / S // 2 + 3 / S / S + 1 / S + 7,
+               called three times (bit-equal); LBench over nflop
                {0, 1, 2, 5, 16, 32, 128, 1024} x sizes {1, 129, 4096,
                2^20 + 3, 2^28} and an unaligned view (rtol = atol = 2e-5
                up to nflop 128, nflop * 1e-7 above); W8A8 bit for bit
@@ -116,6 +124,9 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bf16 outputs: kernel and plain version accumulate in f32 in another
 # order and round once to bf16, so they may differ by one bf16 ulp
 BF16_TOL = dict(atol=2e-2, rtol=0.0)
+# flash_mha's lse: m + log(l) in float32 in both dtypes (bf16 products are
+# exact in float32), summed in another order than the plain version
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
 def demangle(name: str) -> str:
@@ -205,17 +216,25 @@ class Timer:
         return self.device_ms(fn)
 
 
-def device_kernel_names(torch, fn) -> set:
-    """Names of the device kernels one call of `fn` launches
-    (torch.profiler)."""
+def device_kernel_names(torch, fn) -> list:
+    """Names of the device kernels one call of `fn` launches, one per
+    launch (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def short_names(names) -> list:
+    """Kernel names without namespaces, template arguments or
+    parameters."""
+    return sorted({re.split(r"[\s:]+", re.split(r"[<(]", n.replace(
+        "(anonymous namespace)::", ""), maxsplit=1)[0].strip())[-1]
+        for n in names})
 
 
 def max_err(torch, out, ref, tol) -> tuple[float, bool]:
@@ -231,8 +250,11 @@ def kernel_cases(torch, timer):
     """Returns the JSON records of the ten kernels (timed at the main
     paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import paged as dpaged
     from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.page_io import ops as pops
 
     F = torch.nn.functional
@@ -308,7 +330,8 @@ def kernel_cases(torch, timer):
     ))
 
     # --- B: flash attention forward --------------------------------------
-    print("kernel flash_mha (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
+    print("kernel flash_mha (f32 atol=rtol=1e-5; bf16 atol=2e-2; lse "
+          f"atol={LSE_TOL['atol']:g} rtol={LSE_TOL['rtol']:g})")
     flash_cases = [
         # (B, Sq, Skv, H, KV, D, causal, kv_offset, dtype)
         (1, 128, 128, 15, 5, 64, True, 0, torch.bfloat16),   # main path
@@ -322,25 +345,44 @@ def kernel_cases(torch, timer):
         (1, 512, 512, 4, 4, 64, False, 0, torch.float32),
         (2, 17, 49, 3, 3, 16, True, 32, torch.bfloat16),
         (1, 128, 128, 3, 1, 20, True, 0, torch.bfloat16),
+        # head dims 112 / 256 and GQA rep 8 (kimi, paligemma)
+        (1, 128, 128, 24, 3, 112, True, 0, torch.bfloat16),
+        (1, 128, 128, 8, 1, 256, True, 0, torch.bfloat16),
+        (2, 17, 49, 16, 2, 256, True, 32, torch.bfloat16),
+        (1, 64, 64, 16, 2, 112, False, 0, torch.bfloat16),
+        (1, 512, 512, 16, 2, 64, True, 0, torch.bfloat16),
+        (2, 1, 1, 8, 1, 256, True, 0, torch.bfloat16),
+        (1, 33, 33, 6, 2, 17, True, 0, torch.bfloat16),      # odd D
+        (1, 64, 64, 8, 1, 112, True, 0, torch.float32),
+        (1, 40, 72, 16, 2, 256, True, 32, torch.float32),
     ]
     main_b = None
     for (B, Sq, Skv, H, KV_, D_, causal, off, dt) in flash_cases:
         q = randn(B, Sq, H, D_, dtype=dt)
         k = randn(B, Skv, KV_, D_, dtype=dt)
         v = randn(B, Skv, KV_, D_, dtype=dt, scale=0.5)
-        out = fops.mha(q, k, v, causal=causal, kv_offset=off, impl="cuda")
-        ref = fops.mha(q, k, v, causal=causal, kv_offset=off,
-                       impl="reference")
+        out, lse = fa.flash_mha_cuda(q, k, v, causal=causal, kv_offset=off)
+        ref, ref_lse = fref.mha(q, k, v, causal=causal, kv_offset=off,
+                                return_lse=True)
         tol = F32_TOL if dt == torch.float32 else BF16_TOL
         err, ok = max_err(torch, out, ref, tol)
+        lse_err, lse_ok = max_err(torch, lse, ref_lse, LSE_TOL)
         report("flash_mha", f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV_} "
-               f"D={D_} causal={causal} off={off} {str(dt)[6:]}", err, ok,
-               tol)
+               f"D={D_} causal={causal} off={off} {str(dt)[6:]} lse "
+               f"{lse_err:.1e}", err, ok and lse_ok, tol)
         if main_b is None:
             main_b = (q, k, v, err)
     q, k, v, err_b = main_b
     B, Sq, H, D_ = q.shape
     Skv, KV_ = k.shape[1], k.shape[2]
+    # bf16 must run the tensor-core body, not the float32 FMA one
+    names = device_kernel_names(torch, lambda: fops.mha(q, k, v,
+                                                        impl="cuda"))
+    report("flash_mha", "main shape on the tensor-core kernel: "
+           + ", ".join(short_names(names)), 0.0,
+           any("flash_mma_kernel" in n for n in names)
+           and not any("flash_fma_kernel" in n for n in names),
+           dict(atol=0, rtol=0))
     pairs = sum(min(Skv, i + 1) for i in range(Sq)) * B * H
     ops_b = 4 * D_ * pairs
     bytes_b = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * Sq
@@ -397,6 +439,12 @@ def kernel_cases(torch, timer):
                                 dtype=torch.int32, device="cuda")
     cases = [(8, 15, 5, 64, 16, 16, "int8/page", torch.bfloat16,
               main_lengths)]                                  # main path
+
+    def qdtype(pool, D_):
+        return torch.bfloat16 if pool == "bf16" else (
+            torch.float32 if pool == "f32" else
+            (torch.bfloat16 if D_ == 64 else torch.float32))
+
     for D_ in (16, 20, 64, 128):
         for page_ in (16, 64):
             for rep in (1, 3):
@@ -405,27 +453,66 @@ def kernel_cases(torch, timer):
                     full = n_pages * page_
                     lens = torch.tensor([1, page_, full, full + 7],
                                         dtype=torch.int32, device="cuda")
-                    qdt = torch.bfloat16 if pool == "bf16" else (
-                        torch.float32 if pool == "f32" else
-                        (torch.bfloat16 if D_ == 64 else torch.float32))
                     cases.append((4, 2 * rep, 2, D_, page_, n_pages, pool,
-                                  qdt, lens))
+                                  qdtype(pool, D_), lens))
+    # the split's span edges (1, span - 1, span, span + 1), a page edge,
+    # the capacity and a parked row, over three spans of keys, at every
+    # head dim up to 256 and GQA rep up to 8
+    span = dpaged.SPAN
+    for D_ in (16, 20, 64, 112, 128, 256):
+        for page_ in (16, 64):
+            for rep in (1, 3, 8):
+                for pool in ("bf16", "f32", "int8/page", "int8/token"):
+                    n_pages = -(-(2 * span + 16) // page_)
+                    full = n_pages * page_
+                    lens = torch.tensor([1, span - 1, span, span + 1, page_,
+                                         2 * span + 1, full, full + 7],
+                                        dtype=torch.int32, device="cuda")
+                    cases.append((8, 2 * rep, 2, D_, page_, n_pages, pool,
+                                  qdtype(pool, D_), lens))
     main_c = None
+    n_dec, worst_c = 0, {"f32": 0.0, "bf16": 0.0}
     for (B, H, KV_, D_, page_, n_pages, pool, qdt, lens) in cases:
         q, kp, vp, bt, lens, sz = decode_inputs(B, H, KV_, D_, page_,
                                                 n_pages, pool, qdt, lens)
+        if main_c is not None:
+            # garbage table entries past each row's length: the kernel
+            # must not dereference them (the plain version clamps them)
+            dead = (torch.arange(n_pages, device="cuda")[None, :] * page_
+                    >= lens[:, None])
+            bt = torch.where(dead, kp.shape[0] + 1000, bt).to(torch.int32)
         out = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda", **sz)
         ref = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="reference",
                                     **sz)
         exact = qdt == torch.float32 and pool != "bf16"
         tol = F32_TOL if exact else BF16_TOL
         err, ok = max_err(torch, out, ref, tol)
-        report("paged_flash_decode",
-               f"B={B} H={H} KV={KV_} D={D_} page={page_} pool={pool} "
-               f"q={str(qdt)[6:]} len={lens.tolist()}"[:58], err, ok, tol)
+        # the ticket reset and the span-ordered merge: later calls equal
+        # the first bit for bit
+        same = all(torch.equal(out, dops.paged_decode_mha(
+            q, kp, vp, bt, lens, impl="cuda", **sz)) for _ in range(2))
+        n_dec += 1
+        worst_c["f32" if exact else "bf16"] = max(
+            worst_c["f32" if exact else "bf16"], err)
+        if main_c is None or not (ok and same):
+            report("paged_flash_decode",
+                   f"B={B} H={H} KV={KV_} D={D_} page={page_} pool={pool} "
+                   f"q={str(qdt)[6:]} len={lens.tolist()}"[:58]
+                   + ("" if same else " REPEAT DIFFERS"), err, ok and same,
+                   tol)
         if main_c is None:
             main_c = (q, kp, vp, bt, lens, sz, err)
+    print(f"  paged_flash_decode: {n_dec} cases, each called three times "
+          f"(bit-equal); max_abs_err f32 {worst_c['f32']:.3e}, bf16 "
+          f"{worst_c['bf16']:.3e}")
     q, kp, vp, bt, lens, sz, err_c = main_c
+    # one launch of the split kernel per op call, the merge included
+    names = device_kernel_names(torch, lambda: dops.paged_decode_mha(
+        q, kp, vp, bt, lens, impl="cuda", **sz))
+    n_split = sum("decode_split_kernel" in n for n in names)
+    report("paged_flash_decode", f"main shape: {n_split} launch of the "
+           "split kernel per call; " + ", ".join(short_names(names)), 0.0,
+           n_split == 1, dict(atol=0, rtol=0))
     B, H, D_ = q.shape
     page_, KV_ = kp.shape[1], kp.shape[2]
     n_pages = bt.shape[1]
@@ -504,35 +591,46 @@ def flash_decode_cases(torch, timer, randn, report, timed):
     """flash_decode against its plain version over the contiguous cache:
     f32 and bf16 x head dims {16, 20, 64, 112, 128, 256} x GQA rep
     {1, 3, 8} x cache extents S {64, 256, 260} (260: the draft caches'
-    max_seq + k, a ragged last key tile), four rows per case with
-    lengths 1, S // 2 + 3, S and S + 1 (parked). Prints one summary line
-    and any failing case; returns the record timed at the contiguous
-    engine's decode shape (B=8, 15/5 heads, D=64, S=256, bf16)."""
+    max_seq + k, a ragged last key span), eight rows per case with
+    lengths 1, span - 1, span, span + 1 (the split's edges), S // 2 + 3,
+    S, S + 1 and S + 7 (parked), each case called three times (the later
+    calls bit-equal to the first). Prints one summary line and any
+    failing case; returns the record timed at the contiguous engine's
+    decode shape (B=8, 15/5 heads, D=64, S=256, bf16), after checking
+    that one op call is one launch of the split kernel."""
     from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import paged as dpaged
 
     print("kernel flash_decode (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
+    span = dpaged.SPAN
     n_cases, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dt in (torch.float32, torch.bfloat16):
         for D in (16, 20, 64, 112, 128, 256):
             for rep in (1, 3, 8):
                 for S in (64, 256, 260):
-                    q = randn(4, 2 * rep, D, dtype=dt)
-                    k = randn(4, S, 2, D, dtype=dt)
-                    v = randn(4, S, 2, D, dtype=dt, scale=0.5)
-                    lens = torch.tensor([1, S // 2 + 3, S, S + 1],
+                    lens = torch.tensor([1, span - 1, span, span + 1,
+                                         S // 2 + 3, S, S + 1, S + 7],
                                         dtype=torch.int32, device="cuda")
+                    B = lens.numel()
+                    q = randn(B, 2 * rep, D, dtype=dt)
+                    k = randn(B, S, 2, D, dtype=dt)
+                    v = randn(B, S, 2, D, dtype=dt, scale=0.5)
                     out = dops.decode_mha(q, k, v, lens, impl="cuda")
                     ref = dops.decode_mha(q, k, v, lens, impl="reference")
                     tol = F32_TOL if dt == torch.float32 else BF16_TOL
                     err, ok = max_err(torch, out, ref, tol)
+                    same = all(torch.equal(out, dops.decode_mha(
+                        q, k, v, lens, impl="cuda")) for _ in range(2))
                     n_cases += 1
                     worst[dt] = max(worst[dt], err)
-                    if not ok:
+                    if not (ok and same):
                         report("flash_decode", f"S={S} D={D} rep={rep} "
-                               f"{str(dt)[6:]} len={lens.tolist()}", err,
-                               ok, tol)
-    print(f"  flash_decode: {n_cases} cases; max_abs_err f32 "
-          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+                               f"{str(dt)[6:]} len={lens.tolist()}"
+                               + ("" if same else " REPEAT DIFFERS"), err,
+                               False, tol)
+    print(f"  flash_decode: {n_cases} cases, each called three times "
+          f"(bit-equal); max_abs_err f32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}")
     # main shape: the contiguous engine's decode step (prompts of 128
     # tokens, 32 new tokens each, cache extent max_seq = 256)
     B, H, KV, D, S = 8, 15, 5, 64, 256
@@ -546,6 +644,12 @@ def flash_decode_cases(torch, timer, randn, report, timed):
     err, ok = max_err(torch, out, ref, BF16_TOL)
     report("flash_decode", f"main B={B} H={H} KV={KV} D={D} S={S} bf16",
            err, ok, BF16_TOL)
+    names = device_kernel_names(torch, lambda: dops.decode_mha(
+        q, k, v, lens, impl="cuda"))
+    n_split = sum("decode_split_kernel" in n for n in names)
+    report("flash_decode", f"main shape: {n_split} launch of the split "
+           "kernel per call; " + ", ".join(short_names(names)), 0.0,
+           n_split == 1, dict(atol=0, rtol=0))
     n_keys = int(lens.clamp(max=S).sum())
     bytes_ = 2 * n_keys * KV * D * 2 + 2 * q.numel() * 2 + B * 4
     ops_ = 4 * D * H * n_keys
@@ -748,11 +852,9 @@ def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
         # bf16 q must run the tensor-core body (mma.sync), not the FMA one
         names = device_kernel_names(torch, lambda: call(kind, a, "cuda"))
         mma = any("paged_prefill_mma_kernel" in n for n in names)
-        short = sorted({re.split(r"[\s:]+", re.split(r"[<(]", n.replace(
-            "(anonymous namespace)::", ""), maxsplit=1)[0].strip())[-1]
-            for n in names})
         report(kind, "main shape bf16 q on the tensor-core kernel: "
-               + ", ".join(short), 0.0, mma, dict(atol=0, rtol=0))
+               + ", ".join(short_names(names)), 0.0, mma,
+               dict(atol=0, rtol=0))
         records.append(dict(
             name=kind, route="cuda",
             source="src/repro_torch/kernels/csrc/paged_prefill.cu",
@@ -1168,6 +1270,47 @@ def agreement(a, b) -> float:
 BUCKET_KERNELS = ("write_pages", "flash_mha", "paged_flash_decode")
 
 
+def divergence_report(torch, cfg, params, kreqs, rreqs) -> None:
+    """For each request whose kernel and plain-version tokens differ:
+    the first differing position, the two tokens, and the logits of the
+    prompt plus the common tokens (teacher-forced prefill, once with the
+    kernels and once with the plain versions): how far apart the two
+    candidates are in each, beside the largest |logit|. A gap near
+    bf16's rounding marks a near-tie that any reordering may flip."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+    from repro_torch.models.module import cast_params
+
+    p = cast_params(params, cfg.dtype)
+    for a, b in zip(kreqs, rreqs):
+        i = next((j for j, (x, y) in enumerate(zip(a.output, b.output))
+                  if x != y), None)
+        if i is None:
+            continue
+        toks = torch.as_tensor(np.concatenate(
+            [a.tokens, np.asarray(a.output[:i], dtype=a.tokens.dtype)])[None],
+            device="cuda")
+        gaps = {}
+        for backend in (None, "reference"):
+            kernels.force_backend(backend)
+            try:
+                logits = M.prefill(p, {"tokens": toks}, cfg,
+                                   max_seq=toks.shape[1])[1][0].float()
+            finally:
+                kernels.force_backend(None)
+            gaps[backend or "kernels"] = (
+                float(logits[a.output[i]] - logits[b.output[i]]),
+                float(logits.abs().max()))
+        print(f"    request {a.request_id}: first differing token {i} of "
+              f"{len(a.output)} (kernels {a.output[i]}, plain "
+              f"{b.output[i]}); teacher-forced logit(kernels' token) - "
+              f"logit(plain's token): kernels {gaps['kernels'][0]:+.4f}, "
+              f"plain {gaps['reference'][0]:+.4f} (max |logit| "
+              f"{gaps['reference'][1]:.3f})")
+
+
 def engine_phase(torch):
     """Serve the chat trace at full width; returns the launches of the
     bucket path's kernels in the int8 kernel run (the main path)."""
@@ -1229,6 +1372,7 @@ def engine_phase(torch):
               f"plain: min={min(agree):.3f} mean="
               f"{sum(agree) / len(agree):.3f} (gate >= "
               f"{INT8_TOKEN_AGREEMENT})")
+        divergence_report(torch, cfg, params, kreqs, rreqs)
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
     serve("int8", None, profiled=True)
     return {k: main_launches[k] for k in BUCKET_KERNELS}
@@ -1748,6 +1892,25 @@ def ssm_phase(torch):
     return {"ssd_scan": launches["ssd_scan"]}
 
 
+# kernel groups of the profiled runs: (group, substrings a lowercased
+# kernel name must all hold); the two decode kernels share one template
+# body, whose row policy (PagedRows / DenseRows) names which one ran
+PROFILE_GROUPS = (
+    ("paged_flash_decode", ("decode_split_kernel", "pagedrows")),
+    ("flash_decode", ("decode_split_kernel", "denserows")),
+    ("flash_mha", ("flash_mma_kernel",)),
+    ("flash_mha", ("flash_combine_kernel",)),
+    ("flash_mha", ("flash_fma_kernel",)),
+    ("write_pages", ("write_pages_kernel",)),
+    ("paged_prefill_flash/insert_flash/insert_flash_q8", ("paged_prefill",)),
+    ("ssd_scan", ("ssd_fwd_kernel",)),
+)
+# kernels whose every instantiation the build phase lists (registers and
+# spills)
+LISTED_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
+                  "decode_split_kernel")
+
+
 def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
     """Serve `reqs` under torch.profiler and print where the time goes:
     the device's busy share of the run's wall time (union of device
@@ -1775,18 +1938,10 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
             busy_ns += s1 - max(s0, end)
             end = s1
     busy = busy_ns / 1e3 / wall_us
-    # the two decode kernels share one template body; its row policy
-    # (PagedRows / DenseRows) names which one ran
-    groups = {"paged_flash_decode": "pagedrows",
-              "flash_decode": "denserows",
-              "flash_mha": "flash_fwd_kernel",
-              "write_pages": "write_pages_kernel",
-              "paged_prefill_flash/insert_flash/insert_flash_q8":
-              "paged_prefill",
-              "ssd_scan": "ssd_fwd_kernel"}
     by_group: dict = {}
     for s0, s1, name in kern:
-        g = next((k for k, v in groups.items() if v in name), None)
+        g = next((grp for grp, subs in PROFILE_GROUPS
+                  if all(x in name for x in subs)), None)
         if g is None:
             g = "matmul" if any(w in name for w in (
                 "gemm", "nvjet", "cutlass", "cublas")) else "other"
@@ -1872,9 +2027,15 @@ def main(argv=None) -> int:
                   f"{regs[-1].strip() if regs else ''}; "
                   f"{len(spills)} with spills")
             for i, line in enumerate(log):
-                if "spill" in line and " 0 bytes spill stores" not in line:
-                    fn = demangle(log[i - 1].split("for ")[-1].strip())
-                    print(f"    spills in {fn}: {line.strip()}")
+                if "spill" not in line:
+                    continue
+                mangled = log[i - 1].split("for ")[-1].strip()
+                listed = any(k in mangled for k in LISTED_KERNELS)
+                if listed or " 0 bytes spill stores" not in line:
+                    fn = demangle(mangled)
+                    used = log[i + 1].strip() if i + 1 < len(log) else ""
+                    print(f"    {'spills in ' if not listed else ''}{fn}: "
+                          f"{line.strip()}; {used}")
         phase_done("build")
     records = []
     if "kernels" in phases:

@@ -1,0 +1,281 @@
+#!/usr/bin/env python3
+"""Where a block's time goes in the flash-attention and split-decode
+kernels, on one card.
+
+Instrumented copies of `csrc/flash_attention.cu` and `csrc/decode_body.cuh`
+record, for every block, the global timer (`%globaltimer`, ns) and the
+SM's cycle counter (`clock64`) at the end of each phase (thread 0), and
+the SM it ran on. They run at the main shapes of PERF.md's kernel table:
+flash_mha bf16 causal B=1, Sq=Skv=128, 15/5 heads, D=64 (the default plan
+and 64-row blocks); paged decode B=8, int8/page, page 16, 16 pages,
+lengths 70..257 (span 64 and 256, the latter without a split); the
+contiguous decode B=8, S=256, bf16, lengths 129..160. Each is timed with
+the L2 flushed (as `chip_smoke.py` times kernels) and warm, after 200
+calls that bring the clocks up. Prints, per kernel and plan, each
+phase's median and max over the blocks in microseconds and cycles, the
+SM clock the two counters imply, the clocks nvidia-smi reads and the
+card's name and power limit.
+
+The copies are built with the flags of `kernels/build.py` into
+`build/kernel_phases/` and loaded in place of the repository's libraries
+inside this process only.
+
+    python3 scripts/kernel_phases.py
+
+Needs a CUDA card and nvcc; exits 2 without a card."""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+OUT = ROOT / "build" / "kernel_phases"
+CYCLES = 1 << 16          # row of the stamp table where cycle counts start
+STAMPS = '''
+__device__ unsigned long long* g_stamps;
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP(k)                                                          \\
+  do {                                                                    \\
+    if (threadIdx.x == 0) {                                               \\
+      const unsigned long long b_ =                                       \\
+          blockIdx.x + gridDim.x * (blockIdx.y +                          \\
+                                    (unsigned long long)gridDim.y *       \\
+                                        blockIdx.z);                      \\
+      g_stamps[b_ * 8 + (k)] = global_ns();                               \\
+      g_stamps[(CYCLES_ROW + b_) * 8 + (k)] = clock64();                  \\
+      if ((k) == 0) {                                                     \\
+        unsigned sm_;                                                     \\
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm_));                  \\
+        g_stamps[b_ * 8 + 7] = sm_;                                       \\
+      }                                                                   \\
+    }                                                                     \\
+  } while (0)
+extern "C" int phases_set(void* p) {
+  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));
+}
+'''.replace("CYCLES_ROW", str(CYCLES))
+
+# (phase start stamp, end stamp, name) of each kernel
+PHASES = {
+    "flash": [(0, 1, "issue q and the first round's tiles"),
+              (1, 2, "wait for them"),
+              (2, 3, "products and softmax of round 0"),
+              (3, 4, "later rounds, key groups' merge"),
+              (4, 6, "write (warp 0)"),
+              (0, 6, "whole block (warp 0)")],
+    "decode": [(0, 1, "length, table entries, q"),
+               (1, 2, "K/V and (scale, zero) copies"),
+               (2, 3, "products and softmax"),
+               (3, 4, "partials and ticket"),
+               (4, 6, "merge (last span block)"),
+               (0, 6, "whole block (last or only span)")],
+}
+
+
+def _insert(text: str, anchor: str, stamp: str, after: bool = True) -> str:
+    if text.count(anchor) < 1:
+        raise RuntimeError(f"kernel_phases: anchor not found: {anchor!r}")
+    return text.replace(anchor, anchor + stamp if after else stamp + anchor,
+                        1)
+
+
+def flash_source(csrc: Path) -> str:
+    s = (csrc / "flash_attention.cu").read_text()
+    s = _insert(s, '#include "mma.cuh"\n', STAMPS)
+    head, body = s.split("flash_mma_kernel(", 1)
+    body, tail = body.split("// merge the n_split partial", 1)
+    body = _insert(body, "  const int tid = threadIdx.x;", "  STAMP(0);\n",
+                   after=False)
+    body = _insert(body, "  repro::cp_async_commit();\n\n  const int n_rounds",
+                   "  STAMP(1);\n\n", after=False)
+    body = _insert(body, "    __syncthreads();  // round r (and, first, q) "
+                   "landed for every thread\n", "    if (r == 0) STAMP(2);\n")
+    body = _insert(body, "    __syncthreads();  // round r's slots free for "
+                   "reuse\n", "    if (r == 0) STAMP(3);\n")
+    body = _insert(body, "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n"
+                   "    if (!row_ok[h]) continue;", "  STAMP(4);\n",
+                   after=False)
+    i = body.rindex("}\n")
+    body = body[:i] + "  STAMP(6);\n" + body[i:]
+    return head + "flash_mma_kernel(" + body + "// merge the n_split partial" \
+        + tail
+
+
+def decode_header(csrc: Path) -> str:
+    h = (csrc / "decode_body.cuh").read_text()
+    h = _insert(h, '#include "mma.cuh"\n', STAMPS)
+    h = _insert(h, "  const int cap = rows.capacity();\n", "  STAMP(0);\n")
+    h = _insert(h, "  __syncthreads();  // s_row is written\n", "  STAMP(1);\n")
+    h = _insert(h, "  cp_async_commit();\n  cp_async_wait<0>();\n"
+                "  __syncthreads();\n", "  STAMP(2);\n")
+    h = _insert(h, "  const long long slot = b * s.KV + g;\n", "  STAMP(3);\n",
+                after=False)
+    h = _insert(h, "      }\n    }\n    return;\n  }\n",
+                "    __syncthreads();\n    STAMP(6);\n", after=False)
+    h = _insert(h, "  if (!s_last) return;\n", "  STAMP(4);\n", after=False)
+    i = h.index("template <typename Rows>\nstruct Args")
+    j = h.rindex("}\n", 0, i)
+    return h[:j] + "  __syncthreads();\n  STAMP(6);\n" + h[j:]
+
+
+def build_copies(build):
+    """Build the instrumented libraries and load them in place of the
+    repository's (`build._LIBS`)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    for f in ("common.cuh", "mma.cuh"):
+        (OUT / f).write_text((build.CSRC / f).read_text())
+    (OUT / "decode_body.cuh").write_text(decode_header(build.CSRC))
+    sources = {"flash_attention": flash_source(build.CSRC),
+               "paged_decode": (build.CSRC / "paged_decode.cu").read_text(),
+               "decode_attention":
+                   (build.CSRC / "decode_attention.cu").read_text()}
+    procs = {}
+    for name, text in sources.items():
+        src = OUT / f"{name}.cu"
+        src.write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
+               str(OUT / f"lib{name}.so"), str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = []
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the copy of {name}:\n{log}")
+        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+        build._LIBS[name] = lib
+        libs.append(lib)
+    return libs
+
+
+def report(kind, label, table, n_blocks):
+    ns, cyc = table[:n_blocks], table[CYCLES:CYCLES + n_blocks]
+    live = [i for i in range(n_blocks) if ns[i][0] > 0]
+    t0 = min(int(ns[i][0]) for i in live)
+    span = max(int(ns[i][6]) for i in live) - t0
+    print(f"{kind} {label}: {len(live)} of {n_blocks} blocks ran, kernel "
+          f"span {span / 1e3:.2f} us on {len({int(ns[i][7]) for i in live})}"
+          " SMs")
+    for a, b, what in PHASES[kind]:
+        pairs = [(int(ns[i][b]) - int(ns[i][a]),
+                  int(cyc[i][b]) - int(cyc[i][a]))
+                 for i in live if ns[i][a] > 0 and ns[i][b] > 0]
+        if pairs:
+            us = [p[0] / 1e3 for p in pairs]
+            print(f"   {what:38s} median {statistics.median(us):6.2f} us "
+                  f"max {max(us):6.2f} us; median "
+                  f"{statistics.median(p[1] for p in pairs):6.0f} cycles "
+                  f"(n={len(pairs)})")
+    ghz = [(int(cyc[i][6]) - int(cyc[i][0])) / (int(ns[i][6]) - int(ns[i][0]))
+           for i in live if ns[i][6] > ns[i][0]]
+    print(f"   SM clock from the two counters: median "
+          f"{statistics.median(ghz):.3f} GHz")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention import paged as dpaged
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    smi = chip_smoke.smi_line()
+    print(f"device: {smi}")
+    timer = chip_smoke.Timer(torch)
+    gen = torch.Generator("cuda").manual_seed(0)
+    stamps = torch.zeros(2 * CYCLES * 8, dtype=torch.int64, device="cuda")
+    for lib in build_copies(build):
+        if lib.phases_set(ctypes.c_void_p(stamps.data_ptr())):
+            raise RuntimeError("kernel_phases: cudaMemcpyToSymbol failed")
+
+    def clocks():
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+
+    def run(kind, label, fn, n_blocks):
+        for _ in range(200):
+            timer._flush()
+            fn()
+        torch.cuda.synchronize()
+        print(f"{kind} {label}: nvidia-smi clocks.sm, clocks.max.sm after "
+              f"200 calls: {clocks()}")
+        for cold in (True, False):
+            stamps.zero_()
+            if cold:
+                timer._flush()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            report(kind, f"{label}, {'L2 flushed' if cold else 'warm'}",
+                   stamps.view(-1, 8).cpu().tolist(), n_blocks)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    H, KV, D = 15, 5, 64
+    q, k = randn(1, 128, H, D), randn(1, 128, KV, D)
+    v = randn(1, 128, KV, D, scale=0.5)
+    for rows in (None, 64):
+        plan = fa._mma_plan(1, 128, 128, H, KV, D, rows=rows)
+        run("flash", f"rows={plan.rows} key_groups={plan.key_groups} "
+            f"n_split={plan.n_split}",
+            lambda plan=plan: fa.flash_mha_cuda(q, k, v, plan=plan),
+            plan.grid[0] * plan.grid[1] * plan.grid[2])
+
+    B, page, n_pages = 8, 16, 16
+    P = B * n_pages
+    qd = randn(B, H, D)
+    bt = torch.stack([torch.randperm(P, generator=gen, device="cuda")
+                      [:n_pages] for _ in range(B)]).to(torch.int32)
+    kp = torch.randint(-127, 128, (P, page, KV, D), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    vp = torch.randint(-127, 128, (P, page, KV, D), generator=gen,
+                       device="cuda", dtype=torch.int8)
+
+    def sz():
+        s = torch.rand((P, KV), generator=gen, device="cuda")
+        z = torch.rand((P, KV), generator=gen, device="cuda") - 0.5
+        return torch.stack([0.005 + 0.015 * s, z], -1)
+
+    ksz, vsz = sz(), sz()
+    lens = torch.tensor([70, 100, 129, 160, 200, 240, 256, 257],
+                        dtype=torch.int32, device="cuda")
+    for span in (dpaged.SPAN, 256):
+        plan = dpaged.decode_plan(B, H, KV, D, n_pages * page, torch.int8,
+                                  span)
+        run("decode", f"paged int8/page span={span}",
+            lambda span=span: dpaged.paged_flash_decode_cuda(
+                qd, kp, vp, bt, lens, k_sz=ksz, v_sz=vsz, span=span),
+            KV * B * plan.n_span)
+    S = 256
+    kc, vc = randn(B, S, KV, D), randn(B, S, KV, D, scale=0.5)
+    lc = torch.tensor([129, 133, 137, 141, 145, 150, 155, 160],
+                      dtype=torch.int32, device="cuda")
+    run("decode", f"contiguous bf16 span={dpaged.SPAN}",
+        lambda: da.flash_decode_cuda(qd, kc, vc, lc),
+        KV * B * dpaged.decode_plan(B, H, KV, D, S, torch.bfloat16).n_span)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

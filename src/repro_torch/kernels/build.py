@@ -32,6 +32,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
+# limits of the card the launch plans size themselves for (H100 SXM)
+SMEM_LIMIT = 232448      # dynamic shared memory a block may use (227 KB)
+N_SM = 132               # streaming multiprocessors
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # seconds the last build_all() spent compiling (0.0 when all were cached)
@@ -99,6 +103,15 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def copy_width(row_bytes: int, *ptrs: int) -> int:
+    """Widest cp.async (16 or 4 bytes) that divides a row and every base
+    address; 1 means synchronous byte copies."""
+    for w in (16, 4):
+        if row_bytes % w == 0 and all(p % w == 0 for p in ptrs):
+            return w
+    return 1
 
 
 def dtype_code(dtype) -> int:

@@ -5,35 +5,61 @@
 //
 // Bound: bytes. Per row the step must read its live K and V once (plus the
 // int8 pool's (scale, zero) rows); the arithmetic is 4 * D flops per
-// (query head, key), far below the byte time.
+// (query head, key), far below the byte time. Decode is matrix-vector (rep
+// = H / KV query rows per KV group), so the arithmetic stays float32 FMA
+// (and the float32 sweep's 1e-5 gate); the lever is latency and the card's
+// width, not the tensor cores.
 //
-// Design: one block per (KV head, batch row) computes all rep = H / KV
-// query heads of that group, so each K/V row leaves device memory once per
-// step; the Pallas grids (B, H, keys) re-read it per query head. A loop
-// over the row's live keys stands in for the sequential key grid axis: it
-// is bounded by min(length, capacity) — a parked row (length past the
-// cache) reads the whole cache and produces garbage the engine masks, it
-// never reads past it. For each tile of 32 consecutive positions the
-// first 32 threads resolve each key's row (and, int8, the page's or
-// token's (scale, zero)) into shared memory; then the block stages the
-// tile's K/V rows in f32, dequantized `q * scale + zero` right after the
-// load, so fp values exist only in shared memory. Rows whose size is a
-// multiple of 16 bytes load as 16-byte vectors, so a tile's loads are all
-// in flight together; other head dims load element by element. The ragged
-// last tile is zero-filled and masked. Per query head a warp runs the
-// online softmax (lane j scores key j; each lane owns ceil(D/32) head-dim
-// values of the accumulator), with the reference's -1e30 mask and the
-// denominator clamped at 1e-30.
+// What the first design lost (3.1x SDPA at the main shape): one block per
+// (KV head, slot), 40 blocks at B = 8 on 132 SMs, each walking up to 257
+// keys in 32-key tiles, and each tile two dependent global round trips (32
+// threads resolve the table entries and (scale, zero) rows, then the block
+// loads K/V) with barriers between them.
+//
+// Design: the slot's key range is split into spans of `span` positions
+// (64 by default; the launch plan, `kernels/decode_attention/paged.py`
+// `decode_plan`), one block per (KV head, slot, span), grid (KV, B,
+// n_span) with n_span from the capacity, so the host never reads the
+// lengths. The span length depends on neither the row policy nor the
+// capacity: paged and contiguous caches partition [0, length) the same
+// way, and a paged fp engine stays bit-exact with a contiguous one.
+// - A block first reads the slot's length, its span's block-table
+//   entries (in parallel with the length: an entry at or past the length
+//   is read but never dereferenced, so the table needs no clamp) and q,
+//   which it stages as f32. A span past the length exits at once;
+//   the key range is bounded by min(length, capacity), so a parked slot
+//   reads its whole cache and never past it.
+// - Then one round of copies: the span's (scale, zero) rows (8-byte
+//   cp.async) and its K/V rows (16-byte cp.async where rows allow, else 4,
+//   else synchronous bytes), all in flight together, in the cache's own
+//   type, at a row pitch of an odd number of 16-byte chunks so that 32
+//   lanes reading 32 rows 16 bytes at a time hit every bank once.
+// - Per 32-key tile a warp runs the first design's arithmetic for each of
+//   its query rows (lane j scores key j, dequantizing `q * scale + zero` in
+//   registers; each lane owns ceil(D/32) head-dim values of the
+//   accumulator), with the reference's -1e30 mask and the denominator
+//   clamped at 1e-30: a slot whose keys fit in one span gets the first
+//   design's sums exactly.
+// - Merge in the same launch: a slot with one used span writes its output
+//   directly. Otherwise each used span writes its float32 (acc, m, l) to a
+//   scratch buffer, and the last span block to finish for the (slot, KV
+//   head), found by an int32 ticket in scratch that it resets for the next
+//   call, merges the partials in span order (not finish order, so the
+//   result is the same on every run), online: o = sum_u e^(m_u - M) acc_u
+//   / max(sum_u e^(m_u - M) l_u, 1e-30) with the running max M.
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 namespace decode {
 
 constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRowsPerWarp = 4;  // rep = H / KV <= 16
 constexpr int kBK = 32;             // keys per tile: one per lane
+constexpr int kMaxKeysPerThread = 2;  // span <= 2 * kThreads
 
 enum SzMode : int { kSzNone = 0, kSzPage = 1, kSzToken = 2 };
 
@@ -43,10 +69,15 @@ struct PagedRows {
   const int* bt;
   int page, n_pages;
   __device__ __forceinline__ int capacity() const { return n_pages * page; }
+  // the table entry of key t (the only global read of the policy)
+  __device__ __forceinline__ int entry(long long b, int t) const {
+    return bt[b * n_pages + t / page];
+  }
   // (page id for per-page sz, row index into the (rows, KV, D) view)
-  __device__ __forceinline__ void locate(long long b, int t, long long& pid,
+  __device__ __forceinline__ void locate(long long b, int e, int t,
+                                         long long& pid,
                                          long long& row) const {
-    pid = bt[b * n_pages + t / page];
+    pid = e;
     row = pid * page + t % page;
   }
 };
@@ -55,48 +86,139 @@ struct PagedRows {
 struct DenseRows {
   int S;
   __device__ __forceinline__ int capacity() const { return S; }
-  __device__ __forceinline__ void locate(long long b, int t, long long& pid,
+  __device__ __forceinline__ int entry(long long, int) const { return 0; }
+  __device__ __forceinline__ void locate(long long b, int, int t,
+                                         long long& pid,
                                          long long& row) const {
     pid = b;
     row = b * S + t;
   }
 };
 
+// Shared-memory layout of the split body, in bytes; every region starts
+// 16-byte aligned. The launch plan in Python mirrors it.
+struct Smem {
+  int chunks;  // 16-byte chunks of a cache row's data
+  int pitch;   // staged row pitch: an odd number of 16-byte chunks
+  int dq;      // f32 q values per row (the chunks' elements, zero-padded)
+  int stage, sz, rows, q, total;
+  __host__ __device__ Smem(int span, int D, int esize, int rep) {
+    chunks = (D * esize + 15) / 16;
+    pitch = 16 * (chunks | 1);
+    dq = chunks * (16 / esize);
+    stage = 2 * span * pitch;  // [k, v][span] rows
+    sz = span * 16;            // [span] (k scale, k zero, v scale, v zero)
+    rows = span * 8;           // [span] cache row of each key
+    q = rep * dq * 4;          // [rep][dq] f32
+    total = stage + sz + rows + q;
+  }
+};
+
+struct Shape {
+  int H, KV, D, span, n_span, vb, sz_vb;
+  float scale;
+};
+
 template <typename T, typename TKV, int SZ, int DPL, typename Rows>
-__global__ void __launch_bounds__(kWarps * 32) decode_kernel(
+__global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q, const TKV* __restrict__ kp,
     const TKV* __restrict__ vp, const float* __restrict__ ksz,
     const float* __restrict__ vsz, const Rows rows,
-    const int* __restrict__ lengths, T* __restrict__ out, int H, int KV, int D,
-    float scale) {
-  extern __shared__ float smem[];
-  __shared__ long long s_row[kBK];  // cache row of each key
-  __shared__ float s_ksc[kBK], s_kz[kBK], s_vsc[kBK], s_vz[kBK];
-  const int rep = H / KV;
-  const int Dp = odd_pitch(D);
-  float* qs = smem;           // [rep][D]
-  float* ks = qs + rep * D;   // [kBK][Dp]
-  float* vs = ks + kBK * Dp;  // [kBK][Dp]
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part, float* __restrict__ part_ml,
+    int* __restrict__ tickets, Shape s) {
+  constexpr int kE = 16 / static_cast<int>(sizeof(TKV));  // per chunk
+  extern __shared__ __align__(16) unsigned char smem_dec[];
+  __shared__ int s_last;
+  const int rep = s.H / s.KV;
+  const Smem lay(s.span, s.D, sizeof(TKV), rep);
+  unsigned char* kst = smem_dec;
+  unsigned char* vst = kst + s.span * lay.pitch;
+  float4* s_sz = reinterpret_cast<float4*>(smem_dec + lay.stage);
+  long long* s_row = reinterpret_cast<long long*>(smem_dec + lay.stage +
+                                                  lay.sz);
+  float* qs = reinterpret_cast<float*>(smem_dec + lay.stage + lay.sz +
+                                       lay.rows);
 
   const int g = blockIdx.x;
   const long long b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int s0 = sp * s.span;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  constexpr int kThreads = kWarps * 32;
+  const int cap = rows.capacity();
 
-  for (int idx = tid; idx < rep * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    qs[idx] = to_float(q[(b * H + g * rep + r) * D + d]);
+  // the slot's length, the span's table entries and q, all in flight
+  // together; only the live keys' entries are dereferenced below
+  const int len = lengths[b];
+  int ent[kMaxKeysPerThread];
+#pragma unroll
+  for (int u = 0; u < kMaxKeysPerThread; ++u) {
+    const int j = tid + u * kThreads;
+    ent[u] = j < s.span && s0 + j < cap ? rows.entry(b, s0 + j) : 0;
   }
-  const int n_keys = max(0, min(lengths[b], rows.capacity()));
-  constexpr int kPerVec = 16 / sizeof(TKV);  // elements per 16-byte load
-  const int row_bytes = D * static_cast<int>(sizeof(TKV));
-  const bool vec_rows =
-      row_bytes % 16 == 0 &&
-      ((reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) &
-       15) == 0;
+  for (int idx = tid; idx < rep * lay.dq; idx += kThreads) {
+    const int r = idx / lay.dq;
+    const int d = idx - r * lay.dq;
+    qs[idx] = d < s.D ? to_float(q[(b * s.H + g * rep + r) * s.D + d]) : 0.f;
+  }
+  const int n_keys = max(0, min(len, cap));
+  if (sp > 0 && s0 >= n_keys) return;  // the span is past the length
+  const int n_used = max(1, (n_keys + s.span - 1) / s.span);
+  const int span_keys = max(0, min(s.span, n_keys - s0));
+
+  // one round of copies: the live keys' (scale, zero) rows, per page or
+  // per token, and their K/V rows; dead keys are zero-filled
+  const char* any = reinterpret_cast<const char*>(kp);  // for empty copies
+#pragma unroll
+  for (int u = 0; u < kMaxKeysPerThread; ++u) {
+    const int j = tid + u * kThreads;
+    if (j >= s.span) break;
+    const bool live = j < span_keys;
+    long long pid = 0, row = 0;
+    if (live) rows.locate(b, ent[u], s0 + j, pid, row);
+    s_row[j] = row;
+    if (SZ != kSzNone) {
+      const long long o = 2 * ((SZ == kSzPage ? pid : row) * s.KV + g);
+      float* dst = reinterpret_cast<float*>(s_sz + j);
+      if (s.sz_vb == 8) {
+        cp_async8(dst, live ? static_cast<const void*>(ksz + o) : any,
+                  live ? 8 : 0);
+        cp_async8(dst + 2, live ? static_cast<const void*>(vsz + o) : any,
+                  live ? 8 : 0);
+      } else {
+        s_sz[j] = live ? make_float4(ksz[o], ksz[o + 1], vsz[o], vsz[o + 1])
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+  __syncthreads();  // s_row is written
+  const int row_bytes = s.D * static_cast<int>(sizeof(TKV));
+  const int per = lay.chunks * 16 / s.vb;  // copies per staged row
+  // a thread's copies are chunks tid, tid + kThreads, ...: its first
+  // (row, chunk) and the step, so the loop does not divide
+  const int dj = kThreads / per, dc = kThreads - dj * per;
+  for (int j = tid / per, c = tid % per; j < s.span;
+       j += dj + (c + dc >= per), c = c + dc >= per ? c + dc - per : c + dc) {
+    const int off = c * s.vb;
+    const char* ksrc = any;
+    const char* vsrc = any;
+    int n = 0;
+    if (j < span_keys) {
+      n = max(0, min(s.vb, row_bytes - off));
+      if (n) {
+        const long long o = (s_row[j] * s.KV + g) * s.D;
+        ksrc = reinterpret_cast<const char*>(kp + o) + off;
+        vsrc = reinterpret_cast<const char*>(vp + o) + off;
+      }
+    }
+    cp_chunk(kst + j * lay.pitch + off, ksrc, n, s.vb);
+    cp_chunk(vst + j * lay.pitch + off, vsrc, n, s.vb);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
   float m[kMaxRowsPerWarp], l[kMaxRowsPerWarp], acc[kMaxRowsPerWarp][DPL];
 #pragma unroll
@@ -107,99 +229,30 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
     for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
   }
 
-  for (int k0 = 0; k0 < n_keys; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    if (tid < kBK) {
-      const int t = k0 + tid;
-      long long row = 0;
-      float ksc = 1.f, kz = 0.f, vsc = 1.f, vz = 0.f;
-      if (t < n_keys) {
-        long long pid;
-        rows.locate(b, t, pid, row);
-        if (SZ == kSzPage) {
-          const long long o = (pid * KV + g) * 2;
-          ksc = ksz[o];
-          kz = ksz[o + 1];
-          vsc = vsz[o];
-          vz = vsz[o + 1];
-        } else if (SZ == kSzToken) {
-          const long long o = (row * KV + g) * 2;
-          ksc = ksz[o];
-          kz = ksz[o + 1];
-          vsc = vsz[o];
-          vz = vsz[o + 1];
-        }
-      }
-      s_row[tid] = row;
-      s_ksc[tid] = ksc;
-      s_kz[tid] = kz;
-      s_vsc[tid] = vsc;
-      s_vz[tid] = vz;
-    }
-    __syncthreads();
-    if (vec_rows) {
-      // 16-byte loads: each thread moves whole vectors of K and V rows, so
-      // a tile's loads are few and all in flight at once
-      const int vpr = row_bytes / 16;  // vectors per row
-      for (int idx = tid; idx < kBK * vpr; idx += kThreads) {
-        const int j = idx / vpr;
-        const int d0 = (idx - j * vpr) * kPerVec;
-        float kk[kPerVec], vv[kPerVec];
-        if (k0 + j < n_keys) {
-          const long long o = (s_row[j] * KV + g) * D + d0;
-          const uint4 kraw = *reinterpret_cast<const uint4*>(kp + o);
-          const uint4 vraw = *reinterpret_cast<const uint4*>(vp + o);
-          const TKV* ke = reinterpret_cast<const TKV*>(&kraw);
-          const TKV* ve = reinterpret_cast<const TKV*>(&vraw);
-#pragma unroll
-          for (int e = 0; e < kPerVec; ++e) {
-            kk[e] = to_float(ke[e]);
-            vv[e] = to_float(ve[e]);
-            if (SZ != kSzNone) {
-              kk[e] = kk[e] * s_ksc[j] + s_kz[j];
-              vv[e] = vv[e] * s_vsc[j] + s_vz[j];
-            }
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < kPerVec; ++e) kk[e] = vv[e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < kPerVec; ++e) {
-          ks[j * Dp + d0 + e] = kk[e];
-          vs[j * Dp + d0 + e] = vv[e];
-        }
-      }
-    } else {
-      for (int idx = tid; idx < kBK * D; idx += kThreads) {
-        const int j = idx / D;
-        const int d = idx - j * D;
-        float kk = 0.f, vv = 0.f;
-        if (k0 + j < n_keys) {
-          const long long o = (s_row[j] * KV + g) * D + d;
-          kk = to_float(kp[o]);
-          vv = to_float(vp[o]);
-          if (SZ != kSzNone) {
-            kk = kk * s_ksc[j] + s_kz[j];
-            vv = vv * s_vsc[j] + s_vz[j];
-          }
-        }
-        ks[j * Dp + d] = kk;
-        vs[j * Dp + d] = vv;
-      }
-    }
-    __syncthreads();
-
-    const bool live = k0 + lane < n_keys;
+  for (int k0 = 0; k0 < span_keys; k0 += kBK) {
+    const int j = k0 + lane;  // this lane's key in the span
+    const bool live = j < span_keys;
+    const float4 zj = SZ != kSzNone ? s_sz[j] : make_float4(1.f, 0.f, 1.f, 0.f);
+    const unsigned char* krow = kst + j * lay.pitch;
 #pragma unroll
     for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
       const int r = rr * kWarps + warp;
       if (r >= rep) break;  // warp-uniform
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[lane * Dp + d];
-      s = live ? s * scale : kNegInf;
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float p = live ? expf(s - m_new) : 0.f;
+      const float* qr = qs + r * lay.dq;
+      float sc = 0.f;
+      for (int c = 0; c < lay.chunks; ++c) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(krow + 16 * c);
+        const TKV* e = reinterpret_cast<const TKV*>(&raw);
+#pragma unroll
+        for (int i = 0; i < kE; ++i) {
+          float kk = to_float(e[i]);
+          if (SZ != kSzNone) kk = kk * zj.x + zj.y;
+          sc += qr[c * kE + i] * kk;
+        }
+      }
+      sc = live ? sc * s.scale : kNegInf;
+      const float m_new = fmaxf(m[rr], warp_max(sc));
+      const float p = live ? expf(sc - m_new) : 0.f;
       const float alpha = expf(m[rr] - m_new);
       l[rr] = l[rr] * alpha + warp_sum(p);
       m[rr] = m_new;
@@ -207,27 +260,103 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
       for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
       for (int jj = 0; jj < kBK; ++jj) {
         const float pj = __shfl_sync(0xffffffffu, p, jj);
+        const TKV* vrow =
+            reinterpret_cast<const TKV*>(vst + (k0 + jj) * lay.pitch);
+        float vsc = 1.f, vz = 0.f;
+        if (SZ != kSzNone) {
+          const float4 z = s_sz[k0 + jj];
+          vsc = z.z;
+          vz = z.w;
+        }
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
           const int d = lane + 32 * i;
-          if (d < D) acc[rr][i] += pj * vs[jj * Dp + d];
+          if (d < s.D) {
+            float vv = to_float(vrow[d]);
+            if (SZ != kSzNone) vv = vv * vsc + vz;
+            acc[rr][i] += pj * vv;
+          }
         }
       }
     }
   }
 
+  const long long slot = b * s.KV + g;
+  if (n_used == 1) {
+#pragma unroll
+    for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
+      const int r = rr * kWarps + warp;
+      if (r >= rep) break;
+      const float l_safe = fmaxf(l[rr], kMinDenom);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < s.D)
+          out[(b * s.H + g * rep + r) * s.D + d] =
+              from_float<T>(acc[rr][i] / l_safe);
+      }
+    }
+    return;
+  }
+
+  // partials of this span: rows ((slot * n_span + sp) * rep + r)
 #pragma unroll
   for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
     const int r = rr * kWarps + warp;
     if (r >= rep) break;
-    const float l_safe = fmaxf(l[rr], kMinDenom);
+    const long long prow = (slot * s.n_span + sp) * rep + r;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      if (d < D)
-        out[(b * H + g * rep + r) * D + d] =
-            from_float<T>(acc[rr][i] / l_safe);
+      if (d < s.D) part[prow * s.D + d] = acc[rr][i];
     }
+    if (lane == 0)
+      *reinterpret_cast<float2*>(part_ml + prow * 2) = make_float2(m[rr], l[rr]);
+  }
+  // the block's partials, then one thread's ticket with release and
+  // acquire at gpu scope (the barrier orders the other threads' writes
+  // before it and the merge's reads after it)
+  __syncthreads();
+  if (tid == 0) {
+    int t;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
+                 : "=r"(t) : "l"(tickets + slot), "r"(1) : "memory");
+    s_last = t == n_used - 1;
+    if (s_last) tickets[slot] = 0;  // every used span has taken its ticket
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // the last span block merges the used spans' partials in span order,
+  // online (the running max rescales what is summed so far), the loads of
+  // four spans in flight together
+  for (int idx = tid; idx < rep * s.D; idx += kThreads) {
+    const int r = idx / s.D;
+    const int d = idx - r * s.D;
+    const long long p0 = slot * s.n_span * rep + r;
+    float M = kNegInf, L = 0.f, o = 0.f;
+    for (int u0 = 0; u0 < n_used; u0 += 4) {
+      float mu[4], lu[4], au[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long pr = p0 + min(u0 + j, n_used - 1) * rep;
+        mu[j] = __ldcg(part_ml + pr * 2);
+        lu[j] = __ldcg(part_ml + pr * 2 + 1);
+        au[j] = __ldcg(part + pr * s.D + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (u0 + j >= n_used) break;
+        const float m_new = fmaxf(M, mu[j]);
+        const float c = expf(M - m_new);
+        const float w = expf(mu[j] - m_new);
+        L = L * c + w * lu[j];
+        o = o * c + w * au[j];
+        M = m_new;
+      }
+    }
+    out[(b * s.H + g * rep + r) * s.D + d] =
+        from_float<T>(o / fmaxf(L, kMinDenom));
   }
 }
 
@@ -235,33 +364,42 @@ template <typename Rows>
 struct Args {
   const void *q, *kp, *vp, *ksz, *vsz, *lengths;
   void* out;
-  int B, H, KV, D;
-  float scale;
+  void *part, *part_ml, *tickets;
+  int B, smem;
+  Shape s;
   Rows rows;
   cudaStream_t stream;
 };
 
 template <typename T, typename TKV, int SZ, int DPL, typename Rows>
 int launch(const Args<Rows>& a) {
-  const int Dp = odd_pitch(a.D);
-  const size_t smem = sizeof(float) * ((a.H / a.KV) * a.D + 2 * kBK * Dp);
-  auto kernel = decode_kernel<T, TKV, SZ, DPL, Rows>;
-  cudaError_t err = allow_smem(kernel, smem);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const Shape& s = a.s;
+  if (s.span < kBK || s.span % kBK || s.span > kMaxKeysPerThread * kThreads ||
+      s.n_span < 1 ||
+      (s.vb != 16 && s.vb != 4 && s.vb != 1) ||
+      (s.sz_vb != 8 && s.sz_vb != 1))
+    return bad;
+  const Smem lay(s.span, s.D, sizeof(TKV), s.H / s.KV);
+  if (lay.total != a.smem) return bad;
+  auto kernel = decode_split_kernel<T, TKV, SZ, DPL, Rows>;
+  cudaError_t err = allow_smem(kernel, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(a.KV, a.B);
-  kernel<<<grid, kWarps * 32, smem, a.stream>>>(
+  dim3 grid(s.KV, a.B, s.n_span);
+  kernel<<<grid, kThreads, lay.total, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), static_cast<const float*>(a.ksz),
       static_cast<const float*>(a.vsz), a.rows,
-      static_cast<const int*>(a.lengths), static_cast<T*>(a.out), a.H, a.KV,
-      a.D, a.scale);
+      static_cast<const int*>(a.lengths), static_cast<T*>(a.out),
+      static_cast<float*>(a.part), static_cast<float*>(a.part_ml),
+      static_cast<int*>(a.tickets), s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // instantiate over the accumulator width each lane owns (ceil(D/32))
 template <typename T, typename TKV, int SZ, typename Rows>
 int launch_d(const Args<Rows>& a) {
-  switch (lane_width(a.D)) {
+  switch (lane_width(a.s.D)) {
     case 1: return launch<T, TKV, SZ, 1>(a);
     case 2: return launch<T, TKV, SZ, 2>(a);
     case 4: return launch<T, TKV, SZ, 4>(a);

@@ -4,39 +4,79 @@
 // `_fwd_pallas` / `flash_mha` (forward only; the backward pass ports with
 // the training slice and will read the lse written here).
 //
-// Bound: at the serving shapes (one prompt of 64..512 tokens, D = 64) the
-// operation count 4 * D * (unmasked query-key pairs) over the card's bf16
-// peak is a few microseconds and so are the bytes; this first version runs
-// its products on the FMA units in f32, not on the tensor cores, so it is
-// bound by FMA issue, far above either bound. `mma.sync`/`wgmma` tiles are
-// later work.
+// Bound: at the serving shapes (one prompt of 64..512 tokens, 15/5 heads,
+// D = 64) the bytes (q, k, v and o once, lse) take about 0.2 us at
+// 3.35 TB/s and the 4 * D * (unmasked query-key pairs) operations as long
+// at the bf16 tensor-core rate: the kernel is bound by its own latency
+// chain (loads, a few tiles of products, the write), not by the card.
 //
-// Design: one block per (tile of 16 query rows, query head, batch row), 4
-// warps of 4 rows each. K/V tiles of 32 keys are staged in shared memory in
-// f32 by a loop that stands in for the TPU's sequential kv grid axis; the
-// block's query rows are staged once. Per row, lane j scores key j of the
-// tile (QK^T from shared memory, odd row pitch so the 32 lanes hit 32
-// banks), the warp reduces the tile max and sum, and each lane accumulates
-// ceil(D/32) head-dim values of P.V, so the online softmax state (m, l, acc)
-// lives in registers for the whole key loop. Causal tiles past the block's
-// last query position (with kv_offset) are never loaded, as the Pallas
-// kernel skips them. D up to 256 and any Sq/Skv: the ragged query tile and
-// key tile are masked (keys past Skv contribute nothing; causally masked
-// keys take the reference's -1e30 logit). Output in q's dtype, lse in f32.
+// What the first design lost (9.2x SDPA at the main shape): one block per
+// (16 query positions, query head), so each of the rep = H / KV heads of a
+// group loaded the same K/V tile again; QK^T a 64-long float32 FMA chain
+// per lane out of shared memory and PV 32 shuffles per row per tile, no
+// tensor core; K/V staged as float32 by synchronous loads with two
+// barriers per 32-key tile, no copy in flight during the arithmetic; each
+// warp walked its 4 rows one after another.
+//
+// bf16 (every engine path): `flash_mma_kernel`, the pattern of
+// `paged_prefill_mma_kernel` (csrc/paged_prefill.cu) without the pool.
+// - Rows of a block are consecutive (query position, head of the KV group)
+//   pairs, row = qi * rep + head, so one staged K/V tile serves every head
+//   of the group and every row slot holds a real row (the last block of a
+//   head is ragged). The grid goes over KV heads, not query heads.
+// - A block is 4 warps: rows / 16 row groups of 16 rows times 64 / rows key
+//   groups. The launch plan (`kernels/flash_attention/flash_attention.py`
+//   `launch_plan`) takes 32 rows, so two warps share each row group and
+//   take its 64-key tiles in turn, and merge their (acc, m, l) through
+//   shared memory at the end: at the main shape (Sq = 128, rep 3) 60
+//   blocks whose warps each compute one tile, where 64-row blocks left 30
+//   SMs each two tiles deep (slower when timed, PERF.md).
+// - QK^T and PV run on mma.sync m16n8k16 bf16 -> f32, fed by ldmatrix (K
+//   plain, V transposed); D is padded to a multiple of 16 with zeros, so
+//   any D <= 256 works. P goes into PV as a bf16 hi + lo pair (two
+//   products, about 16 bits), as the reference computes PV in float32:
+//   with P in one bf16 the paged-prefill body moved a quarter of its
+//   outputs one bf16 ulp and flipped an engine token.
+// - Copies: each round's K/V tiles (one per key group) go through a
+//   double-buffered cp.async ring (16 bytes where rows allow, else 4, else
+//   synchronous bytes), the next round issued before the current round's
+//   arithmetic. Causal tiles past the block's last query (with kv_offset)
+//   are never loaded, and a warp whose rows all lie above a tile's keys
+//   skips its arithmetic.
+// - Key-range split across blocks where the plan finds too few blocks for
+//   the card (flash-decoding): each split writes its unnormalized (acc, m,
+//   l) to a float32 scratch and `flash_combine_kernel` merges them,
+//   writing the output and the lse.
+// - Where a block's time goes (`scripts/kernel_phases.py`, PERF.md):
+//   issuing the first copies, one tile's products and softmax with one
+//   warp per scheduler, and the write; SDPA stays faster at the main
+//   shape.
+//
+// float32 (the sweep's 1e-5 gate, which bf16 products cannot meet; no
+// engine path): `flash_fma_kernel`, the first design, kept as it was.
+//
+// Output in q's dtype, lse (B, H, Sq) f32 = m + log(max(l, 1e-30)); masked
+// logits -1e30, keys past Skv contribute nothing.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+// ---------------------------------------------- float32: FMA body
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBK = 32;                     // keys per tile: one per lane
 
-template <typename T, int DPL>
+// One block per (tile of 16 query rows, query head, batch row), 4 warps of
+// 4 rows; K/V tiles of 32 keys staged in shared memory as f32 (odd row
+// pitch, so the 32 lanes' rows hit 32 banks); lane j scores key j, each
+// lane accumulates ceil(D/32) head-dim values of P.V.
+template <int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Skv, int H, int KV,
                      int D, float scale, int causal, int kv_offset) {
   extern __shared__ float smem[];
@@ -58,8 +98,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int r = idx / D;
     const int d = idx - r * D;
     const int qi = q0 + r;
-    qs[idx] = qi < Sq ? repro::to_float(q[((b * Sq + qi) * H + h) * D + d])
-                      : 0.f;
+    qs[idx] = qi < Sq ? q[((b * Sq + qi) * H + h) * D + d] : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -83,8 +122,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       float kk = 0.f, vv = 0.f;
       if (kj < Skv) {
         const long long o = ((b * Skv + kj) * KV + g) * D + d;
-        kk = repro::to_float(k[o]);
-        vv = repro::to_float(v[o]);
+        kk = k[o];
+        vv = v[o];
       }
       ks[j * Dp + d] = kk;
       vs[j * Dp + d] = vv;
@@ -129,68 +168,506 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      if (d < D)
-        out[((b * Sq + qi) * H + h) * D + d] =
-            repro::from_float<T>(acc[rr][i] / l_safe);
+      if (d < D) out[((b * Sq + qi) * H + h) * D + d] = acc[rr][i] / l_safe;
     }
     if (lane == 0) lse[(b * H + h) * Sq + qi] = m[rr] + logf(l_safe);
   }
 }
 
-template <typename T, int DPL>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int Sq, int Skv, int H, int KV, int D, float scale,
-           int causal, int kv_offset, cudaStream_t stream) {
+// ------------------------------------------- bf16: tensor-core body
+constexpr int kBN = 64;          // keys per tile
+constexpr int kThreadsMma = 128;  // 4 warps
+
+// Shared-memory layout of the tensor-core body, in bytes; every region
+// starts 16-byte aligned. The launch plan in Python mirrors it.
+struct MmaSmem {
+  int q, ring, total;
+  __host__ __device__ MmaSmem(int rows_blk, int D) {
+    const int qp = 2 * (((D + 15) & ~15) + 8);  // bf16 row pitch, bytes
+    const int kp = 4 / (rows_blk / 16);          // key groups
+    q = rows_blk * qp;                           // [rows_blk] q rows
+    ring = 2 * kp * 2 * kBN * qp;  // [round parity][key group][k, v][kBN]
+    total = q + ring;
+  }
+};
+
+struct MmaShape {
+  int Sq, Skv, H, KV, D, rows_blk, n_split, vb, causal, kv_offset;
+  long long R;  // output rows B * Sq * H
+  float scale;
+};
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, float* __restrict__ part,
+    float* __restrict__ part_ml, MmaShape s) {
+  constexpr int kNT = DMAX / 8;          // 8-wide d tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rows_blk = s.rows_blk;
+  const int n_rg = rows_blk / 16;        // row groups of 16 rows
+  const int kp = 4 / n_rg;               // key groups
+  const int rg = warp % n_rg;            // this warp's rows ...
+  const int kg = warp / n_rg;            // ... and its share of the tiles
+  const int rep = s.H / s.KV;
+  const int dp = (s.D + 15) & ~15;
+  const int kd = dp / 16;                // 16-deep k steps of QK^T
+  const int qp = dp + 8;                 // bf16 row pitch (elements)
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* ring = sq + rows_blk * qp;  // tile slots of [k, v][kBN][qp]
+
+  const int g = blockIdx.y;
+  const long long b = blockIdx.z / s.n_split;
+  const int split = blockIdx.z - static_cast<int>(b) * s.n_split;
+  // row slots of the block: rows row0 .. row0 + rows_blk - 1 of the head
+  // group's Sq * rep rows, row = qi * rep + head
+  const int n_rows = s.Sq * rep;
+  const int row0 = blockIdx.x * rows_blk;
+  const int q_last = (min(row0 + rows_blk, n_rows) - 1) / rep;
+  const int k_end =
+      s.causal ? max(0, min(s.Skv, s.kv_offset + q_last + 1)) : s.Skv;
+  const int n_tiles = (k_end + kBN - 1) / kBN;
+  const int t_lo = split * n_tiles / s.n_split;
+  const int t_hi = (split + 1) * n_tiles / s.n_split;
+
+  const char* any = reinterpret_cast<const char*>(k);  // for empty copies
+  const int row_bytes = 2 * s.D;
+  const int per = 2 * dp / s.vb;         // copies per staged row
+  // a thread's copies of a staged tile are chunks tid, tid + 128, ...:
+  // its first (row, chunk) and the step, so the loop does not divide
+  const int j0 = tid / per, c0 = tid - j0 * per;
+  const int dj = kThreadsMma / per, dc = kThreadsMma - dj * per;
+  const long long kv0 = (b * s.Skv * s.KV + g) * s.D;  // key 0's row
+  const long long kv_step = static_cast<long long>(s.KV) * s.D;
+  // K/V rows of tile t into tile slot `slot`, zero-padded to dp columns
+  auto issue = [&](int t, int slot) {
+    const int k0 = t * kBN;
+    char* kr = reinterpret_cast<char*>(ring + slot * 2 * kBN * qp);
+    char* vr = kr + 2 * kBN * qp;
+    for (int j = j0, c = c0; j < kBN;) {
+      const int off = c * s.vb;
+      const int key = k0 + j;
+      const char* ksrc = any;
+      const char* vsrc = any;
+      int n = 0;
+      if (key < k_end) {
+        n = max(0, min(s.vb, row_bytes - off));
+        if (n) {
+          const long long o = kv0 + key * kv_step;
+          ksrc = reinterpret_cast<const char*>(k + o) + off;
+          vsrc = reinterpret_cast<const char*>(v + o) + off;
+        }
+      }
+      repro::cp_chunk(kr + j * 2 * qp + off, ksrc, n, s.vb);
+      repro::cp_chunk(vr + j * 2 * qp + off, vsrc, n, s.vb);
+      j += dj;
+      c += dc;
+      if (c >= per) {
+        c -= per;
+        ++j;
+      }
+    }
+  };
+  // round r: key group j takes tile t_lo + r * kp + j, in slot
+  // (r & 1) * kp + j
+  auto issue_round = [&](int r) {
+    for (int j = 0; j < kp; ++j) {
+      const int t = t_lo + r * kp + j;
+      if (t < t_hi) issue(t, (r & 1) * kp + j);
+    }
+  };
+
+  // rows of this lane: r0 = rg * 16 + lane / 4 and r0 + 8
+  const int r0 = rg * 16 + (lane >> 2);
+  int qpos[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r0 + 8 * h;
+    row_ok[h] = row < n_rows;
+    qpos[h] = s.kv_offset + row / rep;
+  }
+  // the warp's last key: tiles above it are all masked for its rows
+  const int w_row = row0 + rg * 16;
+  const int warp_kmax =
+      w_row >= n_rows ? -1
+      : s.causal      ? s.kv_offset + (min(w_row + 15, n_rows - 1)) / rep
+                      : s.Skv;
+
+  float acc[kNT][4];
+#pragma unroll
+  for (int i = 0; i < kNT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {repro::kNegInf, repro::kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  if (t_hi > t_lo) {
+    // q rows, zero-padded to dp columns and past the last row
+    for (int idx = tid; idx < rows_blk * per; idx += kThreadsMma) {
+      const int r = idx / per;
+      const int off = (idx - r * per) * s.vb;
+      const int row = row0 + r;
+      const char* src = any;
+      int n = 0;
+      if (row < n_rows) {
+        n = max(0, min(s.vb, row_bytes - off));
+        if (n) {
+          const int qi = row / rep;
+          const int h = g * rep + (row - qi * rep);
+          src = reinterpret_cast<const char*>(
+                    q + ((b * s.Sq + qi) * s.H + h) * s.D) +
+                off;
+        }
+      }
+      repro::cp_chunk(reinterpret_cast<char*>(sq) + r * 2 * qp + off, src,
+                      n, s.vb);
+    }
+    issue_round(0);
+  }
+  repro::cp_async_commit();
+
+  const int n_rounds = (t_hi - t_lo + kp - 1) / kp;
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) {
+      issue_round(r + 1);
+      repro::cp_async_commit();
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();  // round r (and, first, q) landed for every thread
+    const int t = t_lo + r * kp + kg;
+    const __nv_bfloat16* kt = ring + ((r & 1) * kp + kg) * 2 * kBN * qp;
+    const __nv_bfloat16* vt = kt + kBN * qp;
+    const int k0 = t * kBN;
+    if (t < t_hi && k0 <= warp_kmax) {
+      // S = Q K^T for the warp's 16 rows x 64 keys
+      float sc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DMAX / 16; ++ks) {
+        if (ks < kd) {
+          uint32_t a[4];
+          repro::ldsm_x4(a, sq + (rg * 16 + (lane & 15)) * qp + ks * 16 +
+                                (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bb[4];
+            repro::ldsm_x4(bb, kt + (np * 16 + (lane & 7) +
+                                     ((lane >> 4) & 1) * 8) * qp +
+                                   ks * 16 + ((lane >> 3) & 1) * 8);
+            repro::mma_bf16(sc[2 * np], a, bb[0], bb[1]);
+            repro::mma_bf16(sc[2 * np + 1], a, bb[2], bb[3]);
+          }
+        }
+      }
+      // scale, mask, online softmax in the accumulator layout
+      float mx[2] = {repro::kNegInf, repro::kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int key = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+          const bool live = key < k_end && (!s.causal || key <= qpos[h]);
+          sc[nt][e] = live ? sc[nt][e] * s.scale : repro::kNegInf;
+          mx[h] = fmaxf(mx[h], sc[nt][e]);
+        }
+      }
+      float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int key = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+          const bool live = key < k_end && (!s.causal || key <= qpos[h]);
+          const float p = live ? expf(sc[nt][e] - m[h]) : 0.f;
+          ls[h] += p;
+          sc[nt][e] = p;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + ls[h];
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+      // O += P V: P's accumulators are PV's A fragments, 16 keys a step,
+      // as a bf16 hi + lo pair (two products), so P keeps about 16 bits
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ah[4], al[4];
+        repro::pack_bf16_split(sc[2 * kk][0], sc[2 * kk][1], ah[0], al[0]);
+        repro::pack_bf16_split(sc[2 * kk][2], sc[2 * kk][3], ah[1], al[1]);
+        repro::pack_bf16_split(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ah[2],
+                               al[2]);
+        repro::pack_bf16_split(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ah[3],
+                               al[3]);
+#pragma unroll
+        for (int np = 0; np < DMAX / 16; ++np) {
+          if (np < kd) {
+            uint32_t bb[4];
+            repro::ldsm_x4_t(bb, vt + (kk * 16 + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8) * qp +
+                                     np * 16 + (lane >> 4) * 8);
+            repro::mma_bf16(acc[2 * np], ah, bb[0], bb[1]);
+            repro::mma_bf16(acc[2 * np], al, bb[0], bb[1]);
+            repro::mma_bf16(acc[2 * np + 1], ah, bb[2], bb[3]);
+            repro::mma_bf16(acc[2 * np + 1], al, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // round r's slots free for reuse
+  }
+  repro::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if (kp > 1) {
+    // the key groups' (acc, m, l) merge into key group 0's, in group
+    // order, through the (now free) ring: [kp - 1][rows_blk] (m, l) pairs,
+    // then [kp - 1][rows_blk][dp] acc
+    float* ml_s = reinterpret_cast<float*>(ring);
+    float* acc_s = ml_s + (kp - 1) * rows_blk * 2;
+    if (kg > 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = (kg - 1) * rows_blk + r0 + 8 * h;
+        if ((lane & 3) == 0)
+          *reinterpret_cast<float2*>(ml_s + slot * 2) = make_float2(m[h], l[h]);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          const int d = i * 8 + 2 * (lane & 3);
+          if (d < dp)
+            *reinterpret_cast<float2*>(acc_s + slot * dp + d) =
+                make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+        }
+      }
+    }
+    __syncthreads();
+    if (kg > 0) return;
+    for (int j = 1; j < kp; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = (j - 1) * rows_blk + r0 + 8 * h;
+        const float2 ml2 = *reinterpret_cast<const float2*>(ml_s + slot * 2);
+        const float M = fmaxf(m[h], ml2.x);
+        const float c = expf(m[h] - M);
+        const float c2 = expf(ml2.x - M);
+        l[h] = l[h] * c + ml2.y * c2;
+        m[h] = M;
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          const int d = i * 8 + 2 * (lane & 3);
+          if (d < dp) {
+            const float2 a2 =
+                *reinterpret_cast<const float2*>(acc_s + slot * dp + d);
+            acc[i][2 * h] = acc[i][2 * h] * c + a2.x * c2;
+            acc[i][2 * h + 1] = acc[i][2 * h + 1] * c + a2.y * c2;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+    const int row = row0 + r0 + 8 * h;
+    const int qi = row / rep;
+    const int hq = g * rep + (row - qi * rep);
+    const long long orow = (b * s.Sq + qi) * s.H + hq;
+    if (s.n_split == 1) {
+      const float l_safe = fmaxf(l[h], repro::kMinDenom);
+      const float inv = 1.f / l_safe;
+      __nv_bfloat16* o = out + orow * s.D;
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const int d = i * 8 + 2 * (lane & 3);
+        if (d + 1 < s.D && (s.D & 1) == 0) {  // a bf16 pair, 4-byte aligned
+          *reinterpret_cast<uint32_t*>(o + d) =
+              repro::pack_bf16(acc[i][2 * h] * inv, acc[i][2 * h + 1] * inv);
+        } else {
+          if (d < s.D) o[d] = __float2bfloat16_rn(acc[i][2 * h] * inv);
+          if (d + 1 < s.D)
+            o[d + 1] = __float2bfloat16_rn(acc[i][2 * h + 1] * inv);
+        }
+      }
+      if ((lane & 3) == 0)
+        lse[(b * s.H + hq) * s.Sq + qi] = m[h] + logf(l_safe);
+    } else {
+      const long long base = split * s.R + orow;
+      float* o = part + base * dp;
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const int d = i * 8 + 2 * (lane & 3);
+        if (d < dp)
+          *reinterpret_cast<float2*>(o + d) =
+              make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+      }
+      if ((lane & 3) == 0)
+        *reinterpret_cast<float2*>(part_ml + base * 2) =
+            make_float2(m[h], l[h]);
+    }
+  }
+}
+
+// merge the n_split partial (acc, m, l) of each output row (b, qi, h):
+// o = sum_s e^(m_s - M) acc_s / max(L, 1e-30), L = sum_s e^(m_s - M) l_s,
+// lse = M + log(max(L, 1e-30))
+__global__ void flash_combine_kernel(const float* __restrict__ part,
+                                     const float* __restrict__ ml,
+                                     __nv_bfloat16* __restrict__ out,
+                                     float* __restrict__ lse, long long R,
+                                     int Sq, int H, int D, int dp,
+                                     int n_split) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= R * D) return;
+  const long long row = i / D;
+  const int d = static_cast<int>(i - row * D);
+  float M = repro::kNegInf;
+  for (int sp = 0; sp < n_split; ++sp)
+    M = fmaxf(M, ml[(sp * R + row) * 2]);
+  float L = 0.f, o = 0.f;
+  for (int sp = 0; sp < n_split; ++sp) {
+    const long long base = sp * R + row;
+    const float w = expf(ml[base * 2] - M);
+    L += w * ml[base * 2 + 1];
+    o += w * part[base * dp + d];
+  }
+  const float l_safe = fmaxf(L, repro::kMinDenom);
+  out[i] = __float2bfloat16_rn(o / l_safe);
+  if (d == 0) {
+    const long long b = row / (static_cast<long long>(Sq) * H);
+    const int rem = static_cast<int>(row - b * Sq * H);
+    const int qi = rem / H;
+    lse[(b * H + (rem - qi * H)) * Sq + qi] = M + logf(l_safe);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void *out, *lse;
+  int B, Sq, Skv, H, KV, D;
+  float scale;
+  int causal, kv_offset, rows_blk, n_split, vb, smem;
+  void *part, *part_ml;
+  cudaStream_t stream;
+};
+
+template <int DPL>
+int launch_fma(const Args& a) {
   const size_t smem =
-      sizeof(float) * (kBQ * D + 2 * kBK * repro::odd_pitch(D));
-  auto kernel = flash_fwd_kernel<T, DPL>;
+      sizeof(float) * (kBQ * a.D + 2 * kBK * repro::odd_pitch(a.D));
+  if (static_cast<int>(smem) != a.smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fma_kernel<DPL>;
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Sq, Skv, H, KV, D, scale, causal, kv_offset);
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  kernel<<<grid, kWarps * 32, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out),
+      static_cast<float*>(a.lse), a.Sq, a.Skv, a.H, a.KV, a.D, a.scale,
+      a.causal, a.kv_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out,
-             void* lse, int B, int Sq, int Skv, int H, int KV, int D,
-             float scale, int causal, int kv_offset, cudaStream_t stream) {
-  switch (repro::lane_width(D)) {
-    case 1:
-      return launch<T, 1>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, scale,
-                          causal, kv_offset, stream);
-    case 2:
-      return launch<T, 2>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, scale,
-                          causal, kv_offset, stream);
-    case 4:
-      return launch<T, 4>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, scale,
-                          causal, kv_offset, stream);
-    case 8:
-      return launch<T, 8>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, scale,
-                          causal, kv_offset, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int DMAX>
+int launch_mma(const Args& a) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if ((a.rows_blk != 16 && a.rows_blk != 32 && a.rows_blk != 64) ||
+      a.n_split < 1 || (a.vb != 16 && a.vb != 4 && a.vb != 1))
+    return bad;
+  const MmaSmem lay(a.rows_blk, a.D);
+  if (lay.total != a.smem) return bad;
+  auto kernel = flash_mma_kernel<DMAX>;
+  cudaError_t err = repro::allow_smem(kernel, lay.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long R = static_cast<long long>(a.B) * a.Sq * a.H;
+  MmaShape s{a.Sq,      a.Skv, a.H,      a.KV,        a.D, a.rows_blk,
+             a.n_split, a.vb,  a.causal, a.kv_offset, R,   a.scale};
+  const int rep = a.H / a.KV;
+  dim3 grid((a.Sq * rep + a.rows_blk - 1) / a.rows_blk, a.KV,
+            a.B * a.n_split);
+  kernel<<<grid, kThreadsMma, lay.total, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse),
+      static_cast<float*>(a.part), static_cast<float*>(a.part_ml), s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return static_cast<int>(err);
+  const long long n = R * a.D;
+  flash_combine_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                         a.stream>>>(
+      static_cast<const float*>(a.part), static_cast<const float*>(a.part_ml),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse), R,
+      a.Sq, a.H, a.D, (a.D + 15) & ~15, a.n_split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Skv,KV,D) contiguous in `dtype` (kF32 | kBF16);
-// out (B,Sq,H,D) in `dtype`, lse (B,H,Sq) f32. Returns cudaGetLastError().
+// out (B,Sq,H,D) in `dtype`, lse (B,H,Sq) f32. The launch plan
+// (`launch_plan` in kernels/flash_attention/flash_attention.py): bf16
+// takes rows_blk (32 | 64) row slots per block, n_split key splits
+// (part (n_split, B*Sq*H, D padded to 16) and part_ml (n_split, B*Sq*H, 2)
+// f32 scratch when n_split > 1) and the cp.async width vb (16, 4 or 1:
+// synchronous) of q, k and v rows; float32 ignores them. `smem` is the
+// plan's dynamic shared-memory bytes, checked against the kernel's own
+// layout. Returns cudaGetLastError() of the launch (cudaErrorInvalidValue
+// for an operand or plan the kernels do not take).
 extern "C" int repro_flash_mha(const void* q, const void* k, const void* v,
                                void* out, void* lse, int B, int Sq, int Skv,
                                int H, int KV, int D, int dtype, float scale,
-                               int causal, int kv_offset, void* stream) {
+                               int causal, int kv_offset, int rows_blk,
+                               int n_split, int vb, int smem, void* part,
+                               void* part_ml, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32)
-    return launch_d<float>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, scale,
-                           causal, kv_offset, s);
-  if (dtype == repro::kBF16)
-    return launch_d<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Skv, H, KV, D,
-                                   scale, causal, kv_offset, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,         k,        v,       out,  lse,  B,
+               Sq,        Skv,      H,       KV,   D,    scale,
+               causal,    kv_offset, rows_blk, n_split, vb, smem,
+               part,      part_ml,  static_cast<cudaStream_t>(stream)};
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == repro::kF32) {
+    switch (repro::lane_width(D)) {
+      case 1: return launch_fma<1>(a);
+      case 2: return launch_fma<2>(a);
+      case 4: return launch_fma<4>(a);
+      case 8: return launch_fma<8>(a);
+      default: return bad;
+    }
+  }
+  if (dtype == repro::kBF16) {
+    const int dp = (D + 15) & ~15;
+    if (dp <= 32) return launch_mma<32>(a);
+    if (dp <= 64) return launch_mma<64>(a);
+    if (dp <= 128) return launch_mma<128>(a);
+    if (dp <= 256) return launch_mma<256>(a);
+  }
+  return bad;
 }

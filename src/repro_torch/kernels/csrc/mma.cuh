@@ -80,6 +80,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(n));
 }
+// one chunk of a staged row: vb = 16 or 4 is a cp.async of that width
+// (the first n bytes copied, the rest zero-filled), 1 a synchronous byte
+__device__ __forceinline__ void cp_chunk(void* dst, const void* src, int n,
+                                         int vb) {
+  if (vb == 16)
+    cp_async16(dst, src, n);
+  else if (vb == 4)
+    cp_async4(dst, src, n);
+  else
+    *static_cast<unsigned char*>(dst) =
+        n ? *static_cast<const unsigned char*>(src) : 0;
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -401,19 +401,6 @@ struct MmaShape {
   float scale;
 };
 
-// one chunk of a staged row: vb = 16 or 4 is a cp.async of that width
-// (the first n bytes copied, the rest zero-filled), 1 a synchronous byte
-__device__ __forceinline__ void copy_chunk(void* dst, const void* src, int n,
-                                           int vb) {
-  if (vb == 16)
-    repro::cp_async16(dst, src, n);
-  else if (vb == 4)
-    repro::cp_async4(dst, src, n);
-  else
-    *static_cast<unsigned char*>(dst) =
-        n ? *static_cast<const unsigned char*>(src) : 0;
-}
-
 template <typename TKV, int SZ, bool FUSED, int DMAX>
 __global__ void __launch_bounds__(kMaxThreads) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q, TKV* __restrict__ kp,
@@ -500,8 +487,8 @@ __global__ void __launch_bounds__(kMaxThreads) paged_prefill_mma_kernel(
           vsrc = reinterpret_cast<const char*>(vbase + o) + off;
         }
       }
-      copy_chunk(kr + j * rp + off, ksrc, n, s.vb);
-      copy_chunk(vr + j * rp + off, vsrc, n, s.vb);
+      repro::cp_chunk(kr + j * rp + off, ksrc, n, s.vb);
+      repro::cp_chunk(vr + j * rp + off, vsrc, n, s.vb);
     }
     if (SZ != kSzNone) {
       for (int j = tid; j < kBN; j += blockDim.x) {
@@ -580,8 +567,8 @@ __global__ void __launch_bounds__(kMaxThreads) paged_prefill_mma_kernel(
                     q + ((b * s.C + qi) * s.H + g * rep + r % rep) * s.D) +
                 off;
       }
-      copy_chunk(reinterpret_cast<char*>(sq) + r * 2 * qp + off, src, n,
-                 s.vbq);
+      repro::cp_chunk(reinterpret_cast<char*>(sq) + r * 2 * qp + off, src, n,
+                      s.vbq);
     }
     issue(t_lo, 0);
   }

@@ -1,6 +1,8 @@
 """ctypes wrapper of the CUDA flash decode over a contiguous KV cache
 (`csrc/decode_attention.cu`), the port of
-`repro.kernels.decode_attention.decode_attention.flash_decode`."""
+`repro.kernels.decode_attention.decode_attention.flash_decode`. It takes
+the paged decode's launch plan (`paged.decode_plan`) with the capacity S,
+so both split a slot's keys the same way."""
 
 from __future__ import annotations
 
@@ -11,10 +13,17 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.paged import MAX_HEAD_DIM, MAX_REP
+from repro_torch.kernels.build import SMEM_LIMIT, copy_width
+from repro_torch.kernels.decode_attention.paged import (
+    MAX_HEAD_DIM,
+    MAX_REP,
+    SPAN,
+    decode_plan,
+    scratch,
+)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-    + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -24,11 +33,13 @@ def _check(cond: bool, msg: str) -> None:
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: torch.Tensor, *,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      span: int = SPAN) -> torch.Tensor:
     """q (B,H,D) vs the contiguous cache k/v (B,S,KV,D), all float32 or
     all bfloat16; lengths (B,) int32 valid keys per row (values past S
     read the whole cache). All contiguous on one CUDA device. Returns
-    (B,H,D) in q's dtype, launched on the current stream."""
+    (B,H,D) in q's dtype, launched on the current stream; `span` other
+    than the default only times the options."""
     dev = q.device
     tensors = [q, k, v, lengths]
     _check(q.is_cuda and all(t.device == dev for t in tensors),
@@ -44,16 +55,24 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, D = q.shape
     Bk, S, KV, Dk = k.shape
     _check(Bk == B and Dk == D and H % KV == 0 and H // KV <= MAX_REP
-           and 0 < D <= MAX_HEAD_DIM and B <= 65535,
+           and 0 < D <= MAX_HEAD_DIM and B <= 65535 and KV <= 65535,
            f"q {tuple(q.shape)} vs cache {tuple(k.shape)}")
     _check(lengths.shape == (B,), "lengths (B,)")
+    plan = decode_plan(B, H, KV, D, S, k.dtype, span)
+    _check(plan.n_span <= 65535 and plan.smem_bytes <= SMEM_LIMIT,
+           f"plan {plan} exceeds the card's limits")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
+    tickets, part, part_ml = scratch(dev, B * KV,
+                                     B * KV * plan.n_span * (H // KV), D)
+    vb = copy_width(D * k.element_size(), k.data_ptr(), v.data_ptr())
     fn = build.library("decode_attention").repro_flash_decode
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), B, H, KV, D, S, build.dtype_code(q.dtype),
-             float(scale), torch.cuda.current_stream(dev).cuda_stream)
+             out.data_ptr(), part.data_ptr(), part_ml.data_ptr(),
+             tickets.data_ptr(), B, H, KV, D, S, build.dtype_code(q.dtype),
+             float(scale), plan.span, plan.n_span, vb, plan.smem_bytes,
+             torch.cuda.current_stream(dev).cuda_stream)
     kernels.LAUNCHES["flash_decode"] += 1
     build.check(err, "flash_decode")
     return out

@@ -46,19 +46,22 @@ def paged_decode_mha(q, k_pages, v_pages, block_tables, lengths, *,
     pool + (B, n_logical) block tables (`KVPager.block_table` layout) with
     per-sequence valid `lengths` (scalar or (B,)). `k_sz`/`v_sz` float32
     switch the pool to int8 block quantization, per page (P_phys, KV, 2)
-    or per token (P_phys, page, KV, 2)."""
-    n_pages = block_tables.shape[1]
-    page = k_pages.shape[1]
+    or per token (P_phys, page, KV, 2). The plain version gathers every
+    table entry, so it clamps the dead ones first; the kernel never
+    dereferences an entry at or past a slot's length and takes the table
+    as it is."""
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=q.device).broadcast_to((q.shape[0],))
-    block_tables = clamp_dead_entries(block_tables, n_pages, page, lengths)
     if kernels.select_impl(q, impl) == "reference":
         kernels.REFERENCE_CALLS["paged_decode_mha"] += 1
+        block_tables = clamp_dead_entries(block_tables, block_tables.shape[1],
+                                          k_pages.shape[1], lengths)
         return ref.paged_decode_mha(q, k_pages, v_pages, block_tables,
                                     lengths, k_sz=k_sz, v_sz=v_sz,
                                     scale=scale)
     from repro_torch.kernels.decode_attention import paged
 
     return paged.paged_flash_decode_cuda(
-        q.contiguous(), k_pages, v_pages, block_tables.contiguous(),
-        lengths.contiguous(), k_sz=k_sz, v_sz=v_sz, scale=scale)
+        q.contiguous(), k_pages, v_pages,
+        block_tables.to(torch.int32).contiguous(), lengths.contiguous(),
+        k_sz=k_sz, v_sz=v_sz, scale=scale)

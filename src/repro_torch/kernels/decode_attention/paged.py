@@ -1,20 +1,95 @@
 """ctypes wrapper of the CUDA paged flash decode (`csrc/paged_decode.cu`),
-the port of `repro.kernels.decode_attention.paged.paged_flash_decode`."""
+the port of `repro.kernels.decode_attention.paged.paged_flash_decode`,
+and the launch plan it shares with the contiguous flash decode.
+
+`decode_plan` is the split body's launch geometry as a plain function of
+the shapes (span, grid, shared-memory bytes) and `key_spans` its key
+partition, so that both can be checked without a card; the C entry
+recomputes the shared memory from its own layout and refuses a plan that
+disagrees."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT, copy_width
 
 MAX_HEAD_DIM = 256
 MAX_REP = 16             # query heads per KV head one block computes
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float] \
-    + [ctypes.c_void_p]
+SPAN = 64                # key positions per block of the split body
+MAX_SPAN = 256           # two keys per thread of its 128
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """Launch geometry of one decode call: block (g, b, s) computes the
+    query heads of KV head g for slot b over key positions
+    [s * span, s * span + span) of the slot's key range."""
+
+    span: int
+    n_span: int          # spans the capacity holds
+    grid: tuple          # (KV, B, n_span)
+    threads: int
+    smem_bytes: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_plan(B: int, H: int, KV: int, D: int, capacity: int,
+                kv_dtype, span: int = SPAN) -> DecodePlan:
+    """The launch geometry `csrc/decode_body.cuh` takes: n_span =
+    ceil(capacity / span) blocks per (slot, KV head), from the capacity
+    alone (n_pages * page or S), so the host never reads the lengths; the
+    shared memory mirrors the kernel's `Smem` layout."""
+    if span % 32 or not 32 <= span <= MAX_SPAN:
+        raise ValueError(f"span {span} (a multiple of 32 up to {MAX_SPAN})")
+    esize = torch.empty((), dtype=kv_dtype).element_size()
+    chunks = _ceil(D * esize, 16)
+    pitch = 16 * (chunks | 1)
+    dq = chunks * (16 // esize)
+    smem = (2 * span * pitch + span * 16 + span * 8
+            + (H // KV) * dq * 4)
+    n_span = max(1, _ceil(capacity, span))
+    return DecodePlan(span, n_span, (KV, B, n_span), 128, smem)
+
+
+def key_spans(length: int, capacity: int, span: int = SPAN) -> list:
+    """The kernel's partition of one slot's keys: [lo, hi) of each span
+    block that computes (the key range is [0, min(length, capacity));
+    at least span 0, whose empty range writes zeros). Depends only on the
+    length, the capacity's clamp and the span."""
+    n_keys = max(0, min(length, capacity))
+    n_used = max(1, _ceil(n_keys, span))
+    return [(u * span, min(u * span + span, n_keys)) for u in range(n_used)]
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, n_slots: int, n_rows: int, D: int):
+    """(tickets, part, part_ml) of the split body on `device`: n_slots
+    int32 tickets, zero between calls (the kernel resets each one it
+    takes), and n_rows partial rows of D and of (m, l) float32. Kept per
+    device and grown on demand; calls on one stream run one after
+    another, so they share it."""
+    t, p = _SCRATCH.get(device, (None, None))
+    if t is None or t.numel() < n_slots:
+        t = torch.zeros(n_slots, dtype=torch.int32, device=device)
+    if p is None or p.numel() < n_rows * (D + 2):
+        p = torch.empty(n_rows * (D + 2), dtype=torch.float32, device=device)
+    _SCRATCH[device] = (t, p)
+    # (m, l) pairs first, so their float2 stores stay 8-byte aligned
+    return t, p[2 * n_rows:n_rows * (D + 2)], p[:2 * n_rows]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -27,14 +102,16 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                             lengths: torch.Tensor, *,
                             k_sz: Optional[torch.Tensor] = None,
                             v_sz: Optional[torch.Tensor] = None,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            span: int = SPAN) -> torch.Tensor:
     """q (B,H,D) float32/bfloat16 vs the physical pool k/v
     (P_phys, page, KV, D) float32/bfloat16, or int8 with float32
     `k_sz`/`v_sz` of rank 3 (per page, (P_phys, KV, 2)) or rank 4 (per
     token, (P_phys, page, KV, 2)); block_tables (B, n_pages) int32 whose
-    every entry names a real page (ops clamps dead ones), lengths (B,)
-    int32. All contiguous on one CUDA device. Returns (B,H,D) in q's
-    dtype, launched on the current stream."""
+    entries below each slot's length name real pages (the kernel reads
+    the others but never dereferences them), lengths (B,) int32. All contiguous on one CUDA device. Returns (B,H,D) in q's
+    dtype, launched on the current stream; `span` other than the default
+    only times the options."""
     dev = q.device
     tensors = [q, k_pages, v_pages, block_tables, lengths]
     if k_sz is not None:
@@ -56,8 +133,9 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
            "(P,page,KV,D)")
     B, H, D = q.shape
     P, page, KV, Dk = k_pages.shape
+    n_pages = block_tables.shape[1] if block_tables.dim() == 2 else 0
     _check(Dk == D and H % KV == 0 and H // KV <= MAX_REP
-           and 0 < D <= MAX_HEAD_DIM and B <= 65535,
+           and 0 < D <= MAX_HEAD_DIM and B <= 65535 and KV <= 65535,
            f"q {tuple(q.shape)} vs pages {tuple(k_pages.shape)}")
     _check(block_tables.dim() == 2 and block_tables.shape[0] == B
            and lengths.shape == (B,), "block_tables (B,n_pages), lengths (B,)")
@@ -73,18 +151,28 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         else:
             _check(k_sz.shape == (P, KV, 2), f"sz {tuple(k_sz.shape)}")
             sz_mode = 1
+    plan = decode_plan(B, H, KV, D, n_pages * page, k_pages.dtype, span)
+    _check(plan.n_span <= 65535 and plan.smem_bytes <= SMEM_LIMIT,
+           f"plan {plan} exceeds the card's limits")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
+    tickets, part, part_ml = scratch(dev, B * KV,
+                                     B * KV * plan.n_span * (H // KV), D)
+    vb = copy_width(D * k_pages.element_size(), k_pages.data_ptr(),
+                    v_pages.data_ptr())
+    sz_vb = 8 if not quantized or (k_sz.data_ptr() % 8 == 0
+                                   and v_sz.data_ptr() % 8 == 0) else 1
     fn = build.library("paged_decode").repro_paged_decode
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_sz.data_ptr() if quantized else None,
              v_sz.data_ptr() if quantized else None,
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             B, H, KV, D, page, block_tables.shape[1],
+             part.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+             B, H, KV, D, page, n_pages,
              build.dtype_code(q.dtype), build.dtype_code(k_pages.dtype),
-             sz_mode, float(scale),
-             torch.cuda.current_stream(dev).cuda_stream)
+             sz_mode, float(scale), plan.span, plan.n_span, vb, sz_vb,
+             plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     kernels.LAUNCHES["paged_flash_decode"] += 1
     build.check(err, "paged_flash_decode")
     return out

@@ -1,29 +1,120 @@
 """ctypes wrapper of the CUDA flash-attention forward
 (`csrc/flash_attention.cu`), the port of
-`repro.kernels.flash_attention.flash_attention._fwd_pallas`."""
+`repro.kernels.flash_attention.flash_attention._fwd_pallas`.
+
+`launch_plan` is the kernels' launch geometry as a plain function of the
+shapes (row slots per block, grid, key splits, shared-memory bytes), so
+that it can be checked without a card; the C entry recomputes the shared
+memory from its own layout and refuses a plan that disagrees."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.build import N_SM, SMEM_LIMIT, copy_width
 
 MAX_HEAD_DIM = 256
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] \
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+KEY_TILE = 64            # keys per tile of the tensor-core body
+ROWS = 32                # (query, head) row slots per tensor-core block
+THREADS = 128            # 4 warps: rows / 16 row groups x key groups
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Launch geometry of one call. bf16: block (x, y, z) computes rows
+    [x * rows, x * rows + rows) of KV head y's Sq * rep rows (row = query
+    position * rep + head of the group), batch row z // n_split, over key
+    split z % n_split of its causal key range; its 4 warps are rows / 16
+    row groups times `key_groups`, which take the split's key tiles in
+    turn and merge in shared memory. float32: block (x, y, z) computes 16
+    query positions of query head y, batch row z."""
+
+    tensor_core: bool    # bf16: mma body; float32: FMA body
+    rows: int            # row slots a block computes (16 per warp)
+    key_groups: int      # warps that share a row group's key tiles
+    threads: int
+    grid: tuple          # (x, y, z)
+    n_split: int         # key splits merged by the combine kernel
+    smem_bytes: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(B: int, Sq: int, Skv: int, H: int, KV: int, D: int, dtype,
+                causal: bool = True, kv_offset: int = 0) -> Plan:
+    """The launch geometry `csrc/flash_attention.cu` takes for these
+    shapes: float32 runs the FMA body (16 query positions per block per
+    query head, 32-key tiles staged as f32); bfloat16 the tensor-core
+    body with 32 row slots and two key groups per block (64 rows and one
+    where two groups' tiles do not fit), its key range split across
+    blocks only where the blocks are fewer than the SMs and the split
+    keeps both groups busy (PERF.md, `scripts/attention_plans.py`)."""
+    if dtype == torch.float32:
+        pitch = D + 1 if D % 2 == 0 else D
+        return Plan(False, 16, 1, 128, (_ceil(Sq, 16), H, B), 1,
+                    4 * (16 * D + 2 * 32 * pitch))
+    return _mma_plan(B, Sq, Skv, H, KV, D, causal, kv_offset)
+
+
+def _key_groups(rows: int) -> int:
+    """Warps of a block that share one row group: 4 warps / (rows / 16)."""
+    return THREADS // 32 // (rows // 16)
+
+
+def _mma_smem(rows: int, D: int) -> int:
+    """Dynamic shared memory of the tensor-core body (`MmaSmem`): q rows
+    and two rounds of one K/V tile slot per key group."""
+    qp = 2 * (_ceil(D, 16) * 16 + 8)     # bf16 row pitch, bytes
+    return rows * qp + 2 * _key_groups(rows) * 2 * KEY_TILE * qp
+
+
+def _mma_plan(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
+              causal: bool = True, kv_offset: int = 0,
+              rows: Optional[int] = None,
+              n_split: Optional[int] = None) -> Plan:
+    """The tensor-core body's plan with `rows` (16, 32 or 64) row slots
+    per block (default: `ROWS`, or 64 where two key groups' tiles do not
+    fit, D > 192) and `n_split` key splits (default: none where the
+    blocks fill the card, else about two blocks per SM, each split keeping
+    every key group busy); other values than the defaults only time the
+    options (`scripts/attention_plans.py`)."""
+    if rows is None:
+        rows = ROWS if _mma_smem(ROWS, D) <= SMEM_LIMIT else 64
+    if rows not in (16, 32, 64):
+        raise ValueError(f"rows {rows} per block")
+    rep = H // KV
+    kp = _key_groups(rows)
+    blocks = _ceil(Sq * rep, rows) * KV * B
+    # keys any row can see: the last query position's causal frontier
+    n_keys = max(0, min(Skv, kv_offset + Sq)) if causal else Skv
+    n_tiles = max(1, _ceil(n_keys, KEY_TILE))
+    if n_split is None:
+        n_split = min(_ceil(2 * N_SM, blocks) if blocks < N_SM else 1,
+                      max(1, n_tiles // kp))
+    n_split = max(1, min(n_split, n_tiles))
+    return Plan(True, rows, kp, THREADS,
+                (_ceil(Sq * rep, rows), KV, B * n_split), n_split,
+                _mma_smem(rows, D))
 
 
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, scale: Optional[float] = None,
-                   kv_offset: int = 0):
+                   kv_offset: int = 0, plan: Optional[Plan] = None):
     """q (B,Sq,H,D), k/v (B,Skv,KV,D), contiguous, one CUDA device, all
     float32 or all bfloat16, H a multiple of KV, D <= 256. Returns
     (out (B,Sq,H,D) in q's dtype, lse (B,H,Sq) float32), launched on the
-    current stream."""
+    current stream. `plan` replaces `launch_plan`'s (only to time the
+    options)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_mha_cuda needs CUDA tensors on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) \
@@ -37,19 +128,33 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != D or H % KV:
         raise ValueError(f"flash_mha_cuda: q {tuple(q.shape)} vs "
                          f"k {tuple(k.shape)}")
-    if not 0 < D <= MAX_HEAD_DIM or H > 65535 or B > 65535:
-        raise ValueError(f"flash_mha_cuda: D={D}, H={H}, B={B} out of "
-                         "range")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_mha_cuda needs contiguous tensors")
     scale = scale if scale is not None else D ** -0.5
+    plan = plan or launch_plan(B, Sq, Skv, H, KV, D, q.dtype, causal,
+                               kv_offset)
+    if not (0 < D <= MAX_HEAD_DIM and max(plan.grid[1:]) <= 65535
+            and plan.smem_bytes <= SMEM_LIMIT):
+        raise ValueError(f"flash_mha_cuda: D={D}, plan {plan} out of "
+                         "range")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    part = part_ml = None
+    if plan.n_split > 1:
+        part = torch.empty((plan.n_split, B * Sq * H, _ceil(D, 16) * 16),
+                           dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((plan.n_split, B * Sq * H, 2),
+                              dtype=torch.float32, device=q.device)
+    vb = copy_width(D * q.element_size(), q.data_ptr(), k.data_ptr(),
+                    v.data_ptr())
     fn = build.library("flash_attention").repro_flash_mha
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B, Sq, Skv, H, KV, D, build.dtype_code(q.dtype),
-             float(scale), int(causal), int(kv_offset),
+             float(scale), int(causal), int(kv_offset), plan.rows,
+             plan.n_split, vb, plan.smem_bytes,
+             part.data_ptr() if part is not None else None,
+             part_ml.data_ptr() if part_ml is not None else None,
              torch.cuda.current_stream(q.device).cuda_stream)
     kernels.LAUNCHES["flash_mha"] += 1
     build.check(err, "flash_mha")

@@ -23,12 +23,11 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.build import N_SM, SMEM_LIMIT, copy_width
 
 MAX_HEAD_DIM = 256
 MAX_REP = 16             # query heads per KV head one block computes
-SMEM_LIMIT = 232448      # dynamic shared memory a block may use (227 KB)
 KEY_TILE = 64            # keys per tile of the tensor-core body
-N_SM = 132               # streaming multiprocessors of an H100 SXM
 ROWS = 64                # (query, head) rows per tensor-core block
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float]
              + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
@@ -100,15 +99,6 @@ def _mma_plan(B: int, C: int, H: int, KV: int, D: int, page: int,
             + _ceil(n_tab * 4, 16) * 16)              # block-table slice
     return Plan(True, rows, 2 * rows, bq,
                 (_ceil(C, bq), KV, B * n_split), n_split, n_tab, 2, smem)
-
-
-def _copy_width(row_bytes: int, *ptrs: int) -> int:
-    """Widest cp.async (16 or 4 bytes) that divides a row and every base
-    address; 1 means synchronous byte copies."""
-    for w in (16, 4):
-        if row_bytes % w == 0 and all(p % w == 0 for p in ptrs):
-            return w
-    return 1
 
 
 def _check(name: str, cond: bool, msg: str) -> None:
@@ -193,11 +183,11 @@ def _launch(name, q, k_pages, v_pages, block_tables, c0, *, k_sz=None,
 
     kv_ptrs = [t.data_ptr() for t in (k_pages, v_pages, k_new, v_new)
                if t is not None]
-    vb = _copy_width(D * k_pages.element_size(), *kv_ptrs)
+    vb = copy_width(D * k_pages.element_size(), *kv_ptrs)
     if quantized and any(t.data_ptr() % 8 for t in (
             k_sz, v_sz, ksz_new, vsz_new) if t is not None):
         vb = 1                         # (scale, zero) rows copy 8 bytes
-    vbq = _copy_width(D * q.element_size(), q.data_ptr())
+    vbq = copy_width(D * q.element_size(), q.data_ptr())
     part = part_ml = None
     if plan.n_split > 1:
         rows_out = B * C * H

@@ -12,11 +12,10 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
              + [ctypes.c_void_p])
-# shared memory a block of an H100 may use
-SMEM_LIMIT = 232448
 
 
 def _f32(t: Optional[torch.Tensor], shape: tuple, what: str):

@@ -1,0 +1,299 @@
+"""Launch plans of the port's attention kernels, checked on the CPU
+because a refused or mis-sized launch shows only on the card: the
+flash-attention forward's plan (`kernels/flash_attention/flash_attention.py`
+`launch_plan`) and the split decode body's plan and key partition
+(`kernels/decode_attention/paged.py` `decode_plan`, `key_spans`), which
+the paged and the contiguous decode share. Then a float32 emulation of
+the split decode (span partials, merged in span order) against the plain
+versions of both decode ops and against the reference package's plain
+decode, on the same seeded inputs.
+
+Gates: every (query position, head) row computed by exactly one block,
+key splits partitioning each block's key tiles, shared memory within
+227 KB; the decode key partition identical for a paged and a dense
+capacity at equal lengths (0, 1, the span edges, parked rows); the
+emulation within atol=rtol=1e-6 of the plain versions (float32, sums in
+another order) and bit-equal to itself for every span count that holds
+the used spans."""
+
+from collections import Counter
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import ref as jdref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as tdops  # noqa: E402
+from repro_torch.kernels.decode_attention import paged as dplan  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as tdref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as fa,
+)
+
+TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+# ------------------------------------------------------- flash_mha plan
+@pytest.mark.parametrize("Sq", [1, 17, 64, 128, 512])
+@pytest.mark.parametrize("rep", [1, 3, 8])
+@pytest.mark.parametrize("D", [16, 20, 64, 112, 128, 256])
+def test_flash_plan_covers_every_row_and_fits(D, rep, Sq):
+    """Both bodies' plans (float32 FMA, bf16 tensor-core with the default
+    and the 32-row plan, split or not) fit a block's shared memory and
+    thread limit and the grid's limits; every (query position, head) row
+    is computed by exactly one block; the key splits partition each
+    block's causal key tiles."""
+    B, KV = 2, 2
+    H = KV * rep
+    for Skv, causal, off in ((Sq, True, 0), (Sq + 40, True, 40),
+                             (Sq + 7, False, 0)):
+        plans = [fa.launch_plan(B, Sq, Skv, H, KV, D, torch.float32, causal,
+                                off),
+                 fa.launch_plan(B, Sq, Skv, H, KV, D, torch.bfloat16, causal,
+                                off)]
+        plans += [fa._mma_plan(B, Sq, Skv, H, KV, D, causal, off, rows=r,
+                               n_split=n) for r in (16, 32, 64)
+                  for n in (1, 4)
+                  if fa._mma_smem(r, D) <= fa.SMEM_LIMIT]
+        for plan in plans:
+            assert plan.smem_bytes <= fa.SMEM_LIMIT, plan
+            assert plan.threads <= 1024 and plan.threads % 32 == 0
+            assert max(plan.grid[1:]) <= 65535 and plan.grid[0] >= 1
+            covered = Counter()
+            if not plan.tensor_core:
+                assert plan.grid == (-(-Sq // 16), H, B)
+                for x in range(plan.grid[0]):
+                    for qi in range(16 * x, min(16 * x + 16, Sq)):
+                        for h in range(H):
+                            covered[qi, h] += 1
+                assert len(covered) == Sq * H
+                assert set(covered.values()) == {1}
+                continue
+            assert plan.threads == 128 and plan.rows in (16, 32, 64)
+            assert plan.key_groups * plan.rows == 64
+            assert plan.grid[1] == KV and plan.grid[2] == B * plan.n_split
+            n_rows = Sq * rep
+            for x in range(plan.grid[0]):
+                rows = range(x * plan.rows, min(x * plan.rows + plan.rows,
+                                                n_rows))
+                for row in rows:
+                    covered[divmod(row, rep)] += 1
+                # the kernel's split of the block's key tiles
+                q_last = rows[-1] // rep
+                k_end = (max(0, min(Skv, off + q_last + 1)) if causal
+                         else Skv)
+                n_tiles = -(-k_end // fa.KEY_TILE)
+                tiles = []
+                for s in range(plan.n_split):
+                    lo = s * n_tiles // plan.n_split
+                    hi = (s + 1) * n_tiles // plan.n_split
+                    # round r: key group j takes tile lo + r * kp + j
+                    kp = plan.key_groups
+                    for r in range(-(-(hi - lo) // kp)):
+                        tiles += [t for t in range(lo + r * kp,
+                                                   lo + r * kp + kp)
+                                  if t < hi]
+                assert tiles == list(range(n_tiles))
+            assert len(covered) == n_rows
+            assert set(covered.values()) == {1}
+
+
+def test_flash_plan_defaults():
+    """The default bf16 plan: 32 row slots and two key groups per block
+    while two groups' tile rings fit (D <= 192), else 64 rows and one;
+    at the main shape (B=1, Sq=Skv=128, 15/5 heads) 60 blocks whose two
+    key groups take the two key tiles, no split across blocks; a split
+    only where the blocks are fewer than the SMs and each split keeps
+    both groups busy; never more splits than tiles."""
+    main = fa.launch_plan(1, 128, 128, 15, 5, 64, torch.bfloat16)
+    assert (main.rows, main.key_groups) == (32, 2)
+    assert main.grid == (12, 5, 1) and main.n_split == 1
+    wide = fa.launch_plan(1, 128, 128, 8, 1, 256, torch.bfloat16)
+    assert (wide.rows, wide.key_groups) == (64, 1)
+    assert fa.launch_plan(1, 128, 128, 8, 1, 192,
+                          torch.bfloat16).rows == 32
+    assert fa.launch_plan(8, 512, 512, 15, 5, 64,
+                          torch.bfloat16).n_split == 1
+    few = fa.launch_plan(1, 512, 512, 3, 1, 64, torch.bfloat16)
+    assert few.grid[:2] == (48, 1) and few.n_split == 4
+    assert fa._mma_plan(1, 128, 128, 15, 5, 64, n_split=9).n_split == 2
+
+
+# ---------------------------------------------------------- decode plan
+def _lengths(cap: int, span: int):
+    return sorted({0, 1, span - 1, span, span + 1, 2 * span, cap - 1, cap,
+                   cap + 7})
+
+
+@pytest.mark.parametrize("span", [32, 64, 128])
+@pytest.mark.parametrize("page", [16, 64])
+def test_decode_partition_same_for_paged_and_dense(page, span):
+    """The split body's key partition depends on the length and the
+    capacity's clamp only: a paged capacity (n_pages * page) and a dense
+    capacity (S) of the same size give the same spans at every length,
+    parked rows included, and at lengths below both capacities any two
+    capacities do. The spans tile [0, min(length, capacity)) in order,
+    each inside its own span block, and the plan's grid holds them."""
+    for n_pages in (1, 3, 9, 16):
+        cap = n_pages * page
+        for length in _lengths(cap, span):
+            paged = dplan.key_spans(length, n_pages * page, span)
+            dense = dplan.key_spans(length, cap, span)
+            assert paged == dense
+            n_keys = min(length, cap)
+            assert paged[0][0] == 0 and paged[-1][1] == n_keys
+            assert all(lo == u * span and hi <= lo + span and (
+                hi > lo or n_keys == 0) for u, (lo, hi) in enumerate(paged))
+            assert all(a[1] == b[0] for a, b in zip(paged, paged[1:]))
+            for plan_cap in (cap, cap + 4):      # draft caches: S + k
+                if length <= cap:
+                    assert dplan.key_spans(length, plan_cap, span) == paged
+            plan = dplan.decode_plan(8, 24, 3, 64, cap, torch.int8, span)
+            assert len(paged) <= plan.n_span == plan.grid[2]
+            assert plan.grid[:2] == (3, 8)
+
+
+@pytest.mark.parametrize("dt", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 20, 64, 112, 128, 256])
+def test_decode_plan_smem_layout(D, dt):
+    """The plan's shared memory mirrors the kernel's layout: K and V rows
+    at a pitch of an odd number of 16-byte chunks (so 32 lanes reading 16
+    bytes of 32 rows meet every bank once), a (scale, zero) row and a
+    cache row per key, and rep f32 q rows padded to the staged chunks."""
+    esize = torch.empty((), dtype=dt).element_size()
+    for span in (32, 64, 128, 256):
+        for rep in (1, 3, 16):
+            plan = dplan.decode_plan(4, 2 * rep, 2, D, 1000, dt, span)
+            chunks = -(-D * esize // 16)
+            pitch = 16 * (chunks | 1)
+            assert (pitch // 16) % 2 == 1 and pitch >= D * esize
+            assert plan.smem_bytes == (2 * span * pitch + 24 * span
+                                       + rep * chunks * (16 // esize) * 4)
+            assert plan.smem_bytes % 16 == 0
+            # the default span fits every head dim, rep and cache type;
+            # wider spans (timed as options) only where the wrapper finds
+            # them within the limit
+            assert span > dplan.SPAN or plan.smem_bytes <= dplan.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        dplan.decode_plan(1, 1, 1, D, 64, dt, span=48)
+
+
+# ----------------------------------------- split decode, emulated
+def _split_decode(q, k, v, lengths, span, n_span, scale=None):
+    """float32 emulation of the split body on a dense cache: every span
+    block of the grid past its slot's length exits; each used span
+    computes its (acc, m, l) over its keys; a slot with one used span
+    writes acc / max(l, 1e-30), otherwise the spans merge online in span
+    order (the running max rescales the sums so far)."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        n_keys = max(0, min(int(lengths[b]), S))
+        spans = dplan.key_spans(int(lengths[b]), S, span)
+        assert len(spans) <= n_span
+        for g in range(KV):
+            qg = q[b, g * rep:(g + 1) * rep].float()      # (rep, D)
+            parts = []
+            for sp in range(n_span):
+                if sp > 0 and sp * span >= n_keys:
+                    continue                              # past the length
+                lo, hi = spans[sp]
+                kk, vv = k[b, lo:hi, g].float(), v[b, lo:hi, g].float()
+                s = (qg @ kk.T) * scale                   # (rep, keys)
+                m = (s.amax(-1) if hi > lo
+                     else torch.full((rep,), tdref.NEG_INF))
+                p = torch.exp(s - m[:, None])
+                parts.append((p @ vv, m, p.sum(-1)))
+            if len(parts) == 1:
+                acc, _, l_ = parts[0]
+                o = acc / torch.clamp_min(l_, 1e-30)[:, None]
+            else:                      # online, in span order
+                M = torch.full((rep,), tdref.NEG_INF)
+                O = torch.zeros(rep, D)
+                L = torch.zeros(rep)
+                for acc, m, l_ in parts:
+                    m_new = torch.maximum(M, m)
+                    c, w = torch.exp(M - m_new), torch.exp(m - m_new)
+                    L = L * c + w * l_
+                    O = O * c[:, None] + w[:, None] * acc
+                    M = m_new
+                o = O / torch.clamp_min(L, 1e-30)[:, None]
+            out[b, g * rep:(g + 1) * rep] = o
+    return out
+
+
+def _inputs(seed, B, H, KV, D, page, n_pages, pool):
+    rng = np.random.default_rng(seed)
+    P = B * n_pages
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    bt = np.stack([rng.permutation(P)[:n_pages] for _ in range(B)]).astype(
+        np.int32)
+    shape = (P, page, KV, D)
+    if pool == "f32":
+        return (q, rng.standard_normal(shape).astype(np.float32),
+                (0.5 * rng.standard_normal(shape)).astype(np.float32), bt,
+                None, None)
+    sz_shape = (P, KV, 2) if pool == "int8/page" else (P, page, KV, 2)
+
+    def sz():
+        s = rng.uniform(0.005, 0.02, sz_shape[:-1])
+        z = rng.uniform(-0.5, 0.5, sz_shape[:-1])
+        return np.stack([s, z], -1).astype(np.float32)
+
+    return (q, rng.integers(-127, 128, shape).astype(np.int8),
+            rng.integers(-127, 128, shape).astype(np.int8), bt, sz(), sz())
+
+
+@pytest.mark.parametrize("pool", ["f32", "int8/page", "int8/token"])
+@pytest.mark.parametrize("rep", [1, 3, 8])
+@pytest.mark.parametrize("page", [16, 64])
+def test_split_decode_emulation_matches_plain(page, rep, pool):
+    """Span partials plus the span-ordered merge equal the plain paged
+    decode, the plain dense decode of the gathered cache and the
+    reference package's plain paged decode within 1e-6, at lengths 1,
+    the span edges, a page edge, the capacity and parked; and equal
+    themselves bit for bit for every span count from the used spans up
+    to past the capacity's."""
+    span = dplan.SPAN
+    KV, D = 2, 64 if rep != 8 else 20
+    H = KV * rep
+    n_pages = -(-(2 * span + 16) // page)
+    cap = n_pages * page
+    lengths = np.array([1, span - 1, span, span + 1, page, 2 * span + 1,
+                        cap, cap + 7], np.int32)
+    q, kp, vp, bt, ksz, vsz = _inputs(page * 7 + rep, len(lengths), H, KV,
+                                      D, page, n_pages, pool)
+    t = {n: (torch.from_numpy(a) if a is not None else None) for n, a in
+         dict(q=q, kp=kp, vp=vp, bt=bt, ksz=ksz, vsz=vsz,
+              len=lengths).items()}
+    plain = tdops.paged_decode_mha(t["q"], t["kp"], t["vp"], t["bt"],
+                                   t["len"], k_sz=t["ksz"], v_sz=t["vsz"])
+    if ksz is None:
+        kd = tdref.gather_pages(t["kp"], t["bt"])
+        vd = tdref.gather_pages(t["vp"], t["bt"])
+    else:
+        kd = tdref.gather_pages_q8(t["kp"], t["ksz"], t["bt"])
+        vd = tdref.gather_pages_q8(t["vp"], t["vsz"], t["bt"])
+    dense = tdops.decode_mha(t["q"], kd, vd, t["len"])
+    jkw = {} if ksz is None else dict(k_sz=jnp.asarray(ksz),
+                                      v_sz=jnp.asarray(vsz))
+    jplain = torch.from_numpy(np.array(jdref.paged_decode_mha(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lengths), **jkw)))
+    used = max(len(dplan.key_spans(int(n), cap, span)) for n in lengths)
+    n_full = dplan.decode_plan(len(lengths), H, KV, D, cap, t["kp"].dtype,
+                               span).n_span
+    assert used == 3 and n_full == -(-cap // span)
+    emu = _split_decode(t["q"], kd, vd, t["len"], span, used)
+    for ref in (plain, dense, jplain):
+        torch.testing.assert_close(emu, ref.float(), **TOL)
+    for n_span in (used + 1, n_full, n_full + 5):
+        assert torch.equal(_split_decode(t["q"], kd, vd, t["len"], span,
+                                         n_span), emu)
+
