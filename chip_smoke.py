@@ -455,9 +455,10 @@ def kernel_cases(torch, timer):
                                         dtype=torch.int32, device="cuda")
                     cases.append((4, 2 * rep, 2, D_, page_, n_pages, pool,
                                   qdtype(pool, D_), lens))
-    # the split's span edges (1, span - 1, span, span + 1), a page edge,
-    # the capacity and a parked row, over three spans of keys, at every
-    # head dim up to 256 and GQA rep up to 8
+    # length 0 (the mean of physical page 0's V rows, the slot's own
+    # table entries all garbage), the split's span edges (1, span - 1,
+    # span, span + 1), a page edge, the capacity and a parked row, over
+    # three spans of keys, at every head dim up to 256 and GQA rep up to 8
     span = dpaged.SPAN
     for D_ in (16, 20, 64, 112, 128, 256):
         for page_ in (16, 64):
@@ -465,10 +466,11 @@ def kernel_cases(torch, timer):
                 for pool in ("bf16", "f32", "int8/page", "int8/token"):
                     n_pages = -(-(2 * span + 16) // page_)
                     full = n_pages * page_
-                    lens = torch.tensor([1, span - 1, span, span + 1, page_,
-                                         2 * span + 1, full, full + 7],
+                    lens = torch.tensor([0, 1, span - 1, span, span + 1,
+                                         page_, 2 * span + 1, full,
+                                         full + 7],
                                         dtype=torch.int32, device="cuda")
-                    cases.append((8, 2 * rep, 2, D_, page_, n_pages, pool,
+                    cases.append((9, 2 * rep, 2, D_, page_, n_pages, pool,
                                   qdtype(pool, D_), lens))
     main_c = None
     n_dec, worst_c = 0, {"f32": 0.0, "bf16": 0.0}
@@ -591,9 +593,10 @@ def flash_decode_cases(torch, timer, randn, report, timed):
     """flash_decode against its plain version over the contiguous cache:
     f32 and bf16 x head dims {16, 20, 64, 112, 128, 256} x GQA rep
     {1, 3, 8} x cache extents S {64, 256, 260} (260: the draft caches'
-    max_seq + k, a ragged last key span), eight rows per case with
-    lengths 1, span - 1, span, span + 1 (the split's edges), S // 2 + 3,
-    S, S + 1 and S + 7 (parked), each case called three times (the later
+    max_seq + k, a ragged last key span), nine rows per case with
+    lengths 0 (the mean of the slot's V rows), 1, span - 1, span, span +
+    1 (the split's edges), S // 2 + 3, S, S + 1 and S + 7 (parked), each
+    case called three times (the later
     calls bit-equal to the first). Prints one summary line and any
     failing case; returns the record timed at the contiguous engine's
     decode shape (B=8, 15/5 heads, D=64, S=256, bf16), after checking
@@ -608,7 +611,7 @@ def flash_decode_cases(torch, timer, randn, report, timed):
         for D in (16, 20, 64, 112, 128, 256):
             for rep in (1, 3, 8):
                 for S in (64, 256, 260):
-                    lens = torch.tensor([1, span - 1, span, span + 1,
+                    lens = torch.tensor([0, 1, span - 1, span, span + 1,
                                          S // 2 + 3, S, S + 1, S + 7],
                                         dtype=torch.int32, device="cuda")
                     B = lens.numel()
@@ -988,14 +991,35 @@ def int_mm_ms(torch, timer, a8, b8, sa, sb, out):
     return timer(lib), same
 
 
+def w8a8_times(torch, timer, a8, b8, sa, sb, out) -> dict:
+    """The library yardstick (`lib` ms, `_int_mm` + epilogue, and whether
+    it is bit-equal to the kernel's `out`, `same`), bf16 `torch.matmul`
+    of the dequantized operands (`bf16` ms) and the bound (`bound` s,
+    `bound_by`, from `t_bytes` and `t_ops`) for one shape."""
+    M, K = a8.shape
+    N = b8.shape[1]
+    lib_ms, same = int_mm_ms(torch, timer, a8, b8, sa, sb, out)
+    af = (a8.float() * sa[:, None]).to(torch.bfloat16)
+    bf = (b8.float() * sb[None, :]).to(torch.bfloat16)
+    t_bytes = (M * K + K * N + 4 * (M + N) + 4 * M * N) / HBM_BYTES_PER_S
+    t_ops = 2 * M * N * K / PEAK_OPS["int8"]
+    return dict(lib=lib_ms, same=same, bf16=timer(lambda: af @ bf),
+                t_bytes=t_bytes, t_ops=t_ops, bound=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def w8a8_cases(torch, timer, randn, report, timed):
     """matmul_w8a8 against its plain version, bit for bit: the reference
     test's shapes (128^3, 256x384x256, 130x96x200, 1x128x256), a ragged
     33x97x203 (byte loads), SmolLM-360M's MLP shapes at published widths
     (M in {8, 1024}; K x N = 960 x 2560 and 2560 x 960) and all-zero
-    operands. Returns the record timed at M=1024, K=960, N=2560 (library:
-    `torch._int_mm` plus the scale epilogue; bf16 `torch.matmul` printed
-    beside it)."""
+    operands, each through the default launch plan and, at the ragged
+    and the MLP shapes, every other block tile. Checks by kernel name
+    that the main shape runs the int8 tensor-core kernel, once. Prints
+    the decode-like M=8 shape's times; returns the record timed at
+    M=1024, K=960, N=2560 (library: `torch._int_mm` plus the scale
+    epilogue; bf16 `torch.matmul` printed beside it)."""
+    from repro_torch.kernels.matmul_w8a8 import matmul_w8a8 as mm
     from repro_torch.kernels.matmul_w8a8 import ops as wops
 
     print("kernel matmul_w8a8 (exact)")
@@ -1010,6 +1034,13 @@ def w8a8_cases(torch, timer, randn, report, timed):
         ok = torch.equal(out, ref)
         report("matmul_w8a8", f"M={M} K={K} N={N}",
                float((out - ref).abs().max()), ok, dict(atol=0, rtol=0))
+        if (M, K, N) in ((33, 97, 203), (8, 960, 2560), (1024, 960, 2560)):
+            for tile in mm.TILES:
+                o = mm.matmul_w8a8_cuda(a8, b8, sa, sb,
+                                        plan=mm.launch_plan(M, N, tile))
+                report("matmul_w8a8", f"M={M} K={K} N={N} tile {tile}",
+                       float((o - ref).abs().max()), torch.equal(o, ref),
+                       dict(atol=0, rtol=0))
     z8, sz = wops.quantize_rows(torch.zeros(64, 128, device="cuda"))
     w8, sw = wops.quantize_rows(torch.zeros(128, 64, device="cuda"), axis=0)
     out = wops.matmul_w8a8(z8, w8, sz, sw, impl="cuda")
@@ -1018,16 +1049,35 @@ def w8a8_cases(torch, timer, randn, report, timed):
     ok = ok and not bool(out.any())
     report("matmul_w8a8", "zero operands M=64 K=128 N=64", 0.0, ok,
            dict(atol=0, rtol=0))
-    # a8, sa, b8, sb hold the last shape of the sweep: the main one
+    # the decode-like shape, timed beside the main one
+    a8, sa = wops.quantize_rows(randn(8, 960))
+    b8, sb = wops.quantize_rows(randn(960, 2560, scale=0.5), axis=0)
+    out = wops.matmul_w8a8(a8, b8, sa, sb, impl="cuda")
+    small = w8a8_times(torch, timer, a8, b8, sa, sb, out)
+    t = timed(lambda: wops.matmul_w8a8(a8, b8, sa, sb, impl="cuda"),
+              lambda: wops.matmul_w8a8(a8, b8, sa, sb, impl="reference"))
+    print(f"  time matmul_w8a8 M=8 K=960 N=2560: kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, _int_mm + epilogue "
+          f"{small['lib']} ms (bit-equal "
+          f"{small['same']}), bf16 matmul {small['bf16']:.4f} ms, bound "
+          f"{small['bound'] * 1e3:.5f} ms ({small['bound_by']})")
+    # the main shape: the MLP up/gate product of the quantify phase
+    a8, sa = wops.quantize_rows(randn(1024, 960))
+    b8, sb = wops.quantize_rows(randn(960, 2560, scale=0.5), axis=0)
     M, K = a8.shape
     N = b8.shape[1]
     out = wops.matmul_w8a8(a8, b8, sa, sb, impl="cuda")
-    lib_ms, same = int_mm_ms(torch, timer, a8, b8, sa, sb, out)
-    af = (a8.float() * sa[:, None]).to(torch.bfloat16)
-    bf = (b8.float() * sb[None, :]).to(torch.bfloat16)
-    bf16_ms = timer(lambda: af @ bf)
-    t_bytes = (M * K + K * N + 4 * (M + N) + 4 * M * N) / HBM_BYTES_PER_S
-    t_ops = 2 * M * N * K / PEAK_OPS["int8"]
+    ok = torch.equal(out, wops.matmul_w8a8(a8, b8, sa, sb,
+                                           impl="reference"))
+    names = device_kernel_names(torch, lambda: wops.matmul_w8a8(
+        a8, b8, sa, sb, impl="cuda"))
+    n_mma = sum("matmul_w8a8_mma_kernel" in n for n in names)
+    report("matmul_w8a8", f"main shape on the int8 tensor cores: {n_mma} "
+           "launch; " + ", ".join(short_names(names)), 0.0,
+           ok and n_mma == 1 and len(names) == 1, dict(atol=0, rtol=0))
+    main = w8a8_times(torch, timer, a8, b8, sa, sb, out)
+    lib_ms, same, bf16_ms = main["lib"], main["same"], main["bf16"]
+    t_bytes, t_ops = main["t_bytes"], main["t_ops"]
     return dict(
         name="matmul_w8a8", route="cuda",
         source="src/repro_torch/kernels/csrc/matmul_w8a8.cu",
@@ -1049,7 +1099,7 @@ SSD_Q = 64          # the CUDA kernel's chunk length (csrc/ssd_scan.cu)
 
 
 def ssd_flops(B, S, H, P, N, Q=SSD_Q) -> int:
-    """Float32 operations of the chunked SSD at chunk length Q, counted
+    """Operations of the chunked SSD at chunk length Q, counted
     for this run's S (the last chunk holds what is left): per (b, h) and
     chunk of L positions, the causal halves of the C.B^T scores and of
     the intra-chunk product, L(L+1)/2 (N + P) multiply-adds, plus the
@@ -1075,10 +1125,15 @@ def ssd_cases(torch, timer, gen, report, timed):
     float32 plain version's own distance from the float64 evaluation and
     from the kernel are printed too: at N = 128 its float32 cumsum
     differences lose more than 2e-4. Prints one summary line and any
-    failing case; returns the record timed at the engine's prefill shape
-    (B=1, S=128, bf16, D given, no initial state)."""
+    failing case. Then every launch-plan option of the bf16 tensor-core
+    body (pb 16, 32, 64 x one or two chunk stages) at mamba2's widths,
+    B=1 and B=8, at the same tolerances, and a check by kernel name that
+    the main shape runs the tensor-core body once. Returns the record
+    timed at the engine's prefill shape (B=1, S=128, bf16, D given, no
+    initial state)."""
     from repro_torch.kernels.ssd_scan import chunked
     from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sks
 
     F = torch.nn.functional
     f32_tol = dict(atol=2e-4, rtol=2e-4)
@@ -1143,15 +1198,46 @@ def ssd_cases(torch, timer, gen, report, timed):
           + f"; the float32 plain version's y differs from its float64 "
           f"evaluation by up to {plain_worst[0]:.3e} and from the kernel "
           f"by up to {plain_worst[1]:.3e}")
+    # every plan option of the tensor-core body at mamba2's widths, B=1
+    # and B=8, on one input each (held like the sweep)
+    for B in (1, 8):
+        args = inputs(B, 128, 48, 64, 1, 128, torch.bfloat16)
+        y64, h64 = chunked.ssd_chunked(
+            *(None if a is None else a.double() for a in args), chunk=128)
+        for pb in sks.MMA_PB:
+            for stages in (1, 2):
+                y, h = sks.ssd_cuda(*args, plan=sks.launch_plan(
+                    B, 48, 64, 128, torch.bfloat16, pb, stages))
+                ey, oky = max_err(torch, y, y64.to(y.dtype), bf16_tol)
+                eh, okh = max_err(torch, h, h64, f32_tol)
+                n_cases += 1
+                if not (oky and okh):
+                    report("ssd_scan", f"B={B} pb={pb} stages={stages} y",
+                           ey, oky, bf16_tol)
+                    report("ssd_scan", f"B={B} pb={pb} stages={stages} "
+                           "state", eh, okh, f32_tol)
     B, S, H, P, G, N = 1, 128, 48, 64, 1, 128
     args = inputs(B, S, H, P, G, N, torch.bfloat16)
     err, _, ok = check(args, 128, "main")
     report("ssd_scan", f"main B={B} S={S} H={H} P={P} N={N} bf16", err, ok,
            bf16_tol)
+    # one launch of the tensor-core body per call, no FMA body
+    names = device_kernel_names(torch, lambda: sops.ssd(*args, impl="cuda"))
+    n_mma = sum("ssd_mma_kernel" in n for n in names)
+    n_fma = sum("ssd_fma_kernel" in n for n in names)
+    report("ssd_scan", f"main shape: {n_mma} launch of the tensor-core "
+           f"body, {n_fma} of the FMA body; " + ", ".join(
+               short_names(names)), 0.0, n_mma == 1 and n_fma == 0,
+           dict(atol=0, rtol=0))
+    print(f"  ssd_scan: {n_cases} cases with the plan options; main plan "
+          f"{sks.launch_plan(B, H, P, N, torch.bfloat16)}")
     nbytes = (2 * B * S * H * P * 2 + 2 * B * S * G * N * 2
               + B * S * H * 4 + 2 * H * 4 + B * H * P * N * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ssd_flops(B, S, H, P, N) / PEAK_OPS["float32"]
+    # the bf16 body's products run on the tensor cores (bf16 peak); the
+    # float32 FMA body's bound is printed beside it
+    t_ops = ssd_flops(B, S, H, P, N) / PEAK_OPS["bfloat16"]
+    t_fma = ssd_flops(B, S, H, P, N) / PEAK_OPS["float32"]
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1164,8 +1250,10 @@ def ssd_cases(torch, timer, gen, report, timed):
         library_ms=None,
         shape=(f"bf16 B={B} S={S} H={H} P={P} G={G} N={N} "
                f"({nbytes / 1e6:.2f} MB, "
-               f"{ssd_flops(B, S, H, P, N) / 1e9:.3f} GFLOP at Q={SSD_Q}); "
-               "no single PyTorch call computes the chunked SSD"),
+               f"{ssd_flops(B, S, H, P, N) / 1e9:.3f} GFLOP at Q={SSD_Q}; "
+               f"bound on the bf16 tensor cores; the float32 FMA body's "
+               f"{max(t_bytes, t_fma) * 1e3:.4f} ms); no single PyTorch "
+               "call computes the chunked SSD"),
     )
 
 
@@ -1903,12 +1991,15 @@ PROFILE_GROUPS = (
     ("flash_mha", ("flash_fma_kernel",)),
     ("write_pages", ("write_pages_kernel",)),
     ("paged_prefill_flash/insert_flash/insert_flash_q8", ("paged_prefill",)),
-    ("ssd_scan", ("ssd_fwd_kernel",)),
+    ("ssd_scan", ("ssd_mma_kernel",)),
+    ("ssd_scan", ("ssd_fma_kernel",)),
+    ("matmul_w8a8", ("matmul_w8a8_mma_kernel",)),
 )
 # kernels whose every instantiation the build phase lists (registers and
 # spills)
 LISTED_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
-                  "decode_split_kernel")
+                  "decode_split_kernel", "ssd_mma_kernel",
+                  "matmul_w8a8_mma_kernel")
 
 
 def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:

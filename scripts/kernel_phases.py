@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where a block's time goes in the flash-attention and split-decode
-kernels, on one card.
+"""Where a block's time goes in the flash-attention, split-decode,
+tensor-core SSD and W8A8 kernels, on one card.
 
-Instrumented copies of `csrc/flash_attention.cu` and `csrc/decode_body.cuh`
+Instrumented copies of `csrc/flash_attention.cu`,
+`csrc/decode_body.cuh`, `csrc/ssd_scan.cu` and `csrc/matmul_w8a8.cu`
 record, for every block, the global timer (`%globaltimer`, ns) and the
 SM's cycle counter (`clock64`) at the end of each phase (thread 0), and
 the SM it ran on. They run at the main shapes of PERF.md's kernel table:
-flash_mha bf16 causal B=1, Sq=Skv=128, 15/5 heads, D=64 (the default plan
-and 64-row blocks); paged decode B=8, int8/page, page 16, 16 pages,
+flash_mha bf16 causal B=1, Sq=Skv=128, 15/5 heads, D=64 (the default
+plan and 64-row blocks); paged decode B=8, int8/page, page 16, 16 pages,
 lengths 70..257 (span 64 and 256, the latter without a split); the
-contiguous decode B=8, S=256, bf16, lengths 129..160. Each is timed with
-the L2 flushed (as `chip_smoke.py` times kernels) and warm, after 200
-calls that bring the clocks up. Prints, per kernel and plan, each
-phase's median and max over the blocks in microseconds and cycles, the
-SM clock the two counters imply, the clocks nvidia-smi reads and the
+contiguous decode B=8, S=256, bf16, lengths 129..160; ssd_scan's
+tensor-core body bf16 B=1, S=128, 48 heads of 64, state 128 (the default
+plan); matmul_w8a8 M=1024, K=960, N=2560 (the default plan). Each is
+timed with the L2 flushed (as `chip_smoke.py` times kernels) and warm,
+after 200 calls that bring the clocks up. Prints, per kernel and plan,
+each phase's median and max over the blocks in microseconds and cycles,
+the SM clock the two counters imply, the clocks nvidia-smi reads and the
 card's name and power limit.
 
 The copies are built with the flags of `kernels/build.py` into
@@ -80,6 +83,18 @@ PHASES = {
                (3, 4, "partials and ticket"),
                (4, 6, "merge (last span block)"),
                (0, 6, "whole block (last or only span)")],
+    "ssd": [(0, 1, "first chunk's copies"),
+            (1, 2, "cumsum and decay weights (chunk 0)"),
+            (2, 3, "C.B^T and C.state^T (chunk 0, warp 0)"),
+            (3, 4, "decay, S.x and y write (chunk 0, warp 0)"),
+            (4, 5, "barrier: the other warps (chunk 0)"),
+            (5, 6, "later chunks and the state write"),
+            (0, 6, "whole block")],
+    "w8a8": [(0, 1, "first K tile's copies"),
+             (1, 3, "ldmatrix and mma (tile 0, warp 0)"),
+             (3, 4, "later K tiles"),
+             (4, 6, "epilogue (warp 0)"),
+             (0, 6, "whole block")],
 }
 
 
@@ -129,6 +144,46 @@ def decode_header(csrc: Path) -> str:
     return h[:j] + "  __syncthreads();\n  STAMP(6);\n" + h[j:]
 
 
+def ssd_source(csrc: Path) -> str:
+    s = (csrc / "ssd_scan.cu").read_text()
+    s = _insert(s, '#include "mma.cuh"\n', STAMPS)
+    head, body = s.split("__launch_bounds__(kThreads) ssd_mma_kernel(", 1)
+    body, tail = body.split("}  // namespace tc", 1)
+    body = _insert(body, "  const float a_h = A[h];\n", "  STAMP(0);\n",
+                   after=False)
+    body = _insert(body, "    __syncthreads();  // this chunk's rows and the "
+                   "state copy landed\n", "    if (ci == 0) STAMP(1);\n")
+    body = _insert(body, "\n    if (row_warp) {\n",
+                   "\n    if (ci == 0) STAMP(2);", after=False)
+    body = _insert(body, "      // ---- decay and mask the scores",
+                   "      if (ci == 0) STAMP(3);\n", after=False)
+    body = _insert(body, "    __syncthreads();  // every warp is done with "
+                   "this stage and the state copy\n",
+                   "    if (ci == 0) STAMP(4);\n", after=False)
+    body = _insert(body, "    __syncthreads();  // every warp is done with "
+                   "this stage and the state copy\n",
+                   "    if (ci == 0) STAMP(5);\n")
+    i = body.rindex("}\n")
+    body = body[:i] + "  STAMP(6);\n" + body[i:]
+    return (head + "__launch_bounds__(kThreads) ssd_mma_kernel(" + body
+            + "}  // namespace tc" + tail)
+
+
+def w8a8_source(csrc: Path) -> str:
+    s = (csrc / "matmul_w8a8.cu").read_text()
+    s = _insert(s, '#include "mma.cuh"\n', STAMPS)
+    s = _insert(s, "  const int n_kt = (K + kBK - 1) / kBK;\n",
+                "  STAMP(0);\n")
+    s = _insert(s, "    __syncthreads();  // tile kt landed; every warp is "
+                "done with tile kt - 1\n", "    if (kt == 0) STAMP(1);\n")
+    s = _insert(s, "    // the next iteration's first barrier",
+                "    if (kt == 0) STAMP(3);\n", after=False)
+    s = _insert(s, "  // ---- epilogue:", "  STAMP(4);\n", after=False)
+    i = s.index("template <int WM, int WN>\nint launch(")
+    j = s.rindex("}\n", 0, i)
+    return s[:j] + "  STAMP(6);\n" + s[j:]
+
+
 def build_copies(build):
     """Build the instrumented libraries and load them in place of the
     repository's (`build._LIBS`)."""
@@ -139,7 +194,9 @@ def build_copies(build):
     sources = {"flash_attention": flash_source(build.CSRC),
                "paged_decode": (build.CSRC / "paged_decode.cu").read_text(),
                "decode_attention":
-                   (build.CSRC / "decode_attention.cu").read_text()}
+                   (build.CSRC / "decode_attention.cu").read_text(),
+               "ssd_scan": ssd_source(build.CSRC),
+               "matmul_w8a8": w8a8_source(build.CSRC)}
     procs = {}
     for name, text in sources.items():
         src = OUT / f"{name}.cu"
@@ -194,6 +251,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention import paged as dpaged
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.matmul_w8a8 import matmul_w8a8 as mm
+    from repro_torch.kernels.ssd_scan import ssd_scan as sks
 
     smi = chip_smoke.smi_line()
     print(f"device: {smi}")
@@ -273,6 +332,26 @@ def main(argv=None) -> int:
     run("decode", f"contiguous bf16 span={dpaged.SPAN}",
         lambda: da.flash_decode_cuda(qd, kc, vc, lc),
         KV * B * dpaged.decode_plan(B, H, KV, D, S, torch.bfloat16).n_span)
+
+    F = torch.nn.functional
+    Hs, Ps, Ns = 48, 64, 128
+    ssd_args = (randn(1, 128, Hs, Ps), F.softplus(randn(1, 128, Hs).float()),
+                -torch.exp(randn(Hs).float() * 0.5), randn(1, 128, 1, Ns),
+                randn(1, 128, 1, Ns), randn(Hs).float())
+    plan = sks.launch_plan(1, Hs, Ps, Ns, torch.bfloat16)
+    run("ssd", f"bf16 B=1 S=128 pb={plan.pb} stages={plan.stages}",
+        lambda: sks.ssd_cuda(*ssd_args),
+        plan.grid[0] * plan.grid[1] * plan.grid[2])
+    a8 = torch.randint(-127, 128, (1024, 960), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (960, 2560), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sa = torch.rand(1024, generator=gen, device="cuda")
+    sb = torch.rand(2560, generator=gen, device="cuda")
+    wplan = mm.launch_plan(1024, 2560)
+    run("w8a8", f"M=1024 K=960 N=2560 tile=({wplan.bm}, {wplan.bn})",
+        lambda: mm.matmul_w8a8_cuda(a8, b8, sa, sb),
+        wplan.grid[0] * wplan.grid[1])
     print(smi)
     return 0
 

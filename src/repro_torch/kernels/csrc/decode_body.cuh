@@ -40,6 +40,11 @@
 //   accumulator), with the reference's -1e30 mask and the denominator
 //   clamped at 1e-30: a slot whose keys fit in one span gets the first
 //   design's sums exactly.
+// - A slot of length 0 writes what the reference's all-masked softmax
+//   gives, the mean of V: over physical page 0's rows for a paged cache
+//   (the reference clamps every dead table entry to page 0), over the
+//   slot's S rows for a contiguous one. Its table entries are never
+//   dereferenced, and no row of length >= 1 takes this branch.
 // - Merge in the same launch: a slot with one used span writes its output
 //   directly. Otherwise each used span writes its float32 (acc, m, l) to a
 //   scratch buffer, and the last span block to finish for the (slot, KV
@@ -69,6 +74,9 @@ struct PagedRows {
   const int* bt;
   int page, n_pages;
   __device__ __forceinline__ int capacity() const { return n_pages * page; }
+  // rows a length-0 slot averages: physical page 0's (the reference maps
+  // every dead table entry there), located with entry 0
+  __device__ __forceinline__ int empty_rows() const { return page; }
   // the table entry of key t (the only global read of the policy)
   __device__ __forceinline__ int entry(long long b, int t) const {
     return bt[b * n_pages + t / page];
@@ -86,6 +94,8 @@ struct PagedRows {
 struct DenseRows {
   int S;
   __device__ __forceinline__ int capacity() const { return S; }
+  // rows a length-0 slot averages: all of its own
+  __device__ __forceinline__ int empty_rows() const { return S; }
   __device__ __forceinline__ int entry(long long, int) const { return 0; }
   __device__ __forceinline__ void locate(long long b, int, int t,
                                          long long& pid,
@@ -165,6 +175,28 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   }
   const int n_keys = max(0, min(len, cap));
   if (sp > 0 && s0 >= n_keys) return;  // the span is past the length
+  if (n_keys == 0) {
+    // length 0: the reference's softmax over all-masked logits weighs
+    // every key 1, so it writes the mean of V over the rows it reads,
+    // the same for each query head of the group (span 0 alone, once)
+    const int n_rows = rows.empty_rows();
+    for (int d = tid; d < s.D; d += kThreads) {
+      float sum = 0.f;
+      for (int t = 0; t < n_rows; ++t) {
+        long long pid, row;
+        rows.locate(b, 0, t, pid, row);
+        float vv = to_float(vp[(row * s.KV + g) * s.D + d]);
+        if (SZ != kSzNone) {
+          const long long o = 2 * ((SZ == kSzPage ? pid : row) * s.KV + g);
+          vv = vv * vsz[o] + vsz[o + 1];
+        }
+        sum += vv;
+      }
+      const T o = from_float<T>(sum / static_cast<float>(max(n_rows, 1)));
+      for (int r = 0; r < rep; ++r) out[(b * s.H + g * rep + r) * s.D + d] = o;
+    }
+    return;
+  }
   const int n_used = max(1, (n_keys + s.span - 1) / s.span);
   const int span_keys = max(0, min(s.span, n_keys - s0));
 

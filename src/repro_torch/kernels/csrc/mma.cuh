@@ -1,5 +1,6 @@
 // Warp-level tensor-core and asynchronous-copy primitives (sm_80+, built
-// for sm_90a): bf16 mma.sync m16n8k16 with f32 accumulation, ldmatrix
+// for sm_90a): bf16 mma.sync m16n8k16 with f32 accumulation, int8
+// mma.sync m16n8k32 with int32 accumulation, ldmatrix
 // fragment loads from shared memory, and cp.async global -> shared copies
 // with zero fill.
 //
@@ -44,6 +45,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b, int8 inputs, int32 accumulators (exact in any order).
+// m16n8k32 fragments (gr = lane / 4, t = lane % 4): A (16x32, row
+// major) a0 (row gr, k 4t..4t+3), a1 (gr+8, 4t..), a2 (gr, 16+4t..), a3
+// (gr+8, 16+4t..), the lowest k in the lowest byte; B (32x8, k x n) b0
+// (k 4t..4t+3, n gr), b1 (k 16+4t.., n gr); C/D as the f32 layout above
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

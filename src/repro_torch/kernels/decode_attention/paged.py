@@ -66,7 +66,8 @@ def decode_plan(B: int, H: int, KV: int, D: int, capacity: int,
 def key_spans(length: int, capacity: int, span: int = SPAN) -> list:
     """The kernel's partition of one slot's keys: [lo, hi) of each span
     block that computes (the key range is [0, min(length, capacity));
-    at least span 0, whose empty range writes zeros). Depends only on the
+    at least span 0, whose empty range writes the mean of V, as the
+    reference's all-masked softmax does). Depends only on the
     length, the capacity's clamp and the span."""
     n_keys = max(0, min(length, capacity))
     n_used = max(1, _ceil(n_keys, span))

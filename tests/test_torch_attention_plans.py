@@ -14,7 +14,8 @@ key splits partitioning each block's key tiles, shared memory within
 capacity at equal lengths (0, 1, the span edges, parked rows); the
 emulation within atol=rtol=1e-6 of the plain versions (float32, sums in
 another order) and bit-equal to itself for every span count that holds
-the used spans."""
+the used spans; a row of length 0 averaging V as the reference's Pallas
+kernels do (interpret mode)."""
 
 from collections import Counter
 
@@ -25,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.decode_attention import ops as jdops  # noqa: E402
 from repro.kernels.decode_attention import ref as jdref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as tdops  # noqa: E402
 from repro_torch.kernels.decode_attention import paged as dplan  # noqa: E402
@@ -182,12 +184,16 @@ def test_decode_plan_smem_layout(D, dt):
 
 
 # ----------------------------------------- split decode, emulated
-def _split_decode(q, k, v, lengths, span, n_span, scale=None):
+def _split_decode(q, k, v, lengths, span, n_span, scale=None,
+                  empty_v=None):
     """float32 emulation of the split body on a dense cache: every span
-    block of the grid past its slot's length exits; each used span
-    computes its (acc, m, l) over its keys; a slot with one used span
-    writes acc / max(l, 1e-30), otherwise the spans merge online in span
-    order (the running max rescales the sums so far)."""
+    block of the grid past its slot's length exits; a slot of length 0
+    writes the mean of V over the rows its policy names (`empty_v`
+    (rows, KV, D), physical page 0 of a paged pool dequantized; by
+    default the slot's own S rows); each used span computes its (acc, m,
+    l) over its keys; a slot with one used span writes acc / max(l,
+    1e-30), otherwise the spans merge online in span order (the running
+    max rescales the sums so far)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -198,6 +204,10 @@ def _split_decode(q, k, v, lengths, span, n_span, scale=None):
         spans = dplan.key_spans(int(lengths[b]), S, span)
         assert len(spans) <= n_span
         for g in range(KV):
+            if n_keys == 0:
+                rows = v[b, :, g] if empty_v is None else empty_v[:, g]
+                out[b, g * rep:(g + 1) * rep] = rows.float().mean(0)
+                continue
             qg = q[b, g * rep:(g + 1) * rep].float()      # (rep, D)
             parts = []
             for sp in range(n_span):
@@ -256,16 +266,18 @@ def _inputs(seed, B, H, KV, D, page, n_pages, pool):
 def test_split_decode_emulation_matches_plain(page, rep, pool):
     """Span partials plus the span-ordered merge equal the plain paged
     decode, the plain dense decode of the gathered cache and the
-    reference package's plain paged decode within 1e-6, at lengths 1,
-    the span edges, a page edge, the capacity and parked; and equal
+    reference package's plain paged decode within 1e-6, at lengths 0,
+    1, the span edges, a page edge, the capacity and parked; and equal
     themselves bit for bit for every span count from the used spans up
-    to past the capacity's."""
+    to past the capacity's. At length 0 the paged body averages physical
+    page 0's V rows (where the reference clamps every dead entry), the
+    dense one the slot's own rows."""
     span = dplan.SPAN
     KV, D = 2, 64 if rep != 8 else 20
     H = KV * rep
     n_pages = -(-(2 * span + 16) // page)
     cap = n_pages * page
-    lengths = np.array([1, span - 1, span, span + 1, page, 2 * span + 1,
+    lengths = np.array([0, 1, span - 1, span, span + 1, page, 2 * span + 1,
                         cap, cap + 7], np.int32)
     q, kp, vp, bt, ksz, vsz = _inputs(page * 7 + rep, len(lengths), H, KV,
                                       D, page, n_pages, pool)
@@ -290,10 +302,74 @@ def test_split_decode_emulation_matches_plain(page, rep, pool):
     n_full = dplan.decode_plan(len(lengths), H, KV, D, cap, t["kp"].dtype,
                                span).n_span
     assert used == 3 and n_full == -(-cap // span)
-    emu = _split_decode(t["q"], kd, vd, t["len"], span, used)
-    for ref in (plain, dense, jplain):
-        torch.testing.assert_close(emu, ref.float(), **TOL)
+    page0 = _page0_v(t["vp"], t["vsz"])
+    emu = _split_decode(t["q"], kd, vd, t["len"], span, used, empty_v=page0)
+    torch.testing.assert_close(emu, plain.float(), **TOL)
+    # the reference's plain version masks with -inf, so its length-0 row
+    # is NaN (its Pallas kernels average V: test_length_zero_...)
+    torch.testing.assert_close(emu[1:], jplain[1:].float(), **TOL)
+    torch.testing.assert_close(
+        _split_decode(t["q"], kd, vd, t["len"], span, used), dense.float(),
+        **TOL)
     for n_span in (used + 1, n_full, n_full + 5):
         assert torch.equal(_split_decode(t["q"], kd, vd, t["len"], span,
-                                         n_span), emu)
+                                         n_span, empty_v=page0), emu)
+
+
+def _page0_v(vp, vsz):
+    """Physical page 0 of a V pool, dequantized to float32 (page, KV, D):
+    the rows a length-0 slot of the paged decode averages."""
+    if vsz is None:
+        return vp[0].float()
+    return tdref.gather_pages_q8(vp, vsz, torch.zeros(1, 1, dtype=torch.int32)
+                                 )[0]
+
+
+@pytest.mark.parametrize("pool", ["f32", "int8/page", "int8/token"])
+def test_length_zero_matches_pallas_interpret(pool):
+    """A row of length 0 (beside rows of length 1 and 5) through the
+    port's plain paged and dense decodes equals the reference package's
+    Pallas kernels run in interpret mode (`ops` with impl="interpret"):
+    the paged op the mean of physical page 0's V rows, dequantized with
+    page 0's (scale, zero) per page or per token, though the slot's
+    table names other pages; the dense op the mean of the slot's S rows.
+    The split-decode emulation gives the same rows. float32, within
+    atol=rtol=1e-6 (sums in another order)."""
+    B, H, KV, D, page, n_pages = 3, 6, 2, 16, 8, 3
+    q, kp, vp, bt, ksz, vsz = _inputs(11, B, H, KV, D, page, n_pages, pool)
+    bt[0] = np.arange(1, n_pages + 1)            # never page 0 itself
+    lengths = np.array([0, 1, 5], np.int32)
+    t = {n: (torch.from_numpy(a) if a is not None else None) for n, a in
+         dict(q=q, kp=kp, vp=vp, bt=bt, ksz=ksz, vsz=vsz,
+              len=lengths).items()}
+    jkw = {} if ksz is None else dict(k_sz=jnp.asarray(ksz),
+                                      v_sz=jnp.asarray(vsz))
+    jpaged = torch.from_numpy(np.array(jdops.paged_decode_mha(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lengths), impl="interpret", **jkw)))
+    paged = tdops.paged_decode_mha(t["q"], t["kp"], t["vp"], t["bt"],
+                                   t["len"], k_sz=t["ksz"], v_sz=t["vsz"])
+    torch.testing.assert_close(paged, jpaged, **TOL)
+    page0 = _page0_v(t["vp"], t["vsz"])
+    torch.testing.assert_close(paged[0], page0.mean(0).repeat_interleave(
+        H // KV, 0), **TOL)
+    if ksz is None:
+        kd = tdref.gather_pages(t["kp"], t["bt"])
+        vd = tdref.gather_pages(t["vp"], t["bt"])
+    else:
+        kd = tdref.gather_pages_q8(t["kp"], t["ksz"], t["bt"])
+        vd = tdref.gather_pages_q8(t["vp"], t["vsz"], t["bt"])
+    emu = _split_decode(t["q"], kd, vd, t["len"], dplan.SPAN, 1,
+                        empty_v=page0)
+    torch.testing.assert_close(emu, paged, **TOL)
+    # the contiguous cache: the slot's own S rows
+    jdense = torch.from_numpy(np.array(jdops.decode_mha(
+        jnp.asarray(q), jnp.asarray(kd.numpy()), jnp.asarray(vd.numpy()),
+        jnp.asarray(lengths), impl="interpret")))
+    dense = tdops.decode_mha(t["q"], kd, vd, t["len"])
+    torch.testing.assert_close(dense, jdense, **TOL)
+    torch.testing.assert_close(dense[0], vd[0].mean(0).repeat_interleave(
+        H // KV, 0), **TOL)
+    torch.testing.assert_close(_split_decode(t["q"], kd, vd, t["len"],
+                                             dplan.SPAN, 1), dense, **TOL)
 
