@@ -7,7 +7,12 @@ Phases (any failure raises and exits non-zero):
   2. build   — compile the CUDA kernels of `kernels/csrc/` with nvcc
                (sm_90a, one process per source, in parallel).
   3. kernels — each kernel against its plain PyTorch version on the card:
-               flash_mha at the main-path shapes plus head dims {16, 17,
+               the grouped page copy bit for bit (the wrapper and the
+               op): write_pages at the old four one-leaf shapes,
+               the four-leaf admission (per-page and per-token rows) and
+               ids out of range (dropped), page_out / page_in over a pinned
+               and a device twin (bursts 1, 7, 64), an unpinned twin
+               raising; flash_mha at the main-path shapes plus head dims {16, 17,
                20, 64, 112, 128, 256}, GQA rep {1, 3, 8}, causal and not,
                kv_offset > 0, Sq {1, 17, 33, 40, 64, 128, 512}, its lse
                against the plain version's (bf16 on the tensor-core
@@ -48,13 +53,24 @@ Phases (any failure raises and exits non-zero):
   5. engine  — SmolLM-360M at published widths (random seeded weights,
                bf16) served by `ServingEngine` on a 16-request chat trace:
                every request finishes, the three bucket-path kernels are
-               launched and no plain version runs; then the same trace
+               launched (write_pages once per admission) and no plain
+               version runs, the substrate is "physical" with placement
+               gap 0 after every drain and the tokens equal the same
+               engine's with the substrate off; then the same trace
                with the plain versions on the card
                (`force_backend("reference")`) must agree per request
                (lockstep greedy tokens) >= 0.5, on int8 and on fp pools;
                one more int8 run under torch.profiler prints the device's
                busy share and the host's busiest ops.
-  6. chunked — the same model with `prefill_chunk=128` and the prefix
+  6. substrate — the page streams on SmolLM-360M's int8 pool at 4096
+               pages (1.35 GB, pinned host twin): page_out / page_in GB/s
+               per burst of 1-4096 pages against the data sheet's 64 GB/s,
+               a contiguous copy_ of the same bytes and the plain
+               index_select + copy; then the engine phase's trace with
+               local_budget_frac=0.25 (pages spill and come back):
+               physical, gap 0 after every drain, tokens equal with the
+               substrate off, page_out and page_in launched.
+  7. chunked — the same model with `prefill_chunk=128` and the prefix
                cache on a 16-request shared-prefix trace (prompts 256/512
                behind a 128-token system prompt): int8 runs launch
                paged_prefill_insert_flash_q8, fp runs
@@ -64,19 +80,19 @@ Phases (any failure raises and exits non-zero):
                a profiled int8 run; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
-  7. contiguous — the same model on the contiguous layout (paged=False,
+  8. contiguous — the same model on the contiguous layout (paged=False,
                flash_decode) over 8 chat prompts of 128 tokens, 32 new
                tokens each, against the paged fp engine, the naive
                one-shot loop (`scripts/dev_serve_torch.py`) and its own
                plain-version run: tokens agree >= 0.5 pairwise, and
                whether each pair is bit-exact is printed.
-  8. speculative — speculative decoding (k=4) over the same prompts:
+  9. speculative — speculative decoding (k=4) over the same prompts:
                ngram on fp pools, ngram on int8 per-token pools with
                prefill_chunk=128 (paged_prefill_flash inside the engine),
                self-draft on fp (flash_decode on the draft's caches),
                each against the greedy engine of its pool: verify steps,
                acceptance, draft calls, launches, tok/s, agreement.
-  9. ssm     — mamba2-780m at published widths (seeded random bf16
+ 10. ssm     — mamba2-780m at published widths (seeded random bf16
                weights) on the engine phase's configuration and chat
                trace: ssd_scan launches 48 times per admission, no plain
                version runs, agreement >= 0.5 with the plain-version run
@@ -99,6 +115,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases build,kernels,quantify # the LBench probe
     python3 chip_smoke.py --phases build,contiguous,speculative
     python3 chip_smoke.py --phases build,kernels,ssm      # the SSM slice
+    python3 chip_smoke.py --phases device,build,kernels,substrate,engine
 """
 
 from __future__ import annotations
@@ -216,17 +233,27 @@ class Timer:
         return self.device_ms(fn)
 
 
-def device_kernel_names(torch, fn) -> list:
+def device_kernel_names(torch, fn, tries: int = 3) -> list:
     """Names of the device kernels one call of `fn` launches, one per
-    launch (torch.profiler)."""
+    launch (torch.profiler, CPU and CUDA activity as `Timer` profiles).
+    A trace with no device activity at all is the profiler missing the
+    call, not a call that launched nothing (two full runs on the card
+    recorded none for one decode call each under CUDA-only tracing): the
+    call is profiled again, up to `tries` times, and the caller's check
+    applies to the first trace that recorded any."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def short_names(names) -> list:
@@ -247,7 +274,7 @@ def max_err(torch, out, ref, tol) -> tuple[float, bool]:
 
 # ------------------------------------------------------------- kernels
 def kernel_cases(torch, timer):
-    """Returns the JSON records of the ten kernels (timed at the main
+    """Returns the JSON records of the twelve kernels (timed at the main
     paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import paged as dpaged
@@ -255,7 +282,6 @@ def kernel_cases(torch, timer):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
-    from repro_torch.kernels.page_io import ops as pops
 
     F = torch.nn.functional
     gen = torch.Generator("cuda").manual_seed(0)
@@ -279,55 +305,8 @@ def kernel_cases(torch, timer):
 
     records = []
 
-    # --- A: page writer -------------------------------------------------
-    print("kernel write_pages (exact)")
-    nb, P, page, KV, D = 32, 128, 16, 5, 64      # SmolLM-360M pool
-    main_a = None
-    for kind, n_wp in (("int8 payload", 8), ("int8 payload", 4),
-                       ("f32 sz rows", 8), ("bf16 fp payload", 8)):
-        if kind == "int8 payload":
-            shape, dt = (page, KV, D), torch.int8
-        elif kind == "f32 sz rows":
-            shape, dt = (KV, 2), torch.float32
-        else:
-            shape, dt = (page, KV, D), torch.bfloat16
-        if dt == torch.int8:
-            pool = torch.randint(-127, 128, (nb, P, *shape), generator=gen,
-                                 device="cuda", dtype=torch.int8)
-            tiles = torch.randint(-127, 128, (nb, n_wp, *shape),
-                                  generator=gen, device="cuda",
-                                  dtype=torch.int8)
-        else:
-            pool = randn(nb, P, *shape, dtype=dt)
-            tiles = randn(nb, n_wp, *shape, dtype=dt)
-        phys = torch.randperm(P, generator=gen, device="cuda")[:n_wp].to(
-            torch.int32)
-        a, b = pool.clone(), pool.clone()
-        pops.write_pages(a, tiles, phys, impl="cuda")
-        pops.write_pages(b, tiles, phys, impl="reference")
-        ok = torch.equal(a, b)
-        report("write_pages", f"{kind} nb={nb} P={P} n_wp={n_wp} "
-               f"M={tiles[0, 0].numel() * tiles.element_size()}B",
-               0.0 if ok else float("inf"), ok, dict(atol=0, rtol=0))
-        if main_a is None:
-            main_a = (pool, tiles, phys)
-    pool, tiles, phys = main_a
-    M = tiles[0, 0].numel() * tiles.element_size()
-    n_wp = tiles.shape[1]
-    a = pool.clone()
-    phys64 = phys.long()
-    bytes_a = 2 * nb * n_wp * M + phys.numel() * 4
-    records.append(dict(
-        name="write_pages", route="cuda",
-        source="src/repro_torch/kernels/csrc/page_io.cu",
-        replaces="src/repro/kernels/page_io/page_io.py:33",
-        max_abs_err=0.0,
-        **timed(lambda: pops.write_pages(a, tiles, phys, impl="cuda"),
-                lambda: pops.write_pages(a, tiles, phys, impl="reference")),
-        bound_ms=bytes_a / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=timer(lambda: a.index_copy_(1, phys64, tiles)),
-        shape=f"int8 pool ({nb},{P},{page},{KV},{D}) n_wp={n_wp}",
-    ))
+    # --- A: grouped page copy: write_pages, page_out, page_in -------------
+    records += page_copy_cases(torch, timer, gen, randn, report)
 
     # --- B: flash attention forward --------------------------------------
     print("kernel flash_mha (f32 atol=rtol=1e-5; bf16 atol=2e-2; lse "
@@ -565,6 +544,190 @@ def kernel_cases(torch, timer):
               f"[{r['shape']}]")
     print(f"  device times from {'torch.profiler' if timer.profiled else 'CUDA events'}, "
           f"L2 flushed before each call")
+    return records
+
+
+def page_copy_cases(torch, timer, gen, randn, report):
+    """The grouped page copy (`csrc/page_io.cu`) against its plain version,
+    bit for bit, through the wrapper and the op: write_pages through
+    the one-segment path at the old four shapes, the grouped four-leaf
+    admission (k, k_sz, v, v_sz) with per-page and per-token rows, and
+    with ids out of range (dropped); page_out / page_in over a pinned
+    host twin (and a device twin, as emulated mode runs it). Returns the
+    records of write_pages (the grouped admission), page_out and page_in
+    at the main path's shapes."""
+    from repro_torch.kernels.page_io import ops as pops
+    from repro_torch.kernels.page_io import page_io as pio
+
+    exact = dict(atol=0, rtol=0)
+    nb, P, page, KV, D = 32, 128, 16, 5, 64      # SmolLM-360M pool
+
+    def leaf(n, shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, (nb, n, *shape), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return randn(nb, n, *shape, dtype=dt)
+
+    def leaves(n, sz_shape):
+        return [leaf(n, s, dt) for s, dt in
+                (((page, KV, D), torch.int8), (sz_shape, torch.float32)) * 2]
+
+    def M(t):
+        return t[0, 0].numel() * t.element_size()
+
+    def check_write(label, pools, tiles, phys):
+        want = [p.clone() for p in pools]
+        pops.write_pages_group(want, tiles, phys, impl="reference")
+        outs = {"wrapper": [p.clone() for p in pools]}
+        pio.write_pages_cuda(outs["wrapper"], tiles, phys)
+        got = [p.clone() for p in pools]
+        if len(pools) == 1:           # the op's one-segment path
+            pops.write_pages(got[0], tiles[0], phys, impl="cuda")
+        else:
+            pops.write_pages_group(got, tiles, phys, impl="cuda")
+        outs["op"] = got
+        torch.cuda.synchronize()
+        for via, got in outs.items():
+            ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            report("write_pages", f"{label} [{via}]",
+                   0.0 if ok else float("inf"), ok, exact)
+
+    print("kernel write_pages (exact; the wrapper and the op)")
+    for kind, n_wp in (("int8 payload", 8), ("int8 payload", 4),
+                       ("f32 sz rows", 8), ("bf16 fp payload", 8)):
+        shape, dt = {"int8 payload": ((page, KV, D), torch.int8),
+                     "f32 sz rows": ((KV, 2), torch.float32),
+                     "bf16 fp payload": ((page, KV, D), torch.bfloat16)}[kind]
+        pool, tiles = leaf(P, shape, dt), leaf(n_wp, shape, dt)
+        phys = torch.randperm(P, generator=gen, device="cuda")[:n_wp].to(
+            torch.int32)
+        check_write(f"{kind} nb={nb} P={P} n_wp={n_wp} M={M(tiles)}B",
+                    [pool], [tiles], phys)
+    n_wp = 8
+    phys = torch.randperm(P, generator=gen, device="cuda")[:n_wp].to(
+        torch.int32)
+    for gran, sz_shape in (("page", (KV, 2)), ("token", (page, KV, 2))):
+        pools, tiles = leaves(P, sz_shape), leaves(n_wp, sz_shape)
+        check_write(f"grouped k,k_sz,v,v_sz sz={gran} ({M(tiles[1])}B rows)"
+                    f" n_wp={n_wp}", pools, tiles, phys)
+        if gran == "page":
+            main = (pools, tiles)
+    bad = phys.clone()
+    bad[1], bad[5] = P, -1
+    check_write("grouped, ids P and -1 dropped", *main, bad)
+
+    # the main shape: one admission's grouped insert
+    pools, tiles = main
+    work = [p.clone() for p in pools]
+    phys64 = phys.long()
+    moved = sum(2 * t.numel() * t.element_size() for t in tiles)
+
+    def four_calls():
+        for p, t in zip(work, tiles):
+            pio.write_pages_cuda([p], [t], phys)
+
+    four_ms = timer(four_calls)
+    four_event_ms = timer.last_event_ms
+    rec = dict(
+        name="write_pages", route="cuda",
+        source="src/repro_torch/kernels/csrc/page_io.cu",
+        replaces="src/repro/kernels/page_io/page_io.py:33",
+        max_abs_err=0.0,
+        ms=timer(lambda: pops.write_pages_group(work, tiles, phys,
+                                                impl="cuda")),
+        op_ms=timer.last_event_ms,
+        plain_ms=timer(lambda: pops.write_pages_group(
+            work, tiles, phys, impl="reference")),
+        bound_ms=(moved + phys.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=timer(lambda: [p.index_copy_(1, phys64, t)
+                                  for p, t in zip(work, tiles)]),
+        four_call_ms=four_ms, four_call_op_ms=four_event_ms,
+        shape=f"k,k_sz,v,v_sz of int8 pool ({nb},{P},{page},{KV},{D}) "
+              f"n_wp={n_wp}",
+    )
+    print(f"  write_pages grouped admission: {rec['ms'] * 1e3:.2f} us "
+          f"against the byte bound {rec['bound_ms'] * 1e3:.2f} us; four one-leaf calls "
+          f"{four_ms * 1e3:.2f} us device, {four_event_ms * 1e3:.2f} us "
+          f"events; index_copy_ x4 {rec['library_ms'] * 1e3:.2f} us")
+    records = [rec]
+
+    # --- page_out / page_in over the twin --------------------------------
+    print("kernel page_out / page_in (exact; pinned host twin, device twin)")
+    for twin_dev in ("pinned", "cuda"):
+        for burst in (1, 7, 64):
+            pools = leaves(P, (KV, 2))
+            ids = torch.randperm(P, generator=gen, device="cuda")[:burst].to(
+                torch.int32)
+            twins = [torch.zeros(p.shape, dtype=p.dtype, pin_memory=True)
+                     if twin_dev == "pinned" else torch.zeros_like(p)
+                     for p in pools]
+            want = [t.clone() for t in twins]
+            pops.copy_pages(want, ids, pools, ids, name="page_out",
+                            impl="reference")
+            pops.copy_pages(twins, ids, pools, ids, name="page_out")
+            scratch = [torch.empty((nb, burst, *p.shape[2:]), dtype=p.dtype,
+                                   device="cuda") for p in pools]
+            pops.copy_pages(scratch, None, twins, ids, name="page_in")
+            torch.cuda.synchronize()
+            ok_out = all(torch.equal(a, b) for a, b in zip(twins, want))
+            ok_in = all(torch.equal(s_, p[:, ids.long()])
+                        for s_, p in zip(scratch, pools))
+            report("page_out", f"{twin_dev} twin, 4 leaves, {burst} pages",
+                   0.0 if ok_out else float("inf"), ok_out, exact)
+            report("page_in", f"{twin_dev} twin, 4 leaves, {burst} pages "
+                   "== what page_out wrote", 0.0 if ok_in else float("inf"),
+                   ok_in, exact)
+    try:
+        pops.copy_pages(torch.zeros(pools[0].shape, dtype=torch.int8),
+                        ids, pools[0], ids, name="page_out")
+        ok = False
+    except ValueError:
+        ok = True
+    report("page_out", "an unpinned host twin raises", 0.0 if ok else
+           float("inf"), ok, exact)
+
+    # the main path's shape: the engine's drains move a few pages of the
+    # four leaves at a time; time a burst of 8 over the pinned twin
+    burst = 8
+    pools = leaves(P, (KV, 2))
+    ids = torch.randperm(P, generator=gen, device="cuda")[:burst].to(
+        torch.int32)
+    twins = [torch.zeros(p.shape, dtype=p.dtype, pin_memory=True)
+             for p in pools]
+    scratch = [torch.empty((nb, burst, *p.shape[2:]), dtype=p.dtype,
+                           device="cuda") for p in pools]
+    n_bytes = sum(burst * p[:, 0].numel() * p.element_size() for p in pools)
+    host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+    # the least time: the page bytes cross PCIe once (64 GB/s a direction,
+    # `common/hw.py` H100_HOST) and device memory once
+    bound = max(n_bytes / HBM_BYTES_PER_S, n_bytes / 64e9) * 1e3
+    for name, line, kernel, plain, lib in (
+            ("page_out", 88,
+             lambda: pops.copy_pages(twins, ids, pools, ids, name="page_out"),
+             lambda: pops.copy_pages(twins, ids, pools, ids, name="page_out",
+                                     impl="reference"),
+             lambda: host.copy_(dev, non_blocking=True)),
+            ("page_in", 92,
+             lambda: pops.copy_pages(scratch, None, twins, ids,
+                                     name="page_in"),
+             lambda: pops.copy_pages(scratch, None, twins, ids,
+                                     name="page_in", impl="reference"),
+             lambda: dev.copy_(host, non_blocking=True))):
+        ms = timer(kernel)
+        records.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/page_io.cu",
+            replaces=f"src/repro/serving/substrate/tier_substrate.py:{line}",
+            max_abs_err=0.0, ms=ms, op_ms=timer.last_event_ms,
+            # the plain version runs on the host too (index_copy_ into the
+            # twin) and the copy_ yardstick is a memcpy, not a kernel: both
+            # timed with CUDA events around the call
+            plain_ms=timer.event_ms(plain), bound_ms=bound, bound_by="bytes",
+            library_ms=timer.event_ms(lib),
+            shape=f"4 leaves of int8 pool ({nb},{P},{page},{KV},{D}), "
+                  f"{burst} pages, pinned twin"))
     return records
 
 
@@ -1399,6 +1562,39 @@ def divergence_report(torch, cfg, params, kreqs, rreqs) -> None:
               f"{gaps['reference'][1]:.3f})")
 
 
+def watch_substrate(eng) -> list:
+    """Hold the engine's substrate to the reference's placement contract
+    after every drain: the pager's pool footprint minus the ledger's
+    placement bytes (the gap, 0 when they agree) is appended to the list
+    returned; empty when the engine has no substrate."""
+    gaps: list = []
+    sub = eng.substrate
+    if sub is None:
+        return gaps
+    drain = sub.drain
+
+    def checked(pager, caches, *, step=0):
+        out = drain(pager, caches, step=step)
+        gaps.append(pager.pool_bytes_used() - sub.ledger.placement_bytes())
+        return out
+
+    sub.drain = checked
+    return gaps
+
+
+def substrate_line(eng, stats, gaps) -> str:
+    """The substrate's mode, streams and placement gap of one run."""
+    if eng.substrate is None:
+        return "substrate: none"
+    s = stats.substrate
+    worst = max((abs(g) for g in gaps), default=0.0)
+    return (f"substrate {eng.substrate.mode}: page_out "
+            f"{s['page_out_pages']} pages {s['page_out_bytes']:.0f} B, "
+            f"page_in {s['page_in_pages']} pages {s['page_in_bytes']:.0f} "
+            f"B, drop {s['drop_pages']} pages; {len(gaps)} drains, max "
+            f"|placement gap| {worst:.0f} B")
+
+
 def engine_phase(torch):
     """Serve the chat trace at full width; returns the launches of the
     bucket path's kernels in the int8 kernel run (the main path)."""
@@ -1416,12 +1612,14 @@ def engine_phase(torch):
           f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
           f"ff={cfg.d_ff} vocab={cfg.vocab_size}, random weights seed 0")
 
-    def serve(pool_dtype, backend, profiled=False):
+    def serve(pool_dtype, backend, profiled=False, substrate="auto"):
         kernels.force_backend(backend)
         try:
             eng = ServingEngine.build(
-                cfg, dataclasses.replace(base, pool_dtype=pool_dtype),
+                cfg, dataclasses.replace(base, pool_dtype=pool_dtype,
+                                         substrate=substrate),
                 params=params)
+            gaps = watch_substrate(eng)
             reqs = make_scenario("chat", 16, cfg.vocab_size, seed=0,
                                  prompt_buckets=(64, 128),
                                  gen_range=(16, 32), arrival_rate=1e5)
@@ -1444,6 +1642,10 @@ def engine_phase(torch):
               f"tok_per_s_wall={s['tok_per_s_wall']:.1f} "
               f"max_concurrency={s['max_concurrency']} "
               f"launches={launches} plain_calls={plain}")
+        print(f"    {substrate_line(eng, stats, gaps)}")
+        if substrate == "auto":
+            assert eng.substrate.mode == "physical", eng.substrate.mode
+            assert gaps and all(g == 0 for g in gaps), gaps
         return reqs, launches, plain
 
     main_launches = None
@@ -1451,8 +1653,15 @@ def engine_phase(torch):
         kreqs, launches, plain = serve(pool, None)
         assert all(launches[k] > 0 for k in BUCKET_KERNELS), launches
         assert not any(plain.values()), plain
+        # one grouped page write per admission
+        assert launches["write_pages"] == len(kreqs), launches
         if pool == "int8":
             main_launches = launches
+        oreqs, _, _ = serve(pool, None, substrate="off")
+        same = [a.output == b.output for a, b in zip(kreqs, oreqs)]
+        print(f"  pool={pool}: tokens with the substrate on == off: "
+              f"{sum(same)} of {len(same)} requests (gate: all)")
+        assert all(same), same
         rreqs, rlaunch, _ = serve(pool, "reference")
         assert not any(rlaunch.values()), rlaunch
         agree = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
@@ -1464,6 +1673,151 @@ def engine_phase(torch):
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
     serve("int8", None, profiled=True)
     return {k: main_launches[k] for k in BUCKET_KERNELS}
+
+
+def substrate_phase(torch):
+    """The physical substrate on the card. First the page streams alone:
+    SmolLM-360M's int8 pool at P=4096 pages (k, v and their (scale, zero)
+    leaves, 1.35 GB) with a pinned host twin of the same size; bursts of
+    1, 8, 64, 512 and 4096 random pages through page_out (pool -> twin)
+    and page_in (twin -> device scratch), each checked bit for bit,
+    against the data sheet's 64 GB/s host link, a contiguous
+    `copy_(non_blocking=True)` of the same bytes to and from a pinned
+    buffer (cudaMemcpyAsync) and the plain index_select + copy. Then the
+    engine phase's configuration and trace with the local tier cut to a
+    quarter of peak KV (local_budget_frac=0.25), so pages spill to the
+    pool tier and come back: mode "physical", placement gap 0 after
+    every drain, tokens equal to the same engine with the substrate off,
+    one grouped page write per admission. Returns page_out's and
+    page_in's launches in that run."""
+    from repro_torch import configs, kernels
+    from repro_torch.common import hw
+    from repro_torch.kernels.page_io import ops as pops
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineConfig, ServingEngine, make_scenario
+
+    cfg = configs.get("smollm_360m")
+    nb, page, KV, D, P = cfg.num_layers, 16, cfg.num_kv_heads, cfg.head_dim, \
+        4096
+    gen = torch.Generator("cuda").manual_seed(2)
+    shapes = [((nb, P, page, KV, D), torch.int8),
+              ((nb, P, KV, 2), torch.float32)] * 2
+    pool = [torch.randint(-127, 128, sh, generator=gen, device="cuda",
+                          dtype=dt) if dt == torch.int8 else
+            torch.randn(sh, generator=gen, device="cuda") for sh, dt in shapes]
+    twin = [torch.zeros(sh, dtype=dt, pin_memory=True) for sh, dt in shapes]
+    page_bytes = sum(t[:, 0].numel() * t.element_size() for t in pool)
+    big = P * page_bytes
+    host = torch.empty(big, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(big, dtype=torch.uint8, device="cuda")
+    link = hw.H100_HOST.pcie_bw
+    print(f"substrate streams: {cfg.name} int8 pool of {P} pages, "
+          f"{page_bytes} B a page over {nb} levels (k, v 5120 B + 2 x 40 B "
+          f"a level), {big / 1e9:.3f} GB on the card and in pinned host "
+          f"memory; GB/s against the data sheet's host link "
+          f"{link / 1e9:.0f} GB/s (common/hw.py H100_HOST.pcie_bw)")
+
+    def ev_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    rows = []
+    for burst in (1, 8, 64, 512, 4096):
+        ids = torch.randperm(P, generator=gen, device="cuda")[:burst].to(
+            torch.int32)
+        scratch = [torch.empty((nb, burst, *t.shape[2:]), dtype=t.dtype,
+                               device="cuda") for t in pool]
+        n = burst * page_bytes
+        reps = 9 if burst <= 64 else 3
+        t = {
+            "page_out": ev_ms(lambda: pops.copy_pages(
+                twin, ids, pool, ids, name="page_out"), reps),
+            "page_in": ev_ms(lambda: pops.copy_pages(
+                scratch, None, twin, ids, name="page_in"), reps),
+            "copy_d2h": ev_ms(lambda: host[:n].copy_(dev[:n],
+                                                     non_blocking=True), reps),
+            "copy_h2d": ev_ms(lambda: dev[:n].copy_(host[:n],
+                                                    non_blocking=True), reps),
+            "plain_out": ev_ms(lambda: pops.copy_pages(
+                twin, ids, pool, ids, name="page_out", impl="reference"),
+                min(reps, 3)),
+            "plain_in": ev_ms(lambda: pops.copy_pages(
+                scratch, None, twin, ids, name="page_in", impl="reference"),
+                min(reps, 3)),
+        }
+        torch.cuda.synchronize()
+        ok = all(torch.equal(sc, p[:, ids.long()])
+                 for sc, p in zip(scratch, pool))
+        gbs = {k: n / (v * 1e-3) / 1e9 for k, v in t.items()}
+        rows.append(dict(burst=burst, bytes=n, ms=t, gb_s=gbs))
+        print(f"  burst {burst:4d} pages ({n / 1e6:9.3f} MB): page_out "
+              f"{gbs['page_out']:6.2f} GB/s ({t['page_out']:.4f} ms), "
+              f"page_in {gbs['page_in']:6.2f} GB/s ({t['page_in']:.4f} ms), "
+              f"copy_ D2H {gbs['copy_d2h']:6.2f} / H2D {gbs['copy_h2d']:6.2f}"
+              f" GB/s, plain index_select+copy out {gbs['plain_out']:6.2f} /"
+              f" in {gbs['plain_in']:6.2f} GB/s; share of "
+              f"{link / 1e9:.0f} GB/s: out {gbs['page_out'] * 1e9 / link:.3f}"
+              f" in {gbs['page_in'] * 1e9 / link:.3f}; page_in == pool: "
+              f"{ok}")
+        assert ok, burst
+    print("  substrate streams JSON " + json.dumps(rows))
+    del pool, twin, host, dev, scratch
+    torch.cuda.empty_cache()
+
+    base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
+                        page_tokens=16, pool_dtype="int8",
+                        local_budget_frac=0.25)
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    print(f"substrate engine {cfg.name}: the engine phase's trace with "
+          f"local_budget_frac={base.local_budget_frac}")
+
+    def serve(substrate):
+        eng = ServingEngine.build(
+            cfg, dataclasses.replace(base, substrate=substrate),
+            params=params)
+        gaps = watch_substrate(eng)
+        reqs = make_scenario("chat", 16, cfg.vocab_size, seed=0,
+                             prompt_buckets=(64, 128), gen_range=(16, 32),
+                             arrival_rate=1e5)
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        s = stats.summary()
+        assert stats.n_requests == len(reqs) and not plain, plain
+        print(f"  substrate={substrate:4s} requests={s['n_requests']} "
+              f"tokens={s['tokens']} steps={s['steps']} wall_s="
+              f"{stats.wall_s:.3f} tok_per_s_wall={s['tok_per_s_wall']:.1f}"
+              f" remote_share={s['remote_share']:.4f} evictions="
+              f"{stats.pager['evictions']} promotions="
+              f"{stats.pager['promotions']} launches={launches}")
+        print(f"    {substrate_line(eng, stats, gaps)}")
+        return reqs, stats, launches, eng, gaps
+
+    reqs, stats, launches, eng, gaps = serve("auto")
+    oreqs, _, _, _, _ = serve("off")
+    assert eng.substrate.mode == "physical", eng.substrate.mode
+    assert gaps and all(g == 0 for g in gaps), gaps
+    assert launches.get("page_out", 0) > 0, launches
+    assert launches.get("page_in", 0) > 0, launches
+    assert launches["write_pages"] == len(reqs), launches
+    same = [a.output == b.output for a, b in zip(reqs, oreqs)]
+    print(f"  tokens with the substrate on == off: {sum(same)} of "
+          f"{len(same)} requests (gate: all)")
+    assert all(same), same
+    return {"page_out": launches["page_out"], "page_in": launches["page_in"]}
 
 
 def chunked_phase(torch):
@@ -1510,6 +1864,8 @@ def chunked_phase(torch):
                 return step(active, *a, **k)
 
             eng.pager.step = counted_step
+            assert eng.substrate.mode == "physical", eng.substrate.mode
+            gaps = watch_substrate(eng)
             torch.cuda.synchronize()
             kernels.reset_counters()
             if profiled:
@@ -1534,6 +1890,8 @@ def chunked_phase(torch):
               f"{peak[0]} of {eng.pager.n_phys} "
               f"launches={ {k: v for k, v in launches.items() if v} } "
               f"plain_calls={ {k: v for k, v in plain.items() if v} }")
+        print(f"    {substrate_line(eng, stats, gaps)}")
+        assert all(g == 0 for g in gaps), gaps
         return reqs, launches, plain
 
     out = {}
@@ -1753,6 +2111,7 @@ def speculative_phase(torch):
                                            prefill_chunk=chunk,
                                            sz_granularity=gran)
         greedy[pool, eng.cells.sz_granularity] = toks
+        assert eng.substrate.mode == "physical", eng.substrate.mode
         print(f"  greedy pool={pool} sz={eng.cells.sz_granularity} "
               f"prefill_chunk={chunk}: steps={stats.steps} tok_per_s_wall="
               f"{stats.summary()['tok_per_s_wall']:.1f} launches="
@@ -1763,10 +2122,12 @@ def speculative_phase(torch):
         toks, stats, eng, launches = serve(
             pool_dtype=pool, prefill_chunk=chunk, speculative=mode,
             speculative_k=k)
+        assert eng.substrate.mode == "physical", eng.substrate.mode
         sp = stats.spec
         c = dst.compare(toks, greedy[pool, eng.cells.sz_granularity])
         print(f"  {mode} pool={pool} prefill_chunk={chunk} sz="
-              f"{eng.cells.sz_granularity}: verify_steps="
+              f"{eng.cells.sz_granularity} substrate={eng.substrate.mode}: "
+              "verify_steps="
               f"{sp['verify_steps']} emitted={sp['emitted']} "
               f"accept_len_mean={sp['accept_len_mean']:.3f} draft_calls="
               f"{sp['draft_calls']} tok_per_s_wall="
@@ -1868,7 +2229,10 @@ def ssm_phase(torch):
               f"tok_per_s_wall={s['tok_per_s_wall']:.1f} "
               f"max_concurrency={s['max_concurrency']} resident_MB_per_slot="
               f"{eng.pager.resident_bytes / 1e6:.1f} launches={launches} "
-              f"plain_calls={plain}")
+              f"plain_calls={plain} substrate="
+              f"{'disabled' if eng.substrate is None else 'ON'}")
+        # SSM-only stack: no paged leaves, so no substrate under "auto"
+        assert eng.substrate is None
         return reqs, launches, plain
 
     kreqs, launches, plain = serve(None)
@@ -1989,7 +2353,7 @@ PROFILE_GROUPS = (
     ("flash_mha", ("flash_mma_kernel",)),
     ("flash_mha", ("flash_combine_kernel",)),
     ("flash_mha", ("flash_fma_kernel",)),
-    ("write_pages", ("write_pages_kernel",)),
+    ("write_pages/page_out/page_in", ("page_copy_kernel",)),
     ("paged_prefill_flash/insert_flash/insert_flash_q8", ("paged_prefill",)),
     ("ssd_scan", ("ssd_mma_kernel",)),
     ("ssd_scan", ("ssd_fma_kernel",)),
@@ -2060,8 +2424,8 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
 
 
 # ---------------------------------------------------------------- main
-PHASES = ("device", "build", "kernels", "quantify", "engine", "chunked",
-          "contiguous", "speculative", "ssm")
+PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
+          "chunked", "contiguous", "speculative", "ssm")
 
 
 def parse_phases(argv) -> set:
@@ -2139,6 +2503,9 @@ def main(argv=None) -> int:
     if "engine" in phases:
         launches.update(engine_phase(torch))
         phase_done("engine")
+    if "substrate" in phases:
+        launches.update(substrate_phase(torch))
+        phase_done("substrate")
     if "chunked" in phases:
         launches.update(chunked_phase(torch))
         phase_done("chunked")

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Where a block's time goes in the flash-attention, split-decode,
-tensor-core SSD and W8A8 kernels, on one card.
+tensor-core SSD, W8A8 and grouped page-copy kernels, on one card.
 
 Instrumented copies of `csrc/flash_attention.cu`,
-`csrc/decode_body.cuh`, `csrc/ssd_scan.cu` and `csrc/matmul_w8a8.cu`
-record, for every block, the global timer (`%globaltimer`, ns) and the
-SM's cycle counter (`clock64`) at the end of each phase (thread 0), and
+`csrc/decode_body.cuh`, `csrc/ssd_scan.cu`, `csrc/matmul_w8a8.cu` and
+`csrc/page_io.cu` record, for every block, the global timer
+(`%globaltimer`, ns) and the SM's cycle counter (`clock64`) at the end of each phase (thread 0), and
 the SM it ran on. They run at the main shapes of PERF.md's kernel table:
 flash_mha bf16 causal B=1, Sq=Skv=128, 15/5 heads, D=64 (the default
 plan and 64-row blocks); paged decode B=8, int8/page, page 16, 16 pages,
 lengths 70..257 (span 64 and 256, the latter without a split); the
 contiguous decode B=8, S=256, bf16, lengths 129..160; ssd_scan's
 tensor-core body bf16 B=1, S=128, 48 heads of 64, state 128 (the default
-plan); matmul_w8a8 M=1024, K=960, N=2560 (the default plan). Each is
+plan); matmul_w8a8 M=1024, K=960, N=2560 (the default plan); the page
+copy at one SmolLM-360M admission (k, k_sz, v, v_sz of the int8 pool, 32
+levels x 8 pages; grouped, and the payload and the 40-byte rows alone).
+Each is
 timed with the L2 flushed (as `chip_smoke.py` times kernels) and warm,
 after 200 calls that bring the clocks up. Prints, per kernel and plan,
 each phase's median and max over the blocks in microseconds and cycles,
@@ -23,7 +26,7 @@ The copies are built with the flags of `kernels/build.py` into
 `build/kernel_phases/` and loaded in place of the repository's libraries
 inside this process only.
 
-    python3 scripts/kernel_phases.py
+    python3 scripts/kernel_phases.py [--only flash,decode,ssd,w8a8,page]
 
 Needs a CUDA card and nvcc; exits 2 without a card."""
 
@@ -90,6 +93,13 @@ PHASES = {
             (4, 5, "barrier: the other warps (chunk 0)"),
             (5, 6, "later chunks and the state write"),
             (0, 6, "whole block")],
+    "page": [(0, 4, "segment fields (parameter lookup)"),
+             (4, 5, "source ids / vector width read"),
+             (5, 1, "decode, first tile's loads issued"),
+             (1, 2, "page ids staged (barrier)"),
+             (2, 3, "first tile's data back, stores issued"),
+             (3, 6, "later tiles"),
+             (0, 6, "whole block")],
     "w8a8": [(0, 1, "first K tile's copies"),
              (1, 3, "ldmatrix and mma (tile 0, warp 0)"),
              (3, 4, "later K tiles"),
@@ -184,6 +194,23 @@ def w8a8_source(csrc: Path) -> str:
     return s[:j] + "  STAMP(6);\n" + s[j:]
 
 
+def page_source(csrc: Path) -> str:
+    s = (csrc / "page_io.cu").read_text()
+    s = _insert(s, '#include "common.cuh"\n', STAMPS)
+    s = _insert(s, "  const Seg& s = g.seg[blockIdx.y];\n  unsigned tile",
+                "  STAMP(0);\n", after=False)
+    s = _insert(s, "  if (tile >= s.n_tiles) return;\n", "  STAMP(4);\n")
+    s = _insert(s, "  bool pre = s.src_ids == nullptr;\n",
+                "  if (s.vec > 0) STAMP(5);\n")
+    s = _insert(s, "  if (s.stage) stage_ids(s, s_ids);\n", "  STAMP(1);\n",
+                after=False)
+    s = _insert(s, "  if (s.stage) stage_ids(s, s_ids);\n  __syncthreads();\n",
+                "  STAMP(2);\n  bool pre_first = true;\n")
+    s = _insert(s, "    store_any(s, s_ids, buf, w);\n",
+                "    if (pre_first) STAMP(3);\n    pre_first = false;\n")
+    return _insert(s, "    pre_first = false;\n  }\n", "  STAMP(6);\n")
+
+
 def build_copies(build):
     """Build the instrumented libraries and load them in place of the
     repository's (`build._LIBS`)."""
@@ -196,7 +223,8 @@ def build_copies(build):
                "decode_attention":
                    (build.CSRC / "decode_attention.cu").read_text(),
                "ssd_scan": ssd_source(build.CSRC),
-               "matmul_w8a8": w8a8_source(build.CSRC)}
+               "matmul_w8a8": w8a8_source(build.CSRC),
+               "page_io": page_source(build.CSRC)}
     procs = {}
     for name, text in sources.items():
         src = OUT / f"{name}.cu"
@@ -218,7 +246,9 @@ def build_copies(build):
 
 def report(kind, label, table, n_blocks):
     ns, cyc = table[:n_blocks], table[CYCLES:CYCLES + n_blocks]
-    live = [i for i in range(n_blocks) if ns[i][0] > 0]
+    # blocks that found no work (a page copy's short segments) stamp
+    # nothing after their start
+    live = [i for i in range(n_blocks) if ns[i][0] > 0 and ns[i][6] > 0]
     t0 = min(int(ns[i][0]) for i in live)
     span = max(int(ns[i][6]) for i in live) - t0
     print(f"{kind} {label}: {len(live)} of {n_blocks} blocks ran, kernel "
@@ -241,6 +271,12 @@ def report(kind, label, table, n_blocks):
 
 
 def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated kernels: " + ", ".join(PHASES))
+    only = set(ap.parse_args(argv).only.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -270,6 +306,8 @@ def main(argv=None) -> int:
             timeout=60).stdout.strip()
 
     def run(kind, label, fn, n_blocks):
+        if kind not in only:
+            return
         for _ in range(200):
             timer._flush()
             fn()
@@ -352,6 +390,23 @@ def main(argv=None) -> int:
     run("w8a8", f"M=1024 K=960 N=2560 tile=({wplan.bm}, {wplan.bn})",
         lambda: mm.matmul_w8a8_cuda(a8, b8, sa, sb),
         wplan.grid[0] * wplan.grid[1])
+    from repro_torch.kernels.page_io import page_io as pio
+
+    nb, Pp, page = 32, 128, 16
+    spec = (((page, KV, D), torch.int8), ((KV, 2), torch.float32)) * 2
+    pools = [torch.zeros((nb, Pp, *sh), dtype=dt, device="cuda")
+             for sh, dt in spec]
+    tiles = [torch.ones((nb, 8, *sh), dtype=dt, device="cuda")
+             for sh, dt in spec]
+    phys = torch.randperm(Pp, generator=gen, device="cuda")[:8].to(
+        torch.int32)
+    for label, idx in (("grouped k,k_sz,v,v_sz", [0, 1, 2, 3]),
+                       ("k payload alone", [0]), ("k_sz rows alone", [1])):
+        pl, tl = [pools[i] for i in idx], [tiles[i] for i in idx]
+        plan = pio.plan(pio.write_segments(pl, tl, phys))
+        run("page", f"{label}: {plan.n_tiles} tiles on grid {plan.grid}",
+            lambda pl=pl, tl=tl: pio.write_pages_cuda(pl, tl, phys),
+            plan.grid[0] * plan.grid[1])
     print(smi)
     return 0
 

@@ -1,1 +1,3 @@
-"""Page writer: land page tiles in the physical KV pool in place."""
+"""Page copies: land page tiles in the physical KV pool in place, and move
+pages between the pool and its pinned host twin (the substrate's
+streams)."""

@@ -1,17 +1,21 @@
-"""Public page-writer op: land page tiles in the physical pool, in place.
+"""Public page-copy ops: land page tiles in the physical pool in place
+(`write_pages`, `write_pages_group`) and move pages between the pool and
+its host twin (`copy_pages`, the substrate's page_out / page_in streams).
 
-A CUDA pool goes through the CUDA page writer (`page_io.py`); a CPU pool
-takes the plain `index_copy_` (`ref.py`). Arbitrary trailing page dims
-are copied as bytes by the kernel."""
+A CUDA pool goes through the grouped CUDA page copy (`page_io.py`); a CPU
+pool takes the plain `index_copy_` / `index_select` (`ref.py`).
+Arbitrary trailing page dims are copied as bytes by the kernel."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.page_io import ref
+
+STREAMS = ("page_out", "page_in")
 
 
 def write_pages(pool: torch.Tensor, tiles: torch.Tensor, phys: torch.Tensor,
@@ -20,11 +24,56 @@ def write_pages(pool: torch.Tensor, tiles: torch.Tensor, phys: torch.Tensor,
     (n_wp,) unique physical page ids (live block-table entries). Lands
     the tiles at their physical pages in place (where the reference
     returns a new aliased pool) and returns `pool`."""
-    tiles = tiles.to(pool.dtype)
-    if kernels.select_impl(pool, impl) == "reference":
+    write_pages_group([pool], [tiles], phys, impl=impl)
+    return pool
+
+
+def write_pages_group(pools: Sequence[torch.Tensor],
+                      tiles: Sequence[torch.Tensor], phys: torch.Tensor, *,
+                      impl: Optional[str] = None) -> None:
+    """`write_pages` of several leaves that share one id vector (k, k_sz,
+    v, v_sz of an admission) in ONE kernel launch, in place."""
+    tiles = [t.to(p.dtype) for p, t in zip(pools, tiles, strict=True)]
+    if kernels.select_impl(pools[0], impl) == "reference":
         kernels.REFERENCE_CALLS["write_pages"] += 1
-        return ref.write_pages(pool, tiles, phys)
+        for p, t in zip(pools, tiles):
+            ref.write_pages(p, t, phys)
+        return
     from repro_torch.kernels.page_io import page_io
 
-    return page_io.write_pages_cuda(
-        pool, tiles.contiguous(), phys.to(torch.int32).contiguous())
+    page_io.write_pages_cuda(
+        pools, [t.contiguous() for t in tiles],
+        phys.to(device=pools[0].device, dtype=torch.int32).contiguous())
+
+
+def copy_pages(dst, dst_ids: Optional[torch.Tensor], src,
+               src_ids: Optional[torch.Tensor], *, name: str = "page_out",
+               impl: Optional[str] = None) -> None:
+    """`dst[k][:, dst_ids[j]] = src[k][:, src_ids[j]]` for each leaf k of
+    `dst` / `src` (tensors or sequences of tensors; ids None: page j), in
+    one launch. page_out is `copy_pages(twin, ids, pool, ids)`, page_in
+    `copy_pages(scratch, None, twin, ids)`. The device side decides: a
+    CUDA tensor among them launches the kernel, which reaches a pinned
+    host tensor through its mapped address (a host tensor that is not
+    pinned raises); all-CPU tensors take the plain version. `name`
+    ("page_out" | "page_in") is the stream counted."""
+    if name not in STREAMS:
+        raise ValueError(f"unknown page stream {name!r}")
+    dst = [dst] if isinstance(dst, torch.Tensor) else list(dst)
+    src = [src] if isinstance(src, torch.Tensor) else list(src)
+    anchor = next((t for t in (*dst, *src) if t.is_cuda), dst[0])
+    if kernels.select_impl(anchor, impl) == "reference":
+        kernels.REFERENCE_CALLS[name] += 1
+        ref.copy_pages(dst, dst_ids, src, src_ids)
+        return
+    from repro_torch.kernels.page_io import page_io
+
+    dev = anchor.device
+
+    def ids32(ids):
+        return None if ids is None else ids.to(
+            device=dev, dtype=torch.int32).contiguous()
+
+    d_ids = ids32(dst_ids)
+    s_ids = d_ids if src_ids is dst_ids else ids32(src_ids)
+    page_io.copy_pages_cuda(dst, d_ids, src, s_ids, name=name)

@@ -180,6 +180,32 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
     )
 
 
+def init_pool_twin(caches: dict, *, pinned: bool = False) -> dict:
+    """Pool-resident twin of the PAGED leaves of `caches`: a same-shape
+    zeros tree holding only the physical page pool tensors (k/v payload
+    plus the int8 (scale, zero) leaves). `pinned=True` puts it in pinned
+    host memory (the substrate's physical mode; the kernels reach it
+    through its mapped device address), else on each leaf's own device
+    (emulated mode). The serving substrate (`serving.substrate`) mirrors
+    pool-tiered pages into it. Returns {} for cache trees with no paged
+    leaves (SSM-only stacks)."""
+    twin = {}
+    for pos, c in caches.items():
+        sub = {}
+        for name in PAGED_LEAF_NAMES:
+            if name not in c:
+                continue
+            leaf = c[name]
+            if pinned:
+                sub[name] = torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                        pin_memory=True)
+            else:
+                sub[name] = torch.zeros_like(leaf)
+        if sub:
+            twin[pos] = sub
+    return twin
+
+
 # ------------------------------------------------------------------ apply
 def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
                         block_table, page_tokens: int, attn_override=None):

@@ -183,13 +183,14 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
                              sz_granularity: str = "page"):
     """Land a prefilled request's caches in the PAGED layout: its
     `bucket_total` tokens of K/V go whole-page into the pool at the pages
-    the block table assigns to the slot, through the page writer
-    (`kernels.page_io.write_pages`, in place). int8 pools quantize the
-    prompt pages first (`quant.quantize_pages`, or `quantize_tokens` for
-    per-token sub-scales) and the (scale, zero) rows land through the
-    same writer. The partial last page is zero-padded: masked out of
-    attention, and under int8 it cannot widen the page's range. Resident
-    leaves (SSM state, conv tails) are copied densely into the slot."""
+    the block table assigns to the slot, through the grouped page writer
+    (`kernels.page_io.write_pages_group`, in place): k, v and the int8
+    (scale, zero) rows of every attention position in ONE launch. int8
+    pools quantize the prompt pages first (`quant.quantize_pages`, or
+    `quantize_tokens` for per-token sub-scales). The partial last page is
+    zero-padded: masked out of attention, and under int8 it cannot widen
+    the page's range. Resident leaves (SSM state, conv tails) are copied
+    densely into the slot."""
     n_wp = -(-bucket_total // page_tokens)     # pages the prompt spans
     pad = n_wp * page_tokens - bucket_total
     quantized = pool_dtype == "int8"
@@ -203,6 +204,7 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
 
     def insert(caches, slot_caches, slot, block_table):
         phys = block_table[int(slot), :n_wp]
+        pools, writes = [], []
         for pos, c in caches.items():
             for key, big in c.items():
                 if key not in blk.PAGED_LEAF_NAMES:
@@ -215,10 +217,13 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
                 if quantized:
                     q8, sz_rows = (quant.quantize_tokens(tiles) if per_token
                                    else quant.quantize_pages(tiles))
-                    page_ops.write_pages(c[key], q8, phys)
-                    page_ops.write_pages(c[key + "_sz"], sz_rows, phys)
+                    pools += [c[key], c[key + "_sz"]]
+                    writes += [q8, sz_rows]
                 else:
-                    page_ops.write_pages(c[key], tiles, phys)
+                    pools.append(c[key])
+                    writes.append(tiles)
+        if pools:
+            page_ops.write_pages_group(pools, writes, phys)
         return caches
 
     return insert

@@ -1,5 +1,5 @@
 """Tier-aware continuous-batching serving on the card (port of
-`repro.serving`, without the substrate, fleet and faults).
+`repro.serving`, without the fleet and faults).
 
 By default the KV cache is a PHYSICAL page pool end to end:
 self-attention K/V lives as (stack, n_slots * n_pages, page_tokens,
@@ -12,6 +12,11 @@ shares the pages of a common prompt prefix across requests
 pair per (page, KV head), quantized on insert and dequantized inside the
 paged decode kernel. `paged=False` keeps per-slot contiguous caches
 instead, decoded through the flash-decode kernel.
+
+PHYSICAL SUBSTRATE (`EngineConfig.substrate`, `serving/substrate/`): the
+pool tier made physical — pages the pager tiers POOL are mirrored into a
+pinned host twin by the grouped page-copy kernel once per decode step,
+on a side stream; the device pool stays authoritative.
 
 SPECULATIVE DECODING (`EngineConfig.speculative`, `serving/speculative.py`):
 a proposer guesses `speculative_k - 1` draft tokens per slot ("ngram":

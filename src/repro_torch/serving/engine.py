@@ -34,11 +34,15 @@ wall time measures what the host and the card actually do; virtual time
 prices each step on the target tier topology (compute from the decode
 roofline at the chip's data-sheet peak, local/pool bytes from the pager).
 
+With the paged layout, a physical memory substrate (`serving.substrate`)
+mirrors the pool-tiered pages into a pinned host twin once per decode
+step, on a side stream ("auto": physical on the card, emulated on the
+CPU); the device pool stays authoritative, so tokens do not change.
+
 Ported configuration: `EngineConfig()` means the same main path as in the
 reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
-LoI admission; chunked prefill, the prefix cache, the contiguous layout
-and speculative decoding are its options — except `substrate`, which
-defaults to "off" here until the substrate slice lands (ROADMAP A9).
+LoI admission, the substrate on "auto"; chunked prefill, the prefix
+cache, the contiguous layout and speculative decoding are its options.
 It serves the dense attention-only archs and the SSM arch mamba2-780m
 (whose slot-resident state the pager prices; its pool holds nothing, so
 chunked prefill, the prefix cache and speculation refuse it as the
@@ -66,12 +70,14 @@ from repro_torch.core import tiers as tr
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
 from repro_torch.models.module import cast_params
+from repro_torch.runtime import capability
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_pager import KVPager, PagerConfig
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving import speculative as spec
 from repro_torch.serving.queue import Request, RequestQueue
+from repro_torch.serving.substrate import TierSubstrate
 
 # Minimum per-request greedy-token agreement an int8 pool must keep vs the
 # fp reference (lockstep positions): per-page block quantization bounds
@@ -108,9 +114,9 @@ class EngineConfig:
     # prefixes across requests (refcounted pages, COW tail splits)
     prefix_cache_pages: Optional[int] = None   # trie capacity cap (pages)
     # --- physical memory substrate ---
-    substrate: str = "off"          # off | emulated | physical | auto — the
-    # reference defaults to "auto"; the port keeps "off" until the pinned
-    # host twin ports (ROADMAP A9), the one default that differs
+    substrate: str = "auto"         # off | emulated | physical | auto —
+    # mirror pool-tiered pages into a pinned host twin (serving.substrate);
+    # "auto" is physical where the card can map pinned memory
     # --- admission ---
     admission: str = "loi"                     # loi | greedy
     knee_excess: float = 0.75
@@ -140,7 +146,6 @@ def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
             "prefix_cache needs paged=True: sharing happens by aliasing "
             "block-table rows onto one physical page")
     todo = [
-        (ecfg.substrate != "off", f"substrate={ecfg.substrate!r}", "A9"),
         (ecfg.prefetch is not None, "prefetch (prediction-driven page-in)",
          "A13"),
     ]
@@ -228,6 +233,10 @@ class ServeStats:
     max_concurrency: int
     prefix: dict = dataclasses.field(default_factory=dict)   # prefix-cache
     # counter deltas for this run (empty when the cache is off)
+    substrate: dict = dataclasses.field(default_factory=dict)  # transfer-
+    # ledger deltas (serving.substrate) for this run; placement_bytes /
+    # resident_pages are end-of-run levels (empty when the substrate is
+    # off)
     spec: dict = dataclasses.field(default_factory=dict)   # speculative-
     # decoding deltas: verify_steps / emitted / draft_calls /
     # accept_len_mean (tokens each slot commits per verify step). Empty
@@ -255,6 +264,16 @@ class ServeStats:
         if self.prefix:
             out["prefix_hit_rate"] = self.prefix["hit_rate"]
             out["cow_splits"] = self.pager.get("cow_splits", 0)
+        if self.substrate:
+            # MEASURED physical tier traffic (real tensor nbytes on the
+            # transfer streams)
+            out["substrate_transfer_bytes"] = (
+                self.substrate["page_out_bytes"]
+                + self.substrate["page_in_bytes"]
+                + self.substrate["handoff_bytes"]
+            )
+            out["substrate_placement_bytes"] = \
+                self.substrate["placement_bytes"]
         if self.spec:
             out["accept_len_mean"] = self.spec["accept_len_mean"]
             out["verify_steps"] = self.spec["verify_steps"]
@@ -375,6 +394,19 @@ class ServingEngine:
         else:
             self.caches = M.make_decode_caches(
                 cfg, ecfg.n_slots, cells.max_seq_total, device=self.device)
+        # physical memory substrate: host-resident pool twin reconciled
+        # against the pager's tier map once per decode step. Disabled
+        # when requested off, on the contiguous layout, and on cache
+        # trees with no paged leaves (SSM-only stacks).
+        self.substrate: Optional[TierSubstrate] = None
+        if cells.paged and ecfg.substrate != "off":
+            mode = capability.substrate_mode(ecfg.substrate, self.device)
+            sub = TierSubstrate(
+                self.caches, mode,
+                host_memory_kind=(self.topo.pool.memory_kind
+                                  or "pinned_host"))
+            if sub.enabled:
+                self.substrate = sub
         self.tokens = np.zeros(ecfg.n_slots, dtype=np.int32)
         # --- speculative decoding (serving.speculative) ---
         self.spec_verify_steps = 0     # verify calls (speculative steps)
@@ -482,6 +514,7 @@ class ServingEngine:
         # owned (in contiguous mode the order is irrelevant)
         self.pager.admit(slot.index, start)
         if self.cells.paged:
+            self._fence()
             self.caches = self.cells.insert_fns[bucket](
                 self.caches, slot_caches, slot.index,
                 self._block_table_dev(),
@@ -567,6 +600,7 @@ class ServingEngine:
         self.pager.extend(slot.index, end)
         toks = torch.tensor(req.tokens[None, slot.prefill_pos:end],
                             device=self.device)
+        self._fence()
         tok, self.caches = self.cells.chunk_fn(
             self.params, toks, self.caches, slot.index,
             slot.prefill_pos // C, self._block_table_dev(),
@@ -637,6 +671,12 @@ class ServingEngine:
         self._draft_fed[slot.index] = 0
         return req
 
+    def _fence(self) -> None:
+        """Before a cell writes the pool in place: the main stream waits
+        for the substrate's last page_out, which reads the pool."""
+        if self.substrate is not None:
+            self.substrate.fence()
+
     def _block_table_dev(self) -> torch.Tensor:
         bt = self.pager.block_table()
         if bt is not self._bt_host:
@@ -661,6 +701,7 @@ class ServingEngine:
             # cell runs: the block table it receives is the layout it
             # writes through (a shared tail page splits here and the copy
             # cell materializes the private duplicate)
+            self._fence()
             for old, new in self.pager.ensure_tail_pages(active):
                 self.caches = self.cells.copy_fn(self.caches, old, new)
             next_tok, finite, self.caches = self.cells.decode_fn(
@@ -678,6 +719,7 @@ class ServingEngine:
             )
 
         traffic = self.pager.step(active)
+        t_backoff = self._drain()
         t_compute = (
             rl.model_flops_decode(self._active_params, n_active)
             / self.chip.peak_flops_bf16
@@ -688,9 +730,10 @@ class ServingEngine:
         t_staged = traffic.prefetch_pool_bytes / self.topo.pool.bandwidth
         t_demand = traffic.demand_pool_bytes / self.topo.pool.bandwidth
         t_pool = t_staged + t_demand
+        # retry backoff (fault injection) serializes like a demand stall
         dt = float(
             itf.step_time_vec(t_staged, t_local, t_compute, 0.0)
-        ) + t_demand + self.ecfg.step_overhead_s
+        ) + t_demand + self.ecfg.step_overhead_s + t_backoff
         self.virtual_s += dt
         self._last_decode_end = self.virtual_s
         self.steps += 1
@@ -716,6 +759,15 @@ class ServingEngine:
             if req.done:
                 req.finished = self.virtual_s
                 self._retire(slot)
+
+    def _drain(self) -> float:
+        """Reconcile physical placement with the step's tier flips (async:
+        the streams complete under sync()/capture_stats); returns the
+        retry backoff to charge to the step."""
+        if self.substrate is None:
+            return 0.0
+        self.substrate.drain(self.pager, self.caches, step=self.steps)
+        return self.substrate.take_backoff()
 
     # ------------------------------------------------------- speculative
     def _history(self, slot) -> np.ndarray:
@@ -830,6 +882,7 @@ class ServingEngine:
         # all k candidate rows write KV: their pages must be live and
         # private BEFORE the verify cell runs (rejected tails roll back
         # through truncate below)
+        self._fence()
         for old, new in self.pager.ensure_tail_pages(active, lookahead=k):
             self.caches = self.cells.copy_fn(self.caches, old, new)
         greedy, finite, self.caches = self.cells.verify_fn(
@@ -858,6 +911,7 @@ class ServingEngine:
             emits[i] = emit
 
         traffic = self.pager.step(active, tokens=counts)
+        t_backoff = self._drain()
         # ONE pool sweep (the reads in `traffic`) scored k tokens per
         # slot: compute scales with k, memory does not
         t_compute = (
@@ -870,7 +924,7 @@ class ServingEngine:
         t_pool = t_staged + t_demand
         dt = float(
             itf.step_time_vec(t_staged, t_local, t_compute, 0.0)
-        ) + t_demand + self.ecfg.step_overhead_s + t_draft
+        ) + t_demand + self.ecfg.step_overhead_s + t_draft + t_backoff
         self.virtual_s += dt
         self._last_decode_end = self.virtual_s
         self.steps += 1
@@ -967,6 +1021,8 @@ class ServingEngine:
             "pager0": self.pager.counters(),
             "prefix0": (self.prefix_cache.counters()
                         if self.prefix_cache is not None else None),
+            "substrate0": (self.substrate.counters()
+                           if self.substrate is not None else None),
             "spec0": (self.spec_verify_steps, self.spec_slot_steps,
                       self.spec_emitted, self.spec_draft_calls),
             "wall0": time.perf_counter(),
@@ -1000,6 +1056,23 @@ class ServingEngine:
     def capture_stats(self, cap: dict, requests: List[Request],
                       ) -> ServeStats:
         """Aggregate stats since `cap = begin_capture()` over `requests`."""
+        substrate_delta: dict = {}
+        if self.substrate is not None:
+            # final reconcile (retired slots freed pages after the last
+            # decode drain) + completion barrier, so the captured ledger
+            # reflects finished transfers and current placement
+            self.substrate.drain(self.pager, self.caches, step=self.steps)
+            self.substrate.sync()
+            self.virtual_s += self.substrate.take_backoff()
+            s0, s1 = cap["substrate0"], self.substrate.counters()
+            substrate_delta = {
+                k: (s1[k] - s0[k]) if isinstance(s1[k], (int, float))
+                else s1[k]
+                for k in s1
+            }
+            # placement is a level, not a flow — report the current one
+            substrate_delta["resident_pages"] = s1["resident_pages"]
+            substrate_delta["placement_bytes"] = s1["placement_bytes"]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - cap["wall0"]
@@ -1076,5 +1149,6 @@ class ServingEngine:
             admission_blocks=self.admission.blocks - cap["blocks0"],
             max_concurrency=self._max_conc,
             prefix=prefix_delta,
+            substrate=substrate_delta,
             spec=spec_delta,
         )

@@ -99,7 +99,6 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(substrate="auto"), "A9"),
     (dict(prefetch="stride"), "A13"),
 ])
 def test_options_outside_the_slice_raise(override, item):
@@ -176,9 +175,9 @@ def test_unported_archs_raise():
 
 
 def test_engine_defaults_match_reference_main_path():
-    """`EngineConfig()` is the reference's main path; only `substrate`
-    differs (off until ROADMAP A9)."""
+    """`EngineConfig()` is the reference's main path, the substrate on
+    "auto" included."""
     e = EngineConfig()
     assert (e.paged, e.pool_dtype, e.page_tokens, e.prefill_chunk,
             e.admission, e.substrate) == (True, "int8", 16, None, "loi",
-                                          "off")
+                                          "auto")

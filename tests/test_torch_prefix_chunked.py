@@ -238,7 +238,7 @@ def test_engine_chunked_prefix_matches_reference(chunk, pool_dtype):
     jeng = JServingEngine.build(jc, CTX, JEngineConfig(substrate="off",
                                                        **kw),
                                 params=jparams)
-    teng = _build(EngineConfig(**kw), params=tparams)
+    teng = _build(EngineConfig(substrate="off", **kw), params=tparams)
     jreqs = jmake_scenario("shared_prefix", **trace)
     treqs = make_scenario("shared_prefix", **trace)
     js, ts = jeng.run(jreqs), teng.run(treqs)

@@ -148,7 +148,8 @@ def _engines(**kw):
               page_tokens=8, hot_window=16, local_budget_frac=0.5, **kw)
     jeng = JServingEngine.build(jc, CTX, JEngineConfig(substrate="off", **kw),
                                 params=jparams)
-    teng = TServingEngine.build(tc, TEngineConfig(**kw), params=tparams,
+    teng = TServingEngine.build(tc, TEngineConfig(substrate="off", **kw),
+                                params=tparams,
                                 topo=_ref_topology(), chip=_ref_chip(),
                                 device="cpu")
     return jc, jeng, teng
@@ -218,11 +219,10 @@ def test_engine_with_catalog_prior_matches_reference(prior):
 
 
 def test_engine_config_defaults_match_reference():
-    """Every `EngineConfig` default is the reference's, except `substrate`
-    ("off" in the port until the substrate slice lands)."""
+    """Every `EngineConfig` default is the reference's, `substrate`
+    ("auto") included."""
     jd = {f.name: f.default for f in dataclasses.fields(JEngineConfig)}
     td = {f.name: f.default for f in dataclasses.fields(TEngineConfig)}
     assert set(td) == set(jd)
-    diff = {k for k in jd if jd[k] != td[k]}
-    assert diff == {"substrate"}
-    assert (jd["substrate"], td["substrate"]) == ("auto", "off")
+    assert {k for k in jd if jd[k] != td[k]} == set()
+    assert td["substrate"] == jd["substrate"] == "auto"

@@ -228,7 +228,7 @@ def test_speculative_engine_matches_reference(mode):
     kw = _base(speculative=mode, speculative_k=4)
     jeng = JServingEngine.build(jc, CTX, JEngineConfig(substrate="off", **kw),
                                 params=jparams)
-    teng = ServingEngine.build(tc, EngineConfig(**kw),
+    teng = ServingEngine.build(tc, EngineConfig(substrate="off", **kw),
                                params=_to_torch(jparams),
                                topo=_ref_topology(), chip=_ref_chip(),
                                device="cpu")
