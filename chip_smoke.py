@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
                the four-leaf admission (per-page and per-token rows) and
                ids out of range (dropped), page_out / page_in over a pinned
                and a device twin (bursts 1, 7, 64), an unpinned twin
-               raising; flash_mha at the main-path shapes plus head dims {16, 17,
+               raising, the fleet's handoff between two pools (bf16 and
+               int8, 1 / 8 / 64 pages, the source untouched); flash_mha at the main-path shapes plus head dims {16, 17,
                20, 64, 112, 128, 256}, GQA rep {1, 3, 8}, causal and not,
                kv_offset > 0, Sq {1, 17, 33, 40, 64, 128, 512}, its lse
                against the plain version's (bf16 on the tensor-core
@@ -70,7 +71,16 @@ Phases (any failure raises and exits non-zero):
                local_budget_frac=0.25 (pages spill and come back):
                physical, gap 0 after every drain, tokens equal with the
                substrate off, page_out and page_in launched.
-  7. chunked — the same model with `prefill_chunk=128` and the prefix
+  7. fleet   — faults and the fleet on one card (`fleet_phase`): 2-engine
+               round-robin fleets against one engine (fp bit-exact, int8
+               agreement), chaos_smoke against the fault-free fleet (fp
+               bit-exact, retries / restores / migrations / re-prefilled
+               tokens > 0, pools drained free), the prefill/decode roles
+               against the unified fleet (one handoff launch per
+               request), the pool-exhaustion preemption, a pinned freeze
+               / thaw and degrade_pool, the handoff timed at 8 and 64
+               pages; gap 0 after every drain of every engine.
+  8. chunked — the same model with `prefill_chunk=128` and the prefix
                cache on a 16-request shared-prefix trace (prompts 256/512
                behind a 128-token system prompt): int8 runs launch
                paged_prefill_insert_flash_q8, fp runs
@@ -80,19 +90,19 @@ Phases (any failure raises and exits non-zero):
                a profiled int8 run; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
-  8. contiguous — the same model on the contiguous layout (paged=False,
+  9. contiguous — the same model on the contiguous layout (paged=False,
                flash_decode) over 8 chat prompts of 128 tokens, 32 new
                tokens each, against the paged fp engine, the naive
                one-shot loop (`scripts/dev_serve_torch.py`) and its own
                plain-version run: tokens agree >= 0.5 pairwise, and
                whether each pair is bit-exact is printed.
-  9. speculative — speculative decoding (k=4) over the same prompts:
+ 10. speculative — speculative decoding (k=4) over the same prompts:
                ngram on fp pools, ngram on int8 per-token pools with
                prefill_chunk=128 (paged_prefill_flash inside the engine),
                self-draft on fp (flash_decode on the draft's caches),
                each against the greedy engine of its pool: verify steps,
                acceptance, draft calls, launches, tok/s, agreement.
- 10. ssm     — mamba2-780m at published widths (seeded random bf16
+ 11. ssm     — mamba2-780m at published widths (seeded random bf16
                weights) on the engine phase's configuration and chat
                trace: ssd_scan launches 48 times per admission, no plain
                version runs, agreement >= 0.5 with the plain-version run
@@ -116,6 +126,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases build,contiguous,speculative
     python3 chip_smoke.py --phases build,kernels,ssm      # the SSM slice
     python3 chip_smoke.py --phases device,build,kernels,substrate,engine
+    python3 chip_smoke.py --phases device,build,fleet     # faults, the fleet
 """
 
 from __future__ import annotations
@@ -274,8 +285,8 @@ def max_err(torch, out, ref, tol) -> tuple[float, bool]:
 
 # ------------------------------------------------------------- kernels
 def kernel_cases(torch, timer):
-    """Returns the JSON records of the twelve kernels (timed at the main
-    paths' shapes); raises if any case disagrees."""
+    """Returns the JSON records of the kernels and page streams (timed at
+    the main paths' shapes); raises if any case disagrees."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import paged as dpaged
     from repro_torch.kernels.decode_attention import ref as dref
@@ -305,7 +316,7 @@ def kernel_cases(torch, timer):
 
     records = []
 
-    # --- A: grouped page copy: write_pages, page_out, page_in -------------
+    # --- A: grouped page copy: write_pages, page_out, page_in, handoff ---
     records += page_copy_cases(torch, timer, gen, randn, report)
 
     # --- B: flash attention forward --------------------------------------
@@ -553,9 +564,10 @@ def page_copy_cases(torch, timer, gen, randn, report):
     the one-segment path at the old four shapes, the grouped four-leaf
     admission (k, k_sz, v, v_sz) with per-page and per-token rows, and
     with ids out of range (dropped); page_out / page_in over a pinned
-    host twin (and a device twin, as emulated mode runs it). Returns the
-    records of write_pages (the grouped admission), page_out and page_in
-    at the main path's shapes."""
+    host twin (and a device twin, as emulated mode runs it); the fleet's
+    handoff between two pools (both id vectors; bf16 and int8 payloads).
+    Returns the records of write_pages (the grouped admission), page_out,
+    page_in and the handoff at the main path's shapes."""
     from repro_torch.kernels.page_io import ops as pops
     from repro_torch.kernels.page_io import page_io as pio
 
@@ -728,7 +740,81 @@ def page_copy_cases(torch, timer, gen, randn, report):
             library_ms=timer.event_ms(lib),
             shape=f"4 leaves of int8 pool ({nb},{P},{page},{KV},{D}), "
                   f"{burst} pages, pinned twin"))
+
+    # --- the fleet's handoff: pool to pool, both id vectors -------------
+    print("kernel handoff (exact; the four leaves of one pool onto "
+          "another's, bf16 and int8 payloads)")
+    for dt in (torch.bfloat16, torch.int8):
+        for burst in (1, 8, 64):
+            src, dst, s_ids, d_ids = handoff_inputs(torch, gen, burst, dt)
+            src0 = [t.clone() for t in src]
+            want = [t.clone() for t in dst]
+            pops.copy_pages(want, d_ids, src, s_ids, name="handoff",
+                            impl="reference")
+            pops.copy_pages(dst, d_ids, src, s_ids, name="handoff")
+            torch.cuda.synchronize()
+            ok = (all(torch.equal(a, b) for a, b in zip(dst, want))
+                  and all(torch.equal(a, b) for a, b in zip(src, src0)))
+            report("handoff", f"{str(dt)[6:]} pools, 4 leaves, {burst} "
+                   "pages, source untouched", 0.0 if ok else float("inf"),
+                   ok, exact)
+    t = handoff_times(torch, timer, gen, 8)
+    records.append(dict(
+        name="handoff", route="cuda",
+        source="src/repro_torch/kernels/csrc/page_io.cu",
+        replaces="src/repro/serving/fleet/roles.py:94",
+        max_abs_err=0.0, ms=t["ms"], op_ms=t["op_ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by="bytes",
+        library_ms=None,
+        shape=f"4 leaves of int8 pool ({nb},{P},{page},{KV},{D}) onto "
+              f"another, 8 pages"))
     return records
+
+
+def handoff_inputs(torch, gen, n_pages, dtype=None):
+    """Two SmolLM-360M pools of 128 pages (k, k_sz, v, v_sz; payload in
+    `dtype`, int8 by default, with float32 (scale, zero) rows) and
+    distinct random source and destination ids of `n_pages` pages."""
+    nb, P, page, KV, D = 32, 128, 16, 5, 64
+    dtype = dtype or torch.int8
+
+    def leaf(shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, (nb, P, *shape), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return torch.randn((nb, P, *shape), generator=gen,
+                           device="cuda").to(dt)
+
+    shapes = (((page, KV, D), dtype), ((KV, 2), torch.float32)) * 2
+    src = [leaf(sh, dt) for sh, dt in shapes]
+    dst = [leaf(sh, dt) for sh, dt in shapes]
+
+    def ids():
+        return torch.randperm(P, generator=gen, device="cuda")[
+            :n_pages].to(torch.int32)
+
+    return src, dst, ids(), ids()
+
+
+def handoff_times(torch, timer, gen, n_pages) -> dict:
+    """The handoff stream at `n_pages` pages of the int8 pool: the
+    kernel's device ms, its CUDA-events ms, the plain version's device ms
+    and the bound (each page and id read once, each page written once,
+    at the HBM rate)."""
+    from repro_torch.kernels.page_io import ops as pops
+
+    src, dst, s_ids, d_ids = handoff_inputs(torch, gen, n_pages)
+    n_bytes = sum(n_pages * t[:, 0].numel() * t.element_size()
+                  for t in src)
+    ms = timer(lambda: pops.copy_pages(dst, d_ids, src, s_ids,
+                                       name="handoff"))
+    op_ms = timer.last_event_ms
+    plain_ms = timer(lambda: pops.copy_pages(dst, d_ids, src, s_ids,
+                                             name="handoff",
+                                             impl="reference"))
+    return dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, bytes=n_bytes,
+                bound_ms=(2 * n_bytes + 2 * 4 * n_pages)
+                / HBM_BYTES_PER_S * 1e3)
 
 
 def sdpa_decode_ms(torch, timer, q, k, v, lengths):
@@ -1819,6 +1905,305 @@ def substrate_phase(torch):
     assert all(same), same
     return {"page_out": launches["page_out"], "page_in": launches["page_in"]}
 
+def fleet_phase(torch):
+    """Faults and the fleet at SmolLM-360M's published widths, on the card,
+    no plain version anywhere (the engine phase's configuration and
+    16-request chat trace, with local_budget_frac=0.25 so pages move
+    between the tiers, unless said):
+      1. parity: 2 engines behind the round-robin `FleetRouter` against one
+         engine, fp (tokens equal) and int8 (agreement >= 0.5, exactness
+         printed), both engines routed work;
+      2. chaos: `chaos_smoke` (engine 1 killed at decode step 3, transfers
+         flaking at 10%) against the same fleet fault-free, fp: tokens
+         equal; retries, restores, migrations and re-prefilled tokens
+         > 0; every pool drained free (zero refcounts and pins); the
+         placement gap 0 after every drain of every engine, the dead one
+         included;
+      3. roles: engine 0 prefill (`prefill_chunk=128`) and engine 1 decode
+         against the unified 2-engine fleet of the same cells, on 8
+         requests of 128-token prompts, fp (tokens equal) and int8
+         (agreement): one handoff launch per request, the transfer
+         ledger's pages and bytes, the chunk kernel of the pool launched
+         on engine 0 only;
+      4. preemption (the reference test's shape, fp, 2 slots of 64 tokens
+         in 16-token pages): with pages stranded under a pin, a
+         priority-0 prompt spill-freezes the priority-1 slot, which
+         resumes by refill; both streams equal their uncontended run and
+         the pool drains exactly free;
+      5. one pinned `freeze_slot` -> drain -> `thaw_slot` at decode step
+         10 and `degrade_pool` at step 20 of the fp chat run: page_out
+         and page_in launched, gap 0 after every drain, tokens equal the
+         uninterrupted single-engine run of part 1;
+      6. the handoff stream at 8 and 64 pages against its byte bound and
+         its plain version.
+    Prints tok/s and launches of each run. Returns the handoff's launches
+    in the int8 roles run."""
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
+                                     Request, RequestQueue, ServingEngine,
+                                     make_plan, make_scenario)
+    from repro_torch.serving.fleet import FleetConfig, FleetRouter
+
+    import dev_serve_torch as dst
+
+    cfg = configs.get("smollm_360m")
+    # the local tier cut to a quarter of peak KV, as in the substrate
+    # phase: pages spill to the pool tier and return in every engine, so
+    # the transfer sites the plan flakes see traffic
+    base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
+                        page_tokens=16, pool_dtype="fp",
+                        local_budget_frac=0.25)
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    print(f"fleet {cfg.name}: {cfg.num_layers}L d={cfg.d_model}, random "
+          f"weights seed 0, engines share one parameter tree and one set "
+          f"of cells; substrate auto, local_budget_frac "
+          f"{base.local_budget_frac}")
+
+    def chat(n=16, buckets=(64, 128)):
+        return make_scenario("chat", n, cfg.vocab_size, seed=0,
+                             prompt_buckets=buckets, gen_range=(16, 32),
+                             arrival_rate=1e5)
+
+    replay = {"tokens": 0, "decode_launches": 0, "s": 0.0}
+
+    def watch_replay(eng):
+        """Count the teacher-forced replay's tokens, decode launches and
+        wall seconds (`_force_feed`) into `replay`."""
+        feed = eng._force_feed
+
+        def counted(slot, start, toks):
+            n0 = kernels.LAUNCHES["paged_flash_decode"]
+            t0 = time.perf_counter()
+            feed(slot, start, toks)
+            torch.cuda.synchronize()
+            replay["s"] += time.perf_counter() - t0
+            replay["tokens"] += len(toks)
+            replay["decode_launches"] += (
+                kernels.LAUNCHES["paged_flash_decode"] - n0)
+
+        eng._force_feed = counted
+
+    def serve(label, reqs, ecfg, fcfg=None, drive=None):
+        """One run of `reqs` on a fresh engine (fcfg None) or fleet;
+        `drive(eng, reqs)` replaces `eng.run`. Returns (stats, engines,
+        launches, router); every drain's placement gap must be 0."""
+        if fcfg is None:
+            engines = [ServingEngine.build(cfg, ecfg, params=params)]
+            router = None
+        else:
+            router = FleetRouter.build(cfg, ecfg, fcfg, params=params)
+            engines = [h.engine for h in router.handles]
+        gaps = [watch_substrate(e) for e in engines]
+        for e in engines:
+            watch_replay(e)
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        if router is not None:
+            stats = router.run(reqs)
+        elif drive is not None:
+            stats = drive(engines[0], reqs)
+        else:
+            stats = engines[0].run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        tokens = sum(len(r.output) for r in reqs)
+        print(f"  {label}: requests={len(reqs)} tokens={tokens} "
+              f"wall_s={wall:.3f} tok_per_s_wall={tokens / wall:.1f} "
+              f"launches={launches}")
+        for i, (e, g) in enumerate(zip(engines, gaps)):
+            assert e.substrate is not None \
+                and e.substrate.mode == "physical", i
+            assert all(x == 0 for x in g), (label, i, g)
+        assert not plain, plain
+        assert all(len(r.output) == r.max_new_tokens for r in reqs), label
+        return stats, engines, launches, router
+
+    def compare(label, got, want, exact):
+        agree = [agreement(a.output, b.output) for a, b in zip(got, want)]
+        same = sum(a.output == b.output for a, b in zip(got, want))
+        print(f"  {label}: {same} of {len(got)} requests equal, agreement "
+              f"min {min(agree):.3f} (gate: "
+              f"{'all equal' if exact else f'>= {INT8_TOKEN_AGREEMENT}'})")
+        if exact:
+            assert same == len(got), label
+        else:
+            assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
+
+    # --- 1. fleet parity ----------------------------------------------
+    rr = FleetConfig(n_engines=2, policy="round_robin")
+    runs = {}
+    for pool in ("fp", "int8"):
+        ecfg = dataclasses.replace(base, pool_dtype=pool)
+        single = chat()
+        serve(f"single {pool}", single, ecfg)
+        fleet = chat()
+        stats, _, _, _ = serve(f"fleet 2 round-robin {pool}", fleet, ecfg,
+                               rr)
+        print(f"    routed {stats.routed}")
+        assert min(stats.routed) > 0, stats.routed
+        assert stats.faults == {}
+        compare(f"fleet vs single, {pool}", fleet, single,
+                exact=pool == "fp")
+        runs[pool] = (single, fleet)
+
+    # --- 2. chaos -----------------------------------------------------
+    plan = make_plan("chaos_smoke")
+    chaos = chat()
+    replay.update(tokens=0, decode_launches=0, s=0.0)
+    stats, engines, launches, router = serve(
+        "fleet 2 chaos_smoke fp", chaos, base,
+        dataclasses.replace(rr, faults=plan))
+    f = stats.faults
+    print(f"    faults: killed={f['engines_killed']} recoveries="
+          f"{f['recoveries']} retries={f['retries']} retry_bytes="
+          f"{f['retry_bytes']:.0f} backoff_s={f['backoff_s']:.6f} "
+          f"restores={f['restores']} migrations_in={f['migrations_in']} "
+          f"reprefilled_tokens={f['reprefilled_tokens']} injected="
+          f"{f['injected']}; routed {stats.routed}; teacher-forced replay "
+          f"{replay['tokens']} tokens, {replay['decode_launches']} "
+          f"paged_flash_decode launches, {replay['s']:.3f} s")
+    compare("chaos vs fault-free fleet, fp", chaos, runs["fp"][1],
+            exact=True)
+    assert router.handles[1].dead and f["engines_killed"] == 1
+    assert f["retries"] > 0 and f["restores"] > 0
+    assert f["migrations_in"] > 0 and f["reprefilled_tokens"] > 0
+    assert dst.pools_drained(router), "a pool did not drain free"
+    assert all(g == 0 for g in dst.placement_gaps(router))
+
+    # --- 3. roles -------------------------------------------------------
+    roles_launches = None
+    for pool in ("fp", "int8"):
+        ecfg = dataclasses.replace(base, pool_dtype=pool,
+                                   prefill_chunk=128, prefill_buckets=(128,))
+        unified = chat(8, (128,))
+        serve(f"fleet 2 unified chunk=128 {pool}", unified, ecfg, rr)
+        split = chat(8, (128,))
+        stats, engines, launches, router = serve(
+            f"fleet 2 roles chunk=128 {pool}", split, ecfg,
+            FleetConfig(n_engines=2, roles=True))
+        t = stats.transfers
+        print(f"    transfer ledger: transfers={t['transfers']} pages="
+              f"{t['pages']} bytes={t['bytes']:.0f} mean_latency_s="
+              f"{t['mean_latency_s']:.3e}; routed {stats.routed}")
+        compare(f"roles vs unified, {pool}", split, unified,
+                exact=pool == "fp")
+        chunk_kernel = ("paged_prefill_insert_flash_q8" if pool == "int8"
+                        else "paged_prefill_insert_flash")
+        assert t["transfers"] == len(split) == launches["handoff"], launches
+        assert stats.routed == [len(split), 0], stats.routed
+        assert launches[chunk_kernel] == cfg.num_layers * len(split)
+        assert dst.pools_drained(router)
+        if pool == "int8":
+            roles_launches = launches["handoff"]
+
+    # --- 4. preemption -------------------------------------------------
+    pcfg = EngineConfig(n_slots=2, max_seq=64, prefill_buckets=(32, 48),
+                        page_tokens=16, pool_dtype="fp", admission="greedy")
+    rng = np.random.default_rng(21)
+    tok_b = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+    tok_c = rng.integers(0, cfg.vocab_size, 48).astype(np.int32)
+    ref_b = Request(request_id=0, tokens=tok_b, max_new_tokens=24)
+    ref_c = Request(request_id=1, tokens=tok_c, max_new_tokens=16)
+    serve("preemption: uncontended", [ref_b, ref_c], pcfg)
+    b = Request(request_id=0, tokens=tok_b, max_new_tokens=24, priority=1)
+    c = Request(request_id=1, tokens=tok_c, max_new_tokens=16, priority=0)
+
+    def contend(eng, reqs):
+        sac = Request(request_id=7, tokens=tok_b.copy(), max_new_tokens=24,
+                      priority=1)
+        eng.run([sac], max_steps=2)
+        slot = next(s for s in eng.batcher.slots if s.active)
+        held = eng.pager.phys[slot.index, eng.pager.valid[slot.index]]
+        assert held.size == 3, held
+        eng.pager.pin(held)
+        eng._retire(slot)
+        eng.run([b], max_steps=4)
+        assert eng.pager.counters()["free_pages"] < 3
+        stats = eng.run([c])
+        eng.pager.unpin(held)
+        eng.substrate.drain(eng.pager, eng.caches, step=eng.steps)
+        p = eng.pager
+        assert sorted(p._free_phys) == list(range(p.n_phys))
+        assert (p.ref == 0).all() and p.pins == 0 and not eng.frozen
+        return stats
+
+    stats, _, _, _ = serve("preemption: contended", [b, c], pcfg,
+                           drive=contend)
+    f = stats.faults
+    print(f"    faults: preempts={f['preempts']} spills={f['spills']} "
+          f"restores={f['restores']} reprefilled_tokens="
+          f"{f['reprefilled_tokens']}")
+    assert f["preempts"] >= 1 and f["spills"] >= 1 and f["restores"] >= 1
+    compare("preempted streams vs uncontended, fp", [b, c], [ref_b, ref_c],
+            exact=True)
+
+    # --- 5. pinned freeze -> drain -> thaw, then degrade_pool ----------
+    moved = {}
+
+    def freeze_and_degrade(eng, reqs):
+        q = RequestQueue(reqs)
+        cap = eng.begin_capture()
+        while len(q) or eng.batcher.n_busy:
+            act = eng.pump(q)
+            if act == "idle":
+                eng.advance_to(q.next_arrival())
+            if act != "decode":
+                continue
+            if eng.steps == 10:
+                victim = max((s for s in eng.batcher.slots if s.active),
+                             key=lambda s: s.seq)
+                fs = eng.freeze_slot(victim)
+                out0 = kernels.LAUNCHES["page_out"]
+                pages0 = eng.substrate.counters()["page_out_pages"]
+                eng.substrate.drain(eng.pager, eng.caches, step=eng.steps)
+                moved["frozen_pages"] = len(fs.pages)
+                moved["page_out_launches"] = (kernels.LAUNCHES["page_out"]
+                                              - out0)
+                moved["pages_out"] = (eng.substrate.counters()[
+                    "page_out_pages"] - pages0)
+                assert set(fs.pages.tolist()) <= eng.substrate._resident
+                assert eng.thaw_slot(eng.frozen.pop(0))
+            elif eng.steps == 20:
+                in0 = kernels.LAUNCHES["page_in"]
+                eng.degrade_pool()
+                eng.substrate.drain(eng.pager, eng.caches, step=eng.steps)
+                moved["degrade_page_in_launches"] = (
+                    kernels.LAUNCHES["page_in"] - in0)
+                assert eng.pager.pool_bytes_used() == 0.0
+        return eng.capture_stats(cap, reqs)
+
+    fr = chat()
+    stats, _, launches, _ = serve("freeze/thaw/degrade fp", fr, base,
+                                  drive=freeze_and_degrade)
+    s_ = stats.substrate
+    print(f"    {moved}; page_out {s_['page_out_pages']} pages, page_in "
+          f"{s_['page_in_pages']} pages; faults preempts="
+          f"{stats.faults['preempts']} restores={stats.faults['restores']}"
+          f" degraded={stats.faults['degraded']}")
+    assert moved["page_out_launches"] == 1 and moved["pages_out"] > 0
+    assert moved["degrade_page_in_launches"] == 1
+    assert launches["page_out"] > 0 and launches["page_in"] > 0
+    compare("freeze/thaw/degrade vs uninterrupted, fp", fr, runs["fp"][0],
+            exact=True)
+
+    # --- 6. the handoff stream alone ------------------------------------
+    timer = Timer(torch)
+    gen = torch.Generator("cuda").manual_seed(3)
+    for n in (8, 64):
+        t = handoff_times(torch, timer, gen, n)
+        print(f"  handoff {n:2d} pages ({t['bytes'] / 1e6:.3f} MB): "
+              f"{t['ms']:.4f} ms device ({t['op_ms']:.4f} events), bound "
+              f"{t['bound_ms']:.5f} ms (2 x bytes / 3.35 TB/s, "
+              f"{t['bound_ms'] / t['ms']:.2f} of it), plain "
+              f"{t['plain_ms']:.4f} ms")
+    return {"handoff": roles_launches}
+
 
 def chunked_phase(torch):
     """Serve SmolLM-360M's shared-prefix trace with chunked prefill and
@@ -2425,7 +2810,7 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
 
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
-          "chunked", "contiguous", "speculative", "ssm")
+          "fleet", "chunked", "contiguous", "speculative", "ssm")
 
 
 def parse_phases(argv) -> set:
@@ -2506,6 +2891,9 @@ def main(argv=None) -> int:
     if "substrate" in phases:
         launches.update(substrate_phase(torch))
         phase_done("substrate")
+    if "fleet" in phases:
+        launches.update(fleet_phase(torch))
+        phase_done("fleet")
     if "chunked" in phases:
         launches.update(chunked_phase(torch))
         phase_done("chunked")

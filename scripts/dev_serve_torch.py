@@ -12,10 +12,27 @@ Gates, on fp pools:
    per verify step is reported. Attention-only archs only, as in the
    reference: an SSM arch (mamba2_780m) runs gate 1 alone.
 
+With `--fleet N` it runs the fleet lanes instead (the reference's
+`dev_serve.py --fleet` / `--fault-plan` lanes, on the port only):
+
+3. fleet parity: N engines behind the round-robin `FleetRouter` replay
+   the single engine's greedy streams on a staggered-arrival trace, with
+   every engine routed work; on attention-only archs, a shared-prefix
+   stream under prefix-aware placement emits the same tokens as under
+   round-robin with a strictly higher aggregate prefix hit rate;
+4. with `--fault-plan NAME` (`serving.faults.PLANS`; chaos_smoke = engine
+   1 killed at decode step 3 + 10% transfer flaking), chaos parity: the
+   same trace served fault-free and under the plan emits the same tokens,
+   every pool drains fully free (zero refcounts and pins) and the
+   placement gap is 0 on every engine.
+
     PYTHONPATH=src python scripts/dev_serve_torch.py              # on the card
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu # plain versions
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
         --arch mamba2_780m                                        # the SSM arch
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu --fleet 2
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu --fleet 2 \
+        --fault-plan chaos_smoke
 
 It serves the reduced config of each `--arch` (repeatable, default
 smollm_360m) in float32. `tests/test_torch_contiguous.py`,
@@ -44,9 +61,13 @@ from repro_torch.serving import (  # noqa: E402
     EngineConfig,
     Request,
     ServingEngine,
+    make_plan,
+    shared_prefix_stream,
 )
+from repro_torch.serving.fleet import FleetConfig, FleetRouter  # noqa: E402
 
 B, S, GEN = 2, 8, 6
+MAXS = S + GEN
 PAGE = 4
 
 
@@ -135,6 +156,133 @@ def speculative_parity(cfg, params, prompts, gen: int, mode: str, *,
                 greedy_stats=ref_stats, stats=stats, engine=eng)
 
 
+def pools_drained(router) -> bool:
+    """Every engine's page pool fully free: no page referenced, no pin."""
+    return all(
+        h.engine.pager.counters()["free_pages"] == h.engine.pager.n_phys
+        and (h.engine.pager.ref == 0).all() and h.engine.pager.pins == 0
+        for h in router.handles)
+
+
+def placement_gaps(router) -> list:
+    """Per engine, the pager's pool footprint minus the substrate ledger's
+    placement bytes (0 when they agree; None without a substrate)."""
+    return [None if h.engine.substrate is None else
+            h.engine.pager.pool_bytes_used()
+            - h.engine.substrate.ledger.placement_bytes()
+            for h in router.handles]
+
+
+def _fleet_ecfg(**kw) -> EngineConfig:
+    base = dict(n_slots=B, max_seq=MAXS, prefill_buckets=(S,),
+                page_tokens=PAGE, hot_window=8, local_budget_frac=0.5,
+                admission="greedy", paged=True, pool_dtype="fp")
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def _staggered(cfg, n: int, seed: int, gap: float):
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (n, S))
+    return [Request(request_id=i, tokens=toks[i], max_new_tokens=GEN,
+                    arrival=gap * i) for i in range(n)]
+
+
+def fleet_parity(cfg, params, n_engines: int, *, device=None):
+    """Round-robin fleet vs single engine, token for token on a
+    staggered-arrival trace. Returns (requests that differ, every engine
+    routed work, fleet stats)."""
+    ecfg = _fleet_ecfg()
+    n = 2 * n_engines * B
+    ref = _staggered(cfg, n, seed=2, gap=0.2)
+    ServingEngine.build(cfg, ecfg, params=params, device=device).run(ref)
+    got = _staggered(cfg, n, seed=2, gap=0.2)
+    stats = FleetRouter.build(
+        cfg, ecfg, FleetConfig(n_engines=n_engines, policy="round_robin"),
+        params=params, device=device).run(got)
+    mismatch = sum(int(a.output != b.output) for a, b in zip(got, ref))
+    return mismatch, min(stats.routed) > 0, stats
+
+
+def fleet_prefix(cfg, params, n_engines: int, *, device=None):
+    """Prefix-aware placement against round-robin on a shared-prefix
+    stream. Returns (same tokens, round-robin hit rate, prefix-aware hit
+    rate)."""
+    sp, genp = 32, 4
+    ecfg = _fleet_ecfg(max_seq=sp + genp, prefill_buckets=(sp,),
+                       prefix_cache=True)
+    outs, hits = {}, {}
+    for pol in ("round_robin", "prefix_aware"):
+        reqs = shared_prefix_stream(
+            6 * n_engines, cfg.vocab_size, seed=3,
+            system_tokens=sp - 2 * PAGE, prompt_buckets=(sp,),
+            gen_range=(genp, genp), arrival_rate=2.0, n_systems=n_engines)
+        stats = FleetRouter.build(
+            cfg, ecfg, FleetConfig(n_engines=n_engines, policy=pol),
+            params=params, device=device).run(reqs)
+        outs[pol] = [r.output for r in reqs]
+        hits[pol] = stats.prefix["hit_rate"]
+    return (outs["round_robin"] == outs["prefix_aware"],
+            hits["round_robin"], hits["prefix_aware"])
+
+
+def fleet_chaos(cfg, params, n_engines: int, plan_name: str, *,
+                device=None):
+    """One staggered trace served fault-free and under the named plan.
+    Returns (requests that differ, pools drained, placement gap 0 on
+    every engine, any engine has a substrate, the plan, fleet stats)."""
+    plan = make_plan(plan_name)
+    ecfg = _fleet_ecfg()
+    n = 3 * n_engines * B
+    clean = _staggered(cfg, n, seed=5, gap=0.05)
+    FleetRouter.build(
+        cfg, ecfg, FleetConfig(n_engines=n_engines, policy="round_robin"),
+        params=params, device=device).run(clean)
+    router = FleetRouter.build(
+        cfg, ecfg, FleetConfig(n_engines=n_engines, policy="round_robin",
+                               faults=plan),
+        params=params, device=device)
+    got = _staggered(cfg, n, seed=5, gap=0.05)
+    stats = router.run(got)
+    mismatch = sum(int(a.output != b.output) for a, b in zip(got, clean))
+    gaps = placement_gaps(router)
+    return (mismatch, pools_drained(router),
+            all(g is None or g == 0 for g in gaps),
+            any(g is not None for g in gaps), plan, stats)
+
+
+def fleet_lanes(cfg, params, n_engines: int, plan_name: Optional[str],
+                device) -> bool:
+    """Print the fleet lanes of one arch; True when every gate held."""
+    if plan_name:
+        mismatch, drained, placement_ok, has_sub, plan, stats = \
+            fleet_chaos(cfg, params, n_engines, plan_name, device=device)
+        f = stats.faults
+        ok = (mismatch == 0 and drained and placement_ok
+              and (not (plan.active and has_sub)
+                   or f.get("retries", 0) >= 1)
+              and (plan.kill_engine is None
+                   or f.get("engines_killed", 0) == 1))
+        print(f"{cfg.name}: chaos={plan_name} fleet={n_engines} "
+              f"mismatch={mismatch} killed={f.get('engines_killed', 0)} "
+              f"retries={f.get('retries', 0)} "
+              f"refill={f.get('reprefilled_tokens', 0)} drained={drained} "
+              f"placement_ok={placement_ok} {'OK' if ok else 'FAIL'}")
+        return ok
+    mismatch, balanced, _ = fleet_parity(cfg, params, n_engines,
+                                         device=device)
+    ok = mismatch == 0 and balanced
+    note = ""
+    if serve_rt.chunked_prefill_supported(cfg):
+        parity, rr_hit, pa_hit = fleet_prefix(cfg, params, n_engines,
+                                              device=device)
+        ok &= parity and pa_hit > rr_hit
+        note = (f" prefix_hit rr={rr_hit:.3f} aware={pa_hit:.3f} "
+                f"parity={parity}")
+    print(f"{cfg.name}: fleet={n_engines} rr_mismatch={mismatch} "
+          f"balanced={balanced}{note} {'OK' if ok else 'FAIL'}")
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append", choices=configs.list_archs(),
@@ -143,11 +291,23 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--speculative", choices=("ngram", "draft"),
                     action="append")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="run the fleet lanes with N engines instead")
+    ap.add_argument("--fault-plan", metavar="NAME",
+                    help="with --fleet: the chaos-parity lane under this "
+                    "plan (serving.faults.PLANS)")
     args = ap.parse_args(argv)
+    if args.fault_plan and not args.fleet:
+        ap.error("--fault-plan needs --fleet N")
     failed = []
     for arch in args.arch or ["smollm_360m"]:
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
         params = M.init_model(cfg, device=args.device, seed=0)
+        if args.fleet:
+            if not fleet_lanes(cfg, params, args.fleet, args.fault_plan,
+                               args.device):
+                failed.append(f"{arch} fleet={args.fleet}")
+            continue
         rng = np.random.default_rng(4)
         prompts = rng.integers(0, cfg.vocab_size, (B, S))
         naive = naive_greedy(cfg, params, prompts, GEN, max_seq=S + GEN,

@@ -6,7 +6,10 @@
 // body carries the substrate's page_out / page_in streams
 // (src/repro/serving/substrate/tier_substrate.py `page_out` / `page_in`,
 // jitted gathers and scatters there), whose one end is pinned host memory
-// reached through its mapped device pointer.
+// reached through its mapped device pointer, and the fleet's handoff copy
+// between two engines' pools (src/repro/serving/fleet/roles.py
+// `copy_pages`), where both ends are device memory and both id vectors
+// are given.
 //
 // A launch takes up to kMaxSegs segments by value (`__grid_constant__`,
 // no host-to-device copy). Segment s copies, for every level i < nb and

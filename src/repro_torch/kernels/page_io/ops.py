@@ -1,6 +1,8 @@
 """Public page-copy ops: land page tiles in the physical pool in place
 (`write_pages`, `write_pages_group`) and move pages between the pool and
-its host twin (`copy_pages`, the substrate's page_out / page_in streams).
+its host twin (`copy_pages`, the substrate's page_out / page_in streams)
+or between two engines' pools (`copy_pages`, the fleet's prefill->decode
+handoff).
 
 A CUDA pool goes through the grouped CUDA page copy (`page_io.py`); a CPU
 pool takes the plain `index_copy_` / `index_select` (`ref.py`).
@@ -15,7 +17,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.page_io import ref
 
-STREAMS = ("page_out", "page_in")
+STREAMS = ("page_out", "page_in", "handoff")
 
 
 def write_pages(pool: torch.Tensor, tiles: torch.Tensor, phys: torch.Tensor,
@@ -52,11 +54,13 @@ def copy_pages(dst, dst_ids: Optional[torch.Tensor], src,
     """`dst[k][:, dst_ids[j]] = src[k][:, src_ids[j]]` for each leaf k of
     `dst` / `src` (tensors or sequences of tensors; ids None: page j), in
     one launch. page_out is `copy_pages(twin, ids, pool, ids)`, page_in
-    `copy_pages(scratch, None, twin, ids)`. The device side decides: a
+    `copy_pages(scratch, None, twin, ids)`, the handoff `copy_pages(
+    dst_pool, dst_ids, src_pool, src_ids)` (device to device, between two
+    engines' pools). The device side decides: a
     CUDA tensor among them launches the kernel, which reaches a pinned
     host tensor through its mapped address (a host tensor that is not
     pinned raises); all-CPU tensors take the plain version. `name`
-    ("page_out" | "page_in") is the stream counted."""
+    ("page_out" | "page_in" | "handoff") is the stream counted."""
     if name not in STREAMS:
         raise ValueError(f"unknown page stream {name!r}")
     dst = [dst] if isinstance(dst, torch.Tensor) else list(dst)

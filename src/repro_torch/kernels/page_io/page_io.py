@@ -1,6 +1,7 @@
 """ctypes wrapper of the grouped CUDA page copy (`csrc/page_io.cu`), the
-port of `repro.kernels.page_io.page_io.write_pages_pallas` and of the
-substrate's page streams (`repro.serving.substrate.tier_substrate`).
+port of `repro.kernels.page_io.page_io.write_pages_pallas`, of the
+substrate's page streams (`repro.serving.substrate.tier_substrate`) and
+of the fleet's handoff copy (`repro.serving.fleet.roles.copy_pages`).
 
 `plan` turns a list of `Segment`s into the kernel's int64 descriptor:
 per segment the vector width its alignment allows, its vector and tile
@@ -275,6 +276,6 @@ def copy_pages_cuda(dst: Sequence[torch.Tensor],
                     name: str) -> None:
     """`dst[k][:, dst_ids[j]] = src[k][:, src_ids[j]]` for every leaf k in
     ONE launch (ids None: page j), on the current stream; `name`
-    ("page_out" or "page_in") is the launch counted."""
+    ("page_out", "page_in" or "handoff") is the launch counted."""
     segs = copy_segments(dst, dst_ids, src, src_ids)
     launch(segs, name, next(t.device for t in (*dst, *src) if t.is_cuda))

@@ -1,5 +1,5 @@
 """Tier-aware continuous-batching serving on the card (port of
-`repro.serving`, without the fleet and faults).
+`repro.serving`).
 
 By default the KV cache is a PHYSICAL page pool end to end:
 self-attention K/V lives as (stack, n_slots * n_pages, page_tokens,
@@ -24,6 +24,17 @@ suffix matching over the slot's own history; "draft": a draft model on
 contiguous scratch caches), one paged verify call scores all k
 candidates, and `accept_greedy` commits the longest prefix greedy decode
 would have produced, so the tokens equal greedy's on fp pools.
+
+FAULTS AND THE FLEET (`serving/faults.py`, `serving/fleet/`): N engines
+share one parameter tree and one set of cells behind a placement router
+(round-robin, KV-load-aware, prefix-aware), with queue-depth autoscaling
+and an optional prefill/decode role split whose handoff copies KV pages
+between the engines' pools on the page-copy kernel. A deterministic
+`FaultPlan` kills, stalls, shrinks or strips the pool tier of an engine
+and flakes transfers; the router's watchdog recovers a dead engine's
+queued and in-flight requests onto the survivors (teacher-forced refill),
+and a bucket admission under pool exhaustion preempts a lower-priority
+slot.
 """
 
 from repro_torch.serving.batcher import ContinuousBatcher, Slot
@@ -34,6 +45,8 @@ from repro_torch.serving.engine import (
     ServeStats,
     ServingEngine,
 )
+from repro_torch.serving.faults import PLANS, FaultInjector, FaultPlan, \
+    make_plan
 from repro_torch.serving.kv_pager import KVPager, PagerConfig, StepTraffic
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixHit
 from repro_torch.serving.queue import (
@@ -48,13 +61,18 @@ from repro_torch.serving.queue import (
     shared_prefix_stream,
 )
 from repro_torch.serving.speculative import accept_greedy, ngram_propose
+from repro_torch.serving.substrate import SubstrateLedger, TierSubstrate
+from repro_torch.serving import fleet
 
 __all__ = [
     "AdmissionController",
     "ContinuousBatcher",
     "EngineConfig",
+    "FaultInjector",
+    "FaultPlan",
     "INT8_TOKEN_AGREEMENT",
     "KVPager",
+    "PLANS",
     "PagerConfig",
     "PrefixCache",
     "PrefixHit",
@@ -65,10 +83,14 @@ __all__ = [
     "ServingEngine",
     "Slot",
     "StepTraffic",
+    "SubstrateLedger",
+    "TierSubstrate",
     "accept_greedy",
     "bursty_stream",
     "chat_stream",
+    "fleet",
     "long_context_stream",
+    "make_plan",
     "make_scenario",
     "multi_tenant_stream",
     "ngram_propose",

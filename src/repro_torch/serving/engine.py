@@ -39,6 +39,17 @@ mirrors the pool-tiered pages into a pinned host twin once per decode
 step, on a side stream ("auto": physical on the card, emulated on the
 CPU); the device pool stays authoritative, so tokens do not change.
 
+Faults and recovery (`serving.faults`, driven by `serving.fleet`): a slot
+can be preempted (`freeze_slot`: pinned, its pages held and tiered to
+the pool, or spilled, its pages released) and restored (`thaw_slot`, or
+`adopt`'s teacher-forced refill of prompt + emitted history, which also
+moves a dead engine's in-flight requests onto a live one). Under
+pool exhaustion a bucket admission spill-freezes a strictly
+lower-priority slot. `evacuate` strips an engine for recovery and leaves
+its pool fully free; `degrade_pool` falls back to local-only paging.
+A prefill-role engine (`handoff_role`) parks each completed chunked
+prefill as a `HandoffRecord` for the fleet router's pool transfer.
+
 Ported configuration: `EngineConfig()` means the same main path as in the
 reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
 LoI admission, the substrate on "auto"; chunked prefill, the prefix
@@ -47,7 +58,9 @@ It serves the dense attention-only archs and the SSM arch mamba2-780m
 (whose slot-resident state the pager prices; its pool holds nothing, so
 chunked prefill, the prefix cache and speculation refuse it as the
 reference does). Options outside the slice raise `NotImplementedError`
-naming the ROADMAP item that will port them.
+naming the ROADMAP item that will port them. The reference's
+`compile_counts` (jit's executable caches) has no eager counterpart and
+`measured_profile` waits for the scheduler (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -73,7 +86,7 @@ from repro_torch.models.module import cast_params
 from repro_torch.runtime import capability
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.serving.batcher import ContinuousBatcher
-from repro_torch.serving.kv_pager import KVPager, PagerConfig
+from repro_torch.serving.kv_pager import LOCAL, KVPager, PagerConfig
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving import speculative as spec
 from repro_torch.serving.queue import Request, RequestQueue
@@ -241,6 +254,13 @@ class ServeStats:
     # decoding deltas: verify_steps / emitted / draft_calls /
     # accept_len_mean (tokens each slot commits per verify step). Empty
     # when speculation is off; `tokens` already counts every accepted token
+    faults: dict = dataclasses.field(default_factory=dict)  # fault-
+    # recovery deltas (serving.faults): preempts / restores / spills /
+    # migrations_in / reprefilled_tokens (recovery overhead: prompt +
+    # history tokens recomputed by teacher-forced refill) / retries /
+    # retry_bytes (failed substrate transfer attempts) / backoff_s
+    # (virtual seconds the clock charged for retry backoff). Empty on
+    # fault-free runs
 
     def summary(self) -> Dict[str, float]:
         def pct(a, q):
@@ -277,7 +297,51 @@ class ServeStats:
         if self.spec:
             out["accept_len_mean"] = self.spec["accept_len_mean"]
             out["verify_steps"] = self.spec["verify_steps"]
+        if self.faults:
+            out["fault_preempts"] = self.faults["preempts"]
+            out["fault_restores"] = self.faults["restores"]
+            out["fault_retries"] = self.faults["retries"]
+            out["fault_retry_bytes"] = self.faults["retry_bytes"]
+            out["recovery_overhead_tokens"] = \
+                self.faults["reprefilled_tokens"]
         return out
+
+
+@dataclasses.dataclass
+class HandoffRecord:
+    """A completed prefill awaiting pool transfer to a decode-role engine
+    (disaggregated prefill/decode, `serving.fleet.roles`). The prefill
+    engine emitted the first token and parked the slot in the `handoff`
+    phase; `pages` are the slot's physical prompt pages, guard-pinned so
+    nothing (COW splits, prefix-cache reclaim) can recycle them before
+    the transfer copies their payload out. `complete_handoff` drops the
+    pin and releases the slot."""
+
+    slot: int
+    request: object               # serving.queue.Request
+    first_token: int
+    n_tokens: int                 # cached prompt tokens to transfer
+    pages: List[int]              # physical page ids, logical order
+    t_emit: float                 # prefill engine's clock at completion
+
+
+@dataclasses.dataclass
+class FrozenSlot:
+    """A preempted in-flight request (see `freeze_slot`). Two flavors: a
+    PINNED freeze keeps the slot's physical pages alive under a freeze
+    pin (tagged pool tier, so the substrate pages their payload out to
+    the host twin on the next drain) and `thaw_slot` remaps them
+    wholesale; a SPILLED freeze (`pages is None`) released the pages
+    entirely — restore runs the teacher-forced refill of prompt +
+    emitted history (`adopt`), which is also how a dead engine's
+    in-flight requests migrate to a live one."""
+
+    request: object               # serving.queue.Request
+    length: int                   # cached tokens at freeze (== slot.t)
+    emitted: int                  # tokens generated before the freeze
+    last_token: int               # next decode step's feed token
+    pages: Optional[np.ndarray]   # physical page ids; None = spilled
+    t_frozen: float               # engine clock at preemption
 
 
 def _kv_bytes_per_token(acaches) -> float:
@@ -443,6 +507,25 @@ class ServingEngine:
         # the per-step host->device copy by identity
         self._max_conc = 0
         self.cancelled = 0             # in-flight cancellations swept
+        # --- disaggregated prefill/decode (serving.fleet.roles) ---
+        self.handoff_role = False      # True: completed chunked prefills
+        # park in the `handoff` phase and queue a HandoffRecord instead of
+        # joining this engine's decode batch
+        self.handoff_outbox: List[HandoffRecord] = []
+        # --- fault tolerance (serving.faults) ---
+        self.faults = None             # FaultInjector; the fleet router
+        # wires it (and engine_id) after build — unset, every fault site
+        # is dormant
+        self.engine_id = 0
+        self.frozen: List[FrozenSlot] = []   # preempted slots, FIFO
+        self._dead = False
+        self._stall_until = 0.0
+        self._degraded = False         # pool tier lost -> local-only
+        self._fault_counters: Dict[str, float] = {
+            "preempts": 0, "restores": 0, "spills": 0,
+            "migrations_in": 0, "reprefilled_tokens": 0,
+            "budget_shrinks": 0, "degraded": 0, "backoff_s": 0.0,
+        }
 
     # ------------------------------------------------------------- build
     @classmethod
@@ -617,13 +700,44 @@ class ServingEngine:
             first = int(tok[0])
             req.output.append(first)
             req.token_times.append(self.virtual_s)
-            self.batcher.begin_decode(slot, start_pos=req.prompt_len)
             if req.done:                  # max_new_tokens == 1
+                self.batcher.begin_decode(slot, start_pos=req.prompt_len)
                 req.finished = self.virtual_s
                 self._retire(slot)
+            elif self.handoff_role:
+                # disaggregated prefill role: do NOT join this engine's
+                # decode batch — park the slot (its write cursor stays
+                # masked), guard-pin the prompt pages, and queue the
+                # handoff for the fleet router's pool transfer
+                pages = [int(p) for p in self.pager.phys[
+                    slot.index, :self._pages_needed(req.prompt_len)]]
+                self.pager.pin(pages)
+                slot.phase = "handoff"
+                self.handoff_outbox.append(HandoffRecord(
+                    slot=slot.index, request=req, first_token=first,
+                    n_tokens=req.prompt_len, pages=pages,
+                    t_emit=self.virtual_s,
+                ))
             else:
+                self.batcher.begin_decode(slot, start_pos=req.prompt_len)
                 self.tokens[slot.index] = first
         return True
+
+    def complete_handoff(self, rec: HandoffRecord) -> None:
+        """The transfer copied `rec`'s pages into the decode engine's
+        pool: drop the guard pin and release the prefill slot (its pages
+        return to this engine's free list unless the prefix trie still
+        holds them). The copy is already queued on the stream every
+        later write of these pages goes to, so a page freed here cannot
+        be overwritten before the copy has read it."""
+        slot = self.batcher.slots[rec.slot]
+        if slot.request is not rec.request:
+            raise RuntimeError(
+                f"handoff slot {rec.slot} no longer owns request "
+                f"{rec.request.request_id}"
+            )
+        self.pager.unpin(rec.pages)
+        self._retire(slot)
 
     def _pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.ecfg.page_tokens)
@@ -638,15 +752,287 @@ class ServingEngine:
                   if self.prefix_cache is not None else 0)
         return free + cached >= need
 
+    def _preempt_victim(self, priority: int):
+        """The active decode slot to freeze for an incoming request of
+        `priority`: strictly LOWER class only (higher priority number),
+        youngest admission within the lowest class — preempting equals
+        or betters never happens, so thaw cannot cycle."""
+        victims = [s for s in self.batcher.slots
+                   if s.active and s.request.priority > priority]
+        if not victims:
+            return None
+        return max(victims, key=lambda s: (s.request.priority, s.seq))
+
     def _ensure_pages_for(self, req: Request) -> bool:
-        """True when the pool can supply `req`'s prompt pages; else `req`
-        stays queued (slot preemption, which would free pages here, ports
-        with ROADMAP A10). The chunked path allocates per chunk and is
-        not gated here."""
-        if self.cells.chunk_fn is not None:
+        """Make room for `req`'s prompt pages, spill-freezing strictly
+        lower-priority decode slots if the pool cannot otherwise supply
+        them. Returns False (leave `req` queued) when no victim exists.
+        Bucket-path paged mode only: the chunked path allocates per chunk
+        and the contiguous layout has no shared pool to exhaust."""
+        if not self.cells.paged or self.cells.chunk_fn is not None:
             return True
-        return self._reclaimable(
-            self._pages_needed(self.npfx + req.prompt_len))
+        need = self._pages_needed(self.npfx + req.prompt_len)
+        while not self._reclaimable(need):
+            victim = self._preempt_victim(req.priority)
+            if victim is None:
+                return False
+            self.freeze_slot(victim, spill=True)
+        return True
+
+    def freeze_slot(self, slot, *, spill: bool = False) -> FrozenSlot:
+        """Preempt an active decode slot: snapshot (emitted count, cached
+        length, feed token), evict its pages wholesale and release the
+        slot. Pinned mode keeps the pages alive under a freeze pin,
+        retagged pool tier (the substrate's next drain pages their
+        payload out to the host twin); spill mode releases them outright
+        — restore then teacher-force-refills from the request's own
+        history."""
+        if not slot.active:
+            raise RuntimeError(
+                f"freeze needs an active decode slot, got {slot.index} "
+                f"in phase {slot.phase!r}")
+        if not spill and not self.cells.paged:
+            raise RuntimeError(
+                "pinned freeze is paged-only: contiguous caches key KV by "
+                "slot index, so remapping pages moves nothing")
+        fs = FrozenSlot(
+            request=slot.request,
+            length=int(slot.t),
+            emitted=int(slot.emitted),
+            last_token=int(self.tokens[slot.index]),
+            pages=None,
+            t_frozen=self.virtual_s,
+        )
+        snap = self.pager.freeze(slot.index, spill=spill)
+        fs.pages = snap["pages"]
+        if snap["length"] != fs.length:
+            raise RuntimeError(
+                f"freeze: pager length {snap['length']} != slot cursor "
+                f"{fs.length} for slot {slot.index}")
+        self.batcher.release(slot)
+        self._draft_fed[slot.index] = 0
+        self.frozen.append(fs)
+        self._fault_counters["preempts"] += 1
+        if spill:
+            self._fault_counters["spills"] += 1
+        return fs
+
+    def thaw_slot(self, fs: FrozenSlot) -> bool:
+        """Resume a frozen request on THIS engine. A pinned snapshot
+        remaps its pages wholesale into a fresh slot (no recompute); a
+        spilled one re-runs prompt + emitted history through `adopt`'s
+        teacher-forced refill. Returns False if no slot/pages are
+        available right now."""
+        if self.batcher.n_free == 0:
+            return False
+        if fs.pages is None:
+            return self.adopt(fs.request, self.virtual_s, migrated=False)
+        slot = self.batcher.admit(fs.request, start_pos=fs.length,
+                                  emitted=fs.emitted)
+        self.pager.thaw(slot.index,
+                        {"pages": fs.pages, "length": fs.length})
+        self.tokens[slot.index] = fs.last_token
+        self._fault_counters["restores"] += 1
+        return True
+
+    def adopt(self, req: Request, now: float, *,
+              migrated: bool = True) -> bool:
+        """Resume a request that already emitted tokens elsewhere (a dead
+        engine's in-flight slot, or a spilled freeze): re-prefill the
+        prompt through the bucket cell, then teacher-force the emitted
+        history through the plain decode cell one token at a time —
+        every other slot's write cursor stays parked, so their KV and
+        cursors are untouched. Greedy decode is deterministic per request
+        and the decode cell computes each row from that row's own inputs,
+        so the recomputed KV matches what the recovered continuation
+        would have attended to and the token stream stays the same (fp
+        pools). Returns False when no slot or pages are available yet
+        (the caller retries on a later tick)."""
+        if not req.output:
+            raise ValueError(
+                f"request {req.request_id} has no emitted history — "
+                "requeue it through the router instead of adopting")
+        if self.cells.chunk_fn is not None:
+            raise RuntimeError(
+                "adopt needs the bucketed prefill cell; chunked-prefill "
+                "engines cannot replay a migrated request")
+        if self.batcher.n_free == 0:
+            return False
+        emitted = [int(t) for t in req.output]
+        start = self.npfx + req.prompt_len
+        if self.cells.paged and not self._reclaimable(
+                self._pages_needed(start + len(emitted))):
+            return False
+        bucket = self.batcher.bucket_for(req.prompt_len)
+        batch = {"tokens": torch.tensor(req.tokens[None, :],
+                                        device=self.device)}
+        slot_caches, _ = self.cells.prefill_fns[bucket](self.params, batch)
+        slot = self.batcher.admit(req, start_pos=start,
+                                  emitted=len(emitted))
+        self.pager.admit(slot.index, start)
+        if self.cells.paged:
+            self._fence()
+            self.caches = self.cells.insert_fns[bucket](
+                self.caches, slot_caches, slot.index,
+                self._block_table_dev(),
+            )
+        else:
+            self.caches = self.cells.insert_fns[bucket](
+                self.caches, slot_caches, slot.index)
+        self.virtual_s += self._prefill_dt(start)
+        self._force_feed(slot, start, emitted[:-1])
+        self.tokens[slot.index] = emitted[-1]
+        slot.t = start + len(emitted) - 1
+        self._fault_counters["restores"] += 1
+        if migrated:
+            self._fault_counters["migrations_in"] += 1
+        self._fault_counters["reprefilled_tokens"] += (
+            start + max(0, len(emitted) - 1))
+        return True
+
+    def _force_feed(self, slot, start: int, toks: List[int]) -> None:
+        """Teacher-forced replay: feed each already-emitted token at its
+        original position through the full-batch decode cell. The
+        returned tokens are DISCARDED — determinism guarantees they equal
+        the history being fed — only the KV writes matter. Other slots
+        ride along parked (masked writes, garbage logits ignored), so
+        interleaving a replay between fleet steps perturbs nothing. One
+        decode launch per layer per replayed token."""
+        if not toks:
+            return
+        n = self.ecfg.n_slots
+        mask = np.zeros(n, dtype=bool)
+        mask[slot.index] = True
+        park = self.batcher.park_pos
+        for j, tok in enumerate(toks):
+            t_vec = np.full(n, park, dtype=np.int32)
+            t_vec[slot.index] = start + j
+            feed = self.tokens.copy()
+            feed[slot.index] = np.int32(tok)
+            feed_dev = torch.tensor(feed, device=self.device)
+            t_dev = torch.tensor(t_vec, device=self.device)
+            if self.cells.paged:
+                self._fence()
+                for old, new in self.pager.ensure_tail_pages(mask):
+                    self.caches = self.cells.copy_fn(self.caches, old, new)
+                _, _, self.caches = self.cells.decode_fn(
+                    self.params, feed_dev, self.caches, t_dev,
+                    self._block_table_dev(),
+                )
+            else:
+                _, _, self.caches = self.cells.decode_fn(
+                    self.params, feed_dev, self.caches, t_dev)
+            self.pager.step(mask)
+        # priced as recovery recompute: decode-shaped flops over the
+        # replayed tokens, KV writes to the local tier, no per-step
+        # launch floor (the replay rides one recovery event)
+        self.virtual_s += self._prefill_dt(len(toks), final=False)
+
+    def _thaw_tick(self, q: RequestQueue) -> bool:
+        """Restore frozen slots (oldest first) while capacity allows. A
+        frozen request yields to an ARRIVED strictly-higher-class request
+        (which would just re-preempt it); preemption only ever picks
+        strictly lower classes, so yield + preempt cannot cycle."""
+        progressed = False
+        while self.frozen and self.batcher.n_free:
+            fs = self.frozen[0]
+            if fs.request.is_cancelled(self.virtual_s):
+                self.frozen.pop(0)
+                self.pager.drop_frozen({"pages": fs.pages})
+                fs.request.finished = self.virtual_s
+                self.cancelled += 1
+                progressed = True
+                continue
+            nxt = q.peek(self.virtual_s)
+            if nxt is not None and nxt.priority < fs.request.priority:
+                break
+            if not self.thaw_slot(fs):
+                break
+            self.frozen.pop(0)
+            progressed = True
+        return progressed
+
+    def _shrink_budget(self, frac: float) -> None:
+        """Pool-pressure spike: the local page budget shrinks to `frac`
+        of itself; the hotness rebalancer demotes to fit immediately."""
+        pg = self.pager
+        if not np.isfinite(pg.budget):
+            return
+        pg.cfg = dataclasses.replace(
+            pg.cfg, local_budget_bytes=pg.budget * frac)
+        self._fault_counters["budget_shrinks"] += 1
+        if pg.cfg.policy == "hotness":
+            pg.rebalance()
+
+    def degrade_pool(self) -> None:
+        """The pool tier dropped out: fall back to LOCAL-ONLY paging.
+        Every live page retags local (the substrate's next drain pages
+        the twin's content back in and empties host placement), the
+        pager stops evicting (policy "none"), and admission tightens —
+        halving the corridor budget models the local tier absorbing
+        traffic the corridor priced for the pool link."""
+        if self._degraded:
+            return
+        self._degraded = True
+        self._fault_counters["degraded"] = 1
+        pg = self.pager
+        pg.tier_phys[:] = LOCAL
+        pg.cfg = dataclasses.replace(
+            pg.cfg, policy="none", local_budget_bytes=None)
+        self.admission.budget *= 0.5
+
+    def _fault_tick(self) -> Optional[str]:
+        """Consult the injector before any engine work. Returns "dead" /
+        "stalled" when this engine cannot make progress (the router's
+        watchdog takes it from there), None to proceed normally."""
+        if self._dead:
+            return "dead"
+        f = self.faults
+        if f is None:
+            return None
+        if f.kill_now(self.engine_id, self.steps):
+            self._dead = True
+            return "dead"
+        stall = f.stall_now(self.engine_id, self.steps)
+        if stall is not None:
+            self._stall_until = self.virtual_s + stall
+        if self.virtual_s < self._stall_until:
+            return "stalled"
+        frac = f.shrink_now(self.engine_id, self.steps)
+        if frac is not None:
+            self._shrink_budget(frac)
+        if f.pool_lost_now(self.engine_id, self.steps):
+            self.degrade_pool()
+        return None
+
+    def evacuate(self) -> List[Request]:
+        """Strip the engine for recovery or drain: every occupied slot,
+        frozen snapshot and handoff pin releases WITHOUT finishing its
+        request (the router re-routes or adopts them), the prefix trie
+        gives back every cached page, and the substrate reconciles to an
+        empty pool and completes its streams. Afterward the page pool is
+        fully free with zero refcounts. Returns the displaced requests in
+        slot order (decode slots first carry emitted history for
+        adoption; prefill-phase ones are clean requeues)."""
+        displaced: List[Request] = []
+        for rec in self.handoff_outbox:
+            self.pager.unpin(rec.pages)
+        self.handoff_outbox = []
+        for slot in self.batcher.slots:
+            if slot.occupied:
+                displaced.append(slot.request)
+                self._retire(slot)
+        for fs in self.frozen:
+            self.pager.drop_frozen({"pages": fs.pages})
+            displaced.append(fs.request)
+        self.frozen = []
+        if self.prefix_cache is not None:
+            self.prefix_cache.reclaim(self.pager, self.pager.n_phys)
+        if self.substrate is not None:
+            self.substrate.drain(self.pager, self.caches, step=self.steps)
+            self.substrate.sync()
+            self.virtual_s += self.substrate.take_backoff()
+        return displaced
 
     def _prefill_dt(self, n_tokens: int, final: bool = True) -> float:
         """Virtual cost of prefilling `n_tokens` on the target topology:
@@ -767,7 +1153,9 @@ class ServingEngine:
         if self.substrate is None:
             return 0.0
         self.substrate.drain(self.pager, self.caches, step=self.steps)
-        return self.substrate.take_backoff()
+        t_backoff = self.substrate.take_backoff()
+        self._fault_counters["backoff_s"] += t_backoff
+        return t_backoff
 
     # ------------------------------------------------------- speculative
     def _history(self, slot) -> np.ndarray:
@@ -961,6 +1349,18 @@ class ServingEngine:
                 self.pager.truncate(slot.index)
 
     # -------------------------------------------------------- tick layer
+    # The engine loop as re-entrant primitives, so the fleet router
+    # (`serving.fleet.router`) can drive N engines step by step on
+    # interleaved virtual clocks; `run()` composes the same primitives.
+    @property
+    def pending_work(self) -> bool:
+        """True while a tick could make local progress: any occupied slot
+        that is not parked awaiting a fleet handoff, or a frozen request
+        a free slot could thaw."""
+        return any(s.occupied and s.phase != "handoff"
+                   for s in self.batcher.slots) \
+            or (bool(self.frozen) and self.batcher.n_free > 0)
+
     def advance_to(self, t: float) -> None:
         """Advance the virtual clock to `t` (idle wait, never backwards);
         the decode-gap origin moves past the wait."""
@@ -971,10 +1371,11 @@ class ServingEngine:
 
     def sweep_cancelled(self) -> int:
         """Retire every occupied slot whose request is cancelled,
-        releasing its KV pages."""
+        releasing its KV pages. Handoff-parked slots are skipped (the
+        router owns them mid-transfer)."""
         n = 0
         for slot in self.batcher.slots:
-            if (slot.occupied
+            if (slot.occupied and slot.phase != "handoff"
                     and slot.request.is_cancelled(self.virtual_s)):
                 slot.request.finished = self.virtual_s
                 self._retire(slot)
@@ -983,25 +1384,32 @@ class ServingEngine:
         return n
 
     def pump(self, q: RequestQueue) -> str:
-        """One engine-loop iteration against `q`: sweep cancellations,
-        admit while slots/admission allow, advance at most one prefill
-        chunk, then one decode step if any slot is live. Returns
-        "decode" | "chunk" | "admit" | "idle"."""
+        """One engine-loop iteration against `q`: consult the fault
+        injector, sweep cancellations, restore frozen slots, admit while
+        slots/admission allow, advance at most one prefill chunk, then
+        one decode step if any slot is live. Returns "decode" | "chunk" |
+        "admit" | "idle" (nothing possible — the caller owns clock
+        advancement) | "dead" / "stalled" (fault injection: the engine
+        cannot make progress; the fleet router's watchdog recovers it)."""
+        act = self._fault_tick()
+        if act is not None:
+            return act
         self.sweep_cancelled()
+        restored = self._thaw_tick(q) if self.frozen else False
         admitted = False
         while self.batcher.n_free:
             req = q.peek(self.virtual_s)
             if req is None or not self.admission.admit(self.batcher.n_busy):
                 break
             if not self._ensure_pages_for(req):
-                break       # stays queued until pages free up
+                break       # stays queued; no victim to preempt
             self._admit(q.pop(self.virtual_s), self.virtual_s)
             admitted = True
         chunk_ran = self._prefill_tick()
         if self.batcher.n_active == 0:
             if chunk_ran:
                 return "chunk"
-            return "admit" if admitted else "idle"
+            return "admit" if admitted or restored else "idle"
         self._max_conc = max(self._max_conc, self.batcher.n_active)
         if self.cells.verify_fn is not None:
             self._step_speculative()
@@ -1025,6 +1433,10 @@ class ServingEngine:
                            if self.substrate is not None else None),
             "spec0": (self.spec_verify_steps, self.spec_slot_steps,
                       self.spec_emitted, self.spec_draft_calls),
+            "faults0": dict(self._fault_counters),
+            "sub_retries0": ((self.substrate.retries,
+                              self.substrate.retry_bytes)
+                             if self.substrate is not None else (0, 0.0)),
             "wall0": time.perf_counter(),
         }
 
@@ -1036,20 +1448,28 @@ class ServingEngine:
         objects."""
         q = RequestQueue(requests)
         cap = self.begin_capture()
-        while len(q) or self.batcher.n_busy:
+        while len(q) or self.batcher.n_busy or self.frozen:
             act = self.pump(q)
             if act == "decode":
                 if max_steps is not None and self.steps >= max_steps:
                     break
+            elif act == "dead":
+                break       # single engine: nowhere to recover to
+            elif act == "stalled":
+                self.advance_to(self._stall_until)
             elif act == "idle":
                 nxt = q.next_arrival()
                 if not np.isfinite(nxt):
+                    if self.frozen:
+                        raise RuntimeError(
+                            "engine wedged: frozen request cannot thaw "
+                            "and nothing is running to free pages")
                     break
                 if nxt <= self.virtual_s:
                     raise RuntimeError(
                         "engine starved: an arrived request cannot be "
-                        "admitted (its prompt exceeds the reclaimable "
-                        "pool)")
+                        "admitted (prompt exceeds the reclaimable pool "
+                        "and no lower-priority victim to preempt)")
                 self.advance_to(nxt)
         return self.capture_stats(cap, requests)
 
@@ -1063,7 +1483,9 @@ class ServingEngine:
             # reflects finished transfers and current placement
             self.substrate.drain(self.pager, self.caches, step=self.steps)
             self.substrate.sync()
-            self.virtual_s += self.substrate.take_backoff()
+            t_backoff = self.substrate.take_backoff()
+            self.virtual_s += t_backoff
+            self._fault_counters["backoff_s"] += t_backoff
             s0, s1 = cap["substrate0"], self.substrate.counters()
             substrate_delta = {
                 k: (s1[k] - s0[k]) if isinstance(s1[k], (int, float))
@@ -1136,6 +1558,16 @@ class ServingEngine:
                 "accept_len_mean": (emitted / slot_steps
                                     if slot_steps else 0.0),
             }
+        f0, f1 = cap["faults0"], self._fault_counters
+        delta = {k: f1[k] - f0[k] for k in f1}
+        r0, rb0 = cap["sub_retries0"]
+        sub = self.substrate
+        delta["retries"] = sub.retries - r0 if sub is not None else 0
+        delta["retry_bytes"] = (sub.retry_bytes - rb0 if sub is not None
+                                else 0.0)
+        # fault-free runs keep faults == {}
+        faults_delta = (delta if self.faults is not None
+                        or any(delta.values()) else {})
         return ServeStats(
             n_requests=len(done),
             tokens=sum(len(r.output) for r in done),
@@ -1151,4 +1583,5 @@ class ServingEngine:
             prefix=prefix_delta,
             substrate=substrate_delta,
             spec=spec_delta,
+            faults=faults_delta,
         )

@@ -24,10 +24,14 @@ insert's page writer). Tables may alias (refcounted pages, `pin`/`unpin`,
 accounted once. Under free-list pressure the allocator calls back into
 the engine's shared-prefix trie (`prefix_cache`) to reclaim cached pages.
 
+Slots can be preempted and restored (`freeze` / `thaw` / `drop_frozen`):
+a pinned freeze keeps the slot's pages under a freeze hold, retagged
+pool tier, and a spilled one releases them.
+
 Not ported yet: the prediction-driven page-in of `repro.prefetch`
-(`PagerConfig.prefetch` must stay None; ROADMAP A13) and slot
-freeze/thaw (ROADMAP A10). Pool reads use the expected-value weighted
-accounting, all of it assumed layer-ahead prefetchable.
+(`PagerConfig.prefetch` must stay None; ROADMAP A13). Pool reads use the
+expected-value weighted accounting, all of it assumed layer-ahead
+prefetchable.
 """
 
 from __future__ import annotations
@@ -139,8 +143,8 @@ class KVPager:
         self.prefetch_useful = 0
         self.cow_splits = 0
         self.shared_mapped_pages = 0
-        self.freezes = 0              # slot freeze/thaw is not ported
-        self.thaws = 0                # (ROADMAP A10); kept for counters()
+        self.freezes = 0              # slot preemptions (`freeze`)
+        self.thaws = 0                # pinned snapshots restored (`thaw`)
         # COW copy traffic (read old + write new) accumulates here and is
         # charged by the next `step` at the page's tier — the engine COWs
         # via `ensure_tail_pages` BEFORE the decode cell, so the bytes
@@ -419,6 +423,74 @@ class KVPager:
                 self._validate_freed(dead)
             self._free_phys.extend(dead.tolist())
         return int(drop.size)
+
+    # ------------------------------------------------- preempt / restore
+    def freeze(self, slot: int, *, spill: bool = False) -> dict:
+        """Preempt `slot`: snapshot its table and give the slot back.
+
+        Default (``spill=False``) — the cheap paged preemption: the
+        slot's pages are pinned (a non-slot "freeze hold" reference,
+        exactly like the prefix trie's), evicted WHOLESALE to the pool
+        tier (the next substrate drain pages them out to the host twin),
+        and the slot itself is released for another request. The
+        returned snapshot names the physical pages in logical order;
+        `thaw` remaps them into a fresh slot with the KV content intact —
+        no recompute.
+
+        ``spill=True`` — forfeit the pages entirely (the
+        pool-exhaustion preemption path, where keeping them would defeat
+        the point): the slot is released, its pages return to the free
+        list, and the snapshot carries ``pages=None`` — restoring
+        requires a teacher-forced refill of prompt + emitted history.
+
+        Either way the refcount cover invariant
+        (`ref.sum() == valid.sum() + pins`) holds throughout, so
+        `validate=True` stays green across any preempt/restore
+        interleaving.
+        """
+        length = int(self.lengths[slot])
+        owned = np.nonzero(self.valid[slot])[0]
+        if owned.size == 0 or (owned != np.arange(owned.size)).any():
+            raise RuntimeError(
+                f"freeze: slot {slot} table is empty or non-contiguous")
+        self.freezes += 1
+        if spill:
+            self.release(slot)
+            return {"pages": None, "length": length}
+        pages = self.phys[slot, owned].copy()
+        self.pin(pages)
+        if np.isfinite(self.budget):
+            # wholesale eviction to the pool tier; a budget-less pager
+            # (policy "none") has no pool to evict to — the pages just
+            # sit pinned in local memory
+            self.tier_phys[pages] = POOL
+        self.release(slot)
+        return {"pages": pages, "length": length}
+
+    def thaw(self, slot: int, snap: dict) -> None:
+        """Restore a frozen snapshot into fresh `slot`: remap the held
+        pages as the slot's leading table entries and drop the freeze
+        hold. The hotness rebalancer re-promotes the hot tail on the
+        next step; until then reads hit the pool tier (the restore cost
+        the virtual clock prices)."""
+        pages = snap["pages"]
+        if pages is None:
+            raise ValueError(
+                "thaw of a spilled snapshot — the KV content is gone; "
+                "restore via teacher-forced refill instead")
+        self.map_shared(slot, pages, snap["length"])
+        # map_shared counts toward the prefix-dedup stat; a thaw is a
+        # restore, not a dedup — keep the stat's meaning
+        self.shared_mapped_pages -= int(np.asarray(pages).size)
+        self.unpin(pages)
+        self.thaws += 1
+
+    def drop_frozen(self, snap: dict) -> None:
+        """Abandon a frozen snapshot (cancelled or migrated request):
+        drop the freeze hold so unshared pages return to the free
+        list."""
+        if snap["pages"] is not None:
+            self.unpin(snap["pages"])
 
     def release(self, slot: int) -> None:
         """Decref a finished/evicted slot's pages in ONE batched call;

@@ -64,8 +64,13 @@ class TierSubstrate:
                 f"host_memory_kind={host_memory_kind!r}: the pool twin "
                 "lives in pinned host memory ('pinned_host')")
         self.mode = mode
-        # fault-injection wiring (ROADMAP A10): when unset every transfer
-        # succeeds on the first attempt and no retry state is touched
+        # fault-injection wiring (serving.faults): the fleet router sets
+        # `faults`/`engine_id` after construction; when unset every
+        # transfer succeeds on the first attempt and no retry state is
+        # touched. An injected failure is a virtual retry (ledger and
+        # clock only): the stream is still issued exactly once, and a
+        # real error from the build, the launch or the host mapping
+        # propagates as it does without a plan
         self.faults = None
         self.engine_id = 0
         self.retries = 0

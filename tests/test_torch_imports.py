@@ -1,4 +1,5 @@
-"""The port stands alone: every `repro_torch` module, the port's dev
+"""The port stands alone: every `repro_torch` module (the fault layer and
+the fleet included), the port's dev
 serving script `scripts/dev_serve_torch.py` and its Fig 11 script
 `scripts/lbench_torch.py` import without JAX and without the reference
 package; entry points run on the card unless told otherwise
@@ -22,6 +23,7 @@ from repro_torch.common.device import resolve_device  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import serve as serve_rt  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.serving.fleet import FleetConfig, FleetRouter  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -43,6 +45,12 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
+fleet = {"repro_torch.serving.faults", "repro_torch.serving.fleet",
+         "repro_torch.serving.fleet.autoscale",
+         "repro_torch.serving.fleet.placement",
+         "repro_torch.serving.fleet.roles",
+         "repro_torch.serving.fleet.router"}
+assert fleet <= set(names), fleet - set(names)
 """
 
 
@@ -80,7 +88,7 @@ def _lbench_script():
 
 
 @pytest.mark.parametrize("entry", ["engine", "cells", "init", "device",
-                                   "lbench"])
+                                   "lbench", "fleet"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -94,6 +102,8 @@ def test_entry_points_default_to_the_card(entry):
             M.init_model(_cfg())
         elif entry == "lbench":
             _lbench_script().run(n_elements=128, l2_elements=128)
+        elif entry == "fleet":
+            FleetRouter.build(_cfg(), EngineConfig(), FleetConfig())
         else:
             resolve_device()
 

@@ -7,6 +7,8 @@ CUDA kernel's work plan.
   the reference's plain scatter (dropped);
 - the plain `copy_pages` (the substrate's page_out / page_in) against
   `t.at[:, ids].set(p[:, ids])` and `t[:, ids]`;
+- the fleet's handoff copy (both id vectors, pool to pool) through the
+  kernel's walk against the op's plain "handoff" stream;
 - an emulation of the CUDA body's walk over the descriptor that
   `page_io.plan` builds for the wrapper: every byte of every segment is
   covered exactly once, at the vector width chosen (16 B payload, 8 B for
@@ -363,6 +365,49 @@ def test_grouped_plan_of_an_admission():
         live = ids[ids < P]
         assert (cnt[:, live] == 1).all()
         assert cnt.sum() == nb * len(live) * seg.M
+
+
+def test_handoff_plan_between_two_pools():
+    """The fleet's handoff: the four leaves of one engine's pool onto
+    another's, both id vectors given and distinct, in one descriptor.
+    Both vectors are staged, every destination page written once, the
+    source left alone, the result equal to the op's plain "handoff"
+    stream (one plain call)."""
+    rng = np.random.default_rng(1)
+    mem = _Mem()
+    nb, P, n = 3, 24, 6
+    src_ids = rng.permutation(P)[:n].astype(np.int32)
+    dst_ids = rng.permutation(P)[:n].astype(np.int32)
+    s_ptr, d_ptr = mem.put(src_ids), mem.put(dst_ids)
+    dsts, srcs, segs = [], [], []
+    for shape, dtype in [((16, 5, 8), np.int8), ((5, 2), np.float32)] * 2:
+        d = rng.integers(-100, 100, (nb, P, *shape)).astype(dtype)
+        sp = rng.integers(-100, 100, (nb, P, *shape)).astype(dtype)
+        M = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        segs.append(pio.Segment(dst=mem.put(d), src=mem.put(sp),
+                                dst_ids=d_ptr, src_ids=s_ptr, nb=nb,
+                                P_dst=P, P_src=P, n=n, M=M))
+        dsts.append(d)
+        srcs.append(sp)
+    plan = pio.plan(segs)
+    fields = _fields(plan)
+    assert (fields[:, 2] == d_ptr).all() and (fields[:, 3] == s_ptr).all()
+    assert fields[:, 15].tolist() == [16, 8, 16, 8]
+    assert (fields[:, 16] == 1).all()                # both staged
+    want = [torch.from_numpy(d.copy()) for d in dsts]
+    src_before = [sp.copy() for sp in srcs]
+    tk.reset_counters()
+    tops.copy_pages(want, torch.from_numpy(dst_ids),
+                    [torch.from_numpy(sp) for sp in srcs],
+                    torch.from_numpy(src_ids), name="handoff")
+    assert tk.REFERENCE_CALLS["handoff"] == 1
+    counts = _emulate(plan, mem)
+    for seg, d, w, sp, s0 in zip(segs, dsts, want, srcs, src_before):
+        np.testing.assert_array_equal(d, w.numpy())
+        np.testing.assert_array_equal(sp, s0)
+        cnt = counts[seg.dst].reshape(nb, P, -1)
+        assert (cnt[:, dst_ids] == 1).all()
+        assert cnt.sum() == nb * n * seg.M
 
 
 def test_plan_stages_ids_while_they_fit_and_splits_big_segments():
