@@ -117,6 +117,26 @@ Phases (any failure raises and exits non-zero):
                version: the reference test's shapes, mamba2's widths at
                B {1, 8} x S {64, 128, 256}, S = 100, G = 2, D = None and
                an initial state, in float32 and bf16.
+ 12. archs   — the rest of the catalog at published widths (seeded random
+               bf16 weights, depth never cut): granite-moe-1b-a400m (MoE,
+               32 experts top 8), paligemma-3b (256 patch embeddings
+               before the prompt, D 256, 8 heads on 1 KV head) and
+               seamless-m4t-large-v2 (24 + 24 layers, cross-attention
+               through flash_decode), each on the engine's defaults
+               (paged, int8, 16-token pages, 8 slots) over 8 chat
+               requests: the kernels launched and no plain version, in
+               float32 the kernel and plain runs agree per request >= 0.5
+               and the prompt pass's last-token logits within 2e-3 on the
+               plain run's routing (the flipped routing decisions
+               printed), in bf16 the kernels move them no further than
+               bf16 itself; the fp engine equal to the naive loop bit for
+               bit; a profiled run that names the kernels; wall tok/s and
+               peak device memory. The kernels phase ends with those
+               kernels at the archs' shapes (flash_mha at 384 rows of D
+               256 and non-causal 128, the paged decode at D 256 / KV 1,
+               one paligemma admission's page write, flash_decode at the
+               cross shape) against their plain versions in float32 and
+               bf16, timed beside their bounds and SDPA.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -127,6 +147,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases build,kernels,ssm      # the SSM slice
     python3 chip_smoke.py --phases device,build,kernels,substrate,engine
     python3 chip_smoke.py --phases device,build,fleet     # faults, the fleet
+    python3 chip_smoke.py --phases device,build,kernels,archs  # the archs
 """
 
 from __future__ import annotations
@@ -544,6 +565,7 @@ def kernel_cases(torch, timer):
     records.append(lbench_cases(torch, timer, gen, report, timed))
     records.append(w8a8_cases(torch, timer, randn, report, timed))
     records.append(ssd_cases(torch, timer, gen, report, timed))
+    shapes = arch_shape_cases(torch, timer, gen, randn, report)
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree: "
                              f"{failures}")
@@ -555,6 +577,7 @@ def kernel_cases(torch, timer):
               f"[{r['shape']}]")
     print(f"  device times from {'torch.profiler' if timer.profiled else 'CUDA events'}, "
           f"L2 flushed before each call")
+    print("arch shape records " + json.dumps(shapes))
     return records
 
 
@@ -815,6 +838,184 @@ def handoff_times(torch, timer, gen, n_pages) -> dict:
     return dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, bytes=n_bytes,
                 bound_ms=(2 * n_bytes + 2 * 4 * n_pages)
                 / HBM_BYTES_PER_S * 1e3)
+
+
+def arch_shape_cases(torch, timer, gen, randn, report) -> list:
+    """The kernels at the shapes the archs phase gives them and no earlier
+    path did: flash_mha causal over paligemma-3b's 256-patch prefix plus
+    a 128-token prompt (B 1, S 384, 8 heads on 1 KV head, D 256) and
+    non-causal at seamless-m4t's encoder and cross-attention (Sq = Skv =
+    128, 16 / 16 heads, D 64); paged_flash_decode over paligemma's int8
+    pool (B 8, 8 / 1 heads, D 256); the grouped write_pages of one
+    paligemma admission (k, k_sz, v, v_sz over 18 layers, KV 1, D 256,
+    384 rows); flash_decode of seamless's decode-time cross-attention (B 8,
+    S 128, 16 / 16 heads, D 64, every length 128). Each is held against
+    its plain version in float32 and in bf16 (the write bit for bit in
+    both payloads) and timed in bf16 beside its bound and the library
+    call that computes the same function. Returns the timing records."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.page_io import ops as pops
+
+    F = torch.nn.functional
+    exact = dict(atol=0, rtol=0)
+    records = []
+
+    def bound(bytes_, ops_, dtype="bfloat16"):
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS[dtype]
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    def record(name, case, kernel, plain, lib, bytes_, ops_, err16):
+        b_ms, b_by = bound(bytes_, ops_)
+        rec = dict(name=name, case=case, ms=timer(kernel),
+                   plain_ms=timer(plain), bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib() if lib is not None else None,
+                   max_abs_err_bf16=err16)
+        print(f"  arch shape {name:18s} {case}: kernel {rec['ms']:.4f} ms "
+              f"plain {rec['plain_ms']:.4f} ms library {rec['library_ms']} "
+              f"ms bound {b_ms:.4f} ms ({b_by})")
+        records.append(rec)
+
+    def sdpa(q, k, v, causal):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+        except TypeError:          # torch without enable_gqa
+            return None
+        return timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+
+    print("arch shapes (f32 atol=rtol=1e-5; bf16 atol=2e-2; write_pages "
+          "exact)")
+    # --- flash_mha: paligemma's prefix + prompt, seamless's non-causal ---
+    for (B, S, H, KV, D, causal, arch) in (
+            (1, 384, 8, 1, 256, True, "paligemma prefix+prompt"),
+            (1, 128, 16, 16, 64, False, "seamless encoder/cross")):
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(B, S, H, D, dtype=dt)
+            k = randn(B, S, KV, D, dtype=dt)
+            v = randn(B, S, KV, D, dtype=dt, scale=0.5)
+            out = fops.mha(q, k, v, causal=causal, impl="cuda")
+            ref = fops.mha(q, k, v, causal=causal, impl="reference")
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            errs[dt], ok = max_err(torch, out, ref, tol)
+            report("flash_mha", f"{arch}: B={B} S={S} H={H} KV={KV} D={D} "
+                   f"causal={causal} {str(dt)[6:]}", errs[dt], ok, tol)
+        pairs = (sum(min(S, i + 1) for i in range(S)) if causal
+                 else S * S) * B * H
+        record("flash_mha", f"{arch} bf16 B={B} S={S} H={H} KV={KV} D={D} "
+               f"causal={causal}",
+               lambda: fops.mha(q, k, v, causal=causal, impl="cuda"),
+               lambda: fops.mha(q, k, v, causal=causal, impl="reference"),
+               lambda: sdpa(q, k, v, causal),
+               2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S,
+               4 * D * pairs, errs[torch.bfloat16])
+
+    # --- paged_flash_decode: paligemma's int8 pool, D 256, rep 8 ---------
+    B, H, KV, D, page, n_pages = 8, 8, 1, 256, 16, 26
+    P = B * n_pages
+    lens = torch.tensor([320, 330, 340, 350, 360, 370, 380, 400],
+                        dtype=torch.int32, device="cuda")
+    bt = torch.stack([torch.randperm(P, generator=gen, device="cuda")
+                      [:n_pages] for _ in range(B)]).to(torch.int32)
+    kp, vp = (torch.randint(-127, 128, (P, page, KV, D), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+
+    def sz():
+        scale = torch.rand((P, KV), generator=gen, device="cuda")
+        zero = torch.rand((P, KV), generator=gen, device="cuda") - 0.5
+        return torch.stack([0.005 + 0.015 * scale, zero], -1)
+
+    szs = dict(k_sz=sz(), v_sz=sz())
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(B, H, D, dtype=dt)
+        out = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda", **szs)
+        ref = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="reference",
+                                    **szs)
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        errs[dt], ok = max_err(torch, out, ref, tol)
+        report("paged_flash_decode", f"paligemma int8 pool B={B} H={H} "
+               f"KV={KV} D={D} q={str(dt)[6:]}", errs[dt], ok, tol)
+    n_keys = int(lens.sum())
+    n_page_reads = int((-(-lens // page)).sum())
+    kd = dref.gather_pages_q8(kp, szs["k_sz"], bt).to(torch.bfloat16)
+    vd = dref.gather_pages_q8(vp, szs["v_sz"], bt).to(torch.bfloat16)
+    record("paged_flash_decode",
+           f"paligemma int8/page pool B={B} H={H} KV={KV} D={D} "
+           f"page={page} lengths={lens.tolist()}; library = SDPA, gather "
+           "excluded",
+           lambda: dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda",
+                                         **szs),
+           lambda: dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                         impl="reference", **szs),
+           lambda: sdpa_decode_ms(torch, timer, q, kd, vd, lens),
+           2 * n_keys * KV * D + 2 * n_page_reads * KV * 2 * 4
+           + 2 * q.numel() * 2 + n_page_reads * 4 + B * 4,
+           4 * D * H * n_keys, errs[torch.bfloat16])
+
+    # --- write_pages: one paligemma admission, 384 rows ------------------
+    nb, P, n_wp = 18, 256, 24
+    phys = torch.randperm(P, generator=gen, device="cuda")[:n_wp].to(
+        torch.int32)
+
+    def leaf(n, shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, (nb, n, *shape), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return randn(nb, n, *shape, dtype=dt)
+
+    for payload in (torch.bfloat16, torch.int8):
+        specs = [((page, KV, D), payload)] * 2
+        if payload == torch.int8:        # k, k_sz, v, v_sz
+            specs = [specs[0], ((KV, 2), torch.float32)] * 2
+        pools = [leaf(P, s_, dt) for s_, dt in specs]
+        tiles = [leaf(n_wp, s_, dt) for s_, dt in specs]
+        want = [p_.clone() for p_ in pools]
+        pops.write_pages_group(want, tiles, phys, impl="reference")
+        got = [p_.clone() for p_ in pools]
+        pops.write_pages_group(got, tiles, phys, impl="cuda")
+        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        report("write_pages", f"paligemma admission {len(pools)} leaves "
+               f"nb={nb} KV={KV} D={D} {n_wp * page} rows "
+               f"{str(payload)[6:]}", 0.0 if ok else float("inf"), ok, exact)
+    phys64 = phys.long()
+    record("write_pages", f"paligemma int8 admission k,k_sz,v,v_sz nb={nb} "
+           f"KV={KV} D={D} {n_wp * page} rows; library = index_copy_ x4",
+           lambda: pops.write_pages_group(pools, tiles, phys, impl="cuda"),
+           lambda: pops.write_pages_group(pools, tiles, phys,
+                                          impl="reference"),
+           lambda: timer(lambda: [p_.index_copy_(1, phys64, t_)
+                                  for p_, t_ in zip(pools, tiles)]),
+           sum(2 * t_.numel() * t_.element_size() for t_ in tiles)
+           + n_wp * 4, 0, 0.0)
+
+    # --- flash_decode: seamless's cross-attention, every length 128 -----
+    B, S, H, KV, D = 8, 128, 16, 16, 64
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(B, H, D, dtype=dt)
+        k = randn(B, S, KV, D, dtype=dt)
+        v = randn(B, S, KV, D, dtype=dt, scale=0.5)
+        out = dops.decode_mha(q, k, v, S, impl="cuda")
+        ref = dops.decode_mha(q, k, v, S, impl="reference")
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        errs[dt], ok = max_err(torch, out, ref, tol)
+        report("flash_decode", f"seamless cross B={B} S={S} H={H} KV={KV} "
+               f"D={D} len={S} {str(dt)[6:]}", errs[dt], ok, tol)
+    record("flash_decode", f"seamless cross bf16 B={B} S={S} H={H} KV={KV} "
+           f"D={D} every length {S}; library = SDPA with a length mask",
+           lambda: dops.decode_mha(q, k, v, S, impl="cuda"),
+           lambda: dops.decode_mha(q, k, v, S, impl="reference"),
+           lambda: sdpa_decode_ms(torch, timer, q, k, v, lens),
+           2 * B * S * KV * D * 2 + 2 * q.numel() * 2 + B * 4,
+           4 * D * H * B * S, errs[torch.bfloat16])
+    return records
 
 
 def sdpa_decode_ms(torch, timer, q, k, v, lengths):
@@ -2229,13 +2430,13 @@ def chunked_phase(torch):
           "trace of 16 requests, system prompt 128 tokens, prompts "
           "256/512, 16-32 new tokens")
 
-    def serve(backend, profiled=False, **over):
+    def serve(backend, profiled=False, n_req=16, **over):
         kernels.force_backend(backend)
         try:
             ecfg = dataclasses.replace(base, **over)
             eng = ServingEngine.build(cfg, ecfg, params=params)
-            reqs = make_scenario("shared_prefix", 16, cfg.vocab_size, seed=0,
-                                 system_tokens=128,
+            reqs = make_scenario("shared_prefix", n_req, cfg.vocab_size,
+                                 seed=0, system_tokens=128,
                                  prompt_buckets=(256, 512),
                                  gen_range=(16, 32), arrival_rate=1e5)
             peak = [0]
@@ -2297,7 +2498,9 @@ def chunked_phase(torch):
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
         if pool == "int8":
             serve(None, prefix_cache=False)      # pages used without sharing
-    serve(None, profiled=True)
+    # the profiled run is cut to 4 requests: reading a 16-request trace's
+    # events took half a minute
+    serve(None, profiled=True, n_req=4)
 
     # the per-token int8 pool reaches the engine only with speculation
     # (ROADMAP A8): drive its chunk cell over one 512-token prompt
@@ -2729,6 +2932,299 @@ def ssm_phase(torch):
     return {"ssd_scan": launches["ssd_scan"]}
 
 
+class RouteTape:
+    """Stands in for `models.moe.top_k` (the library's own is `top_k`)
+    during a prompt pass: records the router's top-k picks and the
+    margin p[k-1] - p[k] of every call in order, or, given another run's
+    picks, returns those (with this run's probs at them), so a kernel run
+    can be held against the plain run on the plain run's routing. A
+    routing near-tie flips under any reordering of the float32 sums, and
+    the top k is a step function of them."""
+
+    def __init__(self, top_k, replay=None):
+        self.top_k = top_k
+        self.replay = replay
+        self.picks, self.margins = [], []
+
+    def __call__(self, probs, k):
+        vals, idx = self.top_k(probs, k + 1)
+        self.margins.append(vals[..., k - 1] - vals[..., k])
+        vals, idx = vals[..., :k], idx[..., :k]
+        if self.replay is not None:
+            idx = self.replay[len(self.picks)]
+            vals = probs.gather(-1, idx)
+        self.picks.append(idx)
+        return vals, idx
+
+    @property
+    def n_tokens(self) -> int:
+        return sum(p.shape[0] for p in self.picks)
+
+    def flips(self, other, n_req: int) -> dict:
+        """Where this run's top-k sets differ from `other`'s, the calls
+        being `n_req` prompt passes of equally many router layers in
+        order: `n` sets of `n_tokens`, `other`'s margins among them
+        (`low`, `high`; 0 if none) and `first`, the largest margin among
+        the sets of each pass's first layer that differs (a later
+        layer's flip may follow from it: the hidden states then differ
+        by an expert's share)."""
+        per = len(self.picks) // n_req
+        n, low, high, first = 0, float("inf"), 0.0, 0.0
+        for i, (a, b, m) in enumerate(zip(self.picks, other.picks,
+                                          other.margins)):
+            if i % per == 0:
+                seen = False
+            differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+            if not differ.any():
+                continue
+            n += int(differ.sum())
+            low = min(low, float(m[differ].min()))
+            high = max(high, float(m[differ].max()))
+            if not seen:
+                first = max(first, float(m[differ].max()))
+                seen = True
+        return dict(n=n, n_tokens=self.n_tokens,
+                    low=low if n else 0.0, high=high, first=first)
+
+
+# the archs phase's float32 routing gate: where a prompt pass's top-k
+# sets first differ kernels vs plain, each flipped set was a near-tie of
+# the plain run (p[k-1] - p[k] at most ROUTE_NEAR_TIE; 1.79e-7 read on
+# granite-moe-1b-a400m, NVIDIA H100 80GB HBM3, 700 W), and few sets flip
+# in all (12 of 21504 read there); a later layer's flips follow from the
+# first and are printed
+ROUTE_NEAR_TIE = 1e-6
+ROUTE_FLIP_SHARE = 1e-2
+
+# the archs phase: (arch, prompt buckets); the enc-dec arch has the one
+# bucket the reference demands, and its frames have that many rows
+ARCHS = (("granite_moe_1b_a400m", (64, 128)),
+         ("paligemma_3b", (64, 128)),
+         ("seamless_m4t_large_v2", (128,)))
+
+
+def archs_phase(torch):
+    """The rest of the catalog at published widths (depth never cut,
+    seeded random bf16 weights made on the card): granite-moe-1b-a400m
+    (24L, d 1024, 16/8 heads, 32 experts top 8, expert ff 512),
+    paligemma-3b (18L, d 2048, 8/1 heads of dim 256, ff 16384, 256 patch
+    embeddings before the prompt) and seamless-m4t-large-v2 (24 + 24L, d
+    1024, 16/16 heads, ff 8192, 128 frames), each served by
+    `ServingEngine` with `EngineConfig(n_slots=8, page_tokens=16)`, the
+    int8 pool and max_seq 256 (the vision prefix comes on top) over 8 chat
+    requests (prompts 64/128, or 128 for seamless; 16-32 new tokens).
+    Gates: (a) every request finishes, the kernel run launches flash_mha,
+    paged_flash_decode and one page copy per admission (flash_decode too
+    for seamless's cross-attention) and no plain version runs; in float32
+    the kernel and plain runs (`force_backend("reference")`) agree per
+    request >= INT8_TOKEN_AGREEMENT (bf16's agreement printed); the
+    teacher-forced prompt pass moves the last-token logits, kernels
+    against plain, no further in bf16 than bf16 itself moves them off
+    float32, and within 2e-3 in float32 on the plain run's routing,
+    where the routing first differs only at near-ties (`ROUTE_NEAR_TIE`);
+    (b) on an fp pool the engine emits the naive loop's tokens bit for
+    bit (8 prompts of 128 tokens, 32 new tokens, the engine's frontend
+    embeddings, each prompt prefilled alone as the engine admits it; the
+    batched prefill's agreement is printed: cuBLAS picks another
+    algorithm for 8 prompts' rows than for 1); (c) a profiled run of the kernel
+    engine shows those kernels by name. Prints wall tok/s, decode steps,
+    launches and peak device memory per arch. Returns the launches of
+    the three int8 kernel runs, summed."""
+    import dev_serve_torch as dst
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.module import cast_params
+    from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
+                                     ServingEngine, make_scenario)
+    from repro_torch.serving.engine import frontend_extras
+
+    print(f"archs on {smi_line()}")
+    failures = []
+    total: dict = {}
+
+    def gate(ok, what):
+        if not ok:
+            print(f"  FAIL {what}")
+            failures.append(what)
+
+    for arch, buckets in ARCHS:
+        t_arch = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = configs.get(arch)
+        assert cfg.dtype == "bfloat16"
+        params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+        base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=buckets,
+                            page_tokens=16, pool_dtype="int8")
+        want = ("flash_mha", "paged_flash_decode", "write_pages") + (
+            ("flash_decode",) if cfg.num_encoder_layers else ())
+        print(f"archs {cfg.name}: {cfg.num_layers}L"
+              f"{f' + {cfg.num_encoder_layers}L encoder' if cfg.num_encoder_layers else ''}"
+              f" d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+              f"hd={cfg.head_dim} ff={cfg.d_ff or cfg.moe_d_ff} experts="
+              f"{cfg.num_experts}/{cfg.experts_per_token} prefix="
+              f"{cfg.num_prefix_tokens if cfg.frontend == 'vision_stub' else 0}"
+              f" vocab={cfg.vocab_size}, random weights seed 0, "
+              f"{cfg.param_count() / 1e9:.2f}B params, buckets {buckets}")
+
+        def serve(backend, model=None, profiled=False):
+            cfg_, params_ = model or (cfg, params)
+            kernels.force_backend(backend)
+            try:
+                eng = ServingEngine.build(cfg_, base, params=params_)
+                reqs = make_scenario("chat", 8, cfg.vocab_size, seed=0,
+                                     prompt_buckets=buckets,
+                                     gen_range=(16, 32), arrival_rate=1e5)
+                torch.cuda.synchronize()
+                kernels.reset_counters()
+                if profiled:
+                    return profile_run(torch, eng, reqs[:2],
+                                       f"{arch} int8 kernels run")
+                stats = eng.run(reqs)
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                plain = {k: v for k, v in kernels.REFERENCE_CALLS.items()
+                         if v}
+            finally:
+                kernels.force_backend(None)
+            assert stats.n_requests == len(reqs)
+            for r in reqs:
+                assert len(r.output) == r.max_new_tokens, r.request_id
+            s = stats.summary()
+            print(f"  {cfg_.dtype} pool=int8 backend="
+                  f"{backend or 'kernels':9s} requests={s['n_requests']} "
+                  f"tokens={s['tokens']} decode_steps={s['steps']} "
+                  f"wall_s={stats.wall_s:.3f} tok_per_s_wall="
+                  f"{s['tok_per_s_wall']:.1f} max_concurrency="
+                  f"{s['max_concurrency']} launches={launches} "
+                  f"plain_calls={plain}")
+            return reqs, launches, plain
+
+        # (a) the kernel run, its plain run, and the float32 pair
+        kreqs, launches, plain = serve(None)
+        gate(all(launches.get(k, 0) > 0 for k in want)
+             and launches["write_pages"] == len(kreqs) and not plain,
+             f"{arch} kernel run launches {launches} plain {plain}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rreqs, rlaunch, _ = serve("reference")
+        assert not rlaunch, rlaunch
+        a16 = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
+        print(f"  bf16: per-request token agreement kernels vs plain: min="
+              f"{min(a16):.3f} mean={sum(a16) / len(a16):.3f} (not gated: "
+              "the float32 pair is)")
+        m32 = (dataclasses.replace(cfg, dtype="float32"),
+               cast_params(params, "float32"))
+        k32, _, _ = serve(None, model=m32)
+        r32, _, _ = serve("reference", model=m32)
+        a32 = [agreement(a.output, b.output) for a, b in zip(k32, r32)]
+        print(f"  float32: per-request token agreement kernels vs plain: "
+              f"min={min(a32):.3f} mean={sum(a32) / len(a32):.3f} (gate >= "
+              f"{INT8_TOKEN_AGREEMENT})")
+        gate(min(a32) >= INT8_TOKEN_AGREEMENT,
+             f"{arch} float32 kernels vs plain agreement {a32}")
+        # teacher-forced prompt pass: last-token logits of each request;
+        # the router's picks are taped (plain float32 run) and, for the
+        # pinned run, replayed into the kernel run
+        p16 = cast_params(params, cfg.dtype)
+        runs, tapes = {}, {}
+        top_k = moe_mod.top_k
+
+        def prompt_pass(c_, p_, backend, tape):
+            kernels.force_backend(backend)
+            moe_mod.top_k = tape
+            try:
+                return torch.stack([M.prefill(
+                    p_, {"tokens": torch.as_tensor(
+                        r.tokens[None, :], device="cuda"),
+                        **frontend_extras(c_, r.request_id, r.prompt_len,
+                                          "cuda")},
+                    c_, max_seq=r.prompt_len)[1][0].float() for r in kreqs])
+            finally:
+                kernels.force_backend(None)
+                moe_mod.top_k = top_k
+
+        for dt_name, (c_, p_) in (("bf16", (cfg, p16)), ("f32", m32)):
+            for backend in (None, "reference"):
+                tapes[dt_name, backend] = RouteTape(top_k)
+                runs[dt_name, backend] = prompt_pass(
+                    c_, p_, backend, tapes[dt_name, backend])
+        plain32 = tapes["f32", "reference"]
+        runs["pinned"] = (prompt_pass(*m32, None,
+                                      RouteTape(top_k, plain32.picks))
+                          if cfg.num_experts else runs["f32", None])
+
+        def drift(a, b):
+            return float((runs[a] - runs[b]).abs().max())
+
+        d16 = drift(("bf16", None), ("bf16", "reference"))
+        d_dtype = drift(("bf16", "reference"), ("f32", "reference"))
+        d32 = drift(("f32", None), ("f32", "reference"))
+        d32_pinned = drift("pinned", ("f32", "reference"))
+        flips = tapes["f32", None].flips(plain32, len(kreqs))
+        print(f"  prompt pass, last-token logits max_abs_err over "
+              f"{len(kreqs)} prompts (max |logit| "
+              f"{float(runs['f32', 'reference'].abs().max()):.3f}): kernels "
+              f"vs plain in bf16 {d16:.4f}, plain bf16 vs plain float32 "
+              f"{d_dtype:.4f}, kernels vs plain in float32 {d32:.3e}, "
+              f"with the plain run's routing {d32_pinned:.3e} (gates: bf16 "
+              "drift <= the dtype's; float32 with the routing pinned <= "
+              "2e-3)")
+        if cfg.num_experts:
+            print(f"  float32 routing: {flips['n']} of {flips['n_tokens']} "
+                  f"token-layer top-{cfg.experts_per_token} sets differ "
+                  f"kernels vs plain; the plain margins p[k-1] - p[k] among "
+                  f"them {flips['low']:.3e} to {flips['high']:.3e}, at each "
+                  f"prompt's first differing layer <= {flips['first']:.3e} "
+                  f"(gates: <= {ROUTE_NEAR_TIE:g} there, at most "
+                  f"{ROUTE_FLIP_SHARE:g} of the sets)")
+        gate(d16 <= d_dtype, f"{arch} bf16 kernel drift {d16} > {d_dtype}")
+        gate(d32_pinned <= 2e-3,
+             f"{arch} float32 kernel drift (routing pinned) {d32_pinned}")
+        if cfg.num_experts:
+            gate(flips["first"] <= ROUTE_NEAR_TIE
+                 and flips["n"] <= ROUTE_FLIP_SHARE * flips["n_tokens"],
+                 f"{arch} float32 routing flips {flips}")
+        del runs, tapes, m32, p16
+
+        # (b) the fp engine against the naive loop, bit for bit
+        prompts = chat_prompts(cfg)
+        gen, max_seq = 32, 256
+        naive = {each: dst.naive_greedy(cfg, params, prompts, gen,
+                                        max_seq=max_seq, device="cuda",
+                                        each=each) for each in (False, True)}
+        toks, stats, _ = dst.engine_greedy(
+            cfg, params, prompts, gen, max_seq=max_seq, page_tokens=16,
+            device="cuda", paged=True, pool_dtype="fp")
+        c = dst.compare(toks, naive[True])
+        cb = dst.compare(toks, naive[False])
+        print(f"  {pair_line('paged fp engine vs naive loop', c)} "
+              f"tok_per_s_wall={stats.summary()['tok_per_s_wall']:.1f} "
+              "(gate: exact; each prompt prefilled alone, as the engine "
+              "admits it)")
+        batched = "paged fp engine vs naive loop, batched prefill"
+        print(f"  {pair_line(batched, cb)} (not gated: cuBLAS gives "
+              "other bits for 8 prompts' rows than for 1, ROADMAP C)")
+        gate(c["exact"], f"{arch} engine vs naive loop {c}")
+
+        # (c) the profiled kernel run names the kernels
+        groups = serve(None, profiled=True)
+        seen = [g for g in dict.fromkeys(
+            {"write_pages": "write_pages/page_out/page_in"}.get(k, k)
+            for k in want) if groups.get(g, 0) > 0]
+        print(f"  profiled run: device kernels of {seen} found (gate: "
+              f"{len(want)} groups)")
+        gate(len(seen) == len(want), f"{arch} profiled groups {groups}")
+        print(f"  {arch}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{time.perf_counter() - t_arch:.1f} s")
+        del params
+    if failures:
+        raise AssertionError(f"archs phase: {failures}")
+    return total
+
+
 # kernel groups of the profiled runs: (group, substrings a lowercased
 # kernel name must all hold); the two decode kernels share one template
 # body, whose row policy (PagedRows / DenseRows) names which one ran
@@ -2751,11 +3247,12 @@ LISTED_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
                   "matmul_w8a8_mma_kernel")
 
 
-def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
+def profile_run(torch, eng, reqs, label="int8 kernels run") -> dict:
     """Serve `reqs` under torch.profiler and print where the time goes:
     the device's busy share of the run's wall time (union of device
     intervals), device time by kernel group, the host's busiest ops by
-    total CPU time and the host syncs. It reads the profiler's raw event
+    total CPU time and the host syncs. Returns the device ns by kernel
+    group (`PROFILE_GROUPS`). It reads the profiler's raw event
     list: building its event tree takes minutes for a trace this long.
     Profiling slows the host, so the run's wall time here is longer than
     the unprofiled run's."""
@@ -2806,11 +3303,12 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> None:
         {k: round(v / 1e6, 1) for k, v in top})
         + f"; nonzero/sync calls {syncs}; {len(raw)} events read in "
         f"{time.perf_counter() - t1:.1f} s")
+    return by_group
 
 
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
-          "fleet", "chunked", "contiguous", "speculative", "ssm")
+          "fleet", "chunked", "contiguous", "speculative", "ssm", "archs")
 
 
 def parse_phases(argv) -> set:
@@ -2908,6 +3406,11 @@ def main(argv=None) -> int:
     if "ssm" in phases:
         launches.update(ssm_phase(torch))
         phase_done("ssm")
+    if "archs" in phases:
+        # the earlier phases' counts stand for the kernels they drive
+        for k, v in archs_phase(torch).items():
+            launches.setdefault(k, v)
+        phase_done("archs")
     for r in records:
         r["launches"] = launches.get(r["name"])
         r.pop("shape")

@@ -64,6 +64,7 @@ from repro_torch.serving import (  # noqa: E402
     make_plan,
     shared_prefix_stream,
 )
+from repro_torch.serving.engine import frontend_extras  # noqa: E402
 from repro_torch.serving.fleet import FleetConfig, FleetRouter  # noqa: E402
 
 B, S, GEN = 2, 8, 6
@@ -71,16 +72,38 @@ MAXS = S + GEN
 PAGE = 4
 
 
+def frontend_batch(cfg, n_req: int, bucket: int, device=None) -> dict:
+    """The frontend embeddings the engine draws for requests 0..n_req-1
+    (`serving.engine.frontend_extras`), stacked into one batch; {} for
+    token-only archs."""
+    rows = [frontend_extras(cfg, i, bucket, device) for i in range(n_req)]
+    return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+
+
 def naive_greedy(cfg, params, prompts, gen: int, *, max_seq: int,
-                 device=None) -> np.ndarray:
-    """The pre-engine serve loop: batched prefill of `prompts` (B, S),
-    then `gen - 1` scalar-t decode steps on the contiguous caches of
-    extent `max_seq`. `params` are the master weights, cast once to
-    cfg.dtype as the engine casts them. Returns (B, gen) tokens."""
+                 device=None, each: bool = False) -> np.ndarray:
+    """The pre-engine serve loop: batched prefill of `prompts` (B, S)
+    (with the frontend embeddings the engine draws for requests
+    0..B-1), then `gen - 1` scalar-t decode steps on the contiguous
+    caches of extent `max_seq` (plus the vision prefix). `each` prefills
+    every prompt alone instead, at the engine's batch-1 prefill shapes,
+    and stacks the caches: a GEMM library may pick another algorithm,
+    and so give other bits, for 8 rows than for 1. `params` are the
+    master weights, cast once to cfg.dtype as the engine casts them.
+    Returns (B, gen) tokens."""
     p = cast_params(params, cfg.dtype)
     toks = torch.as_tensor(np.asarray(prompts), device=device)
-    n = toks.shape[1]
-    caches, logits = M.prefill(p, {"tokens": toks}, cfg, max_seq=max_seq)
+    B, n = toks.shape
+    batch = {"tokens": toks, **frontend_batch(cfg, B, n, toks.device)}
+    if each:
+        runs = [M.prefill(p, {k: v[i:i + 1] for k, v in batch.items()},
+                          cfg, max_seq=max_seq) for i in range(B)]
+        caches = {pos: {key: torch.cat([r[0][pos][key] for r in runs], 1)
+                        for key in c} for pos, c in runs[0][0].items()}
+        logits = torch.cat([r[1] for r in runs])
+    else:
+        caches, logits = M.prefill(p, batch, cfg, max_seq=max_seq)
+    n += cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [tok]
     for i in range(gen - 1):

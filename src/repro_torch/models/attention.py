@@ -1,11 +1,13 @@
 """GQA self-attention for prefill, chunked prefill and decode over the
-contiguous or the paged cache (port of the serving path of
+contiguous or the paged cache, and cross-attention for the
+encoder-decoder arch (port of the serving path of
 `repro.models.attention`).
 
 The contraction is delegated to `kernels.flash_attention` (bucket and
-chunked prefill) and `kernels.decode_attention` (contiguous and paged
-decode), which launch the CUDA kernels on CUDA tensors and the plain
-versions on CPU tensors.
+chunked prefill, the encoder and prefill-time cross-attention) and
+`kernels.decode_attention` (contiguous and paged decode, decode-time
+cross-attention against the fixed encoder K/V), which launch the CUDA
+kernels on CUDA tensors and the plain versions on CPU tensors.
 
 The KV caches are updated IN PLACE where the reference's jitted cells
 return new (donated) arrays: every insert below writes into the cache or
@@ -21,16 +23,16 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope
-from repro_torch.models.module import Initializer
+from repro_torch.models.module import Initializer, torch_dtype
 
 
-def attn_init(init: Initializer, cfg: ModelConfig):
+def attn_init(init: Initializer, cfg: ModelConfig, cross: bool = False):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     init.param("wq", (d, h, hd))
     init.param("wk", (d, kv, hd))
     init.param("wv", (d, kv, hd))
     init.param("wo", (h, hd, d))
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         init.param("bq", (h, hd), init="zeros")
         init.param("bk", (kv, hd), init="zeros")
         init.param("bv", (kv, hd), init="zeros")
@@ -64,6 +66,46 @@ def self_attention(params, x, cfg: ModelConfig, positions=None,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(params, x, enc_kv, cfg: ModelConfig):
+    """Decoder states x (B, Sq, d) against the encoder's K/V
+    (B, Senc, KV, hd) each, precomputed by `encode_cross_kv`; no RoPE, no
+    mask."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k, v = enc_kv
+    out = flash_ops.mha(q, k, v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+
+
+def encode_cross_kv(params, enc_out, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder output (once per request)."""
+    dt = enc_out.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(dt))
+    return k, v
+
+
+def decode_cross_attention(params, x, cross_kv, cfg: ModelConfig):
+    """Decode-time cross-attention of x (B, 1, d) against the fixed
+    encoder K/V (B, S_enc, KV, hd): every row attends to all S_enc keys,
+    through the contiguous decode op."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k, v = cross_kv
+    out = decode_ops.decode_mha(q[:, 0], k, v, k.shape[1])
+    return torch.einsum("bhk,hkd->bd", out, params["wo"].to(dt))[:, None, :]
+
+
+def make_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  n_layers: int, dtype=None, device=None):
+    """Stacked zero K/V caches (n_layers, batch, max_seq, KV, hd) for the
+    attention layers of a model, in cfg.dtype unless `dtype` is given."""
+    dtype = torch_dtype(dtype or cfg.dtype)
+    shape = (n_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _cache_insert(cache, new, t):

@@ -7,11 +7,14 @@ layer-pattern period). Where the reference `lax.scan`s over that axis,
 the port runs a Python loop; decode updates the `pool[layer]` views of the
 caches in place instead of rebuilding a stacked tree.
 
-Ported stacks: dense attention-only decoders, SSM stacks (mamba2) and
-hybrid attention + SSM stacks without experts. MoE, frontend and
-encoder-decoder stacks arrive with ROADMAP A11. An SSM layer keeps its
-decode state slot-resident (`state`, `tail_x`, `tail_B`, `tail_C`),
-never in the page pool.
+Every stack of the reference's catalog runs: dense and MoE attention
+decoders, SSM stacks (mamba2), hybrid attention + SSM + MoE stacks
+(jamba), the vision-prefix decoder and the encoder-decoder (its encoder
+stack non-causal, its decoder layers with cross-attention). Without a
+mesh an MoE layer is `moe.moe_dense`, as in the reference. Slot-resident
+decode state never enters the page pool: an SSM layer's `state`,
+`tail_x`, `tail_B`, `tail_C` and a decoder layer's cross-attention
+`cross_k` / `cross_v` (extent `enc_len`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 from repro_torch.models.module import Initializer, layer_slice, torch_dtype
@@ -61,25 +65,16 @@ def pattern(cfg: ModelConfig, cross: bool = False, causal: bool = True):
     ]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for stacks the port does not run yet: MoE layers, frontends
-    and encoders."""
-    if (cfg.num_encoder_layers or cfg.frontend
-            or any(d.moe for d in pattern(cfg))):
-        raise NotImplementedError(
-            f"{cfg.name}: only decoder stacks of attention and SSM layers "
-            "without experts are ported; MoE, frontend and encoder archs "
-            "wait for ROADMAP A11"
-        )
-
-
 # ------------------------------------------------------------------ init
-def stack_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def stack_init(generator: torch.Generator, cfg: ModelConfig, *,
+               cross: bool = False, n_layers: int | None = None) -> dict:
     """All layers' parameters, stacked by position-in-period on a leading
-    `nb` axis."""
-    check_supported(cfg)
-    descs = pattern(cfg)
-    nb = cfg.num_layers // len(descs)
+    `nb` axis. `cross` gives every layer a cross-attention block (the
+    enc-dec decoder); `n_layers` other than cfg.num_layers sizes the
+    encoder stack."""
+    descs = pattern(cfg, cross)
+    n_layers = n_layers if n_layers is not None else cfg.num_layers
+    nb = n_layers // len(descs)
     params = {}
     for j, desc in enumerate(descs):
         init = Initializer(generator, torch_dtype(cfg.param_dtype),
@@ -89,18 +84,64 @@ def stack_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
             attn.attn_init(init.child("attn"), cfg)
         else:
             ssm_mod.ssm_init(init.child("ssm"), cfg)
+        if desc.cross:
+            rmsnorm_init(init.child("cross_norm"), cfg.d_model)
+            attn.attn_init(init.child("cross"), cfg, cross=True)
         rmsnorm_init(init.child("ffn_norm"), cfg.d_model)
-        if cfg.d_ff:
+        if desc.moe:
+            moe_mod.moe_init(init.child("moe"), cfg)
+        elif cfg.d_ff:
             mlp_init(init.child("mlp"), cfg)
         params[f"pos{j}"] = init.collect()
     return params
+
+
+def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc):
+    """The layer's feed-forward on the normed h: MoE (dense oracle
+    without a mesh), the dense MLP, or nothing. Returns (out, aux)."""
+    if desc.moe:
+        return moe_mod.moe_ep(p["moe"], h, cfg)
+    if cfg.d_ff:
+        return mlp(p["mlp"], h, cfg), None
+    return torch.zeros_like(h), None
+
+
+def stack_apply(params, x, cfg: ModelConfig, *, cross: bool = False,
+                causal: bool = True, enc_out=None,
+                n_layers: int | None = None):
+    """Full-sequence stack without caches (the encoder's pass): x
+    (B, S, d) -> (x, aux), aux the sum of the MoE layers' load-balance
+    losses (float32 scalar)."""
+    descs = pattern(cfg, cross, causal)
+    n_layers = n_layers if n_layers is not None else cfg.num_layers
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_layers // len(descs)):
+        for j, desc in enumerate(descs):
+            p = layer_slice(params[f"pos{j}"], i)
+            h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+            if desc.kind == "attn":
+                h = attn.self_attention(p["attn"], h, cfg,
+                                        causal=desc.causal)
+            else:
+                h = ssm_mod.ssm_block(p["ssm"], h, cfg)
+            x = x + h
+            if desc.cross:
+                h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+                enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+                x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
+            h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg,
+                        desc)
+            if a is not None:
+                aux = aux + a
+            x = x + h
+    return x, aux
 
 
 # --------------------------------------------------------------- caches
 # an SSM layer's slot-resident decode state, in the reference's order
 _SSM_LEAVES = ("state", "tail_x", "tail_B", "tail_C")
 # the physical-page-pool leaves of a paged cache tree; everything else
-# (SSM state, conv tails) is slot-resident and never pooled
+# (SSM state, conv tails, cross-KV) is slot-resident and never pooled
 PAGED_LEAF_NAMES = ("k", "v", "k_sz", "v_sz")
 
 # pool payload dtypes: "fp" stores cfg.dtype exactly, "bf16" a 2-byte
@@ -120,15 +161,16 @@ def pool_kv_dtype(cfg: ModelConfig, pool_dtype: str) -> torch.dtype:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
-                kv_shape=None, kv_dtype=None, kv_sz_shape=None,
-                device=None) -> dict:
+                cross: bool = False, enc_len: int = 0, kv_shape=None,
+                kv_dtype=None, kv_sz_shape=None, device=None) -> dict:
     """Decode caches mirroring the stacked params. `kv_shape`/`kv_dtype`
     override the K/V leaf shape and dtype (the paged pool layout);
     `kv_sz_shape` adds the float32 (scale, zero) tensors of an int8
     pool. SSM layers hold the float32 state (nb, batch, H, P, N) and the
-    conv tails (nb, batch, W-1, C) instead of K/V."""
-    check_supported(cfg)
-    descs = pattern(cfg)
+    conv tails (nb, batch, W-1, C) instead of K/V; with `cross` every
+    layer also holds the encoder's K/V `cross_k` / `cross_v` (nb, batch,
+    enc_len, KV, hd) in cfg.dtype."""
+    descs = pattern(cfg, cross)
     nb = cfg.num_layers // len(descs)
     dtype = torch_dtype(cfg.dtype)
     caches = {}
@@ -136,30 +178,38 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
         if desc.kind != "attn":
             state, tails = ssm_mod.make_ssm_state(cfg, batch, nb,
                                                   device=device)
-            caches[f"pos{j}"] = dict(zip(_SSM_LEAVES, (state, *tails)))
-            continue
-        shape = kv_shape or (nb, batch, max_seq, cfg.num_kv_heads,
-                             cfg.head_dim)
-        c = {
-            "k": torch.zeros(shape, dtype=kv_dtype or dtype, device=device),
-            "v": torch.zeros(shape, dtype=kv_dtype or dtype, device=device),
-        }
-        if kv_sz_shape is not None:
-            c["k_sz"] = torch.zeros(kv_sz_shape, dtype=torch.float32,
-                                    device=device)
-            c["v_sz"] = torch.zeros(kv_sz_shape, dtype=torch.float32,
-                                    device=device)
+            c = dict(zip(_SSM_LEAVES, (state, *tails)))
+        else:
+            shape = kv_shape or (nb, batch, max_seq, cfg.num_kv_heads,
+                                 cfg.head_dim)
+            c = {
+                "k": torch.zeros(shape, dtype=kv_dtype or dtype,
+                                 device=device),
+                "v": torch.zeros(shape, dtype=kv_dtype or dtype,
+                                 device=device),
+            }
+            if kv_sz_shape is not None:
+                c["k_sz"] = torch.zeros(kv_sz_shape, dtype=torch.float32,
+                                        device=device)
+                c["v_sz"] = torch.zeros(kv_sz_shape, dtype=torch.float32,
+                                        device=device)
+        if desc.cross:
+            shape = (nb, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
         caches[f"pos{j}"] = c
     return caches
 
 
 def init_paged_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
-                      page_tokens: int, *, pool_dtype: str = "fp",
+                      page_tokens: int, *, cross: bool = False,
+                      enc_len: int = 0, pool_dtype: str = "fp",
                       sz_granularity: str = "page", device=None) -> dict:
     """Decode caches with self-attention K/V laid out as a PHYSICAL page
     pool (nb, n_slots * n_pages, page_tokens, KV, hd); int8 pools add
     (nb, P_phys, KV, 2) per-page or (nb, P_phys, page_tokens, KV, 2)
-    per-token (scale, zero) tensors."""
+    per-token (scale, zero) tensors. SSM state and cross-KV stay
+    per-slot."""
     if sz_granularity not in ("page", "token"):
         raise ValueError(f"unknown sz_granularity {sz_granularity!r}; "
                          "expected 'page' or 'token'")
@@ -173,7 +223,7 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
     else:
         sz_shape = (nb, p_phys, cfg.num_kv_heads, 2)
     return init_caches(
-        cfg, n_slots, max_seq,
+        cfg, n_slots, max_seq, cross=cross, enc_len=enc_len,
         kv_shape=(nb, p_phys, page_tokens, cfg.num_kv_heads, cfg.head_dim),
         kv_dtype=pool_kv_dtype(cfg, pool_dtype),
         kv_sz_shape=sz_shape, device=device,
@@ -214,10 +264,11 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
     pool through `block_table`, or the contiguous per-slot caches when
     it is None; an SSM layer steps its slot-resident state and conv
     tails (parked slots step garbage, which the next admission's insert
-    overwrites). Returns x. `attn_override(p_attn, h, c) -> (h, c)`
-    swaps the attention contraction while the rest of the layer body
-    stays shared, so the chunked and the decode streams cannot diverge
-    in a layer change."""
+    overwrites); a cross layer attends to its slot-resident encoder K/V.
+    Returns x. `attn_override(p_attn, h, c) -> (h, c)` swaps the
+    attention contraction while the rest of the layer body stays shared,
+    so the chunked and the decode streams cannot diverge in a layer
+    change."""
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
     if desc.kind != "attn":
         h, (state, tails) = ssm_mod.ssm_decode_step(
@@ -234,21 +285,21 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
         h, _ = attn.decode_self_attention(p["attn"], h, cfg, c["k"], c["v"],
                                           t)
     x = x + h
-    h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    if cfg.d_ff:
-        h = mlp(p["mlp"], h, cfg)
-    else:
-        h = torch.zeros_like(x)
+    if desc.cross:
+        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        x = x + attn.decode_cross_attention(
+            p["cross"], h, (c["cross_k"], c["cross_v"]), cfg)
+    h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc)
     return x + h
 
 
 def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
-                 page_tokens: int):
+                 page_tokens: int, cross: bool = False):
     """One decode step through the whole stack, x (B, 1, d), against the
     caches (written in place, layer by layer): the paged pool through
     `block_table`, or the contiguous (nb, B, S, KV, hd) caches when
     `block_table` is None."""
-    descs = pattern(cfg)
+    descs = pattern(cfg, cross)
     nb = cfg.num_layers // len(descs)
     for i in range(nb):
         for j, desc in enumerate(descs):
@@ -285,12 +336,16 @@ def stack_prefill_chunk(params, caches, x, c0, cfg: ModelConfig, block_row,
     return x, caches
 
 
-def stack_prefill(params, x, cfg: ModelConfig, max_seq: int):
+def stack_prefill(params, x, cfg: ModelConfig, max_seq: int, *,
+                  cross: bool = False, enc_out=None):
     """Prefill: full-sequence forward that also materializes the per-slot
     decode caches, stacked over layers: {"k", "v"} of shape (nb, B,
     max_seq, KV, hd), zero-padded past the prompt, for attention layers;
-    the final SSM state and conv tails for SSM layers."""
-    descs = pattern(cfg)
+    the final SSM state and conv tails for SSM layers; with `cross`, the
+    encoder K/V `cross_k` / `cross_v` (nb, B, S_enc, KV, hd) of every
+    layer. The MoE layers' load-balance loss is dropped, as serving does
+    in the reference."""
+    descs = pattern(cfg, cross)
     nb = cfg.num_layers // len(descs)
     B, S, _ = x.shape
     leaves = [{} for _ in descs]
@@ -309,12 +364,17 @@ def stack_prefill(params, x, cfg: ModelConfig, max_seq: int):
                 h, (state, tails) = ssm_mod.ssm_block(p["ssm"], h, cfg,
                                                       return_state=True)
                 new = dict(zip(_SSM_LEAVES, (state, *tails)))
+            x = x + h
+            if desc.cross:
+                hh = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+                ck, cv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+                new["cross_k"], new["cross_v"] = ck, cv
+                x = x + attn.cross_attention(p["cross"], hh, (ck, cv), cfg)
             for key, leaf in new.items():
                 leaves[j].setdefault(key, []).append(leaf)
+            h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg,
+                        desc)
             x = x + h
-            h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-            x = x + (mlp(p["mlp"], h, cfg) if cfg.d_ff
-                     else torch.zeros_like(x))
     caches = {f"pos{j}": {k: torch.stack(v) for k, v in leaves[j].items()}
               for j in range(len(descs))}
     return x, caches

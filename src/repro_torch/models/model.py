@@ -1,12 +1,17 @@
 """Top-level model API of the port (serving path of `repro.models.model`).
 
+Families: dense / moe / ssm / hybrid / vlm are decoder-only LMs (vlm
+prepends the frontend's patch embeddings, `batch["patches"]`); audio is
+an encoder over frame embeddings (`batch["frames"]`) and a causal decoder
+with per-layer cross-attention.
+
   init_model(cfg, generator)                    -> params
   prefill(params, batch, cfg, max_seq)          -> (caches, logits_last)
   decode_step(params, token, caches, t, cfg,
               block_table, page_tokens)         -> (logits, caches)
   prefill_chunk(params, tokens, caches, chunk_idx, cfg,
                 block_row, page_tokens)         -> (logits, caches)
-  make_decode_caches(cfg, batch, max_seq)       -> contiguous caches
+  make_decode_caches(cfg, batch, max_seq[, enc_len]) -> contiguous caches
   make_paged_decode_caches(cfg, n_slots, ...)   -> paged caches
 
 Decode and chunked prefill write the caches in place (the reference
@@ -39,8 +44,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Seeded float32 master weights with the reference's tree, shapes
     and initializer scales, on the generator's device. Without a
     generator one is made on `device` (the card by default) from
-    `seed`; `device="meta"` gives the tree's shapes and dtypes only."""
-    blocks.check_supported(cfg)
+    `seed`; `device="meta"` gives the tree's shapes and dtypes only.
+    Enc-dec archs add the `encoder` subtree (its blocks and final norm)
+    and give the decoder blocks cross-attention."""
     if generator is None:
         dev = resolve_device(device)
         if dev.type != "meta":
@@ -50,17 +56,52 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     lm_head_init(init.child("head"), cfg)
     rmsnorm_init(init.child("final_norm"), cfg.d_model)
     params = init.collect()
-    params["blocks"] = blocks.stack_init(generator, cfg)
+    cross = bool(cfg.num_encoder_layers)
+    if cross:
+        enc = blocks.stack_init(generator, cfg,
+                                n_layers=cfg.num_encoder_layers)
+        norm = Initializer(generator, torch_dtype(cfg.param_dtype))
+        rmsnorm_init(norm.child("final_norm"), cfg.d_model)
+        params["encoder"] = {"blocks": enc, **norm.collect()}
+    params["blocks"] = blocks.stack_init(generator, cfg, cross=cross)
     return params
+
+
+def _encode(params, frames, cfg: ModelConfig):
+    """The encoder stack (non-causal) over the frame embeddings."""
+    x, _ = blocks.stack_apply(params["encoder"]["blocks"], frames, cfg,
+                              causal=False,
+                              n_layers=cfg.num_encoder_layers)
+    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
+
+def _decoder_inputs(params, batch, cfg: ModelConfig):
+    """Token embeddings, with the vision prefix prepended. Returns
+    (x, n_prefix)."""
+    x = embed(params["embed"], batch["tokens"], cfg)
+    n_prefix = 0
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        pfx = torch.as_tensor(batch["patches"], device=x.device).to(x.dtype)
+        x = torch.cat([pfx, x], dim=1)
+        n_prefix = pfx.shape[1]
+    return x, n_prefix
 
 
 # ----------------------------------------------------------------- serve
 def prefill(params, batch, cfg: ModelConfig, max_seq: int):
-    """Process the prompt batch["tokens"] (B, S), build the per-slot decode
-    caches (seq extent `max_seq`), return last-token logits (B, V)."""
-    blocks.check_supported(cfg)
-    x = embed(params["embed"], batch["tokens"], cfg)
-    x, caches = blocks.stack_prefill(params["blocks"], x, cfg, max_seq)
+    """Process the prompt batch["tokens"] (B, S) (+ "patches" for the
+    vision prefix, "frames" for the encoder), build the per-slot decode
+    caches (seq extent `max_seq` plus the prefix; cross-KV extent the
+    frames'), return last-token logits (B, V)."""
+    x, n_prefix = _decoder_inputs(params, batch, cfg)
+    cross = bool(cfg.num_encoder_layers)
+    enc_out = None
+    if cross:
+        frames = torch.as_tensor(batch["frames"], device=x.device)
+        enc_out = _encode(params, frames.to(x.dtype), cfg)
+    x, caches = blocks.stack_prefill(params["blocks"], x, cfg,
+                                     max_seq + n_prefix, cross=cross,
+                                     enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg, params.get("head"))
     return caches, logits[:, 0, :]
@@ -75,7 +116,8 @@ def decode_step(params, token, caches, t, cfg: ModelConfig,
     (`make_decode_caches`, or `prefill`'s). Written in place."""
     x = embed(params["embed"], token[:, None], cfg)
     x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
-                                    block_table, page_tokens)
+                                    block_table, page_tokens,
+                                    cross=bool(cfg.num_encoder_layers))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg, params.get("head"))
     return logits[:, 0, :], caches
@@ -89,7 +131,6 @@ def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,
     place. `chunk_idx` may be an int or a device tensor; the chunk start
     reaches the kernels as a device tensor. Returns (last-token logits,
     caches); the engine uses the logits only on the final chunk."""
-    blocks.check_supported(cfg)
     C = tokens.shape[1]
     c0 = torch.as_tensor(chunk_idx, device=tokens.device).to(
         torch.int32) * C
@@ -101,20 +142,24 @@ def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,
     return logits[:, 0, :], caches
 
 
-def make_decode_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
-                       device=None) -> dict:
+def make_decode_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                       enc_len: int = 0, *, device=None) -> dict:
     """Contiguous per-slot decode caches (nb, batch, max_seq, KV, hd) in
-    cfg.dtype, zeroed."""
-    return blocks.init_caches(cfg, batch, max_seq, device=device)
+    cfg.dtype, zeroed; enc-dec archs add cross-KV of extent `enc_len`."""
+    return blocks.init_caches(cfg, batch, max_seq,
+                              cross=bool(cfg.num_encoder_layers),
+                              enc_len=enc_len, device=device)
 
 
 def make_paged_decode_caches(cfg: ModelConfig, n_slots: int, max_seq: int,
-                             page_tokens: int, *, pool_dtype: str = "fp",
+                             page_tokens: int, enc_len: int = 0, *,
+                             pool_dtype: str = "fp",
                              sz_granularity: str = "page",
                              device=None) -> dict:
     """Decode caches with self-attention K/V as a physical page pool
     (`blocks.init_paged_caches`); the serving engine's layout."""
     return blocks.init_paged_caches(
-        cfg, n_slots, max_seq, page_tokens, pool_dtype=pool_dtype,
-        sz_granularity=sz_granularity, device=device,
+        cfg, n_slots, max_seq, page_tokens,
+        cross=bool(cfg.num_encoder_layers), enc_len=enc_len,
+        pool_dtype=pool_dtype, sz_granularity=sz_granularity, device=device,
     )

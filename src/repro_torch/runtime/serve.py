@@ -28,6 +28,11 @@ weights live on the `EngineCells`. int8 pools must use per-token
 sub-scales there (`sz_granularity="token"`), so a slot's k rows land in
 its tail page without a per-page requantize.
 
+Frontend archs: the vision prefix (`cfg.num_prefix_tokens` patch
+embeddings) occupies the first cache rows of every slot, so the paged
+insert lands `bucket + n_prefix` rows; an enc-dec arch keeps its
+encoder's K/V slot-resident (extent `enc_len`, one prompt bucket).
+
 Not ported yet: mesh sharding (ROADMAP A16).
 """
 
@@ -58,12 +63,10 @@ def abstract_params(cfg: ModelConfig, serve_dtype: bool = True) -> dict:
 
 def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int,
                     enc_len: int = 0) -> dict:
-    """The contiguous decode caches (batch slots of extent max_seq) on the
-    meta device."""
-    if enc_len:
-        raise NotImplementedError(
-            "encoder caches arrive with the audio arch (ROADMAP A11)")
-    return M.make_decode_caches(cfg, batch, max_seq, device="meta")
+    """The contiguous decode caches (batch slots of extent max_seq; cross-KV
+    of extent enc_len for enc-dec archs) on the meta device."""
+    return M.make_decode_caches(cfg, batch, max_seq, enc_len,
+                                device="meta")
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -78,8 +81,10 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 
 def build_prefill_greedy(cfg: ModelConfig, bucket: int):
     """Prefill cell for one prompt bucket: returns the request's decode
-    caches (seq extent `bucket`) and its greedy first token. Prompts must
-    be exactly `bucket` long (see serving.batcher)."""
+    caches (seq extent `bucket` plus the frontend prefix; cross-KV extent
+    follows the frames in the batch) and its greedy first token. The
+    batch holds "tokens" and, for frontend archs, "patches" or "frames".
+    Prompts must be exactly `bucket` long (see serving.batcher)."""
 
     def cell(params, batch):
         caches, logits = M.prefill(params, batch, cfg, max_seq=bucket)
@@ -189,8 +194,8 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
     pools quantize the prompt pages first (`quant.quantize_pages`, or
     `quantize_tokens` for per-token sub-scales). The partial last page is
     zero-padded: masked out of attention, and under int8 it cannot widen
-    the page's range. Resident leaves (SSM state, conv tails) are copied
-    densely into the slot."""
+    the page's range. Resident leaves (SSM state, conv tails, cross-KV)
+    are copied densely into the slot."""
     n_wp = -(-bucket_total // page_tokens)     # pages the prompt spans
     pad = n_wp * page_tokens - bucket_total
     quantized = pool_dtype == "int8"
@@ -278,7 +283,7 @@ class EngineCells:
     prefill_fns: Dict[int, Any]
     insert_fns: Dict[int, Any]
     abstract_caches: Any           # the cache tree on the meta device
-    n_prefix: int                  # frontend prefix tokens (none ported)
+    n_prefix: int                  # frontend prefix tokens (vision)
     max_seq_total: int             # cache seq extent incl. n_prefix
     device: torch.device
     paged: bool = True
@@ -297,7 +302,8 @@ class EngineCells:
 
 
 def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
-                      buckets: Sequence[int], paged: bool = True,
+                      buckets: Sequence[int], enc_len: int = 0,
+                      paged: bool = True,
                       page_tokens: int = 16, prefill_chunk: int = 0,
                       pool_dtype: str = "fp", sz_granularity: str = "page",
                       speculative: str = "off", spec_k: int = 4,
@@ -308,8 +314,8 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
     0` (paged, attention-only archs) adds the chunked-prefill cell;
     `speculative` ("off" | "ngram" | "draft") adds the k-candidate verify
     cell and, for "draft", the draft cell and its weights (seed 0, cast
-    to `draft_cfg.dtype`)."""
-    blk.check_supported(cfg)
+    to `draft_cfg.dtype`). `enc_len` sizes the slot-resident cross-KV of
+    enc-dec archs, whose single prompt bucket fixes it."""
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
     if pool_dtype != "fp" and not paged:
         raise ValueError("pool_dtype applies to the paged layout only")
@@ -338,6 +344,12 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
             )
         if speculative == "draft" and draft_cfg is None:
             raise ValueError("speculative='draft' needs a draft_cfg")
+    npfx = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
+    if cfg.num_encoder_layers and len(set(buckets)) != 1:
+        raise ValueError(
+            "enc-dec archs need a single prefill bucket (cross-KV extent "
+            "is fixed by the encoder length)"
+        )
     if prefill_chunk:
         if not paged:
             raise ValueError("chunked prefill requires the paged layout")
@@ -358,7 +370,6 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                 f"bucket (got {bad}): prompts advance whole chunks"
             )
     device = resolve_device(device)
-    npfx = 0
     max_seq_total = max_seq + npfx
     prefills = {b: build_prefill_greedy(cfg, b) for b in sorted(set(buckets))}
     if not paged:
@@ -366,8 +377,8 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
             decode_fn=build_decode_greedy(cfg),
             prefill_fns=prefills,
             insert_fns={b: build_cache_insert() for b in prefills},
-            abstract_caches=M.make_decode_caches(cfg, n_slots, max_seq_total,
-                                                 device="meta"),
+            abstract_caches=abstract_caches(cfg, n_slots, max_seq_total,
+                                            enc_len),
             n_prefix=npfx,
             max_seq_total=max_seq_total,
             device=device,
@@ -375,7 +386,8 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         )
     n_pages = -(-max_seq_total // page_tokens)
     acaches = M.make_paged_decode_caches(
-        cfg, n_slots, max_seq_total, page_tokens, pool_dtype=pool_dtype,
+        cfg, n_slots, max_seq_total, page_tokens, enc_len,
+        pool_dtype=pool_dtype,
         sz_granularity=sz_granularity, device="meta",
     )
     inserts = {b: build_paged_cache_insert(b + npfx, page_tokens, pool_dtype,

@@ -54,10 +54,16 @@ Ported configuration: `EngineConfig()` means the same main path as in the
 reference — paged, int8 per-page pools, 16-token pages, bucketed prefill,
 LoI admission, the substrate on "auto"; chunked prefill, the prefix
 cache, the contiguous layout and speculative decoding are its options.
-It serves the dense attention-only archs and the SSM arch mamba2-780m
-(whose slot-resident state the pager prices; its pool holds nothing, so
-chunked prefill, the prefix cache and speculation refuse it as the
-reference does). Options outside the slice raise `NotImplementedError`
+It serves every arch of the catalog: dense and MoE decoders, the SSM arch
+mamba2-780m and the hybrid jamba (whose slot-resident state the pager
+prices; chunked prefill, the prefix cache and speculation refuse them as
+the reference does), the vision-prefix decoder paligemma (its patch
+embeddings take the first `n_prefix` cache rows of a slot) and the
+enc-dec seamless (its cross-KV slot-resident). A frontend arch's
+embeddings are drawn per request from a generator seeded from (17,
+request_id) (`_frontend_extras`); they are not the reference's
+`fold_in(PRNGKey(17), id)` numbers, which torch cannot reproduce.
+Options outside the slice raise `NotImplementedError`
 naming the ROADMAP item that will port them. The reference's
 `compile_counts` (jit's executable caches) has no eager counterpart and
 `measured_profile` waits for the scheduler (ROADMAP A13).
@@ -82,6 +88,7 @@ from repro_torch.core import roofline as rl
 from repro_torch.core import tiers as tr
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
+from repro_torch.models.frontends import synthetic_frontend_embeds
 from repro_torch.models.module import cast_params
 from repro_torch.runtime import capability
 from repro_torch.runtime import serve as serve_rt
@@ -151,7 +158,6 @@ def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
     """Raise `NotImplementedError` for what the port does not run yet
     (after the reference's own `ValueError`s for chunking or sharing
     without the paged layout)."""
-    blk.check_supported(cfg)
     if not ecfg.paged and ecfg.prefill_chunk:
         raise ValueError("chunked prefill requires the paged layout")
     if not ecfg.paged and ecfg.prefix_cache:
@@ -166,6 +172,18 @@ def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP {item})")
+
+
+def frontend_extras(cfg: ModelConfig, request_id: int, bucket: int,
+                    device) -> dict:
+    """A request's frontend embeddings for its prefill batch: "patches"
+    (vision) or "frames" (audio, `bucket` rows), drawn on `device` from a
+    generator seeded from (17, request_id); {} for token-only archs."""
+    if cfg.frontend not in ("vision_stub", "audio_stub"):
+        return {}
+    gen = torch.Generator(device).manual_seed((17 << 32) + request_id)
+    name = "patches" if cfg.frontend == "vision_stub" else "frames"
+    return {name: synthetic_frontend_embeds(cfg, 1, bucket, gen)}
 
 
 class AdmissionController:
@@ -452,12 +470,13 @@ class ServingEngine:
         if cells.paged:
             self.caches = M.make_paged_decode_caches(
                 cfg, ecfg.n_slots, cells.max_seq_total, cells.page_tokens,
-                pool_dtype=cells.pool_dtype,
+                self._enc_len(), pool_dtype=cells.pool_dtype,
                 sz_granularity=cells.sz_granularity, device=self.device,
             )
         else:
             self.caches = M.make_decode_caches(
-                cfg, ecfg.n_slots, cells.max_seq_total, device=self.device)
+                cfg, ecfg.n_slots, cells.max_seq_total, self._enc_len(),
+                device=self.device)
         # physical memory substrate: host-resident pool twin reconciled
         # against the pager's tier map once per decode step. Disabled
         # when requested off, on the contiguous layout, and on cache
@@ -549,9 +568,10 @@ class ServingEngine:
         # per-page requantize round trip cannot do collision-free
         sz_gran = ("token" if ecfg.speculative != "off"
                    and ecfg.pool_dtype == "int8" else "page")
+        enc_len = max(ecfg.prefill_buckets) if cfg.num_encoder_layers else 0
         cells = serve_rt.make_engine_cells(
             cfg, n_slots=ecfg.n_slots, max_seq=ecfg.max_seq,
-            buckets=ecfg.prefill_buckets, paged=ecfg.paged,
+            buckets=ecfg.prefill_buckets, enc_len=enc_len, paged=ecfg.paged,
             page_tokens=ecfg.page_tokens,
             prefill_chunk=ecfg.prefill_chunk or 0,
             pool_dtype=ecfg.pool_dtype, sz_granularity=sz_gran,
@@ -563,7 +583,15 @@ class ServingEngine:
                 cfg, torch.Generator(device).manual_seed(seed))
         return cls(cfg, ecfg, params, cells, topo=topo, chip=chip)
 
+    def _enc_len(self) -> int:
+        return (max(self.ecfg.prefill_buckets)
+                if self.cfg.num_encoder_layers else 0)
+
     # ------------------------------------------------------------ admit
+    def _frontend_extras(self, req: Request, bucket: int) -> dict:
+        return frontend_extras(self.cfg, req.request_id, bucket,
+                               self.device)
+
     def _admit(self, req: Request, now: float) -> None:
         if req.output:
             raise ValueError(
@@ -588,7 +616,8 @@ class ServingEngine:
             if hit is not None:
                 self.pager.pin(hit.all_pages)
         batch = {"tokens": torch.tensor(req.tokens[None, :],
-                                        device=self.device)}
+                                        device=self.device),
+                 **self._frontend_extras(req, bucket)}
         slot_caches, tok = self.cells.prefill_fns[bucket](self.params, batch)
         start = self.npfx + req.prompt_len
         slot = self.batcher.admit(req, start_pos=start)
@@ -865,7 +894,8 @@ class ServingEngine:
             return False
         bucket = self.batcher.bucket_for(req.prompt_len)
         batch = {"tokens": torch.tensor(req.tokens[None, :],
-                                        device=self.device)}
+                                        device=self.device),
+                 **self._frontend_extras(req, bucket)}
         slot_caches, _ = self.cells.prefill_fns[bucket](self.params, batch)
         slot = self.batcher.admit(req, start_pos=start,
                                   emitted=len(emitted))

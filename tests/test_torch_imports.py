@@ -1,8 +1,8 @@
-"""The port stands alone: every `repro_torch` module (the fault layer and
-the fleet included), the port's dev
-serving script `scripts/dev_serve_torch.py` and its Fig 11 script
-`scripts/lbench_torch.py` import without JAX and without the reference
-package; entry points run on the card unless told otherwise
+"""The port stands alone: every `repro_torch` module (the fault layer,
+the fleet, the MoE layer and the frontends included), the port's dev
+serving script `scripts/dev_serve_torch.py`, its Fig 11 script
+`scripts/lbench_torch.py` and `examples/quickstart_torch.py` import
+without JAX and without the reference package; entry points run on the card unless told otherwise
 (and raise here, where there is none); options outside the ported slice
 raise `NotImplementedError`; no library attention kernel, compiler or
 Triton is called from the port."""
@@ -29,6 +29,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 DEV_SERVE = ROOT / "scripts" / "dev_serve_torch.py"
 LBENCH = ROOT / "scripts" / "lbench_torch.py"
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 
 _PROBE = """
 import importlib, importlib.util, pkgutil, sys
@@ -51,13 +52,15 @@ fleet = {"repro_torch.serving.faults", "repro_torch.serving.fleet",
          "repro_torch.serving.fleet.roles",
          "repro_torch.serving.fleet.router"}
 assert fleet <= set(names), fleet - set(names)
+archs = {"repro_torch.models.moe", "repro_torch.models.frontends"}
+assert archs <= set(names), archs - set(names)
 """
 
 
 def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE),
-                          str(LBENCH)],
+                          str(LBENCH), str(QUICKSTART)],
                          env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -68,7 +71,8 @@ def test_port_imports_without_jax_or_reference():
 def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "import triton", "cpp_extension", "_int_mm")
-    for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH]:
+    for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH,
+                 QUICKSTART]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:
@@ -176,12 +180,21 @@ def test_speculative_decoding_builds(mode):
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        configs.get("jamba_1_5_large_398b")
+    """Every arch of the reference's catalog is ported; what an MoE arch
+    still refuses is its expert-parallel layer over a mesh (ROADMAP
+    A16)."""
+    from repro_torch.models import moe as moe_mod
+
+    assert len(configs.list_archs()) == 10
+    configs.get("jamba_1_5_large_398b")
     moe = dataclasses.replace(_cfg(), num_experts=4, experts_per_token=2,
                               moe_d_ff=64)
-    with pytest.raises(NotImplementedError, match="A11"):
-        M.init_model(moe, device="cpu")
+    params = M.init_model(moe, device="cpu")
+    layer = {k: v[0] for k, v in params["blocks"]["pos0"]["moe"].items()}
+    x = torch.zeros(1, 2, moe.d_model)
+    assert moe_mod.moe_ep(layer, x, moe)[0].shape == x.shape
+    with pytest.raises(NotImplementedError, match="A16"):
+        moe_mod.moe_ep(layer, x, moe, mesh=object())
 
 
 def test_engine_defaults_match_reference_main_path():

@@ -3,8 +3,10 @@ reference's (`repro.core`), priced with the reference's v5e chip and
 topology converted to the port's types and sharded over 256 chips (the
 reference's single-pod mesh): the pure-numpy models equal to 1e-12, the
 serve access profile of the port's meta state equal leaf for leaf, and
-`analyze` levels 1-3 equal to 1e-9 for every dense arch at decode_32k and
-prefill_32k. Then the port's own defaults: one H100 and its topology."""
+`analyze` levels 1-3 equal to 1e-9 for every arch of the catalog (the
+ten of `configs.list_archs()`) at decode_32k and prefill_32k, and the
+same three levels through `examples/quickstart_torch.py` on kimi-k2.
+Then the port's own defaults: one H100 and its topology."""
 
 import dataclasses
 import math
@@ -299,6 +301,30 @@ def test_analyze_matches_reference(arch, shape):
             assert t.placement.assignment == j.placement.assignment
 
 
+def test_quickstart_matches_reference():
+    """`examples/quickstart_torch.py` on its default kimi-k2 x decode_32k,
+    priced with the reference's chip, topology and 256 chips: each of its
+    three policies' levels equal the reference's `analyze` (no dry-run
+    record) at pool fraction 0.5, as `examples/quickstart.py` calls it."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "quickstart_torch.py")
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.N_CHIPS == N_CHIPS
+    got = mod.run(chip=_ref_chip(), topo=_ref_topology())
+    assert tuple(got) == ("first_touch", "hotness", "balanced_bw")
+    for policy, t in got.items():
+        j = jq.analyze("kimi-k2-1t-a32b", "decode_32k", policy=policy,
+                       pool_fraction=0.5, use_dryrun=False)
+        _close(t.level1, j.level1, 1e-9)
+        _close(t.level2, j.level2, 1e-9)
+        _close(t.level3, j.level3, 1e-9)
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_analyze_runs_on_its_h100_defaults(arch):
     """One H100 card with `h100_topology()`: 80 GB of HBM take the
@@ -359,8 +385,8 @@ def test_analyze_refuses_train_shapes_and_dry_runs():
         tq.analyze("smollm_360m", "train_4k")
     with pytest.raises(NotImplementedError, match="A15"):
         tq.analyze("smollm_360m", "decode_32k", use_dryrun=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tq.analyze("jamba_1_5_large_398b", "decode_32k")
+    with pytest.raises(NotImplementedError, match="A14"):
+        tq.analyze("jamba_1_5_large_398b", "train_4k")
 
 
 # ---------------------------------------------- catalog admission prior
