@@ -61,8 +61,8 @@ Phases (any failure raises and exits non-zero):
                with the plain versions on the card
                (`force_backend("reference")`) must agree per request
                (lockstep greedy tokens) >= 0.5, on int8 and on fp pools;
-               one more int8 run under torch.profiler prints the device's
-               busy share and the host's busiest ops.
+               one more int8 run of 4 requests under torch.profiler prints
+               the device's busy share and the host's busiest ops.
   6. substrate — the page streams on SmolLM-360M's int8 pool at 4096
                pages (1.35 GB, pinned host twin): page_out / page_in GB/s
                per burst of 1-4096 pages against the data sheet's 64 GB/s,
@@ -108,7 +108,8 @@ Phases (any failure raises and exits non-zero):
                version runs, agreement >= 0.5 with the plain-version run
                in float32 (bf16 printed: the random 48-layer stack turns
                bf16 rounding into token flips) and prompt-pass logit
-               drifts within bf16's own, a profiled run; the paged int8,
+               drifts within bf16's own, a profiled run of 4 requests;
+               the paged int8,
                paged fp and contiguous
                engines each equal the naive loop bit for bit on 8 prompts
                of 128 tokens; a float32 prefill of 64 tokens plus 8 decode
@@ -137,6 +138,24 @@ Phases (any failure raises and exits non-zero):
                one paligemma admission's page write, flash_decode at the
                cross shape) against their plain versions in float32 and
                bf16, timed beside their bounds and SDPA.
+ 13. train   — training (`repro_torch.runtime.train`): flash_mha's CUDA
+               backward against its plain version (the chunked backward)
+               at smollm-360m's train shapes (B 8, S 256 and 1024, 15/5
+               heads), seamless's encoder (non-causal 16/16), paligemma
+               (S 384, 8/1, D 256), D 20 at S 100 and a kv_offset, in
+               float32 (1e-4 of the largest grad) and bf16 (2e-2), two
+               calls bit-equal, timed beside its bound, the plain version
+               and SDPA's backward; SmolLM-360M at published widths,
+               batch 8 x 256, 12 steps from the seed-0 init: float32
+               through the kernels and the plain versions (losses within
+               1e-3 at every step and on the same states, the loss
+               falling), bf16 through the kernels (the main path:
+               flash_mha and flash_mha_bwd launched, no plain version);
+               resume (4 steps, save, restore, 4 steps) bit-equal to 8
+               straight steps under deterministic algorithms; mamba2-780m
+               (batch 4 x 256, 6 steps, float32) through ssd_scan against
+               the plain versions on the same states. Step ms, tokens/s
+               and peak memory per run.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -148,12 +167,14 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases device,build,kernels,substrate,engine
     python3 chip_smoke.py --phases device,build,fleet     # faults, the fleet
     python3 chip_smoke.py --phases device,build,kernels,archs  # the archs
+    python3 chip_smoke.py --phases device,build,train     # training
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -195,6 +216,15 @@ def demangle(name: str) -> str:
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi_clocks() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
@@ -1899,7 +1929,8 @@ def engine_phase(torch):
           f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
           f"ff={cfg.d_ff} vocab={cfg.vocab_size}, random weights seed 0")
 
-    def serve(pool_dtype, backend, profiled=False, substrate="auto"):
+    def serve(pool_dtype, backend, profiled=False, substrate="auto",
+              n_req=16):
         kernels.force_backend(backend)
         try:
             eng = ServingEngine.build(
@@ -1907,7 +1938,7 @@ def engine_phase(torch):
                                          substrate=substrate),
                 params=params)
             gaps = watch_substrate(eng)
-            reqs = make_scenario("chat", 16, cfg.vocab_size, seed=0,
+            reqs = make_scenario("chat", n_req, cfg.vocab_size, seed=0,
                                  prompt_buckets=(64, 128),
                                  gen_range=(16, 32), arrival_rate=1e5)
             torch.cuda.synchronize()
@@ -1958,7 +1989,9 @@ def engine_phase(torch):
               f"{INT8_TOKEN_AGREEMENT})")
         divergence_report(torch, cfg, params, kreqs, rreqs)
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
-    serve("int8", None, profiled=True)
+    # the profiled run is cut to 4 requests (the gates above run on all
+    # 16): reading the 16-request trace's events took a quarter minute
+    serve("int8", None, profiled=True, n_req=4)
     return {k: main_launches[k] for k in BUCKET_KERNELS}
 
 
@@ -2787,13 +2820,13 @@ def ssm_phase(torch):
             print(f"  FAIL {what}")
             failures.append(what)
 
-    def serve(backend, profiled=False, model=None, **over):
+    def serve(backend, profiled=False, model=None, n_req=16, **over):
         cfg_, params_ = model or (cfg, params)
         kernels.force_backend(backend)
         try:
             eng = ServingEngine.build(cfg_, dataclasses.replace(base, **over),
                                       params=params_)
-            reqs = make_scenario("chat", 16, cfg.vocab_size, seed=0,
+            reqs = make_scenario("chat", n_req, cfg.vocab_size, seed=0,
                                  prompt_buckets=(64, 128),
                                  gen_range=(16, 32), arrival_rate=1e5)
             torch.cuda.synchronize()
@@ -2884,7 +2917,9 @@ def ssm_phase(torch):
     gate(d_kernel16 <= d_dtype, f"bf16 kernel drift {d_kernel16} > bf16 "
          f"dtype drift {d_dtype}")
     gate(d_kernel32 <= 2e-3, f"float32 kernel drift {d_kernel32}")
-    serve(None, profiled=True)
+    # the profiled run is cut to 4 requests (the gates above run on all
+    # 16): the 16-request trace's 2.3 M events took 19 s to read
+    serve(None, profiled=True, n_req=4)
 
     # (b) engine == naive loop, bit for bit, in each layout and pool
     prompts = chat_prompts(cfg)
@@ -3225,6 +3260,409 @@ def archs_phase(torch):
     return total
 
 
+# --------------------------------------------------------------- train
+def attn_pairs(B, Sq, Skv, H, causal, off) -> int:
+    """Unmasked (query, key) pairs of one attention call."""
+    if not causal:
+        return B * H * Sq * Skv
+    return B * H * sum(max(0, min(Skv, off + i + 1)) for i in range(Sq))
+
+
+def bwd_kernel_split(torch, fn, reps: int = 5) -> dict:
+    """Device ms per call of `fn` by kernel (short names), from
+    torch.profiler over `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = short_names([e.name])[0]
+            out[name] = out.get(name, 0.0) \
+                + e.time_range.elapsed_us() / reps / 1e3
+    return out
+
+
+def flash_bwd_cases(torch, timer) -> dict:
+    """flash_mha's CUDA backward against its plain version (the chunked
+    backward, `chunked._bwd_inner`) on the same (q, k, v, out, lse, dout)
+    at the training shapes, float32 within 1e-4 of the largest grad, bf16
+    within 2e-2 of it, two calls bit-equal; timed at smollm-360m's train
+    shape (bf16, B 8, S 256) beside its bound, the plain version and
+    SDPA's backward. Returns the kernel's JSON record (launches filled in
+    by the caller)."""
+    from repro_torch.kernels.flash_attention import chunked
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    F = torch.nn.functional
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    cases = [
+        # (label, B, Sq, Skv, H, KV, D, causal, kv_offset)
+        ("smollm train", 8, 256, 256, 15, 5, 64, True, 0),
+        ("smollm train", 8, 1024, 1024, 15, 5, 64, True, 0),
+        ("seamless encoder", 8, 128, 128, 16, 16, 64, False, 0),
+        ("paligemma", 2, 384, 384, 8, 1, 256, True, 0),
+        ("D 20", 2, 100, 100, 3, 1, 20, True, 0),
+        ("kv_offset", 2, 64, 128, 6, 2, 64, True, 64),
+    ]
+    print("kernel flash_mha_bwd vs the plain backward on the same inputs "
+          "(float32 max_abs_err <= 1e-4 x max|grad|, bf16 <= 2e-2 x "
+          "max|grad|; two calls bit-equal)")
+    failures = []
+    main = None
+    for label, B, Sq, Skv, H, KV, D, causal, off in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(B, Sq, H, D, dtype=dt)
+            k = randn(B, Skv, KV, D, dtype=dt)
+            v = randn(B, Skv, KV, D, dtype=dt, scale=0.5)
+            do = randn(B, Sq, H, D, dtype=dt)
+            out, lse4 = chunked._fwd(q, k, v, causal, None, off, 512, 512)
+            lse = lse4.reshape(B, H, Sq).contiguous()
+            args = (q, k, v, out, lse, do)
+            got = fa.flash_mha_bwd_cuda(*args, causal=causal, kv_offset=off)
+            again = fa.flash_mha_bwd_cuda(*args, causal=causal,
+                                          kv_offset=off)
+            want = chunked._bwd_inner(causal, None, off, 512, 512,
+                                      (q, k, v, out, lse4), do)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            rel = 1e-4 if dt == torch.float32 else 2e-2
+            errs = []
+            ok = same
+            for g, w in zip(got, want):
+                scale_ = float(w.float().abs().max())
+                err = float((g.float() - w.float()).abs().max())
+                errs.append(err / max(scale_, 1e-30))
+                ok = ok and err <= rel * scale_ and bool(
+                    torch.isfinite(g).all())
+            flag = "ok  " if ok else "FAIL"
+            print(f"  {flag} flash_mha_bwd {label:16s} B={B} Sq={Sq} "
+                  f"Skv={Skv} H={H} KV={KV} D={D} causal={causal} "
+                  f"off={off} {str(dt)[6:]:8s} err/max dq {errs[0]:.2e} "
+                  f"dk {errs[1]:.2e} dv {errs[2]:.2e} bit-equal={same}")
+            if not ok:
+                failures.append(f"{label} {dt}")
+            if main is None and dt == torch.bfloat16:
+                main = (args, causal, off, max(
+                    float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, want)))
+    if failures:
+        raise AssertionError(f"flash_mha_bwd cases failed: {failures}")
+
+    (q, k, v, out, lse, do), causal, off, err = main
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    lse4 = lse.reshape(B, KV, H // KV, Sq)
+    # The kernel's time is the CUDA-events time around one call (its three
+    # launches run back to back, L2 flushed before): in two full runs the
+    # profiler's sum over 15 calls read 0.21 and 0.33 ms while the events,
+    # the per-kernel profile below and a profiled train step's 32 calls
+    # all read about 1.08 ms (my chip runs, PR 22). Both are printed.
+    clocks = [smi_clocks()]
+    prof_ms = timer(lambda: fa.flash_mha_bwd_cuda(
+        q, k, v, out, lse, do, causal=causal, kv_offset=off))
+    ms = timer.last_event_ms
+    event_ms = [ms]
+    clocks.append(smi_clocks())
+    plain_ms = timer(lambda: chunked._bwd_inner(
+        causal, None, off, 512, 512, (q, k, v, out, lse4), do))
+    event_ms.append(timer.last_event_ms)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    try:
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=True)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True))
+        event_ms.append(timer.last_event_ms)
+    except (TypeError, RuntimeError) as e:   # torch without enable_gqa
+        print(f"  SDPA backward not timed: {e}")
+        lib_ms = None
+    split = bwd_kernel_split(torch, lambda: fa.flash_mha_bwd_cuda(
+        q, k, v, out, lse, do, causal=causal, kv_offset=off))
+    print("  flash_mha_bwd device ms per call by kernel: " + json.dumps(
+        {k_: round(v_, 4) for k_, v_ in split.items()})
+        + f"; SM clock, power, temperature before / after the kernel's "
+        f"timing: {clocks[0]} / {clocks[1]}")
+    pairs = attn_pairs(B, Sq, Skv, H, causal, off)
+    ops = 10 * D * pairs
+    # q, out, dout and k, v read once, dq and dk, dv written once
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS["bfloat16"]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  flash_mha_bwd at smollm-360m's train shape (bf16 causal B={B} "
+          f"S={Sq} H={H} KV={KV} D={D}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA backward "
+          f"{'not timed' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+          f"{bound_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
+          f": {ops:.3e} operations, {nbytes} bytes); the kernel's time "
+          f"from CUDA events (torch.profiler's sum: {prof_ms:.4f} ms), "
+          f"the plain and SDPA's device times from "
+          f"{'torch.profiler' if timer.profiled else 'CUDA events'}; "
+          "CUDA-events ms around a call (kernel, plain, SDPA): "
+          + ", ".join(f"{x:.4f}" for x in event_ms))
+    return dict(
+        name="flash_mha_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:146",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=lib_ms,
+        shape=f"bf16 causal B={B} S={Sq} H={H} KV={KV} D={D}")
+
+
+def train_run(torch, cfg, backend, steps, batch, seq, lr=1e-3,
+              deterministic=False, state=None, start=0, save=None,
+              shadow=False):
+    """`steps` train steps of `cfg` from `state` (default: the seed-0
+    init on the card) over the synthetic batches of steps start.. start +
+    steps, through the kernels (backend None) or the plain versions
+    ("reference"). `save` (a CheckpointManager) saves the state after the
+    last step. With `shadow`, the plain versions also compute the loss of
+    the state each step starts from (no grad, not timed, not counted).
+    Returns a dict of losses, grad norms, shadow losses, step ms,
+    tokens/s, peak device memory, the launches, the plain calls and the
+    final state."""
+    from repro_torch import kernels
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models import model as M
+    from repro_torch.models.module import torch_dtype
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime import train as train_rt
+
+    tcfg = TrainConfig(learning_rate=lr, total_steps=12, warmup_steps=2)
+    step_fn = train_rt.build_train_step(cfg, tcfg)
+    batches = [{k: v.to("cuda") for k, v in make_batch_for(
+        cfg, seq, batch, s).items()} for s in range(start, start + steps)]
+    if state is None:
+        state = train_rt.init_train_state(
+            cfg, torch.Generator("cuda").manual_seed(0))
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    kernels.force_backend(backend)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        losses, gnorms, shadows, ms = [], [], [], []
+        for b in batches:
+            if shadow:
+                counts = (dict(kernels.LAUNCHES),
+                          dict(kernels.REFERENCE_CALLS))
+                kernels.force_backend("reference")
+                with torch.no_grad():
+                    cast = tree_map(lambda p: p.to(torch_dtype(cfg.dtype))
+                                    if p.is_floating_point() else p,
+                                    state["params"])
+                    shadows.append(float(M.loss_fn(cast, b, cfg)[0]))
+                kernels.force_backend(backend)
+                kernels.LAUNCHES.update(counts[0])
+                kernels.REFERENCE_CALLS.update(counts[1])
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            losses.append(float(metrics["loss"]))    # synchronizes
+            ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(metrics["grad_norm"]))
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+    finally:
+        kernels.force_backend(None)
+        torch.use_deterministic_algorithms(prev)
+    if save is not None:
+        save.save(start + steps, state, blocking=True)
+    med = statistics.median(ms[1:] if len(ms) > 1 else ms)
+    return dict(losses=losses, gnorms=gnorms, shadows=shadows, step_ms=med,
+                tok_s=batch * seq / med * 1e3,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches, plain=plain, state=state)
+
+
+def run_line(name, r) -> str:
+    return (f"  {name}: loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} "
+            f"median step {r['step_ms']:.1f} ms, {r['tok_s']:.0f} tokens/s, "
+            f"peak {r['peak_gb']:.2f} GB; launches={r['launches']} "
+            f"plain_calls={r['plain']}\n    losses "
+            f"{[round(x, 6) for x in r['losses']]}\n    grad norms "
+            f"{[round(x, 6) for x in r['gnorms']]}")
+
+
+def train_phase(torch, timer):
+    """Training on the card (`repro_torch.runtime.train`): flash_mha's
+    backward kernel against its plain version, then SmolLM-360M at
+    published widths (batch 8, seq 256, 12 steps from the seed-0 init,
+    remat by block): float32 through the kernels and through the plain
+    versions (loss within 1e-3 relative at every step, and each state's
+    loss through the kernels within 1e-3 of the plain versions' loss of
+    the same state; the loss falling),
+    bf16 through the kernels; resume (4 steps, CheckpointManager save and
+    restore, 4 steps) bit-equal to 8 straight steps under
+    `torch.use_deterministic_algorithms(True)`; mamba2-780m (batch 4, seq
+    256, 6 steps) through ssd_scan against the plain versions in float32
+    on the same states (the free-running gap printed).
+    Returns (launches of the path's kernels, flash_mha_bwd's record)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.pytree import named_leaves
+    from repro_torch.optim.adamw import tree_map
+
+    record = flash_bwd_cases(torch, timer)
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            print(f"  FAIL {what}")
+            failures.append(what)
+
+    def same_state(r, plain, what):
+        """The kernels' loss of each state of their own run against the
+        plain versions' loss of the same state (gate 1e-3 relative), and
+        the first step's grad norm, where both runs start from one state
+        (gate 1e-4 relative)."""
+        gap = max(abs(x - y) / abs(y) for x, y in zip(r["losses"],
+                                                     r["shadows"]))
+        g0 = abs(r["gnorms"][0] - plain["gnorms"][0]) / plain["gnorms"][0]
+        print(f"  {what}: kernels vs plain loss of the same state, max "
+              f"relative gap over {len(r['losses'])} steps {gap:.2e} (gate "
+              f"1e-3); first step's grad norm {r['gnorms'][0]:.6f} vs "
+              f"{plain['gnorms'][0]:.6f}, gap {g0:.2e} (gate 1e-4)")
+        gate(gap <= 1e-3, f"{what} same-state loss gap {gap}")
+        gate(g0 <= 1e-4, f"{what} first grad norm gap {g0}")
+
+    def close_losses(a, b, what, gated=True):
+        finite = all(math.isfinite(x) for x in a["losses"] + b["losses"])
+        gate(finite, f"{what}: non-finite losses")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                     b["losses"])) \
+            if finite else math.inf
+        print(f"  {what}: max relative loss gap over {len(a['losses'])} "
+              f"steps {rel:.2e} ({'gate 1e-3' if gated else 'printed'})")
+        if gated:
+            gate(rel <= 1e-3, f"{what} loss gap {rel}")
+
+    cfg = configs.get("smollm_360m")
+    assert cfg.dtype == "bfloat16"
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    print(f"train {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"ff={cfg.d_ff} vocab={cfg.vocab_size}; batch 8 x seq 256, 12 "
+          "steps, lr 1e-3 (warmup 2), remat=block, seed-0 init; "
+          + smi_line())
+    k32 = train_run(torch, cfg32, None, 12, 8, 256, shadow=True)
+    print(run_line("float32 kernels", k32))
+    r32 = train_run(torch, cfg32, "reference", 12, 8, 256)
+    print(run_line("float32 plain  ", r32))
+    same_state(k32, r32, "smollm float32")
+    close_losses(k32, r32, "float32 kernels vs plain")
+    gate(k32["losses"][-1] < k32["losses"][0], "the loss did not fall")
+    gate(all(k32["launches"].get(k, 0) > 0 for k in
+             ("flash_mha", "flash_mha_bwd")), f"launches {k32['launches']}")
+    gate(not k32["plain"], f"plain calls in the kernel run {k32['plain']}")
+    gate(not r32["launches"] and r32["plain"].get("mha_bwd", 0) > 0,
+         f"plain run {r32['launches']} {r32['plain']}")
+    del k32["state"], r32["state"]
+    # the main path: the published bf16 compute on float32 masters
+    k16 = train_run(torch, cfg, None, 12, 8, 256)
+    print(run_line("bf16 kernels (main path)", k16))
+    gate(all(k16["launches"].get(k, 0) > 0 for k in
+             ("flash_mha", "flash_mha_bwd")) and not k16["plain"],
+         f"bf16 launches {k16['launches']} plain {k16['plain']}")
+    gate(all(math.isfinite(x) for x in k16["losses"]), "bf16 loss")
+    # one more bf16 step (the 13th) under the profiler: where a step's
+    # device time goes
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.runtime import train as train_rt
+
+    step_fn = train_rt.build_train_step(cfg, TrainConfig(
+        learning_rate=1e-3, total_steps=12, warmup_steps=2))
+    b13 = {k: v.to("cuda") for k, v in make_batch_for(cfg, 256, 8,
+                                                      12).items()}
+    profile_calls(torch, lambda: step_fn(k16["state"], b13),
+                  "smollm-360m bf16 train step")
+    del k16["state"]
+
+    # resume: bit-equal to the straight run. The embedding's and the
+    # label gather's backward accumulate with atomics (index_add_,
+    # scatter_add_) unless deterministic algorithms are on; the flash
+    # backward kernel has no atomics. Depth cut to 2 layers (widths kept)
+    # so that the checkpoint is 0.75 GB, not 4.3.
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    print(f"  resume: {cfg2.name} cut to {cfg2.num_layers} layers at "
+          "published widths, bf16, under torch.use_deterministic_algorithms"
+          "(True) (index_add_ / scatter_add_ backward without atomics)")
+    tmp = tempfile.mkdtemp(prefix="train_resume_")
+    try:
+        straight = train_run(torch, cfg2, None, 8, 8, 256,
+                             deterministic=True)
+        mgr = CheckpointManager(tmp)
+        first = train_run(torch, cfg2, None, 4, 8, 256, deterministic=True,
+                          save=mgr)
+        t0 = time.perf_counter()
+        state = mgr.restore(4, tree_map(torch.zeros_like, first["state"]))
+        restore_s = time.perf_counter() - t0
+        second = train_run(torch, cfg2, None, 4, 8, 256, deterministic=True,
+                           state=state, start=4)
+        a = named_leaves(straight["state"])
+        b = named_leaves(second["state"])
+        diff = [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
+        nbytes = sum(x.numel() * x.element_size() for _, x in a)
+        print(f"  resume: 8 straight steps vs 4 + save/restore + 4: "
+              f"{len(a) - len(diff)} of {len(a)} leaves bit-equal, losses "
+              f"{straight['losses'][4:]} vs {second['losses']} "
+              f"(checkpoint {nbytes / 1e9:.2f} GB, restore {restore_s:.1f} s)")
+        gate(not diff and straight["losses"][4:] == second["losses"],
+             f"resume differs in {diff[:4]}")
+        del straight, first, second, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # mamba2-780m through ssd_scan (float32 gate)
+    mcfg = dataclasses.replace(configs.get("mamba2_780m"), dtype="float32")
+    print(f"train {mcfg.name}: {mcfg.num_layers}L d={mcfg.d_model} "
+          f"heads={mcfg.ssm_heads}x{mcfg.ssm_head_dim} "
+          f"state={mcfg.ssm_state}; batch 4 x seq 256, 6 steps, float32; "
+          + smi_line())
+    km = train_run(torch, mcfg, None, 6, 4, 256, shadow=True)
+    print(run_line("float32 kernels", km))
+    rm = train_run(torch, mcfg, "reference", 6, 4, 256)
+    print(run_line("float32 plain  ", rm))
+    same_state(km, rm, "mamba2 float32")
+    # the two free-running trajectories are printed, not gated: from one
+    # state the first grad norms differ by 9e-6 (the random 48-layer
+    # stack's grad norm is 57, clipped to 1), and Adam's normalized
+    # update turns such differences on near-zero grads into +-lr steps,
+    # so the runs part (grad norms 16.6 vs 18.0 at step 4, loss gap
+    # 1.2e-3 there; my chip run, PR 22). The same-state gate above holds
+    # the kernel to the plain version at every step.
+    close_losses(km, rm, "mamba2 float32 kernels vs plain, free-running",
+                 gated=False)
+    gate(km["launches"].get("ssd_scan", 0) > 0 and not km["plain"],
+         f"mamba2 launches {km['launches']} plain {km['plain']}")
+    del km["state"], rm["state"]
+    if failures:
+        raise AssertionError(f"train phase: {failures}")
+    return ({"flash_mha_bwd": k16["launches"]["flash_mha_bwd"],
+             "flash_mha": k16["launches"]["flash_mha"],
+             "ssd_scan": km["launches"]["ssd_scan"]}, record)
+
+
 # kernel groups of the profiled runs: (group, substrings a lowercased
 # kernel name must all hold); the two decode kernels share one template
 # body, whose row policy (PagedRows / DenseRows) names which one ran
@@ -3234,6 +3672,7 @@ PROFILE_GROUPS = (
     ("flash_mha", ("flash_mma_kernel",)),
     ("flash_mha", ("flash_combine_kernel",)),
     ("flash_mha", ("flash_fma_kernel",)),
+    ("flash_mha_bwd", ("flash_bwd_",)),
     ("write_pages/page_out/page_in", ("page_copy_kernel",)),
     ("paged_prefill_flash/insert_flash/insert_flash_q8", ("paged_prefill",)),
     ("ssd_scan", ("ssd_mma_kernel",)),
@@ -3243,25 +3682,34 @@ PROFILE_GROUPS = (
 # kernels whose every instantiation the build phase lists (registers and
 # spills)
 LISTED_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
+                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                   "decode_split_kernel", "ssd_mma_kernel",
                   "matmul_w8a8_mma_kernel")
 
 
 def profile_run(torch, eng, reqs, label="int8 kernels run") -> dict:
-    """Serve `reqs` under torch.profiler and print where the time goes:
+    """Serve `reqs` under torch.profiler and print where the time goes
+    (`profile_calls`). Returns the device ns by kernel group."""
+    return profile_calls(torch, lambda: eng.run(reqs), label,
+                         lambda stats: f"over {stats.steps} decode steps")
+
+
+def profile_calls(torch, fn, label, describe=lambda out: "") -> dict:
+    """Run `fn` under torch.profiler and print where the time goes:
     the device's busy share of the run's wall time (union of device
     intervals), device time by kernel group, the host's busiest ops by
-    total CPU time and the host syncs. Returns the device ns by kernel
-    group (`PROFILE_GROUPS`). It reads the profiler's raw event
-    list: building its event tree takes minutes for a trace this long.
-    Profiling slows the host, so the run's wall time here is longer than
-    the unprofiled run's."""
+    total CPU time and the host syncs; `describe(fn's result)` adds to
+    the first line. Returns the device ns by kernel group
+    (`PROFILE_GROUPS`). It reads the profiler's raw event list: building
+    its event tree takes minutes for a trace this long. Profiling slows
+    the host, so the run's wall time here is longer than the unprofiled
+    run's."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stats = eng.run(reqs)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     t1 = time.perf_counter()
@@ -3292,8 +3740,8 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> dict:
             syncs += "synchronize" in name or name == "aten::nonzero"
     top = sorted(host.items(), key=lambda kv: kv[1], reverse=True)[:6]
     total_ns = sum(by_group.values()) or 1
-    print(f"  profile {label}: wall {wall_us / 1e3:.1f} ms over "
-          f"{stats.steps} decode steps, device busy {busy:.3f} of wall "
+    print(f"  profile {label}: wall {wall_us / 1e3:.1f} ms "
+          f"{describe(out)}, device busy {busy:.3f} of wall "
           f"(idle {1 - busy:.3f}); device ms by group " + json.dumps(
               {k: round(v / 1e6, 3) for k, v in sorted(by_group.items())})
           + "; share of device time " + json.dumps(
@@ -3308,7 +3756,8 @@ def profile_run(torch, eng, reqs, label="int8 kernels run") -> dict:
 
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
-          "fleet", "chunked", "contiguous", "speculative", "ssm", "archs")
+          "fleet", "chunked", "contiguous", "speculative", "ssm", "archs",
+          "train")
 
 
 def parse_phases(argv) -> set:
@@ -3411,6 +3860,14 @@ def main(argv=None) -> int:
         for k, v in archs_phase(torch).items():
             launches.setdefault(k, v)
         phase_done("archs")
+    if "train" in phases:
+        train_launches, record = train_phase(torch, Timer(torch))
+        records.append(record)
+        # the serving phases' counts stand for the forward kernels
+        for k, v in train_launches.items():
+            launches.setdefault(k, v)
+        launches["flash_mha_bwd"] = train_launches["flash_mha_bwd"]
+        phase_done("train")
     for r in records:
         r["launches"] = launches.get(r["name"])
         r.pop("shape")

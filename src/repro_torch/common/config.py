@@ -4,7 +4,7 @@
 family of the reference package; every field and default is the
 reference's, so `dataclasses.asdict` of a port config equals the
 reference's. `ShapeConfig`/`SHAPES` describe the workload cells the
-admission prior is quoted in.
+admission prior is quoted in; `TrainConfig` is the training run's.
 """
 
 from __future__ import annotations
@@ -169,3 +169,36 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+REMAT_MODES = ("none", "block")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training fields and defaults. `remat` takes "none"
+    or "block" (recompute one super-period of layers in the backward);
+    `compress_grads` (the int8 cross-pod all-reduce, a collective) ports
+    with the mesh."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    microbatches: int = 1           # gradient accumulation steps
+    remat: str = "block"            # none | block
+    compress_grads: bool = False    # int8 cross-pod all-reduce
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    label_smoothing: float = 0.0
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat {self.remat!r}; expected one of "
+                             f"{REMAT_MODES}")
+        if self.compress_grads:
+            raise NotImplementedError(
+                "compress_grads (the int8 cross-pod all-reduce) ports with "
+                "the mesh (ROADMAP A16)")

@@ -10,6 +10,5 @@
   Level 3: core.interference — LoI / IC / sensitivity on the pooled tier
   core.quantify           — the three levels as one call, `analyze`
 
-Not ported yet: the training access profile (ROADMAP A14) and the
-dry-run roofline over a compiled step (A15).
+Not ported yet: the dry-run roofline over a compiled step (ROADMAP A15).
 """

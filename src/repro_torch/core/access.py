@@ -1,13 +1,17 @@
 """Level 1: per-tensor access profiles and bandwidth-capacity scaling
-curves (copy of `repro.core.access`; `train_profile` waits for training,
-ROADMAP A14).
+curves (copy of `repro.core.access`).
 
 The paper measures page-grain access counts with PEBS; the unit of
-placement here is the named tensor of the serve state (meta tensors from
+placement here is the named tensor of the train or serve state (meta
+tensors from `runtime.train.abstract_train_state` or
 `runtime.serve.abstract_params`/`abstract_caches` are enough: only shapes
-and dtypes are read). `touches_per_step` is derived from serving
+and dtypes are read). `touches_per_step` is derived from each workload's
 semantics (how many times each byte moves per step):
 
+  train:  param read fwd (+ recompute under remat), read in bwd, grad
+          write + optimizer read/write; moments read+write once (opt
+          phase only: the coldest large state, the paper's pool-tier
+          residents);
   serve:  param read per step; expert weights scaled by the expected
           fraction of experts activated by the step's tokens
           (1 - (1 - k/E)^T — the Fig 6 skew for MoE);
@@ -163,9 +167,28 @@ def expert_activation_probs(cfg: ModelConfig, tokens: int) -> np.ndarray:
 
 def train_profile(state, cfg: ModelConfig, shape: ShapeConfig,
                   remat: str = "block") -> list[TensorAccess]:
-    """Access profile for one optimizer step: ports with training."""
-    raise NotImplementedError(
-        "train_profile ports with training (ROADMAP A14)")
+    """Access profile for one optimizer step."""
+    out = []
+    fwd_reads = 2.0 if remat == "block" else 1.0  # fwd + recompute
+    tokens = shape.tokens
+    emb_frac = min(1.0, tokens / cfg.vocab_size)
+    for name, leaf in named_leaves(state):
+        b = leaf_bytes(leaf)
+        if b == 0 or name == "step" or name.endswith("count"):
+            continue
+        cat = _category(name)
+        if cat == "moment":
+            touches = 2.0                      # read + write in opt phase
+        elif cat == "embed" and "embedding" in name:
+            # gather rows fwd + scatter-add grads; unembed matmul reads all
+            touches = fwd_reads * emb_frac + 1.0 + 3.0
+        elif cat == "expert":
+            # all experts receive grads in train; dense traffic
+            touches = fwd_reads + 1.0 + 3.0   # fwd(+remat), bwd read, opt
+        else:
+            touches = fwd_reads + 1.0 + 3.0
+        out.append(TensorAccess(name, b, touches, cat))
+    return out
 
 
 def serve_profile(params, caches, cfg: ModelConfig, shape: ShapeConfig,

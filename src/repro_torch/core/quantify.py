@@ -9,12 +9,13 @@ of `repro.core.quantify`).
       level3: pooling — sensitivity(LoI) table, interference coefficient
 
 Byte counts come from the analytic access model (`core.access`) over the
-serve state's meta tensors, scaled per card by `n_chips`; compute time
-comes from the 2·N·D model at the chip's bf16 peak. Unlike the reference,
+train or serve state's meta tensors, scaled per card by `n_chips`;
+compute time comes from the 6·N·D (train) or 2·N·D (serve) model at the
+chip's bf16 peak. Unlike the reference,
 `analyze` prices with the chip and topology it is given, by default one
 H100 and `h100_topology(chip)`, and never reads dry-run records: those
 are a TPU's compiled steps (the torch dry-run ports with ROADMAP A15).
-Train shapes need the training state (ROADMAP A14). Everything here is
+Everything here is
 deterministic and cheap: it is the tool a user would run before
 requesting a deployment configuration, which is the paper's intent.
 """
@@ -34,6 +35,7 @@ from repro_torch.core import placement as plc
 from repro_torch.core import roofline as rl
 from repro_torch.core import tiers as tr
 from repro_torch.runtime import serve as serve_rt
+from repro_torch.runtime import train as train_rt
 
 
 @dataclasses.dataclass
@@ -47,15 +49,13 @@ class Analysis:
     profile: itf.InterferenceProfile
 
 
-def _check_serve_shape(shape) -> None:
+def _profile(cfg, shape, remat: str = "block") -> list[acc.TensorAccess]:
+    """Access profile over the meta state of `shape`: the train state
+    (params, AdamW moments) for a train shape, else the serve params and,
+    for decode, the caches."""
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{shape.name}: the training access profile ports with "
-            "training (ROADMAP A14)")
-
-
-def _profile(cfg, shape) -> list[acc.TensorAccess]:
-    """Serve access profile over the meta state of `shape`."""
+        return acc.train_profile(train_rt.abstract_train_state(cfg), cfg,
+                                 shape, remat)
     params = serve_rt.abstract_params(cfg)
     caches = None
     if shape.kind == "decode":
@@ -68,12 +68,15 @@ def _profile(cfg, shape) -> list[acc.TensorAccess]:
 
 def t_compute_for(cfg, shape, n_chips: int,
                   chip: hw.ChipSpec = hw.H100) -> float:
-    """Seconds of pure compute per step per card: 2·N·D (prefill over
-    every prompt token, decode over one token per sequence) at the chip's
-    bf16 peak."""
-    _check_serve_shape(shape)
-    tokens = shape.tokens if shape.kind == "prefill" else shape.global_batch
-    mf = rl.model_flops_decode(cfg.active_param_count(), tokens)
+    """Seconds of pure compute per step per card at the chip's bf16 peak:
+    6·N·D for a train step over every token, 2·N·D for prefill (every
+    prompt token) and decode (one token per sequence)."""
+    if shape.kind == "train":
+        mf = rl.model_flops_train(cfg.active_param_count(), shape.tokens)
+    else:
+        tokens = (shape.tokens if shape.kind == "prefill"
+                  else shape.global_batch)
+        mf = rl.model_flops_decode(cfg.active_param_count(), tokens)
     return mf / n_chips / chip.peak_flops_bf16
 
 
@@ -102,7 +105,6 @@ def analyze(
             "ports with ROADMAP A15")
     cfg = configs.get(arch)
     shape = SHAPES[shape_name]
-    _check_serve_shape(shape)
     topo = topo or tr.h100_topology(chip)
 
     profile = _profile(cfg, shape)

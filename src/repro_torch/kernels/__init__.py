@@ -15,14 +15,17 @@ There is no fallback from a kernel that fails to build or launch.
 `force_backend("reference")` exists so that a caller can run the plain
 versions on the card to compare against (`chip_smoke.py`).
 
-Kernels on the serving path: `page_io` (the grouped page copy: pool
+Kernels on the serving and training paths: `page_io` (the grouped page copy: pool
 insert, the substrate's page_out / page_in streams and the fleet's
 prefill->decode handoff between two pools), `flash_attention`
-(bucket prefill: `flash_mha`; chunked prefill: `paged_prefill_flash`,
+(bucket prefill and the training forward: `flash_mha`; its backward:
+`flash_mha_bwd`; chunked prefill: `paged_prefill_flash`,
 `paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
 `decode_attention` (paged decode over the block table: `paged_flash_decode`;
 decode over a contiguous cache: `flash_decode`), `ssd_scan` (the
-Mamba2 chunked SSD scan of the SSM layers' prompt pass: `ssd_scan`).
+Mamba2 chunked SSD scan of the SSM layers' prompt pass and the training
+forward: `ssd_scan`; its backward recomputes through the plain chunked
+version, as the reference's does).
 
 Kernels of the analysis path (`core.quantify`, `scripts/lbench_torch.py`):
 `lbench` (the paper's FMA-chain roofline and interference probe) and
@@ -40,14 +43,15 @@ _FORCED: str | None = None
 # wrapper right after it launches, nowhere else) and calls that took the
 # plain version
 LAUNCHES = {"write_pages": 0, "page_out": 0, "page_in": 0, "handoff": 0,
-            "flash_mha": 0,
+            "flash_mha": 0, "flash_mha_bwd": 0,
             "paged_flash_decode": 0, "paged_prefill_flash": 0,
             "paged_prefill_insert_flash": 0,
             "paged_prefill_insert_flash_q8": 0, "flash_decode": 0,
             "lbench": 0, "matmul_w8a8": 0, "ssd_scan": 0}
 REFERENCE_CALLS = {"write_pages": 0, "page_out": 0, "page_in": 0,
                    "handoff": 0,
-                   "mha": 0, "paged_decode_mha": 0, "paged_prefill_mha": 0,
+                   "mha": 0, "mha_bwd": 0, "paged_decode_mha": 0,
+                   "paged_prefill_mha": 0,
                    "paged_prefill_insert_mha": 0,
                    "paged_prefill_insert_mha_q8": 0, "decode_mha": 0,
                    "lbench": 0, "matmul_w8a8": 0, "ssd": 0}

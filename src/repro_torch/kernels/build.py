@@ -25,8 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("page_io", "flash_attention", "paged_decode", "paged_prefill",
-           "decode_attention", "lbench", "matmul_w8a8", "ssd_scan")
+SOURCES = ("page_io", "flash_attention", "flash_attention_bwd",
+           "paged_decode", "paged_prefill", "decode_attention", "lbench",
+           "matmul_w8a8", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",

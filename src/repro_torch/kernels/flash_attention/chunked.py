@@ -1,13 +1,18 @@
-"""Memory-bounded attention in plain PyTorch: the forward of
-`repro.kernels.flash_attention.chunked` (`mha_chunked`), the plain
-version `ops.mha` takes above 256 x 256 scores.
+"""Memory-bounded attention in plain PyTorch (port of
+`repro.kernels.flash_attention.chunked`): `mha_chunked`, the plain
+version `ops.mha` takes above 256 x 256 scores, with its backward.
 
 The same tiling and online softmax as the flash kernel, as loops over
 query and key blocks, so the scores live one (block_q, block_k) tile at a
 time instead of as the full (B, H, Sq, Skv) tensor. A causal square
-attention visits only the lower-triangle tiles (`_fwd_triangular`). The
-backward (the reference's custom_vjp `_bwd_inner`) is not ported yet
-(ROADMAP B11)."""
+attention visits only the lower-triangle tiles (`_fwd_triangular`).
+
+`mha_chunked` is a `torch.autograd.Function` whose backward is the
+reference's custom_vjp (`_bwd_inner`): P is recomputed from the saved
+logsumexp tile by tile, dq in a pass over query blocks and dk/dv in a
+pass over key blocks, so training never materializes the score matrix
+either. `_bwd_inner` is also the plain version of the CUDA backward
+(`csrc/flash_attention_bwd.cu`)."""
 
 from __future__ import annotations
 
@@ -30,13 +35,29 @@ def _pick_block(s: int, target: int) -> int:
     return max(b, 1)
 
 
+class _MhaChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_offset, block_q, block_k):
+        out, lse = _fwd(q, k, v, causal, scale, kv_offset, block_q, block_k)
+        ctx.args = (causal, scale, kv_offset, block_q, block_k)
+        if ctx.needs_input_grad[:3] != (False, False, False):
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _bwd_inner(*ctx.args, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def mha_chunked(q, k, v, causal: bool = True, scale: Optional[float] = None,
                 kv_offset: int = 0, block_q: int = 512,
                 block_k: int = 512) -> torch.Tensor:
     """GQA attention q (B,Sq,H,D), k/v (B,Skv,KV,D) -> (B,Sq,H,D) in q's
-    dtype, accumulated in float32 block by block."""
-    out, _ = _fwd(q, k, v, causal, scale, kv_offset, block_q, block_k)
-    return out
+    dtype, accumulated in float32 block by block; differentiable through
+    the chunked backward."""
+    return _MhaChunked.apply(q, k, v, causal, scale, kv_offset, block_q,
+                             block_k)
 
 
 def _fwd(q, k, v, causal, scale, kv_offset, block_q, block_k):
@@ -128,3 +149,155 @@ def _fwd_inner(q, k, v, causal, scale, kv_offset, block_q, block_k):
         out[:, qi * bq:(qi + 1) * bq] = ob
         lse[..., qi * bq:(qi + 1) * bq] = lse_b
     return out, lse
+
+
+# ------------------------------------------------------------ backward
+def _tri_indices(nq: int):
+    """Row-major lower-triangle tile order: (0,0),(1,0),(1,1),(2,0)..."""
+    qi = [i for i in range(nq) for _ in range(i + 1)]
+    ki = [j for i in range(nq) for j in range(i + 1)]
+    return qi, ki
+
+
+def _bwd_inner(causal, scale, kv_offset, block_q, block_k, res, dout):
+    """(dq, dk, dv) in the inputs' dtypes from res = (q, k, v, out, lse
+    (B, KV, H // KV, Sq) float32) and dout, accumulated in float32."""
+    q, k = res[0], res[1]
+    if (causal and kv_offset == 0 and q.shape[1] == k.shape[1]
+            and q.shape[1] // _pick_block(q.shape[1], block_q) >= 4):
+        return _bwd_triangular(scale, block_q, res, dout)
+    return _bwd_rect(causal, scale, kv_offset, block_q, block_k, res, dout)
+
+
+def _bwd_prep(res, dout, nq):
+    """Grouped views: q5 (B,Sq,G,R,D), dO and O in float32, and the
+    per-block lse / delta = rowsum(dO * O) rows (B,G,R,bq) of q block i."""
+    q, k, v, out, lse = res
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    R = H // G
+    q5 = q.reshape(B, Sq, G, R, D)
+    do5 = dout.reshape(B, Sq, G, R, D).float()
+    o5 = out.reshape(B, Sq, G, R, D).float()
+    delta = torch.einsum("bsgrd,bsgrd->bgrs", do5, o5)
+    lse = lse.reshape(B, G, R, Sq)
+    bq = Sq // nq
+    rows = lambda t, i: t[..., i * bq:(i + 1) * bq]  # noqa: E731
+    return q5, do5, [rows(lse, i) for i in range(nq)], \
+        [rows(delta, i) for i in range(nq)]
+
+
+def _tile_ds(qb, kb, vb, dob, lseb, deltab, sc, mask):
+    """p and ds (B,G,R,bq,bk) of one (query block, key block) tile,
+    recomputed from the saved lse; `mask` (bq, bk) bool or None."""
+    s = _scores(qb, kb, sc)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lseb[..., None])
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dob, vb.float())
+    ds = p * (dp - deltab[..., None]) * sc
+    return p, ds
+
+
+def _bwd_triangular(scale, block_q, res, dout):
+    """Causal backward visiting only lower-triangle tiles (dq pass
+    row-major, dk/dv pass column-major)."""
+    q, k, v, _, _ = res
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    R = H // G
+    sc = scale if scale is not None else D ** -0.5
+    bq = _pick_block(Sq, block_q)
+    nq = Sq // bq
+    q5, do5, lses, deltas = _bwd_prep(res, dout, nq)
+    pos = torch.arange(bq, device=q.device)
+    blk = lambda t, i: t[:, i * bq:(i + 1) * bq]  # noqa: E731
+
+    def tile(qi, ki):
+        mask = (qi * bq + pos)[:, None] >= (ki * bq + pos)[None, :]
+        return _tile_ds(blk(q5, qi), blk(k, ki), blk(v, ki), blk(do5, qi),
+                        lses[qi], deltas[qi], sc, mask)
+
+    # pass 1: dq, row-major triangle
+    dq = torch.empty((B, Sq, G, R, D), dtype=torch.float32, device=q.device)
+    qidx, kidx = _tri_indices(nq)
+    for qi, ki in zip(qidx, kidx):
+        if ki == 0:
+            acc = torch.zeros((B, bq, G, R, D), dtype=torch.float32,
+                              device=q.device)
+        _, ds = tile(qi, ki)
+        acc = acc + torch.einsum("bgrqk,bkgd->bqgrd", ds,
+                                 blk(k, ki).float())
+        if ki == qi:
+            dq[:, qi * bq:(qi + 1) * bq] = acc
+
+    # pass 2: dk/dv, column-major triangle
+    dk = torch.empty((B, Sq, G, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for ki in range(nq):
+        dkb = torch.zeros((B, bq, G, D), dtype=torch.float32,
+                          device=q.device)
+        dvb = torch.zeros_like(dkb)
+        for qi in range(ki, nq):
+            p, ds = tile(qi, ki)
+            dvb = dvb + torch.einsum("bgrqk,bqgrd->bkgd", p, blk(do5, qi))
+            dkb = dkb + torch.einsum("bgrqk,bqgrd->bkgd", ds,
+                                     blk(q5, qi).float())
+        dk[:, ki * bq:(ki + 1) * bq] = dkb
+        dv[:, ki * bq:(ki + 1) * bq] = dvb
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_rect(causal, scale, kv_offset, block_q, block_k, res, dout):
+    """Every (query block, key block) tile, causal mask offset by
+    `kv_offset`: dq outer over query blocks, dk/dv outer over key
+    blocks."""
+    q, k, v, _, _ = res
+    B, Sq, H, D = q.shape
+    Skv, G = k.shape[1], k.shape[2]
+    R = H // G
+    sc = scale if scale is not None else D ** -0.5
+    bq = _pick_block(Sq, block_q)
+    bk = _pick_block(Skv, block_k)
+    nq, nk = Sq // bq, Skv // bk
+    q5, do5, lses, deltas = _bwd_prep(res, dout, nq)
+    qb_ = lambda t, i: t[:, i * bq:(i + 1) * bq]  # noqa: E731
+    kb_ = lambda t, j: t[:, j * bk:(j + 1) * bk]  # noqa: E731
+
+    def tile(qi, ki):
+        mask = None
+        if causal:
+            qpos = kv_offset + qi * bq + torch.arange(bq, device=q.device)
+            kpos = ki * bk + torch.arange(bk, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+        return _tile_ds(qb_(q5, qi), kb_(k, ki), kb_(v, ki), qb_(do5, qi),
+                        lses[qi], deltas[qi], sc, mask)
+
+    # pass 1: dq, outer over q blocks, inner accumulating over kv blocks
+    dq = torch.empty((B, Sq, G, R, D), dtype=torch.float32, device=q.device)
+    for qi in range(nq):
+        acc = torch.zeros((B, bq, G, R, D), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            _, ds = tile(qi, ki)
+            acc = acc + torch.einsum("bgrqk,bkgd->bqgrd", ds,
+                                     kb_(k, ki).float())
+        dq[:, qi * bq:(qi + 1) * bq] = acc
+
+    # pass 2: dk/dv, outer over kv blocks, inner accumulating over q blocks
+    dk = torch.empty((B, Skv, G, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for ki in range(nk):
+        dkb = torch.zeros((B, bk, G, D), dtype=torch.float32,
+                          device=q.device)
+        dvb = torch.zeros_like(dkb)
+        for qi in range(nq):
+            p, ds = tile(qi, ki)
+            dvb = dvb + torch.einsum("bgrqk,bqgrd->bkgd", p, qb_(do5, qi))
+            dkb = dkb + torch.einsum("bgrqk,bqgrd->bkgd", ds,
+                                     qb_(q5, qi).float())
+        dk[:, ki * bk:(ki + 1) * bk] = dkb
+        dv[:, ki * bk:(ki + 1) * bk] = dvb
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

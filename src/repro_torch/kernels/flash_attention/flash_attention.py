@@ -1,6 +1,7 @@
-"""ctypes wrapper of the CUDA flash-attention forward
+"""ctypes wrappers of the CUDA flash-attention forward
 (`csrc/flash_attention.cu`), the port of
-`repro.kernels.flash_attention.flash_attention._fwd_pallas`.
+`repro.kernels.flash_attention.flash_attention._fwd_pallas`, and of its
+backward (`csrc/flash_attention_bwd.cu`), the port of `_flash_bwd`.
 
 `launch_plan` is the kernels' launch geometry as a plain function of the
 shapes (row slots per block, grid, key splits, shared-memory bytes), so
@@ -159,3 +160,64 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernels.LAUNCHES["flash_mha"] += 1
     build.check(err, "flash_mha")
     return out, lse
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def flash_mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor,
+                       dout: torch.Tensor, *, causal: bool = True,
+                       scale: Optional[float] = None, kv_offset: int = 0):
+    """The backward of `flash_mha_cuda`: q, out, dout (B,Sq,H,D), k/v
+    (B,Skv,KV,D), contiguous, one CUDA device, all float32 or all
+    bfloat16, and the forward's lse (B,H,Sq) float32. Returns (dq, dk, dv)
+    in the inputs' dtype, launched on the current stream (three kernels,
+    one count)."""
+    ts = (q, k, v, out, dout)
+    if not (all(t.is_cuda and t.device == q.device for t in ts)
+            and lse.device == q.device):
+        raise ValueError("flash_mha_bwd_cuda needs CUDA tensors on one "
+                         "device")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != q.dtype for t in ts) \
+            or lse.dtype != torch.float32:
+        raise TypeError("flash_mha_bwd_cuda: q, k, v, out, dout in one of "
+                        "float32/bfloat16 and lse float32, got "
+                        f"{[t.dtype for t in ts]} and {lse.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_mha_bwd_cuda: q (B,Sq,H,D), k/v "
+                         "(B,Skv,KV,D)")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if (k.shape[0] != B or k.shape[3] != D or H % KV
+            or out.shape != q.shape or dout.shape != q.shape
+            or tuple(lse.shape) != (B, H, Sq)):
+        raise ValueError(f"flash_mha_bwd_cuda: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
+    if not all(t.is_contiguous() for t in (*ts, lse)):
+        raise ValueError("flash_mha_bwd_cuda needs contiguous tensors")
+    lib = build.library("flash_attention_bwd")
+    smem = lib.repro_flash_mha_bwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    if not (0 < D <= MAX_HEAD_DIM and max(H, KV, B) <= 65535
+            and smem(D) <= SMEM_LIMIT):
+        raise ValueError(f"flash_mha_bwd_cuda: D={D}, H={H}, B={B} out of "
+                         "range")
+    scale = scale if scale is not None else D ** -0.5
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = lib.repro_flash_mha_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, KV, D,
+             build.dtype_code(q.dtype), float(scale), int(causal),
+             int(kv_offset), torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.LAUNCHES["flash_mha_bwd"] += 1
+    build.check(err, "flash_mha_bwd")
+    return dq, dk, dv

@@ -1,6 +1,6 @@
-"""Public attention ops: dense prefill and paged chunked prefill. A CUDA
-tensor launches the hand-written kernel, a CPU tensor takes the plain
-version.
+"""Public attention ops: dense attention (prefill and training, with its
+backward) and paged chunked prefill. A CUDA tensor launches the
+hand-written kernel, a CPU tensor takes the plain version.
 
 The paged chunked-prefill surface has two tiers, as in the reference:
 
@@ -29,27 +29,69 @@ from repro_torch.kernels.decode_attention.ops import clamp_dead_entries
 from repro_torch.kernels.flash_attention import ref
 
 
+class _FlashMha(torch.autograd.Function):
+    """`flash_mha_cuda` forward, `flash_mha_bwd_cuda` backward, as the
+    reference's custom_vjp pairs `_fwd_pallas` with `_flash_bwd`. (q, k,
+    v, out, lse) are saved only when a grad is needed; under no_grad and
+    inference_mode the forward is the serving path's one launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_offset):
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = fa.flash_mha_cuda(q, k, v, causal=causal, scale=scale,
+                                     kv_offset=kv_offset)
+        ctx.args = dict(causal=causal, scale=scale, kv_offset=kv_offset)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_mha_bwd_cuda(q, k, v, out, lse,
+                                           dout.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+class _CountPlainBwd(torch.autograd.Function):
+    """Identity whose backward counts one plain attention backward
+    (`REFERENCE_CALLS["mha_bwd"]`); the gradient itself flows through
+    the plain version's own autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        kernels.REFERENCE_CALLS["mha_bwd"] += 1
+        return g
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, scale: Optional[float] = None,
         kv_offset: int = 0, impl: Optional[str] = None) -> torch.Tensor:
-    """Multi-head (GQA) attention: q (B,Sq,H,D), k/v (B,Skv,KV,D). The
-    plain version builds the full score tensor up to 256 x 256 scores and
-    goes block by block above (`chunked.mha_chunked`), as the
-    reference's does."""
+    """Multi-head (GQA) attention: q (B,Sq,H,D), k/v (B,Skv,KV,D),
+    differentiable. The plain version builds the full score tensor up to
+    256 x 256 scores and goes block by block above
+    (`chunked.mha_chunked`, whose backward is the reference's chunked
+    one), as the reference's does; the kernel path's backward is the
+    CUDA backward kernel."""
     if kernels.select_impl(q, impl) == "reference":
         kernels.REFERENCE_CALLS["mha"] += 1
         if q.shape[1] * k.shape[1] <= 256 * 256:
-            return ref.mha(q, k, v, causal=causal, scale=scale,
-                           kv_offset=kv_offset)
-        from repro_torch.kernels.flash_attention import chunked
+            out = ref.mha(q, k, v, causal=causal, scale=scale,
+                          kv_offset=kv_offset)
+        else:
+            from repro_torch.kernels.flash_attention import chunked
 
-        return chunked.mha_chunked(q, k, v, causal, scale, kv_offset)
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-
-    out, _ = fa.flash_mha_cuda(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, scale=scale,
-                               kv_offset=kv_offset)
-    return out
+            out = chunked.mha_chunked(q, k, v, causal, scale, kv_offset)
+        return _CountPlainBwd.apply(out) if out.requires_grad else out
+    return _FlashMha.apply(q, k, v, causal, scale, kv_offset)
 
 
 def _c0_vec(c0, B: int, device) -> torch.Tensor:

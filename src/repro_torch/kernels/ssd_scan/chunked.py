@@ -55,8 +55,12 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, D: Optional[torch.Tensor] = None,
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     decay = torch.movedim(decay, -1, 2)                  # (B,nc,H,Q,Q)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(mask, torch.exp(decay), torch.zeros((), dtype=f32,
-                                                          device=x.device))
+    # masked before the exp: above the diagonal decay > 0 and exp may
+    # overflow, and exp's backward there would be 0 * inf = NaN. The
+    # reference masks after the exp (the same forward values), so its
+    # grads are NaN wherever a chunk's decay passes float32's range
+    # (ROADMAP §C); these stay finite.
+    L = torch.exp(torch.where(mask, decay, float("-inf")))
     dx = dtq[..., None] * xq                             # (B,nc,Q,H,P)
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores * L, dx)
 

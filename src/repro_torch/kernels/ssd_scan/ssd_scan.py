@@ -1,7 +1,7 @@
 """ctypes wrapper of the CUDA chunked-SSD kernels (`csrc/ssd_scan.cu`),
-the port of `repro.kernels.ssd_scan.ssd_scan.ssd_pallas` (forward only: the
-backward waits for training, ROADMAP A14). Its plain version is
-`chunked.ssd_chunked`.
+the port of `repro.kernels.ssd_scan.ssd_scan.ssd_pallas`'s forward (its
+backward, in `ops.py`, is the vjp of `chunked.ssd_chunked`, as the
+reference's). Its plain version is `chunked.ssd_chunked`.
 
 `launch_plan` is the launch geometry as a plain function of the shapes
 (body, P columns per block, grid, chunk stages, shared-memory bytes), so

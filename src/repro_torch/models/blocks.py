@@ -106,34 +106,57 @@ def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc):
     return torch.zeros_like(h), None
 
 
+def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
+                       enc_out=None):
+    """One layer over the full sequence (training, the encoder's pass).
+    Returns (x, aux), aux the layer's MoE load-balance loss (float32
+    scalar, 0 for a dense layer)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+    if desc.kind == "attn":
+        h = attn.self_attention(p["attn"], h, cfg, causal=desc.causal)
+    else:
+        h = ssm_mod.ssm_block(p["ssm"], h, cfg)
+    x = x + h
+    if desc.cross:
+        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+        x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
+    h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc)
+    if a is not None:
+        aux = aux + a
+    return x + h, aux
+
+
 def stack_apply(params, x, cfg: ModelConfig, *, cross: bool = False,
                 causal: bool = True, enc_out=None,
-                n_layers: int | None = None):
-    """Full-sequence stack without caches (the encoder's pass): x
-    (B, S, d) -> (x, aux), aux the sum of the MoE layers' load-balance
-    losses (float32 scalar)."""
+                n_layers: int | None = None, remat: str = "none"):
+    """Full-sequence stack without caches (training and the encoder's
+    pass): x (B, S, d) -> (x, aux), aux the sum of the layers' MoE
+    load-balance losses (float32 scalar). `remat="block"` recomputes each
+    super-period of layers in the backward instead of keeping its
+    activations (`torch.utils.checkpoint`, non-reentrant), as the
+    reference's `jax.checkpoint(body, nothing_saveable)` over one
+    scanned super-block."""
+    from torch.utils.checkpoint import checkpoint
+
     descs = pattern(cfg, cross, causal)
     n_layers = n_layers if n_layers is not None else cfg.num_layers
+
+    def body(i, x, aux, enc_out):
+        for j, desc in enumerate(descs):
+            x, a = _apply_layer_train(layer_slice(params[f"pos{j}"], i), x,
+                                      cfg, desc, enc_out)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_layers // len(descs)):
-        for j, desc in enumerate(descs):
-            p = layer_slice(params[f"pos{j}"], i)
-            h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-            if desc.kind == "attn":
-                h = attn.self_attention(p["attn"], h, cfg,
-                                        causal=desc.causal)
-            else:
-                h = ssm_mod.ssm_block(p["ssm"], h, cfg)
-            x = x + h
-            if desc.cross:
-                h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-                enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
-                x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
-            h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg,
-                        desc)
-            if a is not None:
-                aux = aux + a
-            x = x + h
+        if remat == "block" and torch.is_grad_enabled():
+            x, aux = checkpoint(body, i, x, aux, enc_out,
+                                use_reentrant=False)
+        else:
+            x, aux = body(i, x, aux, enc_out)
     return x, aux
 
 

@@ -1,4 +1,4 @@
-"""Top-level model API of the port (serving path of `repro.models.model`).
+"""Top-level model API of the port (port of `repro.models.model`).
 
 Families: dense / moe / ssm / hybrid / vlm are decoder-only LMs (vlm
 prepends the frontend's patch embeddings, `batch["patches"]`); audio is
@@ -6,6 +6,8 @@ an encoder over frame embeddings (`batch["frames"]`) and a causal decoder
 with per-layer cross-attention.
 
   init_model(cfg, generator)                    -> params
+  forward(params, batch, cfg[, remat])          -> (logits, aux)
+  loss_fn(params, batch, cfg[, remat])          -> (loss, metrics)
   prefill(params, batch, cfg, max_seq)          -> (caches, logits_last)
   decode_step(params, token, caches, t, cfg,
               block_table, page_tokens)         -> (logits, caches)
@@ -37,6 +39,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.module import Initializer, torch_dtype
 
+MOE_AUX_COEF = 0.01
+Z_LOSS_COEF = 1e-4
+
 
 # ------------------------------------------------------------------ init
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -67,11 +72,11 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _encode(params, frames, cfg: ModelConfig):
+def _encode(params, frames, cfg: ModelConfig, remat: str = "none"):
     """The encoder stack (non-causal) over the frame embeddings."""
     x, _ = blocks.stack_apply(params["encoder"]["blocks"], frames, cfg,
                               causal=False,
-                              n_layers=cfg.num_encoder_layers)
+                              n_layers=cfg.num_encoder_layers, remat=remat)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -85,6 +90,52 @@ def _decoder_inputs(params, batch, cfg: ModelConfig):
         x = torch.cat([pfx, x], dim=1)
         n_prefix = pfx.shape[1]
     return x, n_prefix
+
+
+# --------------------------------------------------------------- forward
+def forward(params, batch, cfg: ModelConfig, remat: str = "none"):
+    """Teacher-forced forward. batch: tokens (B, S) [+ patches | frames].
+    Returns (logits (B, S, V) in cfg.dtype, aux float32 scalar: the MoE
+    load-balance loss). The vision prefix is dropped before unembed;
+    the encoder-decoder runs its encoder over `frames`. `remat="block"`
+    recomputes each super-period of layers in the backward."""
+    x, n_prefix = _decoder_inputs(params, batch, cfg)
+    cross = bool(cfg.num_encoder_layers)
+    enc_out = None
+    if cross:
+        frames = torch.as_tensor(batch["frames"], device=x.device)
+        enc_out = _encode(params, frames.to(x.dtype), cfg, remat)
+    x, aux = blocks.stack_apply(params["blocks"], x, cfg, cross=cross,
+                                enc_out=enc_out, remat=remat)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:, :]
+    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    return logits, aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, remat: str = "none"):
+    """Next-token cross-entropy + z-loss + MoE aux; tokens (B, S+1).
+    Returns (loss, metrics) with the float32 scalars `loss`, `nll`,
+    `z_loss`, `moe_aux` and `accuracy`."""
+    tokens = batch["tokens"]
+    inputs = dict(batch, tokens=tokens[:, :-1])
+    labels = tokens[:, 1:].long()
+    logits, aux = forward(params, inputs, cfg, remat)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - label_logit).mean()
+    z_loss = Z_LOSS_COEF * (logz ** 2).mean()
+    loss = nll + z_loss + MOE_AUX_COEF * aux
+    metrics = {
+        "loss": loss,
+        "nll": nll,
+        "z_loss": z_loss,
+        "moe_aux": aux,
+        "accuracy": (logits.argmax(-1) == labels).float().mean(),
+    }
+    return loss, metrics
 
 
 # ----------------------------------------------------------------- serve

@@ -1,0 +1,92 @@
+"""AdamW over nested dicts of tensors (port of `repro.optim.adamw`).
+
+The moment tensors are first-class tier-placement candidates: they are
+the coldest large state in training (touched once per step, never by
+forward or backward), which makes them the prime pool-tier residents
+under the paper's hotness ordering.
+
+The arithmetic is float32 in the reference's order. Decoupled weight
+decay is added into the step (`step + wd * p`, then `p - lr * step`), as
+the reference does; `torch.optim.AdamW` applies `p * (1 - lr * wd)` before
+the step instead, so it is not used.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+
+def tree_map(fn, *trees):
+    """`fn` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in sorted-key order (the reference's flatten order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def adamw_init(params) -> dict:
+    """Zero float32 moments shaped like `params` and a zero step count."""
+    leaf = tree_leaves(params)[0]
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+    return {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "count": torch.zeros((), dtype=torch.int32, device=leaf.device),
+    }
+
+
+def adamw_update(grads, opt_state, params, lr, cfg: AdamWConfig):
+    """One AdamW step: returns (new params, new optimizer state). `lr` is
+    a float or a float32 scalar tensor; nothing is updated in place."""
+    count = opt_state["count"] + 1
+    c = count.to(torch.float32)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                       device=c.device), c)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                       device=c.device), c)
+
+    def upd(g, m, v, p):
+        g = g.to(torch.float32)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mhat = m / bc1
+        vhat = v / bc2
+        step = mhat / (torch.sqrt(vhat) + cfg.eps)
+        step = step + cfg.weight_decay * p.to(torch.float32)
+        return (p - lr * step).to(p.dtype), m, v
+
+    flat = tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
+    pick = lambda i: tree_map(lambda t: t[i], flat)  # noqa: E731
+    return pick(0), {"m": pick(1), "v": pick(2), "count": count}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares."""
+    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+             for g in tree_leaves(tree))
+    return torch.sqrt(sq)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Grads scaled by min(1, max_norm / norm); returns (grads, norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), norm

@@ -1,1 +1,2 @@
-"""Serve-step cells of the continuous-batching engine."""
+"""Serve-step cells of the continuous-batching engine, the train step
+and the fault layer."""

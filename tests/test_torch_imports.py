@@ -1,7 +1,8 @@
 """The port stands alone: every `repro_torch` module (the fault layer,
-the fleet, the MoE layer and the frontends included), the port's dev
-serving script `scripts/dev_serve_torch.py`, its Fig 11 script
-`scripts/lbench_torch.py` and `examples/quickstart_torch.py` import
+the fleet, the MoE layer, the frontends and the training path included),
+the port's dev serving script `scripts/dev_serve_torch.py`, its Fig 11
+script `scripts/lbench_torch.py`, `examples/quickstart_torch.py` and
+`examples/train_lm_torch.py` import
 without JAX and without the reference package; entry points run on the card unless told otherwise
 (and raise here, where there is none); options outside the ported slice
 raise `NotImplementedError`; no library attention kernel, compiler or
@@ -30,6 +31,7 @@ SRC = ROOT / "src"
 DEV_SERVE = ROOT / "scripts" / "dev_serve_torch.py"
 LBENCH = ROOT / "scripts" / "lbench_torch.py"
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+TRAIN_LM = ROOT / "examples" / "train_lm_torch.py"
 
 _PROBE = """
 import importlib, importlib.util, pkgutil, sys
@@ -54,13 +56,18 @@ fleet = {"repro_torch.serving.faults", "repro_torch.serving.fleet",
 assert fleet <= set(names), fleet - set(names)
 archs = {"repro_torch.models.moe", "repro_torch.models.frontends"}
 assert archs <= set(names), archs - set(names)
+train = {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
+         "repro_torch.data.synthetic", "repro_torch.data.pipeline",
+         "repro_torch.checkpoint.manager", "repro_torch.runtime.train",
+         "repro_torch.runtime.fault", "repro_torch.launch.train"}
+assert train <= set(names), train - set(names)
 """
 
 
 def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE),
-                          str(LBENCH), str(QUICKSTART)],
+                          str(LBENCH), str(QUICKSTART), str(TRAIN_LM)],
                          env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -72,7 +79,7 @@ def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "import triton", "cpp_extension", "_int_mm")
     for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH,
-                 QUICKSTART]:
+                 QUICKSTART, TRAIN_LM]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:
@@ -92,7 +99,8 @@ def _lbench_script():
 
 
 @pytest.mark.parametrize("entry", ["engine", "cells", "init", "device",
-                                   "lbench", "fleet"])
+                                   "lbench", "fleet", "train_launcher",
+                                   "train_example", "train_state"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -108,6 +116,21 @@ def test_entry_points_default_to_the_card(entry):
             _lbench_script().run(n_elements=128, l2_elements=128)
         elif entry == "fleet":
             FleetRouter.build(_cfg(), EngineConfig(), FleetConfig())
+        elif entry == "train_launcher":
+            from repro_torch.launch import train as launch
+
+            launch.main(["--arch", "smollm_360m", "--reduced", "--steps",
+                         "1"])
+        elif entry == "train_example":
+            spec = importlib.util.spec_from_file_location("train_lm_torch",
+                                                          TRAIN_LM)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mod.main(["--smoke", "--steps", "1"])
+        elif entry == "train_state":
+            from repro_torch.runtime import train as train_rt
+
+            train_rt.init_train_state(_cfg())
         else:
             resolve_device()
 

@@ -4,7 +4,8 @@ topology converted to the port's types and sharded over 256 chips (the
 reference's single-pod mesh): the pure-numpy models equal to 1e-12, the
 serve access profile of the port's meta state equal leaf for leaf, and
 `analyze` levels 1-3 equal to 1e-9 for every arch of the catalog (the
-ten of `configs.list_archs()`) at decode_32k and prefill_32k, and the
+ten of `configs.list_archs()`) at decode_32k, prefill_32k and train_4k
+(the train access profile of the port's meta train state), and the
 same three levels through `examples/quickstart_torch.py` on kimi-k2.
 Then the port's own defaults: one H100 and its topology."""
 
@@ -26,6 +27,7 @@ from repro.core import quantify as jq  # noqa: E402
 from repro.core import roofline as jrl  # noqa: E402
 from repro.core import tiers as jtiers  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
+from repro.runtime import train as jtrain  # noqa: E402
 from repro.serving.engine import AdmissionController as JAdmission  # noqa
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.common import hw as thw  # noqa: E402
@@ -37,6 +39,7 @@ from repro_torch.core import quantify as tq  # noqa: E402
 from repro_torch.core import roofline as trl  # noqa: E402
 from repro_torch.core import tiers as ttiers  # noqa: E402
 from repro_torch.runtime import serve as tserve  # noqa: E402
+from repro_torch.runtime import train as ttrain  # noqa: E402
 from repro_torch.serving.engine import AdmissionController as TAdmission  # noqa
 
 ARCHS = tconfigs.list_archs()
@@ -276,9 +279,19 @@ def test_serve_profile_of_meta_state_matches_reference(arch, shape):
 
 
 def test_train_profile_waits_for_training():
-    with pytest.raises(NotImplementedError, match="A14"):
-        tacc.train_profile({}, tconfigs.get("smollm_360m"),
-                           TSHAPES["train_4k"])
+    """Training is ported: the train access profile of the port's meta
+    train state equals the reference's leaf for leaf, with and without
+    remat (the name is kept from when it checked the refusal)."""
+    for arch in ARCHS:
+        jc, tc = jconfigs.get(arch), tconfigs.get(arch)
+        jstate, _ = jtrain.abstract_train_state(jc)
+        tstate = ttrain.abstract_train_state(tc)
+        for remat in ("block", "none"):
+            j = jacc.train_profile(jstate, jc, JSHAPES["train_4k"], remat)
+            t = tacc.train_profile(tstate, tc, TSHAPES["train_4k"], remat)
+            assert [(a.name, a.bytes, a.touches, a.category) for a in t] \
+                == [(a.name, a.bytes, a.touches, a.category) for a in j]
+            assert {a.category for a in t} >= {"moment", "embed"}
 
 
 # ------------------------------------------------------------- analyze
@@ -381,12 +394,32 @@ def test_lbench_loi_on_the_h100_topology():
 
 
 def test_analyze_refuses_train_shapes_and_dry_runs():
-    with pytest.raises(NotImplementedError, match="A14"):
-        tq.analyze("smollm_360m", "train_4k")
+    """Dry-run records are still refused (ROADMAP A15); train shapes now
+    run (the name is kept from when they were refused too)."""
     with pytest.raises(NotImplementedError, match="A15"):
         tq.analyze("smollm_360m", "decode_32k", use_dryrun=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tq.analyze("jamba_1_5_large_398b", "train_4k")
+    with pytest.raises(NotImplementedError, match="A15"):
+        tq.analyze("smollm_360m", "train_4k", use_dryrun=True)
+    an = tq.analyze("smollm_360m", "train_4k")
+    assert an.level1["footprint_bytes_per_chip"] > 0
+    assert tq.analyze("jamba_1_5_large_398b", "train_4k").level2[
+        "pool_fraction"] > 0.5
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_analyze_train_matches_reference(arch):
+    """Levels 1-3 at train_4k equal the reference's (no dry-run record),
+    priced with the reference's chip, topology and 256-chip mesh."""
+    for frac in ("auto", 0.5):
+        j = jq.analyze(arch, "train_4k", pool_fraction=frac,
+                       use_dryrun=False)
+        t = tq.analyze(arch, "train_4k", pool_fraction=frac,
+                       chip=_ref_chip(), topo=_ref_topology(),
+                       n_chips=N_CHIPS)
+        _close(t.level1, j.level1, 1e-9)
+        _close(t.level2, j.level2, 1e-9)
+        _close(t.level3, j.level3, 1e-9)
+        assert t.placement.assignment == j.placement.assignment
 
 
 # ---------------------------------------------- catalog admission prior
