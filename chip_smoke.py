@@ -3368,7 +3368,7 @@ def flash_bwd_cases(torch, timer) -> dict:
     # launches run back to back, L2 flushed before): in two full runs the
     # profiler's sum over 15 calls read 0.21 and 0.33 ms while the events,
     # the per-kernel profile below and a profiled train step's 32 calls
-    # all read about 1.08 ms (my chip runs, PR 22). Both are printed.
+    # all read about 1.08 ms (measured on one H100). Both are printed.
     clocks = [smi_clocks()]
     prof_ms = timer(lambda: fa.flash_mha_bwd_cuda(
         q, k, v, out, lse, do, causal=causal, kv_offset=off))
@@ -3649,7 +3649,7 @@ def train_phase(torch, timer):
     # stack's grad norm is 57, clipped to 1), and Adam's normalized
     # update turns such differences on near-zero grads into +-lr steps,
     # so the runs part (grad norms 16.6 vs 18.0 at step 4, loss gap
-    # 1.2e-3 there; my chip run, PR 22). The same-state gate above holds
+    # 1.2e-3 there; measured on one H100). The same-state gate above holds
     # the kernel to the plain version at every step.
     close_losses(km, rm, "mamba2 float32 kernels vs plain, free-running",
                  gated=False)
