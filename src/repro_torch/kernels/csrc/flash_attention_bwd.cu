@@ -327,24 +327,30 @@ int launch(const Args& a) {
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   float* delta = static_cast<float*>(a.delta);
-  const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                              a.stream>>>(static_cast<const T*>(a.out), dout,
-                                          delta, rows, a.Sq, a.H, a.D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
+  // no query rows: no delta and no dq to write; the dk/dv kernel still
+  // runs and writes zeros (it finds no query tile)
+  if (a.Sq > 0) {
+    const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
+    flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256,
+                                0, a.stream>>>(static_cast<const T*>(a.out),
+                                               dout, delta, rows, a.Sq, a.H,
+                                               a.D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t dq_smem =
-      sizeof(float) * (2 * kBQ * a.D + 2 * kBK * repro::odd_pitch(a.D));
-  auto dq_kernel = flash_bwd_dq_kernel<T, DPL>;
-  err = repro::allow_smem(dq_kernel, dq_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<<<dim3((a.Sq + kBQ - 1) / kBQ, a.H, a.B), kThreads, dq_smem,
-              a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
-                          a.Sq, a.Skv, a.H, a.KV, a.D, a.scale, a.causal,
-                          a.kv_offset);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t dq_smem =
+        sizeof(float) * (2 * kBQ * a.D + 2 * kBK * repro::odd_pitch(a.D));
+    auto dq_kernel = flash_bwd_dq_kernel<T, DPL>;
+    err = repro::allow_smem(dq_kernel, dq_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_kernel<<<dim3((a.Sq + kBQ - 1) / kBQ, a.H, a.B), kThreads, dq_smem,
+                a.stream>>>(q, k, v, dout, lse, delta,
+                            static_cast<T*>(a.dq), a.Sq, a.Skv, a.H, a.KV,
+                            a.D, a.scale, a.causal, a.kv_offset);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   if (a.Skv == 0) return 0;
   const size_t dkv_smem = sizeof(float) * dkv_smem_floats(a.D);
@@ -389,7 +395,7 @@ extern "C" int repro_flash_mha_bwd(const void* q, const void* k,
                                    int B, int Sq, int Skv, int H, int KV,
                                    int D, int dtype, float scale, int causal,
                                    int kv_offset, void* stream) {
-  if (B == 0 || Sq == 0) return 0;
+  if (B == 0) return 0;
   if (D <= 0 || KV <= 0 || H % KV) return cudaErrorInvalidValue;
   const Args a{q,  k,  v,   out, lse,     dout,      dq,
                dk, dv, delta, B, Sq,      Skv,       H,

@@ -1,8 +1,9 @@
 """The port stands alone: every `repro_torch` module (the fault layer,
 the fleet, the MoE layer, the frontends and the training path included),
 the port's dev serving script `scripts/dev_serve_torch.py`, its Fig 11
-script `scripts/lbench_torch.py`, `examples/quickstart_torch.py` and
-`examples/train_lm_torch.py` import
+script `scripts/lbench_torch.py`, the training probes
+`scripts/ssd_grad_gap.py` and `scripts/profiler_drops.py`,
+`examples/quickstart_torch.py` and `examples/train_lm_torch.py` import
 without JAX and without the reference package; entry points run on the card unless told otherwise
 (and raise here, where there is none); options outside the ported slice
 raise `NotImplementedError`; no library attention kernel, compiler or
@@ -32,6 +33,8 @@ DEV_SERVE = ROOT / "scripts" / "dev_serve_torch.py"
 LBENCH = ROOT / "scripts" / "lbench_torch.py"
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 TRAIN_LM = ROOT / "examples" / "train_lm_torch.py"
+PROBES = [ROOT / "scripts" / "ssd_grad_gap.py",
+          ROOT / "scripts" / "profiler_drops.py"]
 
 _PROBE = """
 import importlib, importlib.util, pkgutil, sys
@@ -67,7 +70,8 @@ assert train <= set(names), train - set(names)
 def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE),
-                          str(LBENCH), str(QUICKSTART), str(TRAIN_LM)],
+                          str(LBENCH), str(QUICKSTART), str(TRAIN_LM),
+                          *map(str, PROBES)],
                          env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -79,7 +83,7 @@ def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "import triton", "cpp_extension", "_int_mm")
     for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH,
-                 QUICKSTART, TRAIN_LM]:
+                 QUICKSTART, TRAIN_LM, *PROBES]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:

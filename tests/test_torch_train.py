@@ -17,14 +17,16 @@ weights carried across by `load_numpy_params` and the reference's
   1e-2 * lr of the JAX step's on at least 99.9% of each leaf's elements
   and within 2.2 * lr everywhere (Adam's first step is about sign(g): a
   near-zero gradient may flip its sign), `step`, `count`, `lr` and
-  `grad_norm` within 1e-6.
+  `grad_norm` within 1e-6, the AdamW moments as the grads; the same with
+  two microbatches against the reference's two.
 
 The JAX grads and step are built once per arch (module cache). Then the
 port alone: `remat="block"` gives the grads of `"none"`, two microbatches
-the update of one (MoE skipped, as the reference's test does), the
-optimizer and schedule against the reference on random trees, the
-synthetic data stream's determinism and structure, the pipeline, the
-fault layer, the launcher (runs, resumes) and the example (learns).
+the update, moments, loss and grad norm of one (MoE skipped, as the
+reference's test does), the optimizer and schedule against the
+reference on random trees, the synthetic data stream's determinism and
+structure, the pipeline, the fault layer, the launcher (runs, resumes)
+and the example (learns).
 """
 
 import dataclasses
@@ -144,33 +146,81 @@ def _update_close(name, new, old, want_new, lr):
     assert float(err.max()) <= 2.2 * lr, (name, float(err.max()))
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_train_step_matches_reference(arch):
-    tc, ref, params, batch = _port(arch)
-    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
-             "opt": tadamw.adamw_init(params)}
-    step = ttrain.build_train_step(tc, TrainConfig(remat="none", **TCFG))
-    new_state, metrics = step(state, batch)
-    want_state, want_metrics = ref["new_state"], ref["step_metrics"]
+def _np_named(tree):
+    return {n: np.asarray(v) for n, v in tnamed(tree)}
+
+
+def _step_close(new_state, metrics, params, want_state, want_metrics,
+                norm_rtol=1e-6):
+    """One port step against a wanted step from the same params: `step`
+    and `count`, `lr`, `grad_norm` and `loss`, the update of every param
+    leaf (`_update_close`) and the AdamW moments m = (1 - b1) g and v =
+    (1 - b2) g^2 leaf by leaf, which see the gradient's scale that Adam's
+    normalized update does not. `want_state` is the reference's state as
+    numpy or the port's."""
     lr = float(want_metrics["lr"])
     assert int(new_state["step"]) == int(want_state["step"]) == 1
-    assert int(new_state["opt"]["count"]) == 1
-    for k in ("lr", "grad_norm", "loss"):
+    assert int(new_state["opt"]["count"]) == \
+        int(want_state["opt"]["count"]) == 1
+    for k, rtol in (("lr", 1e-6), ("grad_norm", norm_rtol),
+                    ("loss", norm_rtol)):
         np.testing.assert_allclose(float(metrics[k]),
-                                   float(want_metrics[k]), rtol=1e-6,
+                                   float(want_metrics[k]), rtol=rtol,
                                    atol=1e-7, err_msg=k)
-    old = dict(tnamed(params))
-    want_new = dict(jnamed(want_state["params"]))
+    old = _np_named(params)
+    want_new = _np_named(want_state["params"])
     for name, p in tnamed(new_state["params"]):
         assert p.dtype == torch.float32
-        _update_close(name, p.numpy(), old[name].numpy(), want_new[name], lr)
+        _update_close(name, p.numpy(), old[name], want_new[name], lr)
     for moment in ("m", "v"):
-        want = dict(jnamed(want_state["opt"][moment]))
+        want = _np_named(want_state["opt"][moment])
         for name, t in tnamed(new_state["opt"][moment]):
             np.testing.assert_allclose(
                 t.numpy(), want[name], rtol=1e-4,
                 atol=1e-5 * max(float(np.abs(want[name]).max()), 1e-30),
                 err_msg=f"{moment}/{name}")
+
+
+def _port_step(tc, params, batch, microbatches=1):
+    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
+             "opt": tadamw.adamw_init(params)}
+    step = ttrain.build_train_step(tc, TrainConfig(
+        remat="none", microbatches=microbatches, **TCFG))
+    return step(state, batch)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_step_matches_reference(arch):
+    tc, ref, params, batch = _port(arch)
+    new_state, metrics = _port_step(tc, params, batch)
+    _step_close(new_state, metrics, params, ref["new_state"],
+                ref["step_metrics"])
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_microbatched(arch):
+    """The reference's step with two microbatches (of one row each) on
+    `_reference`'s weights and batch (numpy)."""
+    jc, _ = _cfgs(arch)
+    ref = _reference(arch)
+    jp = jax.tree.map(jnp.asarray, ref["params"])
+    state = {"step": jnp.zeros((), jnp.int32), "params": jp,
+             "opt": jadamw.adamw_init(jp)}
+    step = jax.jit(jtrain.build_train_step(
+        jc, ParallelCtx(remat="none"), JTrainConfig(microbatches=2, **TCFG)))
+    new_state, metrics = step(state, jax.tree.map(jnp.asarray, ref["batch"]))
+    to_np = functools.partial(jax.tree.map, np.asarray)
+    return to_np(new_state), to_np(metrics)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_microbatched_step_matches_reference(arch):
+    """Two microbatches: the port's accumulation against the reference's
+    `lax.scan` over the same two rows, MoE included (both split the
+    batch the same way)."""
+    tc, _, params, batch = _port(arch)
+    new_state, metrics = _port_step(tc, params, batch, microbatches=2)
+    _step_close(new_state, metrics, params, *_reference_microbatched(arch))
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -185,24 +235,34 @@ def test_remat_block_gives_the_same_grads(arch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_microbatches_match_one_batch(arch):
-    """Two microbatches update the params as one batch of both (the
-    reference's `test_microbatched_grad_accum_matches`, on the port)."""
+    """Two microbatches update the params, and fill the moments, as one
+    batch of both (the reference's `test_microbatched_grad_accum_matches`,
+    on the port); the loss and grad norm within 1e-5 (the sums run in
+    another order)."""
     tc, _, _, _ = _port(arch)
     if tc.num_experts:
         pytest.skip("MoE routing is batch-composition dependent")
-    state = ttrain.init_train_state(tc, torch.Generator().manual_seed(1))
+    params = ttrain.init_train_state(
+        tc, torch.Generator().manual_seed(1))["params"]
     batch = make_batch_for(tc, S, 4, 0)
-    outs = []
-    for mb in (1, 2):
-        step = ttrain.build_train_step(
-            tc, TrainConfig(remat="none", microbatches=mb, **TCFG))
-        new_state, metrics = step(state, batch)
-        outs.append((new_state, metrics))
-    for (n1, p1), (_, p2) in zip(tnamed(outs[0][0]["params"]),
-                                 tnamed(outs[1][0]["params"])):
-        torch.testing.assert_close(p2, p1, rtol=0, atol=5e-3)
-    np.testing.assert_allclose(float(outs[1][1]["loss"]),
-                               float(outs[0][1]["loss"]), rtol=1e-5)
+    one, one_metrics = _port_step(tc, params, batch)
+    two, two_metrics = _port_step(tc, params, batch, microbatches=2)
+    _step_close(two, two_metrics, params, one, one_metrics, norm_rtol=1e-5)
+
+
+def test_ssd_grad_gap_script_runs_on_the_cpu(capsys):
+    """`scripts/ssd_grad_gap.py` at the reduced mamba2 on the CPU, where
+    both of its runs take the plain versions: every gap it prints is 0."""
+    spec = importlib.util.spec_from_file_location(
+        "ssd_grad_gap", ROOT / "scripts" / "ssd_grad_gap.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(["--device", "cpu", "--reduced", "--batch", "2",
+                     "--seq", "96"]) == 0
+    out = capsys.readouterr().out
+    assert "loss kernels" in out and "gap 0.000e+00" in out
+    assert out.count("layer ") == tconfigs.reduced("mamba2_780m").num_layers
+    assert "e-" not in out.split("param grads")[1].split("grad norm")[0]
 
 
 def test_train_config_and_bundle_refuse_the_mesh():
