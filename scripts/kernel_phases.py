@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where a block's time goes in the flash-attention, split-decode,
-tensor-core SSD, W8A8 and grouped page-copy kernels, on one card.
+"""Where a block's time goes in the flash-attention forward and
+backward, split-decode, tensor-core SSD, W8A8 and grouped page-copy
+kernels, on one card.
 
 Instrumented copies of `csrc/flash_attention.cu`,
+`csrc/flash_attention_bwd.cu` (the bf16 dq and dk/dv passes),
 `csrc/decode_body.cuh`, `csrc/ssd_scan.cu`, `csrc/matmul_w8a8.cu` and
 `csrc/page_io.cu` record, for every block, the global timer
 (`%globaltimer`, ns) and the SM's cycle counter (`clock64`) at the end of each phase (thread 0), and
 the SM it ran on. They run at the main shapes of PERF.md's kernel table:
 flash_mha bf16 causal B=1, Sq=Skv=128, 15/5 heads, D=64 (the default
-plan and 64-row blocks); paged decode B=8, int8/page, page 16, 16 pages,
+plan and 64-row blocks); flash_mha's backward at smollm-360m's train
+shape, bf16 causal B=8, S=256, 15/5 heads, D=64 (its plan: 64 rows a dq
+block, 16 keys a dk/dv block); paged decode B=8, int8/page, page 16, 16 pages,
 lengths 70..257 (span 64 and 256, the latter without a split); the
 contiguous decode B=8, S=256, bf16, lengths 129..160; ssd_scan's
 tensor-core body bf16 B=1, S=128, 48 heads of 64, state 128 (the default
@@ -26,7 +30,7 @@ The copies are built with the flags of `kernels/build.py` into
 `build/kernel_phases/` and loaded in place of the repository's libraries
 inside this process only.
 
-    python3 scripts/kernel_phases.py [--only flash,decode,ssd,w8a8,page]
+    python3 scripts/kernel_phases.py [--only flash,bwd_dq,bwd_dkv,decode,ssd,w8a8,page]
 
 Needs a CUDA card and nvcc; exits 2 without a card."""
 
@@ -72,6 +76,13 @@ extern "C" int phases_set(void* p) {
 }
 '''.replace("CYCLES_ROW", str(CYCLES))
 
+# the backward's two kernels run in one call: the dk/dv kernel stamps
+# its blocks from this row of the table on
+BWD_DKV_ROW = 16384
+STAMPS_BWD = STAMPS.replace("g_stamps[b_ * 8", "g_stamps[(kStampBase + b_) * 8") \
+    .replace(f"g_stamps[({CYCLES} + b_) * 8",
+             f"g_stamps[({CYCLES} + kStampBase + b_) * 8")
+
 # (phase start stamp, end stamp, name) of each kernel
 PHASES = {
     "flash": [(0, 1, "issue q and the first round's tiles"),
@@ -80,6 +91,20 @@ PHASES = {
               (3, 4, "later rounds, key groups' merge"),
               (4, 6, "write (warp 0)"),
               (0, 6, "whole block (warp 0)")],
+    "bwd_dq": [(0, 1, "issue q, dO, O and key tile 0"),
+               (1, 2, "wait for q, dO, O"),
+               (2, 3, "delta"),
+               (3, 4, "wait for tile 0 (issue tile 1)"),
+               (4, 5, "every tile's products"),
+               (5, 6, "write (warp 0)"),
+               (0, 6, "whole block (warp 0)")],
+    "bwd_dkv": [(0, 1, "issue K/V and the first row tile"),
+                (1, 2, "wait for them"),
+                (2, 3, "first tile's products"),
+                (3, 4, "later tiles"),
+                (4, 5, "row groups' merge"),
+                (5, 6, "write (warp 0)"),
+                (0, 6, "whole block (warp 0)")],
     "decode": [(0, 1, "length, table entries, q"),
                (1, 2, "K/V and (scale, zero) copies"),
                (2, 3, "products and softmax"),
@@ -135,6 +160,45 @@ def flash_source(csrc: Path) -> str:
     body = body[:i] + "  STAMP(6);\n" + body[i:]
     return head + "flash_mma_kernel(" + body + "// merge the n_split partial" \
         + tail
+
+
+def bwd_source(csrc: Path) -> str:
+    s = (csrc / "flash_attention_bwd.cu").read_text()
+    s = _insert(s, '#include "mma.cuh"\n', STAMPS_BWD)
+    head, dq = s.split("flash_bwd_dq_mma_kernel(", 1)
+    dq, dkv = dq.split("flash_bwd_dkv_mma_kernel(", 1)
+    dkv, tail = dkv.split("struct Args {", 1)
+    dq = _insert(dq, "  const int tid = threadIdx.x;",
+                 "  constexpr int kStampBase = 0;\n  STAMP(0);\n",
+                 after=False)
+    dq = _insert(dq, "  if (n_tiles > 0) issue(0);\n"
+                 "  repro::cp_async_commit();\n", "  STAMP(1);\n")
+    dq = _insert(dq, "  __syncthreads();  // q, dO and O landed everywhere\n",
+                 "  STAMP(2);\n")
+    dq = _insert(dq, "  for (int t = 0; t < n_tiles; ++t) {",
+                 "  STAMP(3);\n", after=False)
+    dq = _insert(dq, "    __syncthreads();  // tile t landed everywhere\n",
+                 "    if (t == 0) STAMP(4);\n")
+    dq = _insert(dq, "  }\n  repro::cp_async_wait<0>();\n", "  STAMP(5);\n")
+    i = dq.rindex("}\n")
+    dq = dq[:i] + "  STAMP(6);\n" + dq[i:]
+    dkv = _insert(dkv, "  const int tid = threadIdx.x;",
+                  f"  constexpr int kStampBase = {BWD_DKV_ROW};\n"
+                  "  STAMP(0);\n", after=False)
+    dkv = _insert(dkv, "  if (t_lo < t_hi) issue(t_lo);\n"
+                  "  repro::cp_async_commit();\n", "  STAMP(1);\n")
+    dkv = _insert(dkv, "    __syncthreads();  // tile t (and, first, k and v) "
+                  "landed everywhere\n", "    if (t == t_lo) STAMP(2);\n")
+    dkv = _insert(dkv, "    __syncthreads();  // tile t's slot free for tile "
+                  "t + 2\n", "    if (t == t_lo) STAMP(3);\n", after=False)
+    dkv = _insert(dkv, "  {\n    // row groups 1, 2,", "  STAMP(4);\n",
+                  after=False)
+    dkv = _insert(dkv, "  // write the block's keys", "  STAMP(5);\n",
+                  after=False)
+    i = dkv.rindex("}\n")
+    dkv = dkv[:i] + "  STAMP(6);\n" + dkv[i:]
+    return (head + "flash_bwd_dq_mma_kernel(" + dq
+            + "flash_bwd_dkv_mma_kernel(" + dkv + "struct Args {" + tail)
 
 
 def decode_header(csrc: Path) -> str:
@@ -219,6 +283,7 @@ def build_copies(build):
         (OUT / f).write_text((build.CSRC / f).read_text())
     (OUT / "decode_body.cuh").write_text(decode_header(build.CSRC))
     sources = {"flash_attention": flash_source(build.CSRC),
+               "flash_attention_bwd": bwd_source(build.CSRC),
                "paged_decode": (build.CSRC / "paged_decode.cu").read_text(),
                "decode_attention":
                    (build.CSRC / "decode_attention.cu").read_text(),
@@ -244,8 +309,9 @@ def build_copies(build):
     return libs
 
 
-def report(kind, label, table, n_blocks):
-    ns, cyc = table[:n_blocks], table[CYCLES:CYCLES + n_blocks]
+def report(kind, label, table, n_blocks, row0=0):
+    ns = table[row0:row0 + n_blocks]
+    cyc = table[CYCLES + row0:CYCLES + row0 + n_blocks]
     # blocks that found no work (a page copy's short segments) stamp
     # nothing after their start
     live = [i for i in range(n_blocks) if ns[i][0] > 0 and ns[i][6] > 0]
@@ -305,7 +371,7 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
 
-    def run(kind, label, fn, n_blocks):
+    def run(kind, label, fn, n_blocks, row0=0):
         if kind not in only:
             return
         for _ in range(200):
@@ -322,7 +388,7 @@ def main(argv=None) -> int:
             fn()
             torch.cuda.synchronize()
             report(kind, f"{label}, {'L2 flushed' if cold else 'warm'}",
-                   stamps.view(-1, 8).cpu().tolist(), n_blocks)
+                   stamps.view(-1, 8).cpu().tolist(), n_blocks, row0)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda")
@@ -337,6 +403,23 @@ def main(argv=None) -> int:
             f"n_split={plan.n_split}",
             lambda plan=plan: fa.flash_mha_cuda(q, k, v, plan=plan),
             plan.grid[0] * plan.grid[1] * plan.grid[2])
+
+    from repro_torch.kernels.flash_attention import chunked
+
+    Bt, St = 8, 256
+    qt, kt = randn(Bt, St, H, D), randn(Bt, St, KV, D)
+    vt, dot = randn(Bt, St, KV, D, scale=0.5), randn(Bt, St, H, D)
+    ot, lse4 = chunked._fwd(qt, kt, vt, True, None, 0, 512, 512)
+    lset = lse4.reshape(Bt, H, St).contiguous()
+    bplan = fa.bwd_plan(Bt, St, St, H, KV, D, torch.bfloat16)
+    label = f"B={Bt} S={St} rows={bplan.rows} keys={bplan.keys}"
+
+    def call():
+        return fa.flash_mha_bwd_cuda(qt, kt, vt, ot, lset, dot)
+
+    run("bwd_dq", label, call, bplan.dq_grid[0] * bplan.dq_grid[1])
+    run("bwd_dkv", label, call, bplan.dkv_grid[0] * bplan.dkv_grid[1],
+        BWD_DKV_ROW)
 
     B, page, n_pages = 8, 16, 16
     P = B * n_pages

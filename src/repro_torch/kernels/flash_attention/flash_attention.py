@@ -3,10 +3,11 @@
 `repro.kernels.flash_attention.flash_attention._fwd_pallas`, and of its
 backward (`csrc/flash_attention_bwd.cu`), the port of `_flash_bwd`.
 
-`launch_plan` is the kernels' launch geometry as a plain function of the
-shapes (row slots per block, grid, key splits, shared-memory bytes), so
-that it can be checked without a card; the C entry recomputes the shared
-memory from its own layout and refuses a plan that disagrees."""
+`launch_plan` and `bwd_plan` are the kernels' launch geometry as plain
+functions of the shapes (row slots or keys per block, grid, key splits,
+shared-memory bytes), so that it can be checked without a card; the C
+entries recompute the shared memory from their own layouts and refuse a
+plan that disagrees."""
 
 from __future__ import annotations
 
@@ -162,8 +163,79 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
+BWD_KEY_TILE = 64        # dq pass: keys per staged K/V tile
+BWD_ROW_TILE = 64        # dk/dv pass: rows per staged q/dout tile
+BWD_DQ_ROWS = 64         # bf16 dq pass: rows a block, 16 a warp
+BWD_DKV_KEYS = 16        # bf16 dk/dv pass: keys a block
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Launch geometry of one backward call, 4 warps a block. bf16: dq
+    block (x, y) computes rows [r, r + rows) of KV head x % KV's Sq * rep
+    rows (row = query position * rep + head of the group), batch row
+    x // KV, r = (grid_y - 1 - y) * rows, 16 rows a warp. dk/dv block
+    (x, y) computes keys [y * keys, y * keys + keys) of the same KV head
+    and batch row; its warps are `row_groups` (which take the 16-row
+    chunks of each 64-row tile in turn) times `col_groups` (which split
+    dk/dv's 16-column tiles), and the row groups merge in a fixed order.
+    float32: dq block (x, y, z) computes 16 query positions of query head
+    y, batch row z; dk/dv block (x, y, z) 32 keys of KV head y, batch row
+    z."""
+
+    tensor_core: bool    # bf16: mma bodies; float32: FMA bodies
+    rows: int            # dq pass: rows (bf16) or query positions a block
+    keys: int            # dk/dv pass: keys a block
+    row_groups: int      # bf16 dk/dv pass: warps sharing a key group
+    col_groups: int      # bf16 dk/dv pass: warps splitting the columns
+    dq_grid: tuple
+    dkv_grid: tuple
+    dq_smem: int
+    dkv_smem: int
+
+
+def _bwd_mma_smem(D: int) -> tuple:
+    """Dynamic shared memory of the tensor-core passes (`MmaSmem` in
+    csrc/flash_attention_bwd.cu): dq: q and dout rows and two K/V tiles;
+    dk/dv: the block's K/V rows and two q/dout row tiles with their lse
+    and delta."""
+    qp = 2 * (_ceil(D, 16) * 16 + 8)     # bf16 row pitch, bytes
+    return (2 * BWD_DQ_ROWS * qp + 2 * 2 * BWD_KEY_TILE * qp,
+            2 * BWD_DKV_KEYS * qp + 2 * 2 * BWD_ROW_TILE * qp
+            + 2 * 2 * BWD_ROW_TILE * 4)
+
+
+def bwd_scratch_floats(B: int, Sq: int, H: int, KV: int) -> int:
+    """float32 scratch of the backward: delta (B, H, Sq) for the FMA
+    bodies, the lse and delta rows (2, B * KV, Sq * H / KV rounded up to
+    64) for the tensor-core bodies."""
+    return max(B * H * Sq, 2 * B * KV * _ceil(Sq * (H // KV), 64) * 64)
+
+
+def bwd_plan(B: int, Sq: int, Skv: int, H: int, KV: int,
+             D: int, dtype) -> BwdPlan:
+    """The launch geometry `csrc/flash_attention_bwd.cu` takes for these
+    shapes. float32 runs the FMA bodies (16 query positions of one head
+    per dq block, 32 keys per dk/dv block, tiles staged as f32). bfloat16
+    runs the tensor-core bodies: 64 rows per dq block, 16 keys per dk/dv
+    block in 4 row groups (2 row groups of 2 column groups above D 128),
+    so that the most warps share a causal block's rows (PERF.md records
+    the other geometries measured)."""
+    if dtype == torch.float32:
+        pitch = D + 1 if D % 2 == 0 else D
+        return BwdPlan(False, 16, 32, 1, 1, (_ceil(Sq, 16), H, B),
+                       (_ceil(Skv, 32), KV, B),
+                       4 * (2 * 16 * D + 2 * 32 * pitch),
+                       4 * (2 * 32 * pitch + 2 * 16 * D + 2 * 16 * 33
+                            + 2 * 16 + 2 * 32 * D))
+    col_groups = 2 if _ceil(D, 16) * 16 > 128 else 1
+    dq_smem, dkv_smem = _bwd_mma_smem(D)
+    return BwdPlan(True, BWD_DQ_ROWS, BWD_DKV_KEYS, 4 // col_groups,
+                   col_groups,
+                   (B * KV, _ceil(Sq * (H // KV), BWD_DQ_ROWS)),
+                   (B * KV, _ceil(Skv, BWD_DKV_KEYS)), dq_smem, dkv_smem)
 
 
 def flash_mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,8 +245,8 @@ def flash_mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward of `flash_mha_cuda`: q, out, dout (B,Sq,H,D), k/v
     (B,Skv,KV,D), contiguous, one CUDA device, all float32 or all
     bfloat16, and the forward's lse (B,H,Sq) float32. Returns (dq, dk, dv)
-    in the inputs' dtype, launched on the current stream (three kernels,
-    one count)."""
+    in the inputs' dtype, launched on the current stream (float32: three
+    kernels, bf16: two; one count)."""
     ts = (q, k, v, out, dout)
     if not (all(t.is_cuda and t.device == q.device for t in ts)
             and lse.device == q.device):
@@ -199,25 +271,28 @@ def flash_mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
     if not all(t.is_contiguous() for t in (*ts, lse)):
         raise ValueError("flash_mha_bwd_cuda needs contiguous tensors")
-    lib = build.library("flash_attention_bwd")
-    smem = lib.repro_flash_mha_bwd_smem
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    if not (0 < D <= MAX_HEAD_DIM and max(H, KV, B) <= 65535
-            and smem(D) <= SMEM_LIMIT):
-        raise ValueError(f"flash_mha_bwd_cuda: D={D}, H={H}, B={B} out of "
-                         "range")
+    plan = bwd_plan(B, Sq, Skv, H, KV, D, q.dtype)
+    if not (0 < D <= MAX_HEAD_DIM
+            and all(max(g[1:]) <= 65535
+                    for g in (plan.dq_grid, plan.dkv_grid))
+            and max(plan.dq_smem, plan.dkv_smem) <= SMEM_LIMIT):
+        raise ValueError(f"flash_mha_bwd_cuda: D={D}, H={H}, B={B}, plan "
+                         f"{plan} out of range")
     scale = scale if scale is not None else D ** -0.5
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = lib.repro_flash_mha_bwd
+    delta = torch.empty(bwd_scratch_floats(B, Sq, H, KV),
+                        dtype=torch.float32, device=q.device)
+    vb = copy_width(D * q.element_size(), *(t.data_ptr() for t in ts))
+    fn = build.library("flash_attention_bwd").repro_flash_mha_bwd
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, KV, D,
              build.dtype_code(q.dtype), float(scale), int(causal),
-             int(kv_offset), torch.cuda.current_stream(q.device).cuda_stream)
+             int(kv_offset), vb, plan.dq_smem, plan.dkv_smem,
+             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.LAUNCHES["flash_mha_bwd"] += 1
     build.check(err, "flash_mha_bwd")
     return dq, dk, dv

@@ -1,7 +1,9 @@
 """Launch plans of the port's attention kernels, checked on the CPU
 because a refused or mis-sized launch shows only on the card: the
 flash-attention forward's plan (`kernels/flash_attention/flash_attention.py`
-`launch_plan`) and the split decode body's plan and key partition
+`launch_plan`), its backward's defaults (`bwd_plan`; the walks over that
+plan are checked in `tests/test_torch_flash_bwd.py`) and the split decode
+body's plan and key partition
 (`kernels/decode_attention/paged.py` `decode_plan`, `key_spans`), which
 the paged and the contiguous decode share. Then a float32 emulation of
 the split decode (span partials, merged in span order) against the plain
@@ -122,6 +124,32 @@ def test_flash_plan_defaults():
     few = fa.launch_plan(1, 512, 512, 3, 1, 64, torch.bfloat16)
     assert few.grid[:2] == (48, 1) and few.n_split == 4
     assert fa._mma_plan(1, 128, 128, 15, 5, 64, n_split=9).n_split == 2
+
+
+def test_flash_bwd_plan_defaults():
+    """The backward's plan: float32 the FMA bodies' fixed geometry (16
+    query positions of a head per dq block, 32 keys per dk/dv block, f32
+    tiles); bf16 the tensor-core bodies with 64 rows per dq block and 16
+    keys in four row groups per dk/dv block (two row groups of two column
+    groups above D 128); at smollm-360m's train shape (B 8, S 256, 15/5
+    heads, D 64) 480 dq blocks and 640 dk/dv blocks. Every plan fits the
+    shared memory and the scratch holds either body's delta."""
+    f32 = fa.bwd_plan(8, 256, 256, 15, 5, 64, torch.float32)
+    assert (f32.tensor_core, f32.rows, f32.keys) == (False, 16, 32)
+    assert f32.dq_grid == (16, 15, 8) and f32.dkv_grid == (8, 5, 8)
+    assert f32.dkv_smem == 4 * (2 * 32 * 65 + 2 * 16 * 64 + 2 * 16 * 33
+                                + 2 * 16 + 2 * 32 * 64)
+    main = fa.bwd_plan(8, 256, 256, 15, 5, 64, torch.bfloat16)
+    assert main.tensor_core and main.rows == 64
+    assert (main.keys, main.row_groups, main.col_groups) == (16, 4, 1)
+    assert main.dq_grid == (40, 12) and main.dkv_grid == (40, 16)
+    assert fa.bwd_scratch_floats(8, 256, 15, 5) == 2 * 40 * 768
+    assert fa.bwd_scratch_floats(1, 10, 4, 4) == 2 * 4 * 64
+    for D, groups in ((16, (4, 1)), (128, (4, 1)), (144, (2, 2)),
+                      (256, (2, 2))):
+        plan = fa.bwd_plan(2, 384, 384, 8, 1, D, torch.bfloat16)
+        assert (plan.row_groups, plan.col_groups) == groups, D
+        assert max(plan.dq_smem, plan.dkv_smem) <= fa.SMEM_LIMIT
 
 
 # ---------------------------------------------------------- decode plan

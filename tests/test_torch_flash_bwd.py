@@ -8,11 +8,17 @@
   non-causal, GQA, D 20, S not a multiple of the block. dq/dk/dv within
   1e-4 (atol and rtol), as `tests/test_kernels.py` holds the reference's
   grads: float32, sums in another order.
-* The CUDA backward's tile walk (`csrc/flash_attention_bwd.cu`: the dq
-  kernel's key range, the dk/dv kernel's first query tile, the masks,
-  16-row query and 32-key tiles, GQA heads summed per key tile) emulated
-  in numpy float64 against the plain backward (1e-5: the emulation is
-  exact arithmetic, the plain version float32).
+* The CUDA backward's float32 tile walk (`csrc/flash_attention_bwd.cu`'s
+  FMA bodies: the dq kernel's key range, the dk/dv kernel's first query
+  tile, the masks, 16-row query and 32-key tiles, GQA heads summed per
+  key tile) emulated in numpy float64 against the plain backward (1e-5:
+  the emulation is exact arithmetic, the plain version float32).
+* The bf16 tensor-core walk (`flash_bwd_dq_mma_kernel`,
+  `flash_bwd_dkv_mma_kernel`) over `bwd_plan`'s rows and tiles: every
+  unmasked (row, key) pair visited once by each pass at D 8-256 and
+  rep 1, 3, 8, and a numpy emulation (bf16
+  operands, P and dS as bf16 hi + lo pairs) against the plain backward
+  on the same bf16 values (2e-5 of each grad's largest).
 * The two autograd rules of the kernel paths (`ops._FlashMha`,
   `ssd_scan.ops._SsdScan`) with their CUDA calls replaced by the plain
   versions, so the saved tensors, the lse layout and the grads' routing
@@ -103,15 +109,15 @@ def test_plain_backward_matches_jax_flash_interpret(case):
         np.testing.assert_allclose(got, ref, err_msg=name, **TOL)
 
 
-# ------------------------------------- the CUDA kernels' walk, emulated
+# ------------------------- the CUDA kernels' float32 walk, emulated
 BQ, BK = 16, 32       # csrc/flash_attention_bwd.cu kBQ, kBK
 
 
 def _emulate_cuda_bwd(q, k, v, out, lse, do, causal, off):
-    """float64 numpy walk of the three kernels: delta per row; dq per
-    16-row query tile over its key tiles up to the causal frontier; dk/dv
-    per 32-key tile over the group's heads and the query tiles from the
-    first that sees its first key. lse (B, H, Sq)."""
+    """float64 numpy walk of the three float32 kernels: delta per row;
+    dq per 16-row query tile over its key tiles up to the causal
+    frontier; dk/dv per 32-key tile over the group's heads and the query
+    tiles from the first that sees its first key. lse (B, H, Sq)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -189,6 +195,249 @@ def test_cuda_walk_emulation_matches_plain_backward(shape):
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g, w.numpy(), rtol=1e-5, atol=1e-5,
                                    err_msg=name)
+
+
+# --------------------------- the tensor-core (bf16) walk and its plan
+def _bwd_dq_visits(plan, Sq, Skv, H, KV, causal, off):
+    """The bf16 dq pass's walk (`flash_bwd_dq_mma_kernel`): per block of
+    `plan.rows` rows (row = query position * rep + head of the group), the
+    64-key tiles up to the block's causal frontier; each warp walks its
+    16 rows over the tiles in 32-key halves, less the halves past its own
+    last key. Returns the visits (row_lo, row_hi, key_lo, key_hi), clipped
+    to the tensors, and per block (first row, tiles loaded, k_end)."""
+    rep = H // KV
+    n_rows = Sq * rep
+    visits, blocks = [], []
+    for y in range(plan.dq_grid[1]):
+        row0 = (plan.dq_grid[1] - 1 - y) * plan.rows
+        q_last = (min(row0 + plan.rows, n_rows) - 1) // rep
+        k_end = max(0, min(Skv, off + q_last + 1)) if causal else Skv
+        n_tiles = -(-k_end // tfa.BWD_KEY_TILE)
+        blocks.append((row0, n_tiles, k_end))
+        for rg in range(plan.rows // 16):
+            w_row = row0 + 16 * rg
+            if w_row >= n_rows:
+                continue
+            kmax = (off + min(w_row + 15, n_rows - 1) // rep if causal
+                    else Skv)
+            for t in range(n_tiles):
+                for kh in range(tfa.BWD_KEY_TILE // 32):
+                    kb = t * tfa.BWD_KEY_TILE + kh * 32
+                    if kb > kmax or kb >= k_end:
+                        continue
+                    visits.append((w_row, min(w_row + 16, n_rows), kb,
+                                   min(kb + 32, k_end)))
+    return visits, blocks
+
+
+def _bwd_dkv_visits(plan, Sq, Skv, H, KV, D, causal, off):
+    """The bf16 dk/dv pass's walk (`flash_bwd_dkv_mma_kernel`): per block
+    of `plan.keys` (16) keys, the 64-row tiles from the first that holds a
+    row seeing the block's first key; a warp (row group, column group)
+    takes the tiles' 16-row chunks rc with rc % row_groups equal to its
+    row group, less those whose last query sees none of the block's keys,
+    over its share of dk/dv's 16-column tiles. Returns the visits
+    (key_lo, key_hi, row_lo, row_hi, column tiles), clipped, and per block
+    (first key, first row tile)."""
+    rep = H // KV
+    n_rows = Sq * rep
+    kd = -(-D // 16)
+    dmax16 = next(m for m in (2, 4, 8, 16) if kd <= m)   # DMAX / 16
+    n_rg = plan.row_groups
+    n_ct = -(-dmax16 // plan.col_groups)
+    warps = 4
+    assert plan.keys == 16 and n_rg * plan.col_groups == warps
+    visits, blocks = [], []
+    t_hi = -(-n_rows // tfa.BWD_ROW_TILE)
+    for y in range(plan.dkv_grid[1]):
+        k0 = y * plan.keys
+        row_start = min(Sq, max(0, k0 - off)) * rep if causal else 0
+        t_lo = row_start // tfa.BWD_ROW_TILE
+        blocks.append((k0, t_lo))
+        for w in range(warps):
+            rg, dg = w % n_rg, w // n_rg
+            kw0 = k0
+            cts = [c for c in range(dg * n_ct, dg * n_ct + n_ct) if c < kd]
+            for t in range(t_lo, t_hi):
+                for rc in range(rg, tfa.BWD_ROW_TILE // 16, n_rg):
+                    c_row = t * tfa.BWD_ROW_TILE + 16 * rc
+                    if (kw0 >= Skv or c_row >= n_rows or (
+                            causal and off + min(c_row + 15, n_rows - 1)
+                            // rep < kw0)):
+                        continue
+                    visits.append((kw0, min(kw0 + 16, Skv), c_row,
+                                   min(c_row + 16, n_rows), cts))
+    return visits, blocks
+
+
+def _live(rows, keys, rep, causal, off):
+    """(rows, keys) bool: the key is unmasked for the row's query."""
+    return (keys[None, :] <= off + rows[:, None] // rep) if causal else \
+        np.ones((len(rows), len(keys)), bool)
+
+
+def _bf16(x):
+    """Round float32 to bfloat16 (to nearest even), kept as float32."""
+    return torch.tensor(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _split(x):
+    """x as the kernels pass it to a product: a bf16 hi + lo pair."""
+    hi = _bf16(x)
+    return hi.astype(np.float64) + _bf16(x - hi)
+
+
+def _emulate_mma_bwd(q, k, v, out, lse, do, causal, off):
+    """float64 numpy walk of the bf16 tensor-core passes over the rows
+    (query, head of the group) and tile sizes of `bwd_plan`: S and dP of
+    bf16 operands, P = exp(S scale - lse), dS = P (dP - delta) scale,
+    and P, dS entering dq, dk, dv as bf16 hi + lo pairs. q, k, v, out, do
+    hold bf16 values; lse (B, H, Sq)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    sc = D ** -0.5
+    plan = tfa.bwd_plan(B, Sq, Skv, H, KV, D, torch.bfloat16)
+    q, k, v, out, do, lse = (x.astype(np.float64)
+                             for x in (q, k, v, out, do, lse))
+    delta = np.einsum("bshd,bshd->bhs", do, out)
+    # row-layout views: (B, KV, Sq * rep, D) and (B, KV, Sq * rep)
+    rows = lambda x: x.reshape(B, Sq, KV, rep, -1).transpose(  # noqa
+        0, 2, 1, 3, 4).reshape(B, KV, Sq * rep, -1)
+    qr, dor = rows(q), rows(do)
+    lser = rows(lse.transpose(0, 2, 1)[..., None])[..., 0]
+    delr = rows(delta.transpose(0, 2, 1)[..., None])[..., 0]
+    kg_, vg = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+
+    def p_ds(b, g, r0, r1, k0, k1):
+        r, j = np.arange(r0, r1), np.arange(k0, k1)
+        s = qr[b, g, r0:r1] @ kg_[b, g, k0:k1].T
+        dp = dor[b, g, r0:r1] @ vg[b, g, k0:k1].T
+        live = _live(r, j, rep, causal, off)
+        p = np.where(live, np.exp(s * sc - lser[b, g, r0:r1, None]), 0.0)
+        return p, p * (dp - delr[b, g, r0:r1, None]) * sc
+
+    dq = np.zeros_like(qr)
+    dk = np.zeros_like(kg_)
+    dv = np.zeros_like(vg)
+    dq_visits, _ = _bwd_dq_visits(plan, Sq, Skv, H, KV, causal, off)
+    dkv_visits, _ = _bwd_dkv_visits(plan, Sq, Skv, H, KV, D, causal, off)
+    for b in range(B):
+        for g in range(KV):
+            for r0, r1, k0, k1 in dq_visits:
+                _, ds = p_ds(b, g, r0, r1, k0, k1)
+                dq[b, g, r0:r1] += _split(ds) @ kg_[b, g, k0:k1]
+            for k0, k1, r0, r1, cts in dkv_visits:
+                p, ds = p_ds(b, g, r0, r1, k0, k1)
+                for c in cts:
+                    cols = slice(16 * c, 16 * c + 16)
+                    dv[b, g, k0:k1, cols] += _split(p).T @ dor[b, g, r0:r1,
+                                                                cols]
+                    dk[b, g, k0:k1, cols] += _split(ds).T @ qr[b, g, r0:r1,
+                                                               cols]
+    dq = dq.reshape(B, KV, Sq, rep, D).transpose(0, 2, 1, 3, 4).reshape(
+        B, Sq, H, D)
+    return dq, dk.transpose(0, 2, 1, 3), dv.transpose(0, 2, 1, 3)
+
+
+MMA_SHAPES = [
+    (1, 40, 40, 6, 2, 20, True, 0),     # ragged tiles, GQA
+    (2, 33, 70, 4, 4, 16, True, 37),    # kv_offset, a q tile past keys
+    (1, 50, 19, 2, 1, 8, False, 0),     # non-causal, Skv < one key tile
+    (1, 70, 70, 3, 3, 24, True, 0),     # causal square, three key tiles
+    (1, 96, 96, 6, 2, 64, True, 0),     # GQA rep 3 at D 64
+    (1, 40, 72, 2, 1, 256, True, 32),   # D 256: 2 column groups
+]
+
+
+@pytest.mark.parametrize("shape", MMA_SHAPES)
+def test_mma_walk_emulation_matches_plain_backward(shape):
+    """The bf16 walk (exact products of bf16 operands, P and dS as bf16
+    hi + lo pairs) against the plain backward on the same bf16 values in
+    float32: within 2e-5 of each grad's largest magnitude (the walk reads
+    2e-6 to 5e-6: a hi + lo pair keeps P and dS to about 2^-17 of their
+    size). A single bf16 (2^-9) misses by more than 50 times the
+    tolerance (checked below), as would a skipped or repeated tile."""
+    B, Sq, Skv, H, KV, D, causal, off = shape
+    rng = np.random.default_rng(4)
+    q, k, v, do = (_bf16(rng.standard_normal(s)) for s in
+                   [(B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D),
+                    (B, Sq, H, D)])
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    out, lse = tchunked._fwd(tq, tk, tv, causal, None, off, 512, 512)
+    out = torch.tensor(_bf16(out.numpy()))     # the forward's bf16 output
+    want = tchunked._bwd_inner(causal, None, off, 512, 512,
+                               (tq, tk, tv, out, lse), torch.tensor(do))
+    lse3 = lse.reshape(B, H, Sq).numpy()
+    got = _emulate_mma_bwd(q, k, v, out.numpy(), lse3, do, causal, off)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        w = w.numpy()
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-5 * np.abs(w).max(),
+                                   err_msg=name)
+    if shape == MMA_SHAPES[4]:
+        # the same walk with P and dS in one bf16 each fails the gate
+        global _split
+        keep = _split
+        try:
+            _split = _bf16
+            one = _emulate_mma_bwd(q, k, v, out.numpy(), lse3, do, causal,
+                                   off)
+        finally:
+            _split = keep
+        worst = max(np.abs(g - w.numpy()).max() / np.abs(w.numpy()).max()
+                    for g, w in zip(one, want))
+        assert worst > 1e-3, worst
+
+
+@pytest.mark.parametrize("rep", [1, 3, 8])
+@pytest.mark.parametrize("D", [8, 16, 20, 64, 80, 128, 144, 256])
+def test_mma_bwd_plan_covers_every_pair_once(D, rep):
+    """Each bf16 pass's walk over the plan at this D (64 rows per dq
+    block, 16 keys per dk/dv block) visits every unmasked (row, key) pair
+    exactly once (dk/dv: once per 16-column tile of D), loads no K/V tile
+    past a dq block's causal frontier and starts each dk/dv block at the
+    row tile holding the first row that sees its first key; both passes'
+    shared memory fits, and one row group's partial sums at a time fit
+    the tile ring they merge through."""
+    B, KV = 2, 2
+    H = KV * rep
+    dp = -(-D // 16) * 16
+    kd = dp // 16
+    dmax = next(m for m in (32, 64, 128, 256) if dp <= m)
+    qp = 2 * (dp + 8)
+    for Sq, Skv, causal, off in ((100, 100, True, 0), (37, 77, True, 40),
+                                 (50, 19, False, 0), (64, 64, True, 0)):
+        n_rows = Sq * rep
+        rows, keys = np.arange(n_rows), np.arange(Skv)
+        live = _live(rows, keys, rep, causal, off)
+        plan = tfa.bwd_plan(B, Sq, Skv, H, KV, D, torch.bfloat16)
+        assert (plan.rows, plan.keys) == (64, 16)
+        assert max(plan.dq_smem, plan.dkv_smem) <= tfa.SMEM_LIMIT
+        assert plan.dq_grid == (B * KV, -(-n_rows // 64))
+        assert plan.dkv_grid == (B * KV, -(-Skv // 16))
+        # one merge step: dk + dv of 16 keys x the column share of each
+        # column group (4-byte floats)
+        w = min(-(-(dmax // 16) // plan.col_groups), kd)
+        assert plan.col_groups * 16 * w * 32 * 4 <= 2 * 2 * 64 * qp
+        seen = np.zeros((n_rows, Skv), int)
+        visits, blocks = _bwd_dq_visits(plan, Sq, Skv, H, KV, causal, off)
+        for r0, r1, k0, k1 in visits:
+            seen[r0:r1, k0:k1] += live[r0:r1, k0:k1]
+        assert (seen == live).all()
+        for row0, n_tiles, k_end in blocks:
+            assert n_tiles * 64 - 64 < k_end or n_tiles == 0
+        seen = np.zeros((n_rows, Skv, kd), int)
+        visits, blocks = _bwd_dkv_visits(plan, Sq, Skv, H, KV, D, causal,
+                                         off)
+        for k0, k1, r0, r1, cts in visits:
+            for c in cts:
+                seen[r0:r1, k0:k1, c] += live[r0:r1, k0:k1]
+        assert (seen == live[..., None]).all()
+        for k0, t_lo in blocks:
+            if t_lo > 0:    # the tiles before hold no row seeing k0
+                assert not live[:t_lo * 64, k0].any()
+                assert live[t_lo * 64:, k0].any()
 
 
 # ------------------------------------------- the kernel paths' rules
