@@ -61,7 +61,7 @@ Phases (any failure raises and exits non-zero):
                with the plain versions on the card
                (`force_backend("reference")`) must agree per request
                (lockstep greedy tokens) >= 0.5, on int8 and on fp pools;
-               one more int8 run of 4 requests under torch.profiler prints
+               one more int8 run of 2 requests under torch.profiler prints
                the device's busy share and the host's busiest ops.
   6. substrate — the page streams on SmolLM-360M's int8 pool at 4096
                pages (1.35 GB, pinned host twin): page_out / page_in GB/s
@@ -71,7 +71,23 @@ Phases (any failure raises and exits non-zero):
                local_budget_frac=0.25 (pages spill and come back):
                physical, gap 0 after every drain, tokens equal with the
                substrate off, page_out and page_in launched.
-  7. fleet   — faults and the fleet on one card (`fleet_phase`): 2-engine
+  7. prefetch — the paper's two case studies (`prefetch_phase`):
+               `scan_with_prefetch` over SmolLM-360M's 32 layers with the
+               FFN leaves in pinned host memory (472 MB), copied one
+               layer ahead by the page copy (`layer_in`) on a side
+               stream: bit-equal to the stack with every leaf on the
+               card; a scan whose body copies rows of each layer's
+               leaves out to the host, with the main stream spun before
+               layer 0 (later copies and bodies queued first), equal to
+               the leaves (a copy overwriting a buffer still to be read
+               breaks it); one launch a layer, the copy against the
+               plain version; the bucket int8 cell at
+               local_budget_frac=0.25 with prefetch
+               None / demand / stream / ghb: equal tokens, stream's
+               demand share below demand's; the stream run's
+               `measured_profile` through the rack simulator (fcfs,
+               random, aware) and the BFS frontier case study.
+  8. fleet   — faults and the fleet on one card (`fleet_phase`): 2-engine
                round-robin fleets against one engine (fp bit-exact, int8
                agreement), chaos_smoke against the fault-free fleet (fp
                bit-exact, retries / restores / migrations / re-prefilled
@@ -80,35 +96,36 @@ Phases (any failure raises and exits non-zero):
                request), the pool-exhaustion preemption, a pinned freeze
                / thaw and degrade_pool, the handoff timed at 8 and 64
                pages; gap 0 after every drain of every engine.
-  8. chunked — the same model with `prefill_chunk=128` and the prefix
+  9. chunked — the same model with `prefill_chunk=128` and the prefix
                cache on a 16-request shared-prefix trace (prompts 256/512
                behind a 128-token system prompt): int8 runs launch
                paged_prefill_insert_flash_q8, fp runs
                paged_prefill_insert_flash, no plain version runs, and each
-               agrees >= 0.5 with its plain run; prefix hits, shared pages
-               and the pages the live slots map (with the cache off too);
+               agrees >= 0.5 with its plain run; prefix hits and shared
+               pages above 0 with the cache on, and the pages the live
+               slots map (with the cache off too);
                a profiled int8 run; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
-  9. contiguous — the same model on the contiguous layout (paged=False,
+ 10. contiguous — the same model on the contiguous layout (paged=False,
                flash_decode) over 8 chat prompts of 128 tokens, 32 new
                tokens each, against the paged fp engine, the naive
                one-shot loop (`scripts/dev_serve_torch.py`) and its own
                plain-version run: tokens agree >= 0.5 pairwise, and
                whether each pair is bit-exact is printed.
- 10. speculative — speculative decoding (k=4) over the same prompts:
+ 11. speculative — speculative decoding (k=4) over the same prompts:
                ngram on fp pools, ngram on int8 per-token pools with
                prefill_chunk=128 (paged_prefill_flash inside the engine),
                self-draft on fp (flash_decode on the draft's caches),
                each against the greedy engine of its pool: verify steps,
                acceptance, draft calls, launches, tok/s, agreement.
- 11. ssm     — mamba2-780m at published widths (seeded random bf16
+ 12. ssm     — mamba2-780m at published widths (seeded random bf16
                weights) on the engine phase's configuration and chat
                trace: ssd_scan launches 48 times per admission, no plain
                version runs, agreement >= 0.5 with the plain-version run
                in float32 (bf16 printed: the random 48-layer stack turns
                bf16 rounding into token flips) and prompt-pass logit
-               drifts within bf16's own, a profiled run of 4 requests;
+               drifts within bf16's own, a profiled run of 2 requests;
                the paged int8,
                paged fp and contiguous
                engines each equal the naive loop bit for bit on 8 prompts
@@ -118,7 +135,7 @@ Phases (any failure raises and exits non-zero):
                version: the reference test's shapes, mamba2's widths at
                B {1, 8} x S {64, 128, 256}, S = 100, G = 2, D = None and
                an initial state, in float32 and bf16.
- 12. archs   — the rest of the catalog at published widths (seeded random
+ 13. archs   — the rest of the catalog at published widths (seeded random
                bf16 weights, depth never cut): granite-moe-1b-a400m (MoE,
                32 experts top 8), paligemma-3b (256 patch embeddings
                before the prompt, D 256, 8 heads on 1 KV head) and
@@ -138,7 +155,7 @@ Phases (any failure raises and exits non-zero):
                one paligemma admission's page write, flash_decode at the
                cross shape) against their plain versions in float32 and
                bf16, timed beside their bounds and SDPA.
- 13. train   — training (`repro_torch.runtime.train`): flash_mha's CUDA
+ 14. train   — training (`repro_torch.runtime.train`): flash_mha's CUDA
                backward against its plain version (the chunked backward)
                at smollm-360m's train shapes (B 8, S 256 and 1024, 15/5
                heads), seamless's encoder (non-causal 16/16), paligemma
@@ -172,6 +189,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases device,build,fleet     # faults, the fleet
     python3 chip_smoke.py --phases device,build,kernels,archs  # the archs
     python3 chip_smoke.py --phases device,build,train     # training
+    python3 chip_smoke.py --phases device,build,prefetch  # case studies
 """
 
 from __future__ import annotations
@@ -2045,9 +2063,10 @@ def engine_phase(torch):
               f"{INT8_TOKEN_AGREEMENT})")
         divergence_report(torch, cfg, params, kreqs, rreqs)
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
-    # the profiled run is cut to 4 requests (the gates above run on all
-    # 16): reading the 16-request trace's events took a quarter minute
-    serve("int8", None, profiled=True, n_req=4)
+    # the profiled run is cut to 2 requests (the gates above run on all
+    # 16): reading the 16-request trace's events took a quarter minute,
+    # 4 requests' 11.7 s
+    serve("int8", None, profiled=True, n_req=2)
     return {k: main_launches[k] for k in BUCKET_KERNELS}
 
 
@@ -2194,6 +2213,303 @@ def substrate_phase(torch):
           f"{len(same)} requests (gate: all)")
     assert all(same), same
     return {"page_out": launches["page_out"], "page_in": launches["page_in"]}
+
+PREFETCH_MODES = (None, "demand", "stream", "ghb")
+# the prefetch phase's spin before layer 0: 0.25 s at the H100's 1.98 GHz
+# SM clock, while the host queues a layer of the scan in about 2 ms
+STALL_CYCLES = 500_000_000
+SNAP_ROWS = 8        # rows of each pooled leaf the spun scan copies out
+
+
+def prefetch_phase(torch, timer):
+    """The paper's two case studies on the card (`repro_torch.prefetch`,
+    `repro_torch.sched`). (a) `scan_with_prefetch` over SmolLM-360M's 32
+    layers at published widths (seeded random weights, bf16), the FFN
+    leaves (w_gate, w_up, w_down: 3 x 960 x 2560, 14.7 MB a layer, 472
+    MB in all) pool-resident in pinned host memory and copied one layer
+    ahead by the page-copy kernel on a side stream (`layer_in`), the
+    body the forward layer on 8 x 256 tokens: bit-equal to
+    `blocks.stack_apply` with every leaf on the card; a scan whose body
+    only copies rows of each layer's pooled leaves out to pinned host
+    memory, with the main stream spun before layer 0 so that the host
+    queues later layers' copies and bodies first, bit-equal to the
+    leaves (a copy overwriting a buffer still to be read breaks it); one
+    `layer_in` launch per layer, one layer's kernel copy equal to the plain
+    `copy_pages`; the copy's ms a layer against its bound and `copy_`, a
+    layer's compute ms and the coverage min(1, compute / transfer).
+    (b) The bucket int8 cell of the engine phase with `substrate="auto"`,
+    `local_budget_frac=0.25`, `cold_touch=0.1` on 8 chat requests, for
+    `prefetch` in (None, "demand", "stream", "ghb"): the tokens equal
+    across the four runs (staging never touches the math), `stream`'s
+    demand share below `demand`'s, every pool byte demand or staged;
+    issued, useful and excess bytes and virtual TPOT per predictor.
+    (c) The stream run's `measured_profile()` through
+    `sched.workload.serving_stream` and `simulate` under fcfs, random and
+    aware (the reference test's assertions; arrivals one per 50 of the
+    profile's steps, so the jobs co-reside at this step time), and the
+    BFS frontier predictor's remote-access reduction on `bfs_trace` (the
+    paper's first case study). Returns the `layer_in` launches of (a)'s
+    run and its record."""
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.page_io import ops as pops
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.models.module import cast_params, layer_slice
+    from repro_torch.prefetch import engine as pfe
+    from repro_torch.prefetch import static
+    from repro_torch.prefetch.workloads import bfs_trace
+    from repro_torch.sched import build_cluster, make_policy, simulate
+    from repro_torch.sched.workload import serving_stream
+    from repro_torch.serving import EngineConfig, ServingEngine, \
+        make_scenario
+
+    cfg = configs.get("smollm_360m")              # bf16 activations
+    L, d = cfg.num_layers, cfg.d_model
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+
+    # --- (a) the layer loop with the FFN leaves in pinned host memory ---
+    stack = cast_params(params["blocks"], cfg.dtype)
+    layers = stack["pos0"]
+    desc = blk.pattern(cfg)[0]
+    pooled = sorted(layers["mlp"])
+    host = dict(layers, mlp={
+        k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v)
+        for k, v in layers["mlp"].items()})
+    def falses(tree):
+        return ({k: falses(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else False)
+
+    mask = dict(falses(layers), mlp={k: True for k in pooled})
+    per_layer = sum(v[0].numel() * v.element_size()
+                    for v in host["mlp"].values())
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn((8, 256, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def body(h, p):
+        return blk._apply_layer_train(p, h, cfg, desc)[0], None
+
+    print(f"prefetch (a) {cfg.name}: scan_with_prefetch over {L} layers, "
+          f"{'/'.join(pooled)} pinned host ({per_layer / 1e6:.1f} MB a "
+          f"layer, {L * per_layer / 1e6:.0f} MB), body the forward layer "
+          f"on {tuple(x.shape[:2])} tokens")
+    with torch.no_grad():
+        want, _ = blk.stack_apply(stack, x, cfg)
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        got, outs = static.scan_with_prefetch(body, x, host, mask, L)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        print(f"  launches { {k: v for k, v in launches.items() if v}}; "
+              f"plain calls {plain}")
+        assert outs is None and not plain, plain
+        assert launches["layer_in"] == L, launches      # one per layer
+        same = torch.equal(got, want)
+        print(f"  scan_with_prefetch == stack_apply (every leaf on the "
+              f"card), bit for bit: {same}; max |diff| "
+              f"{float((got.float() - want.float()).abs().max()):.3e}")
+        assert same
+
+        # the waits, with the card held back: a scan whose body only
+        # copies the first and last SNAP_ROWS rows of its layer's pooled
+        # leaves out to pinned host memory, the main stream spun before
+        # layer 0 so that the host queues the next layers' copies and
+        # bodies first. A copy that did not wait for the body that last
+        # read its buffer would overwrite layer 0's leaves before layer 0
+        # reads them, and the rows would differ. (A body that did not wait
+        # for its copy would read the buffer early only where its read
+        # slipped in ahead of the copy: on the H100 the main stream's
+        # reads ran after the concurrent layer_in kernel, which fills
+        # every SM, in every run checked, so this gate does not catch it.)
+        stall_end = torch.cuda.Event()
+        stalled = []         # per layer: queued while the card was spinning
+        r = SNAP_ROWS
+        snaps = {k: torch.empty((L, 2, r) + host["mlp"][k].shape[2:],
+                                dtype=torch.bfloat16, pin_memory=True)
+                 for k in pooled}
+
+        def snapshot(h, p):
+            if not stalled:
+                torch.cuda._sleep(STALL_CYCLES)
+                stall_end.record()
+            i = len(stalled)
+            stalled.append(not stall_end.query())
+            for k in pooled:
+                snaps[k][i, 0].copy_(p["mlp"][k][:r], non_blocking=True)
+                snaps[k][i, 1].copy_(p["mlp"][k][-r:], non_blocking=True)
+            return h, None
+
+        static.scan_with_prefetch(snapshot, x, host, mask, L)
+        torch.cuda.synchronize()
+        same = all(torch.equal(snaps[k][:, 0], host["mlp"][k][:, :r])
+                   and torch.equal(snaps[k][:, 1], host["mlp"][k][:, -r:])
+                   for k in pooled)
+        print(f"  a scan copying each layer's leaves' first and last {r} "
+              f"rows out, the main stream spun {STALL_CYCLES:.0e} cycles "
+              f"before layer 0: {sum(stalled[1:])} of {L - 1} later layers "
+              f"queued during the spin (gate >= 2); every layer's rows == "
+              f"its leaves', bit for bit: {same}")
+        assert sum(stalled[1:]) >= 2 and same
+        del snaps
+
+        # one layer through the kernel and through the plain version
+        ids = torch.arange(L, dtype=torch.int32, device="cuda")
+        src = [host["mlp"][k][None] for k in pooled]
+        i = L // 2
+        bufs = {impl: [torch.full(host["mlp"][k].shape[1:], float("nan"),
+                                  dtype=torch.bfloat16, device="cuda")
+                       for k in pooled] for impl in ("cuda", "reference")}
+        for impl, b in bufs.items():
+            pops.copy_pages([t[None, None] for t in b], None, src,
+                            ids[i:i + 1], name="layer_in", impl=impl)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, b) and torch.equal(a, layers["mlp"][k][i])
+                 for k, a, b in zip(pooled, bufs["cuda"], bufs["reference"]))
+        print(f"  layer {i}'s copy, kernel == plain copy_pages == the "
+              f"card's leaves: {ok}")
+        assert ok
+
+        buf = bufs["cuda"]
+        dst = [t[None, None] for t in buf]
+        hbuf = torch.empty(per_layer, dtype=torch.uint8, pin_memory=True)
+        dbuf = torch.empty(per_layer, dtype=torch.uint8, device="cuda")
+        copy_ms = timer(lambda: pops.copy_pages(
+            dst, None, src, ids[i:i + 1], name="layer_in"))
+        copy_ev = timer.last_event_ms
+        plain_ms = timer.event_ms(lambda: pops.copy_pages(
+            dst, None, src, ids[i:i + 1], name="layer_in", impl="reference"))
+        lib_ms = timer.event_ms(lambda: dbuf.copy_(hbuf, non_blocking=True))
+        on_card = layer_slice(layers, i)
+        comp_ms = timer(lambda: body(x, on_card))
+        comp_ev = timer.last_event_ms
+        scan_ms = timer.event_ms(
+            lambda: static.scan_with_prefetch(body, x, host, mask, L))
+        stack_ms = timer.event_ms(lambda: blk.stack_apply(stack, x, cfg))
+    bound = max(per_layer / HBM_BYTES_PER_S, per_layer / 64e9) * 1e3
+    print(f"  layer_in {per_layer / 1e6:.2f} MB a layer: kernel "
+          f"{copy_ms:.4f} ms device ({copy_ev:.4f} ms events; "
+          f"{per_layer / copy_ms / 1e6:.1f} GB/s), bound {bound:.4f} ms "
+          f"(64 GB/s), plain copy_pages {plain_ms:.4f} ms, copy_ of the "
+          f"same bytes {lib_ms:.4f} ms")
+    print(f"  a layer's compute: {comp_ms:.4f} ms device, {comp_ev:.4f} ms "
+          f"events; coverage min(1, compute / transfer): device "
+          f"{min(1.0, comp_ms / copy_ms):.3f}, events "
+          f"{min(1.0, comp_ev / copy_ev):.3f}; {L} layers: scan "
+          f"{scan_ms:.2f} ms, stack_apply (every leaf on the card) "
+          f"{stack_ms:.2f} ms (events)")
+    record = dict(
+        name="layer_in", route="cuda",
+        source="src/repro_torch/kernels/csrc/page_io.cu",
+        replaces="src/repro/prefetch/static.py:35", max_abs_err=0.0,
+        ms=copy_ms, op_ms=copy_ev, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes", library_ms=lib_ms,
+        shape=f"smollm-360m layer {i}: {'/'.join(pooled)} "
+              f"({per_layer} B) from pinned host")
+    del host, src, hbuf, dbuf, bufs, buf, dst, stack, layers
+    torch.cuda.empty_cache()
+
+    # --- (b) the bucket int8 cell with prediction-driven page-in --------
+    base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
+                        page_tokens=16, pool_dtype="int8", substrate="auto",
+                        local_budget_frac=0.25, cold_touch=0.1)
+    print(f"prefetch (b) the bucket int8 cell, substrate auto, "
+          f"local_budget_frac={base.local_budget_frac} "
+          f"cold_touch={base.cold_touch}, 8 chat requests")
+    runs = {}
+    for mode in PREFETCH_MODES:
+        eng = ServingEngine.build(
+            cfg, dataclasses.replace(base, prefetch=mode), params=params)
+        gaps = watch_substrate(eng)
+        reqs = make_scenario("chat", 8, cfg.vocab_size, seed=0,
+                             prompt_buckets=(64, 128), gen_range=(16, 32),
+                             arrival_rate=1e5)
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        eng_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        s, c = stats.summary(), stats.pager
+        excess = (c["prefetch_issued"] - c["prefetch_useful"]) \
+            * eng.pager.page_bytes
+        print(f"  prefetch={str(mode):6s} tokens={s['tokens']} steps="
+              f"{s['steps']} demand_share={s['demand_share']:.4f} "
+              f"remote_share={s['remote_share']:.4f} issued="
+              f"{c['prefetch_issued']} useful={c['prefetch_useful']} "
+              f"issued_bytes={c['prefetch_issued'] * eng.pager.page_bytes:.0f} "
+              f"excess_bytes={excess:.0f} "
+              f"demand_pool_bytes={c['demand_pool_bytes']:.0f} "
+              f"prefetch_pool_bytes={c['prefetch_pool_bytes']:.0f} "
+              f"virtual tpot_p50={s['tpot_p50_s'] * 1e6:.3f} us "
+              f"tpot_p99={s['tpot_p99_s'] * 1e6:.3f} us virtual_s="
+              f"{stats.virtual_s:.6f} wall tok/s={s['tok_per_s_wall']:.1f}"
+              f" launches={eng_launches}")
+        print(f"    {substrate_line(eng, stats, gaps)}")
+        assert stats.n_requests == len(reqs) and not plain, plain
+        assert eng.substrate.mode == "physical", eng.substrate.mode
+        assert gaps and all(g == 0 for g in gaps), gaps
+        assert all(eng_launches.get(k, 0) > 0 for k in BUCKET_KERNELS), \
+            eng_launches
+        split = c["demand_pool_bytes"] + c["prefetch_pool_bytes"]
+        assert abs(split - c["pool_bytes"]) <= 1e-9 * c["pool_bytes"], c
+        runs[mode] = (reqs, stats, eng)
+    toks = {m: [r.output for r in reqs] for m, (reqs, _, _) in runs.items()}
+    same = all(toks[m] == toks[None] for m in PREFETCH_MODES)
+    print(f"  tokens equal across prefetch {list(PREFETCH_MODES)}: {same}")
+    assert same
+    share = {m: runs[m][1].pager["demand_share"] for m in ("demand",
+                                                           "stream")}
+    print(f"  demand_share stream {share['stream']:.4f} < demand "
+          f"{share['demand']:.4f}: {share['stream'] < share['demand']}")
+    assert share["stream"] < share["demand"], share
+
+    # --- (c) the scheduler on the engine's measured profile -------------
+    prof = runs["stream"][2].measured_profile()
+    step0 = prof.step_time(0.0)
+    print(f"prefetch (c) measured profile of the stream run: pool "
+          f"{prof.pool_traffic:.0f} B/step, local {prof.local_traffic:.0f} "
+          f"B/step, t_compute {prof.t_compute * 1e6:.3f} us, step "
+          f"{step0 * 1e6:.3f} us, injected LoI {prof.injected_loi():.4f}, "
+          f"IC {prof.interference_coefficient():.4f}")
+    assert prof.pool_traffic >= 0 and prof.t_compute > 0
+    assert 0.0 <= prof.injected_loi() <= 1.0
+    jobs = serving_stream(12, prof, seed=0, arrival_rate=1.0 / (50 * step0),
+                          steps=(200, 400))
+    assert all(abs(j.injected_loi - prof.injected_loi()) <= 1e-12
+               for j in jobs)
+    # the reference test's cluster (one pool of 4 slots: the policies
+    # cannot differ there), then 2 racks x 2 pools x 2 slots
+    for shape in ((1, 1, 4), (2, 2, 2)):
+        for name in ("fcfs", "random", "aware"):
+            res = simulate(jobs, build_cluster(*shape), make_policy(name))
+            sd = res.slowdown
+            print(f"  {name:6s} 12 serving jobs, racks x pools x slots "
+                  f"{shape}: slowdown mean {float(sd.mean()):.6f} var "
+                  f"{float(sd.var()):.3e} max {float(sd.max()):.6f}, mean "
+                  f"wait {float(res.wait.mean()) / step0:.1f} steps")
+            assert np.all(res.finish >= res.start)
+            if shape == (1, 1, 4) and prof.injected_loi() > 0.05:
+                # loud co-residents stretch each other (reference test)
+                assert float(sd.max()) > 1.0, name
+    t0 = time.perf_counter()
+    t = bfs_trace(n_vertices=8192, avg_degree=16, page_bytes=1024,
+                  chunk=32).trace
+    rep = pfe.evaluate_zoo(
+        t, pfe.PrefetchConfig(local_pages=max(8, t.n_pages // 16),
+                              bw_pages_per_step=40, degree=40),
+        predictors=["demand", "next_line", "stream", "frontier"])
+    by = {r.predictor: r for r in rep}
+    print(f"  BFS case study (host numpy, {time.perf_counter() - t0:.1f} s):"
+          f" remote-access reduction frontier "
+          f"{pfe.remote_reduction(rep, 'frontier'):.3f}, next_line "
+          f"{pfe.remote_reduction(rep, 'next_line'):.3f}, stream "
+          f"{pfe.remote_reduction(rep, 'stream'):.3f}; speedup "
+          f"{by['demand'].total_time / by['frontier'].total_time - 1:.3f}")
+    return {"layer_in": launches["layer_in"]}, record
+
 
 def fleet_phase(torch):
     """Faults and the fleet at SmolLM-360M's published widths, on the card,
@@ -2519,6 +2835,8 @@ def chunked_phase(torch):
           "trace of 16 requests, system prompt 128 tokens, prompts "
           "256/512, 16-32 new tokens")
 
+    # 16 requests: two waves of the 8 slots, so the second wave's
+    # admissions find the first wave's prefixes in the cache
     def serve(backend, profiled=False, n_req=16, **over):
         kernels.force_backend(backend)
         try:
@@ -2567,6 +2885,11 @@ def chunked_phase(torch):
               f"plain_calls={ {k: v for k, v in plain.items() if v} }")
         print(f"    {substrate_line(eng, stats, gaps)}")
         assert all(g == 0 for g in gaps), gaps
+        if ecfg.prefix_cache:
+            # the second wave's admissions map the first wave's prefixes
+            assert stats.prefix.get("hits", 0) > 0 \
+                and stats.pager["shared_mapped_pages"] > 0, \
+                (stats.prefix, stats.pager["shared_mapped_pages"])
         return reqs, launches, plain
 
     out = {}
@@ -2587,9 +2910,9 @@ def chunked_phase(torch):
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
         if pool == "int8":
             serve(None, prefix_cache=False)      # pages used without sharing
-    # the profiled run is cut to 4 requests: reading a 16-request trace's
-    # events took half a minute
-    serve(None, profiled=True, n_req=4)
+    # the profiled run is cut to 2 requests: reading a 16-request trace's
+    # events took half a minute, 4 requests' 13.9 s
+    serve(None, profiled=True, n_req=2)
 
     # the per-token int8 pool reaches the engine only with speculation
     # (ROADMAP A8): drive its chunk cell over one 512-token prompt
@@ -2973,9 +3296,10 @@ def ssm_phase(torch):
     gate(d_kernel16 <= d_dtype, f"bf16 kernel drift {d_kernel16} > bf16 "
          f"dtype drift {d_dtype}")
     gate(d_kernel32 <= 2e-3, f"float32 kernel drift {d_kernel32}")
-    # the profiled run is cut to 4 requests (the gates above run on all
-    # 16): the 16-request trace's 2.3 M events took 19 s to read
-    serve(None, profiled=True, n_req=4)
+    # the profiled run is cut to 2 requests (the gates above run on all
+    # 16): the 16-request trace's 2.3 M events took 19 s to read, 4
+    # requests' 1.1 M 10.3 s
+    serve(None, profiled=True, n_req=2)
 
     # (b) engine == naive loop, bit for bit, in each layout and pool
     prompts = chat_prompts(cfg)
@@ -3911,8 +4235,8 @@ def profile_calls(torch, fn, label, describe=lambda out: "") -> dict:
 
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
-          "fleet", "chunked", "contiguous", "speculative", "ssm", "archs",
-          "train")
+          "prefetch", "fleet", "chunked", "contiguous", "speculative", "ssm",
+          "archs", "train")
 
 
 def parse_phases(argv) -> set:
@@ -3993,6 +4317,11 @@ def main(argv=None) -> int:
     if "substrate" in phases:
         launches.update(substrate_phase(torch))
         phase_done("substrate")
+    if "prefetch" in phases:
+        pf_launches, record = prefetch_phase(torch, Timer(torch))
+        records.append(record)
+        launches.update(pf_launches)
+        phase_done("prefetch")
     if "fleet" in phases:
         launches.update(fleet_phase(torch))
         phase_done("fleet")

@@ -1,5 +1,6 @@
-"""Parameter and cache trees: named flattening and byte accounting of
-tensors (the port's parameter and cache leaves)."""
+"""Parameter and cache trees (nested dicts): mapping, flattening, named
+flattening and byte accounting of tensors (the port's parameter and
+cache leaves)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,20 @@ import math
 from typing import Any
 
 from repro_torch.common import hw
+
+
+def tree_map(fn, *trees):
+    """`fn` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in sorted-key order (the reference's flatten order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def named_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:

@@ -257,9 +257,9 @@ def with_prefetch_excess(profile: list[TensorAccess], excess_bytes: float,
     coefficient exactly like useful traffic does, which is how a
     low-accuracy prefetcher turns itself into an interference injector.
     `excess_bytes` comes from the prefetch simulators'
-    `PrefetchReport.excess_bytes` (per trace; divide by steps for
-    per-step; they port with ROADMAP A13) or the pager's
-    `prefetch_excess_bytes` counter."""
+    `PrefetchReport.excess_bytes` (`prefetch.engine`; per trace, divide
+    by steps for per-step) or the pager's `prefetch_excess_bytes`
+    counter."""
     if excess_bytes <= 0:
         return list(profile)
     return list(profile) + [

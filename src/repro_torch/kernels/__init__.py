@@ -16,8 +16,9 @@ There is no fallback from a kernel that fails to build or launch.
 versions on the card to compare against (`chip_smoke.py`).
 
 Kernels on the serving and training paths: `page_io` (the grouped page copy: pool
-insert, the substrate's page_out / page_in streams and the fleet's
-prefill->decode handoff between two pools), `flash_attention`
+insert, the substrate's page_out / page_in streams, the fleet's
+prefill->decode handoff between two pools and the layer-ahead layer_in
+stream of `prefetch.static`), `flash_attention`
 (bucket prefill and the training forward: `flash_mha`; its backward:
 `flash_mha_bwd`; chunked prefill: `paged_prefill_flash`,
 `paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
@@ -43,13 +44,14 @@ _FORCED: str | None = None
 # wrapper right after it launches, nowhere else) and calls that took the
 # plain version
 LAUNCHES = {"write_pages": 0, "page_out": 0, "page_in": 0, "handoff": 0,
+            "layer_in": 0,
             "flash_mha": 0, "flash_mha_bwd": 0,
             "paged_flash_decode": 0, "paged_prefill_flash": 0,
             "paged_prefill_insert_flash": 0,
             "paged_prefill_insert_flash_q8": 0, "flash_decode": 0,
             "lbench": 0, "matmul_w8a8": 0, "ssd_scan": 0}
 REFERENCE_CALLS = {"write_pages": 0, "page_out": 0, "page_in": 0,
-                   "handoff": 0,
+                   "handoff": 0, "layer_in": 0,
                    "mha": 0, "mha_bwd": 0, "paged_decode_mha": 0,
                    "paged_prefill_mha": 0,
                    "paged_prefill_insert_mha": 0,

@@ -2,7 +2,8 @@
 (`write_pages`, `write_pages_group`) and move pages between the pool and
 its host twin (`copy_pages`, the substrate's page_out / page_in streams)
 or between two engines' pools (`copy_pages`, the fleet's prefill->decode
-handoff).
+handoff), and stream a stacked layer leaf into a device buffer one layer
+ahead (`copy_pages`, the `layer_in` stream of `prefetch.static`).
 
 A CUDA pool goes through the grouped CUDA page copy (`page_io.py`); a CPU
 pool takes the plain `index_copy_` / `index_select` (`ref.py`).
@@ -17,7 +18,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.page_io import ref
 
-STREAMS = ("page_out", "page_in", "handoff")
+STREAMS = ("page_out", "page_in", "handoff", "layer_in")
 
 
 def write_pages(pool: torch.Tensor, tiles: torch.Tensor, phys: torch.Tensor,
@@ -56,11 +57,15 @@ def copy_pages(dst, dst_ids: Optional[torch.Tensor], src,
     one launch. page_out is `copy_pages(twin, ids, pool, ids)`, page_in
     `copy_pages(scratch, None, twin, ids)`, the handoff `copy_pages(
     dst_pool, dst_ids, src_pool, src_ids)` (device to device, between two
-    engines' pools). The device side decides: a
+    engines' pools), layer_in `copy_pages(buf[None, None], None,
+    leaf[None], ids[i:i + 1])` (layer i of a pinned stacked leaf into a
+    device buffer, `prefetch.static.scan_with_prefetch`). The device side
+    decides: a
     CUDA tensor among them launches the kernel, which reaches a pinned
     host tensor through its mapped address (a host tensor that is not
     pinned raises); all-CPU tensors take the plain version. `name`
-    ("page_out" | "page_in" | "handoff") is the stream counted."""
+    ("page_out" | "page_in" | "handoff" | "layer_in") is the stream
+    counted."""
     if name not in STREAMS:
         raise ValueError(f"unknown page stream {name!r}")
     dst = [dst] if isinstance(dst, torch.Tensor) else list(dst)

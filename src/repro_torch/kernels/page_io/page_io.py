@@ -276,6 +276,7 @@ def copy_pages_cuda(dst: Sequence[torch.Tensor],
                     name: str) -> None:
     """`dst[k][:, dst_ids[j]] = src[k][:, src_ids[j]]` for every leaf k in
     ONE launch (ids None: page j), on the current stream; `name`
-    ("page_out", "page_in" or "handoff") is the launch counted."""
+    ("page_out", "page_in", "handoff" or "layer_in") is the launch
+    counted."""
     segs = copy_segments(dst, dst_ids, src, src_ids)
     launch(segs, name, next(t.device for t in (*dst, *src) if t.is_cuda))

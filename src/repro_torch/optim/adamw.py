@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.common.pytree import tree_leaves, tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -24,20 +26,6 @@ class AdamWConfig:
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.1
-
-
-def tree_map(fn, *trees):
-    """`fn` over the leaves of nested dicts of the same keys."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves in sorted-key order (the reference's flatten order)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
 
 
 def adamw_init(params) -> dict:

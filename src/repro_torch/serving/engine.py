@@ -63,10 +63,11 @@ enc-dec seamless (its cross-KV slot-resident). A frontend arch's
 embeddings are drawn per request from a generator seeded from (17,
 request_id) (`_frontend_extras`); they are not the reference's
 `fold_in(PRNGKey(17), id)` numbers, which torch cannot reproduce.
-Options outside the slice raise `NotImplementedError`
-naming the ROADMAP item that will port them. The reference's
-`compile_counts` (jit's executable caches) has no eager counterpart and
-`measured_profile` waits for the scheduler (ROADMAP A13).
+`prefetch` switches the pager's cold-prefix page-in to prediction-driven
+staging (accounting; the virtual clock serializes demand page-ins), and
+`measured_profile` hands the engine's per-step traffic to the rack
+scheduler (`sched.workload.serving_stream`). The reference's
+`compile_counts` (jit's executable caches) has no eager counterpart.
 """
 
 from __future__ import annotations
@@ -127,7 +128,8 @@ class EngineConfig:
     pager_policy: str = "hotness"              # hotness | static | none
     hot_window: int = 32
     cold_touch: float = 0.05
-    prefetch: Optional[str] = None   # prediction-driven page-in: ROADMAP A13
+    prefetch: Optional[str] = None   # prediction-driven page-in: a
+    # predictor of `prefetch.predictors` (see `serving.kv_pager`)
     prefetch_degree: int = 8
     # --- shared-prefix radix cache (serving.prefix_cache) ---
     prefix_cache: bool = False      # dedup page-aligned shared prompt
@@ -154,24 +156,15 @@ class EngineConfig:
     step_overhead_s: float = 5e-6              # host dispatch/launch floor
 
 
-def check_slice(cfg: ModelConfig, ecfg: EngineConfig) -> None:
-    """Raise `NotImplementedError` for what the port does not run yet
-    (after the reference's own `ValueError`s for chunking or sharing
-    without the paged layout)."""
+def check_config(cfg: ModelConfig, ecfg: EngineConfig) -> None:
+    """The reference's `ValueError`s for chunking or sharing without the
+    paged layout (a bad `prefetch` name raises in `PagerConfig`)."""
     if not ecfg.paged and ecfg.prefill_chunk:
         raise ValueError("chunked prefill requires the paged layout")
     if not ecfg.paged and ecfg.prefix_cache:
         raise ValueError(
             "prefix_cache needs paged=True: sharing happens by aliasing "
             "block-table rows onto one physical page")
-    todo = [
-        (ecfg.prefetch is not None, "prefetch (prediction-driven page-in)",
-         "A13"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
 
 
 def frontend_extras(cfg: ModelConfig, request_id: int, bucket: int,
@@ -399,7 +392,7 @@ class ServingEngine:
                  chip: Optional[hw.ChipSpec] = None):
         """`topo`/`chip` price the virtual clock and the catalog admission
         prior (one H100 by default)."""
-        check_slice(cfg, ecfg)
+        check_config(cfg, ecfg)
         self.cfg = cfg
         self.ecfg = ecfg
         self.cells = cells
@@ -553,7 +546,7 @@ class ServingEngine:
               device=None) -> "ServingEngine":
         """Engine on `device` (the card by default; raises without one).
         Without `params`, float32 master weights are drawn from `seed`."""
-        check_slice(cfg, ecfg)
+        check_config(cfg, ecfg)
         device = resolve_device(device)
         draft_cfg = None
         if ecfg.speculative == "draft":
@@ -1377,6 +1370,31 @@ class ServingEngine:
                 # committed frontier so the pool footprint tracks accepted
                 # tokens (the rejected KV is masked and overwritten)
                 self.pager.truncate(slot.index)
+
+    # ----------------------------------------------- admission <-> sched
+    def measured_profile(self) -> itf.InterferenceProfile:
+        """The engine's MEASURED interference profile (paper §7.2 closed
+        loop): per-step pool/local traffic from the pager's exact byte
+        accounting plus the decode roofline compute time (at the engine's
+        chip peak), as an `InterferenceProfile` on the engine's topology
+        that the rack simulator prices like any other submitted job. Feed
+        it to `sched.workload.serving_stream` so co-located serving
+        instances throttle each other by their OBSERVED injected LoI
+        rather than a catalog prior."""
+        if self.steps == 0:
+            raise RuntimeError(
+                "measured_profile needs at least one decode step — run a "
+                "trace first (the catalog prior covers cold starts)"
+            )
+        c = self.pager.counters()
+        return itf.InterferenceProfile(
+            arch=self.cfg.name,
+            shape="serve_measured",
+            pool_traffic=c["pool_bytes"] / self.steps,
+            local_traffic=c["local_bytes"] / self.steps,
+            t_compute=self._t_compute_s / self.steps,
+            topo=self.topo,
+        )
 
     # -------------------------------------------------------- tick layer
     # The engine loop as re-entrant primitives, so the fleet router

@@ -28,10 +28,23 @@ Slots can be preempted and restored (`freeze` / `thaw` / `drop_frozen`):
 a pinned freeze keeps the slot's pages under a freeze hold, retagged
 pool tier, and a spilled one releases them.
 
-Not ported yet: the prediction-driven page-in of `repro.prefetch`
-(`PagerConfig.prefetch` must stay None; ROADMAP A13). Pool reads use the
-expected-value weighted accounting, all of it assumed layer-ahead
-prefetchable.
+Pool-read accounting has two modes:
+
+* `prefetch=None` (default): expected-value weighted accounting; all
+  pool reads are ASSUMED layer-ahead prefetchable, so the engine
+  overlaps pool time with compute.
+* `prefetch=<predictor>` (prediction-driven page-in, `repro_torch.
+  prefetch`): the cold prefix is touched on a DISCRETE deterministic
+  schedule (mean rate = `cold_touch`) and every pool touch is classified
+  — staged ahead by the predictor (overlappable) or a demand page-in
+  (the engine serializes it). `prefetch="demand"` is the null predictor,
+  the demand-paging baseline. Mispredicted stages are excess pool-link
+  traffic (`counters()["prefetch_excess_bytes"]`). Staging is
+  accounting, as in the reference: the substrate moves pages by tier
+  changes, not by predictions.
+
+An optional `recorder` (`prefetch.trace.TraceRecorder`) captures the
+discrete page-touch stream for offline predictor scoring in either mode.
 """
 
 from __future__ import annotations
@@ -71,11 +84,22 @@ class PagerConfig:
             raise ValueError(f"unknown pager policy {self.policy!r}")
         if self.page_tokens < 1:
             raise ValueError("page_tokens must be >= 1")
-        if self.prefetch is not None:
-            raise NotImplementedError(
-                "prediction-driven page-in is not ported yet (ROADMAP "
-                "A13: repro.prefetch); keep PagerConfig.prefetch=None"
+        if self.prefetch is not None and self.prefetch not in (
+                "demand", "next_line", "stride", "stream", "markov",
+                "ghb", "adaptive"):
+            raise ValueError(
+                f"pager prefetch {self.prefetch!r} must be a stream-"
+                "learnable predictor (or 'demand'/'adaptive'); "
+                "'static'/'frontier' need schedules/hints the pager "
+                "does not have"
             )
+
+    @property
+    def cold_period(self) -> int:
+        """Steps between discrete touches of one cold page (mean rate
+        matches the weighted model's `cold_touch`)."""
+        return max(1, int(round(1.0 / max(self.cold_touch, 1e-9))))
+
 
 @dataclasses.dataclass
 class StepTraffic:
@@ -151,6 +175,21 @@ class KVPager:
         # land in that step's accounting
         self._cow_local_pending = 0.0
         self._cow_pool_pending = 0.0
+        self.recorder = None          # optional prefetch.trace.TraceRecorder
+        self._predictor = None
+        self._staged: set = set()     # (slot, page) staged ahead, untouched
+        if pcfg.prefetch is not None:
+            from repro_torch.prefetch.predictors import make_predictor
+
+            if pcfg.prefetch == "stream":
+                # one stream region per slot: global page ids are
+                # slot-major, so each slot's cold walk is its own stream
+                self._predictor = make_predictor(
+                    "stream", region_pages=self.n_pages,
+                    max_streams=max(n_slots, 2),
+                )
+            else:
+                self._predictor = make_predictor(pcfg.prefetch)
 
     # ------------------------------------------------------------ budget
     @property
@@ -422,6 +461,12 @@ class KVPager:
             if self.cfg.validate:
                 self._validate_freed(dead)
             self._free_phys.extend(dead.tolist())
+        if self._staged:
+            dropped = set(drop.tolist())
+            self._staged = {
+                (s, p) for (s, p) in self._staged
+                if not (s == slot and p in dropped)
+            }
         return int(drop.size)
 
     # ------------------------------------------------- preempt / restore
@@ -515,6 +560,7 @@ class KVPager:
         self.phys[slot, :] = -1
         self.valid[slot, :] = False
         self.lengths[slot] = 0
+        self._staged = {(s, p) for (s, p) in self._staged if s != slot}
 
     def _validate_freed(self, dead: np.ndarray,
                         skip_slot: Optional[int] = None) -> None:
@@ -585,6 +631,32 @@ class KVPager:
         w = frac_hot + (1.0 - frac_hot) * self.cfg.cold_touch
         return np.where(self.valid, w, 0.0)
 
+    def _discrete_touches(self, active: np.ndarray) -> list:
+        """Deterministic per-step page-touch list [(slot, page), ...]:
+        hot-tail pages every step, cold-prefix pages on a round-robin of
+        period `cold_period` (page p of any slot is touched at steps
+        where p ≡ step (mod period), so the touched cold set walks +1
+        page per step — the same mean rate as the weighted model, made
+        observable)."""
+        period = self.cfg.cold_period
+        touches = []
+        for s in np.nonzero(active)[0]:
+            length = int(self.lengths[s])
+            if length <= 0:
+                continue
+            last = self._page_of(length - 1)
+            hot_lo = self._page_of(max(length - self.cfg.hot_window, 0))
+            for p in range(hot_lo, last + 1):
+                if self.valid[s, p]:
+                    touches.append((int(s), p, False))
+            for p in range(0, hot_lo):
+                if self.valid[s, p] and (p - self._steps) % period == 0:
+                    touches.append((int(s), p, True))
+        return touches
+
+    def _gid(self, slot: int, page: int) -> int:
+        return slot * self.n_pages + page
+
     def step(self, active: np.ndarray,
              tokens: Optional[np.ndarray] = None) -> StepTraffic:
         """Account one decode step for the `active` slot mask: reads per
@@ -604,16 +676,58 @@ class KVPager:
         are overwritten in place before ever being read — sub-token
         noise against the per-step page sweep, excluded by the model.)"""
         active = np.asarray(active, dtype=bool)
-        # expected-value weighted accounting; every pool byte is assumed
-        # layer-ahead prefetchable
-        tier = self.tier
-        w = self._page_weights() * active[:, None]
-        local_r = float(
-            (w * (tier == LOCAL)).sum() * self.page_bytes
-        )
-        pool_r = float(
-            (w * (tier == POOL)).sum() * self.page_bytes
-        )
+        touches = None
+        if self.recorder is not None or self._predictor is not None:
+            touches = self._discrete_touches(active)
+            if self.recorder is not None:
+                self.recorder.record(
+                    self._gid(s, p) for s, p, _ in touches
+                )
+
+        demand_b = staged_b = 0.0
+        if self._predictor is None:
+            # expected-value weighted accounting (the pre-subsystem
+            # model); every pool byte is assumed layer-ahead prefetchable
+            tier = self.tier
+            w = self._page_weights() * active[:, None]
+            local_r = float(
+                (w * (tier == LOCAL)).sum() * self.page_bytes
+            )
+            pool_r = float(
+                (w * (tier == POOL)).sum() * self.page_bytes
+            )
+        else:
+            # discrete prediction-driven paging: each pool touch is a
+            # demand page-in unless the predictor staged it ahead. Only
+            # the COLD walk feeds the predictor — hot-tail touches are
+            # local by placement and move with the tail; they are not
+            # page-in candidates and would only pollute the stream the
+            # predictor must learn.
+            local_r = pool_r = 0.0
+            for s, p, cold in touches:
+                if self.tier_phys[self.phys[s, p]] == LOCAL:
+                    local_r += self.page_bytes
+                elif (s, p) in self._staged:
+                    self._staged.discard((s, p))
+                    self.prefetch_useful += 1
+                    local_r += self.page_bytes   # staged copy: local read
+                else:
+                    demand_b += self.page_bytes
+                if cold:
+                    self._predictor.observe(self._gid(s, p))
+            # stage the predictor's forecast for the NEXT step's touches:
+            # the transfer crosses the pool link now (overlapped with
+            # compute); mispredictions become excess link traffic
+            self._predictor.start_step()
+            for gid in self._predictor.predict(self.cfg.prefetch_degree):
+                s, p = divmod(int(gid), self.n_pages)
+                if (0 <= s < self.n_slots and 0 <= p < self.n_pages
+                        and self.valid[s, p]
+                        and self.tier_phys[self.phys[s, p]] == POOL
+                        and (s, p) not in self._staged):
+                    self._staged.add((s, p))
+                    self.prefetch_issued += 1
+                    staged_b += self.page_bytes
 
         # tokens[s] (default 1) tokens of KV written at the tail of each
         # active slot — each write page must be private, so a shared tail
@@ -639,7 +753,7 @@ class KVPager:
         self._cow_local_pending = self._cow_pool_pending = 0.0
         local_b = (local_r + wr_local + cow_local
                    + self.resident_bytes * active.sum())
-        pool_b = pool_r + wr_pool + cow_pool
+        pool_b = pool_r + wr_pool + demand_b + staged_b + cow_pool
 
         self._steps += 1
         if (self.cfg.policy == "hotness"
@@ -648,9 +762,17 @@ class KVPager:
 
         self.total_local_bytes += local_b
         self.total_pool_bytes += pool_b
-        # overlap assumption: all pool traffic prefetchable
-        self.total_prefetch_pool_bytes += pool_b
-        return StepTraffic(local_b, pool_b, 0.0, pool_b)
+        if self._predictor is None:
+            # legacy overlap assumption: all pool traffic prefetchable
+            demand, staged = 0.0, pool_b
+        else:
+            # COW pool copies serialize like demand page-ins: the split
+            # must land before the write the decode cell is about to do
+            demand = demand_b + wr_pool + cow_pool
+            staged = staged_b
+        self.total_demand_pool_bytes += demand
+        self.total_prefetch_pool_bytes += staged
+        return StepTraffic(local_b, pool_b, demand, staged)
 
     # --------------------------------------------------------- placement
     def rebalance(self) -> None:
@@ -695,6 +817,14 @@ class KVPager:
         moved = (before != self.tier_phys) & (self.ref > 0)
         self.evictions += int((moved & (self.tier_phys == POOL)).sum())
         self.promotions += int((moved & (self.tier_phys == LOCAL)).sum())
+        if self._staged:
+            # a staged copy whose page got promoted (or freed) is moot
+            self._staged = {
+                (s, p) for (s, p) in self._staged
+                if self.valid[s, p]
+                and self.tier_phys[self.phys[s, p]] == POOL
+            }
+
     # ----------------------------------------------------------- metrics
     def remote_share(self) -> float:
         """Pool-tier share of cumulative cache traffic (the acceptance

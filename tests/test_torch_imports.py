@@ -3,11 +3,12 @@ the fleet, the MoE layer, the frontends and the training path included),
 the port's dev serving script `scripts/dev_serve_torch.py`, its Fig 11
 script `scripts/lbench_torch.py`, the training probes
 `scripts/ssd_grad_gap.py` and `scripts/profiler_drops.py`,
-`examples/quickstart_torch.py` and `examples/train_lm_torch.py` import
-without JAX and without the reference package; entry points run on the card unless told otherwise
-(and raise here, where there is none); options outside the ported slice
-raise `NotImplementedError`; no library attention kernel, compiler or
-Triton is called from the port."""
+`examples/quickstart_torch.py`, `examples/train_lm_torch.py` and
+`examples/schedule_jobs_torch.py` import without JAX and without the
+reference package; entry points run on the card unless told otherwise
+(and raise here, where there is none); the options the reference refuses
+raise its `ValueError`; no library attention kernel, compiler or Triton
+is called from the port."""
 
 import dataclasses
 import importlib.util
@@ -24,7 +25,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.common.device import resolve_device  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import serve as serve_rt  # noqa: E402
-from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.serving import EngineConfig, PagerConfig  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving.fleet import FleetConfig, FleetRouter  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -33,6 +35,7 @@ DEV_SERVE = ROOT / "scripts" / "dev_serve_torch.py"
 LBENCH = ROOT / "scripts" / "lbench_torch.py"
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 TRAIN_LM = ROOT / "examples" / "train_lm_torch.py"
+SCHEDULE = ROOT / "examples" / "schedule_jobs_torch.py"
 PROBES = [ROOT / "scripts" / "ssd_grad_gap.py",
           ROOT / "scripts" / "profiler_drops.py"]
 
@@ -64,6 +67,13 @@ train = {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
          "repro_torch.checkpoint.manager", "repro_torch.runtime.train",
          "repro_torch.runtime.fault", "repro_torch.launch.train"}
 assert train <= set(names), train - set(names)
+cases = {"repro_torch.prefetch", "repro_torch.prefetch.engine",
+         "repro_torch.prefetch.predictors", "repro_torch.prefetch.static",
+         "repro_torch.prefetch.trace", "repro_torch.prefetch.workloads",
+         "repro_torch.sched", "repro_torch.sched.cluster",
+         "repro_torch.sched.policies", "repro_torch.sched.scheduler",
+         "repro_torch.sched.simulator", "repro_torch.sched.workload"}
+assert cases <= set(names), cases - set(names)
 """
 
 
@@ -71,7 +81,7 @@ def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE),
                           str(LBENCH), str(QUICKSTART), str(TRAIN_LM),
-                          *map(str, PROBES)],
+                          str(SCHEDULE), *map(str, PROBES)],
                          env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -83,7 +93,7 @@ def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "import triton", "cpp_extension", "_int_mm")
     for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH,
-                 QUICKSTART, TRAIN_LM, *PROBES]:
+                 QUICKSTART, TRAIN_LM, SCHEDULE, *PROBES]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:
@@ -140,12 +150,18 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(prefetch="stride"), "A13"),
+    (dict(prefetch="frontier"), "'frontier'"),
+    (dict(prefetch="static"), "'static'"),
 ])
 def test_options_outside_the_slice_raise(override, item):
+    """The pager's page-in predictors that need a schedule or hints the
+    pager does not have raise the reference's `ValueError` (the engine's
+    and the pager's config alike)."""
     ecfg = dataclasses.replace(EngineConfig(), **override)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         ServingEngine.build(_cfg(), ecfg, device="cpu")
+    with pytest.raises(ValueError, match=item):
+        PagerConfig(**override)
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "granite_3_2b"])
