@@ -103,7 +103,7 @@ Phases (any failure raises and exits non-zero):
                paged_prefill_insert_flash, no plain version runs, and each
                agrees >= 0.5 with its plain run; prefix hits and shared
                pages above 0 with the cache on, and the pages the live
-               slots map (with the cache off too);
+               slots map;
                a profiled int8 run; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
@@ -177,6 +177,27 @@ Phases (any failure raises and exits non-zero):
                free-running within 1e-3 or ten times the gap of the plain
                run from an init one float32 step away. Step ms, tokens/s
                and peak memory per run.
+ 15. launch  — the serve launcher (`python -m repro_torch.launch.serve`)
+               at SmolLM-360M's published widths: scenario chat, 8
+               requests, 8 slots, int8 pool, then `--fleet 2 --roles
+               --prefill-chunk 16` on the same trace; tokens equal to an
+               engine / fleet built directly from the same configuration,
+               the path's kernels launched, no plain version.
+ 16. tiering — the tiered train step (`runtime.tiering`): SmolLM-360M,
+               batch 8 x 256, hotness at pool_fraction 0.5, 3 steps, the
+               pool-tier leaves in pinned host memory moved by the page
+               copy (state_in / state_out): bit-equal to the untiered
+               step at every step, the copies' launches equal to the
+               step's plan; step ms of both runs and the copy ms, beside
+               the plain copy_pages and `copy_` on the same leaves.
+ 17. dryrun  — `python -m repro_torch.launch.dryrun --all` on meta
+               tensors, started in a subprocess at nice 10 beside the
+               build (it uses the cores the build leaves idle) and waited
+               for before the card is timed (every cell ok; each cell's
+               dominant term and t_compute_s), and the dry-run's
+               flash_mha / flash_mha_bwd / state_in / state_out units of
+               the tiering phase's step equal to the launches the card
+               made.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -190,6 +211,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases device,build,kernels,archs  # the archs
     python3 chip_smoke.py --phases device,build,train     # training
     python3 chip_smoke.py --phases device,build,prefetch  # case studies
+    python3 chip_smoke.py --phases device,build,launch,tiering,dryrun
 """
 
 from __future__ import annotations
@@ -496,9 +518,9 @@ def kernel_cases(torch, timer):
            any("flash_mma_kernel" in n for n in names)
            and not any("flash_fma_kernel" in n for n in names),
            dict(atol=0, rtol=0))
-    pairs = sum(min(Skv, i + 1) for i in range(Sq)) * B * H
-    ops_b = 4 * D_ * pairs
-    bytes_b = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * Sq
+    # the bound reads the formula the dry-run's flash_mha unit reads
+    ops_b, bytes_b = fops.mha_cost(q.shape, k.shape, causal=True,
+                                   itemsize=q.element_size())
     t_bytes, t_ops = bytes_b / HBM_BYTES_PER_S, ops_b / PEAK_OPS["bfloat16"]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     try:
@@ -1008,15 +1030,14 @@ def arch_shape_cases(torch, timer, gen, randn, report) -> list:
             errs[dt], ok = max_err(torch, out, ref, tol)
             report("flash_mha", f"{arch}: B={B} S={S} H={H} KV={KV} D={D} "
                    f"causal={causal} {str(dt)[6:]}", errs[dt], ok, tol)
-        pairs = (sum(min(S, i + 1) for i in range(S)) if causal
-                 else S * S) * B * H
+        ops_, bytes_ = fops.mha_cost(q.shape, k.shape, causal=causal,
+                                     itemsize=q.element_size())
         record("flash_mha", f"{arch} bf16 B={B} S={S} H={H} KV={KV} D={D} "
                f"causal={causal}",
                lambda: fops.mha(q, k, v, causal=causal, impl="cuda"),
                lambda: fops.mha(q, k, v, causal=causal, impl="reference"),
-               lambda: sdpa(q, k, v, causal),
-               2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S,
-               4 * D * pairs, errs[torch.bfloat16])
+               lambda: sdpa(q, k, v, causal), bytes_, ops_,
+               errs[torch.bfloat16])
 
     # --- paged_flash_decode: paligemma's int8 pool, D 256, rep 8 ---------
     B, H, KV, D, page, n_pages = 8, 8, 1, 256, 16, 26
@@ -1117,8 +1138,9 @@ def arch_shape_cases(torch, timer, gen, randn, report) -> list:
            lambda: dops.decode_mha(q, k, v, S, impl="cuda"),
            lambda: dops.decode_mha(q, k, v, S, impl="reference"),
            lambda: sdpa_decode_ms(torch, timer, q, k, v, lens),
-           2 * B * S * KV * D * 2 + 2 * q.numel() * 2 + B * 4,
-           4 * D * H * B * S, errs[torch.bfloat16])
+           *reversed(dops.decode_cost(q.shape, k.shape, B * S,
+                                      q.element_size())),
+           errs[torch.bfloat16])
     return records
 
 
@@ -1207,9 +1229,10 @@ def flash_decode_cases(torch, timer, randn, report, timed):
     report("flash_decode", f"main shape: {n_split} launch of the split "
            "kernel per call; " + ", ".join(short_names(names)), 0.0,
            n_split == 1, dict(atol=0, rtol=0))
-    n_keys = int(lens.clamp(max=S).sum())
-    bytes_ = 2 * n_keys * KV * D * 2 + 2 * q.numel() * 2 + B * 4
-    ops_ = 4 * D * H * n_keys
+    # the bound reads the dry-run unit's formula, at this run's lengths
+    ops_, bytes_ = dops.decode_cost(q.shape, k.shape,
+                                    int(lens.clamp(max=S).sum()),
+                                    q.element_size())
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
     return dict(
         name="flash_decode", route="cuda",
@@ -1649,22 +1672,6 @@ def w8a8_cases(torch, timer, randn, report, timed):
 
 
 # ------------------------------------------------------------- quantify
-SSD_Q = 64          # the CUDA kernel's chunk length (csrc/ssd_scan.cu)
-
-
-def ssd_flops(B, S, H, P, N, Q=SSD_Q) -> int:
-    """Operations of the chunked SSD at chunk length Q, counted
-    for this run's S (the last chunk holds what is left): per (b, h) and
-    chunk of L positions, the causal halves of the C.B^T scores and of
-    the intra-chunk product, L(L+1)/2 (N + P) multiply-adds, plus the
-    inter-chunk term and the state update, 2 L P N multiply-adds."""
-    total = 0
-    for c0 in range(0, S, Q):
-        L = min(Q, S - c0)
-        total += 2 * (L * (L + 1) // 2 * (N + P) + 2 * L * P * N)
-    return B * H * total
-
-
 def ssd_cases(torch, timer, gen, report, timed):
     """ssd_scan against its plain version (the chunked form of
     `kernels/ssd_scan/chunked.py`) on the same inputs, evaluated in
@@ -1785,13 +1792,16 @@ def ssd_cases(torch, timer, gen, report, timed):
            dict(atol=0, rtol=0))
     print(f"  ssd_scan: {n_cases} cases with the plan options; main plan "
           f"{sks.launch_plan(B, H, P, N, torch.bfloat16)}")
-    nbytes = (2 * B * S * H * P * 2 + 2 * B * S * G * N * 2
-              + B * S * H * 4 + 2 * H * 4 + B * H * P * N * 4)
+    # the formula the dry-run's ssd_scan unit reads
+    n_ops, nbytes = sops.ssd_cost(
+        args[0].shape, args[3].shape, itemsize=args[0].element_size(),
+        b_itemsize=args[3].element_size(), has_D=args[5] is not None,
+        has_init=args[6] is not None)
     t_bytes = nbytes / HBM_BYTES_PER_S
     # the bf16 body's products run on the tensor cores (bf16 peak); the
     # float32 FMA body's bound is printed beside it
-    t_ops = ssd_flops(B, S, H, P, N) / PEAK_OPS["bfloat16"]
-    t_fma = ssd_flops(B, S, H, P, N) / PEAK_OPS["float32"]
+    t_ops = n_ops / PEAK_OPS["bfloat16"]
+    t_fma = n_ops / PEAK_OPS["float32"]
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1804,7 +1814,7 @@ def ssd_cases(torch, timer, gen, report, timed):
         library_ms=None,
         shape=(f"bf16 B={B} S={S} H={H} P={P} G={G} N={N} "
                f"({nbytes / 1e6:.2f} MB, "
-               f"{ssd_flops(B, S, H, P, N) / 1e9:.3f} GFLOP at Q={SSD_Q}; "
+               f"{n_ops / 1e9:.3f} GFLOP at Q={sks.Q}; "
                f"bound on the bf16 tensor cores; the float32 FMA body's "
                f"{max(t_bytes, t_fma) * 1e3:.4f} ms); no single PyTorch "
                "call computes the chunked SSD"),
@@ -2908,8 +2918,6 @@ def chunked_phase(torch):
               f"{sum(agree) / len(agree):.3f} (gate >= "
               f"{INT8_TOKEN_AGREEMENT})")
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
-        if pool == "int8":
-            serve(None, prefix_cache=False)      # pages used without sharing
     # the profiled run is cut to 2 requests: reading a 16-request trace's
     # events took half a minute, 4 requests' 13.9 s
     serve(None, profiled=True, n_req=2)
@@ -3432,7 +3440,7 @@ def archs_phase(torch):
     paged_flash_decode and one page copy per admission (flash_decode too
     for seamless's cross-attention) and no plain version runs; in float32
     the kernel and plain runs (`force_backend("reference")`) agree per
-    request >= INT8_TOKEN_AGREEMENT (bf16's agreement printed); the
+    request >= INT8_TOKEN_AGREEMENT; the
     teacher-forced prompt pass moves the last-token logits, kernels
     against plain, no further in bf16 than bf16 itself moves them off
     float32, and within 2e-3 in float32 on the plain run's routing,
@@ -3523,12 +3531,8 @@ def archs_phase(torch):
              f"{arch} kernel run launches {launches} plain {plain}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        rreqs, rlaunch, _ = serve("reference")
-        assert not rlaunch, rlaunch
-        a16 = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
-        print(f"  bf16: per-request token agreement kernels vs plain: min="
-              f"{min(a16):.3f} mean={sum(a16) / len(a16):.3f} (not gated: "
-              "the float32 pair is)")
+        # the bf16 plain engine run (its agreement was printed, never
+        # gated) is cut for time; the float32 pair below is the gate
         m32 = (dataclasses.replace(cfg, dtype="float32"),
                cast_params(params, "float32"))
         k32, _, _ = serve(None, model=m32)
@@ -3641,13 +3645,6 @@ def archs_phase(torch):
 
 
 # --------------------------------------------------------------- train
-def attn_pairs(B, Sq, Skv, H, causal, off) -> int:
-    """Unmasked (query, key) pairs of one attention call."""
-    if not causal:
-        return B * H * Sq * Skv
-    return B * H * sum(max(0, min(Skv, off + i + 1)) for i in range(Sq))
-
-
 def bwd_kernel_split(torch, fn, reps: int = 5) -> dict:
     """Device ms per call of `fn` by kernel (short names), from a
     complete torch.profiler trace of `reps` calls (`profiled_kernels`;
@@ -3671,6 +3668,7 @@ def flash_bwd_cases(torch, timer) -> dict:
     by the caller)."""
     from repro_torch.kernels.flash_attention import chunked
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fops
 
     F = torch.nn.functional
     gen = torch.Generator("cuda").manual_seed(5)
@@ -3803,10 +3801,10 @@ def flash_bwd_cases(torch, timer) -> dict:
         "not measured (incomplete trace)")
         + f"; SM clock, power, temperature before / after the kernel's "
         f"timing: {clocks[0]} / {clocks[1]}")
-    pairs = attn_pairs(B, Sq, Skv, H, causal, off)
-    ops = 10 * D * pairs
-    # q, out, dout and k, v read once, dq and dk, dv written once
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    # q, out, dout and k, v read once, dq and dk, dv written once: the
+    # formula the dry-run's flash_mha_bwd unit reads
+    ops, nbytes = fops.mha_bwd_cost(q.shape, k.shape, causal=causal,
+                                    kv_offset=off, itemsize=q.element_size())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS["bfloat16"]
     bound_ms = max(t_bytes, t_ops) * 1e3
@@ -4141,6 +4139,324 @@ def train_phase(torch, timer):
              "ssd_scan": km["launches"]["ssd_scan"]}, record)
 
 
+def launch_phase(torch):
+    """The serve launcher (`repro_torch.launch.serve`) at SmolLM-360M's
+    published widths (seeded random weights, no --reduced) on the card:
+    scenario chat, 8 requests, 8 slots, the default int8 pool; then
+    `--fleet 2 --roles --prefill-chunk 16` on the same trace (chat's
+    prompt buckets are 16 and 32 tokens: the launcher's own check
+    refuses a chunk of 32, which does not divide 16). Gates: every
+    request finishes; the launcher's tokens equal, request by request
+    and bit for bit, those of a `ServingEngine` / `FleetRouter` built
+    directly with the same `EngineConfig`, seed and device; the engine
+    run launches flash_mha, write_pages and paged_flash_decode, the
+    roles fleet the int8 chunk kernel, the handoff and
+    paged_flash_decode, and neither runs a plain version. Returns the
+    launcher runs' launches, summed."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import ServingEngine, fleet
+
+    print(f"launch on {smi_line()}")
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            print(f"  FAIL {what}")
+            failures.append(what)
+
+    base = ["--arch", "smollm-360m", "--scenario", "chat", "--requests",
+            "8", "--slots", "8"]
+    runs = (("engine", base, ("flash_mha", "write_pages",
+                              "paged_flash_decode")),
+            ("fleet roles", [*base, "--fleet", "2", "--roles",
+                             "--prefill-chunk", "16"],
+             ("paged_prefill_insert_flash_q8", "handoff",
+              "paged_flash_decode")))
+    total: dict = {}
+    for label, argv, need in runs:
+        run = launcher.setup(argv)
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        stats = launcher.run(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        got = {r.request_id: [int(t) for t in r.output] for r in run.reqs}
+        same = launcher.setup(argv)
+        if same.fcfg is None:
+            direct = ServingEngine.build(same.cfg, same.ecfg,
+                                         seed=same.args.seed, device="cuda")
+        else:
+            direct = fleet.FleetRouter.build(same.cfg, same.ecfg, same.fcfg,
+                                             seed=same.args.seed,
+                                             device="cuda")
+        direct.run(same.reqs)
+        want = {r.request_id: [int(t) for t in r.output] for r in same.reqs}
+        s = stats.summary()
+        n_tok = s.get("tokens", 0)
+        print(f"  {label}: `python -m repro_torch.launch.serve "
+              f"{' '.join(argv)}`: {len(got)} requests, {n_tok} tokens in "
+              f"{wall:.2f} s ({n_tok / wall:.1f} tok/s wall, launcher "
+              f"process warm); pool {run.ecfg.pool_dtype}, page "
+              f"{run.ecfg.page_tokens}, launches={launches} "
+              f"plain_calls={plain}; tokens equal to the directly built "
+              f"{'fleet' if same.fcfg else 'engine'}: {got == want}")
+        gate(all(got.values()) and len(got) == 8, f"{label}: unfinished")
+        gate(got == want, f"{label}: tokens differ from the direct build")
+        gate(all(launches.get(k, 0) > 0 for k in need) and not plain,
+             f"{label}: launches {launches} plain {plain}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del direct
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"launch phase: {failures}")
+    return total
+
+
+def tiering_phase(torch, timer):
+    """The tiered train step (`runtime.tiering.apply_tier_shardings`) at
+    SmolLM-360M's published widths: batch 8 x 256, the hotness policy at
+    pool_fraction 0.5, 3 steps from the seed-0 init, beside the untiered
+    step from the same init and batches. The pool-tier leaves live in
+    pinned host memory and come in and go out through the page copy
+    (`state_in` / `state_out`). Both runs take their steps under
+    `torch.use_deterministic_algorithms(True)` (the embedding's backward
+    uses atomics otherwise). Gates: the probes say "inputs+outputs"
+    and the substrate "physical"; at every step the tiered run's loss,
+    grad norm and every state leaf bit-equal to the untiered run's; the
+    page copy's launches per step equal to the step's plan (one in and
+    one out per launch group) and above 0; no plain version; the host
+    leaves still pinned, the same tensors. Prints the pool bytes, each
+    run's step ms and the in / out copy ms of the kernel, of the plain
+    copy_pages and of `copy_(non_blocking=True)` a leaf (CUDA events
+    around a call).
+    Returns the tiered step's launches per step."""
+    from repro_torch import configs, kernels
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.common.pytree import named_leaves
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.runtime import tiering
+    from repro_torch.runtime import train as train_rt
+
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            print(f"  FAIL {what}")
+            failures.append(what)
+
+    cfg = configs.get("smollm_360m")
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=12, warmup_steps=2)
+    shape = ShapeConfig("train_256", 256, 8, "train")
+    bundle = train_rt.make_bundle(cfg, tcfg)
+    _, tb, info = tiering.apply_tier_shardings(
+        cfg, tcfg, bundle, shape, policy="hotness", pool_fraction=0.5)
+    step = tb.step_fn
+    print(f"tiering {cfg.name}: batch 8 x 256, policy hotness, "
+          f"pool_fraction 0.5, 3 steps; {len(step.host_names)} of "
+          f"{len(named_leaves(bundle.abstract_state))} leaves in pinned "
+          f"host memory ({info['pool_leaf_bytes'] / 1e9:.3f} GB; placement"
+          f" {info['pool_bytes_per_dev'] / 1e9:.3f} GB pool, "
+          f"{info['local_bytes_per_dev'] / 1e9:.3f} GB local), "
+          f"{len(step.plan)} copy launch(es) each way a step; "
+          f"host_annotation {info['host_annotation']}, substrate "
+          f"{info['substrate_mode']}; {smi_line()}")
+    gate(info["host_annotation"] == "inputs+outputs"
+         and info["substrate_mode"] == "physical", f"probes {info}")
+    batches = [{k: v.to("cuda") for k, v in make_batch_for(
+        cfg, 256, 8, s).items()} for s in range(3)]
+    plain = train_rt.init_train_state(
+        cfg, torch.Generator("cuda").manual_seed(0))
+    tiered = tiering.place_state(train_rt.init_train_state(
+        cfg, torch.Generator("cuda").manual_seed(0)), step.host_names,
+        pin=True)
+    held = {n: x for n, x in named_leaves(tiered) if n in step.host_names}
+    gate(all(x.is_pinned() for x in held.values()), "host leaves pinned")
+    per_step, ms_plain, ms_tier = {}, [], []
+    # the embedding's and the label gather's backward accumulate with
+    # atomics unless deterministic algorithms are on: two untiered steps
+    # from one state would differ in their last bits too
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, pm = bundle.step_fn(plain, b)
+        loss_p = float(pm["loss"])
+        ms_plain.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        tiered, tm = step(tiered, b)
+        loss_t = float(tm["loss"])
+        torch.cuda.synchronize()
+        ms_tier.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain_calls = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        diff = [n for (n, x), (_, y) in zip(named_leaves(plain),
+                                            named_leaves(tiered))
+                if not torch.equal(x, y.to(x.device))]
+        print(f"  step {i}: loss {loss_p:.6f} / {loss_t:.6f}, grad norm "
+              f"{float(pm['grad_norm']):.6f} / {float(tm['grad_norm']):.6f}"
+              f" (untiered / tiered); {len(diff)} leaves differ; "
+              f"launches {per_step}")
+        gate(torch.equal(pm["loss"], tm["loss"])
+             and torch.equal(pm["grad_norm"], tm["grad_norm"]) and not diff,
+             f"step {i}: tiered differs ({diff[:4]})")
+        n = len(step.plan)
+        gate(n > 0 and per_step.get("state_in") == n
+             and per_step.get("state_out") == n,
+             f"step {i}: page copies {per_step} against the plan's {n}")
+        gate(not plain_calls, f"step {i}: plain calls {plain_calls}")
+        gate(all(x is held[n_] and x.is_pinned() for n_, x in
+                 named_leaves(tiered) if n_ in held),
+             f"step {i}: host leaves moved")
+    torch.use_deterministic_algorithms(prev)
+    dev = torch.device("cuda")
+    bufs = step.bring_in(tiered, dev)
+    in_ms = timer.event_ms(lambda: step.bring_in(tiered, dev))
+    out_ms = timer.event_ms(lambda: step.write_back(bufs, held))
+    nbytes = info["pool_leaf_bytes"]
+    print(f"  step ms (wall, synchronized, deterministic algorithms on):"
+          f" untiered "
+          f"{[round(x, 1) for x in ms_plain]}, tiered "
+          f"{[round(x, 1) for x in ms_tier]}; copies of the "
+          f"{nbytes / 1e9:.3f} GB pool leaves: in {in_ms:.3f} ms "
+          f"({nbytes / in_ms / 1e6:.1f} GB/s), out {out_ms:.3f} ms "
+          f"({nbytes / out_ms / 1e6:.1f} GB/s); {smi_line()}")
+
+    # the same leaves both ways through the plain copy_pages (3 calls
+    # each: its host side is slow) and through one library call a leaf,
+    # `copy_(non_blocking=True)` on the copy engine, into the same
+    # buffers and pinned leaves (the values written are the ones there)
+    from repro_torch.kernels.page_io import ops as pops
+
+    def plain(name, dst, src):
+        for group in step.plan:
+            pops.copy_pages([tiering._pages(dst[n]) for n in group], None,
+                            [tiering._pages(src[n]) for n in group], None,
+                            name=name, impl="reference")
+
+    def library(dst, src):
+        for n in step.host_names:
+            dst[n].copy_(src[n], non_blocking=True)
+
+    slow = Timer(torch, reps=3)
+    plain_in = slow.event_ms(lambda: plain("state_in", bufs, held))
+    plain_out = slow.event_ms(lambda: plain("state_out", held, bufs))
+    lib_in = timer.event_ms(lambda: library(bufs, held))
+    lib_out = timer.event_ms(lambda: library(held, bufs))
+    print(f"  the same leaves: plain copy_pages in {plain_in:.3f} ms, out "
+          f"{plain_out:.3f} ms; copy_(non_blocking=True) a leaf in "
+          f"{lib_in:.3f} ms ({nbytes / lib_in / 1e6:.1f} GB/s), out "
+          f"{lib_out:.3f} ms ({nbytes / lib_out / 1e6:.1f} GB/s); events "
+          f"around a call; {smi_line()}")
+    del slow
+    del bufs, plain, tiered, held
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"tiering phase: {failures}")
+    return per_step
+
+
+def start_dryrun() -> dict:
+    """Start `python -m repro_torch.launch.dryrun --all` (every cell of
+    `configs.all_cells()` on meta tensors, in spawned processes, at most
+    one per core; the card is idle) in a subprocess of its own session at
+    nice 10, writing into a temporary directory: it takes the cores the
+    kernels' build leaves idle, and `finish_dryrun` waits for it before
+    the card is timed. An exit handler stops its process group if the
+    script ends first."""
+    import atexit
+    import os
+    import signal
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="dryrun_torch_")
+    jobs = len(os.sched_getaffinity(0))
+    log = open(Path(out) / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--all", "--outdir", out],
+        stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return dict(proc=proc, out=out, log=log, jobs=jobs, stop=stop,
+                t0=time.perf_counter())
+
+
+def finish_dryrun(run: dict) -> list:
+    """Wait for `start_dryrun`'s run and return its records; raises if it
+    failed (its log's end printed)."""
+    import shutil
+
+    t_wait = time.perf_counter()
+    rc = run["proc"].wait()
+    run["log"].close()
+    out = Path(run["out"])
+    log = (out / "dryrun.log").read_text()
+    secs = time.perf_counter() - run["t0"]
+    print(f"dryrun: `python -m repro_torch.launch.dryrun --all` ("
+          f"{run['jobs']} cores) started with the build at nice 10: rc {rc}, "
+          f"{secs:.1f} s, {time.perf_counter() - t_wait:.1f} s of it "
+          "waited for after the build (meta tensors, the card idle)")
+    if rc != 0:
+        print(log[-4000:])
+        raise AssertionError(f"dry-run --all exited {rc}")
+    records = [json.loads(p.read_text()) for p in sorted(out.glob("*.json"))]
+    shutil.rmtree(out, ignore_errors=True)
+    return records
+
+
+def dryrun_phase(torch, tier_launches, results):
+    """The records of `start_dryrun`'s run (`results`): every cell of
+    `configs.all_cells()` `ok`, each cell's dominant term and
+    t_compute_s printed. Gate: the dry-run of SmolLM-360M's tiered train
+    step at the tiering phase's shape (batch 8 x 256, one microbatch,
+    remat by block) counts as many flash_mha, flash_mha_bwd, state_in
+    and state_out units as the card's step launched
+    (`tier_launches`)."""
+    from repro_torch import configs
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cells = {(r["arch"], r["shape"]) for r in results}
+    print(f"dryrun: {len(results)} records for the "
+          f"{len(configs.all_cells())} cells of configs.all_cells()")
+    for r in results:
+        rl, ma = r["roofline"], r["memory_analysis"]
+        print(f"  {r['arch']} x {r['shape']}"
+              f"{' mb ' + str(r['microbatches']) if 'microbatches' in r else ''}"
+              f": {rl['dominant']}-bound, t_compute_s {rl['t_compute_s']:.6g},"
+              f" t_memory_s {rl['t_memory_s']:.6g}, temp "
+              f"{ma['temp_bytes'] / 1e9:.2f} GB, units "
+              f"{r['dispatch_cost']['units']} ({r['wall_s']} s)")
+    if cells != set(configs.all_cells()) or not all(
+            r["status"] == "ok" for r in results):
+        raise AssertionError("dryrun phase: a cell failed or is missing")
+    cost, _, info, _ = dryrun.cell_cost(
+        configs.get("smollm_360m"), ShapeConfig("train_256", 256, 8, "train"),
+        microbatches=1, tier_policy="hotness", pool_fraction=0.5)
+    keys = ("flash_mha", "flash_mha_bwd", "state_in", "state_out")
+    units = {k: cost.units.get(k, 0) for k in keys}
+    card = {k: tier_launches.get(k, 0) for k in keys}
+    print(f"  smollm-360m tiered train step at 8 x 256: dry-run units "
+          f"{units}, the card's launches a step {card}")
+    if units != card or not all(card.values()):
+        raise AssertionError(f"dryrun phase: units {units} != launches "
+                             f"{card}")
+
+
 # kernel groups of the profiled runs: (group, substrings a lowercased
 # kernel name must all hold); the two decode kernels share one template
 # body, whose row policy (PagedRows / DenseRows) names which one ran
@@ -4236,12 +4552,13 @@ def profile_calls(torch, fn, label, describe=lambda out: "") -> dict:
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
           "prefetch", "fleet", "chunked", "contiguous", "speculative", "ssm",
-          "archs", "train")
+          "archs", "train", "launch", "tiering", "dryrun")
 
 
 def parse_phases(argv) -> set:
     """`--phases a,b,...` (default: all). `device` always runs: the last
-    line names the card."""
+    line names the card; `dryrun` brings `tiering` (its gate holds the
+    dry-run's units to that phase's launches)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4252,6 +4569,8 @@ def parse_phases(argv) -> set:
     if unknown:
         ap.error(f"unknown phase(s) {sorted(unknown)}; known: "
                  f"{', '.join(PHASES)}")
+    if "dryrun" in names:
+        names.add("tiering")
     return names | {"device"}
 
 
@@ -4273,6 +4592,9 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import build
 
+    # the dry-run needs no card: it runs on the cores the build leaves idle
+    dry = start_dryrun() if "dryrun" in phases else None
+    dry_records = None
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -4303,6 +4625,10 @@ def main(argv=None) -> int:
                     print(f"    {'spills in ' if not listed else ''}{fn}: "
                           f"{line.strip()}; {used}")
         phase_done("build")
+    if dry is not None:
+        # nothing is timed on the card while the dry-run holds the cores
+        dry_records = finish_dryrun(dry)
+        phase_done("dryrun --all")
     records = []
     if "kernels" in phases:
         records = kernel_cases(torch, Timer(torch))
@@ -4352,6 +4678,19 @@ def main(argv=None) -> int:
             launches.setdefault(k, v)
         launches["flash_mha_bwd"] = train_launches["flash_mha_bwd"]
         phase_done("train")
+    if "launch" in phases:
+        for k, v in launch_phase(torch).items():
+            launches.setdefault(k, v)
+        phase_done("launch")
+    tier_launches = {}
+    if "tiering" in phases:
+        tier_launches = tiering_phase(torch, Timer(torch))
+        for k, v in tier_launches.items():
+            launches.setdefault(k, v)
+        phase_done("tiering")
+    if "dryrun" in phases:
+        dryrun_phase(torch, tier_launches, dry_records)
+        phase_done("dryrun")
     for r in records:
         r["launches"] = launches.get(r["name"])
         r.pop("shape")

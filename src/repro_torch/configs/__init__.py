@@ -2,7 +2,9 @@
 
 Each module exposes `CONFIG` (the full, published-width config) and
 `reduced()` (a tiny same-family config for CPU tests), copied from
-`repro.configs`: dense decoders, mixture-of-experts decoders
+`repro.configs`; `shapes_for(name)` returns the shape cells that are
+runnable for that arch (long_500k only for sub-quadratic archs) and
+`all_cells()` the dry-run matrix: dense decoders, mixture-of-experts decoders
 (granite-moe, kimi-k2), the SSM arch mamba2-780m, the hybrid attention +
 SSM + MoE stack jamba-1.5-large, the vision-prefix decoder paligemma-3b
 and the audio encoder-decoder seamless-m4t-large-v2.
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import SHAPES, ModelConfig, ShapeConfig
 
 ARCH_IDS = [
     "granite_moe_1b_a400m",
@@ -49,3 +51,18 @@ def reduced(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return list(ARCH_IDS)
+
+
+def shapes_for(name: str) -> list[ShapeConfig]:
+    cfg = get(name)
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.sub_quadratic:
+            continue  # pure full-attention arch: documented skip
+        out.append(s)
+    return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every runnable (arch, shape) pair — the dry-run matrix."""
+    return [(a, s.name) for a in ARCH_IDS for s in shapes_for(a)]

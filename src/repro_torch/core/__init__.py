@@ -9,6 +9,6 @@
            core.roofline  — multi-tier memory roofline
   Level 3: core.interference — LoI / IC / sensitivity on the pooled tier
   core.quantify           — the three levels as one call, `analyze`
-
-Not ported yet: the dry-run roofline over a compiled step (ROADMAP A15).
+                            (compute time from the port's dry-run record,
+                            `launch.dryrun`, when there is one)
 """

@@ -10,12 +10,14 @@ of `repro.core.quantify`).
 
 Byte counts come from the analytic access model (`core.access`) over the
 train or serve state's meta tensors, scaled per card by `n_chips`;
-compute time comes from the 6·N·D (train) or 2·N·D (serve) model at the
-chip's bf16 peak. Unlike the reference,
-`analyze` prices with the chip and topology it is given, by default one
-H100 and `h100_topology(chip)`, and never reads dry-run records: those
-are a TPU's compiled steps (the torch dry-run ports with ROADMAP A15).
-Everything here is
+compute time comes from the port's dry-run record of the cell when one
+is given or found (`launch.dryrun`, its roofline's `t_compute_s`: the
+cost model's flops of the port's own step at the H100's bf16 peak),
+else from the 6·N·D (train) or 2·N·D (serve) model at the chip's bf16
+peak. Unlike the reference, `analyze` prices with the chip and topology
+it is given, by default one H100 and `h100_topology(chip)`, and reads
+only the port's records (`results/dryrun_torch/`), never the
+reference's TPU records. Everything here is
 deterministic and cheap: it is the tool a user would run before
 requesting a deployment configuration, which is the paper's intent.
 """
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 from typing import Optional
 
 from repro_torch import configs
@@ -66,11 +70,14 @@ def _profile(cfg, shape, remat: str = "block") -> list[acc.TensorAccess]:
     return acc.serve_profile(params, caches, cfg, shape)
 
 
-def t_compute_for(cfg, shape, n_chips: int,
-                  chip: hw.ChipSpec = hw.H100) -> float:
-    """Seconds of pure compute per step per card at the chip's bf16 peak:
-    6·N·D for a train step over every token, 2·N·D for prefill (every
-    prompt token) and decode (one token per sequence)."""
+def t_compute_for(cfg, shape, n_chips: int, chip: hw.ChipSpec = hw.H100,
+                  dryrun_record: Optional[dict] = None) -> float:
+    """Seconds of pure compute per step per card: the dry-run record's
+    `roofline.t_compute_s` when the record is `ok`, else the chip's bf16
+    peak over 6·N·D for a train step over every token, 2·N·D for prefill
+    (every prompt token) and decode (one token per sequence)."""
+    if dryrun_record and dryrun_record.get("status") == "ok":
+        return dryrun_record["roofline"]["t_compute_s"]
     if shape.kind == "train":
         mf = rl.model_flops_train(cfg.active_param_count(), shape.tokens)
     else:
@@ -78,6 +85,32 @@ def t_compute_for(cfg, shape, n_chips: int,
                   else shape.global_batch)
         mf = rl.model_flops_decode(cfg.active_param_count(), tokens)
     return mf / n_chips / chip.peak_flops_bf16
+
+
+DRYRUN_DIR = os.path.join("results", "dryrun_torch")
+
+
+def load_dryrun_record(arch: str, shape: str, mesh: str = "1",
+                       outdir: str = DRYRUN_DIR) -> Optional[dict]:
+    """The port's dry-run record of a cell (`launch.dryrun`), None when
+    there is none."""
+    p = os.path.join(outdir, f"{configs.canonical(arch)}_{shape}_{mesh}.json")
+    if os.path.exists(p):
+        with open(p) as f:
+            return json.load(f)
+    return None
+
+
+def _check_record(rec: Optional[dict], n_chips: int) -> None:
+    """A record prices the cards it was traced on: the port's records are
+    of one card (mesh "1"), so a record serves `n_chips == 1` only. A
+    record of a mesh, or one card's record over several cards, needs the
+    sharded dry-run (ROADMAP A16)."""
+    if rec and (rec.get("mesh", "1") != "1" or n_chips != 1):
+        raise NotImplementedError(
+            f"a dry-run record over mesh {rec.get('mesh', '1')} priced on "
+            f"{n_chips} cards needs the sharded dry-run, which ports with "
+            "ROADMAP A16 (the port's records are of one card)")
 
 
 HBM_STATE_BUDGET = 0.6  # fraction of HBM available for resident state
@@ -92,17 +125,20 @@ def analyze(
     chip: hw.ChipSpec = hw.H100,
     topo: Optional[tr.TierTopology] = None,
     n_chips: int = 1,
-    use_dryrun: bool = False,
+    dryrun_record: Optional[dict] = None,
+    use_dryrun: bool = True,
 ) -> Analysis:
     """pool_fraction: float = paper-style emulated R_cap stress test;
     "auto" = pool-by-necessity (whatever exceeds the per-card HBM budget
     goes to the pool — the actual adoption scenario). The state is
     sharded over `n_chips` cards of `chip`, each with `topo` (default
-    `h100_topology(chip)`)."""
-    if use_dryrun:
-        raise NotImplementedError(
-            "dry-run records price a compiled step; the torch dry-run "
-            "ports with ROADMAP A15")
+    `h100_topology(chip)`). With `use_dryrun`, no `dryrun_record` and
+    one card, the port's record of the cell is read when one exists;
+    over several cards there is none to read (the port's records are of
+    one card) and the compute time is the analytic one."""
+    if dryrun_record is None and use_dryrun and n_chips == 1:
+        dryrun_record = load_dryrun_record(arch, shape_name)
+    _check_record(dryrun_record, n_chips)
     cfg = configs.get(arch)
     shape = SHAPES[shape_name]
     topo = topo or tr.h100_topology(chip)
@@ -121,7 +157,7 @@ def analyze(
         if pool_fraction == 0.0:
             policy = "all_local"
     total_traffic = sum(a.traffic for a in profile)
-    t_comp = t_compute_for(cfg, shape, n_chips, chip)
+    t_comp = t_compute_for(cfg, shape, n_chips, chip, dryrun_record)
     flops_per_chip = t_comp * chip.peak_flops_bf16
     ai = flops_per_chip / max(total_traffic, 1)
     xs, ys = acc.bandwidth_capacity_curve(profile)
@@ -165,22 +201,24 @@ def analyze(
 
 @functools.lru_cache(maxsize=None)
 def _profile_for_cached(arch, shape_name, policy, pool_fraction, chip, topo,
-                        n_chips) -> itf.InterferenceProfile:
+                        n_chips, use_dryrun) -> itf.InterferenceProfile:
     return analyze(arch, shape_name, policy=policy,
                    pool_fraction=pool_fraction, chip=chip, topo=topo,
-                   n_chips=n_chips).profile
+                   n_chips=n_chips, use_dryrun=use_dryrun).profile
 
 
 def profile_for(arch: str, shape_name: str = "decode_32k", *,
                 policy: str = "hotness", pool_fraction="auto",
                 chip: hw.ChipSpec = hw.H100,
                 topo: Optional[tr.TierTopology] = None,
-                n_chips: int = 1) -> itf.InterferenceProfile:
+                n_chips: int = 1,
+                use_dryrun: bool = False) -> itf.InterferenceProfile:
     """Submission-time interference profile for a catalog workload, priced
     as `analyze` prices it (`n_chips` cards of `chip`, each with `topo`;
-    one H100 by default): what the paper's §7.2 SLURM plugin would
-    compute once per (arch, shape) when the job template is registered,
-    cached (arguments canonicalized here so kwarg spelling at call sites
-    cannot split the cache)."""
+    one H100 by default; the cell's dry-run record with `use_dryrun`):
+    what the paper's §7.2 SLURM plugin would compute once per (arch,
+    shape) when the job template is registered, cached (arguments
+    canonicalized here so kwarg spelling at call sites cannot split the
+    cache)."""
     return _profile_for_cached(arch, shape_name, policy, pool_fraction,
-                               chip, topo, n_chips)
+                               chip, topo, n_chips, use_dryrun)

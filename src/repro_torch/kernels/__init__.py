@@ -18,7 +18,9 @@ versions on the card to compare against (`chip_smoke.py`).
 Kernels on the serving and training paths: `page_io` (the grouped page copy: pool
 insert, the substrate's page_out / page_in streams, the fleet's
 prefill->decode handoff between two pools and the layer-ahead layer_in
-stream of `prefetch.static`), `flash_attention`
+stream of `prefetch.static`, and the tiered train step's `state_in` /
+`state_out` copies of its pool-tier leaves, `runtime.tiering`),
+`flash_attention`
 (bucket prefill and the training forward: `flash_mha`; its backward:
 `flash_mha_bwd`; chunked prefill: `paged_prefill_flash`,
 `paged_prefill_insert_flash`, `paged_prefill_insert_flash_q8`),
@@ -44,14 +46,15 @@ _FORCED: str | None = None
 # wrapper right after it launches, nowhere else) and calls that took the
 # plain version
 LAUNCHES = {"write_pages": 0, "page_out": 0, "page_in": 0, "handoff": 0,
-            "layer_in": 0,
+            "layer_in": 0, "state_in": 0, "state_out": 0,
             "flash_mha": 0, "flash_mha_bwd": 0,
             "paged_flash_decode": 0, "paged_prefill_flash": 0,
             "paged_prefill_insert_flash": 0,
             "paged_prefill_insert_flash_q8": 0, "flash_decode": 0,
             "lbench": 0, "matmul_w8a8": 0, "ssd_scan": 0}
 REFERENCE_CALLS = {"write_pages": 0, "page_out": 0, "page_in": 0,
-                   "handoff": 0, "layer_in": 0,
+                   "handoff": 0, "layer_in": 0, "state_in": 0,
+                   "state_out": 0,
                    "mha": 0, "mha_bwd": 0, "paged_decode_mha": 0,
                    "paged_prefill_mha": 0,
                    "paged_prefill_insert_mha": 0,
@@ -71,6 +74,27 @@ def reset_counters() -> None:
     for counts in (LAUNCHES, REFERENCE_CALLS):
         for k in counts:
             counts[k] = 0
+
+
+# the cost mode of `profiler.cost` while it counts (None otherwise): an op
+# that has a kernel unit hands it the kernel's cost instead of running
+_COST_SINK = None
+
+
+def costed(x: torch.Tensor) -> bool:
+    """True while `profiler.cost` counts and `x` is a meta tensor: the op
+    is then one kernel unit — it records its kernel's `cost(...)` with
+    `record_unit` and returns empty outputs of the right shapes, without
+    tracing its plain version. Dispatch by device is unchanged for every
+    other tensor."""
+    return _COST_SINK is not None and x.device.type == "meta"
+
+
+def record_unit(name: str, flops: float, nbytes: float, inputs,
+                outputs) -> None:
+    """One unit of kernel `name`: its flops and bytes from the kernel's
+    cost formula, and the tensors it reads and writes at its boundary."""
+    _COST_SINK.unit(name, flops, nbytes, inputs, outputs)
 
 
 def select_impl(x: torch.Tensor, impl: str | None = None) -> str:

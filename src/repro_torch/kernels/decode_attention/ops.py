@@ -13,12 +13,35 @@ from repro_torch import kernels
 from repro_torch.kernels.decode_attention import ref
 
 
+def decode_cost(q_shape, k_shape, n_keys: int,
+                itemsize: int = 2) -> tuple[int, int]:
+    """(operations, bytes) of one flash_decode call that reads `n_keys`
+    keys in all (the sum over rows of min(length, S)): q.K and p.V over
+    every head (4 D operations a key and head), K and V of those keys,
+    q and out at `itemsize` bytes, the int32 lengths. The kernels
+    table's bound (`chip_smoke.py`, from the run's lengths) and the
+    dry-run's unit (`profiler.cost`, every row at the full extent: a
+    meta tensor has no lengths) both read it."""
+    B, H, D = q_shape
+    KV = k_shape[2]
+    nbytes = 2 * n_keys * KV * D * itemsize + 2 * B * H * D * itemsize \
+        + B * 4
+    return 4 * D * H * n_keys, nbytes
+
+
 def decode_mha(q, k, v, length, *, scale: Optional[float] = None,
                impl: Optional[str] = None) -> torch.Tensor:
     """q (B,H,D) vs a contiguous cache k/v (B,S,KV,D) with valid
-    `length` (scalar or (B,); values past S read the whole cache)."""
+    `length` (scalar or (B,); values past S read the whole cache). Under
+    the cost mode a meta call is one unit of flash_decode."""
     lengths = torch.as_tensor(length, dtype=torch.int32,
                               device=q.device).broadcast_to((q.shape[0],))
+    if kernels.costed(q):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        kernels.record_unit("flash_decode", *decode_cost(
+            q.shape, k.shape, q.shape[0] * k.shape[1], q.element_size()),
+            (q, k, v, lengths), (out,))
+        return out
     if kernels.select_impl(q, impl) == "reference":
         kernels.REFERENCE_CALLS["decode_mha"] += 1
         return ref.decode_mha(q, k, v, lengths, scale=scale)

@@ -20,6 +20,7 @@ it on the host.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -29,20 +30,74 @@ from repro_torch.kernels.decode_attention.ops import clamp_dead_entries
 from repro_torch.kernels.flash_attention import ref
 
 
+def attn_pairs(B: int, Sq: int, Skv: int, H: int, causal: bool,
+               kv_offset: int = 0) -> int:
+    """Unmasked (query, key) pairs of one attention call: row i sees
+    keys [0, kv_offset + i] when causal (clamped to [0, Skv]), all Skv
+    otherwise."""
+    if not causal:
+        return B * H * Sq * Skv
+    lo, hi = kv_offset + 1, kv_offset + Sq      # row i sees lo + i keys
+    a, b = max(lo, 1), min(hi, Skv)             # rows inside (0, Skv]
+    inner = (a + b) * (b - a + 1) // 2 if b >= a else 0
+    full = max(0, hi - max(Skv + 1, lo) + 1)    # rows that see every key
+    return B * H * (inner + full * Skv)
+
+
+def mha_cost(q_shape, k_shape, *, causal: bool = True, kv_offset: int = 0,
+             itemsize: int = 2) -> tuple[int, int]:
+    """(operations, bytes) of one flash_mha forward: QK^T and PV over the
+    unmasked pairs (4 D operations a pair), q and out, k and v moved once
+    at `itemsize` bytes, the float32 lse written once. The kernels
+    table's bound (`chip_smoke.py`) and the dry-run's unit
+    (`profiler.cost`) both read it."""
+    B, Sq, H, D = q_shape
+    Skv = k_shape[1]
+    pairs = attn_pairs(B, Sq, Skv, H, causal, kv_offset)
+    nbytes = itemsize * (2 * B * Sq * H * D + 2 * math.prod(k_shape)) \
+        + 4 * B * H * Sq
+    return 4 * D * pairs, nbytes
+
+
+def mha_bwd_cost(q_shape, k_shape, *, causal: bool = True,
+                 kv_offset: int = 0, itemsize: int = 2) -> tuple[int, int]:
+    """(operations, bytes) of one flash_mha backward: 10 D operations a
+    pair (S = QK^T again, dV, dP, dQ, dK); q, out, dout read and dq
+    written, k, v read and dk, dv written, at `itemsize` bytes, the
+    float32 lse read once."""
+    B, Sq, H, D = q_shape
+    Skv = k_shape[1]
+    pairs = attn_pairs(B, Sq, Skv, H, causal, kv_offset)
+    nbytes = itemsize * (4 * B * Sq * H * D + 4 * math.prod(k_shape)) \
+        + 4 * B * H * Sq
+    return 10 * D * pairs, nbytes
+
+
 class _FlashMha(torch.autograd.Function):
     """`flash_mha_cuda` forward, `flash_mha_bwd_cuda` backward, as the
     reference's custom_vjp pairs `_fwd_pallas` with `_flash_bwd`. (q, k,
     v, out, lse) are saved only when a grad is needed; under no_grad and
-    inference_mode the forward is the serving path's one launch."""
+    inference_mode the forward is the serving path's one launch. On meta
+    tensors under the cost mode each pass is one kernel unit."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kv_offset):
         from repro_torch.kernels.flash_attention import flash_attention as fa
 
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = fa.flash_mha_cuda(q, k, v, causal=causal, scale=scale,
-                                     kv_offset=kv_offset)
         ctx.args = dict(causal=causal, scale=scale, kv_offset=kv_offset)
+        ctx.unit = kernels.costed(q)
+        if ctx.unit:
+            B, Sq, H, _ = q.shape
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                              device=q.device)
+            kernels.record_unit("flash_mha", *mha_cost(
+                q.shape, k.shape, causal=causal, kv_offset=kv_offset,
+                itemsize=q.element_size()), (q, k, v), (out, lse))
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = fa.flash_mha_cuda(q, k, v, causal=causal,
+                                         scale=scale, kv_offset=kv_offset)
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -52,6 +107,15 @@ class _FlashMha(torch.autograd.Function):
         from repro_torch.kernels.flash_attention import flash_attention as fa
 
         q, k, v, out, lse = ctx.saved_tensors
+        if ctx.unit:
+            dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype,
+                                      device=t.device) for t in (q, k, v))
+            a = ctx.args
+            kernels.record_unit("flash_mha_bwd", *mha_bwd_cost(
+                q.shape, k.shape, causal=a["causal"],
+                kv_offset=a["kv_offset"], itemsize=q.element_size()),
+                (q, k, v, out, lse, dout), (dq, dk, dv))
+            return dq, dk, dv, None, None, None
         dq, dk, dv = fa.flash_mha_bwd_cuda(q, k, v, out, lse,
                                            dout.contiguous(), **ctx.args)
         return dq, dk, dv, None, None, None
@@ -80,7 +144,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     256 x 256 scores and goes block by block above
     (`chunked.mha_chunked`, whose backward is the reference's chunked
     one), as the reference's does; the kernel path's backward is the
-    CUDA backward kernel."""
+    CUDA backward kernel. Under the cost mode a meta call is one unit of
+    flash_mha (and of flash_mha_bwd in the backward)."""
+    if kernels.costed(q):
+        return _FlashMha.apply(q, k, v, causal, scale, kv_offset)
     if kernels.select_impl(q, impl) == "reference":
         kernels.REFERENCE_CALLS["mha"] += 1
         if q.shape[1] * k.shape[1] <= 256 * 256:

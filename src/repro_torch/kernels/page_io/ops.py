@@ -3,7 +3,10 @@
 its host twin (`copy_pages`, the substrate's page_out / page_in streams)
 or between two engines' pools (`copy_pages`, the fleet's prefill->decode
 handoff), and stream a stacked layer leaf into a device buffer one layer
-ahead (`copy_pages`, the `layer_in` stream of `prefetch.static`).
+ahead (`copy_pages`, the `layer_in` stream of `prefetch.static`), and
+move the tiered train step's pool-tier leaves between pinned host
+memory and the card (`copy_pages`, the `state_in` / `state_out` streams
+of `runtime.tiering`).
 
 A CUDA pool goes through the grouped CUDA page copy (`page_io.py`); a CPU
 pool takes the plain `index_copy_` / `index_select` (`ref.py`).
@@ -11,6 +14,7 @@ Arbitrary trailing page dims are copied as bytes by the kernel."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -18,7 +22,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.page_io import ref
 
-STREAMS = ("page_out", "page_in", "handoff", "layer_in")
+STREAMS = ("page_out", "page_in", "handoff", "layer_in", "state_in",
+           "state_out")
 
 
 def write_pages(pool: torch.Tensor, tiles: torch.Tensor, phys: torch.Tensor,
@@ -59,17 +64,29 @@ def copy_pages(dst, dst_ids: Optional[torch.Tensor], src,
     dst_pool, dst_ids, src_pool, src_ids)` (device to device, between two
     engines' pools), layer_in `copy_pages(buf[None, None], None,
     leaf[None], ids[i:i + 1])` (layer i of a pinned stacked leaf into a
-    device buffer, `prefetch.static.scan_with_prefetch`). The device side
+    device buffer, `prefetch.static.scan_with_prefetch`), state_in /
+    state_out `copy_pages(dst_leaves, None, src_leaves, None)` (whole
+    leaves of the train state, `runtime.tiering`). The device side
     decides: a
     CUDA tensor among them launches the kernel, which reaches a pinned
     host tensor through its mapped address (a host tensor that is not
     pinned raises); all-CPU tensors take the plain version. `name`
-    ("page_out" | "page_in" | "handoff" | "layer_in") is the stream
-    counted."""
+    (one of `STREAMS`) is the stream counted. Under the cost mode, meta
+    tensors make one unit of the stream: each page read once and written
+    once, and the id vectors read."""
     if name not in STREAMS:
         raise ValueError(f"unknown page stream {name!r}")
     dst = [dst] if isinstance(dst, torch.Tensor) else list(dst)
     src = [src] if isinstance(src, torch.Tensor) else list(src)
+    if kernels.costed(dst[0]):
+        ids = [i for i in (dst_ids, src_ids) if i is not None]
+        # pages copied per level: the id vector's, else all of src's
+        n = ids[0].shape[0] if ids else None
+        moved = sum(2 * (n or s.shape[1]) * s.shape[0]
+                    * math.prod(s.shape[2:]) * s.element_size() for s in src)
+        kernels.record_unit(name, 0, moved + sum(4 * i.numel() for i in ids),
+                            src + ids, dst)
+        return
     anchor = next((t for t in (*dst, *src) if t.is_cuda), dst[0])
     if kernels.select_impl(anchor, impl) == "reference":
         kernels.REFERENCE_CALLS[name] += 1

@@ -33,7 +33,9 @@ embeddings) occupies the first cache rows of every slot, so the paged
 insert lands `bucket + n_prefix` rows; an enc-dec arch keeps its
 encoder's K/V slot-resident (extent `enc_len`, one prompt bucket).
 
-Not ported yet: mesh sharding (ROADMAP A16).
+The one-device serve bundle (`make_bundle`: `build_prefill`,
+`build_decode` and the meta params and caches) is what the dry-run
+traces. Not ported yet: mesh sharding (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -67,6 +69,53 @@ def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int,
     of extent enc_len for enc-dec archs) on the meta device."""
     return M.make_decode_caches(cfg, batch, max_seq, enc_len,
                                 device="meta")
+
+
+def build_prefill(cfg: ModelConfig, max_seq: int):
+    """prefill_step(params, batch) -> (caches, last-token logits): the
+    model's prompt pass over a batch of equal-length prompts, its caches
+    of seq extent `max_seq` (plus the vision prefix)."""
+
+    def prefill_step(params, batch):
+        return M.prefill(params, batch, cfg, max_seq)
+
+    return prefill_step
+
+
+def build_decode(cfg: ModelConfig):
+    """decode_step(params, token, caches, t) -> (logits, caches): one
+    decode step over the contiguous caches at position(s) t, the caches
+    written in place."""
+
+    def decode_step(params, token, caches, t):
+        return M.decode_step(params, token, caches, t, cfg)
+
+    return decode_step
+
+
+@dataclasses.dataclass
+class ServeBundle:
+    """The serve steps of one device and the meta trees they take. The
+    reference's bundle also carries the params' and caches' shardings
+    over a mesh (ROADMAP A16)."""
+
+    prefill_fn: Any
+    decode_fn: Any
+    abstract_params: Any
+    abstract_caches: Any
+
+
+def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
+                enc_len: int = 0, mesh=None, rules=None) -> ServeBundle:
+    """The prefill and decode steps and the meta params and caches, on
+    one device. `mesh` and `rules` (sharding over a mesh) port with
+    ROADMAP A16."""
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(
+            "sharding the serve bundle over a mesh ports with ROADMAP A16")
+    return ServeBundle(build_prefill(cfg, max_seq), build_decode(cfg),
+                       abstract_params(cfg),
+                       abstract_caches(cfg, batch, max_seq, enc_len))
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:

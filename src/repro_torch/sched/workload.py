@@ -26,7 +26,8 @@ traces used in the CXL-pooling studies (arXiv:2211.02682).
 
 Profiles are priced on the port's H100 topology (`tiers.h100_topology`);
 `catalog_stream` prices each cell with `profile_for`'s defaults (one
-H100) and has no `use_dryrun` (the port has no dry-run yet, ROADMAP A15).
+H100), its compute time from the port's dry-run record of the cell when
+`use_dryrun` is set and one exists (`launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -265,6 +266,7 @@ def catalog_stream(
     archs: Optional[Sequence[str]] = None,
     steps: tuple = (120, 360),
     pool_fraction="auto",
+    use_dryrun: bool = False,
     work_scale: float = 1.0,
 ) -> List[TraceJob]:
     """Stream sampled from the model catalog, uniformly over archs x
@@ -289,7 +291,8 @@ def catalog_stream(
     archs = list(archs) if archs is not None else configs.list_archs()
     cells = [(a, s) for a in archs for s in shapes]
     profiles = {
-        cell: profile_for(cell[0], cell[1], pool_fraction=pool_fraction)
+        cell: profile_for(cell[0], cell[1], pool_fraction=pool_fraction,
+                          use_dryrun=use_dryrun)
         for cell in cells
     }
     arrivals = np.cumsum(rng.exponential(1.0 / arrival_rate, size=n_jobs))

@@ -3,9 +3,11 @@ the fleet, the MoE layer, the frontends and the training path included),
 the port's dev serving script `scripts/dev_serve_torch.py`, its Fig 11
 script `scripts/lbench_torch.py`, the training probes
 `scripts/ssd_grad_gap.py` and `scripts/profiler_drops.py`,
-`examples/quickstart_torch.py`, `examples/train_lm_torch.py` and
-`examples/schedule_jobs_torch.py` import without JAX and without the
-reference package; entry points run on the card unless told otherwise
+`examples/quickstart_torch.py`, `examples/train_lm_torch.py`,
+`examples/schedule_jobs_torch.py`, `examples/serve_batch_torch.py` and
+`scripts/dryrun_microbatches.py` (the serve launcher, the dry-run, the
+cost model, the tiered train step among the modules) import without JAX
+and without the reference package; entry points run on the card unless told otherwise
 (and raise here, where there is none); the options the reference refuses
 raise its `ValueError`; no library attention kernel, compiler or Triton
 is called from the port."""
@@ -36,6 +38,8 @@ LBENCH = ROOT / "scripts" / "lbench_torch.py"
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 TRAIN_LM = ROOT / "examples" / "train_lm_torch.py"
 SCHEDULE = ROOT / "examples" / "schedule_jobs_torch.py"
+SERVE_EX = ROOT / "examples" / "serve_batch_torch.py"
+DRYRUN_MB = ROOT / "scripts" / "dryrun_microbatches.py"
 PROBES = [ROOT / "scripts" / "ssd_grad_gap.py",
           ROOT / "scripts" / "profiler_drops.py"]
 
@@ -74,6 +78,10 @@ cases = {"repro_torch.prefetch", "repro_torch.prefetch.engine",
          "repro_torch.sched.policies", "repro_torch.sched.scheduler",
          "repro_torch.sched.simulator", "repro_torch.sched.workload"}
 assert cases <= set(names), cases - set(names)
+dry = {"repro_torch.launch.serve", "repro_torch.launch.specs",
+       "repro_torch.launch.dryrun", "repro_torch.profiler.cost",
+       "repro_torch.profiler.hotspots", "repro_torch.runtime.tiering"}
+assert dry <= set(names), dry - set(names)
 """
 
 
@@ -81,7 +89,8 @@ def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE, str(DEV_SERVE),
                           str(LBENCH), str(QUICKSTART), str(TRAIN_LM),
-                          str(SCHEDULE), *map(str, PROBES)],
+                          str(SCHEDULE), str(SERVE_EX), str(DRYRUN_MB),
+                          *map(str, PROBES)],
                          env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -93,7 +102,8 @@ def test_port_calls_no_library_kernels():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "import triton", "cpp_extension", "_int_mm")
     for path in [*(SRC / "repro_torch").rglob("*"), DEV_SERVE, LBENCH,
-                 QUICKSTART, TRAIN_LM, SCHEDULE, *PROBES]:
+                 QUICKSTART, TRAIN_LM, SCHEDULE, SERVE_EX, DRYRUN_MB,
+                 *PROBES]:
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
             for word in banned:
@@ -114,7 +124,8 @@ def _lbench_script():
 
 @pytest.mark.parametrize("entry", ["engine", "cells", "init", "device",
                                    "lbench", "fleet", "train_launcher",
-                                   "train_example", "train_state"])
+                                   "train_example", "train_state",
+                                   "serve_launcher", "serve_example"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -141,6 +152,16 @@ def test_entry_points_default_to_the_card(entry):
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             mod.main(["--smoke", "--steps", "1"])
+        elif entry == "serve_launcher":
+            from repro_torch.launch import serve as launch
+
+            launch.main(["--arch", "smollm_360m", "--reduced"])
+        elif entry == "serve_example":
+            spec = importlib.util.spec_from_file_location(
+                "serve_batch_torch", SERVE_EX)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mod.main([])
         elif entry == "train_state":
             from repro_torch.runtime import train as train_rt
 

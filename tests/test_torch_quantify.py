@@ -49,6 +49,14 @@ N_CHIPS = 256
 TOL = 1e-12
 
 
+@pytest.fixture(autouse=True)
+def _cwd_without_records(tmp_path, monkeypatch):
+    """Each test runs in an empty directory: `analyze` reads the port's
+    records under the working directory's results/dryrun_torch/, so a
+    dry-run left at the repo root cannot change what a test compares."""
+    monkeypatch.chdir(tmp_path)
+
+
 def _ref_topology():
     jt = jtiers.v5e_topology()
     return ttiers.TierTopology(
@@ -393,13 +401,20 @@ def test_lbench_loi_on_the_h100_topology():
     assert titf.lbench_loi(1, 1 << 20, _ref_topology()) == pytest.approx(1.0)
 
 
-def test_analyze_refuses_train_shapes_and_dry_runs():
-    """Dry-run records are still refused (ROADMAP A15); train shapes now
-    run (the name is kept from when they were refused too)."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        tq.analyze("smollm_360m", "decode_32k", use_dryrun=True)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tq.analyze("smollm_360m", "train_4k", use_dryrun=True)
+def test_analyze_refuses_train_shapes_and_dry_runs(tmp_path, monkeypatch):
+    """Train shapes run, and dry-run records are read (ROADMAP A15, the
+    port's own records under results/dryrun_torch/): with no record the
+    compute time is the analytic one; what is refused is a record of a
+    mesh on more than one card (ROADMAP A16). The name is kept from when
+    both were refused."""
+    monkeypatch.chdir(tmp_path)
+    for shape in ("decode_32k", "train_4k"):
+        a = tq.analyze("smollm_360m", shape, use_dryrun=True)
+        b = tq.analyze("smollm_360m", shape, use_dryrun=False)
+        _close(a.level1, b.level1, 0)
+    rec = {"status": "ok", "mesh": "16x16", "roofline": {"t_compute_s": 1.0}}
+    with pytest.raises(NotImplementedError, match="A16"):
+        tq.analyze("smollm_360m", "train_4k", dryrun_record=rec, n_chips=2)
     an = tq.analyze("smollm_360m", "train_4k")
     assert an.level1["footprint_bytes_per_chip"] > 0
     assert tq.analyze("jamba_1_5_large_398b", "train_4k").level2[

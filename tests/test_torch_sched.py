@@ -58,6 +58,14 @@ TOL = 1e-12
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True)
+def _cwd_without_records(tmp_path, monkeypatch):
+    """Each test runs in an empty directory: `analyze` reads the port's
+    records under the working directory's results/dryrun_torch/, so a
+    dry-run left at the repo root cannot change what a test compares."""
+    monkeypatch.chdir(tmp_path)
+
+
 def _ref_topology():
     jt = jtiers.v5e_topology()
     return ttiers.TierTopology(
