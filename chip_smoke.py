@@ -103,8 +103,7 @@ Phases (any failure raises and exits non-zero):
                paged_prefill_insert_flash, no plain version runs, and each
                agrees >= 0.5 with its plain run; prefix hits and shared
                pages above 0 with the cache on, and the pages the live
-               slots map;
-               a profiled int8 run; then the chunk cell of a per-token
+               slots map; then the chunk cell of a per-token
                int8 pool over one 512-token prompt launches
                paged_prefill_flash and agrees with the plain cell.
  10. contiguous — the same model on the contiguous layout (paged=False,
@@ -123,9 +122,9 @@ Phases (any failure raises and exits non-zero):
                weights) on the engine phase's configuration and chat
                trace: ssd_scan launches 48 times per admission, no plain
                version runs, agreement >= 0.5 with the plain-version run
-               in float32 (bf16 printed: the random 48-layer stack turns
-               bf16 rounding into token flips) and prompt-pass logit
-               drifts within bf16's own, a profiled run of 2 requests;
+               in float32 (the random 48-layer stack turns bf16 rounding
+               into token flips) and prompt-pass logit drifts within
+               bf16's own;
                the paged int8,
                paged fp and contiguous
                engines each equal the naive loop bit for bit on 8 prompts
@@ -169,9 +168,9 @@ Phases (any failure raises and exits non-zero):
                from each state of the kernels' run, loss within 1e-3 and
                grad norm within 1e-4 of the plain versions' step; the
                loss falling), bf16 through the kernels (the main path:
-               flash_mha and flash_mha_bwd launched, no plain version);
-               resume (4 steps, save, restore, 4 steps) bit-equal to 8
-               straight steps under deterministic algorithms; mamba2-780m
+               flash_mha and flash_mha_bwd launched, no plain version;
+               resume bit-equal to a straight run: phase launch, through
+               the launcher); mamba2-780m
                (batch 4 x 256, 6 steps, float32) through ssd_scan against
                the plain versions from the same states (as smollm), and
                free-running within 1e-3 or ten times the gap of the plain
@@ -182,7 +181,13 @@ Phases (any failure raises and exits non-zero):
                requests, 8 slots, int8 pool, then `--fleet 2 --roles
                --prefill-chunk 16` on the same trace; tokens equal to an
                engine / fleet built directly from the same configuration,
-               the path's kernels launched, no plain version.
+               the path's kernels launched, no plain version; the train
+               launcher (`launch.train.main`, in a process of its own)
+               at published widths cut to 2 layers: 4 steps
+               straight against 2 and `--resume` 2, the step-4
+               checkpoints bit-equal (the launcher's deterministic
+               algorithms); a bf16 smollm-360m step with deterministic
+               algorithms off and on (printed).
  16. tiering — the tiered train step (`runtime.tiering`): SmolLM-360M,
                batch 8 x 256, hotness at pool_fraction 0.5, 3 steps, the
                pool-tier leaves in pinned host memory moved by the page
@@ -198,6 +203,20 @@ Phases (any failure raises and exits non-zero):
                flash_mha / flash_mha_bwd / state_in / state_out units of
                the tiering phase's step equal to the launches the card
                made.
+ 18. mesh    — serving on a mesh (`mesh_phase`): granite-3-2b at published
+               widths (2.5 B params, nothing cut) on the engine phase's
+               bucket cell, 8 chat requests: the three bucket kernels at
+               one dp2tp2 rank's shard shapes against their plain
+               versions and timed; a (1, 1) mesh on NCCL (one spawned
+               rank) bit-equal to the meshless engine (tokens, every pool
+               leaf); dp2tp2 as 4 spawned ranks sharing the card over
+               gloo: float32 fp tokens of every rank equal to the
+               meshless engine's, float32 int8 agreement >= 0.5, data
+               replicas bit-equal, each rank's pool half
+               the meshless one, placement gap 0 on every rank, the
+               kernels launched on every rank; on the same ranks moe_ep
+               at granite-moe-1b-a400m's widths within 1e-4 of moe_dense
+               with nothing dropped.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -212,10 +231,12 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases device,build,train     # training
     python3 chip_smoke.py --phases device,build,prefetch  # case studies
     python3 chip_smoke.py --phases device,build,launch,tiering,dryrun
+    python3 chip_smoke.py --phases device,build,mesh      # the mesh
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -2918,9 +2939,8 @@ def chunked_phase(torch):
               f"{sum(agree) / len(agree):.3f} (gate >= "
               f"{INT8_TOKEN_AGREEMENT})")
         assert min(agree) >= INT8_TOKEN_AGREEMENT, agree
-    # the profiled run is cut to 2 requests: reading a 16-request trace's
-    # events took half a minute, 4 requests' 13.9 s
-    serve(None, profiled=True, n_req=2)
+    # no profiled run here (printed only, cut for the script's time):
+    # the engine phase's profiles the bucket path
 
     # the per-token int8 pool reaches the engine only with speculation
     # (ROADMAP A8): drive its chunk cell over one 512-token prompt
@@ -3169,13 +3189,13 @@ def ssm_phase(torch):
     `ServingEngine` on the engine phase's configuration (paged int8,
     n_slots=8, max_seq=256, buckets 64/128, 16-token pages) over its
     16-request chat trace: every request finishes, ssd_scan launches 48
-    times per admission and no plain version runs; the same trace on the
-    plain versions, whose bf16 agreement is printed; in float32 (fp
-    pools) the kernel and plain runs agree per request >=
+    times per admission and no plain version runs (no bf16 run on the
+    plain versions: printed only, cut for the script's time);
+    in float32 (fp pools) the kernel and plain runs agree per request >=
     INT8_TOKEN_AGREEMENT; the teacher-forced prompt pass of every request
     moves the last-token logits, kernels against plain, no further in
     bf16 than bf16 itself moves them off float32, and within 2e-3 in
-    float32; one more run under torch.profiler. Then 8 chat prompts of
+    float32. Then 8 chat prompts of
     128 tokens, 32 new
     tokens each: the paged int8, paged fp and contiguous engines each
     emit the naive loop's tokens bit for bit. Last, in float32, a prefill
@@ -3249,12 +3269,6 @@ def ssm_phase(torch):
           f"{cfg.num_layers} layers x {len(kreqs)} admissions = {want}")
     assert launches.get("ssd_scan", 0) == want, launches
     assert not plain, plain
-    rreqs, rlaunch, rplain = serve("reference")
-    assert not rlaunch and rplain.get("ssd", 0) == want, (rlaunch, rplain)
-    agree = [agreement(a.output, b.output) for a, b in zip(kreqs, rreqs)]
-    print(f"  bf16: per-request token agreement kernels vs plain: min="
-          f"{min(agree):.3f} mean={sum(agree) / len(agree):.3f} (not gated: "
-          "see the prompt-pass drifts below)")
     # (c) the gate runs in float32: the random-weight 48-layer stack
     # amplifies bf16 rounding (one bf16 ulp in some elements of a layer's
     # y) into logit drifts that flip near-tied greedy tokens, for any two
@@ -3304,10 +3318,8 @@ def ssm_phase(torch):
     gate(d_kernel16 <= d_dtype, f"bf16 kernel drift {d_kernel16} > bf16 "
          f"dtype drift {d_dtype}")
     gate(d_kernel32 <= 2e-3, f"float32 kernel drift {d_kernel32}")
-    # the profiled run is cut to 2 requests (the gates above run on all
-    # 16): the 16-request trace's 2.3 M events took 19 s to read, 4
-    # requests' 1.1 M 10.3 s
-    serve(None, profiled=True, n_req=2)
+    # no profiled run here (printed only, cut for the script's time):
+    # the engine phase's profiles the serving loop
 
     # (b) engine == naive loop, bit for bit, in each layout and pool
     prompts = chat_prompts(cfg)
@@ -3895,7 +3907,7 @@ def train_run(torch, cfg, backend, steps, batch, seq, lr=1e-3,
         save.save(start + steps, state, blocking=True)
     med = statistics.median(ms[1:] if len(ms) > 1 else ms)
     return dict(losses=losses, gnorms=gnorms, shadows=shadows,
-                witnesses=witnesses, step_ms=med,
+                witnesses=witnesses, step_ms=med, all_ms=ms,
                 tok_s=batch * seq / med * 1e3, peak_gb=peak / 1e9,
                 launches=launches, plain=plain, state=state)
 
@@ -3935,20 +3947,12 @@ def train_phase(torch, timer):
     bf16 through the kernels (the main path, its steps timed alone), and
     a second such bf16 run checked from each of its states (the loss and
     grad norm within the gap between the plain versions' bf16 and
-    float32 steps from that state); resume (4 steps, CheckpointManager save and
-    restore, 4 steps) bit-equal to 8 straight steps under
-    `torch.use_deterministic_algorithms(True)`; mamba2-780m (batch 4, seq
+    float32 steps from that state); mamba2-780m (batch 4, seq
     256, 6 steps) through ssd_scan against the plain versions in float32
     from the same states, and free-running within 1e-3 or ten times the
     gap of the plain versions' run from an init one float32 step away.
     Returns (launches of the path's kernels, flash_mha_bwd's record)."""
-    import shutil
-    import tempfile
-
     from repro_torch import configs
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.common.pytree import named_leaves
-    from repro_torch.optim.adamw import tree_map
 
     record = flash_bwd_cases(torch, timer)
     failures = []
@@ -4060,40 +4064,8 @@ def train_phase(torch, timer):
     same_state_bf16(c16)
     del c16["state"]
 
-    # resume: bit-equal to the straight run. The embedding's and the
-    # label gather's backward accumulate with atomics (index_add_,
-    # scatter_add_) unless deterministic algorithms are on; the flash
-    # backward kernel has no atomics. Depth cut to 2 layers (widths kept)
-    # so that the checkpoint is 0.75 GB, not 4.3.
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    print(f"  resume: {cfg2.name} cut to {cfg2.num_layers} layers at "
-          "published widths, bf16, under torch.use_deterministic_algorithms"
-          "(True) (index_add_ / scatter_add_ backward without atomics)")
-    tmp = tempfile.mkdtemp(prefix="train_resume_")
-    try:
-        straight = train_run(torch, cfg2, None, 8, 8, 256,
-                             deterministic=True)
-        mgr = CheckpointManager(tmp)
-        first = train_run(torch, cfg2, None, 4, 8, 256, deterministic=True,
-                          save=mgr)
-        t0 = time.perf_counter()
-        state = mgr.restore(4, tree_map(torch.zeros_like, first["state"]))
-        restore_s = time.perf_counter() - t0
-        second = train_run(torch, cfg2, None, 4, 8, 256, deterministic=True,
-                           state=state, start=4)
-        a = named_leaves(straight["state"])
-        b = named_leaves(second["state"])
-        diff = [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
-        nbytes = sum(x.numel() * x.element_size() for _, x in a)
-        print(f"  resume: 8 straight steps vs 4 + save/restore + 4: "
-              f"{len(a) - len(diff)} of {len(a)} leaves bit-equal, losses "
-              f"{straight['losses'][4:]} vs {second['losses']} "
-              f"(checkpoint {nbytes / 1e9:.2f} GB, restore {restore_s:.1f} s)")
-        gate(not diff and straight["losses"][4:] == second["losses"],
-             f"resume differs in {diff[:4]}")
-        del straight, first, second, state
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # resume bit-equal to a straight run: the launch phase runs the train
+    # launcher itself (`train_launcher_resume`)
 
     # mamba2-780m through ssd_scan (float32 gate)
     mcfg = dataclasses.replace(configs.get("mamba2_780m"), dtype="float32")
@@ -4212,9 +4184,91 @@ def launch_phase(torch):
             total[k] = total.get(k, 0) + v
         del direct
         torch.cuda.empty_cache()
+    train_launcher_resume(torch, gate)
+    deterministic_step_cost(torch)
     if failures:
         raise AssertionError(f"launch phase: {failures}")
     return total
+
+
+# `launch.train.main` in a process of its own, as a user runs the
+# launcher, with `configs.get` cutting the arch to 2 layers (widths kept)
+LAUNCH_TRAIN_2L = (
+    "import dataclasses, sys\n"
+    "from repro_torch import configs\n"
+    "get = configs.get\n"
+    "configs.get = lambda name: dataclasses.replace(get(name), "
+    "num_layers=2)\n"
+    "from repro_torch.launch import train\n"
+    "train.main(sys.argv[1:])\n")
+
+
+def train_launcher_resume(torch, gate) -> None:
+    """The train launcher's `main` (its own process, as a user runs it)
+    on SmolLM-360M at published widths cut to 2 layers
+    (`LAUNCH_TRAIN_2L`), batch 8 x 256, bf16: 4 steps straight
+    (checkpoints at 2 and 4), then the step-2 checkpoint alone in a fresh
+    directory and `--resume` to step 4. Gate: the two step-4
+    checkpoints' leaves bit-equal (their manifests' sha1), which needs
+    the launcher's deterministic algorithms (the embedding's backward
+    accumulates with atomics otherwise)."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="launch_train_")
+    argv = [sys.executable, "-c", LAUNCH_TRAIN_2L, "--arch", "smollm_360m",
+            "--batch", "8", "--seq", "256", "--steps", "4", "--ckpt-every",
+            "2", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        t0 = time.perf_counter()
+        runs = {}
+        for name in ("straight", "resumed"):
+            extra = ["--ckpt-dir", f"{tmp}/{name}"]
+            if name == "resumed":
+                shutil.copytree(f"{tmp}/straight/step_00000002",
+                                f"{tmp}/resumed/step_00000002")
+                extra.append("--resume")
+            out = subprocess.run(argv + extra, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            if out.returncode:
+                raise AssertionError(f"launch.train {name}: "
+                                     f"{out.stderr[-3000:]}")
+            with open(f"{tmp}/{name}/step_00000004/manifest.json") as f:
+                runs[name] = {e["name"]: e["sha1"]
+                              for e in json.load(f)["leaves"]}
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith(("step", "resumed"))]
+            print(f"  launch.train {name}: {'; '.join(lines)}")
+        diff = [n for n in runs["straight"]
+                if runs["straight"][n] != runs["resumed"].get(n)]
+        print(f"  launch.train, 2 layers: 4 straight steps vs 2 + --resume "
+              f"2: {len(runs['straight']) - len(diff)} of "
+              f"{len(runs['straight'])} leaves bit-equal at step 4 "
+              f"({time.perf_counter() - t0:.1f} s, two processes)")
+        gate(runs["straight"] and not diff,
+             f"launch.train resume differs in {diff[:4]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def deterministic_step_cost(torch) -> None:
+    """What the launcher's deterministic algorithms cost a step: SmolLM-
+    360M at published widths, bf16, batch 8 x 256, 4 timed steps with
+    them off, then 4 on, from the same seed-0 state (printed)."""
+    from repro_torch import configs
+
+    cfg = configs.get("smollm_360m")
+    for det in (False, True):
+        r = train_run(torch, cfg, None, 5, 8, 256, deterministic=det)
+        ms = r["all_ms"][1:]
+        print(f"  smollm-360m bf16 step, 8 x 256, deterministic "
+              f"algorithms {'on ' if det else 'off'}: median "
+              f"{r['step_ms']:.1f} ms, range {min(ms):.1f}-{max(ms):.1f} "
+              f"ms over {len(ms)} steps after one untimed")
+        del r
+        torch.cuda.empty_cache()
 
 
 def tiering_phase(torch, timer):
@@ -4457,6 +4511,407 @@ def dryrun_phase(torch, tier_launches, results):
                              f"{card}")
 
 
+# ------------------------------------------------------------------ mesh
+MESH_ARCH = "granite_3_2b"
+MESH_CELL = dict(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
+                 page_tokens=16)
+# the dp2tp2 runs (both gated; the fp run's weights also give the prompt
+# passes in float32 and bf16 that gate bf16 on the mesh); the meshless
+# engine also serves the bf16 int8 main path, which the (1, 1) NCCL rank
+# must match bit for bit
+MESH_RUNS = (dict(name="f32 fp", dtype="float32", pool_dtype="fp",
+                  logits=True),
+             dict(name="f32 int8", dtype="float32", pool_dtype="int8"))
+MAIN_RUN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
+MOE_CAPS = (("no drops", 8.0), ("config", None))
+
+
+def shard_shape_cases(torch, timer) -> list:
+    """The mesh phase's three kernels at the shapes one rank of
+    granite-3-2b on dp2tp2 gives them (16 of 32 query heads, 4 of 8 KV
+    heads, D 64): flash_mha over a 128-token admission (B 1, causal);
+    paged_flash_decode over 4 of the 8 slots (int8 per-page pool, 16-token
+    pages, 16 pages a slot); one admission's grouped write_pages (k,
+    k_sz, v, v_sz over 40 layers, 128 rows). Each is held against its
+    plain version (float32 atol=rtol=1e-5, bf16 atol=2e-2, the write bit
+    for bit) and timed in bf16 beside its bound, its plain version and
+    the library call that computes the same function (SDPA; SDPA on the
+    dequantized pages, the gather excluded; `index_copy_` x4). Returns
+    the records."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.page_io import ops as pops
+
+    F = torch.nn.functional
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    failures, records = [], []
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def check(name, case, out, ref, tol):
+        err, ok = max_err(torch, out, ref, tol)
+        print(f"  {'ok  ' if ok else 'FAIL'} {name:18s} shard {case} "
+              f"max_abs_err={err:.3e}")
+        if not ok:
+            failures.append(f"{name} {case}")
+        return err
+
+    def record(name, case, kernel, plain, lib, bytes_, ops_, err):
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
+        rec = dict(name=name, case=case, ms=timer(kernel),
+                   plain_ms=timer(plain), library_ms=lib(),
+                   bound_ms=max(t_b, t_o) * 1e3,
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   max_abs_err=err)
+        print(f"  mesh shard {name:18s} {case}: kernel {rec['ms']:.4f} ms "
+              f"plain {rec['plain_ms']:.4f} ms library {rec['library_ms']} "
+              f"ms bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+        records.append(rec)
+
+    def sdpa(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        except TypeError:          # torch without enable_gqa
+            return None
+        return timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    H, KV, D, page = 16, 4, 64, 16
+    # --- flash_mha: one admission of 128 tokens on the rank's heads ---
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(1, 128, H, D, dtype=dt)
+        k = randn(1, 128, KV, D, dtype=dt)
+        v = randn(1, 128, KV, D, dtype=dt, scale=0.5)
+        err = check("flash_mha", f"B=1 S=128 H={H} KV={KV} D={D} "
+                    f"{str(dt)[6:]}", fops.mha(q, k, v, impl="cuda"),
+                    fops.mha(q, k, v, impl="reference"),
+                    F32_TOL if dt == torch.float32 else BF16_TOL)
+    ops_, bytes_ = fops.mha_cost(q.shape, k.shape, causal=True,
+                                 itemsize=2)
+    record("flash_mha", f"bf16 B=1 S=128 H={H} KV={KV} D={D} causal; "
+           "library = SDPA", lambda: fops.mha(q, k, v, impl="cuda"),
+           lambda: fops.mha(q, k, v, impl="reference"),
+           lambda: sdpa(q, k, v), bytes_, ops_, err)
+
+    # --- paged_flash_decode: the rank's 4 slots on its int8 pool -------
+    B, n_pages = 4, 16
+    P = 8 * n_pages
+    lens = torch.tensor([70, 100, 140, 160], dtype=torch.int32,
+                        device="cuda")
+    bt = torch.stack([torch.randperm(P, generator=gen, device="cuda")
+                      [:n_pages] for _ in range(B)]).to(torch.int32)
+    kp, vp = (torch.randint(-127, 128, (P, page, KV, D), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    szs = {n: torch.stack([0.005 + 0.015 * torch.rand(
+        (P, KV), generator=gen, device="cuda"), torch.rand(
+        (P, KV), generator=gen, device="cuda") - 0.5], -1)
+        for n in ("k_sz", "v_sz")}
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(B, H, D, dtype=dt)
+        err = check("paged_flash_decode", f"B={B} H={H} KV={KV} D={D} int8 "
+                    f"q={str(dt)[6:]}",
+                    dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda",
+                                          **szs),
+                    dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                          impl="reference", **szs),
+                    F32_TOL if dt == torch.float32 else BF16_TOL)
+    n_keys = int(lens.sum())
+    n_reads = int((-(-lens // page)).sum())
+    kd = dref.gather_pages_q8(kp, szs["k_sz"], bt).to(torch.bfloat16)
+    vd = dref.gather_pages_q8(vp, szs["v_sz"], bt).to(torch.bfloat16)
+    record("paged_flash_decode", f"bf16 q, int8/page pool B={B} H={H} "
+           f"KV={KV} D={D} lengths={lens.tolist()}; library = SDPA, gather "
+           "excluded",
+           lambda: dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda",
+                                         **szs),
+           lambda: dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                         impl="reference", **szs),
+           lambda: sdpa_decode_ms(torch, timer, q, kd, vd, lens),
+           2 * n_keys * KV * D + 2 * n_reads * KV * 2 * 4
+           + 2 * q.numel() * 2 + n_reads * 4 + B * 4,
+           4 * D * H * n_keys, err)
+
+    # --- write_pages: one admission of 128 rows on the rank's heads ----
+    nb, n_wp = 40, 8
+    phys = torch.randperm(P, generator=gen, device="cuda")[:n_wp].to(
+        torch.int32)
+    specs = [((page, KV, D), torch.int8), ((KV, 2), torch.float32)] * 2
+
+    def leaf(n, shape, dt):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, (nb, n, *shape), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return randn(nb, n, *shape, dtype=dt)
+
+    pools = [leaf(P, s_, dt) for s_, dt in specs]
+    tiles = [leaf(n_wp, s_, dt) for s_, dt in specs]
+    want = [p_.clone() for p_ in pools]
+    pops.write_pages_group(want, tiles, phys, impl="reference")
+    got = [p_.clone() for p_ in pools]
+    pops.write_pages_group(got, tiles, phys, impl="cuda")
+    ok = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"  {'ok  ' if ok else 'FAIL'} write_pages        shard k,k_sz,"
+          f"v,v_sz nb={nb} KV={KV} D={D} {n_wp * page} rows: bit-equal {ok}")
+    if not ok:
+        failures.append("write_pages shard")
+    phys64 = phys.long()
+    record("write_pages", f"int8 admission k,k_sz,v,v_sz nb={nb} KV={KV} "
+           f"D={D} {n_wp * page} rows; library = index_copy_ x4",
+           lambda: pops.write_pages_group(pools, tiles, phys, impl="cuda"),
+           lambda: pops.write_pages_group(pools, tiles, phys,
+                                          impl="reference"),
+           lambda: timer(lambda: [p_.index_copy_(1, phys64, t_)
+                                  for p_, t_ in zip(pools, tiles)]),
+           sum(2 * t_.numel() * t_.element_size() for t_ in tiles)
+           + n_wp * 4, 0, 0.0)
+    if failures:
+        raise AssertionError(f"mesh shard shapes: {failures}")
+    return records
+
+
+def mesh_phase(torch, timer):
+    """Serving on a mesh (`ServingEngine.build(..., mesh=mesh)` over a
+    `DeviceMesh` with its default context and serving rules, one process
+    per rank, `dev_serve_torch.mesh_rank`): granite-3-2b at published
+    widths (40 layers, d 2048, 32 / 8 heads, head_dim 64, ff 8192, vocab
+    49155; seeded random weights, float32 masters; nothing cut) on the
+    engine phase's bucket cell (8 slots, max_seq 256, buckets 64 / 128,
+    16-token pages; half the pool local, so pages move through the
+    substrate) over 8 chat requests of 32 new tokens.
+
+    First the kernels at one dp2tp2 rank's shard shapes
+    (`shard_shape_cases`). Then, at once (each engine is host-bound and
+    the card mostly idle, so every wall tok/s is taken beside the
+    others): the meshless engine in this process (float32 fp and int8
+    pools, bf16 int8), and the spawned ranks, which take this process's
+    float32 masters by CUDA IPC:
+    * (1, 1) on NCCL, one spawned rank, bf16 int8 (the main path): its
+      tokens and every pool leaf bit-equal to the meshless engine's;
+    * dp2tp2 as 4 ranks sharing the card over gloo (NCCL refuses two
+      ranks of one communicator on one GPU; gloo moves the collectives'
+      bytes through host memory, so their times are not NCCL's), every
+      tensor and kernel on the card: float32 fp tokens of every rank
+      equal each other's and the meshless engine's, float32 int8 at
+      least INT8_TOKEN_AGREEMENT of the meshless int8 engine's; the data
+      replicas of each pool bit-equal; each rank's
+      pool half the meshless pool's bytes; placement gap 0 on every
+      rank; flash_mha, write_pages and paged_flash_decode launched on
+      every rank, no plain version; the wall tok/s printed; bf16: the
+      last-token logits of every prompt's prompt pass on the ranks'
+      shards no further from the meshless bf16 pass than that is from
+      the meshless float32 pass (the ssm phase's rule; random deep bf16
+      stacks flip tokens on one-ulp differences, so the bf16 engine's
+      tokens are not gated), the float32 drift printed;
+    * on the same ranks, `moe_ep` at granite-moe-1b-a400m's widths (d
+      1024, 32 experts, top 8, ff 512; EP over `model`), x (4, 128,
+      1024) float32: with capacity 8.0 no pair drops and y is within 1e-4
+      of `moe_dense` (relative to its largest entry), aux within 1e-4;
+      with the config's capacity the dropped pairs are printed.
+    Returns the launches of rank 0's float32 int8 run."""
+    import numpy as np
+
+    import dev_serve_torch as dst
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.module import cast_params
+    from repro_torch.serving import Request, ServingEngine, make_scenario
+
+    print(f"mesh on {smi_line()}")
+    t_mesh = time.perf_counter()
+
+    def since():
+        return f"{time.perf_counter() - t_mesh:.1f} s into the phase"
+
+    shard_records = shard_shape_cases(torch, timer)
+    print(f"  shard shapes done, {since()}")
+    cfg = configs.get(MESH_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    print(f"mesh {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"({cfg.param_count() / 1e9:.2f} B params), random weights seed 0")
+    trace = make_scenario("chat", 8, cfg.vocab_size, seed=0,
+                          prompt_buckets=(64, 128), gen_range=(32, 32),
+                          arrival_rate=1e5)
+    prompts = [r.tokens for r in trace]
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            print(f"  FAIL {what}")
+            failures.append(what)
+
+    # the ranks take the float32 masters drawn here from seed 0 (the draws
+    # `ServingEngine.build` makes) by CUDA IPC, and each rank's `build`
+    # cuts its shard; the
+    # (1, 1) NCCL rank, the 4 dp2tp2 gloo ranks and this process's
+    # meshless engine run at once (the phase's time: the card is mostly
+    # idle, each engine host-bound), so every wall tok/s below is taken
+    # beside the others
+    params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    mcfg = dataclasses.replace(configs.get("granite_moe_1b_a400m"),
+                               dtype="float32")
+    rng = np.random.default_rng(0)
+    d, E, ff = mcfg.d_model, mcfg.num_experts, mcfg.moe_d_ff
+    moe_params = {k: rng.normal(0, sc, shape).astype(np.float32)
+                  for k, shape, sc in (("router", (d, E), d ** -0.5),
+                                       ("w_gate", (E, d, ff), d ** -0.5),
+                                       ("w_up", (E, d, ff), d ** -0.5),
+                                       ("w_down", (E, ff, d), ff ** -0.5))}
+    x = rng.normal(0, 1, (4, 128, d)).astype(np.float32)
+    cases = [(dataclasses.replace(mcfg, capacity_factor=c or
+                                  mcfg.capacity_factor), None, "rowcol")
+             for _, c in MOE_CAPS]
+    runs = [dict(r, **MESH_CELL) for r in MESH_RUNS]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        f_one = pool.submit(
+            mesh_mod.run_ranks, dst.mesh_rank, 1,
+            (cfg, 1, 1, params, prompts, 32,
+             [dict(MAIN_RUN, **MESH_CELL)], "cuda"),
+            device="cuda", backend="nccl", wall_s=300, threads=1)
+        f_four = pool.submit(
+            mesh_mod.run_ranks, dst.mesh_calls, 4,
+            ([(dst.mesh_rank, (cfg32, 2, 2, params, prompts, 32, runs,
+                               "cuda")),
+              (dst.mesh_moe_rank, (2, 2, moe_params, x, cases, "cuda"))],),
+            device="cuda", backend="gloo", wall_s=600, threads=1)
+
+        # --- the meshless engine, this process ------------------------
+        ref = {}
+        for i, run in enumerate((*MESH_RUNS, MAIN_RUN)):
+            rcfg = dataclasses.replace(cfg, dtype=run["dtype"])
+            ecfg = dst.mesh_ecfg(8, 128, 32, pool_dtype=run["pool_dtype"],
+                                 **MESH_CELL)
+            eng = ServingEngine.build(rcfg, ecfg, params=params)
+            reqs = [Request(request_id=j, tokens=p, max_new_tokens=32,
+                            arrival=0.0) for j, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            ref[i] = dict(tokens=np.stack([np.asarray(r.output)
+                                           for r in reqs]),
+                          digests=dst.pool_digests(eng.caches),
+                          pool_bytes=dst.pool_nbytes(eng.caches),
+                          wall_s=wall)
+            print(f"  meshless {run['name']}: {8 * 32} tokens in {wall:.2f} "
+                  f"s ({8 * 32 / wall:.1f} tok/s wall, beside the ranks), "
+                  f"pool {ref[i]['pool_bytes'] / 1e6:.2f} MB")
+            del eng
+        logits = {dt: dst.prompt_logits(cfg, cast_params(params, dt),
+                                        prompts, dt, "cuda")
+                  for dt in ("float32", "bfloat16")}
+        print(f"  meshless runs done, {since()}")
+        one = f_one.result()[0][0]
+        print(f"  (1, 1) done, {since()} (mesh built in "
+              f"{one['mesh_s']:.1f} s)")
+        got = f_four.result()
+    build_s = [round(max(g[0][i]["build_s"] for g in got), 1)
+               for i in range(len(runs))]
+    print(f"  dp2tp2 gloo: 4 ranks spawned, served and joined in "
+          f"{time.perf_counter() - t0:.1f} s (mesh built in "
+          f"{max(g[0][0]['mesh_s'] for g in got):.1f} s; each run's "
+          f"`ServingEngine.build`, the shard cut included, {build_s} s)")
+    del params
+    torch.cuda.empty_cache()
+
+    # --- (1, 1) on NCCL: the main path, bit-equal ----------------------
+    same = np.array_equal(one["tokens"], ref[2]["tokens"])
+    print(f"  (1, 1) nccl bf16 int8: tokens equal {same}, pool leaves "
+          f"bit-equal {one['digests'] == ref[2]['digests']} "
+          f"({len(one['digests'])} leaves), launches {one['launches']}, "
+          f"plain {one['plain']}, {8 * 32 / one['wall_s']:.1f} tok/s wall")
+    gate(same and one["digests"] == ref[2]["digests"],
+         "(1, 1): tokens or pool leaves differ from the meshless engine")
+    gate(all(one["launches"].get(k, 0) > 0 for k in BUCKET_KERNELS)
+         and not one["plain"], f"(1, 1): launches {one['launches']}")
+
+    # --- dp2tp2 over gloo, 4 ranks on the card, and moe_ep -------------
+    results = [g[0] for g in got]
+    bad = dst.mesh_gates(results, {i: ref[i]["tokens"] for i in ref},
+                         {i: ref[i]["pool_bytes"] for i in ref}, 2, runs,
+                         cfg.num_kv_heads % 2 == 0)
+    for b in bad:
+        gate(False, f"dp2tp2 {b}")
+    for i, run in enumerate(MESH_RUNS):
+        per = [r[i] for r in results]
+        agree = dst.compare(per[0]["tokens"], ref[i]["tokens"])
+        tok_s = [8 * 32 / p["wall_s"] for p in per]
+        print(f"  dp2tp2 {run['name']}: vs meshless {agree}"
+              f"{'' if run.get('gate', True) else ' (printed only)'}; "
+              f"ranks' tokens equal "
+              f"{all(np.array_equal(p['tokens'], per[0]['tokens']) for p in per)}"
+              f"; data replicas equal per model shard; pool "
+              f"{per[0]['pool_bytes'] / 1e6:.2f} MB a rank vs "
+              f"{ref[i]['pool_bytes'] / 1e6:.2f} meshless; placement gaps "
+              f"{[p['placement_gap'] for p in per]} ({per[0]['substrate']})"
+              f"; wall tok/s {min(tok_s):.1f}-{max(tok_s):.1f} (gloo through"
+              f" host memory, 4 ranks on one card) vs meshless "
+              f"{8 * 32 / ref[i]['wall_s']:.1f}")
+        for r, p in enumerate(per):
+            print(f"    rank {r} {p['coord']}: launches {p['launches']} "
+                  f"plain {p['plain']}")
+            gate(all(p["launches"].get(k, 0) > 0 for k in BUCKET_KERNELS)
+                 and not p["plain"], f"dp2tp2 {run['name']} rank {r}: "
+                 f"launches {p['launches']}, plain {p['plain']}")
+        gate(per[0]["substrate"] == "physical",
+             f"dp2tp2 {run['name']}: substrate {per[0]['substrate']}")
+        if run.get("logits"):
+            d32, d16 = (max(float(np.abs(p["logits"][dt]
+                                         - logits[dt]).max()) for p in per)
+                        for dt in ("float32", "bfloat16"))
+            d_dtype = float(np.abs(logits["bfloat16"]
+                                   - logits["float32"]).max())
+            flips = int((per[0]["logits"]["bfloat16"].argmax(-1)
+                         != logits["bfloat16"].argmax(-1)).sum())
+            print(f"  dp2tp2 prompt pass, last-token logits of the 8 "
+                  f"prompts (max |logit| "
+                  f"{float(np.abs(logits['float32']).max()):.2f}): mesh vs "
+                  f"meshless in float32 {d32:.3e}, in bf16 {d16:.4f} "
+                  f"({flips} first tokens differ), meshless bf16 vs "
+                  f"float32 {d_dtype:.4f} (gate: bf16 drift <= the "
+                  "dtype's)")
+            gate(d16 <= d_dtype, f"dp2tp2 bf16 drift {d16} > the bf16 "
+                 f"dtype drift {d_dtype}")
+    print(f"  dp2tp2 done, {since()}")
+    tparams = {k: torch.from_numpy(v).cuda() for k, v in moe_params.items()}
+    xt = torch.from_numpy(x).cuda()
+    for (label, _), case, *per in zip(MOE_CAPS, cases,
+                                      *[g[1] for g in got]):
+        y, aux = moe.moe_dense(tparams, xt, case[0])
+        y = y.cpu().numpy()
+        err = float(np.abs(per[0]["y"] - y).max() / np.abs(y).max())
+        aux_err = abs(per[0]["aux"] - float(aux))
+        dropped = sum(p["dropped"] for p in per)
+        print(f"  moe_ep {mcfg.name} widths d={d} E={E} top "
+              f"{mcfg.experts_per_token} ff={ff}, x (4, 128, {d}) f32, "
+              f"capacity {case[0].capacity_factor} ({label}): dropped "
+              f"pairs {dropped}; vs moe_dense: y rel err {err:.3e}, aux "
+              f"err {aux_err:.3e}; {per[0]['wall_s'] * 1e3:.1f} ms a call "
+              f"(gloo)")
+        if label == "no drops":
+            gate(dropped == 0 and err < 1e-4 and aux_err < 1e-4,
+                 f"moe_ep: dropped {dropped}, y {err}, aux {aux_err}")
+    for rec in shard_records:
+        per_rank = [r[1]["launches"].get(rec["name"]) for r in results]
+        print(f"  {rec['name']}: launches a rank in the f32 int8 run "
+              f"{per_rank}, {rec['ms']:.4f} ms at the shard shape")
+    if failures:
+        raise AssertionError(f"mesh phase: {failures}")
+    return {k: results[0][1]["launches"].get(k, 0) for k in BUCKET_KERNELS}
+
+
 # kernel groups of the profiled runs: (group, substrings a lowercased
 # kernel name must all hold); the two decode kernels share one template
 # body, whose row policy (PagedRows / DenseRows) names which one ran
@@ -4552,7 +5007,7 @@ def profile_calls(torch, fn, label, describe=lambda out: "") -> dict:
 # ---------------------------------------------------------------- main
 PHASES = ("device", "build", "kernels", "quantify", "engine", "substrate",
           "prefetch", "fleet", "chunked", "contiguous", "speculative", "ssm",
-          "archs", "train", "launch", "tiering", "dryrun")
+          "archs", "train", "launch", "tiering", "dryrun", "mesh")
 
 
 def parse_phases(argv) -> set:
@@ -4691,6 +5146,11 @@ def main(argv=None) -> int:
     if "dryrun" in phases:
         dryrun_phase(torch, tier_launches, dry_records)
         phase_done("dryrun")
+    if "mesh" in phases:
+        # the ranks' counts stand for no kernel another phase counted
+        for k, v in mesh_phase(torch, Timer(torch)).items():
+            launches.setdefault(k, v)
+        phase_done("mesh")
     for r in records:
         r["launches"] = launches.get(r["name"])
         r.pop("shape")

@@ -12,6 +12,18 @@ Gates, on fp pools:
    per verify step is reported. Attention-only archs only, as in the
    reference: an SSM arch (mamba2_780m) runs gate 1 alone.
 
+With `--mesh dpDtpT` it runs the sharded-parity lane instead (the
+reference's `dev_serve.py --mesh`, `mesh_parity`): the paged engine over
+a D x T mesh of ranks it spawns itself (`launch.mesh.run_ranks`, one
+process per rank; KV heads over `model`, slots over `data`), against
+the meshless engine on the same weights and prompts: every rank's tokens
+equal (fp pools: equal to the meshless engine's, bit for bit; int8:
+agreement >= INT8_TOKEN_AGREEMENT), the `data` replicas of each pool
+bit-equal, and the substrate's placement contract (`pool_bytes_used()
+== placement_bytes()`) on every rank. `--pool-dtype` picks the pool
+(fp by default); `--backend gloo` puts several ranks on one card (NCCL
+refuses two ranks of one communicator on the same GPU).
+
 With `--fleet N` it runs the fleet lanes instead (the reference's
 `dev_serve.py --fleet` / `--fault-plan` lanes, on the port only):
 
@@ -33,18 +45,24 @@ With `--fleet N` it runs the fleet lanes instead (the reference's
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu --fleet 2
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu --fleet 2 \
         --fault-plan chaos_smoke
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
+        --mesh dp2tp2 [--pool-dtype int8] [--arch granite_3_2b]
 
 It serves the reduced config of each `--arch` (repeatable, default
 smollm_360m) in float32. `tests/test_torch_contiguous.py`,
-`tests/test_torch_speculative.py`, `tests/test_torch_ssm.py` and
-`chip_smoke.py` (at published widths) call its functions.
+`tests/test_torch_speculative.py`, `tests/test_torch_ssm.py`,
+`tests/test_torch_mesh.py` and `chip_smoke.py` (at published widths)
+call its functions.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import re
 import sys
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -54,8 +72,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.common.pytree import leaf_bytes, tree_leaves  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.module import cast_params  # noqa: E402
+from repro_torch.models.module import load_numpy_params  # noqa: E402
+from repro_torch.runtime import sharding as shd  # noqa: E402
 from repro_torch.runtime import serve as serve_rt  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig,
@@ -64,7 +88,10 @@ from repro_torch.serving import (  # noqa: E402
     make_plan,
     shared_prefix_stream,
 )
-from repro_torch.serving.engine import frontend_extras  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    INT8_TOKEN_AGREEMENT,
+    frontend_extras,
+)
 from repro_torch.serving.fleet import FleetConfig, FleetRouter  # noqa: E402
 
 B, S, GEN = 2, 8, 6
@@ -306,6 +333,328 @@ def fleet_lanes(cfg, params, n_engines: int, plan_name: Optional[str],
     return ok
 
 
+# ------------------------------------------------------ the mesh lane
+def pool_digests(caches) -> dict:
+    """sha1 of the bytes of every paged pool leaf, {"pos0/k": hex}."""
+    out = {}
+    for pos, c in caches.items():
+        for key in blk.PAGED_LEAF_NAMES:
+            if key in c:
+                t = c[key].detach().contiguous().cpu()
+                out[f"{pos}/{key}"] = hashlib.sha1(
+                    t.view(torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def pool_nbytes(caches) -> int:
+    return sum(leaf_bytes(c[k]) for c in caches.values()
+               for k in blk.PAGED_LEAF_NAMES if k in c)
+
+
+def mesh_ecfg(n_req: int, n: int, gen: int, **kw) -> EngineConfig:
+    """The reference lane's engine: n_req slots, one bucket n, pages of
+    PAGE tokens, half the pool local (pages move through the substrate),
+    greedy admission."""
+    base = dict(n_slots=n_req, max_seq=n + gen, prefill_buckets=(n,),
+                page_tokens=PAGE, hot_window=8, local_budget_frac=0.5,
+                admission="greedy", paged=True, pool_dtype="fp")
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
+              prompts, gen: int, runs, device) -> list:
+    """One rank of the mesh lane (run by `launch.mesh.run_ranks` in its
+    own process). Builds the (dp, tp) mesh over the process group, then
+    serves `prompts` (token arrays, all arriving at once, `gen` new
+    tokens each; one bucket of the longest by default) once per entry of
+    `runs`, each on an engine of the user's entry point,
+    `ServingEngine.build(..., mesh=mesh)`: its default context
+    (`ctx_for_mesh(mesh)`) and serving rules, the rank's shard cut by the
+    engine from the global float32 master weights `params` (the tree as
+    numpy, or as the caller's tensors on the rank's card, shared with the
+    rank by CUDA IPC). A run is a dict of `EngineConfig` fields plus
+    "dtype" (the model's compute dtype), "name" and "gate" (read by
+    `mesh_gates` only) and "logits" (see below). Returns, per run: the
+    tokens, the wall seconds of `build` and of `run`, the kernels' launch
+    and plain-call counts of the run, the paged pool's digests and bytes
+    (this rank's shard), the substrate's mode and placement gap, the
+    engine context's data / model coordinate and fsdp axis, the bytes of
+    the rank's weights; for a float32 run whose dict has "logits" True,
+    the last-token logits (float32) of a prompt pass of every prompt
+    alone on the engine's weights, in float32 and in bfloat16 ({"float32":
+    (n, V), "bfloat16": (n, V)}); and the seconds this rank took to build
+    its mesh ("mesh_s")."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    t_mesh = time.perf_counter()
+    mesh = _rank_mesh(dp, tp, device)
+    mesh_s = time.perf_counter() - t_mesh
+    prompts = [np.asarray(p) for p in prompts]
+    n_req, n = len(prompts), max(len(p) for p in prompts)
+    full = (params if isinstance(tree_leaves(params)[0], torch.Tensor)
+            else load_numpy_params(params, device=dev))
+    out = []
+    for run in runs:
+        want_logits = run.get("logits", False)
+        run = {k: v for k, v in run.items()
+               if k not in ("name", "gate", "logits")}
+        rcfg = dataclasses.replace(cfg, dtype=run.pop("dtype", cfg.dtype))
+        ecfg = mesh_ecfg(n_req, n, gen, **run)
+        t_build = time.perf_counter()
+        eng = ServingEngine.build(rcfg, ecfg, params=full, device=dev,
+                                  mesh=mesh)
+        build_s = time.perf_counter() - t_build
+        ctx = eng.cells.ctx
+        reqs = [Request(request_id=i, tokens=prompts[i], max_new_tokens=gen,
+                        arrival=0.0) for i in range(n_req)]
+        dist.barrier()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        stats = eng.run(reqs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kernels.REFERENCE_CALLS.items() if v}
+        gap, mode = None, "off"
+        if eng.substrate is not None:
+            mode = eng.substrate.mode
+            gap = (eng.pager.pool_bytes_used()
+                   - eng.substrate.ledger.placement_bytes())
+        logits = None
+        if want_logits:
+            if rcfg.dtype != "float32":
+                raise ValueError("prompt logits are taken from a float32 "
+                                 f"run's weights, not {rcfg.dtype}")
+            logits = {dt: prompt_logits(rcfg, cast_params(eng.params, dt),
+                                        prompts, dt, dev, ctx)
+                      for dt in ("float32", "bfloat16")}
+        out.append(dict(
+            tokens=np.stack([np.asarray(r.output) for r in reqs]),
+            wall_s=wall, build_s=build_s, launches=launches, plain=plain,
+            digests=pool_digests(eng.caches),
+            pool_bytes=pool_nbytes(eng.caches),
+            param_bytes=sum(leaf_bytes(x) for x in tree_leaves(eng.params)),
+            substrate=mode, placement_gap=gap,
+            coord=(ctx.index("data"), ctx.index("model")),
+            fsdp_axis=ctx.fsdp_axis, logits=logits, mesh_s=mesh_s,
+            summary=stats.summary()))
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def prompt_logits(cfg, params, prompts, dtype: str, device,
+                  ctx=None) -> np.ndarray:
+    """The last-token logits (float32 numpy, one row a prompt) of a
+    prompt pass of each prompt alone, in `dtype`, on `params` (the
+    meshless tree, or a rank's shard with its `ctx`: a collective, every
+    rank of the mesh calls it)."""
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    kw = {} if ctx is None else {"ctx": ctx}
+    rows = [M.prefill(params, {"tokens": torch.as_tensor(
+        np.asarray(p)[None], device=device)}, cfg, max_seq=len(p),
+        **kw)[1][0].float() for p in prompts]
+    return torch.stack(rows).cpu().numpy()
+
+
+def _rank_mesh(dp: int, tp: int, device):
+    import torch.distributed as dist
+
+    return mesh_mod.make_smoke_mesh((dp, tp), device=torch.device(device),
+                                    backend=dist.get_backend())
+
+
+def mesh_ops_rank(rank: int, world: int, dp: int, tp: int, cases,
+                  device) -> list:
+    """One rank of the op checks over a (dp, tp) mesh: every case's
+    output, gathered whole (numpy), for the caller to hold against the
+    meshless op. Cases (dicts, global inputs as numpy):
+      {"kind": "mha", "q", "k", "v", "causal"}: `attention.sharded_mha`
+        on the rank's heads — the query heads split over tp when H
+        divides (as wq's shard gives them), the KV heads when KV does;
+      {"kind": "layers", "cfg", "params", "tokens", "x"}: the global
+        params cut by the specs of the serve bundle over the mesh
+        (`runtime.serve.make_bundle(mesh=)`, the serving rules), then the
+        vocab-parallel `embed` of tokens and `unembed` of x, layer 0's
+        column/row-parallel `mlp` and `self_attention` of x, and the
+        bundle's prefill step over tokens (its last-token logits)."""
+    from repro_torch.common.parallel import all_gather
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+    from repro_torch.models.module import layer_slice
+
+    dev = torch.device(device)
+    mesh = _rank_mesh(dp, tp, device)
+    ctx = mesh_mod.ctx_for_mesh(mesh, fsdp=False, remat="none")
+    s = ctx.index("model")
+    out = []
+    for case in cases:
+        if case["kind"] == "mha":
+            q, k, v = (torch.as_tensor(case[n], device=dev) for n in "qkv")
+            H, KV = q.shape[2], k.shape[2]
+            if H % tp == 0:
+                q = q[:, :, s * H // tp:(s + 1) * H // tp]
+            if KV % tp == 0:
+                k = k[:, :, s * KV // tp:(s + 1) * KV // tp]
+                v = v[:, :, s * KV // tp:(s + 1) * KV // tp]
+            o = attn.sharded_mha(q, k, v, ctx, causal=case["causal"],
+                                 heads=(H, KV))
+            if H % tp == 0:
+                o = all_gather(o, ctx, "model", 2)
+            out.append(o.cpu().numpy())
+            continue
+        cfg = case["cfg"]
+        tokens = torch.as_tensor(case["tokens"], device=dev)
+        bundle = serve_rt.make_bundle(cfg, batch=tokens.shape[0],
+                                      max_seq=tokens.shape[1], mesh=mesh)
+        local = shd.shard_tree(load_numpy_params(case["params"], device=dev),
+                               bundle.param_pspecs, mesh)
+        x = torch.as_tensor(case["x"], device=dev)
+        p0 = layer_slice(local["blocks"]["pos0"], 0)
+        out.append(dict(
+            embed=layers.embed(local["embed"], tokens, cfg, ctx),
+            unembed=layers.unembed(local["embed"], x, cfg,
+                                   local.get("head"), ctx),
+            mlp=layers.mlp(p0["mlp"], x, cfg, ctx),
+            attn=attn.self_attention(p0["attn"], x, cfg, ctx=ctx),
+            prefill=bundle.prefill_fn(local, {"tokens": tokens})[1]))
+        out[-1] = {k: v.cpu().numpy() for k, v in out[-1].items()}
+    return out
+
+
+def mesh_moe_rank(rank: int, world: int, dp: int, tp: int, params, x,
+                  cases, device) -> list:
+    """One rank of `moe.moe_ep` over a (dp, tp) mesh (EP over `model`):
+    the MoE layer's global params (numpy) cut by the serving rules —
+    experts over `model`, with an fsdp axis each expert's ff dim over it
+    — then, per case (cfg, fsdp_axis, moe_fsdp_mode), y (gathered whole) and
+    aux, and the (token, choice) pairs this rank's dispatch dropped past
+    its capacity (every token sits on one rank when x's batch splits over
+    `data` and its sequence over `model`)."""
+    from repro_torch.common.parallel import ParallelCtx, local_slice
+    from repro_torch.models import moe
+
+    dev = torch.device(device)
+    mesh = _rank_mesh(dp, tp, device)
+    full = load_numpy_params(params, device=dev)
+    x = torch.as_tensor(x, device=dev)
+    axes = {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "moe_ff"),
+            "w_up": ("experts", "embed", "moe_ff"),
+            "w_down": ("experts", "moe_ff", "embed")}
+    out = []
+    for cfg, fsdp, mode in cases:
+        ctx = ParallelCtx(mesh=mesh, dp_axes=("data",), fsdp_axis=fsdp,
+                          tp_axis="model", moe_fsdp_mode=mode)
+        rules = shd.ShardingRules.for_serving(fsdp, "model")
+        local = shd.shard_tree(full, shd.pspecs_for_tree(
+            full, {k: axes[k] for k in full}, rules, mesh), mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_ep(local, x, cfg, ctx)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mine = x
+        if x.shape[0] % dp == 0:
+            mine = local_slice(mine, ctx, "data", 0)
+        if x.shape[1] % tp == 0 and x.shape[1] >= tp:
+            mine = local_slice(mine, ctx, "model", 1)
+        T = mine.shape[0] * mine.shape[1]
+        _, idx, _ = moe._route(full, mine.reshape(T, -1).float(), cfg)
+        hits = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+        dropped = int((hits - moe._capacity(T, cfg)).clamp_min(0).sum())
+        out.append(dict(y=y.cpu().numpy(), aux=float(aux), dropped=dropped,
+                        wall_s=wall))
+    return out
+
+
+def mesh_calls(rank: int, world: int, calls) -> list:
+    """Several rank functions in one set of ranks: `fn(rank, world,
+    *args)` for each (fn, args) of `calls`, in order (each builds its own
+    mesh over the same process group)."""
+    return [fn(rank, world, *args) for fn, args in calls]
+
+
+def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
+               tp: int, runs, kv_split: bool) -> list:
+    """The lane's gates over every rank's results of `mesh_rank` (rank
+    order) against the meshless engine's tokens and pool bytes per run
+    index: every rank's tokens equal rank 0's; fp pools equal the
+    meshless tokens, int8 agree >= INT8_TOKEN_AGREEMENT (a run's "gate"
+    False: printed only); the data replicas of each pool (ranks of one
+    model coordinate) bit-equal; each rank's pool 1/tp of the meshless
+    pool's bytes when its KV heads split over tp (`kv_split`), all of
+    them when they do not; placement gap 0 on every rank.
+    Returns the failures (empty: every gate held)."""
+    failed = []
+    for i, run in enumerate(runs):
+        per = [r[i] for r in results]
+        name = run.get("name", f"run {i}")
+        if any(not np.array_equal(p["tokens"], per[0]["tokens"])
+               for p in per):
+            failed.append(f"{name}: the ranks' tokens differ")
+        agree = compare(per[0]["tokens"], ref_tokens[i])
+        exact = run.get("pool_dtype", "fp") != "int8"
+        if run.get("gate", True):
+            if exact and not agree["exact"]:
+                failed.append(f"{name}: tokens differ from the meshless "
+                              f"engine's {agree}")
+            if not exact and agree["min"] < INT8_TOKEN_AGREEMENT:
+                failed.append(f"{name}: agreement {agree} below "
+                              f"{INT8_TOKEN_AGREEMENT}")
+        for m in range(tp):
+            reps = [p["digests"] for p in per if p["coord"][1] == m]
+            if any(d != reps[0] for d in reps):
+                failed.append(f"{name}: the data replicas of model "
+                              f"shard {m} differ")
+        if any(p["placement_gap"] not in (None, 0) for p in per):
+            failed.append(f"{name}: placement gaps "
+                          f"{[p['placement_gap'] for p in per]}")
+        shards = tp if kv_split else 1
+        if ref_pool_bytes.get(i) and any(
+                p["pool_bytes"] * shards != ref_pool_bytes[i] for p in per):
+            failed.append(f"{name}: pool bytes {[p['pool_bytes'] for p in per]}"
+                          f" vs {ref_pool_bytes[i]} / {shards}")
+    return failed
+
+
+def mesh_parity(cfg, params, dp: int, tp: int, pool_dtype: str, *, device,
+                backend=None, threads: int = 0):
+    """The sharded-parity lane of one arch: the meshless engine, then the
+    mesh engine on dp x tp spawned ranks, on the same float32 weights
+    and prompts. Returns (the gates' failures, the meshless tokens, every
+    rank's results)."""
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    ecfg = mesh_ecfg(B, S, GEN, pool_dtype=pool_dtype)
+    ref = ServingEngine.build(cfg, ecfg, params=params, device=device)
+    reqs = [Request(request_id=i, tokens=prompts[i], max_new_tokens=GEN,
+                    arrival=0.0) for i in range(B)]
+    ref.run(reqs)
+    ref_tokens = np.stack([np.asarray(r.output) for r in reqs])
+    np_params = _to_numpy(params)
+    runs = [dict(pool_dtype=pool_dtype, name=f"pool {pool_dtype}")]
+    results = mesh_mod.run_ranks(
+        mesh_rank, dp * tp,
+        (cfg, dp, tp, np_params, prompts, GEN, runs, device),
+        device=device, backend=backend, threads=threads)
+    failed = mesh_gates(results, {0: ref_tokens},
+                        {0: pool_nbytes(ref.caches)}, tp, runs,
+                        cfg.num_kv_heads % tp == 0)
+    return failed, ref_tokens, results
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append", choices=configs.list_archs(),
@@ -319,13 +668,40 @@ def main(argv=None) -> int:
     ap.add_argument("--fault-plan", metavar="NAME",
                     help="with --fleet: the chaos-parity lane under this "
                     "plan (serving.faults.PLANS)")
+    ap.add_argument("--mesh", metavar="dpDtpT",
+                    help="run the sharded-parity lane on a D x T mesh of "
+                    "spawned ranks instead (e.g. dp2tp2)")
+    ap.add_argument("--pool-dtype", default="fp", choices=("fp", "int8"),
+                    help="with --mesh: the paged pool's dtype")
+    ap.add_argument("--backend", choices=("gloo", "nccl"),
+                    help="with --mesh: the process group's backend (the "
+                    "device's own by default: nccl on cuda, gloo on cpu)")
     args = ap.parse_args(argv)
     if args.fault_plan and not args.fleet:
         ap.error("--fault-plan needs --fleet N")
+    mesh = None
+    if args.mesh:
+        m = re.fullmatch(r"dp(\d+)tp(\d+)", args.mesh)
+        if not m:
+            ap.error(f"--mesh wants dpDtpT (e.g. dp2tp2), got {args.mesh!r}")
+        mesh = int(m.group(1)), int(m.group(2))
     failed = []
     for arch in args.arch or ["smollm_360m"]:
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
         params = M.init_model(cfg, device=args.device, seed=0)
+        if mesh:
+            dp, tp = mesh
+            bad, _, results = mesh_parity(
+                cfg, params, dp, tp, args.pool_dtype, device=args.device,
+                backend=args.backend,
+                threads=1 if args.device == "cpu" else 0)
+            r0 = results[0][0]
+            print(f"{arch}: mesh=dp{dp}tp{tp} pool={args.pool_dtype} "
+                  f"substrate={r0['substrate']} pool_bytes/rank="
+                  f"{r0['pool_bytes']} launches={r0['launches']} "
+                  f"{'OK' if not bad else 'FAIL ' + '; '.join(bad)}")
+            failed += [f"{arch}: {b}" for b in bad]
+            continue
         if args.fleet:
             if not fleet_lanes(cfg, params, args.fleet, args.fault_plan,
                                args.device):

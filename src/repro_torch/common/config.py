@@ -201,4 +201,4 @@ class TrainConfig:
         if self.compress_grads:
             raise NotImplementedError(
                 "compress_grads (the int8 cross-pod all-reduce) ports with "
-                "the mesh (ROADMAP A16)")
+                "the mesh (ROADMAP A16b)")

@@ -105,12 +105,12 @@ def _check_record(rec: Optional[dict], n_chips: int) -> None:
     """A record prices the cards it was traced on: the port's records are
     of one card (mesh "1"), so a record serves `n_chips == 1` only. A
     record of a mesh, or one card's record over several cards, needs the
-    sharded dry-run (ROADMAP A16)."""
+    sharded dry-run (ROADMAP A16c)."""
     if rec and (rec.get("mesh", "1") != "1" or n_chips != 1):
         raise NotImplementedError(
             f"a dry-run record over mesh {rec.get('mesh', '1')} priced on "
             f"{n_chips} cards needs the sharded dry-run, which ports with "
-            "ROADMAP A16 (the port's records are of one card)")
+            "ROADMAP A16c (the port's records are of one card)")
 
 
 HBM_STATE_BUDGET = 0.6  # fraction of HBM available for resident state

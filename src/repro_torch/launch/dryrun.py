@@ -24,7 +24,7 @@ may run on.
 Writes one JSON per cell under results/dryrun_torch/ (the reference's
 TPU records under results/dryrun/ are never read). The reference's
 `--mesh`, `--multi-pod` and `--no-fsdp` shard over a mesh, which ports
-with ROADMAP A16: they raise. The mesh name is "1" (one card).
+with ROADMAP A16c: they raise. The mesh name is "1" (one card).
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ def _refuse_mesh(args) -> None:
         if on:
             raise NotImplementedError(
                 f"{flag} shards the step over a mesh, which ports with "
-                "ROADMAP A16 (the port's dry-run is one card)")
+                "ROADMAP A16c (the port's dry-run is one card)")
 
 
 def _sub_batch(batch: dict, rows: int) -> dict:

@@ -19,7 +19,10 @@ slot-batched greedy decode with per-slot positions, the page-grain
 tier-aware KV pager, M/D/1-knee admission control) or N of them behind
 `serving.fleet.FleetRouter`. It runs on the card unless `--device`
 names another (`--device cpu --reduced` is the CPU smoke configuration).
-The reference's flags, plus `--device`; no mesh (ROADMAP A16). The
+The reference's flags, plus `--device`; one device, where the
+reference's launcher builds a (1, 1) smoke mesh (the engine over a mesh
+of ranks: `ServingEngine.build(mesh=...)`, `scripts/dev_serve_torch.py
+--mesh`). The
 reference's compile-count check does not apply to eager cells: the
 launcher says so and prints no stand-in count.
 """

@@ -7,7 +7,13 @@ pipeline, on one device.
 
 Runs on the card unless `--device` names another (`--device cpu
 --reduced` is the CPU smoke configuration). The reference's flags, plus
-`--device`; no mesh (ROADMAP A16).
+`--device`; no mesh (ROADMAP A16b).
+
+The steps run under `torch.use_deterministic_algorithms(True)` (the
+embedding's and the label gather's backward accumulate with atomics
+otherwise), with `CUBLAS_WORKSPACE_CONFIG=:4096:8` set before the first
+cuBLAS handle unless the caller set it, so a run resumed from a
+checkpoint is bit-equal to a straight one, as the reference's is.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import math
 import os
 import tempfile
 import time
+
+import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
@@ -47,6 +55,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    # cuBLAS reads its workspace config when its first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = resolve_device(args.device)
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(
         args.arch)
@@ -80,6 +90,8 @@ def main(argv=None):
 
     losses = []
     t_start = time.time()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
     try:
         for step in range(start_step, args.steps):
             ds_step, batch = pipeline.get()
@@ -98,6 +110,7 @@ def main(argv=None):
             if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
                 ckpt.save(step + 1, state)
     finally:
+        torch.use_deterministic_algorithms(deterministic)
         pipeline.close()
         ckpt.wait()
 

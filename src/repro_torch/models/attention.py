@@ -12,6 +12,16 @@ kernels on CUDA tensors and the plain versions on CPU tensors.
 The KV caches are updated IN PLACE where the reference's jitted cells
 return new (donated) arrays: every insert below writes into the cache or
 pool tensor it is given and returns that same tensor.
+
+Over a mesh (`ctx`, `common.parallel`) the weights are the rank's local
+shards: wq / wk / wv column-parallel over their heads, wo row-parallel
+with a sum over the model axis; which is sharded is read off the local
+shapes against the config's head counts. A rank attends with its own
+query heads to the KV heads its GQA groups need (`sharded_mha`); the
+paged pool holds the rank's KV heads (`runtime.sharding.
+paged_cache_pspec`). Where the heads cannot be split into whole groups
+the rank gathers every query head and attends whole, as the reference
+keeps such heads whole.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather, psum
 from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -28,14 +39,14 @@ from repro_torch.models.module import Initializer, torch_dtype
 
 def attn_init(init: Initializer, cfg: ModelConfig, cross: bool = False):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    init.param("wq", (d, h, hd))
-    init.param("wk", (d, kv, hd))
-    init.param("wv", (d, kv, hd))
-    init.param("wo", (h, hd, d))
+    init.param("wq", (d, h, hd), ("embed", "qheads", "head_dim"))
+    init.param("wk", (d, kv, hd), ("embed", "kvheads", "head_dim"))
+    init.param("wv", (d, kv, hd), ("embed", "kvheads", "head_dim"))
+    init.param("wo", (h, hd, d), ("qheads", "head_dim", "embed"))
     if cfg.qkv_bias and not cross:
-        init.param("bq", (h, hd), init="zeros")
-        init.param("bk", (kv, hd), init="zeros")
-        init.param("bv", (kv, hd), init="zeros")
+        init.param("bq", (h, hd), ("qheads", "head_dim"), init="zeros")
+        init.param("bk", (kv, hd), ("kvheads", "head_dim"), init="zeros")
+        init.param("bv", (kv, hd), ("kvheads", "head_dim"), init="zeros")
 
 
 def _qkv(params, x, cfg: ModelConfig, positions, rope: bool):
@@ -53,16 +64,82 @@ def _qkv(params, x, cfg: ModelConfig, positions, rope: bool):
     return q, k, v
 
 
+def _groups(H: int, KV: int, H_loc: int, ctx: ParallelCtx):
+    """How a rank holding query heads [s*H_loc, (s+1)*H_loc) of H reaches
+    its KV heads: ("local", g0, G) when they are whole GQA groups
+    g0..g0+G-1, ("group", g0, 1) when they sit inside one group, and
+    ("whole", 0, KV) when neither holds (every query head is gathered and
+    attention runs whole)."""
+    R = H // KV
+    s = ctx.index(ctx.tp_axis)
+    if H_loc % R == 0:
+        return "local", (s * H_loc) // R, H_loc // R
+    if R % H_loc == 0:
+        return "group", (s * H_loc) // R, 1
+    return "whole", 0, KV
+
+
+def sharded_mha(q, k, v, ctx: ParallelCtx = SINGLE, *, causal: bool = True,
+                heads=None):
+    """Flash attention of the rank's shard (the counterpart of the
+    reference's `shard_map` body). q (B, S, H_q, D) holds the rank's
+    query heads, k / v (B, S, KV_k, D) the KV heads it computed; `heads`
+    = (H, KV), the config's global counts (default: q's and k's own, no
+    head split). Heads go over the tp axis with local GQA group slicing:
+    the rank's KV heads are exactly its groups, or it slices the one
+    group it needs from replicated KV, or (heads not on whole or aligned
+    groups) it gathers every query head, attends whole and keeps its
+    own. The batch goes over the dp axes when B divides by their size
+    (rows gathered back after). Returns (B, S, H_q, D)."""
+    B = q.shape[0]
+    H, KV = heads or (q.shape[2], k.shape[2])
+    if ctx.mesh is None:
+        return flash_ops.mha(q, k, v, causal=causal)
+    r0, r1 = ctx.batch_rows(B)
+    split = (r0, r1) != (0, B)
+    if split:
+        q, k, v = q[r0:r1], k[r0:r1], v[r0:r1]
+    H_loc = q.shape[2]
+    if H_loc == H:
+        out = flash_ops.mha(q, k, v, causal=causal)
+    else:
+        mode, g0, G = _groups(H, KV, H_loc, ctx)
+        if mode == "whole":
+            s = ctx.index(ctx.tp_axis)
+            full = all_gather(q, ctx, ctx.tp_axis, 2)
+            out = flash_ops.mha(full, k, v, causal=causal)
+            out = out[:, :, s * H_loc:(s + 1) * H_loc]
+        else:
+            if k.shape[2] != G:             # replicated KV: take the groups
+                k = k[:, :, g0:g0 + G]
+                v = v[:, :, g0:g0 + G]
+            out = flash_ops.mha(q, k, v, causal=causal)
+    if split:
+        out = all_gather(out, ctx, ctx.dp_axes, 0)
+    return out
+
+
+def _out_proj(out, params, ctx: ParallelCtx, eq: str, cfg: ModelConfig):
+    """The output projection: row-parallel (a partial sum, reduced over
+    the tp axis) when wo holds a shard of the query heads."""
+    y = torch.einsum(eq, out, params["wo"].to(out.dtype))
+    if params["wo"].shape[0] != cfg.num_heads:
+        psum(y, ctx, ctx.tp_axis)
+    return y
+
+
 def self_attention(params, x, cfg: ModelConfig, positions=None,
                    causal: bool = True, rope: bool = True,
-                   return_kv: bool = False):
-    """Full-sequence self-attention (prefill): x (B, S, d)."""
+                   return_kv: bool = False, ctx: ParallelCtx = SINGLE):
+    """Full-sequence self-attention (prefill): x (B, S, d). Over a mesh
+    the returned k / v hold the rank's KV heads."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _qkv(params, x, cfg, positions, rope)
-    out = flash_ops.mha(q, k, v, causal=causal)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    out = sharded_mha(q, k, v, ctx, causal=causal,
+                      heads=(cfg.num_heads, cfg.num_kv_heads))
+    out = _out_proj(out, params, ctx, "bshk,hkd->bsd", cfg)
     if return_kv:
         return out, (k, v)
     return out
@@ -230,9 +307,25 @@ def paged_chunk_insert(pool, new, c0, block_row, page_tokens: int):
     return pool
 
 
+def _pool_heads(q, ctx: ParallelCtx, cfg: ModelConfig, pool):
+    """The query heads a rank attends its pool with, and how to get its
+    own heads back from the result: (q, unshard). q (..., H_q, D) along
+    dim -2. The pool holds the rank's KV heads when its query heads are
+    whole GQA groups; otherwise it holds every KV head (its head count
+    does not divide the tp axis) and the rank attends with every query
+    head, gathered."""
+    H, H_loc = cfg.num_heads, q.shape[-2]
+    if H_loc == H or pool.shape[-2] * (H // cfg.num_kv_heads) == H_loc:
+        return q, None
+    s = ctx.index(ctx.tp_axis)
+    full = all_gather(q, ctx, ctx.tp_axis, q.dim() - 2)
+    return full, (lambda out: out[..., s * H_loc:(s + 1) * H_loc, :])
+
+
 def paged_prefill_chunk_attention(params, x, cfg: ModelConfig, cache, c0,
                                   block_row, page_tokens: int,
-                                  rope: bool = True):
+                                  rope: bool = True,
+                                  ctx: ParallelCtx = SINGLE):
     """One prompt chunk x (1, C, d) at positions [c0, c0+C) against the
     paged cache, through the paged-prefill kernels. `c0` is a device
     tensor (scalar or (1,)), read by the kernels on the device; C and c0
@@ -253,6 +346,7 @@ def paged_prefill_chunk_attention(params, x, cfg: ModelConfig, cache, c0,
     c0 = torch.as_tensor(c0, device=x.device).to(torch.int32).reshape(-1)
     positions = c0[:, None].long() + torch.arange(C, device=x.device)[None]
     q, k, v = _qkv(params, x, cfg, positions.expand(B, C), rope)
+    q, unshard = _pool_heads(q, ctx, cfg, cache["k"])
     if "k_sz" in cache and cache["k_sz"].dim() == cache["k"].dim():
         k8, ksz = quant.quantize_tokens(k.float())
         v8, vsz = quant.quantize_tokens(v.float())
@@ -276,34 +370,49 @@ def paged_prefill_chunk_attention(params, x, cfg: ModelConfig, cache, c0,
     else:
         out = flash_ops.paged_prefill_insert_mha(
             q, cache["k"], cache["v"], k, v, block_row, c0)[0]
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    return out, cache
+    if unshard is not None:
+        out = unshard(out)
+    return _out_proj(out, params, ctx, "bshk,hkd->bsd", cfg), cache
 
 
 def paged_decode_self_attention(params, x, cfg: ModelConfig, cache, t,
                                 block_table, page_tokens: int,
-                                rope: bool = True):
+                                rope: bool = True,
+                                ctx: ParallelCtx = SINGLE):
     """Single-token decode against the paged cache: insert the new K/V
     through the block table (in place), then gather-attend through the
     paged decode op. x (B, 1, d); cache {"k", "v"} pools
     (P_phys, page, KV, hd) plus "k_sz"/"v_sz" when int8; t scalar or
-    (B,). Returns (out (B, 1, d), cache)."""
-    B = x.shape[0]
-    t_vec = _t_vec(t, B, x.device)
+    (B,). Returns (out (B, 1, d), cache).
+
+    Over a mesh whose dp axes split the slots, x holds only this rank's
+    rows of the (n_slots, n_pages) `block_table` (and t covers every
+    slot): the new K/V rows of every slot are gathered over the dp axes
+    and land in the rank's pool, which every dp rank holds whole, so the
+    replicas stay equal; the rank then attends for its own slots."""
+    B = block_table.shape[0]
+    t_all = _t_vec(t, B, x.device)
+    r0, r1 = ctx.batch_rows(B) if x.shape[0] != B else (0, B)
+    t_vec, bt = t_all[r0:r1], block_table[r0:r1]
     q, k, v = _qkv(params, x, cfg, t_vec[:, None], rope)
+    if x.shape[0] != B:
+        k, v = all_gather(torch.stack([k, v]), ctx, ctx.dp_axes, 1)
+    q, unshard = _pool_heads(q, ctx, cfg, cache["k"])
     if "k_sz" in cache:
-        paged_quant_cache_insert(cache["k"], cache["k_sz"], k, t_vec,
+        paged_quant_cache_insert(cache["k"], cache["k_sz"], k, t_all,
                                  block_table, page_tokens)
-        paged_quant_cache_insert(cache["v"], cache["v_sz"], v, t_vec,
+        paged_quant_cache_insert(cache["v"], cache["v_sz"], v, t_all,
                                  block_table, page_tokens)
         out = decode_ops.paged_decode_mha(
-            q[:, 0], cache["k"], cache["v"], block_table, t_vec + 1,
+            q[:, 0], cache["k"], cache["v"], bt, t_vec + 1,
             k_sz=cache["k_sz"], v_sz=cache["v_sz"],
         )
     else:
-        paged_cache_insert(cache["k"], k, t_vec, block_table, page_tokens)
-        paged_cache_insert(cache["v"], v, t_vec, block_table, page_tokens)
+        paged_cache_insert(cache["k"], k, t_all, block_table, page_tokens)
+        paged_cache_insert(cache["v"], v, t_all, block_table, page_tokens)
         out = decode_ops.paged_decode_mha(
-            q[:, 0], cache["k"], cache["v"], block_table, t_vec + 1)
-    out = torch.einsum("bhk,hkd->bd", out, params["wo"].to(x.dtype))
+            q[:, 0], cache["k"], cache["v"], bt, t_vec + 1)
+    if unshard is not None:
+        out = unshard(out)
+    out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
     return out[:, None, :], cache

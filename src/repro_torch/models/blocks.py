@@ -11,7 +11,10 @@ Every stack of the reference's catalog runs: dense and MoE attention
 decoders, SSM stacks (mamba2), hybrid attention + SSM + MoE stacks
 (jamba), the vision-prefix decoder and the encoder-decoder (its encoder
 stack non-causal, its decoder layers with cross-attention). Without a
-mesh an MoE layer is `moe.moe_dense`, as in the reference. Slot-resident
+mesh an MoE layer is `moe.moe_dense`, as in the reference. The layer
+loops take the parallel context `ctx` (`common.parallel`) and hand it to
+attention, the MLP and `moe.moe_ep`; `SINGLE` (no mesh) is the default,
+so a meshless caller is unchanged. Slot-resident
 decode state never enters the page pool: an SSM layer's `state`,
 `tail_x`, `tail_B`, `tail_C` and a decoder layer's cross-attention
 `cross_k` / `cross_v` (extent `enc_len`).
@@ -25,6 +28,7 @@ import math
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.parallel import SINGLE, ParallelCtx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -67,15 +71,15 @@ def pattern(cfg: ModelConfig, cross: bool = False, causal: bool = True):
 
 # ------------------------------------------------------------------ init
 def stack_init(generator: torch.Generator, cfg: ModelConfig, *,
-               cross: bool = False, n_layers: int | None = None) -> dict:
+               cross: bool = False, n_layers: int | None = None):
     """All layers' parameters, stacked by position-in-period on a leading
-    `nb` axis. `cross` gives every layer a cross-attention block (the
-    enc-dec decoder); `n_layers` other than cfg.num_layers sizes the
-    encoder stack."""
+    `nb` axis, and their logical-axis tree. `cross` gives every layer a
+    cross-attention block (the enc-dec decoder); `n_layers` other than
+    cfg.num_layers sizes the encoder stack. Returns (params, axes)."""
     descs = pattern(cfg, cross)
     n_layers = n_layers if n_layers is not None else cfg.num_layers
     nb = n_layers // len(descs)
-    params = {}
+    params, axes = {}, {}
     for j, desc in enumerate(descs):
         init = Initializer(generator, torch_dtype(cfg.param_dtype),
                            lead=(nb,))
@@ -93,28 +97,33 @@ def stack_init(generator: torch.Generator, cfg: ModelConfig, *,
         elif cfg.d_ff:
             mlp_init(init.child("mlp"), cfg)
         params[f"pos{j}"] = init.collect()
-    return params
+        axes[f"pos{j}"] = init.axes()
+    return params, axes
 
 
-def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc):
+def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc,
+         ctx: ParallelCtx = SINGLE, local_batch: bool = False):
     """The layer's feed-forward on the normed h: MoE (dense oracle
-    without a mesh), the dense MLP, or nothing. Returns (out, aux)."""
+    without a mesh), the dense MLP, or nothing. `local_batch`: h holds
+    only this rank's rows of a batch split over the dp axes. Returns
+    (out, aux)."""
     if desc.moe:
-        return moe_mod.moe_ep(p["moe"], h, cfg)
+        return moe_mod.moe_ep(p["moe"], h, cfg, ctx, local_batch=local_batch)
     if cfg.d_ff:
-        return mlp(p["mlp"], h, cfg), None
+        return mlp(p["mlp"], h, cfg, ctx), None
     return torch.zeros_like(h), None
 
 
 def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
-                       enc_out=None):
+                       enc_out=None, ctx: ParallelCtx = SINGLE):
     """One layer over the full sequence (training, the encoder's pass).
     Returns (x, aux), aux the layer's MoE load-balance loss (float32
     scalar, 0 for a dense layer)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
     if desc.kind == "attn":
-        h = attn.self_attention(p["attn"], h, cfg, causal=desc.causal)
+        h = attn.self_attention(p["attn"], h, cfg, causal=desc.causal,
+                                ctx=ctx)
     else:
         h = ssm_mod.ssm_block(p["ssm"], h, cfg)
     x = x + h
@@ -122,7 +131,7 @@ def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
         h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
         x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
-    h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc)
+    h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc, ctx)
     if a is not None:
         aux = aux + a
     return x + h, aux
@@ -130,7 +139,8 @@ def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
 
 def stack_apply(params, x, cfg: ModelConfig, *, cross: bool = False,
                 causal: bool = True, enc_out=None,
-                n_layers: int | None = None, remat: str = "none"):
+                n_layers: int | None = None, remat: str = "none",
+                ctx: ParallelCtx = SINGLE):
     """Full-sequence stack without caches (training and the encoder's
     pass): x (B, S, d) -> (x, aux), aux the sum of the layers' MoE
     load-balance losses (float32 scalar). `remat="block"` recomputes each
@@ -146,7 +156,7 @@ def stack_apply(params, x, cfg: ModelConfig, *, cross: bool = False,
     def body(i, x, aux, enc_out):
         for j, desc in enumerate(descs):
             x, a = _apply_layer_train(layer_slice(params[f"pos{j}"], i), x,
-                                      cfg, desc, enc_out)
+                                      cfg, desc, enc_out, ctx)
             aux = aux + a
         return x, aux
 
@@ -281,7 +291,8 @@ def init_pool_twin(caches: dict, *, pinned: bool = False) -> dict:
 
 # ------------------------------------------------------------------ apply
 def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
-                        block_table, page_tokens: int, attn_override=None):
+                        block_table, page_tokens: int, attn_override=None,
+                        ctx: ParallelCtx = SINGLE):
     """One layer, one token per slot (or, via `attn_override`, one prompt
     chunk), against the cache views `c` (updated in place): the paged
     pool through `block_table`, or the contiguous per-slot caches when
@@ -291,7 +302,9 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
     Returns x. `attn_override(p_attn, h, c) -> (h, c)` swaps the
     attention contraction while the rest of the layer body stays shared,
     so the chunked and the decode streams cannot diverge in a layer
-    change."""
+    change. Over a mesh x may hold only this rank's rows of the slots
+    (`block_table` has them all; see `attention.
+    paged_decode_self_attention`)."""
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
     if desc.kind != "attn":
         h, (state, tails) = ssm_mod.ssm_decode_step(
@@ -303,7 +316,7 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
         h, _ = attn_override(p["attn"], h, c)
     elif block_table is not None:
         h, _ = attn.paged_decode_self_attention(
-            p["attn"], h, cfg, c, t, block_table, page_tokens)
+            p["attn"], h, cfg, c, t, block_table, page_tokens, ctx=ctx)
     else:
         h, _ = attn.decode_self_attention(p["attn"], h, cfg, c["k"], c["v"],
                                           t)
@@ -312,16 +325,20 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
         h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         x = x + attn.decode_cross_attention(
             p["cross"], h, (c["cross_k"], c["cross_v"]), cfg)
-    h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc)
+    local = block_table is not None and x.shape[0] != block_table.shape[0]
+    h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc, ctx,
+                local_batch=local)
     return x + h
 
 
 def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
-                 page_tokens: int, cross: bool = False):
+                 page_tokens: int, cross: bool = False,
+                 ctx: ParallelCtx = SINGLE):
     """One decode step through the whole stack, x (B, 1, d), against the
     caches (written in place, layer by layer): the paged pool through
     `block_table`, or the contiguous (nb, B, S, KV, hd) caches when
-    `block_table` is None."""
+    `block_table` is None. Over a mesh x may hold only this rank's rows
+    of the block table's slots."""
     descs = pattern(cfg, cross)
     nb = cfg.num_layers // len(descs)
     for i in range(nb):
@@ -329,12 +346,12 @@ def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
             c = layer_slice(caches[f"pos{j}"], i)
             x = _apply_layer_decode(layer_slice(params[f"pos{j}"], i), c,
                                     x, t, cfg, desc, block_table,
-                                    page_tokens)
+                                    page_tokens, ctx=ctx)
     return x, caches
 
 
 def stack_prefill_chunk(params, caches, x, c0, cfg: ModelConfig, block_row,
-                        page_tokens: int):
+                        page_tokens: int, ctx: ParallelCtx = SINGLE):
     """One page-aligned prompt chunk x (1, C, d) through the whole stack
     against the PAGED caches: each attention layer writes the chunk's KV
     through the block row (in place) and attends to everything prefilled
@@ -347,7 +364,7 @@ def stack_prefill_chunk(params, caches, x, c0, cfg: ModelConfig, block_row,
 
     def chunk_attn(p_attn, h, c):
         return attn.paged_prefill_chunk_attention(
-            p_attn, h, cfg, c, c0, block_row, page_tokens)
+            p_attn, h, cfg, c, c0, block_row, page_tokens, ctx=ctx)
 
     nb = cfg.num_layers // len(descs)
     for i in range(nb):
@@ -355,12 +372,13 @@ def stack_prefill_chunk(params, caches, x, c0, cfg: ModelConfig, block_row,
             c = layer_slice(caches[f"pos{j}"], i)
             x = _apply_layer_decode(layer_slice(params[f"pos{j}"], i), c,
                                     x, None, cfg, desc, None, page_tokens,
-                                    attn_override=chunk_attn)
+                                    attn_override=chunk_attn, ctx=ctx)
     return x, caches
 
 
 def stack_prefill(params, x, cfg: ModelConfig, max_seq: int, *,
-                  cross: bool = False, enc_out=None):
+                  cross: bool = False, enc_out=None,
+                  ctx: ParallelCtx = SINGLE):
     """Prefill: full-sequence forward that also materializes the per-slot
     decode caches, stacked over layers: {"k", "v"} of shape (nb, B,
     max_seq, KV, hd), zero-padded past the prompt, for attention layers;
@@ -379,7 +397,7 @@ def stack_prefill(params, x, cfg: ModelConfig, max_seq: int, *,
             if desc.kind == "attn":
                 h, (k, v) = attn.self_attention(p["attn"], h, cfg,
                                                 causal=desc.causal,
-                                                return_kv=True)
+                                                return_kv=True, ctx=ctx)
                 pad = (0, 0, 0, 0, 0, max_seq - S)
                 new = {"k": torch.nn.functional.pad(k, pad),
                        "v": torch.nn.functional.pad(v, pad)}
@@ -396,7 +414,7 @@ def stack_prefill(params, x, cfg: ModelConfig, max_seq: int, *,
             for key, leaf in new.items():
                 leaves[j].setdefault(key, []).append(leaf)
             h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg,
-                        desc)
+                        desc, ctx)
             x = x + h
     caches = {f"pos{j}": {k: torch.stack(v) for k, v in leaves[j].items()}
               for j in range(len(descs))}

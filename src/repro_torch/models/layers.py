@@ -1,5 +1,16 @@
 """Shared layers: RMSNorm, embedding, RoPE, dense MLP (port of
-`repro.models.layers`, same dtype handling)."""
+`repro.models.layers`, same dtype handling).
+
+Over a mesh (`ctx`) the weights are the rank's shards, and each layer
+issues the collective its split needs (Megatron's scheme, which the
+reference leaves to XLA's partitioner): a vocab-sharded embedding looks
+up the rank's rows (zero elsewhere) and sums over the model axis; a
+vocab-sharded head gathers the logits over it; the MLP is column-parallel
+on its up / gate projections and row-parallel on its down projection,
+summed over the model axis. What is sharded is read off the local
+shapes against the config. Without a mesh (or unsharded weights) they
+are the plain functions.
+"""
 
 from __future__ import annotations
 
@@ -9,12 +20,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather, psum
 from repro_torch.models.module import Initializer, torch_dtype
 
 
 # ---------------------------------------------------------------- norms
 def rmsnorm_init(init: Initializer, d: int, name: str = "scale"):
-    init.param(name, (d,), init="ones")
+    init.param(name, (d,), ("embed",), init="ones")
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -26,30 +38,50 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 # ---------------------------------------------------------------- embedding
 def embed_init(init: Initializer, cfg: ModelConfig):
-    init.param("embedding", (cfg.vocab_size, cfg.d_model), init="embedding")
+    init.param("embedding", (cfg.vocab_size, cfg.d_model),
+               ("vocab", "embed"), init="embedding")
 
 
-def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+          ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
     table = params["embedding"]
-    out = table.index_select(0, tokens.reshape(-1)).reshape(
-        *tokens.shape, table.shape[1])
+    ids = tokens.reshape(-1)
+    V_loc = table.shape[0]
+    if V_loc != cfg.vocab_size:
+        # vocab-parallel: this rank's rows, zero for the other ranks'
+        # tokens, summed over the model axis (one term is nonzero: exact)
+        v0 = ctx.index(ctx.tp_axis) * V_loc
+        mine = (ids >= v0) & (ids < v0 + V_loc)
+        out = table.index_select(0, torch.where(mine, ids - v0, 0))
+        out = psum(out * mine[:, None].to(out.dtype), ctx, ctx.tp_axis)
+    else:
+        out = table.index_select(0, ids)
+    out = out.reshape(*tokens.shape, table.shape[1])
     return out.to(dt) * torch.sqrt(
         torch.tensor(cfg.d_model, dtype=dt, device=out.device))
 
 
-def unembed(params, x: torch.Tensor, cfg: ModelConfig, head_params=None):
-    """Project to vocab logits. Uses the tied embedding when configured."""
+def unembed(params, x: torch.Tensor, cfg: ModelConfig, head_params=None,
+            ctx: ParallelCtx = SINGLE):
+    """Project to vocab logits. Uses the tied embedding when configured.
+    A vocab-sharded table gives the rank's logits, gathered over the
+    model axis into the whole vocab."""
     if cfg.tie_embeddings:
         w = params["embedding"]   # (V, d)
-        return torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
-    w = head_params["lm_head"]    # (d, V)
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        logits = torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
+    else:
+        w = head_params["lm_head"]    # (d, V)
+        logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = all_gather(logits, ctx, ctx.tp_axis, 2)
+    return logits
 
 
 def lm_head_init(init: Initializer, cfg: ModelConfig):
     if not cfg.tie_embeddings:
-        init.param("lm_head", (cfg.d_model, cfg.vocab_size), init="normal")
+        init.param("lm_head", (cfg.d_model, cfg.vocab_size),
+                   ("embed", "vocab"), init="normal")
 
 
 # ---------------------------------------------------------------- RoPE
@@ -80,9 +112,9 @@ GATED_ACTS = ("swiglu", "geglu")
 def mlp_init(init: Initializer, cfg: ModelConfig, d_ff: Optional[int] = None):
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act in GATED_ACTS:
-        init.param("w_gate", (d, ff))
-    init.param("w_up", (d, ff))
-    init.param("w_down", (ff, d))
+        init.param("w_gate", (d, ff), ("embed", "ff"))
+    init.param("w_up", (d, ff), ("embed", "ff"))
+    init.param("w_down", (ff, d), ("ff", "embed"))
 
 
 def _gelu(x):
@@ -90,7 +122,8 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, cfg: ModelConfig,
+        ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     dt = x.dtype
     up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(dt))
     if cfg.act in GATED_ACTS:
@@ -99,4 +132,7 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = nl(gate) * up
     else:
         h = _gelu(up)
-    return torch.einsum("bsf,fd->bsd", h, params["w_down"].to(dt))
+    y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(dt))
+    if params["w_down"].shape[0] != cfg.d_ff:
+        psum(y, ctx, ctx.tp_axis)            # row-parallel partial sums
+    return y

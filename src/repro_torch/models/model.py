@@ -5,19 +5,21 @@ prepends the frontend's patch embeddings, `batch["patches"]`); audio is
 an encoder over frame embeddings (`batch["frames"]`) and a causal decoder
 with per-layer cross-attention.
 
-  init_model(cfg, generator)                    -> params
-  forward(params, batch, cfg[, remat])          -> (logits, aux)
-  loss_fn(params, batch, cfg[, remat])          -> (loss, metrics)
-  prefill(params, batch, cfg, max_seq)          -> (caches, logits_last)
+  init_model(cfg, generator[, with_axes])       -> params[, axes]
+  forward(params, batch, cfg[, remat, ctx])     -> (logits, aux)
+  loss_fn(params, batch, cfg[, remat, ctx])     -> (loss, metrics)
+  prefill(params, batch, cfg, max_seq[, ctx])   -> (caches, logits_last)
   decode_step(params, token, caches, t, cfg,
-              block_table, page_tokens)         -> (logits, caches)
+              block_table, page_tokens[, ctx])  -> (logits, caches)
   prefill_chunk(params, tokens, caches, chunk_idx, cfg,
-                block_row, page_tokens)         -> (logits, caches)
+                block_row, page_tokens[, ctx])  -> (logits, caches)
   make_decode_caches(cfg, batch, max_seq[, enc_len]) -> contiguous caches
   make_paged_decode_caches(cfg, n_slots, ...)   -> paged caches
 
 Decode and chunked prefill write the caches in place (the reference
-donates them to its jitted cells and gets new arrays back).
+donates them to its jitted cells and gets new arrays back). `ctx` (the
+parallel context, `common.parallel.SINGLE` by default) runs the rank's
+shard over a mesh; the logits come back over the whole vocab.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.common.parallel import SINGLE, ParallelCtx
 from repro_torch.models import blocks
 from repro_torch.models.layers import (
     embed,
@@ -45,13 +48,15 @@ Z_LOSS_COEF = 1e-4
 
 # ------------------------------------------------------------------ init
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               *, device=None, seed: int = 0) -> dict:
+               *, device=None, seed: int = 0, with_axes: bool = False):
     """Seeded float32 master weights with the reference's tree, shapes
     and initializer scales, on the generator's device. Without a
     generator one is made on `device` (the card by default) from
     `seed`; `device="meta"` gives the tree's shapes and dtypes only.
     Enc-dec archs add the `encoder` subtree (its blocks and final norm)
-    and give the decoder blocks cross-attention."""
+    and give the decoder blocks cross-attention. `with_axes` returns
+    (params, axes), the reference's pair: the matching tree of logical
+    axis tuples the sharding rules resolve."""
     if generator is None:
         dev = resolve_device(device)
         if dev.type != "meta":
@@ -60,30 +65,35 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     embed_init(init.child("embed"), cfg)
     lm_head_init(init.child("head"), cfg)
     rmsnorm_init(init.child("final_norm"), cfg.d_model)
-    params = init.collect()
+    params, axes = init.collect(), init.axes()
     cross = bool(cfg.num_encoder_layers)
     if cross:
-        enc = blocks.stack_init(generator, cfg,
-                                n_layers=cfg.num_encoder_layers)
+        enc, enc_axes = blocks.stack_init(generator, cfg,
+                                          n_layers=cfg.num_encoder_layers)
         norm = Initializer(generator, torch_dtype(cfg.param_dtype))
         rmsnorm_init(norm.child("final_norm"), cfg.d_model)
         params["encoder"] = {"blocks": enc, **norm.collect()}
-    params["blocks"] = blocks.stack_init(generator, cfg, cross=cross)
-    return params
+        axes["encoder"] = {"blocks": enc_axes, **norm.axes()}
+    params["blocks"], axes["blocks"] = blocks.stack_init(generator, cfg,
+                                                         cross=cross)
+    return (params, axes) if with_axes else params
 
 
-def _encode(params, frames, cfg: ModelConfig, remat: str = "none"):
+def _encode(params, frames, cfg: ModelConfig, remat: str = "none",
+            ctx: ParallelCtx = SINGLE):
     """The encoder stack (non-causal) over the frame embeddings."""
     x, _ = blocks.stack_apply(params["encoder"]["blocks"], frames, cfg,
                               causal=False,
-                              n_layers=cfg.num_encoder_layers, remat=remat)
+                              n_layers=cfg.num_encoder_layers, remat=remat,
+                              ctx=ctx)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
-def _decoder_inputs(params, batch, cfg: ModelConfig):
+def _decoder_inputs(params, batch, cfg: ModelConfig,
+                    ctx: ParallelCtx = SINGLE):
     """Token embeddings, with the vision prefix prepended. Returns
     (x, n_prefix)."""
-    x = embed(params["embed"], batch["tokens"], cfg)
+    x = embed(params["embed"], batch["tokens"], cfg, ctx)
     n_prefix = 0
     if cfg.frontend == "vision_stub" and "patches" in batch:
         pfx = torch.as_tensor(batch["patches"], device=x.device).to(x.dtype)
@@ -93,35 +103,37 @@ def _decoder_inputs(params, batch, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------- forward
-def forward(params, batch, cfg: ModelConfig, remat: str = "none"):
+def forward(params, batch, cfg: ModelConfig, remat: str = "none",
+            ctx: ParallelCtx = SINGLE):
     """Teacher-forced forward. batch: tokens (B, S) [+ patches | frames].
     Returns (logits (B, S, V) in cfg.dtype, aux float32 scalar: the MoE
     load-balance loss). The vision prefix is dropped before unembed;
     the encoder-decoder runs its encoder over `frames`. `remat="block"`
     recomputes each super-period of layers in the backward."""
-    x, n_prefix = _decoder_inputs(params, batch, cfg)
+    x, n_prefix = _decoder_inputs(params, batch, cfg, ctx)
     cross = bool(cfg.num_encoder_layers)
     enc_out = None
     if cross:
         frames = torch.as_tensor(batch["frames"], device=x.device)
-        enc_out = _encode(params, frames.to(x.dtype), cfg, remat)
+        enc_out = _encode(params, frames.to(x.dtype), cfg, remat, ctx)
     x, aux = blocks.stack_apply(params["blocks"], x, cfg, cross=cross,
-                                enc_out=enc_out, remat=remat)
+                                enc_out=enc_out, remat=remat, ctx=ctx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:, :]
-    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
     return logits, aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig, remat: str = "none"):
+def loss_fn(params, batch, cfg: ModelConfig, remat: str = "none",
+            ctx: ParallelCtx = SINGLE):
     """Next-token cross-entropy + z-loss + MoE aux; tokens (B, S+1).
     Returns (loss, metrics) with the float32 scalars `loss`, `nll`,
     `z_loss`, `moe_aux` and `accuracy`."""
     tokens = batch["tokens"]
     inputs = dict(batch, tokens=tokens[:, :-1])
     labels = tokens[:, 1:].long()
-    logits, aux = forward(params, inputs, cfg, remat)
+    logits, aux = forward(params, inputs, cfg, remat, ctx)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -139,43 +151,54 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: str = "none"):
 
 
 # ----------------------------------------------------------------- serve
-def prefill(params, batch, cfg: ModelConfig, max_seq: int):
+def prefill(params, batch, cfg: ModelConfig, max_seq: int,
+            ctx: ParallelCtx = SINGLE):
     """Process the prompt batch["tokens"] (B, S) (+ "patches" for the
     vision prefix, "frames" for the encoder), build the per-slot decode
     caches (seq extent `max_seq` plus the prefix; cross-KV extent the
-    frames'), return last-token logits (B, V)."""
-    x, n_prefix = _decoder_inputs(params, batch, cfg)
+    frames'), return last-token logits (B, V). Over a mesh every dp rank
+    runs the whole batch (attention splits it where it divides) and the
+    caches hold the rank's KV heads."""
+    x, n_prefix = _decoder_inputs(params, batch, cfg, ctx)
     cross = bool(cfg.num_encoder_layers)
     enc_out = None
     if cross:
         frames = torch.as_tensor(batch["frames"], device=x.device)
-        enc_out = _encode(params, frames.to(x.dtype), cfg)
+        enc_out = _encode(params, frames.to(x.dtype), cfg, ctx=ctx)
     x, caches = blocks.stack_prefill(params["blocks"], x, cfg,
                                      max_seq + n_prefix, cross=cross,
-                                     enc_out=enc_out)
+                                     enc_out=enc_out, ctx=ctx)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
     return caches, logits[:, 0, :]
 
 
 def decode_step(params, token, caches, t, cfg: ModelConfig,
-                block_table=None, page_tokens: int = 0):
+                block_table=None, page_tokens: int = 0,
+                ctx: ParallelCtx = SINGLE):
     """One decode step. token (B,) int; t a scalar position shared by the
     batch or a (B,) vector of per-slot positions. With `block_table`
     (B, n_pages) int32, `caches` is the paged physical page pool
     (`make_paged_decode_caches`); without, the contiguous caches
-    (`make_decode_caches`, or `prefill`'s). Written in place."""
-    x = embed(params["embed"], token[:, None], cfg)
+    (`make_decode_caches`, or `prefill`'s). Written in place.
+
+    Over a mesh whose dp axes divide the paged slots the rank decodes
+    its block of them (`ParallelCtx.batch_rows`) and returns their
+    logits only; the pool writes of every slot still land in its pool."""
+    r0, r1 = (ctx.batch_rows(token.shape[0]) if block_table is not None
+              else (0, token.shape[0]))
+    x = embed(params["embed"], token[r0:r1, None], cfg, ctx)
     x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
                                     block_table, page_tokens,
-                                    cross=bool(cfg.num_encoder_layers))
+                                    cross=bool(cfg.num_encoder_layers),
+                                    ctx=ctx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
     return logits[:, 0, :], caches
 
 
 def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,
-                  block_row, page_tokens: int):
+                  block_row, page_tokens: int, ctx: ParallelCtx = SINGLE):
     """One page-aligned prompt chunk against the PAGED caches: tokens
     (1, C) at absolute positions [chunk_idx*C, (chunk_idx+1)*C), written
     through `block_row` (1, n_pages), the prefilling slot's table row, in
@@ -185,11 +208,12 @@ def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,
     C = tokens.shape[1]
     c0 = torch.as_tensor(chunk_idx, device=tokens.device).to(
         torch.int32) * C
-    x = embed(params["embed"], tokens, cfg)
+    x = embed(params["embed"], tokens, cfg, ctx)
     x, caches = blocks.stack_prefill_chunk(params["blocks"], caches, x, c0,
-                                           cfg, block_row, page_tokens)
+                                           cfg, block_row, page_tokens,
+                                           ctx=ctx)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg, params.get("head"))
+    logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
     return logits[:, 0, :], caches
 
 

@@ -4,8 +4,10 @@ Parameters are plain nested dicts of tensors with the reference's keys
 (`embed/embedding`, `final_norm/scale`, `blocks/pos{j}/attn/wq`, ...) and
 its stacked leading `nb` layer axis on every block leaf, so a tree from
 `repro.models.model.init_model` converts leaf for leaf
-(`load_numpy_params`). The reference's logical-axis tree (its sharding
-metadata) has no counterpart here until mesh sharding ports (ROADMAP A16).
+(`load_numpy_params`). Beside the values every initializer records the
+reference's logical-axis tree (one name or None per dim, "layers" on the
+stacked axis), which the sharding rules (`runtime.sharding`) resolve
+into each rank's shard over a mesh.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ class Initializer:
     The numbers differ from the reference's `jax.random` draws; the
     shapes and scales do not. With no generator the parameters are meta
     tensors (shapes and dtypes only, nothing allocated), the counterpart
-    of the reference's `shape_mode()`."""
+    of the reference's `shape_mode()`. `axes` names each dim of `shape`
+    as the reference's `init.param` does; the lead axis is "layers"."""
 
     def __init__(self, generator: Optional[torch.Generator],
                  dtype=torch.float32, lead: tuple = ()):
@@ -43,9 +46,13 @@ class Initializer:
         self._dtype = dtype
         self._lead = tuple(lead)
         self._values: dict = {}
+        self._axes: dict = {}
 
-    def param(self, name: str, shape: tuple, init: str = "normal",
+    def param(self, name: str, shape: tuple, axes: tuple,
+              init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {shape} vs axes {axes}")
         full = self._lead + tuple(shape)
         dev = torch.device("meta") if self._gen is None else self._gen.device
         if init == "zeros":
@@ -62,15 +69,21 @@ class Initializer:
         else:
             raise ValueError(f"unknown init {init}")
         self._values[name] = v
+        self._axes[name] = ("layers",) * len(self._lead) + tuple(axes)
         return v
 
     def child(self, name: str) -> "Initializer":
         sub = Initializer(self._gen, self._dtype, self._lead)
         self._values[name] = sub._values
+        self._axes[name] = sub._axes
         return sub
 
     def collect(self) -> dict:
         return self._values
+
+    def axes(self) -> dict:
+        """The logical-axis tree matching `collect()`."""
+        return self._axes
 
 
 def load_numpy_params(tree, *, device, dtype=None):

@@ -1,33 +1,48 @@
-"""Mixture-of-Experts FFN (port of the meshless path of
+"""Mixture-of-Experts FFN with expert parallelism (port of
 `repro.models.moe`).
 
-`moe_dense` computes every expert for every token and combines the
-outputs with the top-k gate weights: exact, O(E) compute, the path the
-reference takes whenever there is no mesh. The expert FFN is three
-batched products (the reference's are jnp einsums outside any Pallas
-kernel). The router runs in float32 and the gates are renormalized over
-the top k.
+Two execution paths with identical math (up to capacity dropping):
 
-`moe_ep` under a mesh (the capacity-bounded all_to_all dispatch of the
-reference's `_moe_local`) ports with mesh sharding (ROADMAP A16).
+* `moe_dense` computes every expert for every token and combines the
+  outputs with the top-k gate weights: exact, O(E) compute, the path
+  without a mesh. The expert FFN is three batched products (the
+  reference's are jnp einsums outside any Pallas kernel).
+* `moe_ep` over a mesh: each rank routes its tokens with the
+  capacity-bounded sort-based dispatch (`_moe_local`), exchanges them
+  over the EP (model) axis with `all_to_all`, runs its local experts and
+  sends the outputs back, the DeepSeek-style EP schedule of the
+  reference's `shard_map` body on `torch.distributed`.
+
+The router runs in float32 and the gates are renormalized over the top k.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.parallel import (
+    SINGLE,
+    ParallelCtx,
+    all_gather,
+    all_to_all,
+    local_slice,
+    psum,
+)
 from repro_torch.models.layers import GATED_ACTS, _gelu
 from repro_torch.models.module import Initializer
 
 
 def moe_init(init: Initializer, cfg: ModelConfig):
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    init.param("router", (d, e))
+    init.param("router", (d, e), ("embed", "experts"))
     if cfg.act in GATED_ACTS:
-        init.param("w_gate", (e, d, ff))
-    init.param("w_up", (e, d, ff))
-    init.param("w_down", (e, ff, d))
+        init.param("w_gate", (e, d, ff), ("experts", "embed", "moe_ff"))
+    init.param("w_up", (e, d, ff), ("experts", "embed", "moe_ff"))
+    init.param("w_down", (e, ff, d), ("experts", "moe_ff", "embed"))
 
 
 def top_k(probs: torch.Tensor, k: int):
@@ -86,11 +101,148 @@ def moe_dense(params, x, cfg: ModelConfig):
     return y.reshape(B, S, d), _aux_loss(probs, idx, cfg)
 
 
-def moe_ep(params, x, cfg: ModelConfig, mesh=None):
-    """Expert-parallel MoE, x (B, S, d) -> (y, aux). Without a mesh the
-    reference returns `moe_dense`, and so does the port."""
-    if mesh is None:
+# ------------------------------------------------------------------ EP
+def _capacity(tokens_local: int, cfg: ModelConfig) -> int:
+    c = math.ceil(
+        tokens_local * cfg.experts_per_token * cfg.capacity_factor
+        / cfg.num_experts
+    )
+    return max(int(c), 4)
+
+
+def _moe_local(params, x, cfg: ModelConfig, ctx: ParallelCtx,
+               ep_axis: Optional[str], fsdp_axis: Optional[str],
+               ep_size: int, fsdp_mode: str = "rowcol"):
+    """One rank's body. x (T_loc, d); params the rank's expert shard
+    (E / ep_size experts; with `fsdp_axis`, its block of each expert's
+    ff dim). Returns (y (T_loc, d), aux).
+
+    fsdp_mode handles the ff dim sharded over `fsdp_axis`:
+      "gather" — all-gather the weights (classic FSDP);
+      "rowcol" — column/row-parallel expert products on the ff shard and
+                 one sum of the expert OUTPUT over the fsdp axis, which
+                 is right only where every rank of that axis holds the
+                 same tokens (`moe_ep` picks "gather" otherwise).
+
+    Dispatch: the (token, choice) pairs sorted stably by expert, each
+    pair's position within its expert from `searchsorted`, slot = expert
+    * C + position, pairs past the capacity C dropped."""
+    T, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    E_loc = E // ep_size
+    C = _capacity(T, cfg)
+
+    w = params
+    rowcol = fsdp_axis is not None and fsdp_mode == "rowcol"
+    if fsdp_axis is not None and not rowcol:
+        w = dict(params)
+        for name in ("w_gate", "w_up", "w_down"):
+            if name in params:
+                dim = 2 if name != "w_down" else 1
+                w[name] = all_gather(params[name].to(x.dtype), ctx,
+                                     fsdp_axis, dim)
+
+    gates, idx, probs = _route(w, x.float(), cfg)
+
+    flat_e = idx.reshape(-1)                          # (T*k,)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
+    flat_g = gates.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    first = torch.searchsorted(se, torch.arange(E, device=x.device))
+    pos = torch.arange(T * k, device=x.device) - first[se]
+    keep = pos < C
+    slot = se * C + torch.where(keep, pos, 0)
+
+    send = torch.zeros((E * C, d), dtype=x.dtype, device=x.device)
+    send.index_add_(0, slot, torch.where(keep[:, None], x[st], 0))
+    send = send.reshape(ep_size, E_loc, C, d)
+    recv = all_to_all(send, ctx, ep_axis) if ep_size > 1 else send
+    h = recv.transpose(0, 1).reshape(E_loc, ep_size * C, d)
+
+    out = _expert_ffn(w, h, cfg)                      # (E_loc, M*C, d)
+    if rowcol:
+        psum(out, ctx, fsdp_axis)   # row-parallel epilogue over the ff dim
+
+    out = out.reshape(E_loc, ep_size, C, d).transpose(0, 1).contiguous()
+    back = all_to_all(out, ctx, ep_axis) if ep_size > 1 else out
+    flat_back = back.reshape(E * C, d)
+
+    contrib = flat_back[slot].float() * sg[:, None]
+    contrib = torch.where(keep[:, None], contrib, 0.0)
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, st, contrib)
+
+    # the load-balance aux over the GLOBAL token set: the sufficient
+    # statistics (dispatch counts, router prob sums, token count) summed
+    # over every axis, since the loss is not linear over token partitions
+    stats = torch.cat([
+        torch.nn.functional.one_hot(idx, E).float().sum(dim=(0, 1)),
+        probs.sum(dim=0),
+        torch.full((1,), float(T), device=x.device)])
+    psum(stats, ctx, ctx.all_axes)
+    counts, p_sum, t_cnt = stats[:E], stats[E:2 * E], stats[2 * E]
+    f = counts / (t_cnt * k)
+    p = p_sum / t_cnt
+    aux = E * torch.sum(f * p)
+    return y.to(x.dtype), aux
+
+
+def moe_ep(params, x, cfg: ModelConfig, ctx: ParallelCtx = SINGLE, *,
+           local_batch: bool = False):
+    """Expert-parallel MoE. x (B, S, d) -> (y, aux). Without a mesh it is
+    `moe_dense`, as in the reference.
+
+    Over a mesh `params` is the rank's shard: its E / ep experts (EP over
+    the tp axis) and, where the rules split `moe_ff`, its block of their
+    ff dim over the fsdp axis. x is the batch every dp rank holds; the
+    rank takes its rows when B divides by the dp size and its block of
+    the sequence over the EP axis (`shard_seq_moe`, S % ep == 0), as the
+    reference's shard_map in_specs split them, and gathers y back.
+    `local_batch` says x already holds only this rank's rows of a batch
+    split over the dp axes (the decode step's slots): no further split.
+    Where the dp axes split the tokens over the fsdp axis, the ff shards
+    are gathered ("gather") instead of the expert outputs being summed
+    over that axis ("rowcol" would add other ranks' tokens)."""
+    if ctx.mesh is None:
         return moe_dense(params, x, cfg)
-    raise NotImplementedError(
-        "moe_ep over a mesh (capacity dispatch + all_to_all) ports with "
-        "mesh sharding (ROADMAP A16)")
+    B, S, d = x.shape
+    ep_axis = ctx.tp_axis
+    ep_size = ctx.axis_size(ep_axis)
+    if cfg.num_experts % max(ep_size, 1):
+        raise ValueError(f"{cfg.num_experts} experts over an EP axis of "
+                         f"{ep_size}")
+    E_loc = params["w_up"].shape[0]
+    if E_loc * ep_size != cfg.num_experts:
+        raise ValueError(f"the rank holds {E_loc} experts; EP over "
+                         f"{ep_size} ranks needs {cfg.num_experts // ep_size}")
+    if params["w_up"].shape[1] != d:
+        raise NotImplementedError(
+            "expert weights sharded on their embed dim (the training rules)"
+            " port with sharded training (ROADMAP A16b)")
+    fsdp = ctx.fsdp_axis if params["w_up"].shape[2] != cfg.moe_d_ff else None
+    router = params["router"]                 # every rank routes alike
+    if router.shape[1] != cfg.num_experts:
+        router = all_gather(router, ctx, ep_axis, 1)
+    params = dict(params, router=router)
+    dp_split = not local_batch and ctx.batch_split(B)
+    mode = ctx.moe_fsdp_mode
+    if fsdp is not None and (local_batch or dp_split) \
+            and fsdp in ctx.dp_axes:
+        mode = "gather"
+    seq_split = (ctx.shard_seq_moe and ep_axis is not None and ep_size > 1
+                 and S % ep_size == 0 and S >= ep_size)
+    xs = x
+    if dp_split:
+        xs = local_slice(xs, ctx, ctx.dp_axes, 0)
+    if seq_split:
+        xs = local_slice(xs, ctx, ep_axis, 1)
+    bs, ss = xs.shape[0], xs.shape[1]
+    y, aux = _moe_local(params, xs.reshape(-1, d), cfg, ctx, ep_axis, fsdp,
+                        ep_size, fsdp_mode=mode)
+    y = y.reshape(bs, ss, d)
+    if seq_split:
+        y = all_gather(y, ctx, ep_axis, 1)
+    if dp_split:
+        y = all_gather(y, ctx, ctx.dp_axes, 0)
+    return y, aux

@@ -24,19 +24,19 @@ def ssm_init(init: Initializer, cfg: ModelConfig):
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     h, w = cfg.ssm_heads, cfg.conv_width
     gn = NGROUPS * n
-    init.param("w_in_x", (d, di))
-    init.param("w_in_z", (d, di))
-    init.param("w_in_B", (d, gn))
-    init.param("w_in_C", (d, gn))
-    init.param("w_in_dt", (d, h))
-    init.param("conv_x", (w, di), scale=0.5)
-    init.param("conv_B", (w, gn), scale=0.5)
-    init.param("conv_C", (w, gn), scale=0.5)
-    init.param("A_log", (h,), init="zeros")
-    init.param("D", (h,), init="ones")
-    init.param("dt_bias", (h,), init="zeros")
-    init.param("norm_scale", (di,), init="ones")
-    init.param("w_out", (di, d))
+    init.param("w_in_x", (d, di), ("embed", "ssm_inner"))
+    init.param("w_in_z", (d, di), ("embed", "ssm_inner"))
+    init.param("w_in_B", (d, gn), ("embed", None))
+    init.param("w_in_C", (d, gn), ("embed", None))
+    init.param("w_in_dt", (d, h), ("embed", "ssm_heads"))
+    init.param("conv_x", (w, di), (None, "ssm_inner"), scale=0.5)
+    init.param("conv_B", (w, gn), (None, None), scale=0.5)
+    init.param("conv_C", (w, gn), (None, None), scale=0.5)
+    init.param("A_log", (h,), ("ssm_heads",), init="zeros")
+    init.param("D", (h,), ("ssm_heads",), init="ones")
+    init.param("dt_bias", (h,), ("ssm_heads",), init="zeros")
+    init.param("norm_scale", (di,), ("ssm_inner",), init="ones")
+    init.param("w_out", (di, d), ("ssm_inner", "embed"))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -35,32 +35,55 @@ encoder's K/V slot-resident (extent `enc_len`, one prompt bucket).
 
 The one-device serve bundle (`make_bundle`: `build_prefill`,
 `build_decode` and the meta params and caches) is what the dry-run
-traces. Not ported yet: mesh sharding (ROADMAP A16).
+traces.
+
+MESH-SHARDED SERVING (`make_engine_cells(ctx=..., mesh=...)`): one
+process per rank of a `DeviceMesh`, every cell running the rank's shard.
+The parameters' specs come from the sharding rules (default
+`ShardingRules.for_serving(data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)`),
+the paged pool's from `runtime.sharding.paged_cache_pspec`: KV heads
+over `model` (the int8 (scale, zero) leaves with them), the page axis
+unsharded, so each `data` rank holds the whole pool of its heads; the
+block tables, tokens and positions stay replicated (every rank runs the
+same host loop). The decode cell splits the slots over the dp axes and
+gathers the greedy tokens back; prefill (batch 1) and chunked prefill
+run whole on every dp rank. The engine cuts its weights and pool into
+the rank's shards with `runtime.sharding.shard_tree` (`EngineCells.
+param_pspecs` / `cache_pspecs`). Over a mesh the cells serve decoder
+stacks of attention layers (dense, MoE, the vision prefix) on the paged
+layout; SSM, hybrid and encoder-decoder stacks, the contiguous layout
+and speculative decoding are refused (ROADMAP A16d).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather
 from repro_torch.kernels import quant
 from repro_torch.kernels.page_io import ops as page_ops
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
 from repro_torch.models.module import cast_params
+from repro_torch.runtime import sharding as shd
 
 
-def abstract_params(cfg: ModelConfig, serve_dtype: bool = True) -> dict:
+def abstract_params(cfg: ModelConfig, serve_dtype: bool = True,
+                    with_axes: bool = False):
     """The parameter tree on the meta device (shapes and dtypes, nothing
     allocated); serving uses inference dtype (cfg.dtype) weights. Same
-    leaf names, shapes and dtypes as the reference's `abstract_params`
-    (which also returns its logical-axis tree; the port has none)."""
-    params = M.init_model(cfg, device="meta")
-    return cast_params(params, cfg.dtype) if serve_dtype else params
+    leaf names, shapes and dtypes as the reference's `abstract_params`;
+    `with_axes` returns (params, axes) as the reference does, the
+    logical-axis tree beside them."""
+    params, axes = M.init_model(cfg, device="meta", with_axes=True)
+    if serve_dtype:
+        params = cast_params(params, cfg.dtype)
+    return (params, axes) if with_axes else params
 
 
 def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int,
@@ -71,13 +94,14 @@ def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int,
                                 device="meta")
 
 
-def build_prefill(cfg: ModelConfig, max_seq: int):
+def build_prefill(cfg: ModelConfig, max_seq: int,
+                  ctx: ParallelCtx = SINGLE):
     """prefill_step(params, batch) -> (caches, last-token logits): the
     model's prompt pass over a batch of equal-length prompts, its caches
     of seq extent `max_seq` (plus the vision prefix)."""
 
     def prefill_step(params, batch):
-        return M.prefill(params, batch, cfg, max_seq)
+        return M.prefill(params, batch, cfg, max_seq, ctx)
 
     return prefill_step
 
@@ -95,27 +119,64 @@ def build_decode(cfg: ModelConfig):
 
 @dataclasses.dataclass
 class ServeBundle:
-    """The serve steps of one device and the meta trees they take. The
-    reference's bundle also carries the params' and caches' shardings
-    over a mesh (ROADMAP A16)."""
+    """The serve steps and the meta trees they take; over a mesh also the
+    params' and caches' specs (the reference's shardings). Over a mesh
+    there is no `decode_fn`: the contiguous decode over the
+    sequence-sharded caches of `cache_pspec` is not ported (ROADMAP
+    A16c); the mesh serves through `make_engine_cells`' paged cells."""
 
     prefill_fn: Any
     decode_fn: Any
     abstract_params: Any
     abstract_caches: Any
+    param_pspecs: Any = None
+    cache_pspecs: Any = None
+
+
+def _check_mesh(ctx: Optional[ParallelCtx], mesh):
+    """The parallel context of a mesh build: `ctx` (its mesh must be
+    `mesh`) or, given only the mesh, `launch.mesh.ctx_for_mesh`'s."""
+    if mesh is None:
+        if ctx is not None and ctx.mesh is not None:
+            return ctx, ctx.mesh
+        return ctx or SINGLE, None
+    if not hasattr(mesh, "get_group"):
+        raise TypeError(f"mesh must be a torch DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    if ctx is None:
+        from repro_torch.launch.mesh import ctx_for_mesh
+
+        ctx = ctx_for_mesh(mesh, remat="none")
+    if ctx.mesh is not mesh:
+        raise ValueError("ctx.mesh is not the mesh given")
+    return ctx, mesh
 
 
 def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
-                enc_len: int = 0, mesh=None, rules=None) -> ServeBundle:
-    """The prefill and decode steps and the meta params and caches, on
-    one device. `mesh` and `rules` (sharding over a mesh) port with
-    ROADMAP A16."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharding the serve bundle over a mesh ports with ROADMAP A16")
-    return ServeBundle(build_prefill(cfg, max_seq), build_decode(cfg),
-                       abstract_params(cfg),
-                       abstract_caches(cfg, batch, max_seq, enc_len))
+                enc_len: int = 0, mesh=None, rules=None,
+                ctx: Optional[ParallelCtx] = None) -> ServeBundle:
+    """The prefill and decode steps and the meta params and caches (the
+    reference's `make_bundle`). With a mesh (a `DeviceMesh`; `ctx`
+    defaults to `ctx_for_mesh(mesh)`): the params' specs from `rules`
+    (default `for_serving(ctx.fsdp_axis, ctx.tp_axis)`), the caches'
+    from `cache_pspec`, the prefill step over the rank's shard and no
+    decode step (see `ServeBundle`)."""
+    ctx, mesh = _check_mesh(ctx, mesh)
+    if mesh is None:
+        if rules is not None:
+            raise ValueError("rules shard over a mesh; none was given")
+        return ServeBundle(build_prefill(cfg, max_seq), build_decode(cfg),
+                           abstract_params(cfg),
+                           abstract_caches(cfg, batch, max_seq, enc_len))
+    rules = rules or shd.ShardingRules.for_serving(
+        data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
+    aparams, axes = abstract_params(cfg, with_axes=True)
+    acaches = abstract_caches(cfg, batch, max_seq, enc_len)
+    return ServeBundle(
+        build_prefill(cfg, max_seq, ctx), None, aparams, acaches,
+        param_pspecs=shd.pspecs_for_tree(aparams, axes, rules, mesh),
+        cache_pspecs=shd.cache_pspec(acaches, ctx.dp_axes, ctx.tp_axis,
+                                     mesh))
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -128,7 +189,8 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
     return all(cfg.is_attn_layer(j) for j in range(blk.super_period(cfg)))
 
 
-def build_prefill_greedy(cfg: ModelConfig, bucket: int):
+def build_prefill_greedy(cfg: ModelConfig, bucket: int,
+                         ctx: ParallelCtx = SINGLE):
     """Prefill cell for one prompt bucket: returns the request's decode
     caches (seq extent `bucket` plus the frontend prefix; cross-KV extent
     follows the frames in the batch) and its greedy first token. The
@@ -136,7 +198,8 @@ def build_prefill_greedy(cfg: ModelConfig, bucket: int):
     Prompts must be exactly `bucket` long (see serving.batcher)."""
 
     def cell(params, batch):
-        caches, logits = M.prefill(params, batch, cfg, max_seq=bucket)
+        caches, logits = M.prefill(params, batch, cfg, max_seq=bucket,
+                                   ctx=ctx)
         return caches, torch.argmax(logits, dim=-1).to(torch.int32)
 
     return cell
@@ -155,20 +218,29 @@ def build_decode_greedy(cfg: ModelConfig):
     return cell
 
 
-def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int):
+def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int,
+                              ctx: ParallelCtx = SINGLE):
     """Greedy decode cell over the PAGED caches: one token per slot, the
     argmax and a per-slot finiteness flag computed on the device (argmax
     of NaN logits would otherwise turn a numerical blow-up into silently
     wrong tokens; parked slots carry garbage, so the engine masks them).
-    `torch.argmax` takes the first maximum, as `jnp.argmax` does."""
+    `torch.argmax` takes the first maximum, as `jnp.argmax` does. Over a
+    mesh the rank decodes its block of the slots and the tokens and flags
+    of every slot are gathered over the dp axes, so every rank returns
+    the same (S,) vectors."""
 
     def cell(params, token, caches, t, block_table):
         logits, caches = M.decode_step(
             params, token, caches, t, cfg,
-            block_table=block_table, page_tokens=page_tokens,
+            block_table=block_table, page_tokens=page_tokens, ctx=ctx,
         )
         finite = torch.isfinite(logits).all(dim=-1)
-        return torch.argmax(logits, dim=-1).to(torch.int32), finite, caches
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if tok.shape[0] != token.shape[0]:
+            both = all_gather(torch.stack([tok, finite.to(torch.int32)]),
+                              ctx, ctx.dp_axes, 1)
+            tok, finite = both[0], both[1].bool()
+        return tok, finite, caches
 
     return cell
 
@@ -297,7 +369,8 @@ def build_page_copy():
     return copy
 
 
-def build_prefill_chunk(cfg: ModelConfig, page_tokens: int):
+def build_prefill_chunk(cfg: ModelConfig, page_tokens: int,
+                        ctx: ParallelCtx = SINGLE):
     """Chunked-prefill cell: one page-aligned chunk of one request's
     prompt against the global PAGED caches — no per-request caches, no
     insert step; the chunk's K/V goes straight through the slot's block
@@ -307,7 +380,7 @@ def build_prefill_chunk(cfg: ModelConfig, page_tokens: int):
     def cell(params, tokens, caches, slot, chunk_idx, block_table):
         row = block_table[int(slot):int(slot) + 1]      # (1, n_pages)
         logits, caches = M.prefill_chunk(
-            params, tokens, caches, chunk_idx, cfg, row, page_tokens)
+            params, tokens, caches, chunk_idx, cfg, row, page_tokens, ctx)
         return torch.argmax(logits, dim=-1).to(torch.int32), caches
 
     return cell
@@ -326,7 +399,12 @@ class EngineCells:
     when chunked prefill is on, and with speculation `verify_fn(params,
     cand (S, k), caches, t (S,), bt) -> (greedy (S, k), finite (S,),
     caches)`; with the draft proposer `draft_fn(params, tok (S,), caches,
-    t (S,)) -> (tok (S,), caches)`. Caches are written in place."""
+    t (S,)) -> (tok (S,), caches)`. Caches are written in place.
+
+    Over a mesh (`ctx.mesh`): `param_pspecs` / `cache_pspecs` give the
+    rank's shard of the global params and caches (`runtime.sharding.
+    shard_tree`), and `abstract_caches` stays the global tree, whose
+    bytes the pager prices."""
 
     decode_fn: Any
     prefill_fns: Dict[int, Any]
@@ -348,6 +426,25 @@ class EngineCells:
     draft_fn: Any = None           # draft-proposer decode cell
     draft_params: Any = None       # draft weights (seed 0, draft dtype)
     draft_cfg: Any = None          # draft ModelConfig (sizes its caches)
+    ctx: ParallelCtx = SINGLE      # the mesh the cells run over
+    param_pspecs: Any = None       # (mesh) specs of the params' shards
+    cache_pspecs: Any = None       # (mesh) specs of the caches' shards
+
+
+def _mesh_supported(cfg: ModelConfig, paged: bool, speculative: str):
+    descs = blk.pattern(cfg, bool(cfg.num_encoder_layers))
+    if any(d.kind != "attn" or d.cross for d in descs):
+        raise NotImplementedError(
+            f"{cfg.name}: serving SSM, hybrid or encoder-decoder stacks over "
+            "a mesh (slot-resident state split over the dp axes) ports "
+            "with ROADMAP A16d")
+    if not paged:
+        raise NotImplementedError(
+            "the contiguous layout over a mesh ports with ROADMAP A16d; "
+            "the mesh serves the paged pool")
+    if speculative != "off":
+        raise NotImplementedError(
+            "speculative decoding over a mesh ports with ROADMAP A16d")
 
 
 def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
@@ -357,14 +454,26 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                       pool_dtype: str = "fp", sz_granularity: str = "page",
                       speculative: str = "off", spec_k: int = 4,
                       draft_cfg: ModelConfig | None = None,
-                      device=None) -> EngineCells:
+                      device=None, ctx: Optional[ParallelCtx] = None,
+                      mesh=None, rules=None) -> EngineCells:
     """Build the engine's cells for `device` (the card by default).
     `paged=False` builds the contiguous layout's cells; `prefill_chunk >
     0` (paged, attention-only archs) adds the chunked-prefill cell;
     `speculative` ("off" | "ngram" | "draft") adds the k-candidate verify
     cell and, for "draft", the draft cell and its weights (seed 0, cast
     to `draft_cfg.dtype`). `enc_len` sizes the slot-resident cross-KV of
-    enc-dec archs, whose single prompt bucket fixes it."""
+    enc-dec archs, whose single prompt bucket fixes it.
+
+    With `mesh` (a `DeviceMesh`; `ctx` defaults to `ctx_for_mesh(mesh)`)
+    the cells run the rank's shard (module docstring): the params' specs
+    from `rules` (default `ShardingRules.for_serving(data_axis=
+    ctx.fsdp_axis, tp_axis=ctx.tp_axis)`), the pool's from
+    `paged_cache_pspec`."""
+    ctx, mesh = _check_mesh(ctx, mesh)
+    if mesh is None and rules is not None:
+        raise ValueError("rules shard over a mesh; none was given")
+    if mesh is not None:
+        _mesh_supported(cfg, paged, speculative)
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
     if pool_dtype != "fp" and not paged:
         raise ValueError("pool_dtype applies to the paged layout only")
@@ -420,7 +529,8 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
             )
     device = resolve_device(device)
     max_seq_total = max_seq + npfx
-    prefills = {b: build_prefill_greedy(cfg, b) for b in sorted(set(buckets))}
+    prefills = {b: build_prefill_greedy(cfg, b, ctx)
+                for b in sorted(set(buckets))}
     if not paged:
         return EngineCells(
             decode_fn=build_decode_greedy(cfg),
@@ -442,6 +552,15 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
     inserts = {b: build_paged_cache_insert(b + npfx, page_tokens, pool_dtype,
                                            sz_granularity)
                for b in prefills}
+    param_pspecs = cache_pspecs = None
+    if mesh is not None:
+        rules = rules or shd.ShardingRules.for_serving(
+            data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
+        aparams, axes = abstract_params(cfg, with_axes=True)
+        param_pspecs = shd.pspecs_for_tree(aparams, axes, rules, mesh)
+        cache_pspecs = shd.paged_cache_pspec(acaches, ctx.dp_axes,
+                                             ctx.tp_axis, mesh)
+        _check_kv_heads(param_pspecs, cache_pspecs, mesh)
     draft_fn = draft_params = None
     if speculative == "draft":
         # seeded like the reference's PRNGKey(0) tree (other numbers, the
@@ -450,7 +569,7 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         draft_params = cast_params(
             M.init_model(draft_cfg, device=device, seed=0), draft_cfg.dtype)
     return EngineCells(
-        decode_fn=build_decode_greedy_paged(cfg, page_tokens),
+        decode_fn=build_decode_greedy_paged(cfg, page_tokens, ctx),
         prefill_fns=prefills,
         insert_fns=inserts,
         abstract_caches=acaches,
@@ -462,8 +581,8 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         pool_dtype=pool_dtype,
         sz_granularity=sz_granularity,
         copy_fn=build_page_copy(),
-        chunk_fn=(build_prefill_chunk(cfg, page_tokens) if prefill_chunk
-                  else None),
+        chunk_fn=(build_prefill_chunk(cfg, page_tokens, ctx)
+                  if prefill_chunk else None),
         chunk=prefill_chunk,
         verify_fn=(build_decode_verify_paged(cfg, page_tokens, spec_k)
                    if speculative != "off" else None),
@@ -471,4 +590,27 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         draft_fn=draft_fn,
         draft_params=draft_params,
         draft_cfg=draft_cfg if speculative == "draft" else None,
+        ctx=ctx,
+        param_pspecs=param_pspecs,
+        cache_pspecs=cache_pspecs,
     )
+
+
+def _check_kv_heads(param_pspecs, cache_pspecs, mesh) -> None:
+    """The pool splits KV heads over the tp axis exactly where the rules
+    split wk / wv (an axis of size 1 splits nothing): a rank writes the
+    heads it computes."""
+    sizes = shd.axis_sizes(mesh)
+
+    def split(entry):
+        return entry if entry is not None and sizes[entry] > 1 else None
+
+    for pos, c in cache_pspecs.items():
+        if "k" not in c:
+            continue
+        attn = param_pspecs["blocks"][pos]["attn"]
+        for w in ("wk", "wv"):
+            if split(attn[w][2]) != split(c["k"][3]):
+                raise ValueError(
+                    f"{pos}: the rules put {w}'s KV heads on "
+                    f"{attn[w][2]!r}, the paged pool on {c['k'][3]!r}")

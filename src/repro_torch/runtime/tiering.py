@@ -24,7 +24,7 @@ memory (the card), "logical-only" where it does not.
 same probes (`capability.substrate_mode`).
 
 One card: every leaf is whole on it, so `shard_counts` is 1 throughout
-(sharding the state over a mesh ports with ROADMAP A16).
+(sharding the state over a mesh ports with ROADMAP A16b).
 """
 
 from __future__ import annotations

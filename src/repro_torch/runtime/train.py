@@ -12,7 +12,7 @@ a step returns a new state, as the reference's jitted step does.
 
 Mesh sharding of the state and the batch (the reference's
 `state_pspecs`, `make_bundle`'s shardings and donation) ports with the
-mesh (ROADMAP A16).
+mesh (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 class TrainBundle:
     """What the launcher needs to run a step: the step and the state's
     meta tree. The reference's bundle also carries the state's and the
-    batch's shardings over a mesh (ROADMAP A16)."""
+    batch's shardings over a mesh (ROADMAP A16b)."""
 
     step_fn: Any
     abstract_state: Any
@@ -146,8 +146,8 @@ class TrainBundle:
 def make_bundle(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
                 rules=None) -> TrainBundle:
     """The train step and the abstract state, on one device. `mesh` and
-    `rules` (sharding the state over a mesh) port with ROADMAP A16."""
+    `rules` (sharding the state over a mesh) port with ROADMAP A16b."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(
-            "sharding the train state over a mesh ports with ROADMAP A16")
+            "sharding the train state over a mesh ports with ROADMAP A16b")
     return TrainBundle(build_train_step(cfg, tcfg), abstract_train_state(cfg))

@@ -68,6 +68,14 @@ staging (accounting; the virtual clock serializes demand page-ins), and
 `measured_profile` hands the engine's per-step traffic to the rack
 scheduler (`sched.workload.serving_stream`). The reference's
 `compile_counts` (jit's executable caches) has no eager counterpart.
+
+Over a mesh (`build(..., mesh=...)`, one process per rank) every rank
+runs this same host loop — queue, batcher, pager, admission — on the
+same replicated tokens, holds its shard of the weights and of the page
+pool (`runtime.serve.make_engine_cells`), and each decode step hands
+every rank the tokens of all slots, so every rank's pager takes the same
+decisions. The pager and the substrate price global bytes; each rank's
+pinned twin holds its shard of the pool.
 """
 
 from __future__ import annotations
@@ -93,6 +101,7 @@ from repro_torch.models.frontends import synthetic_frontend_embeds
 from repro_torch.models.module import cast_params
 from repro_torch.runtime import capability
 from repro_torch.runtime import serve as serve_rt
+from repro_torch.runtime import sharding as shd
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_pager import LOCAL, KVPager, PagerConfig
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -391,7 +400,8 @@ class ServingEngine:
                  topo: Optional[tr.TierTopology] = None,
                  chip: Optional[hw.ChipSpec] = None):
         """`topo`/`chip` price the virtual clock and the catalog admission
-        prior (one H100 by default)."""
+        prior (one H100 by default). Over a mesh (`cells.ctx.mesh`)
+        `params` is the rank's shard (`build` cuts it)."""
         check_config(cfg, ecfg)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -460,7 +470,11 @@ class ServingEngine:
             self.topo, ecfg.catalog_arch, ecfg.catalog_shape, chip=self.chip,
             mode=ecfg.admission, knee_excess=ecfg.knee_excess,
         )
-        if cells.paged:
+        if cells.cache_pspecs is not None:
+            self.caches = shd.zeros_for_shards(
+                cells.abstract_caches, cells.cache_pspecs,
+                cells.ctx.mesh, self.device)
+        elif cells.paged:
             self.caches = M.make_paged_decode_caches(
                 cfg, ecfg.n_slots, cells.max_seq_total, cells.page_tokens,
                 self._enc_len(), pool_dtype=cells.pool_dtype,
@@ -480,7 +494,8 @@ class ServingEngine:
             sub = TierSubstrate(
                 self.caches, mode,
                 host_memory_kind=(self.topo.pool.memory_kind
-                                  or "pinned_host"))
+                                  or "pinned_host"),
+                mesh=cells.ctx.mesh, pool_pspec=cells.cache_pspecs)
             if sub.enabled:
                 self.substrate = sub
         self.tokens = np.zeros(ecfg.n_slots, dtype=np.int32)
@@ -542,10 +557,14 @@ class ServingEngine:
     # ------------------------------------------------------------- build
     @classmethod
     def build(cls, cfg: ModelConfig, ecfg: EngineConfig, *, params=None,
-              seed: int = 0, topo=None, chip=None,
-              device=None) -> "ServingEngine":
+              seed: int = 0, topo=None, chip=None, device=None, ctx=None,
+              mesh=None, rules=None) -> "ServingEngine":
         """Engine on `device` (the card by default; raises without one).
-        Without `params`, float32 master weights are drawn from `seed`."""
+        Without `params`, float32 master weights are drawn from `seed`.
+        With `mesh` (a `DeviceMesh` this process is a rank of; `ctx`
+        defaults to `launch.mesh.ctx_for_mesh(mesh)`, `rules` to the
+        serving rules) `params` is the global tree, cut here into the
+        rank's shard."""
         check_config(cfg, ecfg)
         device = resolve_device(device)
         draft_cfg = None
@@ -569,11 +588,15 @@ class ServingEngine:
             prefill_chunk=ecfg.prefill_chunk or 0,
             pool_dtype=ecfg.pool_dtype, sz_granularity=sz_gran,
             speculative=ecfg.speculative, spec_k=ecfg.speculative_k,
-            draft_cfg=draft_cfg, device=device,
+            draft_cfg=draft_cfg, device=device, ctx=ctx, mesh=mesh,
+            rules=rules,
         )
         if params is None:
             params = M.init_model(
                 cfg, torch.Generator(device).manual_seed(seed))
+        if cells.param_pspecs is not None:
+            params = shd.shard_tree(params, cells.param_pspecs,
+                                    cells.ctx.mesh)
         return cls(cfg, ecfg, params, cells, topo=topo, chip=chip)
 
     def _enc_len(self) -> int:

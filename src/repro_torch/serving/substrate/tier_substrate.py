@@ -19,6 +19,7 @@ import torch
 from repro_torch.common.pytree import leaf_bytes
 from repro_torch.kernels.page_io import ops as page_ops
 from repro_torch.models import blocks
+from repro_torch.runtime import sharding
 from repro_torch.serving.substrate.ledger import HostDone, SubstrateLedger
 
 
@@ -44,6 +45,14 @@ class TierSubstrate:
                  TierSpec`), so the pool tier the virtual clock prices is
                  the tier the bytes physically occupy. Only "pinned_host"
                  exists on this card.
+    mesh, pool_pspec — over a mesh, the `DeviceMesh` and the cache tree's
+                 specs (`runtime.sharding.paged_cache_pspec`): `caches`
+                 holds the rank's shard of the pool, and so does the twin,
+                 so page_out / page_in move the rank's shard with no
+                 reshard; `page_bytes` (what the ledger prices) are the
+                 GLOBAL page's, each leaf's local bytes times its number
+                 of shards, as the reference's ledger reads a global
+                 array's nbytes.
 
     On the card the streams run on a side stream: each drain first waits
     for the main stream (the pool as the step left it), and `fence()`
@@ -54,7 +63,8 @@ class TierSubstrate:
     """
 
     def __init__(self, caches, mode: str, *,
-                 host_memory_kind: str = "pinned_host"):
+                 host_memory_kind: str = "pinned_host", mesh=None,
+                 pool_pspec=None):
         if mode not in ("physical", "emulated"):
             raise ValueError(
                 f"mode={mode!r}; resolve 'auto'/'off' via "
@@ -89,8 +99,13 @@ class TierSubstrate:
         self.device = _pool_leaves(caches, twin)[0].device
         # MEASURED page bytes: real tensor nbytes over the page axis, not
         # the closed-form kv-byte walk (they agree to float rounding)
+        shards = ([1] * len(leaves) if mesh is None else
+                  _leaves(sharding.tree_nbytes_scale(
+                      {pos: {k: pool_pspec[pos][k] for k in sub}
+                       for pos, sub in twin.items()}, mesh)))
         self.page_bytes = float(sum(
-            leaf_bytes(leaf) / leaf.shape[1] for leaf in leaves))
+            leaf_bytes(leaf) / leaf.shape[1] * n
+            for leaf, n in zip(leaves, shards)))
         self.ledger = SubstrateLedger(self.page_bytes, mode)
         self._resident: set = set()
         if self.device.type == "cuda":

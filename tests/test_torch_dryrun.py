@@ -438,7 +438,8 @@ def test_mesh_records_and_flags_name_a16(tmp_path):
         with pytest.raises(NotImplementedError, match="A16"):
             dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
                          "--outdir", str(tmp_path), *flag])
-    with pytest.raises(NotImplementedError, match="A16"):
+    # the serve bundle takes a mesh since A16a: a DeviceMesh, nothing else
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tserve.make_bundle(tconfigs.reduced("smollm_360m"), batch=1,
                            max_seq=8, mesh=object())
 

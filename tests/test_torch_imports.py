@@ -6,7 +6,8 @@ script `scripts/lbench_torch.py`, the training probes
 `examples/quickstart_torch.py`, `examples/train_lm_torch.py`,
 `examples/schedule_jobs_torch.py`, `examples/serve_batch_torch.py` and
 `scripts/dryrun_microbatches.py` (the serve launcher, the dry-run, the
-cost model, the tiered train step among the modules) import without JAX
+cost model, the tiered train step, the parallel context, the mesh and
+the sharding rules among the modules) import without JAX
 and without the reference package; entry points run on the card unless told otherwise
 (and raise here, where there is none); the options the reference refuses
 raise its `ValueError`; no library attention kernel, compiler or Triton
@@ -82,6 +83,11 @@ dry = {"repro_torch.launch.serve", "repro_torch.launch.specs",
        "repro_torch.launch.dryrun", "repro_torch.profiler.cost",
        "repro_torch.profiler.hotspots", "repro_torch.runtime.tiering"}
 assert dry <= set(names), dry - set(names)
+mesh = {"repro_torch.common.parallel", "repro_torch.launch.mesh",
+        "repro_torch.runtime.sharding"}
+assert mesh <= set(names), mesh - set(names)
+import repro_torch.common.parallel as par
+assert par.SINGLE.mesh is None and par.SINGLE.all_axes == ()
 """
 
 
@@ -244,9 +250,13 @@ def test_speculative_decoding_builds(mode):
 
 
 def test_unported_archs_raise():
-    """Every arch of the reference's catalog is ported; what an MoE arch
-    still refuses is its expert-parallel layer over a mesh (ROADMAP
-    A16)."""
+    """Every arch of the reference's catalog is ported, and an MoE arch's
+    expert-parallel layer runs without a mesh as `moe_dense`; what the
+    engine still refuses over a mesh is an SSM, hybrid or enc-dec stack
+    (ROADMAP A16d). The mesh is a stand-in with axis sizes only: the
+    refusal comes before any collective."""
+    from types import SimpleNamespace
+
     from repro_torch.models import moe as moe_mod
 
     assert len(configs.list_archs()) == 10
@@ -257,8 +267,13 @@ def test_unported_archs_raise():
     layer = {k: v[0] for k, v in params["blocks"]["pos0"]["moe"].items()}
     x = torch.zeros(1, 2, moe.d_model)
     assert moe_mod.moe_ep(layer, x, moe)[0].shape == x.shape
-    with pytest.raises(NotImplementedError, match="A16"):
-        moe_mod.moe_ep(layer, x, moe, mesh=object())
+    stub = SimpleNamespace(shape={"data": 1, "model": 2}, get_group=None)
+    for arch in ("mamba2_780m", "jamba_1_5_large_398b",
+                 "seamless_m4t_large_v2"):
+        with pytest.raises(NotImplementedError, match="A16d"):
+            serve_rt.make_engine_cells(
+                configs.reduced(arch), n_slots=2, max_seq=16, buckets=(8,),
+                device="cpu", mesh=stub)
 
 
 def test_engine_defaults_match_reference_main_path():

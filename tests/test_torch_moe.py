@@ -6,7 +6,8 @@ engine against the reference package, float32, on the CPU:
   with the reference's weights (carried across by `load_numpy_params`),
   and a zero router (every prob equal: the top k are the k lowest
   expert ids, `jax.lax.top_k`'s order);
-* `moe_ep` without a mesh equal to `moe_dense`, with one refused (A16);
+* `moe_ep` without a mesh equal to `moe_dense`; over a mesh its
+  refusals before any collective (the EP runs: test_torch_mesh_moe.py);
 * the engine: reduced granite-moe, kimi-k2 and jamba (attention, SSM and
   MoE layers) on fp pools against the JAX engine on the same weights and
   trace: tokens equal, virtual metrics and pager deltas to rel=1e-9.
@@ -157,9 +158,27 @@ def test_top_k_is_stable_on_ties():
 
 
 def test_moe_ep_over_a_mesh_waits_for_sharding():
+    """`moe_ep` over a mesh runs (`tests/test_torch_mesh_moe.py` holds it
+    against the reference's). What it refuses before any collective: an
+    EP axis that does not divide the experts, and expert weights split on
+    their embed dim (the training rules' layout, ROADMAP A16b). The
+    meshes are stand-ins with the axis sizes only."""
+    from types import SimpleNamespace
+
+    from repro_torch.common.parallel import ParallelCtx as TParallelCtx
+
     _, tc = _cfgs("granite_moe_1b_a400m")
-    with pytest.raises(NotImplementedError, match="A16"):
-        tmoe.moe_ep({}, torch.zeros(1, 1, tc.d_model), tc, mesh=object())
+    x = torch.zeros(1, 2, tc.d_model)
+    three = TParallelCtx(mesh=SimpleNamespace(shape={"data": 1, "model": 3}),
+                         tp_axis="model")
+    with pytest.raises(ValueError, match="EP axis"):
+        tmoe.moe_ep({}, x, tc, three)
+    two = TParallelCtx(mesh=SimpleNamespace(shape={"data": 1, "model": 2}),
+                       tp_axis="model")
+    layer = {"w_up": torch.zeros(tc.num_experts // 2, tc.d_model // 2,
+                                 tc.moe_d_ff)}
+    with pytest.raises(NotImplementedError, match="A16b"):
+        tmoe.moe_ep(layer, x, tc, two)
 
 
 # -------------------------------------------------------------- engine

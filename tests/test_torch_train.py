@@ -32,6 +32,7 @@ and the example (learns).
 import dataclasses
 import functools
 import importlib.util
+import os
 import pathlib
 
 import numpy as np
@@ -463,6 +464,41 @@ def test_launcher_runs_and_resumes(tmp_path, capsys):
     again = launch.main(args + ["--steps", "8", "--resume"])
     assert "resumed from step 6" in capsys.readouterr().out
     assert len(again) == 2 and all(np.isfinite(again))
+
+
+def test_launcher_steps_are_deterministic(tmp_path, monkeypatch):
+    """The launcher runs its steps under deterministic algorithms (and
+    restores the caller's setting after) and sets cuBLAS's workspace
+    config unless the caller did."""
+    from repro_torch.launch import train as launch
+
+    seen = []
+    make = ttrain.make_bundle
+
+    def spy(cfg, tcfg, **kw):
+        bundle = make(cfg, tcfg, **kw)
+        step = bundle.step_fn
+
+        def step_fn(state, batch):
+            seen.append(torch.are_deterministic_algorithms_enabled())
+            return step(state, batch)
+
+        bundle.step_fn = step_fn
+        return bundle
+
+    monkeypatch.setattr(ttrain, "make_bundle", spy)
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    args = ["--arch", "smollm_360m", "--reduced", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path),
+            "--steps", "2"]
+    assert not torch.are_deterministic_algorithms_enabled()
+    launch.main(args)
+    assert seen == [True] * 2
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":16:8")
+    launch.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":16:8"
 
 
 def test_example_learns_on_the_cpu(tmp_path):
