@@ -186,8 +186,7 @@ Phases (any failure raises and exits non-zero):
                at published widths cut to 2 layers: 4 steps
                straight against 2 and `--resume` 2, the step-4
                checkpoints bit-equal (the launcher's deterministic
-               algorithms); a bf16 smollm-360m step with deterministic
-               algorithms off and on (printed).
+               algorithms).
  16. tiering — the tiered train step (`runtime.tiering`): SmolLM-360M,
                batch 8 x 256, hotness at pool_fraction 0.5, 3 steps, the
                pool-tier leaves in pinned host memory moved by the page
@@ -216,7 +215,14 @@ Phases (any failure raises and exits non-zero):
                the meshless one, placement gap 0 on every rank, the
                kernels launched on every rank; on the same ranks moe_ep
                at granite-moe-1b-a400m's widths within 1e-4 of moe_dense
-               with nothing dropped.
+               with nothing dropped; then training on the same ranks
+               (granite-3-2b cut to 8 layers, batch 8 x 256, two steps):
+               (1, 1) bf16 bit-equal to the meshless bundle, dp2tp2
+               float32 within 1e-5 of it, bf16 within bf16's own drift of
+               a one-process witness of the split, compressed_psum, the
+               tiered step, moe_ep's gradients, flash_mha and its
+               backward launched on every rank; both flash kernels timed
+               at a rank's train shard.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -232,6 +238,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
     python3 chip_smoke.py --phases device,build,prefetch  # case studies
     python3 chip_smoke.py --phases device,build,launch,tiering,dryrun
     python3 chip_smoke.py --phases device,build,mesh      # the mesh
+    python3 chip_smoke.py --phases device,build,launch,mesh  # + launchers
 """
 
 from __future__ import annotations
@@ -3460,8 +3467,10 @@ def archs_phase(torch):
     (b) on an fp pool the engine emits the naive loop's tokens bit for
     bit (8 prompts of 128 tokens, 32 new tokens, the engine's frontend
     embeddings, each prompt prefilled alone as the engine admits it; the
-    batched prefill's agreement is printed: cuBLAS picks another
-    algorithm for 8 prompts' rows than for 1); (c) a profiled run of the kernel
+    batched prefill's loop, printed only, was cut for the script's time:
+    cuBLAS picks another algorithm for 8 prompts' rows than for 1,
+    ROADMAP C); (c) a
+    profiled run of the kernel
     engine shows those kernels by name. Prints wall tok/s, decode steps,
     launches and peak device memory per arch. Returns the launches of
     the three int8 kernel runs, summed."""
@@ -3622,21 +3631,16 @@ def archs_phase(torch):
         # (b) the fp engine against the naive loop, bit for bit
         prompts = chat_prompts(cfg)
         gen, max_seq = 32, 256
-        naive = {each: dst.naive_greedy(cfg, params, prompts, gen,
-                                        max_seq=max_seq, device="cuda",
-                                        each=each) for each in (False, True)}
+        naive = dst.naive_greedy(cfg, params, prompts, gen, max_seq=max_seq,
+                                 device="cuda", each=True)
         toks, stats, _ = dst.engine_greedy(
             cfg, params, prompts, gen, max_seq=max_seq, page_tokens=16,
             device="cuda", paged=True, pool_dtype="fp")
-        c = dst.compare(toks, naive[True])
-        cb = dst.compare(toks, naive[False])
+        c = dst.compare(toks, naive)
         print(f"  {pair_line('paged fp engine vs naive loop', c)} "
               f"tok_per_s_wall={stats.summary()['tok_per_s_wall']:.1f} "
               "(gate: exact; each prompt prefilled alone, as the engine "
               "admits it)")
-        batched = "paged fp engine vs naive loop, batched prefill"
-        print(f"  {pair_line(batched, cb)} (not gated: cuBLAS gives "
-              "other bits for 8 prompts' rows than for 1, ROADMAP C)")
         gate(c["exact"], f"{arch} engine vs naive loop {c}")
 
         # (c) the profiled kernel run names the kernels
@@ -4185,7 +4189,6 @@ def launch_phase(torch):
         del direct
         torch.cuda.empty_cache()
     train_launcher_resume(torch, gate)
-    deterministic_step_cost(torch)
     if failures:
         raise AssertionError(f"launch phase: {failures}")
     return total
@@ -4251,24 +4254,6 @@ def train_launcher_resume(torch, gate) -> None:
              f"launch.train resume differs in {diff[:4]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-
-def deterministic_step_cost(torch) -> None:
-    """What the launcher's deterministic algorithms cost a step: SmolLM-
-    360M at published widths, bf16, batch 8 x 256, 4 timed steps with
-    them off, then 4 on, from the same seed-0 state (printed)."""
-    from repro_torch import configs
-
-    cfg = configs.get("smollm_360m")
-    for det in (False, True):
-        r = train_run(torch, cfg, None, 5, 8, 256, deterministic=det)
-        ms = r["all_ms"][1:]
-        print(f"  smollm-360m bf16 step, 8 x 256, deterministic "
-              f"algorithms {'on ' if det else 'off'}: median "
-              f"{r['step_ms']:.1f} ms, range {min(ms):.1f}-{max(ms):.1f} "
-              f"ms over {len(ms)} steps after one untimed")
-        del r
-        torch.cuda.empty_cache()
 
 
 def tiering_phase(torch, timer):
@@ -4526,12 +4511,285 @@ MAIN_RUN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
 MOE_CAPS = (("no drops", 8.0), ("config", None))
 
 
+# training on the mesh: granite-3-2b at published widths cut to 8 of its
+# 40 layers (the four dp2tp2 ranks, the (1, 1) rank, the meshless twin
+# and the serving engines share one card, and gloo moves every FSDP
+# gather through host memory), batch 8 x 256, remat by block
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_SHAPE = (8, 256)             # batch, seq
+MESH_TRAIN_TCFG = dict(total_steps=10, warmup_steps=2, remat="block")
+MESH_TRAIN_KERNELS = ("flash_mha", "flash_mha_bwd")
+
+
+def mesh_train_inputs(cfg, params, device="cuda") -> dict:
+    """The mesh train runs' inputs: `cfg` cut to MESH_TRAIN_LAYERS, its
+    float32 masters (the first layers of `params`: views, which the ranks
+    take by CUDA IPC) and two synthetic batches."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.optim.adamw import tree_map
+
+    n = MESH_TRAIN_LAYERS
+    tcfg = dataclasses.replace(cfg, num_layers=n)
+    B, S = MESH_TRAIN_SHAPE
+    return dict(cfg=tcfg, device=device,
+                params=dict(params, blocks=tree_map(lambda x: x[:n],
+                                                    params["blocks"])),
+                batches=[make_batch_for(tcfg, S, B, s) for s in range(2)])
+
+
+def mesh_train_reference(torch, inp) -> None:
+    """The meshless bundle's two steps on `inp`'s masters and batches in
+    this process, in float32 and in bf16, into inp["ref"]: losses, grad
+    norms, the lrs summed, wall ms a step, the per-token NLL before each
+    step (`dev_train_torch.token_nll`; in bf16 also before the first
+    step with the row-parallel products split as dp2tp2 splits them,
+    `dev_train_torch.tp_split_products`), and the float32 final state,
+    for the ranks to hold their shards against."""
+    import dev_train_torch as dtt
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.runtime import train as train_rt
+
+    device, ref = inp["device"], {}
+
+    def bundle_cfg(dt):
+        return dataclasses.replace(inp["cfg"], dtype=dt)
+
+    for dt in ("float32", "bfloat16"):
+        bundle = train_rt.make_bundle(
+            dataclasses.replace(inp["cfg"], dtype=dt),
+            TrainConfig(**MESH_TRAIN_TCFG))
+        state = dtt.global_state(inp["params"], device)
+        batches = inp["batches"]
+        r = dict(losses=[], gnorms=[], ms=[], lr_sum=0.0, token_nll=[])
+        if dt == "bfloat16":
+            with dtt.tp_split_products(2):
+                r["tp2_token_nll"] = dtt.token_nll(
+                    state["params"], batches[0], bundle_cfg(dt)
+                ).cpu().numpy()
+        for b in batches:
+            r["token_nll"].append(dtt.token_nll(
+                state["params"], b, bundle_cfg(dt)).cpu().numpy())
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = bundle.step_fn(state, b)
+            r["losses"].append(float(m["loss"]))      # synchronizes
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["gnorms"].append(float(m["grad_norm"]))
+            r["lr_sum"] += float(m["lr"])
+        if dt == "float32":
+            r["state"] = state
+        ref[dt] = r
+        del state, bundle
+    inp["ref"] = ref
+    if device == "cuda":
+        torch.cuda.empty_cache()   # the ranks share the card
+
+
+def mesh_train_one(inp) -> tuple:
+    """The (1, 1) rank's train call: two bf16 steps under deterministic
+    algorithms beside the meshless bundle's steps in the rank's
+    process."""
+    import dev_train_torch as dtt
+
+    return (dtt.mesh_train_rank, (
+        inp["cfg"], 1, 1, inp["params"], inp["batches"],
+        [dict(name="bf16 (1, 1)", dtype="bfloat16", tcfg=MESH_TRAIN_TCFG,
+              deterministic=True, against_meshless=True)], inp["device"]))
+
+
+def mesh_train_four(inp) -> tuple:
+    """The dp2tp2 ranks' train call, every step under deterministic
+    algorithms (a replica's grads must not depend on atomics' order):
+    two float32 steps, their final shards against the meshless float32
+    state of `mesh_train_reference`; two bf16 steps with the per-token
+    NLL before each, `compressed_psum` over the first step's grads over
+    `data` and over both axes, and the tiered step beside the first."""
+    import dev_train_torch as dtt
+
+    tc = MESH_TRAIN_TCFG
+    f32 = inp["ref"]["float32"]
+    return (dtt.mesh_train_rank, (
+        inp["cfg"], 2, 2, inp["params"], inp["batches"],
+        [dict(name="f32", dtype="float32", tcfg=tc, deterministic=True,
+              compare=dict(state=f32["state"], lr_sum=f32["lr_sum"])),
+         dict(name="bf16", dtype="bfloat16", tcfg=tc, deterministic=True,
+              token_nll=True, compress=[("data",), ("data", "model")],
+              tier=dict(policy="hotness", pool_fraction=0.5),
+              tier_steps=1)], inp["device"]))
+
+
+def mesh_train_gates(inp, one, four, gate) -> dict:
+    """Prints and gates the mesh train runs (`one`: the (1, 1) rank's run;
+    `four`: each dp2tp2 rank's [f32, bf16] runs). Returns rank 0's f32
+    launches."""
+    import numpy as np
+
+    import dev_train_torch as dtt
+
+    ref32, ref16 = inp["ref"]["float32"], inp["ref"]["bfloat16"]
+    cfg = inp["cfg"]
+    print(f"  mesh train {cfg.name}: {cfg.num_layers} of 40 layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads, ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; batch "
+          f"{MESH_TRAIN_SHAPE[0]} x {MESH_TRAIN_SHAPE[1]}, remat block, "
+          f"seed-0 float32 masters; meshless float32 losses "
+          f"{ref32['losses']} grad norms {ref32['gnorms']} "
+          f"({[round(x, 1) for x in ref32['ms']]} ms a step), bf16 losses "
+          f"{ref16['losses']} ({[round(x, 1) for x in ref16['ms']]} ms)")
+    # --- (1, 1) on NCCL -------------------------------------------------
+    m = one["meshless"]
+    print(f"  mesh train (1, 1) nccl bf16, deterministic: losses "
+          f"{one['losses']} grad norms {one['grad_norms']} vs the meshless "
+          f"bundle's {m['steps']} in the rank's process: equal "
+          f"{m['steps_equal']}; state leaves bit-equal {m['leaves_equal']} "
+          f"of {m['leaves']}; {[round(x, 1) for x in one['step_ms']]} ms a "
+          f"step wall; launches {one['launches']} plain {one['plain']}")
+    gate(m["steps_equal"] and m["leaves_equal"] == m["leaves"],
+         "mesh train (1, 1): not bit-equal to the meshless bundle")
+    gate(all(one["launches"].get(k, 0) > 0 for k in MESH_TRAIN_KERNELS)
+         and not one["plain"], f"mesh train (1, 1): launches "
+         f"{one['launches']} plain {one['plain']}")
+    # --- dp2tp2, float32 ------------------------------------------------
+    f32, bf16 = [r[0] for r in four], [r[1] for r in four]
+    for name, runs in (("f32", f32), ("bf16", bf16)):
+        bad = dtt.replicas_equal([r["digests"] for r in runs])
+        sizes = {(r["state_bytes"], r["share_bytes"]) for r in runs}
+        print(f"  mesh train dp2tp2 {name}: replicas bit-equal "
+              f"{not bad} {bad[:4]}; state bytes a rank / spec share "
+              f"{sorted(sizes)}")
+        gate(not bad, f"mesh train dp2tp2 {name}: replicas differ {bad[:4]}")
+        gate(all(a == b for a, b in sizes),
+             f"mesh train dp2tp2 {name}: state bytes {sorted(sizes)}")
+        for r in runs:
+            gate(all(r["launches"].get(k, 0) > 0 for k in MESH_TRAIN_KERNELS)
+                 and not r["plain"], f"mesh train dp2tp2 {name} rank "
+                 f"{r['coord']}: launches {r['launches']} plain {r['plain']}")
+    for r in f32:
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                          ref32["losses"]))
+        d_norm = max(abs(a - b) / abs(b) for a, b in zip(r["grad_norms"],
+                                                          ref32["gnorms"]))
+        c = r["compare"]
+        peak = ("not measured" if r["peak_gb"] is None
+                else f"{r['peak_gb']:.2f} GB")
+        print(f"    rank {r['coord']} f32: loss rel err {d_loss:.2e}, grad "
+              f"norm {d_norm:.2e}; state vs meshless: updates within 1e-2 "
+              f"lr on {c['update_share']:.5f} of the worst leaf, worst "
+              f"{c['update_err_over_lr']:.3e} lr, moments "
+              f"{c['moment_err']:.2e} of their max; "
+              f"{[round(x, 1) for x in r['step_ms']]} ms a step wall; "
+              f"peak {peak}; launches {r['launches']}")
+        gate(d_loss <= 1e-5 and d_norm <= 1e-5,
+             f"mesh train dp2tp2 f32 rank {r['coord']}: loss {d_loss}, "
+             f"grad norm {d_norm}")
+        gate(c["update_share"] >= 0.999 and c["update_err_over_lr"] <= 2.2
+             and c["moment_err"] <= 1e-4 and c["counts_equal"],
+             f"mesh train dp2tp2 f32 rank {r['coord']}: state {c}")
+    # --- dp2tp2, bf16 -----------------------------------------------------
+    for r in bf16:
+        t = r["tier"]
+        print(f"    rank {r['coord']} bf16: tiered step bit-equal "
+              f"{t['equal']} ({t['n_host']} leaves, "
+              f"{t['pool_bytes'] / 1e6:.1f} MB pinned a rank); "
+              f"{[round(x, 1) for x in r['step_ms']]} ms a step wall; "
+              f"launches {r['launches']}")
+        gate(t["equal"] == [True], f"tiered step rank {r['coord']}: "
+             f"{t['equal']}")
+        for cp in r["compress"]:
+            print(f"      compressed_psum over {cp['axes']}: error state "
+                  f"bit-equal to the plain recomputation "
+                  f"{cp['error_state_equal']}; mean error "
+                  f"{cp['mean_over_bound']:.3f} of its quantization bound;"
+                  f" wire {cp['wire_bytes_int32'] / 1e6:.1f} MB as int32 vs "
+                  f"{cp['wire_bytes_float32'] / 1e6:.1f} MB float32 (int8 "
+                  f"would be a quarter)")
+            gate(cp["error_state_equal"] and cp["mean_over_bound"] <= 1.0,
+                 f"compressed_psum {cp['axes']} rank {r['coord']}: {cp}")
+    # bf16 on the mesh: before the first step (one state, forward only)
+    # the mesh's per-token NLL no further (RMS over the global batch's
+    # tokens) from the meshless bf16 forward with the row-parallel products
+    # split as the mesh splits them (`tp_split_products`: a bf16 sum of two
+    # bf16 halves, as XLA's partitioner gives the reference) than meshless
+    # bf16 is from float32. Printed: the distances to the unsplit meshless
+    # bf16 forward and the mean-loss drifts over both steps. Those compare
+    # the split's rounding with bf16's own, which are of one size on this
+    # model (PERF.md §6, the mesh train findings), so they gate nothing
+    rms = lambda a, b: float(np.sqrt(np.mean((a - b) ** 2)))  # noqa: E731
+    m0, b0, f0 = bf16[0]["token_nll"][0], ref16["token_nll"][0], \
+        ref32["token_nll"][0]
+    d_split = rms(m0, ref16["tp2_token_nll"])
+    d_own = rms(b0, f0)
+    d_plain = [rms(m, b) for m, b in zip(bf16[0]["token_nll"],
+                                         ref16["token_nll"])]
+    d_dtypes = [rms(b, f) for b, f in zip(ref16["token_nll"],
+                                          ref32["token_nll"])]
+    d_mesh = max(abs(a - b) for r in bf16
+                 for a, b in zip(r["losses"], ref16["losses"]))
+    d_dtype = max(abs(a - b) for a, b in zip(ref16["losses"],
+                                             ref32["losses"]))
+    ms = [x for r in bf16 for x in r["step_ms"]]
+    print(f"  mesh train dp2tp2 bf16: losses {bf16[0]['losses']}; per-token "
+          f"NLL RMS before the first step: mesh vs the split meshless bf16 "
+          f"{d_split:.3e}, meshless bf16 vs float32 {d_own:.3e} (gate: the "
+          f"first <= the second); printed: mesh vs meshless bf16 "
+          f"{[f'{x:.3e}' for x in d_plain]}, meshless bf16 vs float32 "
+          f"{[f'{x:.3e}' for x in d_dtypes]} before each step, split vs "
+          f"unsplit meshless bf16 {rms(ref16['tp2_token_nll'], b0):.3e}; "
+          f"mean loss |mesh - meshless bf16| {d_mesh:.3e}, |meshless bf16 "
+          f"- float32| {d_dtype:.3e}; wall ms a step "
+          f"{min(ms):.1f}-{max(ms):.1f} over the ranks (gloo through host "
+          f"memory, 4 ranks on one card) vs meshless "
+          f"{[round(x, 1) for x in ref16['ms']]}")
+    gate(all(np.array_equal(r["token_nll"][0], m0) for r in bf16),
+         "mesh train bf16: the ranks' token NLLs differ")
+    gate(d_split <= d_own, f"mesh train bf16: per-token drift from the "
+         f"split meshless forward {d_split} > bf16's own {d_own}")
+    return f32[0]["launches"]
+
+
+def moe_grad_gate(torch, per, moe_params, x, cot, cfg, gate,
+                  device="cuda") -> None:
+    """`moe_ep`'s gradients on the dp2tp2 ranks (`per`: each rank's
+    `dev_train_torch.moe_grad_rank` result, expert weights split under
+    the training rules) against `moe_dense`'s on the card: every weight's
+    and x's within 1e-4 of their largest entry, y and aux too."""
+    import numpy as np
+
+    import dev_train_torch as dtt
+    from repro_torch.models import moe
+
+    w = {k: torch.tensor(v, device=device, requires_grad=True)
+         for k, v in moe_params.items()}
+    xt = torch.tensor(x, device=device, requires_grad=True)
+    y, aux = moe.moe_dense(w, xt, cfg)
+    dtt.moe_objective(y, aux, torch.tensor(cot, device=device),
+                      n_aux=2).backward()
+    got = per[0]
+    errs = {"y": (got["y"], y.detach().cpu().numpy()),
+            "x": (got["x_grad"], xt.grad.cpu().numpy())}
+    errs.update({k: (got["grads"][k], w[k].grad.cpu().numpy()) for k in w})
+    rel = {k: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+           for k, (a, b) in errs.items()}
+    aux_err = abs(got["aux"] - float(aux.detach()))
+    print(f"  moe_ep grads at {cfg.name}'s widths (capacity "
+          f"{cfg.capacity_factor}, expert weights {got['specs']}): err / max "
+          f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, aux err "
+          f"{aux_err:.2e}; {max(p['ms'] for p in per):.1f} ms forward + "
+          f"backward (gloo)")
+    gate(max(rel.values()) <= 1e-4 and aux_err <= 1e-4,
+         f"moe_ep grads: {rel}, aux {aux_err}")
+
+
 def shard_shape_cases(torch, timer) -> list:
-    """The mesh phase's three kernels at the shapes one rank of
-    granite-3-2b on dp2tp2 gives them (16 of 32 query heads, 4 of 8 KV
-    heads, D 64): flash_mha over a 128-token admission (B 1, causal);
-    paged_flash_decode over 4 of the 8 slots (int8 per-page pool, 16-token
-    pages, 16 pages a slot); one admission's grouped write_pages (k,
+    """The mesh phase's kernels at the shapes one rank of granite-3-2b on
+    dp2tp2 gives them (16 of 32 query heads, 4 of 8 KV heads, D 64):
+    flash_mha over a 128-token admission (B 1, causal); flash_mha and its
+    backward at a rank's train shard (B 4 of the batch of 8, S 256, bf16;
+    the backward within 2e-2 of the largest grad of the plain chunked
+    backward, timed beside SDPA's backward); paged_flash_decode over 4
+    of the 8 slots (int8 per-page pool, 16-token pages, 16 pages a slot);
+    one admission's grouped write_pages (k,
     k_sz, v, v_sz over 40 layers, 128 rows). Each is held against its
     plain version (float32 atol=rtol=1e-5, bf16 atol=2e-2, the write bit
     for bit) and timed in bf16 beside its bound, its plain version and
@@ -4598,6 +4856,59 @@ def shard_shape_cases(torch, timer) -> list:
            "library = SDPA", lambda: fops.mha(q, k, v, impl="cuda"),
            lambda: fops.mha(q, k, v, impl="reference"),
            lambda: sdpa(q, k, v), bytes_, ops_, err)
+
+    # --- flash_mha and its backward at a rank's train shard -------------
+    from repro_torch.kernels.flash_attention import chunked
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    Bt, St = 4, 256
+    q = randn(Bt, St, H, D, dtype=torch.bfloat16)
+    k = randn(Bt, St, KV, D, dtype=torch.bfloat16)
+    v = randn(Bt, St, KV, D, dtype=torch.bfloat16, scale=0.5)
+    do = randn(Bt, St, H, D, dtype=torch.bfloat16)
+    case = f"bf16 B={Bt} S={St} H={H} KV={KV} D={D} causal (train shard)"
+    err = check("flash_mha", case, fops.mha(q, k, v, impl="cuda"),
+                fops.mha(q, k, v, impl="reference"), BF16_TOL)
+    ops_, bytes_ = fops.mha_cost(q.shape, k.shape, causal=True, itemsize=2)
+    record("flash_mha", f"{case}; library = SDPA",
+           lambda: fops.mha(q, k, v, impl="cuda"),
+           lambda: fops.mha(q, k, v, impl="reference"),
+           lambda: sdpa(q, k, v), bytes_, ops_, err)
+    out, lse4 = chunked._fwd(q, k, v, True, None, 0, 512, 512)
+    lse = lse4.reshape(Bt, H, St).contiguous()
+    got = fa.flash_mha_bwd_cuda(q, k, v, out, lse, do, causal=True)
+    want = chunked._bwd_inner(True, None, 0, 512, 512, (q, k, v, out, lse4),
+                              do)
+    rel = max(float((g.float() - w_.float()).abs().max())
+              / max(float(w_.float().abs().max()), 1e-30)
+              for g, w_ in zip(got, want))
+    err = max(float((g.float() - w_.float()).abs().max())
+              for g, w_ in zip(got, want))
+    print(f"  {'ok  ' if rel <= 2e-2 else 'FAIL'} flash_mha_bwd      shard "
+          f"{case} max_abs_err={err:.3e} err/max {rel:.3e}")
+    if rel > 2e-2:
+        failures.append(f"flash_mha_bwd {case}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa_bwd():
+        try:
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        except TypeError:          # torch without enable_gqa
+            return None
+        return timer(functools.partial(torch.autograd.grad, o, (qt, kt, vt),
+                                       do.transpose(1, 2),
+                                       retain_graph=True))
+
+    ops_, bytes_ = fops.mha_bwd_cost(q.shape, k.shape, causal=True,
+                                     itemsize=2)
+    record("flash_mha_bwd", f"{case}; library = SDPA backward",
+           lambda: fa.flash_mha_bwd_cuda(q, k, v, out, lse, do, causal=True),
+           lambda: chunked._bwd_inner(True, None, 0, 512, 512,
+                                      (q, k, v, out, lse4), do),
+           sdpa_bwd, bytes_, ops_, err)
+    del q, k, v, do, out, lse, lse4, got, want, qt, kt, vt
 
     # --- paged_flash_decode: the rank's 4 slots on its int8 pool -------
     B, n_pages = 4, 16
@@ -4714,10 +5025,31 @@ def mesh_phase(torch, timer):
       1024) float32: with capacity 8.0 no pair drops and y is within 1e-4
       of `moe_dense` (relative to its largest entry), aux within 1e-4;
       with the config's capacity the dropped pairs are printed.
-    Returns the launches of rank 0's float32 int8 run."""
+    Training on the same ranks, after their serving runs (ROADMAP A16b,
+    `runtime.train.make_bundle(mesh=)`; granite-3-2b cut to
+    MESH_TRAIN_LAYERS layers, batch 8 x 256, remat block, the seed-0
+    float32 masters' first layers by CUDA IPC; `mesh_train_gates`):
+    * (1, 1) on NCCL: two bf16 steps under deterministic algorithms bit-
+      equal (loss, grad norm, every state leaf) to the meshless bundle's
+      in the rank's process;
+    * dp2tp2: two float32 steps, loss and grad norm within 1e-5 of the
+      meshless float32 steps taken here, every shard after them against
+      the meshless state (updates within 1e-2 lr on 99.9% of a leaf's
+      elements and 2.2 lr everywhere, moments 1e-4 of their max),
+      `compressed_psum` over the first step's grads (error state bit-equal
+      to a plain recomputation, mean within its quantization bound), the
+      tiered step bit-equal to the untiered; two bf16 steps whose loss
+      stays no further from the meshless bf16 loss than that is from
+      float32; replicas bit-equal, a rank's state bytes its spec share,
+      flash_mha and its backward launched on every rank, no plain
+      version; `moe_ep`'s gradients at granite-moe's widths (capacity
+      8.0, the training rules' layout) within 1e-4 of `moe_dense`'s.
+    Returns the launches of rank 0's float32 int8 run and of its float32
+    train run."""
     import numpy as np
 
     import dev_serve_torch as dst
+    import dev_train_torch as dtt
     from repro_torch import configs
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as M
@@ -4768,23 +5100,37 @@ def mesh_phase(torch, timer):
                                        ("w_up", (E, d, ff), d ** -0.5),
                                        ("w_down", (E, ff, d), ff ** -0.5))}
     x = rng.normal(0, 1, (4, 128, d)).astype(np.float32)
+    cot = rng.normal(0, 1, (4, 128, d)).astype(np.float32)
     cases = [(dataclasses.replace(mcfg, capacity_factor=c or
                                   mcfg.capacity_factor), None, "rowcol")
              for _, c in MOE_CAPS]
     runs = [dict(r, **MESH_CELL) for r in MESH_RUNS]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        # the (1, 1) rank starts at once; the dp2tp2 ranks after the
+        # meshless train steps, whose float32 state they compare with
+        train_inp = mesh_train_inputs(cfg, params)
         f_one = pool.submit(
-            mesh_mod.run_ranks, dst.mesh_rank, 1,
-            (cfg, 1, 1, params, prompts, 32,
-             [dict(MAIN_RUN, **MESH_CELL)], "cuda"),
-            device="cuda", backend="nccl", wall_s=300, threads=1)
+            mesh_mod.run_ranks, dst.mesh_calls, 1,
+            ([(dst.mesh_rank, (cfg, 1, 1, params, prompts, 32,
+                               [dict(MAIN_RUN, **MESH_CELL)], "cuda")),
+              mesh_train_one(train_inp)],),
+            device="cuda", backend="nccl", wall_s=600, threads=1)
+        t_train = time.perf_counter()
+        mesh_train_reference(torch, train_inp)
+        print(f"  meshless train steps done, {since()} "
+              f"({time.perf_counter() - t_train:.1f} s)")
         f_four = pool.submit(
             mesh_mod.run_ranks, dst.mesh_calls, 4,
             ([(dst.mesh_rank, (cfg32, 2, 2, params, prompts, 32, runs,
                                "cuda")),
-              (dst.mesh_moe_rank, (2, 2, moe_params, x, cases, "cuda"))],),
-            device="cuda", backend="gloo", wall_s=600, threads=1)
+              (dst.mesh_moe_rank, (2, 2, moe_params, x, cases, "cuda")),
+              mesh_train_four(train_inp),
+              (dtt.moe_grad_rank, (2, 2, moe_params, x, cot,
+                                   dataclasses.replace(
+                                       mcfg, capacity_factor=8.0),
+                                   "cuda"))],),
+            device="cuda", backend="gloo", wall_s=900, threads=1)
 
         # --- the meshless engine, this process ------------------------
         ref = {}
@@ -4809,11 +5155,15 @@ def mesh_phase(torch, timer):
                   f"s ({8 * 32 / wall:.1f} tok/s wall, beside the ranks), "
                   f"pool {ref[i]['pool_bytes'] / 1e6:.2f} MB")
             del eng
+            torch.cuda.empty_cache()      # the ranks share the card
         logits = {dt: dst.prompt_logits(cfg, cast_params(params, dt),
                                         prompts, dt, "cuda")
                   for dt in ("float32", "bfloat16")}
-        print(f"  meshless runs done, {since()}")
-        one = f_one.result()[0][0]
+        torch.cuda.empty_cache()
+        print(f"  meshless runs done, {since()}; this process holds "
+              f"{torch.cuda.memory_reserved() / 1e9:.1f} GB of the card")
+        one_all = f_one.result()[0]
+        one, one_t = one_all[0][0], one_all[1][0]
         print(f"  (1, 1) done, {since()} (mesh built in "
               f"{one['mesh_s']:.1f} s)")
         got = f_four.result()
@@ -4825,6 +5175,15 @@ def mesh_phase(torch, timer):
           f"`ServingEngine.build`, the shard cut included, {build_s} s)")
     del params
     torch.cuda.empty_cache()
+
+    # --- training on the mesh -------------------------------------------
+    train_launches = mesh_train_gates(train_inp, one_t, [g[2] for g in got],
+                                      gate)
+    moe_grad_gate(torch, [g[3] for g in got], moe_params, x, cot,
+                  dataclasses.replace(mcfg, capacity_factor=8.0), gate)
+    del train_inp
+    torch.cuda.empty_cache()
+    print(f"  mesh train gates done, {since()}")
 
     # --- (1, 1) on NCCL: the main path, bit-equal ----------------------
     same = np.array_equal(one["tokens"], ref[2]["tokens"])
@@ -4904,12 +5263,17 @@ def mesh_phase(torch, timer):
             gate(dropped == 0 and err < 1e-4 and aux_err < 1e-4,
                  f"moe_ep: dropped {dropped}, y {err}, aux {aux_err}")
     for rec in shard_records:
-        per_rank = [r[1]["launches"].get(rec["name"]) for r in results]
-        print(f"  {rec['name']}: launches a rank in the f32 int8 run "
-              f"{per_rank}, {rec['ms']:.4f} ms at the shard shape")
+        train = "train shard" in rec["case"]
+        per_rank = [(g[2][1] if train else g[0][1])["launches"].get(
+            rec["name"]) for g in got]
+        print(f"  {rec['name']}: launches a rank in the "
+              f"{'bf16 train' if train else 'f32 int8'} run {per_rank}, "
+              f"{rec['ms']:.4f} ms at the shard shape ({rec['case']})")
     if failures:
         raise AssertionError(f"mesh phase: {failures}")
-    return {k: results[0][1]["launches"].get(k, 0) for k in BUCKET_KERNELS}
+    out = {k: results[0][1]["launches"].get(k, 0) for k in BUCKET_KERNELS}
+    out["flash_mha_bwd"] = train_launches.get("flash_mha_bwd", 0)
+    return out
 
 
 # kernel groups of the profiled runs: (group, substrings a lowercased

@@ -177,9 +177,11 @@ REMAT_MODES = ("none", "block")
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The reference's training fields and defaults. `remat` takes "none"
-    or "block" (recompute one super-period of layers in the backward);
-    `compress_grads` (the int8 cross-pod all-reduce, a collective) ports
-    with the mesh."""
+    or "block" (recompute one super-period of layers in the backward).
+    `compress_grads` is accepted and, as in the reference, read by no
+    step: the reference's train step never calls its
+    `optim.compress.compressed_psum`, so the port's does not either (the
+    function is ported as `repro_torch.optim.compress`; ROADMAP §C)."""
 
     learning_rate: float = 3e-4
     warmup_steps: int = 100
@@ -198,7 +200,3 @@ class TrainConfig:
         if self.remat not in REMAT_MODES:
             raise ValueError(f"remat {self.remat!r}; expected one of "
                              f"{REMAT_MODES}")
-        if self.compress_grads:
-            raise NotImplementedError(
-                "compress_grads (the int8 cross-pod all-reduce) ports with "
-                "the mesh (ROADMAP A16b)")

@@ -10,6 +10,31 @@ parameter and cache a plain tensor holding the rank's slice
 itself over the process group of a mesh axis (`mesh.get_group(name)`).
 The collectives below are those calls; over an axis of size 1 they are
 the identity and issue nothing.
+
+Training runs through them with autograd. Without grad (serving) each is
+the plain call, `psum` in place. With grad each is a
+`torch.autograd.Function` whose backward is the transpose under the
+convention of Megatron's tensor parallelism: over the tp axis the ranks
+hold the same rows and compute the same loss, so a value used alike on
+every rank has the same cotangent on every rank; over the dp axes the
+ranks hold different rows and the step sums their gradients
+(`runtime.train`). Hence:
+
+* `psum` of partial sums: backward the identity over the tp axis and a
+  sum over the dp axes it reduced (every rank's loss reads the sum);
+* `enter_region` (identity forward) where a replicated value enters
+  rank-specific work (a split head or ff dim, the rank's own tokens):
+  backward the sum of the ranks' partial cotangents;
+* `all_gather`: backward the rank's own block of the cotangent, or with
+  `reduce_grad` (the gathered value is used by ranks of different rows
+  or tokens: FSDP, the MoE router) the sum over the ranks first, a
+  reduce-scatter;
+* `all_to_all`: backward the inverse exchange, which is the same call;
+* `local_slice` is a view, whose backward is zeros around the cotangent.
+
+`torch.distributed.nn.functional.all_reduce` is not used: its backward
+sums the cotangent again, which multiplies a replicated downstream's
+gradient by the axis size.
 """
 
 from __future__ import annotations
@@ -108,46 +133,168 @@ def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-def psum(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
-    """Sum of `x` over the ranks of `axes` (one name or several), in
-    place; the identity over size-1 axes or without a mesh."""
+def _grad_path(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce_(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
     for a in _axes(axes):
         if ctx.axis_size(a) > 1:
             dist.all_reduce(x, group=ctx.mesh.get_group(a))
     return x
 
 
-def all_gather(x: torch.Tensor, ctx: ParallelCtx, axes,
-               dim: int) -> torch.Tensor:
-    """The ranks' `x` along `axes` concatenated on `dim` in rank order
-    (row-major over several axes, as `index` counts them)."""
+def _live(ctx: ParallelCtx, axes) -> bool:
+    return any(ctx.axis_size(a) > 1 for a in _axes(axes))
+
+
+def _gather(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int):
     for a in reversed(_axes(axes)):
         n = ctx.axis_size(a)
         if n > 1:
+            x = x.contiguous()
             parts = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(parts, x.contiguous(),
-                            group=ctx.mesh.get_group(a))
+            dist.all_gather(parts, x, group=ctx.mesh.get_group(a))
             x = torch.cat(parts, dim=dim)
     return x
 
 
-def all_to_all(x: torch.Tensor, ctx: ParallelCtx, axis: str) -> torch.Tensor:
-    """x (n, ...) with n the axis size: block i goes to the axis's rank i,
-    and block j of the result came from rank j (`jax.lax.all_to_all` with
-    split_axis = concat_axis = 0)."""
-    if ctx.axis_size(axis) == 1:
-        return x
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(),
-                           group=ctx.mesh.get_group(axis))
-    return out
-
-
-def local_slice(x: torch.Tensor, ctx: ParallelCtx, axes,
-                dim: int) -> torch.Tensor:
-    """This rank's block of `x` along `dim`, split evenly over `axes`."""
+def _block(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int):
     n = math.prod(ctx.axis_size(a) for a in _axes(axes))
     if n == 1:
         return x
     size = x.shape[dim] // n
     return x.narrow(dim, ctx.index(_axes(axes)) * size, size)
+
+
+def _exchange(x: torch.Tensor, ctx: ParallelCtx, axis: str):
+    x = x.contiguous()          # a cotangent may come strided
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=ctx.mesh.get_group(axis))
+    return out
+
+
+def _reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int):
+    """The sum of `x` over the ranks of `axes`, this rank's block of it
+    along `dim` (row-major over several axes): per axis one exchange
+    (block j to rank j) and a local sum of the blocks received, half the
+    bytes of an all-reduce."""
+    for a in _axes(axes):
+        n = ctx.axis_size(a)
+        if n == 1:
+            continue
+        y = x.movedim(dim, 0)
+        y = _exchange(y.reshape((n, y.shape[0] // n) + tuple(y.shape[1:])),
+                      ctx, a)
+        x = y.sum(0).movedim(0, dim)
+    return x
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward the sum over `fwd` axes, backward the sum over `bwd`."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, fwd, bwd):
+        fctx.pctx, fctx.bwd = ctx, bwd
+        return _all_reduce_(x.clone(), ctx, fwd) if _live(ctx, fwd) else x
+
+    @staticmethod
+    def backward(fctx, g):
+        if _live(fctx.pctx, fctx.bwd):
+            g = _all_reduce_(g.clone(), fctx.pctx, fctx.bwd)
+        return g, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axes, dim, reduce_grad):
+        fctx.pctx, fctx.axes, fctx.dim = ctx, axes, dim
+        fctx.reduce_grad = reduce_grad
+        return _gather(x, ctx, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        if fctx.reduce_grad:
+            g = _reduce_scatter(g, fctx.pctx, fctx.axes, fctx.dim)
+        else:
+            g = _block(g, fctx.pctx, fctx.axes, fctx.dim)
+        return g.contiguous(), None, None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis):
+        fctx.pctx, fctx.axis = ctx, axis
+        return _exchange(x, ctx, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _exchange(g, fctx.pctx, fctx.axis), None, None
+
+
+def psum(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
+    """Sum of `x` over the ranks of `axes` (one name or several); the
+    identity over size-1 axes or without a mesh. Without grad it sums in
+    place and returns `x`; with grad it returns a new tensor, and its
+    backward sums the cotangent over those of `axes` that are dp axes
+    (module docstring)."""
+    if not _grad_path(x):
+        return _all_reduce_(x, ctx, axes)
+    bwd = tuple(a for a in _axes(axes) if a in ctx.dp_axes)
+    return _Reduce.apply(x, ctx, _axes(axes), bwd)
+
+
+def enter_region(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
+    """The identity; with grad, its backward sums the cotangent over
+    `axes`: `x` is replicated over them and the ranks use it for
+    different work (their own heads, ff columns or tokens)."""
+    if not _grad_path(x) or not _live(ctx, axes):
+        return x
+    return _Reduce.apply(x, ctx, (), _axes(axes))
+
+
+def all_gather(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int, *,
+               reduce_grad: bool = False) -> torch.Tensor:
+    """The ranks' `x` along `axes` concatenated on `dim` in rank order
+    (row-major over several axes, as `index` counts them). With grad the
+    backward is the rank's block of the cotangent, summed over the ranks
+    first when `reduce_grad` (a reduce-scatter)."""
+    if not _grad_path(x) or not _live(ctx, axes):
+        return _gather(x, ctx, axes, dim)
+    return _Gather.apply(x, ctx, _axes(axes), dim, reduce_grad)
+
+
+def gather_param(w: torch.Tensor, ctx: ParallelCtx, dim: int,
+                 full: int) -> torch.Tensor:
+    """A weight whose dim `dim` (`full` long whole) the training rules
+    split over the fsdp axis, gathered whole before use (FSDP); its
+    backward reduce-scatters the gradient over that axis. A whole dim is
+    returned as it is."""
+    if w.shape[dim] == full:
+        return w
+    out = all_gather(w, ctx, ctx.fsdp_axis, dim, reduce_grad=True)
+    if out.shape[dim] != full:
+        raise ValueError(
+            f"a weight of shape {tuple(w.shape)} holds {w.shape[dim]} of "
+            f"{full} on dim {dim}; gathered over the fsdp axis "
+            f"{ctx.fsdp_axis!r} it holds {out.shape[dim]}")
+    return out
+
+
+def all_to_all(x: torch.Tensor, ctx: ParallelCtx, axis: str) -> torch.Tensor:
+    """x (n, ...) with n the axis size: block i goes to the axis's rank i,
+    and block j of the result came from rank j (`jax.lax.all_to_all` with
+    split_axis = concat_axis = 0). Its own transpose, so its backward is
+    the same exchange of the cotangent."""
+    if ctx.axis_size(axis) == 1:
+        return x
+    if _grad_path(x):
+        return _Exchange.apply(x, ctx, axis)
+    return _exchange(x, ctx, axis)
+
+
+def local_slice(x: torch.Tensor, ctx: ParallelCtx, axes,
+                dim: int) -> torch.Tensor:
+    """This rank's block of `x` along `dim`, split evenly over `axes` (a
+    view: its backward is zeros around the cotangent's block)."""
+    return _block(x, ctx, axes, dim)

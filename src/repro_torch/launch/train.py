@@ -1,13 +1,17 @@
 """Training launcher (port of `repro.launch.train`): the end-to-end loop
 with checkpoint/restart, the straggler watchdog and the prefetching data
-pipeline, on one device.
+pipeline, through the smoke mesh as the reference's.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \\
         --steps 200 --batch 8 --seq 128
 
 Runs on the card unless `--device` names another (`--device cpu
 --reduced` is the CPU smoke configuration). The reference's flags, plus
-`--device`; no mesh (ROADMAP A16b).
+`--device`. As the reference's, it trains through `make_smoke_mesh()`,
+a (1, 1) ("data", "model") mesh (NCCL on the card, gloo on the CPU),
+with `ctx_for_mesh(mesh, fsdp=False)` and the training rules without an
+fsdp axis; the process group it makes for that mesh is destroyed on
+exit (one it found already made is left as it was).
 
 The steps run under `torch.use_deterministic_algorithms(True)` (the
 embedding's and the label gather's backward accumulate with atomics
@@ -33,6 +37,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.data import PrefetchPipeline
 from repro_torch.data.pipeline import to_device
 from repro_torch.data.synthetic import make_batch_for
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime import train as train_rt
 from repro_torch.runtime.fault import StragglerWatchdog
 
@@ -70,11 +76,25 @@ def main(argv=None):
         checkpoint_every=args.ckpt_every,
         seed=args.seed,
     )
-    bundle = train_rt.make_bundle(cfg, tcfg)
+    made_group = not torch.distributed.is_initialized()
+    try:
+        mesh = mesh_mod.make_smoke_mesh(device=device)
+        ctx = mesh_mod.ctx_for_mesh(mesh, fsdp=False, remat="block")
+        rules = shd.ShardingRules.for_training(fsdp_axis=None,
+                                               tp_axis=ctx.tp_axis)
+        bundle = train_rt.make_bundle(cfg, tcfg, ctx=ctx, mesh=mesh,
+                                      rules=rules)
+        return _train(args, cfg, bundle, device)
+    finally:
+        if made_group:
+            mesh_mod.close_ranks()
 
+
+def _train(args, cfg, bundle, device):
     ckpt = CheckpointManager(args.ckpt_dir)
     start_step = 0
-    state = train_rt.init_train_state(cfg, device=device, seed=args.seed)
+    state = bundle.shard(train_rt.init_train_state(cfg, device=device,
+                                                   seed=args.seed))
     if args.resume and ckpt.latest_step() is not None:
         start_step = ckpt.latest_step()
         state = ckpt.restore(start_step, state)
@@ -99,7 +119,9 @@ def main(argv=None):
                 raise RuntimeError(f"pipeline at step {ds_step}, loop at "
                                    f"{step}")
             watchdog.start_step()
-            state, metrics = bundle.step_fn(state, batch)
+            state, metrics = bundle.step_fn(
+                state, train_rt.rank_batch(batch, bundle.ctx,
+                                           args.microbatches))
             loss = float(metrics["loss"])
             watchdog.end_step(step)
             losses.append(loss)

@@ -22,6 +22,14 @@ paged pool holds the rank's KV heads (`runtime.sharding.
 paged_cache_pspec`). Where the heads cannot be split into whole groups
 the rank gathers every query head and attends whole, as the reference
 keeps such heads whole.
+
+In training (`self_attention(..., local_batch=True)`: x holds the rank's
+rows) a split of the query heads is a TP region: x enters it through
+`parallel.enter_region`, and K / V weights replicated over the model
+axis (the `group` and `whole` layouts, where each rank attends with its
+own groups only) enter it too, so their gradients sum the ranks' parts.
+Every weight's embed dim split over the fsdp axis is gathered after the
+cast (`parallel.gather_param`).
 """
 
 from __future__ import annotations
@@ -29,7 +37,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather, psum
+from repro_torch.common.parallel import (
+    SINGLE,
+    ParallelCtx,
+    all_gather,
+    enter_region,
+    gather_param,
+    psum,
+)
 from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -49,11 +64,11 @@ def attn_init(init: Initializer, cfg: ModelConfig, cross: bool = False):
         init.param("bv", (kv, hd), ("kvheads", "head_dim"), init="zeros")
 
 
-def _qkv(params, x, cfg: ModelConfig, positions, rope: bool):
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+def _qkv(params, x, cfg: ModelConfig, positions, rope: bool,
+         ctx: ParallelCtx = SINGLE):
+    dt, d = x.dtype, x.shape[-1]
+    q, k, v = (torch.einsum("bsd,dhk->bshk", x, gather_param(
+        params[n].to(dt), ctx, 0, d)) for n in ("wq", "wk", "wv"))
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -80,7 +95,7 @@ def _groups(H: int, KV: int, H_loc: int, ctx: ParallelCtx):
 
 
 def sharded_mha(q, k, v, ctx: ParallelCtx = SINGLE, *, causal: bool = True,
-                heads=None):
+                heads=None, local_batch: bool = False):
     """Flash attention of the rank's shard (the counterpart of the
     reference's `shard_map` body). q (B, S, H_q, D) holds the rank's
     query heads, k / v (B, S, KV_k, D) the KV heads it computed; `heads`
@@ -90,12 +105,13 @@ def sharded_mha(q, k, v, ctx: ParallelCtx = SINGLE, *, causal: bool = True,
     group it needs from replicated KV, or (heads not on whole or aligned
     groups) it gathers every query head, attends whole and keeps its
     own. The batch goes over the dp axes when B divides by their size
-    (rows gathered back after). Returns (B, S, H_q, D)."""
+    (rows gathered back after), unless `local_batch` says q already
+    holds only this rank's rows (training). Returns (B, S, H_q, D)."""
     B = q.shape[0]
     H, KV = heads or (q.shape[2], k.shape[2])
     if ctx.mesh is None:
         return flash_ops.mha(q, k, v, causal=causal)
-    r0, r1 = ctx.batch_rows(B)
+    r0, r1 = (0, B) if local_batch else ctx.batch_rows(B)
     split = (r0, r1) != (0, B)
     if split:
         q, k, v = q[r0:r1], k[r0:r1], v[r0:r1]
@@ -122,23 +138,33 @@ def sharded_mha(q, k, v, ctx: ParallelCtx = SINGLE, *, causal: bool = True,
 def _out_proj(out, params, ctx: ParallelCtx, eq: str, cfg: ModelConfig):
     """The output projection: row-parallel (a partial sum, reduced over
     the tp axis) when wo holds a shard of the query heads."""
-    y = torch.einsum(eq, out, params["wo"].to(out.dtype))
+    wo = gather_param(params["wo"].to(out.dtype), ctx, 2, cfg.d_model)
+    y = torch.einsum(eq, out, wo)
     if params["wo"].shape[0] != cfg.num_heads:
-        psum(y, ctx, ctx.tp_axis)
+        y = psum(y, ctx, ctx.tp_axis)
     return y
 
 
 def self_attention(params, x, cfg: ModelConfig, positions=None,
                    causal: bool = True, rope: bool = True,
-                   return_kv: bool = False, ctx: ParallelCtx = SINGLE):
-    """Full-sequence self-attention (prefill): x (B, S, d). Over a mesh
-    the returned k / v hold the rank's KV heads."""
+                   return_kv: bool = False, ctx: ParallelCtx = SINGLE,
+                   local_batch: bool = False):
+    """Full-sequence self-attention (training, prefill): x (B, S, d).
+    Over a mesh the returned k / v hold the rank's KV heads;
+    `local_batch`: x holds only this rank's rows (the train step's)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q, k, v = _qkv(params, x, cfg, positions, rope)
+    if params["wq"].shape[1] != cfg.num_heads:      # heads split: TP region
+        x = enter_region(x, ctx, ctx.tp_axis)
+        if params["wk"].shape[1] == cfg.num_kv_heads:   # KV replicated
+            params = dict(params, **{
+                n: enter_region(params[n], ctx, ctx.tp_axis)
+                for n in ("wk", "wv", "bk", "bv") if n in params})
+    q, k, v = _qkv(params, x, cfg, positions, rope, ctx)
     out = sharded_mha(q, k, v, ctx, causal=causal,
-                      heads=(cfg.num_heads, cfg.num_kv_heads))
+                      heads=(cfg.num_heads, cfg.num_kv_heads),
+                      local_batch=local_batch)
     out = _out_proj(out, params, ctx, "bshk,hkd->bsd", cfg)
     if return_kv:
         return out, (k, v)

@@ -115,15 +115,17 @@ def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc,
 
 
 def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
-                       enc_out=None, ctx: ParallelCtx = SINGLE):
+                       enc_out=None, ctx: ParallelCtx = SINGLE,
+                       local_batch: bool = False):
     """One layer over the full sequence (training, the encoder's pass).
     Returns (x, aux), aux the layer's MoE load-balance loss (float32
-    scalar, 0 for a dense layer)."""
+    scalar, 0 for a dense layer). `local_batch`: x holds the rank's rows
+    of a batch split over the dp axes (the train step over a mesh)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+    h = rmsnorm(p["pre_norm"], x, cfg.norm_eps, ctx)
     if desc.kind == "attn":
         h = attn.self_attention(p["attn"], h, cfg, causal=desc.causal,
-                                ctx=ctx)
+                                ctx=ctx, local_batch=local_batch)
     else:
         h = ssm_mod.ssm_block(p["ssm"], h, cfg)
     x = x + h
@@ -131,7 +133,8 @@ def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
         h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
         x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
-    h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc, ctx)
+    h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps, ctx), cfg, desc,
+                ctx, local_batch)
     if a is not None:
         aux = aux + a
     return x + h, aux
@@ -140,14 +143,17 @@ def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
 def stack_apply(params, x, cfg: ModelConfig, *, cross: bool = False,
                 causal: bool = True, enc_out=None,
                 n_layers: int | None = None, remat: str = "none",
-                ctx: ParallelCtx = SINGLE):
+                ctx: ParallelCtx = SINGLE, local_batch: bool = False):
     """Full-sequence stack without caches (training and the encoder's
     pass): x (B, S, d) -> (x, aux), aux the sum of the layers' MoE
     load-balance losses (float32 scalar). `remat="block"` recomputes each
     super-period of layers in the backward instead of keeping its
     activations (`torch.utils.checkpoint`, non-reentrant), as the
     reference's `jax.checkpoint(body, nothing_saveable)` over one
-    scanned super-block."""
+    scanned super-block; over a mesh the recompute issues the layers'
+    collectives (the FSDP gathers among them) again, in the same order
+    on every rank. `local_batch`: x holds the rank's rows (training over
+    a mesh)."""
     from torch.utils.checkpoint import checkpoint
 
     descs = pattern(cfg, cross, causal)
@@ -156,7 +162,7 @@ def stack_apply(params, x, cfg: ModelConfig, *, cross: bool = False,
     def body(i, x, aux, enc_out):
         for j, desc in enumerate(descs):
             x, a = _apply_layer_train(layer_slice(params[f"pos{j}"], i), x,
-                                      cfg, desc, enc_out, ctx)
+                                      cfg, desc, enc_out, ctx, local_batch)
             aux = aux + a
         return x, aux
 

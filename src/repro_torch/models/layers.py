@@ -10,6 +10,13 @@ on its up / gate projections and row-parallel on its down projection,
 summed over the model axis. What is sharded is read off the local
 shapes against the config. Without a mesh (or unsharded weights) they
 are the plain functions.
+
+Under the training rules every leaf with an `embed` dim also holds
+d / n_data of it (FSDP): the layer gathers it over the fsdp axis after
+the cast to the compute dtype (`parallel.gather_param`, whose backward
+reduce-scatters the gradient). A replicated activation that enters a
+rank's split of the vocab or of the ff dim passes `enter_region`, so
+its gradient sums the ranks' parts (`common.parallel`).
 """
 
 from __future__ import annotations
@@ -20,7 +27,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather, psum
+from repro_torch.common.parallel import (
+    SINGLE,
+    ParallelCtx,
+    all_gather,
+    enter_region,
+    gather_param,
+    psum,
+)
 from repro_torch.models.module import Initializer, torch_dtype
 
 
@@ -29,11 +43,13 @@ def rmsnorm_init(init: Initializer, d: int, name: str = "scale"):
     init.param(name, (d,), ("embed",), init="ones")
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
+            ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    scale = gather_param(params["scale"], ctx, 0, x.shape[-1])
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------- embedding
@@ -45,7 +61,7 @@ def embed_init(init: Initializer, cfg: ModelConfig):
 def embed(params, tokens: torch.Tensor, cfg: ModelConfig,
           ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
-    table = params["embedding"]
+    table = gather_param(params["embedding"], ctx, 1, cfg.d_model)
     ids = tokens.reshape(-1)
     V_loc = table.shape[0]
     if V_loc != cfg.vocab_size:
@@ -68,11 +84,16 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig, head_params=None,
     A vocab-sharded table gives the rank's logits, gathered over the
     model axis into the whole vocab."""
     if cfg.tie_embeddings:
-        w = params["embedding"]   # (V, d)
-        logits = torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
+        w = gather_param(params["embedding"].to(x.dtype), ctx, 1,
+                         x.shape[-1])   # (V, d)
+        eq, v_dim = "bsd,vd->bsv", 0
     else:
-        w = head_params["lm_head"]    # (d, V)
-        logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        w = gather_param(head_params["lm_head"].to(x.dtype), ctx, 0,
+                         x.shape[-1])   # (d, V)
+        eq, v_dim = "bsd,dv->bsv", 1
+    if w.shape[v_dim] != cfg.vocab_size:
+        x = enter_region(x, ctx, ctx.tp_axis)
+    logits = torch.einsum(eq, x, w)
     if logits.shape[-1] != cfg.vocab_size:
         logits = all_gather(logits, ctx, ctx.tp_axis, 2)
     return logits
@@ -124,15 +145,22 @@ def _gelu(x):
 
 def mlp(params, x: torch.Tensor, cfg: ModelConfig,
         ctx: ParallelCtx = SINGLE) -> torch.Tensor:
-    dt = x.dtype
-    up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(dt))
+    dt, d = x.dtype, x.shape[-1]
+    split = params["w_down"].shape[0] != cfg.d_ff
+    if split:
+        x = enter_region(x, ctx, ctx.tp_axis)  # column-parallel entry
+
+    def w(name, dim):
+        return gather_param(params[name].to(dt), ctx, dim, d)
+
+    up = torch.einsum("bsd,df->bsf", x, w("w_up", 0))
     if cfg.act in GATED_ACTS:
-        gate = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(dt))
+        gate = torch.einsum("bsd,df->bsf", x, w("w_gate", 0))
         nl = F.silu if cfg.act == "swiglu" else _gelu
         h = nl(gate) * up
     else:
         h = _gelu(up)
-    y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(dt))
-    if params["w_down"].shape[0] != cfg.d_ff:
-        psum(y, ctx, ctx.tp_axis)            # row-parallel partial sums
+    y = torch.einsum("bsf,fd->bsd", h, w("w_down", 1))
+    if split:
+        y = psum(y, ctx, ctx.tp_axis)        # row-parallel partial sums
     return y

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.common.parallel import SINGLE, ParallelCtx
+from repro_torch.common.parallel import SINGLE, ParallelCtx, gather_param
 from repro_torch.models import blocks
 from repro_torch.models.layers import (
     embed,
@@ -104,12 +104,20 @@ def _decoder_inputs(params, batch, cfg: ModelConfig,
 
 # --------------------------------------------------------------- forward
 def forward(params, batch, cfg: ModelConfig, remat: str = "none",
-            ctx: ParallelCtx = SINGLE):
+            ctx: ParallelCtx = SINGLE, local_batch: bool = False):
     """Teacher-forced forward. batch: tokens (B, S) [+ patches | frames].
     Returns (logits (B, S, V) in cfg.dtype, aux float32 scalar: the MoE
     load-balance loss). The vision prefix is dropped before unembed;
     the encoder-decoder runs its encoder over `frames`. `remat="block"`
-    recomputes each super-period of layers in the backward."""
+    recomputes each super-period of layers in the backward.
+    `local_batch`: the batch holds this rank's rows of one split over
+    the ctx's dp axes (the train step over a mesh); the logits are the
+    rank's rows over the whole vocab."""
+    table = params["embed"]["embedding"]
+    if cfg.tie_embeddings and table.shape[1] != cfg.d_model:
+        # FSDP: one gather serves the lookup and the tied head
+        params = dict(params, embed=dict(params["embed"], embedding=(
+            gather_param(table, ctx, 1, cfg.d_model))))
     x, n_prefix = _decoder_inputs(params, batch, cfg, ctx)
     cross = bool(cfg.num_encoder_layers)
     enc_out = None
@@ -117,8 +125,9 @@ def forward(params, batch, cfg: ModelConfig, remat: str = "none",
         frames = torch.as_tensor(batch["frames"], device=x.device)
         enc_out = _encode(params, frames.to(x.dtype), cfg, remat, ctx)
     x, aux = blocks.stack_apply(params["blocks"], x, cfg, cross=cross,
-                                enc_out=enc_out, remat=remat, ctx=ctx)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+                                enc_out=enc_out, remat=remat, ctx=ctx,
+                                local_batch=local_batch)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps, ctx)
     if n_prefix:
         x = x[:, n_prefix:, :]
     logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
@@ -126,14 +135,16 @@ def forward(params, batch, cfg: ModelConfig, remat: str = "none",
 
 
 def loss_fn(params, batch, cfg: ModelConfig, remat: str = "none",
-            ctx: ParallelCtx = SINGLE):
+            ctx: ParallelCtx = SINGLE, local_batch: bool = False):
     """Next-token cross-entropy + z-loss + MoE aux; tokens (B, S+1).
     Returns (loss, metrics) with the float32 scalars `loss`, `nll`,
-    `z_loss`, `moe_aux` and `accuracy`."""
+    `z_loss`, `moe_aux` and `accuracy`. With `local_batch` over a mesh
+    they are the means over this rank's rows (the MoE aux is the global
+    batch's); the train step averages them over the dp ranks."""
     tokens = batch["tokens"]
     inputs = dict(batch, tokens=tokens[:, :-1])
     labels = tokens[:, 1:].long()
-    logits, aux = forward(params, inputs, cfg, remat, ctx)
+    logits, aux = forward(params, inputs, cfg, remat, ctx, local_batch)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]

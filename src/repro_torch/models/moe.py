@@ -14,6 +14,17 @@ Two execution paths with identical math (up to capacity dropping):
   reference's `shard_map` body on `torch.distributed`.
 
 The router runs in float32 and the gates are renormalized over the top k.
+
+In training (`local_batch=True`, with grad) the same schedule runs
+through the autograd collectives of `common.parallel`: under the
+training rules the router and the expert weights hold d / n_data of
+their embed dim and are gathered over the fsdp axis (a reduce-scatter
+backward), the router's experts over the EP axis with a summed backward
+(each rank routes its own tokens), x enters the EP region before the
+rank takes its block of the sequence, and `all_to_all`'s backward is the
+inverse exchange. The load-balance statistics' `psum` over every axis
+sums their cotangent over the dp axes, whose ranks' losses all read the
+global aux.
 """
 
 from __future__ import annotations
@@ -29,11 +40,17 @@ from repro_torch.common.parallel import (
     ParallelCtx,
     all_gather,
     all_to_all,
+    enter_region,
+    gather_param,
     local_slice,
     psum,
 )
 from repro_torch.models.layers import GATED_ACTS, _gelu
 from repro_torch.models.module import Initializer
+
+
+# the moe_ff dim of each expert weight
+FF_DIM = {"w_gate": 2, "w_up": 2, "w_down": 1}
 
 
 def moe_init(init: Initializer, cfg: ModelConfig):
@@ -136,11 +153,10 @@ def _moe_local(params, x, cfg: ModelConfig, ctx: ParallelCtx,
     rowcol = fsdp_axis is not None and fsdp_mode == "rowcol"
     if fsdp_axis is not None and not rowcol:
         w = dict(params)
-        for name in ("w_gate", "w_up", "w_down"):
-            if name in params:
-                dim = 2 if name != "w_down" else 1
+        for name, dim in FF_DIM.items():
+            if name in params and params[name].shape[dim] != cfg.moe_d_ff:
                 w[name] = all_gather(params[name].to(x.dtype), ctx,
-                                     fsdp_axis, dim)
+                                     fsdp_axis, dim, reduce_grad=True)
 
     gates, idx, probs = _route(w, x.float(), cfg)
 
@@ -162,7 +178,7 @@ def _moe_local(params, x, cfg: ModelConfig, ctx: ParallelCtx,
 
     out = _expert_ffn(w, h, cfg)                      # (E_loc, M*C, d)
     if rowcol:
-        psum(out, ctx, fsdp_axis)   # row-parallel epilogue over the ff dim
+        out = psum(out, ctx, fsdp_axis)   # row-parallel epilogue, ff dim
 
     out = out.reshape(E_loc, ep_size, C, d).transpose(0, 1).contiguous()
     back = all_to_all(out, ctx, ep_axis) if ep_size > 1 else out
@@ -180,7 +196,7 @@ def _moe_local(params, x, cfg: ModelConfig, ctx: ParallelCtx,
         torch.nn.functional.one_hot(idx, E).float().sum(dim=(0, 1)),
         probs.sum(dim=0),
         torch.full((1,), float(T), device=x.device)])
-    psum(stats, ctx, ctx.all_axes)
+    stats = psum(stats, ctx, ctx.all_axes)
     counts, p_sum, t_cnt = stats[:E], stats[E:2 * E], stats[2 * E]
     f = counts / (t_cnt * k)
     p = p_sum / t_cnt
@@ -200,10 +216,17 @@ def moe_ep(params, x, cfg: ModelConfig, ctx: ParallelCtx = SINGLE, *,
     the sequence over the EP axis (`shard_seq_moe`, S % ep == 0), as the
     reference's shard_map in_specs split them, and gathers y back.
     `local_batch` says x already holds only this rank's rows of a batch
-    split over the dp axes (the decode step's slots): no further split.
-    Where the dp axes split the tokens over the fsdp axis, the ff shards
-    are gathered ("gather") instead of the expert outputs being summed
-    over that axis ("rowcol" would add other ranks' tokens)."""
+    split over the dp axes (the decode step's slots, the train step's
+    rows): no further split. Where the dp axes split the tokens over the
+    fsdp axis, the ff shards are gathered ("gather") instead of the
+    expert outputs being summed over that axis ("rowcol" would add other
+    ranks' tokens), and where only some of the weights split it (the
+    training rules give w_gate / w_up's embed dim to the fsdp axis and
+    w_down's ff dim, the first of its dims to ask). Weights split on
+    their embed dim are gathered whole over the fsdp axis first. With
+    grad, the EP axis must split the sequence (S % ep == 0): each rank
+    then routes its own tokens, which the router's and x's backward sums
+    assume."""
     if ctx.mesh is None:
         return moe_dense(params, x, cfg)
     B, S, d = x.shape
@@ -216,27 +239,34 @@ def moe_ep(params, x, cfg: ModelConfig, ctx: ParallelCtx = SINGLE, *,
     if E_loc * ep_size != cfg.num_experts:
         raise ValueError(f"the rank holds {E_loc} experts; EP over "
                          f"{ep_size} ranks needs {cfg.num_experts // ep_size}")
-    if params["w_up"].shape[1] != d:
-        raise NotImplementedError(
-            "expert weights sharded on their embed dim (the training rules)"
-            " port with sharded training (ROADMAP A16b)")
-    fsdp = ctx.fsdp_axis if params["w_up"].shape[2] != cfg.moe_d_ff else None
+    ff_split = {k for k, dim in FF_DIM.items()
+                if k in params and params[k].shape[dim] != cfg.moe_d_ff}
+    fsdp = ctx.fsdp_axis if ff_split else None
+    embed_dim = {"router": 0, "w_gate": 1, "w_up": 1, "w_down": 2}
+    params = {k: gather_param(v, ctx, embed_dim[k], d)
+              for k, v in params.items()}
     router = params["router"]                 # every rank routes alike
     if router.shape[1] != cfg.num_experts:
-        router = all_gather(router, ctx, ep_axis, 1)
+        router = all_gather(router, ctx, ep_axis, 1, reduce_grad=True)
     params = dict(params, router=router)
     dp_split = not local_batch and ctx.batch_split(B)
     mode = ctx.moe_fsdp_mode
-    if fsdp is not None and (local_batch or dp_split) \
-            and fsdp in ctx.dp_axes:
+    if fsdp is not None and ((local_batch or dp_split)
+                             and fsdp in ctx.dp_axes
+                             or ff_split != set(FF_DIM) & set(params)):
         mode = "gather"
     seq_split = (ctx.shard_seq_moe and ep_axis is not None and ep_size > 1
                  and S % ep_size == 0 and S >= ep_size)
+    if torch.is_grad_enabled() and x.requires_grad and ep_size > 1 \
+            and not seq_split:
+        raise NotImplementedError(
+            f"moe_ep with grad needs the sequence ({S}) split over the EP "
+            f"axis ({ep_size} ranks)")
     xs = x
     if dp_split:
         xs = local_slice(xs, ctx, ctx.dp_axes, 0)
     if seq_split:
-        xs = local_slice(xs, ctx, ep_axis, 1)
+        xs = local_slice(enter_region(xs, ctx, ep_axis), ctx, ep_axis, 1)
     bs, ss = xs.shape[0], xs.shape[1]
     y, aux = _moe_local(params, xs.reshape(-1, d), cfg, ctx, ep_axis, fsdp,
                         ep_size, fsdp_mode=mode)

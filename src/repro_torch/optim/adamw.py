@@ -66,15 +66,21 @@ def adamw_update(grads, opt_state, params, lr, cfg: AdamWConfig):
     return pick(0), {"m": pick(1), "v": pick(2), "count": count}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
-             for g in tree_leaves(tree))
-    return torch.sqrt(sq)
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares. Over a mesh
+    the leaves are local shards: `reduce` maps the list of the leaves'
+    local sums of squares (in `tree_leaves` order) to their sums over the
+    ranks that split each leaf, so a replicated leaf counts once."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tree_leaves(tree)]
+    if reduce is not None:
+        sq = reduce(sq)
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Grads scaled by min(1, max_norm / norm); returns (grads, norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, reduce=None):
+    """Grads scaled by min(1, max_norm / norm); returns (grads, norm).
+    `reduce` as `global_norm`'s (None: the whole tree is local)."""
+    norm = global_norm(grads, reduce)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm

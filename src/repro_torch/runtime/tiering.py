@@ -23,8 +23,11 @@ memory (the card), "logical-only" where it does not.
 `info["substrate_mode"]` is the serving substrate's resolution of the
 same probes (`capability.substrate_mode`).
 
-One card: every leaf is whole on it, so `shard_counts` is 1 throughout
-(sharding the state over a mesh ports with ROADMAP A16b).
+Over a mesh (a bundle of `runtime.train.make_bundle(mesh=)`) the profile
+is per rank: each leaf's bytes divided by its shard count under the
+bundle's `state_pspecs` (`shard_counts`, `per_device_profile`, the
+reference's), and each rank places and moves its own shards through its
+own tiered step, as on one card.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import math
 import torch
 
 from repro_torch.common.config import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.common.parallel import axis_sizes
 from repro_torch.common.pytree import leaf_bytes, named_leaves
 from repro_torch.core import access as acc
 from repro_torch.core import placement as plc
@@ -46,17 +50,33 @@ from repro_torch.runtime import train as train_rt
 _PAGE_LIMIT = 2**31      # bytes of one page of the copy's descriptor
 
 
-def shard_counts(state) -> dict:
-    """Shards of each leaf: 1 on one card."""
-    return {name: 1 for name, _ in named_leaves(state)}
+def shard_counts(pspec_tree, mesh=None) -> dict:
+    """Shards of each leaf: the product of the sizes of the mesh axes its
+    spec names (the reference's); 1 for every leaf of any tree without a
+    mesh (one card)."""
+    if mesh is None:
+        return {name: 1 for name, _ in named_leaves(pspec_tree)}
+    sizes = axis_sizes(mesh)
+    out = {}
+    for name, spec in named_leaves(pspec_tree):
+        n = 1
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n *= sizes[a]
+        out[name] = n
+    return out
 
 
-def per_device_profile(state, cfg: ModelConfig, shape: ShapeConfig,
-                       remat: str) -> list:
+def per_device_profile(state, pspecs, mesh=None, cfg=None, shape=None,
+                       remat=None) -> list:
     """The train state's access profile per card (`core.access`), each
-    leaf's bytes divided by its shard count."""
+    leaf's bytes divided by its shard count: `(state, pspecs, mesh, cfg,
+    shape, remat)`, the reference's, or `(state, cfg, shape, remat)` on
+    one card."""
+    if isinstance(pspecs, ModelConfig):          # (state, cfg, shape, remat)
+        pspecs, mesh, cfg, shape, remat = state, None, pspecs, mesh, cfg
     profile = acc.train_profile(state, cfg, shape, remat)
-    counts = shard_counts(state)
+    counts = shard_counts(pspecs, mesh)
     return [dataclasses.replace(a, bytes=a.bytes // max(counts.get(a.name,
                                                                     1), 1))
             for a in profile]
@@ -168,11 +188,15 @@ def apply_tier_shardings(cfg: ModelConfig, tcfg: TrainConfig,
                          *, policy: str, pool_fraction: float, device=None):
     """Returns (abstract_state, new bundle, tier_info dict). The new
     bundle's step keeps the pool-tier leaves in host memory (see the
-    module docstring); `place_state` moves a state's leaves there.
-    `device` is the card the probes ask about (the card by default); the
-    emulation's base topology is one H100's (`tiers.emulated`)."""
+    module docstring); `place_state` moves a state's leaves there (over
+    a mesh each rank places its own shards). `device` is the card the
+    probes ask about (the card by default); the emulation's base
+    topology is one H100's (`tiers.emulated`). The byte counts are a
+    rank's."""
     astate = bundle.abstract_state
-    profile = per_device_profile(astate, cfg, shape, tcfg.remat)
+    profile = per_device_profile(astate, bundle.state_pspecs or astate,
+                                 bundle.mesh, cfg, shape, tcfg.remat)
+    counts = shard_counts(bundle.state_pspecs or astate, bundle.mesh)
     working_set = sum(a.bytes for a in profile)
     topo_e = tr.emulated(pool_fraction, working_set)
     placement = plc.place(profile, topo_e, policy, pool_fraction)
@@ -182,7 +206,7 @@ def apply_tier_shardings(cfg: ModelConfig, tcfg: TrainConfig,
     host = {name for name, _ in named_leaves(astate)
             if placement.tier_of(name) == "host"}
     step = build_tiered_step(bundle.step_fn, host)
-    new_bundle = train_rt.TrainBundle(step, astate)
+    new_bundle = dataclasses.replace(bundle, step_fn=step)
     info = {
         "policy": policy,
         "pool_fraction": pool_fraction,
@@ -197,7 +221,8 @@ def apply_tier_shardings(cfg: ModelConfig, tcfg: TrainConfig,
         "substrate_mode": capability.substrate_mode("auto", device),
         "n_pool_tensors": sum(
             1 for v in placement.assignment.values() if v == "host"),
-        "pool_leaf_bytes": sum(leaf_bytes(_get(astate, n)) for n in host),
+        "pool_leaf_bytes": sum(leaf_bytes(_get(astate, n)) // counts[n]
+                               for n in host),
         "copy_launches_per_step": 2 * len(step.plan),
     }
     return astate, new_bundle, info

@@ -159,13 +159,22 @@ def test_top_k_is_stable_on_ties():
 
 def test_moe_ep_over_a_mesh_waits_for_sharding():
     """`moe_ep` over a mesh runs (`tests/test_torch_mesh_moe.py` holds it
-    against the reference's). What it refuses before any collective: an
-    EP axis that does not divide the experts, and expert weights split on
-    their embed dim (the training rules' layout, ROADMAP A16b). The
-    meshes are stand-ins with the axis sizes only."""
+    against the reference's). It still refuses, before any collective,
+    an EP axis that does not divide the experts (a stand-in mesh with the
+    axis sizes only). Expert weights split on their embed dim (the
+    training rules' layout) run: 2 gloo ranks (data 2), the router and
+    the experts gathered over `data`, y, aux and every weight's gradient
+    of `dev_train_torch.moe_objective` against `moe_dense` on the whole
+    weights (1e-5 of each's largest entry)."""
+    import pathlib
+    import sys
     from types import SimpleNamespace
 
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "scripts"))
+    import dev_train_torch as dtt
     from repro_torch.common.parallel import ParallelCtx as TParallelCtx
+    from repro_torch.launch import mesh as tmesh
 
     _, tc = _cfgs("granite_moe_1b_a400m")
     x = torch.zeros(1, 2, tc.d_model)
@@ -173,12 +182,33 @@ def test_moe_ep_over_a_mesh_waits_for_sharding():
                          tp_axis="model")
     with pytest.raises(ValueError, match="EP axis"):
         tmoe.moe_ep({}, x, tc, three)
-    two = TParallelCtx(mesh=SimpleNamespace(shape={"data": 1, "model": 2}),
-                       tp_axis="model")
-    layer = {"w_up": torch.zeros(tc.num_experts // 2, tc.d_model // 2,
-                                 tc.moe_d_ff)}
-    with pytest.raises(NotImplementedError, match="A16b"):
-        tmoe.moe_ep(layer, x, tc, two)
+
+    tc = dataclasses.replace(tc, capacity_factor=8.0)
+    rng = np.random.default_rng(5)
+    d, E, ff = tc.d_model, tc.num_experts, tc.moe_d_ff
+    params = {k: rng.normal(0, d ** -0.5, shape).astype(np.float32)
+              for k, shape in (("router", (d, E)), ("w_gate", (E, d, ff)),
+                               ("w_up", (E, d, ff)), ("w_down", (E, ff, d)))}
+    xs = rng.normal(0, 1, (4, 8, d)).astype(np.float32)
+    cot = rng.normal(0, 1, (4, 8, d)).astype(np.float32)
+    got = tmesh.run_ranks(dtt.moe_grad_rank, 2,
+                          (2, 1, params, xs, cot, tc, "cpu"), device="cpu",
+                          threads=1, timeout_s=60, wall_s=300)[0]
+    # w_up's embed dim and w_down's ff dim (the first of its dims to ask)
+    # over `data`: both ride the gather schedule
+    assert got["specs"]["w_up"] == ("model", "data", None)
+    assert got["specs"]["w_down"] == ("model", "data", None)
+    w = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    xt = torch.tensor(xs, requires_grad=True)
+    y, aux = tmoe.moe_dense(w, xt, tc)
+    dtt.moe_objective(y, aux, torch.tensor(cot), n_aux=2).backward()
+    for name, want, have in [("y", y.detach().numpy(), got["y"]),
+                             ("x", xt.grad.numpy(), got["x_grad"])] + [
+            (k, w[k].grad.numpy(), got["grads"][k]) for k in params]:
+        np.testing.assert_allclose(have, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+    assert abs(got["aux"] - float(aux)) < 1e-6
 
 
 # -------------------------------------------------------------- engine

@@ -267,16 +267,44 @@ def test_ssd_grad_gap_script_runs_on_the_cpu(capsys):
 
 
 def test_train_config_and_bundle_refuse_the_mesh():
+    """The config and the bundle as the reference's: `compress_grads` is
+    accepted and, as in the reference, changes no step; a (1, 1) mesh is
+    accepted (one gloo rank in this process, destroyed after) and its
+    step is bit-equal to the meshless one; an SSM stack over a mesh
+    raises naming A16d (before any collective: the mesh is a stand-in);
+    the abstract state is the reference's tree."""
+    from repro_torch.launch import mesh as tmesh
+
     assert dataclasses.asdict(TrainConfig()) == \
         dataclasses.asdict(JTrainConfig())
-    with pytest.raises(NotImplementedError, match="A16"):
-        TrainConfig(compress_grads=True)
     with pytest.raises(ValueError, match="remat"):
         TrainConfig(remat="full")
-    cfg = tconfigs.reduced("smollm_360m")
-    with pytest.raises(NotImplementedError, match="A16"):
-        ttrain.make_bundle(cfg, TrainConfig(), mesh=object())
+    cfg = dataclasses.replace(tconfigs.reduced("smollm_360m"),
+                              dtype="float32")
+    params = ttrain.init_train_state(
+        cfg, torch.Generator().manual_seed(1))["params"]
+    batch = make_batch_for(cfg, S, 4, 0)
+    plain = _port_step(cfg, params, batch)
+    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
+             "opt": tadamw.adamw_init(params)}
+    squeezed = ttrain.build_train_step(cfg, TrainConfig(
+        remat="none", compress_grads=True, **TCFG))(state, batch)
+    assert torch.distributed.is_initialized() is False
+    mesh = tmesh.make_smoke_mesh(device="cpu")
+    try:
+        meshed = ttrain.make_bundle(cfg, TrainConfig(remat="none", **TCFG),
+                                    mesh=mesh).step_fn(state, batch)
+    finally:
+        tmesh.close_ranks()
+    for got in (squeezed, meshed):
+        for (n, a), (_, b) in zip(tnamed(got[0]), tnamed(plain[0])):
+            assert torch.equal(a, b), n
+        assert all(torch.equal(got[1][k], v) for k, v in plain[1].items())
+    with pytest.raises(NotImplementedError, match="A16d"):
+        ttrain.make_bundle(tconfigs.reduced("mamba2_780m"), TrainConfig(),
+                           mesh=object())
     bundle = ttrain.make_bundle(cfg, TrainConfig())
+    cfg = tconfigs.reduced("smollm_360m")
     jstate, _ = jtrain.abstract_train_state(jconfigs.reduced("smollm_360m"))
     assert [(n, tuple(v.shape), str(v.dtype).split(".")[-1])
             for n, v in tnamed(bundle.abstract_state)] == \
