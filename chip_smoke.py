@@ -33,7 +33,12 @@ Phases (any failure raises and exits non-zero):
                over contiguous caches, f32 and bf16, head dims {16, 20,
                64, 112, 128, 256}, rep {1, 3, 8}, S {64, 256, 260},
                lengths 1 / span edges / S // 2 + 3 / S / S + 1 / S + 7,
-               called three times (bit-equal); LBench over nflop
+               called three times (bit-equal) and once with its
+               log-sum-exp (the output bit-equal, the lse against the
+               plain version's), and the lse variant at a dp2tp2 rank's
+               shape and qwen2.5-32b's decode_32k rank shapes (16x16: B
+               8, 2048 positions; a 16384-position block), timed beside
+               its bound and SDPA; LBench over nflop
                {0, 1, 2, 5, 16, 32, 128, 1024} x sizes {1, 129, 4096,
                2^20 + 3, 2^28} and an unaligned view (rtol = atol = 2e-5
                up to nflop 128, nflop * 1e-7 above); W8A8 bit for bit
@@ -87,6 +92,12 @@ Phases (any failure raises and exits non-zero):
                demand share below demand's; the stream run's
                `measured_profile` through the rack simulator (fcfs,
                random, aware) and the BFS frontier case study.
+     The fleet phase and the substrate phase's engine runs serve
+     SmolLM-360M at its widths cut to 8 of its 32 layers, the ssm,
+     archs and mamba2 train runs their archs cut too (DEPTH), for the
+     script's time limit; each of those phases gates only float32
+     agreement, drifts relative to bf16's own or bit-equality, which
+     no depth can make a near-tie flip.
   8. fleet   — faults and the fleet on one card (`fleet_phase`): 2-engine
                round-robin fleets against one engine (fp bit-exact, int8
                agreement), chaos_smoke against the fault-free fleet (fp
@@ -120,9 +131,10 @@ Phases (any failure raises and exits non-zero):
                acceptance, draft calls, launches, tok/s, agreement.
  12. ssm     — mamba2-780m at published widths (seeded random bf16
                weights) on the engine phase's configuration and chat
-               trace: ssd_scan launches 48 times per admission, no plain
+               trace (16 of its 48 layers, DEPTH): ssd_scan launches
+               once a layer per admission, no plain
                version runs, agreement >= 0.5 with the plain-version run
-               in float32 (the random 48-layer stack turns bf16 rounding
+               in float32 (a random deep stack turns bf16 rounding
                into token flips) and prompt-pass logit drifts within
                bf16's own;
                the paged int8,
@@ -135,7 +147,8 @@ Phases (any failure raises and exits non-zero):
                B {1, 8} x S {64, 128, 256}, S = 100, G = 2, D = None and
                an initial state, in float32 and bf16.
  13. archs   — the rest of the catalog at published widths (seeded random
-               bf16 weights, depth never cut): granite-moe-1b-a400m (MoE,
+               bf16 weights, depth cut to DEPTH's):
+               granite-moe-1b-a400m (MoE,
                32 experts top 8), paligemma-3b (256 patch embeddings
                before the prompt, D 256, 8 heads on 1 KV head) and
                seamless-m4t-large-v2 (24 + 24 layers, cross-attention
@@ -170,8 +183,8 @@ Phases (any failure raises and exits non-zero):
                loss falling), bf16 through the kernels (the main path:
                flash_mha and flash_mha_bwd launched, no plain version;
                resume bit-equal to a straight run: phase launch, through
-               the launcher); mamba2-780m
-               (batch 4 x 256, 6 steps, float32) through ssd_scan against
+               the launcher); mamba2-780m (16 of its 48 layers, DEPTH;
+               batch 4 x 256, 6 steps, float32) through ssd_scan against
                the plain versions from the same states (as smollm), and
                free-running within 1e-3 or ten times the gap of the plain
                run from an init one float32 step away. Step ms, tokens/s
@@ -201,7 +214,9 @@ Phases (any failure raises and exits non-zero):
                dominant term and t_compute_s), and the dry-run's
                flash_mha / flash_mha_bwd / state_in / state_out units of
                the tiering phase's step equal to the launches the card
-               made.
+               made; beside it `--mesh 16x16` on qwen2.5-32b's
+               decode_32k and train_4k (rank 0 of 256, ok, wire bytes
+               and collectives printed).
  18. mesh    — serving on a mesh (`mesh_phase`): granite-3-2b at published
                widths (2.5 B params, nothing cut) on the engine phase's
                bucket cell, 8 chat requests: the three bucket kernels at
@@ -213,7 +228,12 @@ Phases (any failure raises and exits non-zero):
                meshless engine's, float32 int8 agreement >= 0.5, data
                replicas bit-equal, each rank's pool half
                the meshless one, placement gap 0 on every rank, the
-               kernels launched on every rank; on the same ranks moe_ep
+               kernels launched on every rank; the contiguous layout
+               (sequence-sharded caches, flash_decode_lse and the
+               cross-rank merge): (1, 1) bf16 bit-equal to the meshless
+               contiguous engine, dp2tp2 float32 tokens equal, bf16
+               printed, the serve bundle's decode logits within bf16's
+               own drift; on the same ranks moe_ep
                at granite-moe-1b-a400m's widths within 1e-4 of moe_dense
                with nothing dropped; then training on the same ranks
                (granite-3-2b cut to 8 layers, batch 8 x 256, two steps):
@@ -270,6 +290,28 @@ BF16_TOL = dict(atol=2e-2, rtol=0.0)
 # flash_mha's lse: m + log(l) in float32 in both dtypes (bf16 products are
 # exact in float32), summed in another order than the plain version
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+# Depth of the models of some later phases (their widths, and so every
+# kernel's shapes, stay the published ones): the script grew past its
+# time limit on a slow host (1410 s on an H100 at 700 W), so the fleet,
+# the substrate's engine runs, ssm, archs and mamba2's training cut their
+# stacks to these depths; every gate stays. The chunked and speculative
+# phases keep SmolLM-360M's 32 layers: their bf16 int8 agreement gates
+# hold kernels against plain versions on random weights, where another
+# depth moves which near-ties flip
+DEPTH = {"smollm_360m": 8, "mamba2_780m": 16, "granite_moe_1b_a400m": 8,
+         "paligemma_3b": 6, "seamless_m4t_large_v2": 8}
+
+
+def cut_depth(cfg):
+    """`cfg` with its decoder (and encoder) depth cut to DEPTH's."""
+    from repro_torch import configs
+
+    n = DEPTH[configs.canonical(cfg.name)]
+    return dataclasses.replace(
+        cfg, num_layers=n,
+        **({"num_encoder_layers": n} if cfg.num_encoder_layers else {}))
 
 
 def demangle(name: str) -> str:
@@ -711,7 +753,7 @@ def kernel_cases(torch, timer):
                f"n_pages={n_pages} lengths={lens.tolist()}; library = "
                "SDPA, gather excluded"),
     ))
-    records.append(flash_decode_cases(torch, timer, randn, report, timed))
+    records += flash_decode_cases(torch, timer, randn, report, timed)
     records += prefill_kernel_cases(torch, timer, gen, randn, report,
                                     timed)
     records.append(lbench_cases(torch, timer, gen, report, timed))
@@ -1201,16 +1243,20 @@ def flash_decode_cases(torch, timer, randn, report, timed):
     lengths 0 (the mean of the slot's V rows), 1, span - 1, span, span +
     1 (the split's edges), S // 2 + 3, S, S + 1 and S + 7 (parked), each
     case called three times (the later
-    calls bit-equal to the first). Prints one summary line and any
-    failing case; returns the record timed at the contiguous engine's
-    decode shape (B=8, 15/5 heads, D=64, S=256, bf16), after checking
-    that one op call is one launch of the split kernel."""
+    calls bit-equal to the first), then once more with the log-sum-exp
+    (`return_lse`): its output bit-equal to the call without, its lse
+    against the plain version's (LSE_TOL; -1e30 at length 0). Prints one
+    summary line and any failing case; returns the record timed at the
+    contiguous engine's decode shape (B=8, 15/5 heads, D=64, S=256,
+    bf16), after checking that one op call is one launch of the split
+    kernel, and the lse variant's records (`flash_decode_lse_cases`)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import paged as dpaged
 
     print("kernel flash_decode (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
     span = dpaged.SPAN
     n_cases, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_lse = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for D in (16, 20, 64, 112, 128, 256):
             for rep in (1, 3, 8):
@@ -1228,16 +1274,26 @@ def flash_decode_cases(torch, timer, randn, report, timed):
                     err, ok = max_err(torch, out, ref, tol)
                     same = all(torch.equal(out, dops.decode_mha(
                         q, k, v, lens, impl="cuda")) for _ in range(2))
+                    o2, lse = dops.decode_mha(q, k, v, lens, impl="cuda",
+                                              return_lse=True)
+                    _, ref_lse = dops.decode_mha(q, k, v, lens,
+                                                 impl="reference",
+                                                 return_lse=True)
+                    lse_err, lse_ok = max_err(torch, lse, ref_lse, LSE_TOL)
+                    same = same and torch.equal(o2, out)
                     n_cases += 1
                     worst[dt] = max(worst[dt], err)
-                    if not (ok and same):
+                    worst_lse = max(worst_lse, lse_err)
+                    if not (ok and same and lse_ok):
                         report("flash_decode", f"S={S} D={D} rep={rep} "
                                f"{str(dt)[6:]} len={lens.tolist()}"
-                               + ("" if same else " REPEAT DIFFERS"), err,
-                               False, tol)
+                               + ("" if same else " REPEAT DIFFERS")
+                               + ("" if lse_ok else f" lse {lse_err:.3e}"),
+                               err, False, tol)
     print(f"  flash_decode: {n_cases} cases, each called three times "
-          f"(bit-equal); max_abs_err f32 {worst[torch.float32]:.3e}, bf16 "
-          f"{worst[torch.bfloat16]:.3e}")
+          f"(bit-equal) and once with the lse (output bit-equal); "
+          f"max_abs_err f32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}, lse {worst_lse:.3e}")
     # main shape: the contiguous engine's decode step (prompts of 128
     # tokens, 32 new tokens each, cache extent max_seq = 256)
     B, H, KV, D, S = 8, 15, 5, 64, 256
@@ -1262,7 +1318,8 @@ def flash_decode_cases(torch, timer, randn, report, timed):
                                     int(lens.clamp(max=S).sum()),
                                     q.element_size())
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
-    return dict(
+    lse_records = flash_decode_lse_cases(torch, timer, randn, report, timed)
+    return [dict(
         name="flash_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/decode_attention.py:57",
@@ -1275,7 +1332,80 @@ def flash_decode_cases(torch, timer, randn, report, timed):
         shape=(f"bf16 contiguous B={B} H={H} KV={KV} D={D} S={S} "
                f"lengths={lens.tolist()}; library = SDPA with a length "
                "mask"),
-    )
+    )] + lse_records
+
+
+# the lse variant's rank shapes: (label, B, H, KV, D, S_loc, lengths) —
+# one dp2tp2 rank of granite-3-2b's contiguous cell (4 of 8 slots, every
+# head, half of max_seq 256; a slot whose keys all sit on the other rank
+# has length 0), one rank of qwen2.5-32b's decode_32k on the 16x16 mesh
+# (8 of 128 sequences, 2048 of 32768 positions) and a long local block
+# (the sequence over 2 ranks)
+LSE_SHAPES = (
+    ("granite dp2tp2 rank", 4, 32, 8, 64, 128, (0, 33, 100, 128)),
+    ("qwen2.5-32b 16x16 rank", 8, 40, 8, 128, 2048,
+     (2048, 2048, 1500, 2048, 777, 2048, 2048, 1)),
+    ("qwen2.5-32b long block", 1, 40, 8, 128, 16384, (16384,)),
+)
+
+
+def flash_decode_lse_cases(torch, timer, randn, report, timed):
+    """flash_decode with `return_lse` (the sequence-sharded decode over
+    a mesh: each rank decodes its block of positions and the ranks merge
+    by the lse) at LSE_SHAPES, f32 and bf16: out against the plain
+    version (F32_TOL / BF16_TOL), lse against its lse (LSE_TOL); each
+    timed in bf16 beside its bound (`decode_cost(..., lse=True)` at the
+    case's lengths), the plain version and SDPA with a length mask.
+    Prints every case; returns the record of the 16x16 rank's shape."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    print("kernel flash_decode_lse (out f32 atol=rtol=1e-5, bf16 "
+          f"atol=2e-2; lse atol={LSE_TOL['atol']:g} "
+          f"rtol={LSE_TOL['rtol']:g})")
+    record = None
+    for label, B, H, KV, D, S, lengths in LSE_SHAPES:
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(B, H, D, dtype=dt)
+            k = randn(B, S, KV, D, dtype=dt)
+            v = randn(B, S, KV, D, dtype=dt, scale=0.5)
+            out, lse = dops.decode_mha(q, k, v, lens, impl="cuda",
+                                       return_lse=True)
+            ref, ref_lse = dops.decode_mha(q, k, v, lens, impl="reference",
+                                           return_lse=True)
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            err, ok = max_err(torch, out, ref, tol)
+            lse_err, lse_ok = max_err(torch, lse, ref_lse, LSE_TOL)
+            report("flash_decode_lse", f"{label} B={B} H={H} KV={KV} D={D} "
+                   f"S_loc={S} {str(dt)[6:]} lse err {lse_err:.2e}",
+                   err, ok and lse_ok, tol)
+        call = functools.partial(dops.decode_mha, q, k, v, lens,
+                                 return_lse=True)
+        ops_, bytes_ = dops.decode_cost(q.shape, k.shape,
+                                        int(lens.clamp(max=S).sum()),
+                                        q.element_size(), lse=True)
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
+        rec = dict(
+            name="flash_decode_lse", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/"
+                     "decode_attention.py:57",
+            max_abs_err=err,
+            **timed(lambda: call(impl="cuda"),
+                    lambda: call(impl="reference")),
+            bound_ms=max(t_b, t_o) * 1e3,
+            bound_by="bytes" if t_b >= t_o else "operations",
+            library_ms=sdpa_decode_ms(torch, timer, q, k, v, lens),
+            shape=(f"bf16 {label}: B={B} H={H} KV={KV} D={D} S_loc={S} "
+                   f"lengths={list(lengths)}; library = SDPA with a "
+                   "length mask"))
+        print(f"  time flash_decode_lse {label}: kernel {rec['ms']:.4f} ms "
+              f"plain {rec['plain_ms']:.4f} ms library {rec['library_ms']} "
+              f"ms bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}) on "
+              f"{smi_line()}")
+        if label.endswith("16x16 rank"):
+            record = rec
+    return [record]
 
 
 def prefill_kernel_cases(torch, timer, gen, randn, report, timed):
@@ -2117,7 +2247,8 @@ def substrate_phase(torch):
     against the data sheet's 64 GB/s host link, a contiguous
     `copy_(non_blocking=True)` of the same bytes to and from a pinned
     buffer (cudaMemcpyAsync) and the plain index_select + copy. Then the
-    engine phase's configuration and trace with the local tier cut to a
+    engine phase's configuration (the model cut to DEPTH's 8 layers) and
+    trace with the local tier cut to a
     quarter of peak KV (local_budget_frac=0.25), so pages spill to the
     pool tier and come back: mode "physical", placement gap 0 after
     every drain, tokens equal to the same engine with the substrate off,
@@ -2210,8 +2341,10 @@ def substrate_phase(torch):
     base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
                         page_tokens=16, pool_dtype="int8",
                         local_budget_frac=0.25)
+    cfg = cut_depth(cfg)
     params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
-    print(f"substrate engine {cfg.name}: the engine phase's trace with "
+    print(f"substrate engine {cfg.name} ({cfg.num_layers}L, published "
+          f"widths): the engine phase's trace with "
           f"local_budget_frac={base.local_budget_frac}")
 
     def serve(substrate):
@@ -2550,7 +2683,8 @@ def prefetch_phase(torch, timer):
 
 
 def fleet_phase(torch):
-    """Faults and the fleet at SmolLM-360M's published widths, on the card,
+    """Faults and the fleet at SmolLM-360M's published widths (depth cut
+    to DEPTH's 8 of 32 layers), on the card,
     no plain version anywhere (the engine phase's configuration and
     16-request chat trace, with local_budget_frac=0.25 so pages move
     between the tiers, unless said):
@@ -2593,7 +2727,7 @@ def fleet_phase(torch):
 
     import dev_serve_torch as dst
 
-    cfg = configs.get("smollm_360m")
+    cfg = cut_depth(configs.get("smollm_360m"))
     # the local tier cut to a quarter of peak KV, as in the substrate
     # phase: pages spill to the pool tier and return in every engine, so
     # the transfer sites the plan flakes see traffic
@@ -3191,12 +3325,13 @@ def speculative_phase(torch):
 
 
 def ssm_phase(torch):
-    """mamba2-780m at published widths (48 SSM layers, d 1536, 48 heads of
-    dim 64, state 128; seeded random bf16 weights) served by
+    """mamba2-780m at published widths (d 1536, 48 heads of dim 64, state
+    128; its 48 SSM layers cut to DEPTH's 16; seeded random bf16 weights)
+    served by
     `ServingEngine` on the engine phase's configuration (paged int8,
     n_slots=8, max_seq=256, buckets 64/128, 16-token pages) over its
-    16-request chat trace: every request finishes, ssd_scan launches 48
-    times per admission and no plain version runs (no bf16 run on the
+    16-request chat trace: every request finishes, ssd_scan launches once
+    a layer per admission and no plain version runs (no bf16 run on the
     plain versions: printed only, cut for the script's time);
     in float32 (fp pools) the kernel and plain runs agree per request >=
     INT8_TOKEN_AGREEMENT; the teacher-forced prompt pass of every request
@@ -3217,7 +3352,7 @@ def ssm_phase(torch):
     from repro_torch.serving import (INT8_TOKEN_AGREEMENT, EngineConfig,
                                      ServingEngine, make_scenario)
 
-    cfg = configs.get("mamba2_780m")
+    cfg = cut_depth(configs.get("mamba2_780m"))
     assert cfg.dtype == "bfloat16"
     base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
                         page_tokens=16, pool_dtype="int8")
@@ -3446,9 +3581,10 @@ ARCHS = (("granite_moe_1b_a400m", (64, 128)),
 
 
 def archs_phase(torch):
-    """The rest of the catalog at published widths (depth never cut,
-    seeded random bf16 weights made on the card): granite-moe-1b-a400m
-    (24L, d 1024, 16/8 heads, 32 experts top 8, expert ff 512),
+    """The rest of the catalog at published widths (depth cut to DEPTH's:
+    8, 6 and 8 + 8 layers; seeded random bf16 weights made on the card):
+    granite-moe-1b-a400m (24L, d 1024, 16/8 heads, 32 experts top 8,
+    expert ff 512),
     paligemma-3b (18L, d 2048, 8/1 heads of dim 256, ff 16384, 256 patch
     embeddings before the prompt) and seamless-m4t-large-v2 (24 + 24L, d
     1024, 16/16 heads, ff 8192, 128 frames), each served by
@@ -3496,7 +3632,7 @@ def archs_phase(torch):
         t_arch = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = configs.get(arch)
+        cfg = cut_depth(configs.get(arch))
         assert cfg.dtype == "bfloat16"
         params = M.init_model(cfg, torch.Generator("cuda").manual_seed(0))
         base = EngineConfig(n_slots=8, max_seq=256, prefill_buckets=buckets,
@@ -3951,7 +4087,7 @@ def train_phase(torch, timer):
     bf16 through the kernels (the main path, its steps timed alone), and
     a second such bf16 run checked from each of its states (the loss and
     grad norm within the gap between the plain versions' bf16 and
-    float32 steps from that state); mamba2-780m (batch 4, seq
+    float32 steps from that state); mamba2-780m (16 of 48 layers; batch 4, seq
     256, 6 steps) through ssd_scan against the plain versions in float32
     from the same states, and free-running within 1e-3 or ten times the
     gap of the plain versions' run from an init one float32 step away.
@@ -4072,7 +4208,8 @@ def train_phase(torch, timer):
     # launcher itself (`train_launcher_resume`)
 
     # mamba2-780m through ssd_scan (float32 gate)
-    mcfg = dataclasses.replace(configs.get("mamba2_780m"), dtype="float32")
+    mcfg = dataclasses.replace(cut_depth(configs.get("mamba2_780m")),
+                               dtype="float32")
     print(f"train {mcfg.name}: {mcfg.num_layers}L d={mcfg.d_model} "
           f"heads={mcfg.ssm_heads}x{mcfg.ssm_head_dim} "
           f"state={mcfg.ssm_state}; batch 4 x seq 256, 6 steps, float32; "
@@ -4402,13 +4539,19 @@ def tiering_phase(torch, timer):
     return per_step
 
 
+# the dry-run cells traced over the reference's 16x16 mesh (rank 0 of
+# 256 H100s; ROADMAP A16c) beside the one-card `--all`
+MESH_DRYRUN = (("qwen2.5-32b", "decode_32k"), ("qwen2.5-32b", "train_4k"))
+
+
 def start_dryrun() -> dict:
     """Start `python -m repro_torch.launch.dryrun --all` (every cell of
     `configs.all_cells()` on meta tensors, in spawned processes, at most
-    one per core; the card is idle) in a subprocess of its own session at
-    nice 10, writing into a temporary directory: it takes the cores the
-    kernels' build leaves idle, and `finish_dryrun` waits for it before
-    the card is timed. An exit handler stops its process group if the
+    one per core; the card is idle) and, for each of MESH_DRYRUN, `--mesh
+    16x16 --arch A --shape S`, in subprocesses of their own sessions at
+    nice 10, writing into a temporary directory: they take the cores the
+    kernels' build leaves idle, and `finish_dryrun` waits for them before
+    the card is timed. An exit handler stops their process groups if the
     script ends first."""
     import atexit
     import os
@@ -4418,19 +4561,22 @@ def start_dryrun() -> dict:
     out = tempfile.mkdtemp(prefix="dryrun_torch_")
     jobs = len(os.sched_getaffinity(0))
     log = open(Path(out) / "dryrun.log", "w")
-    proc = subprocess.Popen(
+    cmds = [["--all"]] + [["--mesh", "16x16", "--arch", a, "--shape", s]
+                          for a, s in MESH_DRYRUN]
+    procs = [subprocess.Popen(
         ["nice", "-n", "10", sys.executable, "-m", "repro_torch.launch.dryrun",
-         "--all", "--outdir", out],
+         *cmd, "--outdir", out],
         stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))) for cmd in cmds]
 
     def stop():
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
 
     atexit.register(stop)
-    return dict(proc=proc, out=out, log=log, jobs=jobs, stop=stop,
+    return dict(procs=procs, out=out, log=log, jobs=jobs, stop=stop,
                 t0=time.perf_counter())
 
 
@@ -4440,13 +4586,15 @@ def finish_dryrun(run: dict) -> list:
     import shutil
 
     t_wait = time.perf_counter()
-    rc = run["proc"].wait()
+    rcs = [p.wait() for p in run["procs"]]
+    rc = max(rcs)
     run["log"].close()
     out = Path(run["out"])
     log = (out / "dryrun.log").read_text()
     secs = time.perf_counter() - run["t0"]
     print(f"dryrun: `python -m repro_torch.launch.dryrun --all` ("
-          f"{run['jobs']} cores) started with the build at nice 10: rc {rc}, "
+          f"{run['jobs']} cores) and `--mesh 16x16` on {MESH_DRYRUN} "
+          f"started with the build at nice 10: rcs {rcs}, "
           f"{secs:.1f} s, {time.perf_counter() - t_wait:.1f} s of it "
           "waited for after the build (meta tensors, the card idle)")
     if rc != 0:
@@ -4460,7 +4608,9 @@ def finish_dryrun(run: dict) -> list:
 def dryrun_phase(torch, tier_launches, results):
     """The records of `start_dryrun`'s run (`results`): every cell of
     `configs.all_cells()` `ok`, each cell's dominant term and
-    t_compute_s printed. Gate: the dry-run of SmolLM-360M's tiered train
+    t_compute_s printed; the MESH_DRYRUN cells over 16x16 `ok`, priced
+    on 256 cards with wire bytes, their collectives printed. Gate: the
+    dry-run of SmolLM-360M's tiered train
     step at the tiering phase's shape (batch 8 x 256, one microbatch,
     remat by block) counts as many flash_mha, flash_mha_bwd, state_in
     and state_out units as the card's step launched
@@ -4469,9 +4619,29 @@ def dryrun_phase(torch, tier_launches, results):
     from repro_torch.common.config import ShapeConfig
     from repro_torch.launch import dryrun
 
+    meshed = [r for r in results if r["mesh"] != dryrun.MESH]
+    results = [r for r in results if r["mesh"] == dryrun.MESH]
     cells = {(r["arch"], r["shape"]) for r in results}
     print(f"dryrun: {len(results)} records for the "
           f"{len(configs.all_cells())} cells of configs.all_cells()")
+    for r in meshed:
+        hc, rl = r["hlo_cost"], r["roofline"]
+        mb = f" mb {r['microbatches']}" if "microbatches" in r else ""
+        wire = {k: round(v) for k, v in hc["collectives"].items()}
+        print(f"  {r['arch']} x {r['shape']} @ {r['mesh']} "
+              f"({r.get('n_devices')} H100s, rank 0){mb}: "
+              f"{rl['dominant']}-bound, t_compute_s "
+              f"{rl['t_compute_s']:.6g}, t_memory_s {rl['t_memory_s']:.6g}, "
+              f"t_collective_s {rl['t_collective_s']:.6g}; wire "
+              f"{hc['wire_bytes_per_device'] / 1e9:.4f} GB a rank, "
+              f"collectives {hc['collective_counts']} bytes {wire}, temp "
+              f"{r['memory_analysis']['temp_bytes'] / 1e9:.2f} GB, units "
+              f"{r['dispatch_cost']['units']} ({r['wall_s']} s)")
+    want = {(configs.canonical(a), s) for a, s in MESH_DRYRUN}
+    if {(r["arch"], r["shape"]) for r in meshed} != want or not all(
+            r["status"] == "ok" and r["n_devices"] == 256
+            and r["hlo_cost"]["wire_bytes_per_device"] > 0 for r in meshed):
+        raise AssertionError(f"dryrun phase: the 16x16 cells {meshed}")
     for r in results:
         rl, ma = r["roofline"], r["memory_analysis"]
         print(f"  {r['arch']} x {r['shape']}"
@@ -4504,10 +4674,21 @@ MESH_CELL = dict(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
 # passes in float32 and bf16 that gate bf16 on the mesh); the meshless
 # engine also serves the bf16 int8 main path, which the (1, 1) NCCL rank
 # must match bit for bit
+# the contiguous layout over the mesh (ROADMAP A16c): its float32 run
+# gated token-equal to the meshless contiguous engine (and its weights
+# give the serve bundle's decode-step logits in float32 and bf16), its
+# bf16 run printed; the (1, 1) rank's bf16 run bit-equal
+CONTIG_F32 = dict(name="f32 contiguous", dtype="float32", pool_dtype="fp",
+                  paged=False, decode_logits=True)
+CONTIG_BF16 = dict(name="bf16 contiguous", dtype="bfloat16", pool_dtype="fp",
+                   paged=False)
 MESH_RUNS = (dict(name="f32 fp", dtype="float32", pool_dtype="fp",
                   logits=True),
-             dict(name="f32 int8", dtype="float32", pool_dtype="int8"))
+             dict(name="f32 int8", dtype="float32", pool_dtype="int8"),
+             CONTIG_F32, dict(CONTIG_BF16, gate=False))
 MAIN_RUN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
+ONE_RUNS = (MAIN_RUN, CONTIG_BF16)
+CONTIG_KERNELS = ("flash_mha", "flash_decode_lse")
 MOE_CAPS = (("no drops", 8.0), ("config", None))
 
 
@@ -5004,7 +5185,8 @@ def mesh_phase(torch, timer):
     pools, bf16 int8), and the spawned ranks, which take this process's
     float32 masters by CUDA IPC:
     * (1, 1) on NCCL, one spawned rank, bf16 int8 (the main path): its
-      tokens and every pool leaf bit-equal to the meshless engine's;
+      tokens and every pool leaf bit-equal to the meshless engine's; the
+      same for bf16 on the contiguous layout (no merge over tp 1);
     * dp2tp2 as 4 ranks sharing the card over gloo (NCCL refuses two
       ranks of one communicator on one GPU; gloo moves the collectives'
       bytes through host memory, so their times are not NCCL's), every
@@ -5019,7 +5201,16 @@ def mesh_phase(torch, timer):
       shards no further from the meshless bf16 pass than that is from
       the meshless float32 pass (the ssm phase's rule; random deep bf16
       stacks flip tokens on one-ulp differences, so the bf16 engine's
-      tokens are not gated), the float32 drift printed;
+      tokens are not gated), the float32 drift printed; the contiguous
+      layout (`paged=False`, ROADMAP A16c: slots over `data`, each
+      slot's positions over `model`, flash_decode with its lse and the
+      ranks' merge): float32 tokens of every rank equal the meshless
+      contiguous engine's, each rank a quarter of its caches,
+      flash_mha and flash_decode_lse launched on every rank, no plain
+      version; the serve bundle's last decode-step logits over 64
+      prefilled + 4 decoded positions (`dev_serve_torch.bundle_logits`:
+      every step merges both ranks' blocks) no further from the meshless
+      bundle's in bf16 than bf16 is from float32; bf16 tokens printed;
     * on the same ranks, `moe_ep` at granite-moe-1b-a400m's widths (d
       1024, 32 experts, top 8, ff 512; EP over `model`), x (4, 128,
       1024) float32: with capacity 8.0 no pair drops and y is within 1e-4
@@ -5044,8 +5235,8 @@ def mesh_phase(torch, timer):
       flash_mha and its backward launched on every rank, no plain
       version; `moe_ep`'s gradients at granite-moe's widths (capacity
       8.0, the training rules' layout) within 1e-4 of `moe_dense`'s.
-    Returns the launches of rank 0's float32 int8 run and of its float32
-    train run."""
+    Returns the launches of rank 0's float32 int8 run, of its float32
+    contiguous run (flash_decode_lse) and of its float32 train run."""
     import numpy as np
 
     import dev_serve_torch as dst
@@ -5113,7 +5304,8 @@ def mesh_phase(torch, timer):
         f_one = pool.submit(
             mesh_mod.run_ranks, dst.mesh_calls, 1,
             ([(dst.mesh_rank, (cfg, 1, 1, params, prompts, 32,
-                               [dict(MAIN_RUN, **MESH_CELL)], "cuda")),
+                               [dict(r, **MESH_CELL) for r in ONE_RUNS],
+                               "cuda")),
               mesh_train_one(train_inp)],),
             device="cuda", backend="nccl", wall_s=600, threads=1)
         t_train = time.perf_counter()
@@ -5137,7 +5329,7 @@ def mesh_phase(torch, timer):
         for i, run in enumerate((*MESH_RUNS, MAIN_RUN)):
             rcfg = dataclasses.replace(cfg, dtype=run["dtype"])
             ecfg = dst.mesh_ecfg(8, 128, 32, pool_dtype=run["pool_dtype"],
-                                 **MESH_CELL)
+                                 paged=run.get("paged", True), **MESH_CELL)
             eng = ServingEngine.build(rcfg, ecfg, params=params)
             reqs = [Request(request_id=j, tokens=p, max_new_tokens=32,
                             arrival=0.0) for j, p in enumerate(prompts)]
@@ -5159,11 +5351,13 @@ def mesh_phase(torch, timer):
         logits = {dt: dst.prompt_logits(cfg, cast_params(params, dt),
                                         prompts, dt, "cuda")
                   for dt in ("float32", "bfloat16")}
+        dec_logits = {dt: dst.bundle_logits(cfg, params, dt, "cuda")
+                      for dt in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
         print(f"  meshless runs done, {since()}; this process holds "
               f"{torch.cuda.memory_reserved() / 1e9:.1f} GB of the card")
         one_all = f_one.result()[0]
-        one, one_t = one_all[0][0], one_all[1][0]
+        (one, one_c), one_t = one_all[0], one_all[1][0]
         print(f"  (1, 1) done, {since()} (mesh built in "
               f"{one['mesh_s']:.1f} s)")
         got = f_four.result()
@@ -5186,15 +5380,31 @@ def mesh_phase(torch, timer):
     print(f"  mesh train gates done, {since()}")
 
     # --- (1, 1) on NCCL: the main path, bit-equal ----------------------
-    same = np.array_equal(one["tokens"], ref[2]["tokens"])
+    i_main = len(MESH_RUNS)
+    same = np.array_equal(one["tokens"], ref[i_main]["tokens"])
     print(f"  (1, 1) nccl bf16 int8: tokens equal {same}, pool leaves "
-          f"bit-equal {one['digests'] == ref[2]['digests']} "
+          f"bit-equal {one['digests'] == ref[i_main]['digests']} "
           f"({len(one['digests'])} leaves), launches {one['launches']}, "
           f"plain {one['plain']}, {8 * 32 / one['wall_s']:.1f} tok/s wall")
-    gate(same and one["digests"] == ref[2]["digests"],
+    gate(same and one["digests"] == ref[i_main]["digests"],
          "(1, 1): tokens or pool leaves differ from the meshless engine")
     gate(all(one["launches"].get(k, 0) > 0 for k in BUCKET_KERNELS)
          and not one["plain"], f"(1, 1): launches {one['launches']}")
+    # the contiguous layout: with tp 1 no merge runs, the plain decode
+    i_c = MESH_RUNS.index(dict(CONTIG_BF16, gate=False))
+    same = np.array_equal(one_c["tokens"], ref[i_c]["tokens"])
+    print(f"  (1, 1) nccl bf16 contiguous: tokens equal {same}, cache "
+          f"leaves bit-equal {one_c['digests'] == ref[i_c]['digests']} "
+          f"({len(one_c['digests'])} leaves), launches "
+          f"{one_c['launches']}, plain {one_c['plain']}, "
+          f"{8 * 32 / one_c['wall_s']:.1f} tok/s wall on {smi_line()}")
+    gate(same and one_c["digests"] == ref[i_c]["digests"],
+         "(1, 1) contiguous: tokens or cache leaves differ from the "
+         "meshless engine")
+    gate(all(one_c["launches"].get(k, 0) > 0 for k in ("flash_mha",
+                                                       "flash_decode"))
+         and not one_c["plain"], f"(1, 1) contiguous: launches "
+         f"{one_c['launches']}")
 
     # --- dp2tp2 over gloo, 4 ranks on the card, and moe_ep -------------
     results = [g[0] for g in got]
@@ -5218,14 +5428,32 @@ def mesh_phase(torch, timer):
               f"; wall tok/s {min(tok_s):.1f}-{max(tok_s):.1f} (gloo through"
               f" host memory, 4 ranks on one card) vs meshless "
               f"{8 * 32 / ref[i]['wall_s']:.1f}")
+        paged = run.get("paged", True)
         for r, p in enumerate(per):
             print(f"    rank {r} {p['coord']}: launches {p['launches']} "
                   f"plain {p['plain']}")
-            gate(all(p["launches"].get(k, 0) > 0 for k in BUCKET_KERNELS)
+            gate(all(p["launches"].get(k, 0) > 0 for k in
+                     (BUCKET_KERNELS if paged else CONTIG_KERNELS))
                  and not p["plain"], f"dp2tp2 {run['name']} rank {r}: "
                  f"launches {p['launches']}, plain {p['plain']}")
-        gate(per[0]["substrate"] == "physical",
+        gate(per[0]["substrate"] == ("physical" if paged else "off"),
              f"dp2tp2 {run['name']}: substrate {per[0]['substrate']}")
+        if run.get("decode_logits"):
+            d32, d16 = (max(float(np.abs(p["decode_logits"][dt]
+                                         - dec_logits[dt]).max())
+                            for p in per)
+                        for dt in ("float32", "bfloat16"))
+            d_dtype = float(np.abs(dec_logits["bfloat16"]
+                                   - dec_logits["float32"]).max())
+            print(f"  dp2tp2 serve bundle, last decode step's logits (8 "
+                  f"sequences, 64 prefilled + 4 decoded in caches of 128: "
+                  f"each step merges both ranks' blocks; max |logit| "
+                  f"{float(np.abs(dec_logits['float32']).max()):.2f}): mesh"
+                  f" vs meshless in float32 {d32:.3e}, in bf16 {d16:.4f}, "
+                  f"meshless bf16 vs float32 {d_dtype:.4f} (gate: bf16 "
+                  f"drift <= the dtype's) on {smi_line()}")
+            gate(d16 <= d_dtype, f"dp2tp2 contiguous bf16 decode drift "
+                 f"{d16} > the bf16 dtype drift {d_dtype}")
         if run.get("logits"):
             d32, d16 = (max(float(np.abs(p["logits"][dt]
                                          - logits[dt]).max()) for p in per)
@@ -5272,6 +5500,8 @@ def mesh_phase(torch, timer):
     if failures:
         raise AssertionError(f"mesh phase: {failures}")
     out = {k: results[0][1]["launches"].get(k, 0) for k in BUCKET_KERNELS}
+    out["flash_decode_lse"] = results[0][MESH_RUNS.index(CONTIG_F32)][
+        "launches"].get("flash_decode_lse", 0)
     out["flash_mha_bwd"] = train_launches.get("flash_mha_bwd", 0)
     return out
 

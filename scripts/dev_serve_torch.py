@@ -22,7 +22,12 @@ agreement >= INT8_TOKEN_AGREEMENT), the `data` replicas of each pool
 bit-equal, and the substrate's placement contract (`pool_bytes_used()
 == placement_bytes()`) on every rank. `--pool-dtype` picks the pool
 (fp by default); `--backend gloo` puts several ranks on one card (NCCL
-refuses two ranks of one communicator on the same GPU).
+refuses two ranks of one communicator on the same GPU). `--contiguous`
+serves the contiguous layout there instead of the paged pool: slots over
+`data`, every slot's sequence over `model` (each rank decodes its block
+of positions and the ranks merge by their log-sum-exp), fp caches; its
+gates are the same but the replica check, as the `data` ranks hold
+different slots.
 
 With `--fleet N` it runs the fleet lanes instead (the reference's
 `dev_serve.py --fleet` / `--fault-plan` lanes, on the port only):
@@ -47,6 +52,8 @@ With `--fleet N` it runs the fleet lanes instead (the reference's
         --fault-plan chaos_smoke
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
         --mesh dp2tp2 [--pool-dtype int8] [--arch granite_3_2b]
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
+        --mesh dp2tp2 --contiguous
 
 It serves the reduced config of each `--arch` (repeatable, default
 smollm_360m) in float32. `tests/test_torch_contiguous.py`,
@@ -383,8 +390,11 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     the rank's weights; for a float32 run whose dict has "logits" True,
     the last-token logits (float32) of a prompt pass of every prompt
     alone on the engine's weights, in float32 and in bfloat16 ({"float32":
-    (n, V), "bfloat16": (n, V)}); and the seconds this rank took to build
-    its mesh ("mesh_s")."""
+    (n, V), "bfloat16": (n, V)}); for a float32 run whose dict has
+    "decode_logits" True, the serve bundle's last decode step's logits on
+    the engine's weights in both dtypes (`bundle_logits` over
+    DECODE_TOKENS, "decode_logits"); and the seconds this rank took to
+    build its mesh ("mesh_s")."""
     import torch.distributed as dist
 
     dev = torch.device(device)
@@ -398,8 +408,9 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     out = []
     for run in runs:
         want_logits = run.get("logits", False)
+        want_decode = run.get("decode_logits", False)
         run = {k: v for k, v in run.items()
-               if k not in ("name", "gate", "logits")}
+               if k not in ("name", "gate", "logits", "decode_logits")}
         rcfg = dataclasses.replace(cfg, dtype=run.pop("dtype", cfg.dtype))
         ecfg = mesh_ecfg(n_req, n, gen, **run)
         t_build = time.perf_counter()
@@ -423,14 +434,18 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
             mode = eng.substrate.mode
             gap = (eng.pager.pool_bytes_used()
                    - eng.substrate.ledger.placement_bytes())
-        logits = None
-        if want_logits:
+        logits = dec_logits = None
+        if want_logits or want_decode:
             if rcfg.dtype != "float32":
                 raise ValueError("prompt logits are taken from a float32 "
                                  f"run's weights, not {rcfg.dtype}")
+        if want_logits:
             logits = {dt: prompt_logits(rcfg, cast_params(eng.params, dt),
                                         prompts, dt, dev, ctx)
                       for dt in ("float32", "bfloat16")}
+        if want_decode:
+            dec_logits = {dt: bundle_logits(rcfg, eng.params, dt, dev, mesh)
+                          for dt in ("float32", "bfloat16")}
         out.append(dict(
             tokens=np.stack([np.asarray(r.output) for r in reqs]),
             wall_s=wall, build_s=build_s, launches=launches, plain=plain,
@@ -439,7 +454,8 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
             param_bytes=sum(leaf_bytes(x) for x in tree_leaves(eng.params)),
             substrate=mode, placement_gap=gap,
             coord=(ctx.index("data"), ctx.index("model")),
-            fsdp_axis=ctx.fsdp_axis, logits=logits, mesh_s=mesh_s,
+            fsdp_axis=ctx.fsdp_axis, logits=logits,
+            decode_logits=dec_logits, mesh_s=mesh_s,
             summary=stats.summary()))
         del eng
         if dev.type == "cuda":
@@ -459,6 +475,44 @@ def prompt_logits(cfg, params, prompts, dtype: str, device,
         np.asarray(p)[None], device=device)}, cfg, max_seq=len(p),
         **kw)[1][0].float() for p in prompts]
     return torch.stack(rows).cpu().numpy()
+
+
+# the serve bundle's drift probe: 8 sequences of 68 seeded tokens, the
+# first 64 prefilled into caches of 128 positions, then 4 decode steps
+# (positions 64-67: on a tp 2 mesh the second half of the sequence, so
+# every step merges both ranks' blocks)
+DECODE_TOKENS = dict(batch=8, prompt=64, total=68, max_seq=128, seed=5)
+
+
+def bundle_logits(cfg, params, dtype: str, device, mesh=None) -> np.ndarray:
+    """The last decode step's logits (float32 numpy, (batch, V)) of the
+    serve bundle (`serve.make_bundle`) over DECODE_TOKENS, in `dtype`, on
+    `params` (the meshless tree, or a rank's shard over `mesh`: a
+    collective, every rank of the mesh calls it, and the logits of every
+    row are gathered back)."""
+    from repro_torch.common.parallel import all_gather
+
+    d = DECODE_TOKENS
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = cast_params(params, dtype)
+    tokens = torch.as_tensor(np.random.default_rng(d["seed"]).integers(
+        0, cfg.vocab_size, (d["batch"], d["total"])), device=device)
+    kw, ctx = {}, None
+    if mesh is not None:
+        ctx = mesh_mod.ctx_for_mesh(mesh, remat="none")
+        kw = dict(mesh=mesh, ctx=ctx)
+    sb = serve_rt.make_bundle(cfg, batch=d["batch"], max_seq=d["max_seq"],
+                              **kw)
+    caches, logits = sb.prefill_fn(params,
+                                   {"tokens": tokens[:, :d["prompt"]]})
+    if ctx is not None:
+        caches = serve_rt.prefill_cache_shards(caches, ctx,
+                                               cfg.num_kv_heads)
+    for i in range(d["prompt"], d["total"]):
+        logits, caches = sb.decode_fn(params, tokens[:, i], caches, i)
+    if logits.shape[0] != d["batch"]:
+        logits = all_gather(logits, ctx, ctx.dp_axes, 0)
+    return logits.float().cpu().numpy()
 
 
 def _rank_mesh(dp: int, tp: int, device):
@@ -574,6 +628,89 @@ def mesh_moe_rank(rank: int, world: int, dp: int, tp: int, params, x,
     return out
 
 
+def mesh_bundle_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
+                     prompts, steps, max_seq: int, device) -> dict:
+    """One rank of the serve bundle over a (dp, tp) mesh
+    (`runtime.serve.make_bundle(mesh=)`, its default context and the
+    serving rules): the global params (numpy) cut into the rank's shard,
+    the prefill step over `prompts` (B, S0), its caches turned into the
+    decode step's shards (`serve.prefill_cache_shards`), then one decode
+    step per row of `steps` (n, B) at positions S0, S0 + 1, ... (scalar
+    t). Returns the prefill's logits and each decode step's (every row,
+    gathered over the dp axes; float32 numpy), the rank's cache shards
+    after the last step ({"pos0/k": numpy}), its (data, model)
+    coordinate and the kernels' launch and plain-call counts."""
+    from repro_torch.common.parallel import all_gather
+
+    dev = torch.device(device)
+    mesh = _rank_mesh(dp, tp, device)
+    ctx = mesh_mod.ctx_for_mesh(mesh, remat="none")
+    prompts = torch.as_tensor(np.asarray(prompts), device=dev)
+    B, S0 = prompts.shape
+    bundle = serve_rt.make_bundle(cfg, batch=B, max_seq=max_seq, mesh=mesh,
+                                  ctx=ctx)
+    local = shd.shard_tree(load_numpy_params(params, device=dev),
+                           bundle.param_pspecs, mesh)
+    kernels.reset_counters()
+    caches, logits = bundle.prefill_fn(local, {"tokens": prompts})
+    caches = serve_rt.prefill_cache_shards(caches, ctx, cfg.num_kv_heads)
+    out = [logits]
+    for i, tok in enumerate(np.asarray(steps)):
+        logits, caches = bundle.decode_fn(
+            local, torch.as_tensor(tok, device=dev), caches, S0 + i)
+        if logits.shape[0] != B:
+            logits = all_gather(logits, ctx, ctx.dp_axes, 0)
+        out.append(logits)
+    return dict(
+        logits=[x.float().cpu().numpy() for x in out],
+        caches={f"{pos}/{k}": x.float().cpu().numpy()
+                for pos, c in caches.items() for k, x in c.items()},
+        coord=(ctx.index("data"), ctx.index("model")),
+        launches={k: v for k, v in kernels.LAUNCHES.items() if v},
+        plain={k: v for k, v in kernels.REFERENCE_CALLS.items() if v})
+
+
+def mesh_collectives_rank(rank: int, world: int, cfg, dp: int, tp: int,
+                          decode, train, device) -> dict:
+    """The collectives one rank of a (dp, tp) mesh issues
+    (`common.parallel.log_collectives`: kind, input shape, axis) in a
+    decode step of the serve bundle and in a train step, on real tensors
+    over the process group: `decode` (batch, max_seq) for
+    `serve.make_bundle(mesh=)` (its params seeded, its caches zeroed
+    shards, the rank's tokens, t max_seq // 2), `train` (batch, seq,
+    microbatches) for `train.make_bundle(mesh=)` (remat by block, the
+    seed-0 state's shard, the rank's rows of a seeded batch).
+    {"decode": [...], "train": [...]} as lists of (kind, shape, axis)."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.parallel import log_collectives
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.runtime import train as train_rt
+
+    dev = torch.device(device)
+    mesh = _rank_mesh(dp, tp, device)
+    Bd, Sd = decode
+    sb = serve_rt.make_bundle(cfg, batch=Bd, max_seq=Sd, mesh=mesh)
+    ctx = mesh_mod.ctx_for_mesh(mesh, remat="none")
+    params = shd.shard_tree(M.init_model(cfg, device=dev, seed=0),
+                            sb.param_pspecs, mesh)
+    caches = shd.zeros_for_shards(sb.abstract_caches, sb.cache_pspecs, mesh,
+                                  dev)
+    r0, r1 = ctx.batch_rows(Bd)
+    token = torch.arange(Bd, dtype=torch.int32, device=dev)[r0:r1]
+    with log_collectives() as dec:
+        sb.decode_fn(params, token, caches,
+                     torch.tensor(Sd // 2, dtype=torch.int32, device=dev))
+    Bt, St, k = train
+    tcfg = TrainConfig(microbatches=k, remat="block")
+    bundle = train_rt.make_bundle(cfg, tcfg, mesh=mesh)
+    batch = train_rt.rank_batch(make_batch_for(cfg, St, Bt, 0), bundle.ctx,
+                                k)
+    state = bundle.shard(train_rt.init_train_state(cfg, device=dev))
+    with log_collectives() as tr:
+        bundle.step_fn(state, batch)
+    return {"decode": dec, "train": tr}
+
+
 def mesh_calls(rank: int, world: int, calls) -> list:
     """Several rank functions in one set of ranks: `fn(rank, world,
     *args)` for each (fn, args) of `calls`, in order (each builds its own
@@ -590,12 +727,19 @@ def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
     False: printed only); the data replicas of each pool (ranks of one
     model coordinate) bit-equal; each rank's pool 1/tp of the meshless
     pool's bytes when its KV heads split over tp (`kv_split`), all of
-    them when they do not; placement gap 0 on every rank.
+    them when they do not; placement gap 0 on every rank. A contiguous
+    run (`paged` False) holds slots over `data` and positions over
+    `model`: no replicas, and each rank holds 1/(dp tp) of the caches.
     Returns the failures (empty: every gate held)."""
     failed = []
     for i, run in enumerate(runs):
         per = [r[i] for r in results]
         name = run.get("name", f"run {i}")
+        if not run.get("paged", True):
+            failed += _contiguous_gates(per, ref_tokens[i],
+                                        ref_pool_bytes.get(i), name,
+                                        run.get("gate", True))
+            continue
         if any(not np.array_equal(p["tokens"], per[0]["tokens"])
                for p in per):
             failed.append(f"{name}: the ranks' tokens differ")
@@ -624,21 +768,42 @@ def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
     return failed
 
 
+def _contiguous_gates(per, ref_tokens, ref_bytes, name,
+                      gate: bool = True) -> list:
+    """`mesh_gates` of a contiguous run: every rank's tokens equal rank
+    0's and (`gate`) the meshless engine's; each rank holds the same
+    share of the meshless caches' bytes, world of them adding up to
+    all."""
+    failed = []
+    if any(not np.array_equal(p["tokens"], per[0]["tokens"]) for p in per):
+        failed.append(f"{name}: the ranks' tokens differ")
+    agree = compare(per[0]["tokens"], ref_tokens)
+    if gate and not agree["exact"]:
+        failed.append(f"{name}: tokens differ from the meshless engine's "
+                      f"{agree}")
+    if ref_bytes and any(p["pool_bytes"] * len(per) != ref_bytes
+                         for p in per):
+        failed.append(f"{name}: cache bytes {[p['pool_bytes'] for p in per]}"
+                      f" vs {ref_bytes} / {len(per)}")
+    return failed
+
+
 def mesh_parity(cfg, params, dp: int, tp: int, pool_dtype: str, *, device,
-                backend=None, threads: int = 0):
+                backend=None, threads: int = 0, paged: bool = True):
     """The sharded-parity lane of one arch: the meshless engine, then the
     mesh engine on dp x tp spawned ranks, on the same float32 weights
-    and prompts. Returns (the gates' failures, the meshless tokens, every
-    rank's results)."""
+    and prompts (`paged` False: the contiguous layout, fp). Returns (the
+    gates' failures, the meshless tokens, every rank's results)."""
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-    ecfg = mesh_ecfg(B, S, GEN, pool_dtype=pool_dtype)
+    ecfg = mesh_ecfg(B, S, GEN, pool_dtype=pool_dtype, paged=paged)
     ref = ServingEngine.build(cfg, ecfg, params=params, device=device)
     reqs = [Request(request_id=i, tokens=prompts[i], max_new_tokens=GEN,
                     arrival=0.0) for i in range(B)]
     ref.run(reqs)
     ref_tokens = np.stack([np.asarray(r.output) for r in reqs])
     np_params = _to_numpy(params)
-    runs = [dict(pool_dtype=pool_dtype, name=f"pool {pool_dtype}")]
+    runs = [dict(pool_dtype=pool_dtype, paged=paged,
+                 name=f"{'pool' if paged else 'contiguous'} {pool_dtype}")]
     results = mesh_mod.run_ranks(
         mesh_rank, dp * tp,
         (cfg, dp, tp, np_params, prompts, GEN, runs, device),
@@ -673,12 +838,17 @@ def main(argv=None) -> int:
                     "spawned ranks instead (e.g. dp2tp2)")
     ap.add_argument("--pool-dtype", default="fp", choices=("fp", "int8"),
                     help="with --mesh: the paged pool's dtype")
+    ap.add_argument("--contiguous", action="store_true",
+                    help="with --mesh: serve the contiguous layout (fp) "
+                    "instead of the paged pool")
     ap.add_argument("--backend", choices=("gloo", "nccl"),
                     help="with --mesh: the process group's backend (the "
                     "device's own by default: nccl on cuda, gloo on cpu)")
     args = ap.parse_args(argv)
     if args.fault_plan and not args.fleet:
         ap.error("--fault-plan needs --fleet N")
+    if args.contiguous and (not args.mesh or args.pool_dtype != "fp"):
+        ap.error("--contiguous needs --mesh and an fp pool")
     mesh = None
     if args.mesh:
         m = re.fullmatch(r"dp(\d+)tp(\d+)", args.mesh)
@@ -694,9 +864,12 @@ def main(argv=None) -> int:
             bad, _, results = mesh_parity(
                 cfg, params, dp, tp, args.pool_dtype, device=args.device,
                 backend=args.backend,
-                threads=1 if args.device == "cpu" else 0)
+                threads=1 if args.device == "cpu" else 0,
+                paged=not args.contiguous)
             r0 = results[0][0]
-            print(f"{arch}: mesh=dp{dp}tp{tp} pool={args.pool_dtype} "
+            layout = "contiguous" if args.contiguous else "paged"
+            print(f"{arch}: mesh=dp{dp}tp{tp} {layout} "
+                  f"pool={args.pool_dtype} "
                   f"substrate={r0['substrate']} pool_bytes/rank="
                   f"{r0['pool_bytes']} launches={r0['launches']} "
                   f"{'OK' if not bad else 'FAIL ' + '; '.join(bad)}")

@@ -35,16 +35,29 @@ ranks hold different rows and the step sums their gradients
 `torch.distributed.nn.functional.all_reduce` is not used: its backward
 sums the cotangent again, which multiplies a replicated downstream's
 gradient by the axis size.
+
+On a meta tensor under the cost mode (`kernels.costed`: the dry-run
+traces one rank's step over a `launch.mesh.AbstractMesh`) a collective
+over an axis of n > 1 ranks issues nothing: it returns a meta result of
+the right shape and records its kind and wire bytes under the
+reference's ring model (`repro.profiler.hlo`): all-gather out (n-1)/n,
+all-reduce 2 in (n-1)/n, reduce-scatter and all-to-all in (n-1)/n. A
+real tensor over an `AbstractMesh` raises (it has no process groups).
+`log_collectives` records (kind, input shape, axis) of each collective
+either path issues.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import kernels
 
 
 def axis_sizes(mesh) -> dict:
@@ -137,9 +150,42 @@ def _grad_path(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
+_LOG: Optional[list] = None
+
+
+@contextlib.contextmanager
+def log_collectives():
+    """Yield a list that gets (kind, input shape, axis) of every
+    collective issued over an axis of size > 1 while the block runs, in
+    issue order: "all-reduce", "all-gather", "all-to-all" or
+    "reduce-scatter", the shape of the tensor handed to it."""
+    global _LOG
+    outer, _LOG = _LOG, []
+    try:
+        yield _LOG
+    finally:
+        _LOG = outer
+
+
+def _issue(kind: str, x: torch.Tensor, axis: str, n: int) -> bool:
+    """Log one collective of `x` over `axis` (n ranks); under the cost
+    mode record its wire bytes (ring model, module docstring) and return
+    True: the caller then issues nothing and returns a meta result."""
+    if _LOG is not None:
+        _LOG.append((kind, tuple(x.shape), axis))
+    if not kernels.costed(x):
+        return False
+    nbytes = x.numel() * x.element_size()
+    wire = (2 * nbytes if kind == "all-reduce" else
+            n * nbytes if kind == "all-gather" else nbytes) * (n - 1) / n
+    kernels.record_collective(kind, wire, tuple(x.shape), axis)
+    return True
+
+
 def _all_reduce_(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
     for a in _axes(axes):
-        if ctx.axis_size(a) > 1:
+        n = ctx.axis_size(a)
+        if n > 1 and not _issue("all-reduce", x, a, n):
             dist.all_reduce(x, group=ctx.mesh.get_group(a))
     return x
 
@@ -153,6 +199,9 @@ def _gather(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int):
         n = ctx.axis_size(a)
         if n > 1:
             x = x.contiguous()
+            if _issue("all-gather", x, a, n):
+                x = torch.cat([x] * n, dim=dim)
+                continue
             parts = [torch.empty_like(x) for _ in range(n)]
             dist.all_gather(parts, x, group=ctx.mesh.get_group(a))
             x = torch.cat(parts, dim=dim)
@@ -167,10 +216,12 @@ def _block(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int):
     return x.narrow(dim, ctx.index(_axes(axes)) * size, size)
 
 
-def _exchange(x: torch.Tensor, ctx: ParallelCtx, axis: str):
+def _exchange(x: torch.Tensor, ctx: ParallelCtx, axis: str,
+              kind: str = "all-to-all"):
     x = x.contiguous()          # a cotangent may come strided
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=ctx.mesh.get_group(axis))
+    if not _issue(kind, x, axis, ctx.axis_size(axis)):
+        dist.all_to_all_single(out, x, group=ctx.mesh.get_group(axis))
     return out
 
 
@@ -185,7 +236,7 @@ def _reduce_scatter(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int):
             continue
         y = x.movedim(dim, 0)
         y = _exchange(y.reshape((n, y.shape[0] // n) + tuple(y.shape[1:])),
-                      ctx, a)
+                      ctx, a, "reduce-scatter")
         x = y.sum(0).movedim(0, dim)
     return x
 

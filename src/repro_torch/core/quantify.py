@@ -101,16 +101,28 @@ def load_dryrun_record(arch: str, shape: str, mesh: str = "1",
     return None
 
 
+# the record a number of cards reads by default: one card's, or the
+# reference's production meshes (`launch.mesh.production_mesh`)
+MESH_OF_CHIPS = {1: "1", 256: "16x16", 512: "2x16x16"}
+
+
+def mesh_size(mesh: str) -> int:
+    """Cards of a record's mesh name: "1", "16x16", "2x16x16", "DxM"."""
+    n = 1
+    for part in mesh.split("x"):
+        n *= int(part)
+    return n
+
+
 def _check_record(rec: Optional[dict], n_chips: int) -> None:
-    """A record prices the cards it was traced on: the port's records are
-    of one card (mesh "1"), so a record serves `n_chips == 1` only. A
-    record of a mesh, or one card's record over several cards, needs the
-    sharded dry-run (ROADMAP A16c)."""
-    if rec and (rec.get("mesh", "1") != "1" or n_chips != 1):
-        raise NotImplementedError(
-            f"a dry-run record over mesh {rec.get('mesh', '1')} priced on "
-            f"{n_chips} cards needs the sharded dry-run, which ports with "
-            "ROADMAP A16c (the port's records are of one card)")
+    """A record prices one rank of the cards it was traced on
+    (`launch.dryrun`: mesh "1" for one card, "16x16" ... for a mesh), so
+    it serves exactly that many cards."""
+    if rec and mesh_size(rec.get("mesh", "1")) != n_chips:
+        raise ValueError(
+            f"a dry-run record over mesh {rec.get('mesh', '1')} "
+            f"({mesh_size(rec.get('mesh', '1'))} cards) cannot price "
+            f"{n_chips} cards")
 
 
 HBM_STATE_BUDGET = 0.6  # fraction of HBM available for resident state
@@ -127,17 +139,21 @@ def analyze(
     n_chips: int = 1,
     dryrun_record: Optional[dict] = None,
     use_dryrun: bool = True,
+    mesh: Optional[str] = None,
 ) -> Analysis:
     """pool_fraction: float = paper-style emulated R_cap stress test;
     "auto" = pool-by-necessity (whatever exceeds the per-card HBM budget
     goes to the pool — the actual adoption scenario). The state is
     sharded over `n_chips` cards of `chip`, each with `topo` (default
-    `h100_topology(chip)`). With `use_dryrun`, no `dryrun_record` and
-    one card, the port's record of the cell is read when one exists;
-    over several cards there is none to read (the port's records are of
-    one card) and the compute time is the analytic one."""
-    if dryrun_record is None and use_dryrun and n_chips == 1:
-        dryrun_record = load_dryrun_record(arch, shape_name)
+    `h100_topology(chip)`). With `use_dryrun` and no `dryrun_record`,
+    the port's record of the cell over `mesh` is read when one exists:
+    `mesh` defaults to the name of `n_chips` cards (`MESH_OF_CHIPS`: 1
+    -> "1", 256 -> "16x16", 512 -> "2x16x16"; no record is read for
+    another count), and its size must be `n_chips`. A record's
+    `t_compute_s` is one card's."""
+    mesh = mesh or MESH_OF_CHIPS.get(n_chips)
+    if dryrun_record is None and use_dryrun and mesh is not None:
+        dryrun_record = load_dryrun_record(arch, shape_name, mesh)
     _check_record(dryrun_record, n_chips)
     cfg = configs.get(arch)
     shape = SHAPES[shape_name]

@@ -43,14 +43,16 @@ import torch
 _FORCED: str | None = None
 
 # launches of each kernel since the last reset (incremented by the
-# wrapper right after it launches, nowhere else) and calls that took the
-# plain version
+# wrapper right after it launches, nowhere else; flash_decode's launches
+# that also write the log-sum-exp count as "flash_decode_lse") and calls
+# that took the plain version
 LAUNCHES = {"write_pages": 0, "page_out": 0, "page_in": 0, "handoff": 0,
             "layer_in": 0, "state_in": 0, "state_out": 0,
             "flash_mha": 0, "flash_mha_bwd": 0,
             "paged_flash_decode": 0, "paged_prefill_flash": 0,
             "paged_prefill_insert_flash": 0,
             "paged_prefill_insert_flash_q8": 0, "flash_decode": 0,
+            "flash_decode_lse": 0,
             "lbench": 0, "matmul_w8a8": 0, "ssd_scan": 0}
 REFERENCE_CALLS = {"write_pages": 0, "page_out": 0, "page_in": 0,
                    "handoff": 0, "layer_in": 0, "state_in": 0,
@@ -95,6 +97,13 @@ def record_unit(name: str, flops: float, nbytes: float, inputs,
     """One unit of kernel `name`: its flops and bytes from the kernel's
     cost formula, and the tensors it reads and writes at its boundary."""
     _COST_SINK.unit(name, flops, nbytes, inputs, outputs)
+
+
+def record_collective(kind: str, wire_bytes: float, shape, axis) -> None:
+    """One collective a traced step would issue (`common.parallel` under
+    the cost mode): its kind, its wire bytes under the ring model, the
+    shape of its input and its mesh axis."""
+    _COST_SINK.collective(kind, wire_bytes, shape, axis)
 
 
 def select_impl(x: torch.Tensor, impl: str | None = None) -> str:

@@ -22,7 +22,9 @@
 // a ragged last span (S not a multiple of 64, as the draft caches' S + k)
 // is zero-filled and masked; 16-byte row copies where D * sizeof(T)
 // allows, 4-byte or byte copies otherwise (D = 20 in bf16). The cache is
-// in q's dtype, as the model's caches are.
+// in q's dtype, as the model's caches are. With `lse` the kernel also
+// writes each (row, query head)'s float32 log-sum-exp (B * H * 4 more
+// bytes), which the sequence-sharded decode over a mesh merges by.
 
 #include "decode_body.cuh"
 
@@ -36,22 +38,23 @@ using repro::decode::launch_d;
 }  // namespace
 
 // q (B,H,D), k/v (B,S,KV,D), out (B,H,D), all in `dtype` (kF32 | kBF16);
-// lengths (B,) int32. All contiguous, on the device. The launch plan,
-// scratch and widths as for `repro_paged_decode`, with n_span =
-// ceil(S / span) (no (scale, zero) rows). Returns cudaGetLastError() of
-// the launch.
+// lengths (B,) int32; lse (B,H) float32 or null (not written). All
+// contiguous, on the device. The launch plan, scratch and widths as for
+// `repro_paged_decode`, with n_span = ceil(S / span) (no (scale, zero)
+// rows). Returns cudaGetLastError() of the launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  const void* lengths, void* out, void* part,
-                                  void* part_ml, void* tickets, int B, int H,
-                                  int KV, int D, int S, int dtype, float scale,
-                                  int span, int n_span, int vb, int smem,
+                                  const void* lengths, void* out, void* lse,
+                                  void* part, void* part_ml, void* tickets,
+                                  int B, int H, int KV, int D, int S,
+                                  int dtype, float scale, int span,
+                                  int n_span, int vb, int smem,
                                   void* stream) {
   if (B == 0) return 0;
   Args<DenseRows> a{q,       k,     v,    nullptr, nullptr,
                     lengths, out,   part, part_ml, tickets,
                     B,       smem,
                     {H, KV, D, span, n_span, vb, 8, scale},
-                    DenseRows{S}, static_cast<cudaStream_t>(stream)};
+                    DenseRows{S}, static_cast<cudaStream_t>(stream), lse};
   if (dtype == repro::kF32) return launch_d<float, float, kSzNone>(a);
   if (dtype == repro::kBF16)
     return launch_d<__nv_bfloat16, __nv_bfloat16, kSzNone>(a);

@@ -52,6 +52,12 @@
 //   call, merges the partials in span order (not finish order, so the
 //   result is the same on every run), online: o = sum_u e^(m_u - M) acc_u
 //   / max(sum_u e^(m_u - M) l_u, 1e-30) with the running max M.
+// - On request (`lse` not null) each (row, query head) also writes its
+//   float32 log-sum-exp m + log(l) over the scaled logits, M + log(L)
+//   after a merge, and -1e30 for a slot of length 0, so that a caller can
+//   merge the outputs of disjoint key blocks (the sequence-sharded decode
+//   over a mesh) with weights e^(lse - max lse), a length-0 block's
+//   exactly 0. The output is the same with or without it.
 #pragma once
 
 #include "common.cuh"
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const TKV* __restrict__ vp, const float* __restrict__ ksz,
     const float* __restrict__ vsz, const Rows rows,
     const int* __restrict__ lengths, T* __restrict__ out,
-    float* __restrict__ part, float* __restrict__ part_ml,
+    float* __restrict__ lse, float* __restrict__ part, float* __restrict__ part_ml,
     int* __restrict__ tickets, Shape s) {
   constexpr int kE = 16 / static_cast<int>(sizeof(TKV));  // per chunk
   extern __shared__ __align__(16) unsigned char smem_dec[];
@@ -195,6 +201,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       const T o = from_float<T>(sum / static_cast<float>(max(n_rows, 1)));
       for (int r = 0; r < rep; ++r) out[(b * s.H + g * rep + r) * s.D + d] = o;
     }
+    // its log-sum-exp weighs it 0 in a merge of key blocks
+    if (lse != nullptr && tid < rep) lse[b * s.H + g * rep + tid] = kNegInf;
     return;
   }
   const int n_used = max(1, (n_keys + s.span - 1) / s.span);
@@ -320,6 +328,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       const int r = rr * kWarps + warp;
       if (r >= rep) break;
       const float l_safe = fmaxf(l[rr], kMinDenom);
+      if (lse != nullptr && lane == 0)
+        lse[b * s.H + g * rep + r] = m[rr] + logf(l[rr]);
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
         const int d = lane + 32 * i;
@@ -389,6 +399,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     }
     out[(b * s.H + g * rep + r) * s.D + d] =
         from_float<T>(o / fmaxf(L, kMinDenom));
+    if (lse != nullptr && d == 0) lse[b * s.H + g * rep + r] = M + logf(L);
   }
 }
 
@@ -401,6 +412,7 @@ struct Args {
   Shape s;
   Rows rows;
   cudaStream_t stream;
+  void* lse = nullptr;  // (B, H) float32 log-sum-exp, or none
 };
 
 template <typename T, typename TKV, int SZ, int DPL, typename Rows>
@@ -423,7 +435,7 @@ int launch(const Args<Rows>& a) {
       static_cast<const TKV*>(a.vp), static_cast<const float*>(a.ksz),
       static_cast<const float*>(a.vsz), a.rows,
       static_cast<const int*>(a.lengths), static_cast<T*>(a.out),
-      static_cast<float*>(a.part), static_cast<float*>(a.part_ml),
+      static_cast<float*>(a.lse), static_cast<float*>(a.part), static_cast<float*>(a.part_ml),
       static_cast<int*>(a.tickets), s);
   return static_cast<int>(cudaGetLastError());
 }

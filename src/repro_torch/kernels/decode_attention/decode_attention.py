@@ -22,7 +22,7 @@ from repro_torch.kernels.decode_attention.paged import (
     scratch,
 )
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
@@ -34,12 +34,14 @@ def _check(cond: bool, msg: str) -> None:
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: torch.Tensor, *,
                       scale: Optional[float] = None,
-                      span: int = SPAN) -> torch.Tensor:
+                      span: int = SPAN, return_lse: bool = False):
     """q (B,H,D) vs the contiguous cache k/v (B,S,KV,D), all float32 or
     all bfloat16; lengths (B,) int32 valid keys per row (values past S
     read the whole cache). All contiguous on one CUDA device. Returns
-    (B,H,D) in q's dtype, launched on the current stream; `span` other
-    than the default only times the options."""
+    (B,H,D) in q's dtype, launched on the current stream, and with
+    `return_lse` also the (B,H) float32 log-sum-exp of the scaled logits
+    (-1e30 for a row of length 0); `span` other than the default only
+    times the options."""
     dev = q.device
     tensors = [q, k, v, lengths]
     _check(q.is_cuda and all(t.device == dev for t in tensors),
@@ -63,16 +65,20 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            f"plan {plan} exceeds the card's limits")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     tickets, part, part_ml = scratch(dev, B * KV,
                                      B * KV * plan.n_span * (H // KV), D)
     vb = copy_width(D * k.element_size(), k.data_ptr(), v.data_ptr())
     fn = build.library("decode_attention").repro_flash_decode
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), part.data_ptr(), part_ml.data_ptr(),
+             out.data_ptr(), None if lse is None else lse.data_ptr(),
+             part.data_ptr(), part_ml.data_ptr(),
              tickets.data_ptr(), B, H, KV, D, S, build.dtype_code(q.dtype),
              float(scale), plan.span, plan.n_span, vb, plan.smem_bytes,
              torch.cuda.current_stream(dev).cuda_stream)
-    kernels.LAUNCHES["flash_decode"] += 1
+    kernels.LAUNCHES["flash_decode_lse" if return_lse
+                     else "flash_decode"] += 1
     build.check(err, "flash_decode")
-    return out
+    return (out, lse) if return_lse else out

@@ -13,42 +13,66 @@ from repro_torch import kernels
 from repro_torch.kernels.decode_attention import ref
 
 
-def decode_cost(q_shape, k_shape, n_keys: int,
-                itemsize: int = 2) -> tuple[int, int]:
+def decode_cost(q_shape, k_shape, n_keys: int, itemsize: int = 2,
+                lse: bool = False) -> tuple[int, int]:
     """(operations, bytes) of one flash_decode call that reads `n_keys`
     keys in all (the sum over rows of min(length, S)): q.K and p.V over
     every head (4 D operations a key and head), K and V of those keys,
     q and out at `itemsize` bytes, the int32 lengths. The kernels
     table's bound (`chip_smoke.py`, from the run's lengths) and the
     dry-run's unit (`profiler.cost`, every row at the full extent: a
-    meta tensor has no lengths) both read it."""
+    meta tensor has no lengths) both read it. `lse`: the float32
+    log-sum-exp is written too, B * H * 4 bytes."""
     B, H, D = q_shape
     KV = k_shape[2]
     nbytes = 2 * n_keys * KV * D * itemsize + 2 * B * H * D * itemsize \
-        + B * 4
+        + B * 4 + (B * H * 4 if lse else 0)
     return 4 * D * H * n_keys, nbytes
 
 
 def decode_mha(q, k, v, length, *, scale: Optional[float] = None,
-               impl: Optional[str] = None) -> torch.Tensor:
+               impl: Optional[str] = None, return_lse: bool = False):
     """q (B,H,D) vs a contiguous cache k/v (B,S,KV,D) with valid
-    `length` (scalar or (B,); values past S read the whole cache). Under
-    the cost mode a meta call is one unit of flash_decode."""
+    `length` (scalar or (B,); values past S read the whole cache). With
+    `return_lse` returns (out, lse): lse (B,H) float32 the log-sum-exp of
+    each row's scaled logits, -1e30 for a row of length 0, by which
+    `merge_blocks` merges the outputs of disjoint key blocks. Under the
+    cost mode a meta call is one unit of flash_decode."""
     lengths = torch.as_tensor(length, dtype=torch.int32,
                               device=q.device).broadcast_to((q.shape[0],))
     if kernels.costed(q):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
         kernels.record_unit("flash_decode", *decode_cost(
-            q.shape, k.shape, q.shape[0] * k.shape[1], q.element_size()),
-            (q, k, v, lengths), (out,))
-        return out
+            q.shape, k.shape, q.shape[0] * k.shape[1], q.element_size(),
+            lse=return_lse), (q, k, v, lengths),
+            (out, lse) if return_lse else (out,))
+        return (out, lse) if return_lse else out
     if kernels.select_impl(q, impl) == "reference":
         kernels.REFERENCE_CALLS["decode_mha"] += 1
-        return ref.decode_mha(q, k, v, lengths, scale=scale)
+        return ref.decode_mha(q, k, v, lengths, scale=scale,
+                              return_lse=return_lse)
     from repro_torch.kernels.decode_attention import decode_attention as da
 
     return da.flash_decode_cuda(q.contiguous(), k, v, lengths.contiguous(),
-                                scale=scale)
+                                scale=scale, return_lse=return_lse)
+
+
+def merge_blocks(outs, lses, dtype=None) -> torch.Tensor:
+    """The decode over the union of disjoint key blocks from each
+    block's `decode_mha(..., return_lse=True)`: outs (r, B, H, D), lses
+    (r, B, H). In float32, block by block in order: with m = max_r lse_r
+    and w_r = e^(lse_r - m), sum_r w_r out_r / sum_r w_r, cast to `dtype`
+    (outs' by default). A block of length 0 (lse -1e30) weighs exactly 0;
+    at least one block must hold a key."""
+    m = lses.amax(dim=0)
+    num = den = None
+    for o, l in zip(outs, lses):
+        w = torch.exp(l - m)
+        t = w[..., None] * o.float()
+        num = t if num is None else num + t
+        den = w if den is None else den + w
+    return (num / den[..., None]).to(dtype or outs.dtype)
 
 
 def clamp_dead_entries(block_tables: torch.Tensor, n_pages: int, page: int,

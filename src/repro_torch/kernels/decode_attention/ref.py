@@ -44,10 +44,13 @@ def gather_pages_q8(pages: torch.Tensor, sz: torch.Tensor,
 
 
 def decode_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lengths: torch.Tensor, *,
-               scale: Optional[float] = None) -> torch.Tensor:
+               lengths: torch.Tensor, *, scale: Optional[float] = None,
+               return_lse: bool = False):
     """q (B, H, D) vs a dense cache k/v (B, S, KV, D) with per-sequence
-    valid `lengths` (B,); float32 softmax, output in q's dtype."""
+    valid `lengths` (B,); float32 softmax, output in q's dtype. With
+    `return_lse` also the (B, H) float32 log-sum-exp m + log(l) of the
+    scaled logits (a row of length 0: -1e30, whose log(S) is below
+    float32's spacing there)."""
     B, H, D = q.shape
     _, S, KV, _ = k.shape
     R = H // KV
@@ -58,9 +61,13 @@ def decode_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
-    l_safe = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    out = torch.einsum("bgrs,bsgd->bgrd", p, v.float()) / l_safe
-    return out.reshape(B, H, D).to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bgrs,bsgd->bgrd", p, v.float()) / torch.clamp_min(
+        l, 1e-30)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, H)
+    return out
 
 
 def paged_decode_mha(q, k_pages, v_pages, block_tables, lengths, *,

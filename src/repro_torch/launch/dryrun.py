@@ -1,12 +1,15 @@
 """Dry-run: trace every (arch x shape) cell's step on meta tensors, print
-its memory and cost analysis, derive the 3-term roofline on one H100
-(port of `repro.launch.dryrun`).
+its memory and cost analysis, derive the 3-term roofline on one H100 or
+per rank of a mesh of H100s (port of `repro.launch.dryrun`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
   python -m repro_torch.launch.dryrun --all
   python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k \\
       --tier-policy hotness --pool-fraction 0.5
+  python -m repro_torch.launch.dryrun --mesh 16x16 --arch qwen2.5-32b \\
+      --shape decode_32k
+  python -m repro_torch.launch.dryrun --all --multi-pod [--no-fsdp]
 
 Every cell runs at its published widths on the meta device: the serve
 bundle's meta params and caches (`runtime.serve.make_bundle`), the train
@@ -21,10 +24,22 @@ trace (`--all`, or a train cell extrapolated from two traces), the
 pieces run in spawned processes, at most one per core this process
 may run on.
 
+With `--mesh DxM` or `--multi-pod` the step is rank 0's of the
+reference's mesh ((D, M) ("data", "model"); (2, 16, 16) with "pod"), an
+`AbstractMesh`: params, train state, caches and inputs are the rank's
+shards (`runtime.sharding.local_shape` of the specs of the reference's
+rules: `for_training` for train cells, `for_serving` for prefill and
+decode; the context `ctx_for_mesh(mesh, fsdp=not --no-fsdp)`), every
+collective records its wire bytes under the ring model instead of
+running (`common.parallel`), and the roofline prices one card of
+`mesh.size`. A train cell's microbatches are the table's, capped at the
+rank's rows. A cell whose stack does not run over a mesh yet (SSM,
+hybrid and encoder-decoder stacks; the vision prefix in training) is an
+error naming ROADMAP A16d.
+
 Writes one JSON per cell under results/dryrun_torch/ (the reference's
-TPU records under results/dryrun/ are never read). The reference's
-`--mesh`, `--multi-pod` and `--no-fsdp` shard over a mesh, which ports
-with ROADMAP A16c: they raise. The mesh name is "1" (one card).
+TPU records under results/dryrun/ are never read), named by arch, shape
+and mesh ("1" for one card, "16x16", "2x16x16", "DxM").
 """
 
 from __future__ import annotations
@@ -43,9 +58,11 @@ from repro_torch import configs
 from repro_torch.common import hw
 from repro_torch.common.config import SHAPES, ShapeConfig, TrainConfig
 from repro_torch.core import roofline
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import specs as S
 from repro_torch.profiler.cost import CostModel, analyze_step
 from repro_torch.runtime import serve as serve_rt
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime import tiering
 from repro_torch.runtime import train as train_rt
 
@@ -74,13 +91,20 @@ TRAIN_MICROBATCHES = {
 }
 
 
-def _refuse_mesh(args) -> None:
-    for flag, on in (("--mesh", args.mesh), ("--multi-pod", args.multi_pod),
-                     ("--no-fsdp", args.no_fsdp)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} shards the step over a mesh, which ports with "
-                "ROADMAP A16c (the port's dry-run is one card)")
+def mesh_of(args):
+    """The `AbstractMesh` of `--mesh` / `--multi-pod` (rank 0's
+    coordinates), or None for one card."""
+    if args.mesh or args.multi_pod:
+        return mesh_mod.production_mesh(multi_pod=args.multi_pod,
+                                        mesh=args.mesh)
+    if args.no_fsdp:
+        raise ValueError("--no-fsdp applies to a mesh (--mesh or "
+                         "--multi-pod)")
+    return None
+
+
+def mesh_name(mesh) -> str:
+    return MESH if mesh is None else mesh.name
 
 
 def _sub_batch(batch: dict, rows: int) -> dict:
@@ -90,83 +114,139 @@ def _sub_batch(batch: dict, rows: int) -> dict:
 def _extrapolate(c2: CostModel, c3: CostModel, k: int) -> CostModel:
     """The cost of k identical microbatches from the traced steps of 2
     and 3: each one more adds c3 - c2 (its forward, backward and the
-    accumulation), the rest (the update, the copies) is in c2."""
+    accumulation, their collectives included), the rest (the update, the
+    copies, the grads' reduction) is in c2. The list of collectives is
+    a traced step's, so the extrapolation keeps none."""
     lin = lambda a, b: a + (k - 2) * (b - a)  # noqa: E731
+
+    def lin_d(a: dict, b: dict) -> dict:
+        return {n: lin(a.get(n, 0), b.get(n, 0)) for n in set(a) | set(b)}
+
     return dataclasses.replace(
         c2, flops=lin(c2.flops, c3.flops),
         hbm_bytes=lin(c2.hbm_bytes, c3.hbm_bytes),
         hbm_bytes_raw=lin(c2.hbm_bytes_raw, c3.hbm_bytes_raw),
+        wire_bytes=lin(c2.wire_bytes, c3.wire_bytes),
+        collective_by_kind=lin_d(c2.collective_by_kind,
+                                 c3.collective_by_kind),
+        collective_counts=lin_d(c2.collective_counts, c3.collective_counts),
+        collectives=[],
         temp_bytes=max(c2.temp_bytes, c3.temp_bytes),
-        units={n: lin(c2.units.get(n, 0), c3.units.get(n, 0))
-               for n in set(c2.units) | set(c3.units)},
+        units=lin_d(c2.units, c3.units),
         n_ops=lin(c2.n_ops, c3.n_ops))
 
 
-def _microbatches(cfg, microbatches: int = 0) -> int:
-    return microbatches or TRAIN_MICROBATCHES.get(
+def _microbatches(cfg, microbatches: int = 0, mesh=None,
+                  shape: ShapeConfig = None) -> int:
+    """The train cell's microbatches: the table's (or the caller's);
+    over a mesh at most the rank's rows (global_batch / dp)."""
+    mb = microbatches or TRAIN_MICROBATCHES.get(
         configs.canonical(cfg.name), 8)
+    if mesh is not None and shape is not None:
+        rows = shape.global_batch // mesh_mod.ctx_for_mesh(mesh).dp_size
+        mb = min(mb, max(rows, 1))
+    return mb
+
+
+def _shards(tree, pspecs, mesh) -> dict:
+    """The rank's meta shards of a meta tree under `pspecs`."""
+    return shd.zeros_for_shards(tree, pspecs, mesh, "meta")
+
+
+def _rank_inputs(batch: dict, ctx) -> dict:
+    """The rank's rows of a meta batch: its block over the dp axes where
+    the rows divide by their size (the reference's `batch_pspec`)."""
+    return _shards(batch, shd.batch_pspec(batch, ctx.dp_axes, ctx.mesh),
+                   ctx.mesh)
 
 
 def train_part(cfg, shape: ShapeConfig, tcfg: TrainConfig, m: int, *,
-               tier_policy: str = "none", pool_fraction: float = 0.5):
+               tier_policy: str = "none", pool_fraction: float = 0.5,
+               ctx=None):
     """(CostModel, tier info or None) of the train step of `cfg` over `m`
     of the `tcfg.microbatches` microbatches of `shape` (each
-    `global_batch / microbatches` rows). With a tier policy the step is
-    the tiered bundle's."""
+    `global_batch / microbatches` rows, over a mesh (`ctx.mesh`) the
+    rank's share of them). With a tier policy the step is the tiered
+    bundle's."""
     k = tcfg.microbatches
-    if shape.global_batch % k:
-        raise ValueError(f"batch {shape.global_batch} is not a multiple "
-                         f"of {k} microbatches")
     batch = S.train_batch_specs(cfg, shape)
+    mesh = ctx.mesh if ctx is not None else None
+    kw = {}
+    if mesh is not None:
+        batch = _rank_inputs(batch, ctx)
+        kw = dict(ctx=ctx, mesh=mesh)      # the training rules
+    n_rows = next(iter(batch.values())).shape[0]
+    if n_rows % k:
+        raise ValueError(f"batch {n_rows} is not a multiple of {k} "
+                         "microbatches")
     bundle = train_rt.make_bundle(cfg, dataclasses.replace(
-        tcfg, microbatches=m))
+        tcfg, microbatches=m), **kw)
     astate, info, step = bundle.abstract_state, None, bundle.step_fn
     if tier_policy != "none":
         astate, tiered, info = tiering.apply_tier_shardings(
             cfg, tcfg, bundle, shape, policy=tier_policy,
             pool_fraction=pool_fraction)
         step = tiered.step_fn
+    if mesh is not None:
+        astate = _shards(astate, bundle.state_pspecs, mesh)
     # the sub-batch is a view of the whole batch: its bytes are all in
     # the step's arguments
-    rows = shape.global_batch // k
+    rows = n_rows // k
     return analyze_step(step, astate, _sub_batch(batch, m * rows)), info
 
 
-def cell_parts(cfg, shape: ShapeConfig, microbatches: int = 0) -> list:
+def cell_parts(cfg, shape: ShapeConfig, microbatches: int = 0,
+               mesh=None) -> list:
     """The traced pieces of a cell: [None] (the whole cell), or [2, 3]
     for a train cell above 3 microbatches, extrapolated from its steps of
     2 and 3 microbatches of the same size (the microbatches are
     identical, so the cost is linear in their number)."""
-    if shape.kind == "train" and _microbatches(cfg, microbatches) > 3:
+    if shape.kind == "train" and _microbatches(cfg, microbatches, mesh,
+                                               shape) > 3:
         return [2, 3]
     return [None]
 
 
 def part_cost(cfg, shape: ShapeConfig, m=None, *, remat: str = "block",
               microbatches: int = 0, tier_policy: str = "none",
-              pool_fraction: float = 0.5):
+              pool_fraction: float = 0.5, mesh=None, fsdp: bool = True):
     """(CostModel, model flops, tier info or None, microbatches) of one
     piece of `cell_parts`: the train step over `m` microbatches (all of
     them when None), or the prefill or decode step, of `cfg` at `shape`
-    on meta tensors."""
+    on meta tensors; over `mesh` (an `AbstractMesh`) the step of its
+    rank at `mesh.coords` on that rank's shards (a stack that does not
+    run over a mesh yet raises, naming ROADMAP A16d)."""
     n_active = cfg.active_param_count()
+    ctx = None
+    if mesh is not None:
+        ctx = mesh_mod.ctx_for_mesh(mesh, fsdp=fsdp, remat=remat)
     if shape.kind == "train":
-        mb = _microbatches(cfg, microbatches)
+        mb = _microbatches(cfg, microbatches, mesh, shape)
         cost, info = train_part(
             cfg, shape, TrainConfig(microbatches=mb, remat=remat), m or mb,
-            tier_policy=tier_policy, pool_fraction=pool_fraction)
+            tier_policy=tier_policy, pool_fraction=pool_fraction, ctx=ctx)
         return cost, roofline.model_flops_train(n_active, shape.tokens), \
             info, mb
     ins = S.cell_specs(cfg, shape)
+    kw = {} if ctx is None else dict(mesh=mesh, ctx=ctx)  # serving rules
     sb = serve_rt.make_bundle(
         cfg, batch=shape.global_batch, max_seq=shape.seq_len,
-        enc_len=shape.seq_len if cfg.frontend == "audio_stub" else 0)
+        enc_len=shape.seq_len if cfg.frontend == "audio_stub" else 0, **kw)
+    params, caches = sb.abstract_params, sb.abstract_caches
+    if ctx is not None:
+        params = _shards(params, sb.param_pspecs, mesh)
+        caches = _shards(caches, sb.cache_pspecs, mesh)
+        if shape.kind == "prefill":
+            ins = dict(ins, batch=_rank_inputs(ins["batch"], ctx))
+        else:
+            ins = dict(ins, token=_rank_inputs(
+                {"token": ins["token"]}, ctx)["token"])
     if shape.kind == "prefill":
-        cost = analyze_step(sb.prefill_fn, sb.abstract_params, ins["batch"])
+        cost = analyze_step(sb.prefill_fn, params, ins["batch"])
         mf = roofline.model_flops_decode(n_active, shape.tokens)
     else:
-        cost = analyze_step(sb.decode_fn, sb.abstract_params, ins["token"],
-                            sb.abstract_caches, ins["t"])
+        cost = analyze_step(sb.decode_fn, params, ins["token"], caches,
+                            ins["t"])
         mf = roofline.model_flops_decode(n_active, shape.global_batch)
     return cost, mf, None, None
 
@@ -193,16 +273,20 @@ def lower_cell(arch: str, shape_name: str, args, m=None):
     return part_cost(configs.get(arch), SHAPES[shape_name], m,
                      remat=args.remat, microbatches=args.microbatches,
                      tier_policy=args.tier_policy,
-                     pool_fraction=args.pool_fraction)
+                     pool_fraction=args.pool_fraction, mesh=mesh_of(args),
+                     fsdp=not args.no_fsdp)
 
 
 def record_of(arch: str, shape_name: str, tier_policy: str, cost, model_flops,
-              tier_info, microbatches) -> dict:
+              tier_info, microbatches, mesh=None) -> dict:
     """The cell's record: memory and cost analysis and the roofline on one
-    H100."""
-    rep = roofline.report(arch, shape_name, MESH, cost, n_devices=1,
+    H100, or per rank of `mesh` (an `AbstractMesh` of H100s)."""
+    name = mesh_name(mesh)
+    rep = roofline.report(arch, shape_name, name, cost,
+                          n_devices=1 if mesh is None else mesh.size,
                           model_flops=model_flops, chip=hw.H100)
-    record = {"arch": arch, "shape": shape_name, "mesh": MESH,
+    record = {"arch": arch, "shape": shape_name, "mesh": name,
+              "n_devices": 1 if mesh is None else mesh.size,
               "tier_policy": tier_policy, "status": "ok"}
     if microbatches is not None:
         record["microbatches"] = microbatches
@@ -224,6 +308,7 @@ def record_of(arch: str, shape_name: str, tier_policy: str, cost, model_flops,
             "hbm_bytes_per_device": rep.hbm_bytes,
             "wire_bytes_per_device": rep.wire_bytes,
             "collectives": rep.collective_by_kind,
+            "collective_counts": dict(cost.collective_counts),
             "warnings": rep.warnings[:10],
         },
         roofline={
@@ -258,18 +343,22 @@ def finish_cell(arch: str, shape_name: str, args, parts: list,
                 outdir: str) -> dict:
     """The cell's record from its traced pieces, printed and written."""
     errors = [p["error"] for p in parts if "error" in p]
+    mesh = mesh_of(args)
+    name = mesh_name(mesh)
     if errors:
-        record = {"arch": arch, "shape": shape_name, "mesh": MESH,
+        record = {"arch": arch, "shape": shape_name, "mesh": name,
                   "tier_policy": args.tier_policy, "status": "error",
                   "error": "; ".join(errors)}
     else:
         record = record_of(arch, shape_name, args.tier_policy,
-                           *combine([p["part"] for p in parts]))
+                           *combine([p["part"] for p in parts]), mesh=mesh)
         ma, rl = record["memory_analysis"], record["roofline"]
-        print(f"[{arch} x {shape_name} @ {MESH}] temp="
+        print(f"[{arch} x {shape_name} @ {name}] temp="
               f"{ma['temp_bytes'] / 1e9:.2f}GB args="
               f"{ma['argument_bytes'] / 1e9:.2f}GB units="
-              f"{record['dispatch_cost']['units']} "
+              f"{record['dispatch_cost']['units']} wire="
+              f"{record['hlo_cost']['wire_bytes_per_device'] / 1e9:.3f}GB "
+              f"{record['hlo_cost']['collective_counts']} "
               f"compute={rl['t_compute_s']:.4f}s memory="
               f"{rl['t_memory_s']:.4f}s collective="
               f"{rl['t_collective_s']:.4f}s -> {rl['dominant']}-bound, "
@@ -278,7 +367,7 @@ def finish_cell(arch: str, shape_name: str, args, parts: list,
     record["wall_s"] = round(sum(p["secs"] for p in parts), 1)
     os.makedirs(outdir, exist_ok=True)
     suffix = "" if args.tier_policy == "none" else f"_{args.tier_policy}"
-    fn = os.path.join(outdir, f"{arch}_{shape_name}_{MESH}{suffix}.json")
+    fn = os.path.join(outdir, f"{arch}_{shape_name}_{name}{suffix}.json")
     with open(fn, "w") as f:
         json.dump(record, f, indent=1)
     return record
@@ -286,7 +375,7 @@ def finish_cell(arch: str, shape_name: str, args, parts: list,
 
 def _parts_of(arch: str, shape_name: str, args) -> list:
     return cell_parts(configs.get(arch), SHAPES[shape_name],
-                      args.microbatches)
+                      args.microbatches, mesh_of(args))
 
 
 def run_cell(arch: str, shape_name: str, args, outdir: str) -> dict:
@@ -316,7 +405,10 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    _refuse_mesh(args)
+    try:
+        mesh = mesh_of(args)
+    except ValueError as e:
+        _parser().error(str(e))
     if args.all:
         # the train cells take longest: start them first
         cells = sorted(configs.all_cells(),
@@ -339,7 +431,7 @@ def main(argv=None):
     else:
         results = [run_cell(a, s, args, args.outdir) for a, s in cells]
     n_ok = sum(1 for r in results if r["status"] == "ok")
-    print(f"\n{n_ok}/{len(results)} cells OK on mesh {MESH}")
+    print(f"\n{n_ok}/{len(results)} cells OK on mesh {mesh_name(mesh)}")
     if n_ok < len(results):
         for r in results:
             if r["status"] != "ok":

@@ -15,6 +15,11 @@ ranks of one communicator on the same GPU).
 `scripts/dev_serve_torch.py` and `chip_smoke.py` use it); on a cluster
 the launcher of each host starts its ranks and calls `init_ranks`
 itself.
+
+`AbstractMesh` stands for a mesh no process group backs (the
+reference's production meshes, `production_mesh`): the dry-run traces
+one rank's step over it on meta tensors, where each collective of
+`common.parallel` records its bytes instead of running.
 """
 
 from __future__ import annotations
@@ -107,6 +112,60 @@ def _make_mesh(shape: Sequence[int], axes: Sequence[str], device,
             raise RuntimeError(f"mesh axis {name!r}: {int(one.item())} "
                                f"ranks answered, {n} expected")
     return mesh
+
+
+class AbstractMesh:
+    """A mesh of `shape` over the named `axes` with no process group
+    behind it: `shape` maps each axis to its size (what
+    `common.parallel.axis_sizes` and the sharding rules read), `size` is
+    the number of ranks, `get_local_rank(axis)` the coordinate of the
+    rank it stands for (`coords`, 0 by default) and `get_group` raises,
+    so only a step on meta tensors under the cost mode runs over it."""
+
+    def __init__(self, shape, axes, coords=None):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} vs axes {axes}")
+        self.shape = dict(zip(axes, shape))
+        self.coords = dict(coords or {})
+        bad = {a: c for a, c in self.coords.items()
+               if a not in self.shape or not 0 <= c < self.shape[a]}
+        if bad:
+            raise ValueError(f"coords {bad} outside the mesh {self.shape}")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def name(self) -> str:
+        """"16x16", "2x16x16": the sizes in axis order."""
+        return "x".join(str(n) for n in self.shape.values())
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def get_group(self, axis: str):
+        raise RuntimeError(
+            f"an AbstractMesh {self.shape} has no process group for "
+            f"{axis!r}: only meta tensors under the cost mode run over it")
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape}, coords={self.coords})"
+
+
+def production_mesh(*, multi_pod: bool = False,
+                    mesh: str | None = None) -> AbstractMesh:
+    """The reference's production mesh as an `AbstractMesh`: (16, 16)
+    ("data", "model"), or (2, 16, 16) with a leading "pod" axis; `mesh`
+    "DxM" gives a (D, M) ("data", "model") mesh instead (the
+    reference's `--mesh`)."""
+    if mesh:
+        d, m = (int(x) for x in mesh.split("x"))
+        return AbstractMesh((d, m), ("data", "model"))
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None,

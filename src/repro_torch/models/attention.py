@@ -211,38 +211,85 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _cache_insert(cache, new, t):
+def _seq_block(ctx: ParallelCtx, S_loc: int) -> int:
+    """The first position of the rank's block of a contiguous cache whose
+    sequence (S_loc positions a rank) is split over the tp axis
+    (`runtime.sharding.cache_pspec`); 0 without a split."""
+    if ctx.axis_size(ctx.tp_axis) == 1:
+        return 0
+    return ctx.index(ctx.tp_axis) * S_loc
+
+
+def _cache_insert(cache, new, t, ctx: ParallelCtx = SINGLE):
     """Write `new` (B, 1, KV, hd) into the contiguous cache (B, S, KV, hd)
     at position(s) t — a scalar shared by the batch or a (B,) vector of
     per-slot positions — in place. A position >= S writes nothing
     (parked slots), as the reference's iota mask does: the row at the
     clamped position is read back and rewritten unchanged, so no host
-    sync is needed to find the live rows. Returns `cache`."""
+    sync is needed to find the live rows. Over a mesh whose tp axis
+    splits the sequence the cache holds the rank's block of positions
+    and t is global: a position outside the block writes nothing (the
+    reference's iota mask on the sharded cache). Returns `cache`."""
     B, S = cache.shape[0], cache.shape[1]
-    t_vec = _t_vec(t, B, cache.device)
-    pos = t_vec.clamp(max=S - 1)
+    t_vec = _t_vec(t, B, cache.device) - _seq_block(ctx, S)
+    pos = t_vec.clamp(0, S - 1)
     rows = torch.arange(B, device=cache.device)
-    live = (t_vec < S)[:, None, None]
+    live = ((t_vec >= 0) & (t_vec < S))[:, None, None]
     cache[rows, pos] = torch.where(live, new[:, 0].to(cache.dtype),
                                    cache[rows, pos])
     return cache
 
 
 def decode_self_attention(params, x, cfg: ModelConfig, k_cache, v_cache, t,
-                          rope: bool = True):
+                          rope: bool = True, ctx: ParallelCtx = SINGLE):
     """Single-token decode against the contiguous caches: insert the new
     K/V at position(s) t (in place), then attend to the prefix through
     the decode op with valid lengths t + 1. x (B, 1, d); k/v_cache
     (B, S_max, KV, hd); t scalar or (B,) — per-slot positions and length
     masks for the serving engine's slot batch. Returns (out (B, 1, d),
-    (k_cache, v_cache))."""
+    (k_cache, v_cache)).
+
+    Over a mesh (`runtime.sharding.cache_pspec`) x, t and the caches
+    hold the rank's slots, and a tp axis of size n > 1 splits the
+    caches' sequence: rank r holds every KV head at positions
+    [r S_loc, (r + 1) S_loc). The new token's q, k and v are gathered
+    over tp on their head dim where wq / wk / wv split it; each rank
+    writes k and v where t falls in its block, decodes its block with
+    lengths clamp(t + 1 - r S_loc, 0, S_loc) and the log-sum-exp, and
+    the ranks' outputs merge by it (`decode_ops.merge_blocks`: one
+    gather of (out, lse) over tp, float32, in rank order). Rank 0 holds
+    position 0, so every row has a block with a key. The rank keeps its
+    own query heads for the row-parallel wo and its sum over tp. With tp
+    1 this is the meshless decode, op for op."""
     B = x.shape[0]
     t_vec = _t_vec(t, B, x.device)
     q, k, v = _qkv(params, x, cfg, t_vec[:, None], rope)
-    _cache_insert(k_cache, k, t_vec)
-    _cache_insert(v_cache, v, t_vec)
-    out = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, t_vec + 1)
-    out = torch.einsum("bhk,hkd->bd", out, params["wo"].to(x.dtype))
+    tp = ctx.axis_size(ctx.tp_axis)
+    if tp == 1:
+        _cache_insert(k_cache, k, t_vec)
+        _cache_insert(v_cache, v, t_vec)
+        out = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, t_vec + 1)
+        out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
+        return out[:, None, :], (k_cache, v_cache)
+    H_loc = q.shape[2]
+    if H_loc != cfg.num_heads:
+        q = all_gather(q, ctx, ctx.tp_axis, 2)
+    if k.shape[2] != cfg.num_kv_heads:
+        k, v = all_gather(torch.stack([k, v]), ctx, ctx.tp_axis, 3)
+    _cache_insert(k_cache, k, t_vec, ctx)
+    _cache_insert(v_cache, v, t_vec, ctx)
+    S_loc = k_cache.shape[1]
+    length = (t_vec + 1 - _seq_block(ctx, S_loc)).clamp(0, S_loc)
+    out, lse = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, length,
+                                     return_lse=True)
+    both = all_gather(torch.cat([out.float(), lse[..., None]], -1)[None],
+                      ctx, ctx.tp_axis, 0)
+    out = decode_ops.merge_blocks(both[..., :-1], both[..., -1],
+                                  dtype=q.dtype)
+    if H_loc != cfg.num_heads:
+        s = ctx.index(ctx.tp_axis)
+        out = out[:, s * H_loc:(s + 1) * H_loc]
+    out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
     return out[:, None, :], (k_cache, v_cache)
 
 

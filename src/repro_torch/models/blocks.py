@@ -325,13 +325,16 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
             p["attn"], h, cfg, c, t, block_table, page_tokens, ctx=ctx)
     else:
         h, _ = attn.decode_self_attention(p["attn"], h, cfg, c["k"], c["v"],
-                                          t)
+                                          t, ctx=ctx)
     x = x + h
     if desc.cross:
         h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         x = x + attn.decode_cross_attention(
             p["cross"], h, (c["cross_k"], c["cross_v"]), cfg)
-    local = block_table is not None and x.shape[0] != block_table.shape[0]
+    # the contiguous caches over a mesh hold the rank's slots: x holds
+    # them (all of them where the dp axes do not split the slots)
+    local = (x.shape[0] != block_table.shape[0] if block_table is not None
+             else ctx.mesh is not None)
     h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, desc, ctx,
                 local_batch=local)
     return x + h
@@ -344,7 +347,8 @@ def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
     caches (written in place, layer by layer): the paged pool through
     `block_table`, or the contiguous (nb, B, S, KV, hd) caches when
     `block_table` is None. Over a mesh x may hold only this rank's rows
-    of the block table's slots."""
+    of the block table's slots, or of the contiguous caches' slots
+    (sequence-sharded: `attention.decode_self_attention`)."""
     descs = pattern(cfg, cross)
     nb = cfg.num_layers // len(descs)
     for i in range(nb):

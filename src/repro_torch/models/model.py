@@ -195,9 +195,19 @@ def decode_step(params, token, caches, t, cfg: ModelConfig,
 
     Over a mesh whose dp axes divide the paged slots the rank decodes
     its block of them (`ParallelCtx.batch_rows`) and returns their
-    logits only; the pool writes of every slot still land in its pool."""
-    r0, r1 = (ctx.batch_rows(token.shape[0]) if block_table is not None
-              else (0, token.shape[0]))
+    logits only; the pool writes of every slot still land in its pool.
+    The contiguous caches over a mesh hold the rank's slots
+    (`runtime.sharding.cache_pspec`): token and t hold every slot (the
+    rank takes its rows) or, as many as the caches' rows, the rank's
+    own; the logits are the rank's rows."""
+    B = token.shape[0]
+    r0, r1 = ctx.batch_rows(B) if block_table is not None else (0, B)
+    if block_table is None and ctx.mesh is not None \
+            and B != _cache_rows(caches):
+        r0, r1 = ctx.batch_rows(B)
+        t = torch.as_tensor(t, device=token.device)
+        if t.dim():
+            t = t[r0:r1]
     x = embed(params["embed"], token[r0:r1, None], cfg, ctx)
     x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
                                     block_table, page_tokens,
@@ -206,6 +216,11 @@ def decode_step(params, token, caches, t, cfg: ModelConfig,
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
     return logits[:, 0, :], caches
+
+
+def _cache_rows(caches) -> int:
+    """The slot rows of a contiguous cache tree (dim 1 of its leaves)."""
+    return next(iter(next(iter(caches.values())).values())).shape[1]
 
 
 def prefill_chunk(params, tokens, caches, chunk_idx, cfg: ModelConfig,

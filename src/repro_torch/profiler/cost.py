@@ -16,8 +16,13 @@ derives the roofline's inputs from them:
                 `hbm_bytes == hbm_bytes_raw` except for kernel units.
                 Views move nothing; an in-place scatter moves its values
                 twice, not the tensor it lands in
-  * wire      — 0 on one card: no collective runs (`collective_by_kind`
-                is empty)
+  * wire      — the bytes each collective of the traced rank puts on
+                the wire under the reference's ring model (`repro.
+                profiler.hlo`: all-gather out (n-1)/n, all-reduce 2 in
+                (n-1)/n, reduce-scatter and all-to-all in (n-1)/n), by
+                kind in `collective_by_kind`: over a `launch.mesh.
+                AbstractMesh` a collective of `common.parallel` on a meta
+                tensor records itself and issues nothing. 0 on one card
 
 A hand-written kernel's op is ONE unit (`kernels.costed`): on a meta
 tensor it returns empty outputs of the right shapes and records the
@@ -125,6 +130,9 @@ class CostModel:
     temp_bytes: int = 0
     units: dict = dataclasses.field(default_factory=dict)
     n_ops: int = 0
+    # (kind, input shape, mesh axis) of each collective, in issue order
+    collectives: list = dataclasses.field(default_factory=list)
+    collective_counts: dict = dataclasses.field(default_factory=dict)
 
     def scaled(self, f: float) -> "CostModel":
         """Flops and bytes times `f` (memory and counts unchanged)."""
@@ -174,6 +182,9 @@ class CostMode(TorchDispatchMode):
         self.n_ops = 0
         self.units: collections.Counter = collections.Counter()
         self.depth = depth
+        self.wire = 0.0
+        self.by_kind: collections.Counter = collections.Counter()
+        self.collectives: list = []
         self.groups: dict = collections.defaultdict(
             lambda: {"flops": 0.0, "bytes": 0.0, "count": 0})
         self._keep: set = set()       # storages of the arguments
@@ -222,6 +233,13 @@ class CostMode(TorchDispatchMode):
             tensor_bytes(t) for t in outputs)
         self.units[name] += 1
         self._add(float(flops), float(nbytes), float(raw))
+
+    def collective(self, kind: str, wire: float, shape, axis) -> None:
+        """One collective (`kernels.record_collective`): its wire bytes,
+        by kind, and (kind, input shape, axis) in issue order."""
+        self.wire += float(wire)
+        self.by_kind[kind] += float(wire)
+        self.collectives.append((kind, tuple(shape), axis))
 
     # ------------------------------------------------------------- ops
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -297,7 +315,10 @@ def analyze_step(fn: Callable, *args, **kwargs) -> CostModel:
     out, mode = run_counted(fn, *args, **kwargs)
     return CostModel(
         flops=mode.flops, hbm_bytes=mode.fused, hbm_bytes_raw=mode.raw,
-        wire_bytes=0.0, collective_by_kind={}, warnings=[],
+        wire_bytes=mode.wire, collective_by_kind=dict(mode.by_kind),
+        warnings=[], collectives=list(mode.collectives),
+        collective_counts=dict(collections.Counter(
+            k for k, _, _ in mode.collectives)),
         argument_bytes=_unique_bytes(_tensors((args, kwargs))),
         output_bytes=_unique_bytes(_tensors(out)),
         temp_bytes=mode.peak, units=dict(mode.units), n_ops=mode.n_ops)

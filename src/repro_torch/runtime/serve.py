@@ -33,9 +33,9 @@ embeddings) occupies the first cache rows of every slot, so the paged
 insert lands `bucket + n_prefix` rows; an enc-dec arch keeps its
 encoder's K/V slot-resident (extent `enc_len`, one prompt bucket).
 
-The one-device serve bundle (`make_bundle`: `build_prefill`,
-`build_decode` and the meta params and caches) is what the dry-run
-traces.
+The serve bundle (`make_bundle`: `build_prefill`, `build_decode` and
+the meta params and caches, over one device or a mesh) is what the
+dry-run traces.
 
 MESH-SHARDED SERVING (`make_engine_cells(ctx=..., mesh=...)`): one
 process per rank of a `DeviceMesh`, every cell running the rank's shard.
@@ -49,10 +49,16 @@ same host loop). The decode cell splits the slots over the dp axes and
 gathers the greedy tokens back; prefill (batch 1) and chunked prefill
 run whole on every dp rank. The engine cuts its weights and pool into
 the rank's shards with `runtime.sharding.shard_tree` (`EngineCells.
-param_pspecs` / `cache_pspecs`). Over a mesh the cells serve decoder
-stacks of attention layers (dense, MoE, the vision prefix) on the paged
-layout; SSM, hybrid and encoder-decoder stacks, the contiguous layout
-and speculative decoding are refused (ROADMAP A16d).
+param_pspecs` / `cache_pspecs`). The contiguous layout over a mesh keeps
+the caches of `runtime.sharding.cache_pspec`, the serve bundle's: slots
+over the dp axes, the sequence over `model` (every KV head at the rank's
+block of positions); its decode merges the ranks' blocks by their
+log-sum-exp (`models.attention.decode_self_attention`) and its insert
+turns a prefill's KV heads into the rank's block of positions
+(`build_cache_insert`). Over a mesh the cells serve decoder stacks of
+attention layers (dense, MoE, the vision prefix) on either layout; SSM,
+hybrid and encoder-decoder stacks and speculative decoding are refused
+(ROADMAP A16d).
 """
 
 from __future__ import annotations
@@ -106,13 +112,15 @@ def build_prefill(cfg: ModelConfig, max_seq: int,
     return prefill_step
 
 
-def build_decode(cfg: ModelConfig):
+def build_decode(cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
     """decode_step(params, token, caches, t) -> (logits, caches): one
     decode step over the contiguous caches at position(s) t, the caches
-    written in place."""
+    written in place. Over a mesh (`ctx.mesh`) params and caches are the
+    rank's shards (the specs of `make_bundle`), token and t every slot's
+    or the rank's, and the logits the rank's slots' (`M.decode_step`)."""
 
     def decode_step(params, token, caches, t):
-        return M.decode_step(params, token, caches, t, cfg)
+        return M.decode_step(params, token, caches, t, cfg, ctx=ctx)
 
     return decode_step
 
@@ -120,10 +128,8 @@ def build_decode(cfg: ModelConfig):
 @dataclasses.dataclass
 class ServeBundle:
     """The serve steps and the meta trees they take; over a mesh also the
-    params' and caches' specs (the reference's shardings). Over a mesh
-    there is no `decode_fn`: the contiguous decode over the
-    sequence-sharded caches of `cache_pspec` is not ported (ROADMAP
-    A16c); the mesh serves through `make_engine_cells`' paged cells."""
+    params' and caches' specs (the reference's shardings), which cut the
+    global trees into the rank's shards the steps take."""
 
     prefill_fn: Any
     decode_fn: Any
@@ -141,7 +147,8 @@ def _check_mesh(ctx: Optional[ParallelCtx], mesh):
             return ctx, ctx.mesh
         return ctx or SINGLE, None
     if not hasattr(mesh, "get_group"):
-        raise TypeError(f"mesh must be a torch DeviceMesh, got "
+        raise TypeError(f"mesh must be a torch DeviceMesh or a "
+                        f"launch.mesh.AbstractMesh, got "
                         f"{type(mesh).__name__}")
     if ctx is None:
         from repro_torch.launch.mesh import ctx_for_mesh
@@ -156,11 +163,15 @@ def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
                 enc_len: int = 0, mesh=None, rules=None,
                 ctx: Optional[ParallelCtx] = None) -> ServeBundle:
     """The prefill and decode steps and the meta params and caches (the
-    reference's `make_bundle`). With a mesh (a `DeviceMesh`; `ctx`
-    defaults to `ctx_for_mesh(mesh)`): the params' specs from `rules`
-    (default `for_serving(ctx.fsdp_axis, ctx.tp_axis)`), the caches'
-    from `cache_pspec`, the prefill step over the rank's shard and no
-    decode step (see `ServeBundle`)."""
+    reference's `make_bundle`). With a mesh (a `DeviceMesh`, or a
+    `launch.mesh.AbstractMesh` for the dry-run; `ctx` defaults to
+    `ctx_for_mesh(mesh)`): the params' specs from `rules` (default
+    `for_serving(ctx.fsdp_axis, ctx.tp_axis)`), the caches' from
+    `cache_pspec`, and both steps over the rank's shards; the caches'
+    sequence must divide over the tp axis (`check_seq_split`). The
+    prefill step's caches are the mesh prefill's (every prompt, the
+    rank's KV heads, the whole sequence); `prefill_cache_shards` turns
+    them into the decode step's shards."""
     ctx, mesh = _check_mesh(ctx, mesh)
     if mesh is None:
         if rules is not None:
@@ -168,15 +179,60 @@ def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
         return ServeBundle(build_prefill(cfg, max_seq), build_decode(cfg),
                            abstract_params(cfg),
                            abstract_caches(cfg, batch, max_seq, enc_len))
+    check_mesh_stack(cfg)
     rules = rules or shd.ShardingRules.for_serving(
         data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
     aparams, axes = abstract_params(cfg, with_axes=True)
     acaches = abstract_caches(cfg, batch, max_seq, enc_len)
+    check_seq_split(acaches, ctx)
     return ServeBundle(
-        build_prefill(cfg, max_seq, ctx), None, aparams, acaches,
+        build_prefill(cfg, max_seq, ctx), build_decode(cfg, ctx), aparams,
+        acaches,
         param_pspecs=shd.pspecs_for_tree(aparams, axes, rules, mesh),
         cache_pspecs=shd.cache_pspec(acaches, ctx.dp_axes, ctx.tp_axis,
                                      mesh))
+
+
+def prefill_cache_shards(caches, ctx: ParallelCtx, n_kv: int):
+    """The rank's shard (`cache_pspec`) of the contiguous caches a mesh
+    prefill returned (every prompt, the rank's KV heads of `n_kv`, the
+    whole sequence): its rows over the dp axes, every KV head at its
+    block of positions over the tp axis."""
+    tp = ctx.axis_size(ctx.tp_axis)
+    out = {}
+    for pos, c in caches.items():
+        out[pos] = {}
+        for key, x in c.items():
+            r0, r1 = ctx.batch_rows(x.shape[1])
+            x = x[:, r0:r1]
+            if key in ("k", "v") and tp > 1:
+                x = _kv_block(x, ctx, n_kv, x.shape[2] // tp)
+            out[pos][key] = x.contiguous()
+    return out
+
+
+def _kv_block(x, ctx: ParallelCtx, n_kv: int, S_loc: int):
+    """A prefill's K or V leaf (nb, B, S, KV_loc, hd) as every one of the
+    `n_kv` KV heads (gathered over tp where wk / wv split them: every
+    rank of the axis calls it) at the rank's block [r S_loc, (r + 1)
+    S_loc) of the sequence; positions past S are not there."""
+    if x.shape[3] != n_kv:
+        x = all_gather(x, ctx, ctx.tp_axis, 3)
+    base = ctx.index(ctx.tp_axis) * S_loc
+    return x[:, :, base:base + S_loc]
+
+
+def check_seq_split(caches, ctx: ParallelCtx) -> None:
+    """The contiguous decode over a mesh reads a rank's attention KV as
+    its block of the sequence over the tp axis (`cache_pspec`); where
+    the extent does not divide, the reference's rule would keep the
+    sequence whole, which the port's decode does not take: refuse it."""
+    tp = ctx.axis_size(ctx.tp_axis)
+    for c in caches.values():
+        if "k" in c and tp > 1 and c["k"].shape[2] % tp:
+            raise ValueError(
+                f"the contiguous caches' sequence ({c['k'].shape[2]}) must "
+                f"divide over the {ctx.tp_axis!r} axis ({tp} ranks)")
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -205,17 +261,32 @@ def build_prefill_greedy(cfg: ModelConfig, bucket: int,
     return cell
 
 
-def build_decode_greedy(cfg: ModelConfig):
+def build_decode_greedy(cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
     """Greedy decode cell over the CONTIGUOUS caches: one token per slot,
     the argmax and a per-slot finiteness flag computed on the device
-    (parked slots carry garbage, so the engine masks them)."""
+    (parked slots carry garbage, so the engine masks them). Over a mesh
+    the rank decodes the slots its caches hold and the tokens and flags
+    of every slot are gathered over the dp axes, as the paged cell does."""
 
     def cell(params, token, caches, t):
-        logits, caches = M.decode_step(params, token, caches, t, cfg)
-        finite = torch.isfinite(logits).all(dim=-1)
-        return torch.argmax(logits, dim=-1).to(torch.int32), finite, caches
+        logits, caches = M.decode_step(params, token, caches, t, cfg,
+                                       ctx=ctx)
+        return (*_greedy_rows(logits, token.shape[0], ctx), caches)
 
     return cell
+
+
+def _greedy_rows(logits, n: int, ctx: ParallelCtx):
+    """(tokens (n,) int32, finite (n,)) of the rows' logits: the argmax
+    (the first maximum, as `jnp.argmax`) and the finiteness flag, the
+    rank's rows gathered over the dp axes where it holds fewer than n."""
+    finite = torch.isfinite(logits).all(dim=-1)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if tok.shape[0] != n:
+        both = all_gather(torch.stack([tok, finite.to(torch.int32)]),
+                          ctx, ctx.dp_axes, 1)
+        tok, finite = both[0], both[1].bool()
+    return tok, finite
 
 
 def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int,
@@ -234,13 +305,7 @@ def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int,
             params, token, caches, t, cfg,
             block_table=block_table, page_tokens=page_tokens, ctx=ctx,
         )
-        finite = torch.isfinite(logits).all(dim=-1)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        if tok.shape[0] != token.shape[0]:
-            both = all_gather(torch.stack([tok, finite.to(torch.int32)]),
-                              ctx, ctx.dp_axes, 1)
-            tok, finite = both[0], both[1].bool()
-        return tok, finite, caches
+        return (*_greedy_rows(logits, token.shape[0], ctx), caches)
 
     return cell
 
@@ -275,16 +340,31 @@ def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int):
     return cell
 
 
-def build_cache_insert():
+def build_cache_insert(ctx: ParallelCtx = SINGLE, n_slots: int = 0):
     """Copy a prefilled request's caches (batch 1, seq extent `bucket`)
     into the CONTIGUOUS slot caches at slot index `slot`, positions
-    [0, bucket), in place."""
+    [0, bucket), in place.
+
+    Over a mesh the slot caches are the rank's shard of `cache_pspec`
+    (its block of the `n_slots` slots over the dp axes, every KV head at
+    its block of positions over tp), while the prefill's caches hold the
+    rank's KV heads over the whole bucket: the KV heads are gathered over
+    tp (every rank calls it) and each rank keeps the positions of its
+    block, on the dp rank that holds the slot."""
+    tp = ctx.axis_size(ctx.tp_axis)
+    r0, r1 = ctx.batch_rows(n_slots)
 
     def insert(caches, slot_caches, slot):
+        row = int(slot)
+        if (r0, r1) != (0, n_slots):        # the dp axes split the slots
+            row = row - r0 if r0 <= row < r1 else None
         for pos, c in caches.items():
             for key, big in c.items():
                 small = slot_caches[pos][key]
-                big[:, int(slot), :small.shape[2]] = small[:, 0].to(big.dtype)
+                if tp > 1 and key in ("k", "v"):
+                    small = _kv_block(small, ctx, big.shape[3], big.shape[2])
+                if row is not None:
+                    big[:, row, :small.shape[2]] = small[:, 0].to(big.dtype)
         return caches
 
     return insert
@@ -431,17 +511,15 @@ class EngineCells:
     cache_pspecs: Any = None       # (mesh) specs of the caches' shards
 
 
-def _mesh_supported(cfg: ModelConfig, paged: bool, speculative: str):
+def check_mesh_stack(cfg: ModelConfig, speculative: str = "off") -> None:
+    """Raise for what the cells do not serve over a mesh yet (ROADMAP
+    A16d): SSM, hybrid and encoder-decoder stacks, speculative decoding."""
     descs = blk.pattern(cfg, bool(cfg.num_encoder_layers))
     if any(d.kind != "attn" or d.cross for d in descs):
         raise NotImplementedError(
             f"{cfg.name}: serving SSM, hybrid or encoder-decoder stacks over "
             "a mesh (slot-resident state split over the dp axes) ports "
             "with ROADMAP A16d")
-    if not paged:
-        raise NotImplementedError(
-            "the contiguous layout over a mesh ports with ROADMAP A16d; "
-            "the mesh serves the paged pool")
     if speculative != "off":
         raise NotImplementedError(
             "speculative decoding over a mesh ports with ROADMAP A16d")
@@ -468,12 +546,12 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
     the cells run the rank's shard (module docstring): the params' specs
     from `rules` (default `ShardingRules.for_serving(data_axis=
     ctx.fsdp_axis, tp_axis=ctx.tp_axis)`), the pool's from
-    `paged_cache_pspec`."""
+    `paged_cache_pspec`, the contiguous caches' from `cache_pspec`."""
     ctx, mesh = _check_mesh(ctx, mesh)
     if mesh is None and rules is not None:
         raise ValueError("rules shard over a mesh; none was given")
     if mesh is not None:
-        _mesh_supported(cfg, paged, speculative)
+        check_mesh_stack(cfg, speculative)
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
     if pool_dtype != "fp" and not paged:
         raise ValueError("pool_dtype applies to the paged layout only")
@@ -532,16 +610,29 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
     prefills = {b: build_prefill_greedy(cfg, b, ctx)
                 for b in sorted(set(buckets))}
     if not paged:
+        acaches = abstract_caches(cfg, n_slots, max_seq_total, enc_len)
+        param_pspecs = cache_pspecs = None
+        if mesh is not None:
+            check_seq_split(acaches, ctx)
+            rules = rules or shd.ShardingRules.for_serving(
+                data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
+            aparams, axes = abstract_params(cfg, with_axes=True)
+            param_pspecs = shd.pspecs_for_tree(aparams, axes, rules, mesh)
+            cache_pspecs = shd.cache_pspec(acaches, ctx.dp_axes,
+                                           ctx.tp_axis, mesh)
         return EngineCells(
-            decode_fn=build_decode_greedy(cfg),
+            decode_fn=build_decode_greedy(cfg, ctx),
             prefill_fns=prefills,
-            insert_fns={b: build_cache_insert() for b in prefills},
-            abstract_caches=abstract_caches(cfg, n_slots, max_seq_total,
-                                            enc_len),
+            insert_fns={b: build_cache_insert(ctx, n_slots)
+                        for b in prefills},
+            abstract_caches=acaches,
             n_prefix=npfx,
             max_seq_total=max_seq_total,
             device=device,
             paged=False,
+            ctx=ctx,
+            param_pspecs=param_pspecs,
+            cache_pspecs=cache_pspecs,
         )
     n_pages = -(-max_seq_total // page_tokens)
     acaches = M.make_paged_decode_caches(

@@ -72,8 +72,10 @@ scheduler (`sched.workload.serving_stream`). The reference's
 Over a mesh (`build(..., mesh=...)`, one process per rank) every rank
 runs this same host loop — queue, batcher, pager, admission — on the
 same replicated tokens, holds its shard of the weights and of the page
-pool (`runtime.serve.make_engine_cells`), and each decode step hands
-every rank the tokens of all slots, so every rank's pager takes the same
+pool, or with `paged=False` of the contiguous caches (its slots over the
+dp axes, its block of every slot's positions over `model`;
+`runtime.serve.make_engine_cells`), and each decode step hands every
+rank the tokens of all slots, so every rank's pager takes the same
 decisions. The pager and the substrate price global bytes; each rank's
 pinned twin holds its shard of the pool.
 """

@@ -408,17 +408,20 @@ def test_analyze_reads_the_ports_records_only(records, tmp_path,
 @pytest.mark.parametrize("mesh,n_chips", [("16x16", 1), ("1", 2),
                                           ("1", 256)])
 def test_record_priced_on_other_cards_names_a16(mesh, n_chips):
-    """A record serves the one card it was traced on: a mesh record, or
-    a one-card record priced over several cards, raises naming A16."""
+    """A record prices one rank of the mesh it was traced on (A16c): a
+    mesh record over another number of cards, or a one-card record over
+    several, raises; a record over as many cards as its mesh holds is
+    read (`tests/test_torch_mesh_dryrun.py`)."""
     rec = {"status": "ok", "mesh": mesh, "roofline": {"t_compute_s": 1.0}}
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match=f"mesh {mesh} "):
         tq.analyze("smollm_360m", "decode_32k", dryrun_record=rec,
                    n_chips=n_chips)
 
 
 def test_records_are_read_on_one_card_only(records, tmp_path):
-    """Over several cards no record is read from disk: the analytic
-    compute time, whether or not the cell's one-card record exists."""
+    """Over a number of cards that names no mesh (`quantify.MESH_OF_CHIPS`:
+    1, 256, 512) no record is read from disk: the analytic compute time,
+    whether or not the cell's one-card record exists."""
     _, recs = records
     (tmp_path / "results" / "dryrun_torch").mkdir(parents=True)
     (tmp_path / "results" / "dryrun_torch" /
@@ -429,16 +432,29 @@ def test_records_are_read_on_one_card_only(records, tmp_path):
 
 
 def test_mesh_records_and_flags_name_a16(tmp_path):
+    """The mesh flags are ported (A16c): `--mesh 2x2` and `--multi-pod`
+    write a record of the mesh's rank 0 named by the mesh, `--no-fsdp`
+    alone is refused by the parser; a 16x16 record prices 256 cards; the
+    serve bundle takes a `DeviceMesh` or an `AbstractMesh`, nothing
+    else."""
     rec = {"status": "ok", "mesh": "16x16",
            "roofline": {"t_compute_s": 1.0}}
-    with pytest.raises(NotImplementedError, match="A16"):
-        tq.analyze("smollm_360m", "decode_32k", dryrun_record=rec,
+    a = tq.analyze("smollm_360m", "decode_32k", dryrun_record=rec,
                    n_chips=256)
-    for flag in (["--mesh", "2x2"], ["--multi-pod"], ["--no-fsdp"]):
-        with pytest.raises(NotImplementedError, match="A16"):
-            dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
-                         "--outdir", str(tmp_path), *flag])
-    # the serve bundle takes a mesh since A16a: a DeviceMesh, nothing else
+    assert a.profile.t_compute == 1.0
+    for flag, name, n in ((["--mesh", "2x2"], "2x2", 4),
+                          (["--multi-pod"], "2x16x16", 512)):
+        (got,) = dryrun.main(["--arch", "smollm-360m", "--shape",
+                              "decode_32k", "--outdir", str(tmp_path),
+                              *flag])
+        assert got["status"] == "ok" and got["mesh"] == name
+        assert got["n_devices"] == n
+        assert got["hlo_cost"]["wire_bytes_per_device"] > 0
+        assert json.loads((tmp_path / f"smollm_360m_decode_32k_{name}.json")
+                          .read_text()) == got
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
+                     "--outdir", str(tmp_path), "--no-fsdp"])
     with pytest.raises(TypeError, match="DeviceMesh"):
         tserve.make_bundle(tconfigs.reduced("smollm_360m"), batch=1,
                            max_seq=8, mesh=object())

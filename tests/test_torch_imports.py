@@ -249,15 +249,21 @@ def test_speculative_decoding_builds(mode):
         assert eng.cells.draft_fn is None and eng.draft_caches is None
 
 
-def test_unported_archs_raise():
+@pytest.mark.parametrize("case", ["mamba2_780m", "jamba_1_5_large_398b",
+                                  "seamless_m4t_large_v2", "speculative",
+                                  "contiguous"])
+def test_unported_archs_raise(case):
     """Every arch of the reference's catalog is ported, and an MoE arch's
     expert-parallel layer runs without a mesh as `moe_dense`; what the
     engine still refuses over a mesh is an SSM, hybrid or enc-dec stack
-    (ROADMAP A16d). The mesh is a stand-in with axis sizes only: the
-    refusal comes before any collective."""
+    and speculative decoding (ROADMAP A16d), while the contiguous layout
+    builds over one since A16c (its caches' specs `cache_pspec`'s: slots
+    over `data`, positions over `model`). The mesh is a stand-in with
+    axis sizes only: the refusal comes before any collective."""
     from types import SimpleNamespace
 
     from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime import sharding as shd
 
     assert len(configs.list_archs()) == 10
     configs.get("jamba_1_5_large_398b")
@@ -268,12 +274,20 @@ def test_unported_archs_raise():
     x = torch.zeros(1, 2, moe.d_model)
     assert moe_mod.moe_ep(layer, x, moe)[0].shape == x.shape
     stub = SimpleNamespace(shape={"data": 1, "model": 2}, get_group=None)
-    for arch in ("mamba2_780m", "jamba_1_5_large_398b",
-                 "seamless_m4t_large_v2"):
-        with pytest.raises(NotImplementedError, match="A16d"):
-            serve_rt.make_engine_cells(
-                configs.reduced(arch), n_slots=2, max_seq=16, buckets=(8,),
-                device="cpu", mesh=stub)
+    kw = dict(n_slots=2, max_seq=16, buckets=(8,), device="cpu", mesh=stub)
+    if case == "contiguous":
+        cells = serve_rt.make_engine_cells(configs.reduced("smollm_360m"),
+                                           paged=False, **kw)
+        assert not cells.paged and cells.ctx.mesh is stub
+        assert cells.cache_pspecs["pos0"]["k"] == shd.P(
+            None, None, "model", None, None)
+        return
+    arch, extra = ((case, {}) if case != "speculative" else
+                   ("smollm_360m", dict(speculative="ngram",
+                                        pool_dtype="int8",
+                                        sz_granularity="token")))
+    with pytest.raises(NotImplementedError, match="A16d"):
+        serve_rt.make_engine_cells(configs.reduced(arch), **kw, **extra)
 
 
 def test_engine_defaults_match_reference_main_path():

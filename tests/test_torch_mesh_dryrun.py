@@ -1,0 +1,247 @@
+"""The dry-run and the analysis over a mesh (`launch.dryrun --mesh`,
+`--multi-pod`; `launch.mesh.AbstractMesh`; the collectives of
+`common.parallel` under the cost mode; `core.quantify.analyze` reading a
+mesh record), on the CPU.
+
+* The meta trace of rank 0 of a (2, 2) `AbstractMesh` issues the same
+  collectives (kind, input shape, axis, in order) as rank 0 of a real
+  (2, 2) mesh of 4 gloo ranks (`dev_serve_torch.mesh_collectives_rank`),
+  for a decode step of the serve bundle and a train step (two
+  microbatches, remat by block) of reduced granite-3-2b.
+* Wire bytes follow the reference's ring model (`repro.profiler.hlo`),
+  counted by hand for each kind, and a traced step's wire bytes are the
+  sum over its collectives.
+* A (1, 1) mesh's record equals the one-card record but for its mesh
+  name (no collective runs: wire 0); a mesh record prices the mesh's
+  cards: `analyze(n_chips=256)` reads the 16x16 record's `t_compute_s`,
+  as the reference's `analyze` reads its 16x16 record (levels 1-3 to
+  1e-9 with the reference's chip, topology and the same record).
+* Every reduced arch's decode step on a (2, 2) mesh: dense, MoE and the
+  vision prefix trace with collectives; SSM, hybrid and encoder-decoder
+  stacks raise naming ROADMAP A16d (the vision prefix's train step
+  too)."""
+
+import dataclasses
+import json
+import pathlib
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.common.config import MeshConfig as JMeshConfig  # noqa: E402
+from repro.core import quantify as jq  # noqa: E402
+from repro.core import tiers as jtiers  # noqa: E402
+from repro.common import hw as jhw  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.common import hw as thw  # noqa: E402
+from repro_torch.common.config import ShapeConfig  # noqa: E402
+from repro_torch.common.parallel import (  # noqa: E402
+    ParallelCtx,
+    _reduce_scatter,
+    all_gather,
+    all_to_all,
+    psum,
+)
+from repro_torch.core import quantify as tq  # noqa: E402
+from repro_torch.core import tiers as ttiers  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.profiler import cost  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import dev_serve_torch as dst  # noqa: E402
+
+DECODE = (4, 16)            # batch, max_seq
+TRAIN = (8, 16, 2)          # batch, seq, microbatches
+
+
+@pytest.fixture(autouse=True)
+def _cwd_without_records(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+
+
+def _granite():
+    return dataclasses.replace(tconfigs.reduced("granite_3_2b"),
+                               dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def real_collectives():
+    """Rank 0's collectives on a real (2, 2) mesh of 4 gloo ranks."""
+    got = tmesh.run_ranks(dst.mesh_collectives_rank, 4,
+                          (_granite(), 2, 2, DECODE, TRAIN, "cpu"),
+                          device="cpu", threads=1, timeout_s=120,
+                          wall_s=300)
+    return got[0]
+
+
+def _meta_cost(kind: str, mesh=None):
+    cfg = _granite()
+    mesh = mesh or tmesh.AbstractMesh((2, 2), ("data", "model"))
+    if kind == "decode":
+        shape = ShapeConfig("decode_t", DECODE[1], DECODE[0], "decode")
+        return dryrun.part_cost(cfg, shape, mesh=mesh)[0]
+    B, S, k = TRAIN
+    shape = ShapeConfig("train_t", S, B, "train")
+    return dryrun.part_cost(cfg, shape, microbatches=k, mesh=mesh)[0]
+
+
+@pytest.mark.parametrize("kind", ["decode", "train"])
+def test_meta_trace_issues_the_real_collectives(real_collectives, kind):
+    got = _meta_cost(kind)
+    want = [(k, tuple(s), a) for k, s, a in real_collectives[kind]]
+    assert got.collectives == want
+    assert got.collective_counts == {
+        k: sum(1 for c in want if c[0] == k) for k in {c[0] for c in want}}
+    assert got.wire_bytes > 0
+
+
+def _ring(kind: str, nbytes: int, n: int) -> float:
+    return {"all-reduce": 2 * nbytes, "all-gather": n * nbytes}.get(
+        kind, nbytes) * (n - 1) / n
+
+
+def test_wire_bytes_follow_the_ring_model():
+    """One collective of each kind on a (2, 4) mesh, counted by hand:
+    all-reduce of 4 x 8 float32 over model (n 4) 2 * 128 * 3/4 = 192,
+    all-gather of 4 x 8 bf16 over data (n 2) out 128 * 1/2 = 64,
+    all-to-all of 4 x 8 float32 over model 128 * 3/4 = 96, a
+    reduce-scatter of 8 x 8 float32 over data 256 * 1/2 = 128."""
+    mesh = tmesh.AbstractMesh((2, 4), ("data", "model"))
+    ctx = ParallelCtx(mesh=mesh, dp_axes=("data",), tp_axis="model")
+    a = torch.empty(4, 8, device="meta")
+    b = torch.empty(4, 8, dtype=torch.bfloat16, device="meta")
+    c = torch.empty(8, 8, device="meta")
+
+    def step():
+        psum(a, ctx, "model")
+        all_gather(b, ctx, "data", 0)
+        all_to_all(a, ctx, "model")
+        return _reduce_scatter(c, ctx, "data", 0)
+
+    _, mode = cost.run_counted(step)
+    assert mode.by_kind == {"all-reduce": 192, "all-gather": 64,
+                            "all-to-all": 96, "reduce-scatter": 128}
+    assert mode.wire == 480
+    assert [k for k, _, _ in mode.collectives] == [
+        "all-reduce", "all-gather", "all-to-all", "reduce-scatter"]
+    # a real tensor over an AbstractMesh has no process group to run on
+    with pytest.raises(RuntimeError, match="no process group"):
+        psum(torch.ones(2), ctx, "model")
+
+
+def test_step_wire_is_the_sum_of_its_collectives():
+    """The float32 decode step's wire bytes: the ring model over each of
+    its collectives (every one moves float32), summed."""
+    got = _meta_cost("decode")
+    sizes = {"data": 2, "model": 2}
+    total = sum(_ring(k, 4 * _numel(s), sizes[a])
+                for k, s, a in got.collectives)
+    assert got.wire_bytes == pytest.approx(total, rel=1e-12)
+    assert sum(got.collective_by_kind.values()) == pytest.approx(
+        got.wire_bytes, rel=1e-12)
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def _record(tmp, *flags):
+    (rec,) = dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
+                          "--outdir", str(tmp), *flags])
+    return rec
+
+
+def test_one_by_one_mesh_record_equals_one_card(tmp_path):
+    one = _record(tmp_path)
+    mesh = _record(tmp_path, "--mesh", "1x1")
+    assert mesh["mesh"] == "1x1" and one["mesh"] == "1"
+    assert mesh["hlo_cost"]["wire_bytes_per_device"] == 0
+    assert mesh["hlo_cost"]["collective_counts"] == {}
+    for rec in (one, mesh):
+        rec.pop("mesh")
+        rec.pop("wall_s")
+    assert mesh == one
+
+
+def test_analyze_reads_the_16x16_record(tmp_path):
+    rec = _record(tmp_path / "results" / "dryrun_torch", "--mesh", "16x16")
+    assert rec["n_devices"] == 256 and rec["status"] == "ok"
+    assert tq.load_dryrun_record("smollm-360m", "decode_32k", "16x16") == rec
+    a = tq.analyze("smollm_360m", "decode_32k", n_chips=256)
+    b = tq.analyze("smollm_360m", "decode_32k", n_chips=256,
+                   use_dryrun=False)
+    t = rec["roofline"]["t_compute_s"]
+    assert a.profile.t_compute == t != b.profile.t_compute
+    assert a.level1["arithmetic_intensity"] == pytest.approx(
+        t * thw.H100.peak_flops_bf16
+        / a.level1["traffic_bytes_per_step_per_chip"], rel=1e-12)
+    # the same record through the reference's analyze on its 16x16 mesh
+    j = jq.analyze("smollm_360m", "decode_32k", dryrun_record=rec,
+                   mesh_cfg=JMeshConfig((16, 16), ("data", "model")))
+    jt, c = jtiers.v5e_topology(), jhw.V5E
+    ref_topo = ttiers.TierTopology(
+        tiers=tuple(ttiers.TierSpec(**dataclasses.asdict(t))
+                    for t in jt.tiers),
+        shared_link_bw=jt.shared_link_bw, chips_per_pool=jt.chips_per_pool)
+    ref_chip = thw.ChipSpec(name=c.name, peak_flops_bf16=c.peak_flops_bf16,
+                            hbm_bytes=c.hbm_bytes, hbm_bw=c.hbm_bw,
+                            link_bw=jhw.bidir_ici_bw(c), num_sms=0,
+                            smem_per_block=0, l2_bytes=0.0)
+    t_ref = tq.analyze("smollm_360m", "decode_32k", dryrun_record=rec,
+                       chip=ref_chip, topo=ref_topo, n_chips=256)
+    for lvl in ("level1", "level2", "level3"):
+        _close(getattr(t_ref, lvl), getattr(j, lvl))
+
+
+def _close(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _close(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _close(x, y)
+    elif isinstance(a, (int, float)) and not isinstance(a, bool):
+        assert a == pytest.approx(b, rel=1e-9, abs=1e-12)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("arch", tconfigs.list_archs())
+def test_mesh_decode_per_arch(arch):
+    cfg = tconfigs.reduced(arch)
+    mesh = tmesh.AbstractMesh((2, 2), ("data", "model"))
+    shape = ShapeConfig("decode_t", 16, 4, "decode")
+    attn_only = not (cfg.num_encoder_layers or cfg.family in ("ssm",
+                                                               "hybrid"))
+    if not attn_only:
+        with pytest.raises(NotImplementedError, match="A16d"):
+            dryrun.part_cost(cfg, shape, mesh=mesh)
+        return
+    c = dryrun.part_cost(cfg, shape, mesh=mesh)[0]
+    assert c.units == {"flash_decode": cfg.num_layers}
+    assert c.wire_bytes > 0 and c.collective_counts["all-gather"] > 0
+    if cfg.frontend:
+        with pytest.raises(NotImplementedError, match="A16d"):
+            dryrun.part_cost(cfg, ShapeConfig("train_t", 16, 4, "train"),
+                             mesh=mesh)
+
+
+def test_refused_cells_write_errors_naming_a16d(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
+                     "--mesh", "2x2", "--outdir", str(tmp_path)])
+    assert e.value.code == 1
+    rec = json.loads((tmp_path / "mamba2_780m_decode_32k_2x2.json")
+                     .read_text())
+    assert rec["status"] == "error" and "A16d" in rec["error"]
+    assert "FAIL mamba2_780m decode_32k" in capsys.readouterr().out

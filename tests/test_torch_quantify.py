@@ -404,17 +404,19 @@ def test_lbench_loi_on_the_h100_topology():
 def test_analyze_refuses_train_shapes_and_dry_runs(tmp_path, monkeypatch):
     """Train shapes run, and dry-run records are read (ROADMAP A15, the
     port's own records under results/dryrun_torch/): with no record the
-    compute time is the analytic one; what is refused is a record of a
-    mesh on more than one card (ROADMAP A16). The name is kept from when
-    both were refused."""
+    compute time is the analytic one; a record of a mesh prices that
+    mesh's cards (ROADMAP A16c) and is refused on any other number. The
+    name is kept from when both were refused."""
     monkeypatch.chdir(tmp_path)
     for shape in ("decode_32k", "train_4k"):
         a = tq.analyze("smollm_360m", shape, use_dryrun=True)
         b = tq.analyze("smollm_360m", shape, use_dryrun=False)
         _close(a.level1, b.level1, 0)
     rec = {"status": "ok", "mesh": "16x16", "roofline": {"t_compute_s": 1.0}}
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="mesh 16x16 .256 cards."):
         tq.analyze("smollm_360m", "train_4k", dryrun_record=rec, n_chips=2)
+    assert tq.analyze("smollm_360m", "train_4k", dryrun_record=rec,
+                      n_chips=256).profile.t_compute == 1.0
     an = tq.analyze("smollm_360m", "train_4k")
     assert an.level1["footprint_bytes_per_chip"] > 0
     assert tq.analyze("jamba_1_5_large_398b", "train_4k").level2[
