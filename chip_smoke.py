@@ -215,13 +215,15 @@ Phases (any failure raises and exits non-zero):
                flash_mha / flash_mha_bwd / state_in / state_out units of
                the tiering phase's step equal to the launches the card
                made; beside it `--mesh 16x16` on qwen2.5-32b's
-               decode_32k and train_4k (rank 0 of 256, ok, wire bytes
-               and collectives printed).
+               decode_32k and train_4k, mamba2-780m's and
+               seamless-m4t-large-v2's decode_32k (rank 0 of 256, ok,
+               wire bytes and collectives printed).
  18. mesh    — serving on a mesh (`mesh_phase`): granite-3-2b at published
-               widths (2.5 B params, nothing cut) on the engine phase's
-               bucket cell, 8 chat requests: the three bucket kernels at
-               one dp2tp2 rank's shard shapes against their plain
-               versions and timed; a (1, 1) mesh on NCCL (one spawned
+               widths cut to 16 of its 40 layers on the engine phase's
+               bucket cell, 8 chat requests: the three bucket kernels,
+               ssd_scan and flash_decode_lse at one dp2tp2 rank's shard
+               shapes against their plain versions and timed; a (1, 1)
+               mesh on NCCL (one spawned
                rank) bit-equal to the meshless engine (tokens, every pool
                leaf); dp2tp2 as 4 spawned ranks sharing the card over
                gloo: float32 fp tokens of every rank equal to the
@@ -242,7 +244,16 @@ Phases (any failure raises and exits non-zero):
                a one-process witness of the split, compressed_psum, the
                tiered step, moe_ep's gradients, flash_mha and its
                backward launched on every rank; both flash kernels timed
-               at a rank's train shard.
+               at a rank's train shard; then on the same ranks the other
+               stacks (ROADMAP A16d): mamba2-780m (4 of 48 layers) and
+               seamless-m4t-large-v2 (4 + 4 layers) at published widths,
+               4 chat requests of 16 tokens: dp2tp2 float32 paged and
+               contiguous tokens equal to the meshless engine's, each
+               rank a quarter of the resident state, ssd_scan /
+               flash_decode_lse launched on every rank, no plain version,
+               bf16 prompt-pass drift within bf16's own, (1, 1) bf16 int8
+               bit-equal; and ngram speculation (k 4) on granite over
+               dp2tp2, float32 tokens equal to the greedy mesh engine's.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -4541,7 +4552,9 @@ def tiering_phase(torch, timer):
 
 # the dry-run cells traced over the reference's 16x16 mesh (rank 0 of
 # 256 H100s; ROADMAP A16c) beside the one-card `--all`
-MESH_DRYRUN = (("qwen2.5-32b", "decode_32k"), ("qwen2.5-32b", "train_4k"))
+MESH_DRYRUN = (("qwen2.5-32b", "decode_32k"), ("qwen2.5-32b", "train_4k"),
+               ("mamba2-780m", "decode_32k"),
+               ("seamless-m4t-large-v2", "decode_32k"))
 
 
 def start_dryrun() -> dict:
@@ -4690,6 +4703,45 @@ MAIN_RUN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
 ONE_RUNS = (MAIN_RUN, CONTIG_BF16)
 CONTIG_KERNELS = ("flash_mha", "flash_decode_lse")
 MOE_CAPS = (("no drops", 8.0), ("config", None))
+# granite-3-2b's serving runs on the mesh are cut to 16 of its 40 layers
+# (widths kept): their gates (float32 equality and agreement, bf16
+# relative drift, bit-equality) hold at any depth, and the cut pays for
+# the stacks below
+MESH_SERVE_LAYERS = 16
+
+# the other stacks over the mesh (ROADMAP A16d), after granite's runs on
+# the same ranks: mamba2-780m (d 1536, 48 SSM heads of 64, state 128) cut
+# to 4 of its 48 layers and seamless-m4t-large-v2 (d 1024, 16 / 16 heads,
+# ff 8192, vocab 256206) cut to 4 + 4 layers, widths kept, 4 chat
+# requests of 16 new tokens on 4 slots. dp2tp2: float32 paged fp (its
+# weights give the prompt passes of the bf16 gate) and float32
+# contiguous, gated token-equal to the meshless engine; (1, 1): the bf16
+# int8 main path bit-equal
+MESH_STACKS = {"mamba2_780m": dict(num_layers=4),
+               "seamless_m4t_large_v2": dict(num_layers=4,
+                                             num_encoder_layers=4)}
+MESH_STACK_BUCKETS = {"mamba2_780m": (64, 128),
+                      "seamless_m4t_large_v2": (128,)}
+MESH_STACK_CELL = dict(n_slots=4, max_seq=256, page_tokens=16)
+MESH_STACK_RUNS = (dict(name="f32 fp", dtype="float32", pool_dtype="fp",
+                        logits=True),
+                   dict(name="f32 contiguous", dtype="float32",
+                        pool_dtype="fp", paged=False))
+MESH_STACK_MAIN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
+# the kernels every rank must launch, by arch and layout (paged or not):
+# the contiguous cross-attention decodes its block of encoder positions
+# with the lse and merges over tp
+MESH_STACK_KERNELS = {
+    "mamba2_780m": {True: ("ssd_scan",), False: ("ssd_scan",)},
+    "seamless_m4t_large_v2": {
+        True: ("flash_mha", "write_pages", "paged_flash_decode",
+               "flash_decode"),
+        False: ("flash_mha", "flash_decode_lse")}}
+# ngram speculation (k 4) on granite over the mesh, against the greedy
+# mesh engine on the same 4 requests of 16 new tokens
+MESH_SPEC_RUNS = (dict(name="f32 greedy", dtype="float32", pool_dtype="fp"),
+                  dict(name="f32 ngram", dtype="float32", pool_dtype="fp",
+                       speculative="ngram", speculative_k=4))
 
 
 # training on the mesh: granite-3-2b at published widths cut to 8 of its
@@ -4971,12 +5023,17 @@ def shard_shape_cases(torch, timer) -> list:
     backward, timed beside SDPA's backward); paged_flash_decode over 4
     of the 8 slots (int8 per-page pool, 16-token pages, 16 pages a slot);
     one admission's grouped write_pages (k,
-    k_sz, v, v_sz over 40 layers, 128 rows). Each is held against its
-    plain version (float32 atol=rtol=1e-5, bf16 atol=2e-2, the write bit
-    for bit) and timed in bf16 beside its bound, its plain version and
-    the library call that computes the same function (SDPA; SDPA on the
-    dequantized pages, the gather excluded; `index_copy_` x4). Returns
-    the records."""
+    k_sz, v, v_sz over 40 layers, 128 rows); ssd_scan over a 128-token
+    admission on a rank's 24 of mamba2-780m's 48 heads; flash_decode_lse
+    on seamless-m4t-large-v2's contiguous cross-KV shard (2 slots, every
+    one of its 16 heads at 64 of 128 encoder positions). Each is held
+    against its plain version (float32 atol=rtol=1e-5, bf16 atol=2e-2,
+    the write bit for bit; ssd_scan against its plain version evaluated
+    in float64 at the ssd sweep's tolerances; the lse at LSE_TOL) and
+    timed in bf16 beside its bound, its plain version and the library
+    call that computes the same function (SDPA; SDPA on the dequantized
+    pages, the gather excluded; `index_copy_` x4; none for ssd_scan).
+    Returns the records."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -5163,6 +5220,73 @@ def shard_shape_cases(torch, timer) -> list:
                                   for p_, t_ in zip(pools, tiles)]),
            sum(2 * t_.numel() * t_.element_size() for t_ in tiles)
            + n_wp * 4, 0, 0.0)
+    del pools, tiles, want, got
+
+    # --- ssd_scan: a 128-token mamba2-780m admission on a rank's heads --
+    from repro_torch.kernels.ssd_scan import chunked
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    Hs, Ps, Ns, Ss = 24, 64, 128, 128
+
+    def ssd_inputs(dt):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        return (rn(1, Ss, Hs, Ps).to(dt), F.softplus(rn(1, Ss, Hs)),
+                -torch.exp(rn(Hs) * 0.5), rn(1, Ss, 1, Ns).to(dt),
+                rn(1, Ss, 1, Ns).to(dt), rn(Hs), None)
+
+    for dt in (torch.float32, torch.bfloat16):
+        args = ssd_inputs(dt)
+        y, h = sops.ssd(*args, impl="cuda")
+        y64, h64 = chunked.ssd_chunked(
+            *(None if a_ is None else a_.double() for a_ in args), chunk=128)
+        case = f"B=1 S={Ss} H={Hs} P={Ps} N={Ns} {str(dt)[6:]}"
+        err = check("ssd_scan", case, y, y64.to(y.dtype),
+                    dict(atol=2e-4, rtol=2e-4) if dt == torch.float32
+                    else dict(atol=2e-2, rtol=8e-3))
+        check("ssd_scan", f"{case} state", h, h64, dict(atol=2e-4,
+                                                        rtol=2e-4))
+    n_ops, nbytes = sops.ssd_cost(args[0].shape, args[3].shape, itemsize=2,
+                                  b_itemsize=2, has_D=True, has_init=False)
+    record("ssd_scan", f"bf16 B=1 S={Ss} H={Hs} of 48 P={Ps} N={Ns} "
+           "(a dp2tp2 rank's heads of mamba2-780m, one 128-token "
+           "admission); library = none: no single PyTorch call computes "
+           "the chunked SSD",
+           lambda: sops.ssd(*args, impl="cuda"),
+           lambda: chunked.ssd_chunked(*args), lambda: None, nbytes, n_ops,
+           err)
+    del args, y, h, y64, h64
+
+    # --- flash_decode_lse: seamless's contiguous cross-KV shard --------
+    # every head at the rank's 64 of 128 encoder positions, every key
+    # live, for its 2 of the 4 slots; q gathered whole over tp
+    Bc, Hc, Dc, Sc = 2, 16, 64, 64
+    lens = torch.full((Bc,), Sc, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(Bc, Hc, Dc, dtype=dt)
+        k = randn(Bc, Sc, Hc, Dc, dtype=dt)
+        v = randn(Bc, Sc, Hc, Dc, dtype=dt, scale=0.5)
+        out, lse = dops.decode_mha(q, k, v, lens, impl="cuda",
+                                   return_lse=True)
+        ref, ref_lse = dops.decode_mha(q, k, v, lens, impl="reference",
+                                       return_lse=True)
+        case = f"B={Bc} H={Hc} KV={Hc} D={Dc} S_loc={Sc} {str(dt)[6:]}"
+        err = check("flash_decode_lse", case, out, ref,
+                    F32_TOL if dt == torch.float32 else BF16_TOL)
+        check("flash_decode_lse", f"{case} lse", lse, ref_lse, LSE_TOL)
+    ops_, bytes_ = dops.decode_cost(q.shape, k.shape, int(lens.sum()),
+                                    q.element_size(), lse=True)
+    record("flash_decode_lse", f"bf16 B={Bc} H={Hc} KV={Hc} D={Dc} "
+           f"S_loc={Sc} all live (seamless-m4t-large-v2's contiguous "
+           "cross-KV shard on a dp2tp2 rank: every head at 64 of 128 "
+           "encoder positions); library = SDPA with a length mask",
+           lambda: dops.decode_mha(q, k, v, lens, impl="cuda",
+                                   return_lse=True),
+           lambda: dops.decode_mha(q, k, v, lens, impl="reference",
+                                   return_lse=True),
+           lambda: sdpa_decode_ms(torch, timer, q, k, v, lens), bytes_, ops_,
+           err)
     if failures:
         raise AssertionError(f"mesh shard shapes: {failures}")
     return records
@@ -5172,8 +5296,9 @@ def mesh_phase(torch, timer):
     """Serving on a mesh (`ServingEngine.build(..., mesh=mesh)` over a
     `DeviceMesh` with its default context and serving rules, one process
     per rank, `dev_serve_torch.mesh_rank`): granite-3-2b at published
-    widths (40 layers, d 2048, 32 / 8 heads, head_dim 64, ff 8192, vocab
-    49155; seeded random weights, float32 masters; nothing cut) on the
+    widths (d 2048, 32 / 8 heads, head_dim 64, ff 8192, vocab 49155;
+    seeded random weights, float32 masters; its depth cut to
+    MESH_SERVE_LAYERS = 16 of its 40 layers for serving) on the
     engine phase's bucket cell (8 slots, max_seq 256, buckets 64 / 128,
     16-token pages; half the pool local, so pages move through the
     substrate) over 8 chat requests of 32 new tokens.
@@ -5235,6 +5360,22 @@ def mesh_phase(torch, timer):
       flash_mha and its backward launched on every rank, no plain
       version; `moe_ep`'s gradients at granite-moe's widths (capacity
       8.0, the training rules' layout) within 1e-4 of `moe_dense`'s.
+    The other stacks on the same ranks after those runs (ROADMAP A16d;
+    MESH_STACKS, 4 chat requests of 16 new tokens on 4 slots, their
+    float32 masters by CUDA IPC):
+    * mamba2-780m (4 of 48 layers) and seamless-m4t-large-v2 (4 + 4
+      layers) at published widths: dp2tp2 float32 paged fp and
+      contiguous tokens of every rank equal the meshless engine's, each
+      rank a quarter of the meshless slot-resident bytes (SSM state and
+      conv tails; the cross-KV), the data replicas of seamless's pool
+      bit-equal, MESH_STACK_KERNELS launched on every rank (ssd_scan;
+      flash_decode_lse by the contiguous cross-attention) and no plain
+      version, the bf16 prompt pass on the ranks' shards no further from
+      the meshless bf16 pass than that is from float32; (1, 1) on NCCL,
+      bf16 int8: tokens, pool and resident leaves bit-equal;
+    * ngram speculation (k 4) on granite's float32 weights over dp2tp2:
+      every rank's tokens equal the greedy mesh engine's on the same
+      requests, the verify steps equal across ranks.
     Returns the launches of rank 0's float32 int8 run, of its float32
     contiguous run (flash_decode_lse) and of its float32 train run."""
     import numpy as np
@@ -5256,7 +5397,8 @@ def mesh_phase(torch, timer):
 
     shard_records = shard_shape_cases(torch, timer)
     print(f"  shard shapes done, {since()}")
-    cfg = configs.get(MESH_ARCH)
+    cfg = dataclasses.replace(configs.get(MESH_ARCH),
+                              num_layers=MESH_SERVE_LAYERS)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     print(f"mesh {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
           f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
@@ -5296,6 +5438,29 @@ def mesh_phase(torch, timer):
                                   mcfg.capacity_factor), None, "rowcol")
              for _, c in MOE_CAPS]
     runs = [dict(r, **MESH_CELL) for r in MESH_RUNS]
+    # the other stacks and the speculative engine: 4 chat requests of 16
+    # new tokens each, float32 masters drawn here from seed 0
+    stacks = {}
+    for arch, cut in MESH_STACKS.items():
+        acfg = dataclasses.replace(configs.get(arch), **cut)
+        cell = dict(MESH_STACK_CELL, prefill_buckets=MESH_STACK_BUCKETS[arch])
+        stacks[arch] = dict(
+            cfg=acfg, cell=cell,
+            params=M.init_model(acfg, torch.Generator("cuda").manual_seed(0)),
+            prompts=[r.tokens for r in make_scenario(
+                "chat", 4, acfg.vocab_size, seed=0,
+                prompt_buckets=MESH_STACK_BUCKETS[arch], gen_range=(16, 16),
+                arrival_rate=1e5)])
+        print(f"mesh {acfg.name}: {acfg.num_layers}"
+              f"{f' + {acfg.num_encoder_layers}' if acfg.num_encoder_layers else ''}"
+              f" layers (depth cut), d={acfg.d_model} "
+              + (f"SSM heads {acfg.ssm_heads} of {acfg.ssm_head_dim} state "
+                 f"{acfg.ssm_state}" if acfg.sub_quadratic else
+                 f"H={acfg.num_heads}/{acfg.num_kv_heads} ff={acfg.d_ff}")
+              + f" vocab={acfg.vocab_size}, 4 chat requests x 16 tokens on "
+              f"buckets {MESH_STACK_BUCKETS[arch]}")
+    spec_cell = dict(MESH_CELL, n_slots=4)
+    spec_prompts = prompts[:4]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         # the (1, 1) rank starts at once; the dp2tp2 ranks after the
@@ -5306,7 +5471,11 @@ def mesh_phase(torch, timer):
             ([(dst.mesh_rank, (cfg, 1, 1, params, prompts, 32,
                                [dict(r, **MESH_CELL) for r in ONE_RUNS],
                                "cuda")),
-              mesh_train_one(train_inp)],),
+              mesh_train_one(train_inp)]
+             + [(dst.mesh_rank, (st["cfg"], 1, 1, st["params"],
+                                 st["prompts"], 16,
+                                 [dict(MESH_STACK_MAIN, **st["cell"])],
+                                 "cuda")) for st in stacks.values()],),
             device="cuda", backend="nccl", wall_s=600, threads=1)
         t_train = time.perf_counter()
         mesh_train_reference(torch, train_inp)
@@ -5321,7 +5490,16 @@ def mesh_phase(torch, timer):
               (dtt.moe_grad_rank, (2, 2, moe_params, x, cot,
                                    dataclasses.replace(
                                        mcfg, capacity_factor=8.0),
-                                   "cuda"))],),
+                                   "cuda"))]
+             + [(dst.mesh_rank, (dataclasses.replace(st["cfg"],
+                                                     dtype="float32"),
+                                 2, 2, st["params"], st["prompts"], 16,
+                                 [dict(r, **st["cell"])
+                                  for r in MESH_STACK_RUNS], "cuda"))
+                for st in stacks.values()]
+             + [(dst.mesh_rank, (cfg32, 2, 2, params, spec_prompts, 16,
+                                 [dict(r, **spec_cell)
+                                  for r in MESH_SPEC_RUNS], "cuda"))],),
             device="cuda", backend="gloo", wall_s=900, threads=1)
 
         # --- the meshless engine, this process ------------------------
@@ -5351,6 +5529,31 @@ def mesh_phase(torch, timer):
         logits = {dt: dst.prompt_logits(cfg, cast_params(params, dt),
                                         prompts, dt, "cuda")
                   for dt in ("float32", "bfloat16")}
+        for arch, st in stacks.items():
+            st["ref"] = {}
+            for run in (*MESH_STACK_RUNS, MESH_STACK_MAIN):
+                rcfg = dataclasses.replace(st["cfg"], dtype=run["dtype"])
+                ecfg = dst.mesh_ecfg(4, max(map(len, st["prompts"])), 16,
+                                     pool_dtype=run["pool_dtype"],
+                                     paged=run.get("paged", True),
+                                     **st["cell"])
+                eng = ServingEngine.build(rcfg, ecfg, params=st["params"])
+                reqs = [Request(request_id=j, tokens=p, max_new_tokens=16,
+                                arrival=0.0)
+                        for j, p in enumerate(st["prompts"])]
+                eng.run(reqs)
+                st["ref"][run["name"]] = dict(
+                    tokens=np.stack([np.asarray(r.output) for r in reqs]),
+                    digests=dst.pool_digests(eng.caches),
+                    pool_bytes=dst.pool_nbytes(eng.caches),
+                    resident_digests=dst.resident_digests(eng.caches),
+                    resident_bytes=dst.resident_nbytes(eng.caches))
+                del eng
+                torch.cuda.empty_cache()
+            st["logits"] = {dt: dst.prompt_logits(
+                st["cfg"], cast_params(st["params"], dt), st["prompts"],
+                dt, "cuda") for dt in ("float32", "bfloat16")}
+            print(f"  meshless {arch} runs done, {since()}")
         dec_logits = {dt: dst.bundle_logits(cfg, params, dt, "cuda")
                       for dt in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
@@ -5368,6 +5571,8 @@ def mesh_phase(torch, timer):
           f"{max(g[0][0]['mesh_s'] for g in got):.1f} s; each run's "
           f"`ServingEngine.build`, the shard cut included, {build_s} s)")
     del params
+    for st in stacks.values():
+        del st["params"]
     torch.cuda.empty_cache()
 
     # --- training on the mesh -------------------------------------------
@@ -5472,6 +5677,92 @@ def mesh_phase(torch, timer):
             gate(d16 <= d_dtype, f"dp2tp2 bf16 drift {d16} > the bf16 "
                  f"dtype drift {d_dtype}")
     print(f"  dp2tp2 done, {since()}")
+
+    # --- the other stacks over the mesh (ROADMAP A16d) -------------------
+    n_fixed = 4                 # granite, moe_ep, train, moe grads
+    for j, (arch, st) in enumerate(stacks.items()):
+        acfg, ref_s = st["cfg"], st["ref"]
+        one_s, main = one_all[2 + j][0], ref_s[MESH_STACK_MAIN["name"]]
+        same = np.array_equal(one_s["tokens"], main["tokens"])
+        bits = (one_s["digests"] == main["digests"]
+                and one_s["resident_digests"] == main["resident_digests"])
+        print(f"  (1, 1) nccl {acfg.name} bf16 int8: tokens equal {same}, "
+              f"pool and resident leaves bit-equal {bits} "
+              f"({len(one_s['digests'])} + {len(one_s['resident_digests'])}"
+              f" leaves), launches {one_s['launches']}, plain "
+              f"{one_s['plain']}")
+        gate(same and bits, f"(1, 1) {arch}: tokens or leaves differ from "
+             "the meshless engine")
+        gate(all(one_s["launches"].get(k, 0) > 0
+                 for k in MESH_STACK_KERNELS[arch][True])
+             and not one_s["plain"], f"(1, 1) {arch}: launches "
+             f"{one_s['launches']}, plain {one_s['plain']}")
+        s_runs = [dict(r, **st["cell"]) for r in MESH_STACK_RUNS]
+        per_run = [g[n_fixed + j] for g in got]
+        bad = dst.mesh_gates(
+            per_run, {i: ref_s[r["name"]]["tokens"]
+                      for i, r in enumerate(MESH_STACK_RUNS)},
+            {i: ref_s[r["name"]]["pool_bytes"]
+             for i, r in enumerate(MESH_STACK_RUNS)}, 2, s_runs,
+            acfg.num_kv_heads % 2 == 0,
+            {i: ref_s[r["name"]]["resident_bytes"]
+             for i, r in enumerate(MESH_STACK_RUNS)})
+        for b_ in bad:
+            gate(False, f"dp2tp2 {arch} {b_}")
+        for i, run in enumerate(MESH_STACK_RUNS):
+            per = [r[i] for r in per_run]
+            paged = run.get("paged", True)
+            ref_r = ref_s[run["name"]]
+            tok_s = [4 * 16 / p_["wall_s"] for p_ in per]
+            print(f"  dp2tp2 {acfg.name} {run['name']}: vs meshless "
+                  f"{dst.compare(per[0]['tokens'], ref_r['tokens'])}; "
+                  f"resident {per[0]['resident_bytes'] / 1e6:.3f} MB a "
+                  f"rank vs {ref_r['resident_bytes'] / 1e6:.3f} meshless, "
+                  f"pool {per[0]['pool_bytes'] / 1e6:.2f} MB a rank vs "
+                  f"{ref_r['pool_bytes'] / 1e6:.2f}; wall tok/s "
+                  f"{min(tok_s):.1f}-{max(tok_s):.1f} (gloo)")
+            for r, p_ in enumerate(per):
+                print(f"    rank {r} {p_['coord']}: launches "
+                      f"{p_['launches']} plain {p_['plain']}")
+                gate(all(p_["launches"].get(k, 0) > 0
+                         for k in MESH_STACK_KERNELS[arch][paged])
+                     and not p_["plain"], f"dp2tp2 {arch} {run['name']} "
+                     f"rank {r}: launches {p_['launches']}, plain "
+                     f"{p_['plain']}")
+            if run.get("logits"):
+                lg = st["logits"]
+                d32, d16 = (max(float(np.abs(p_["logits"][dt]
+                                             - lg[dt]).max()) for p_ in per)
+                            for dt in ("float32", "bfloat16"))
+                d_dtype = float(np.abs(lg["bfloat16"]
+                                       - lg["float32"]).max())
+                print(f"  dp2tp2 {acfg.name} prompt pass, last-token logits "
+                      f"of the 4 prompts (max |logit| "
+                      f"{float(np.abs(lg['float32']).max()):.2f}): mesh vs "
+                      f"meshless in float32 {d32:.3e}, in bf16 {d16:.4f}, "
+                      f"meshless bf16 vs float32 {d_dtype:.4f} (gate: bf16 "
+                      f"drift <= the dtype's)")
+                gate(d16 <= d_dtype, f"dp2tp2 {arch} bf16 drift {d16} > "
+                     f"the bf16 dtype drift {d_dtype}")
+    # --- ngram speculation on granite over the mesh ---------------------
+    per_spec = [g[n_fixed + len(stacks)] for g in got]
+    greedy, ngram = ([r[i] for r in per_spec] for i in range(2))
+    same = all(np.array_equal(p_["tokens"], greedy[0]["tokens"])
+               for p_ in (*greedy, *ngram))
+    steps = sorted({p_["spec_steps"] for p_ in ngram})
+    print(f"  dp2tp2 {cfg.name} ngram k=4 f32 fp, 4 requests x 16 tokens: "
+          f"tokens of every rank equal the greedy mesh engine's {same} "
+          f"({dst.compare(ngram[0]['tokens'], greedy[0]['tokens'])}); "
+          f"verify steps {steps} for 15 decoded tokens a request; "
+          f"launches rank 0 {ngram[0]['launches']}, plain "
+          f"{ngram[0]['plain']}")
+    gate(same and len(steps) == 1 and 0 < steps[0],
+         f"dp2tp2 ngram: tokens equal {same}, verify steps {steps}")
+    gate(all(p_["launches"].get(k, 0) > 0 for p_ in ngram
+             for k in BUCKET_KERNELS) and not any(p_["plain"]
+                                                   for p_ in ngram),
+         "dp2tp2 ngram: launches or plain calls")
+    print(f"  stacks and speculation done, {since()}")
     tparams = {k: torch.from_numpy(v).cuda() for k, v in moe_params.items()}
     xt = torch.from_numpy(x).cuda()
     for (label, _), case, *per in zip(MOE_CAPS, cases,
@@ -5491,12 +5782,18 @@ def mesh_phase(torch, timer):
             gate(dropped == 0 and err < 1e-4 and aux_err < 1e-4,
                  f"moe_ep: dropped {dropped}, y {err}, aux {aux_err}")
     for rec in shard_records:
-        train = "train shard" in rec["case"]
-        per_rank = [(g[2][1] if train else g[0][1])["launches"].get(
-            rec["name"]) for g in got]
-        print(f"  {rec['name']}: launches a rank in the "
-              f"{'bf16 train' if train else 'f32 int8'} run {per_rank}, "
-              f"{rec['ms']:.4f} ms at the shard shape ({rec['case']})")
+        # (which rank result, which run, its label) holds the launches of
+        # the shard shape's kernel on the main path
+        src, i, label = {
+            "ssd_scan": (n_fixed, 0, "mamba2 f32 fp"),
+            "flash_decode_lse": (n_fixed + 1, 1, "seamless f32 contiguous"),
+        }.get(rec["name"], (0, 1, "granite f32 int8"))
+        if "train shard" in rec["case"]:
+            src, i, label = 2, 1, "granite bf16 train"
+        per_rank = [g[src][i]["launches"].get(rec["name"]) for g in got]
+        print(f"  {rec['name']}: launches a rank in the {label} run "
+              f"{per_rank}, {rec['ms']:.4f} ms at the shard shape "
+              f"({rec['case']})")
     if failures:
         raise AssertionError(f"mesh phase: {failures}")
     out = {k: results[0][1]["launches"].get(k, 0) for k in BUCKET_KERNELS}

@@ -27,7 +27,13 @@ serves the contiguous layout there instead of the paged pool: slots over
 `data`, every slot's sequence over `model` (each rank decodes its block
 of positions and the ranks merge by their log-sum-exp), fp caches; its
 gates are the same but the replica check, as the `data` ranks hold
-different slots.
+different slots. Every stack serves there: `--arch mamba2_780m` (SSM),
+`jamba_1_5_large_398b` (hybrid) and `seamless_m4t_large_v2` (enc-dec)
+too, their slot-resident leaves (SSM state, conv tails, cross-KV) the
+rank's shard: each rank holds 1/(D T) of the meshless resident bytes.
+`--speculative ngram|draft` with `--mesh` serves the paged engine with
+speculation over the mesh against the meshless speculative engine:
+tokens equal, and the verify-step counts equal.
 
 With `--fleet N` it runs the fleet lanes instead (the reference's
 `dev_serve.py --fleet` / `--fault-plan` lanes, on the port only):
@@ -54,6 +60,10 @@ With `--fleet N` it runs the fleet lanes instead (the reference's
         --mesh dp2tp2 [--pool-dtype int8] [--arch granite_3_2b]
     PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
         --mesh dp2tp2 --contiguous
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
+        --mesh dp2tp2 --arch mamba2_780m [--contiguous]
+    PYTHONPATH=src python scripts/dev_serve_torch.py --device cpu \
+        --mesh dp2tp2 --speculative ngram [--arch granite_3_2b]
 
 It serves the reduced config of each `--arch` (repeatable, default
 smollm_360m) in float32. `tests/test_torch_contiguous.py`,
@@ -358,6 +368,25 @@ def pool_nbytes(caches) -> int:
                for k in blk.PAGED_LEAF_NAMES if k in c)
 
 
+def resident_leaves(caches) -> dict:
+    """The slot-resident leaves of a paged cache tree, or the SSM and
+    cross-KV leaves of a contiguous one (everything but the K / V and
+    their int8 (scale, zero)), {"pos0/state": tensor}."""
+    return {f"{pos}/{k}": x for pos, c in caches.items()
+            for k, x in c.items() if k not in blk.PAGED_LEAF_NAMES}
+
+
+def resident_digests(caches) -> dict:
+    """sha1 of the bytes of every `resident_leaves` leaf."""
+    return {k: hashlib.sha1(x.detach().contiguous().cpu().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for k, x in resident_leaves(caches).items()}
+
+
+def resident_nbytes(caches) -> int:
+    return sum(leaf_bytes(x) for x in resident_leaves(caches).values())
+
+
 def mesh_ecfg(n_req: int, n: int, gen: int, **kw) -> EngineConfig:
     """The reference lane's engine: n_req slots, one bucket n, pages of
     PAGE tokens, half the pool local (pages move through the substrate),
@@ -382,10 +411,17 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     numpy, or as the caller's tensors on the rank's card, shared with the
     rank by CUDA IPC). A run is a dict of `EngineConfig` fields plus
     "dtype" (the model's compute dtype), "name" and "gate" (read by
-    `mesh_gates` only) and "logits" (see below). Returns, per run: the
-    tokens, the wall seconds of `build` and of `run`, the kernels' launch
-    and plain-call counts of the run, the paged pool's digests and bytes
-    (this rank's shard), the substrate's mode and placement gap, the
+    `mesh_gates` only), "logits" (see below), "resident" (True: return
+    the rank's slot-resident leaves after the run as numpy), "extras"
+    ({request id: {"frames" or "patches": numpy}}: the frontend
+    embeddings of each request in place of the engine's own draws) and
+    "draft_params" (a numpy tree: the draft proposer's weights in place
+    of its seeded ones, replicated on every rank).
+    Returns, per run: the tokens, the wall seconds of `build` and of
+    `run`, the kernels' launch and plain-call counts of the run, the
+    paged pool's digests and bytes (this rank's shard), the resident
+    leaves' digests and bytes (and, asked, the leaves), the speculative
+    engine's verify steps, the substrate's mode and placement gap, the
     engine context's data / model coordinate and fsdp axis, the bytes of
     the rank's weights; for a float32 run whose dict has "logits" True,
     the last-token logits (float32) of a prompt pass of every prompt
@@ -409,8 +445,11 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     for run in runs:
         want_logits = run.get("logits", False)
         want_decode = run.get("decode_logits", False)
+        want_resident = run.get("resident", False)
+        extras, draft = run.get("extras"), run.get("draft_params")
         run = {k: v for k, v in run.items()
-               if k not in ("name", "gate", "logits", "decode_logits")}
+               if k not in ("name", "gate", "logits", "decode_logits",
+                            "resident", "extras", "draft_params")}
         rcfg = dataclasses.replace(cfg, dtype=run.pop("dtype", cfg.dtype))
         ecfg = mesh_ecfg(n_req, n, gen, **run)
         t_build = time.perf_counter()
@@ -418,6 +457,12 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
                                   mesh=mesh)
         build_s = time.perf_counter() - t_build
         ctx = eng.cells.ctx
+        if extras is not None:
+            eng._frontend_extras = fixed_extras(extras, dev)
+        if draft is not None:
+            eng.cells.draft_params = cast_params(
+                load_numpy_params(draft, device=dev),
+                eng.cells.draft_cfg.dtype)
         reqs = [Request(request_id=i, tokens=prompts[i], max_new_tokens=gen,
                         arrival=0.0) for i in range(n_req)]
         dist.barrier()
@@ -451,6 +496,12 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
             wall_s=wall, build_s=build_s, launches=launches, plain=plain,
             digests=pool_digests(eng.caches),
             pool_bytes=pool_nbytes(eng.caches),
+            resident_digests=resident_digests(eng.caches),
+            resident_bytes=resident_nbytes(eng.caches),
+            resident=({k: x.float().cpu().numpy() for k, x in
+                       resident_leaves(eng.caches).items()}
+                      if want_resident else None),
+            spec_steps=eng.spec_verify_steps,
             param_bytes=sum(leaf_bytes(x) for x in tree_leaves(eng.params)),
             substrate=mode, placement_gap=gap,
             coord=(ctx.index("data"), ctx.index("model")),
@@ -463,17 +514,29 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     return out
 
 
+def fixed_extras(extras: dict, device):
+    """An engine's `_frontend_extras` that hands each request the given
+    embeddings ({request id: {name: numpy}})."""
+    def fn(req, bucket):
+        return {k: torch.tensor(v, device=device)
+                for k, v in extras[req.request_id].items()}
+
+    return fn
+
+
 def prompt_logits(cfg, params, prompts, dtype: str, device,
                   ctx=None) -> np.ndarray:
     """The last-token logits (float32 numpy, one row a prompt) of a
     prompt pass of each prompt alone, in `dtype`, on `params` (the
     meshless tree, or a rank's shard with its `ctx`: a collective, every
-    rank of the mesh calls it)."""
+    rank of the mesh calls it); prompt i takes the frontend embeddings
+    the engine draws for request i (`frontend_extras`)."""
     cfg = dataclasses.replace(cfg, dtype=dtype)
     kw = {} if ctx is None else {"ctx": ctx}
     rows = [M.prefill(params, {"tokens": torch.as_tensor(
-        np.asarray(p)[None], device=device)}, cfg, max_seq=len(p),
-        **kw)[1][0].float() for p in prompts]
+        np.asarray(p)[None], device=device),
+        **frontend_extras(cfg, i, len(p), device)}, cfg, max_seq=len(p),
+        **kw)[1][0].float() for i, p in enumerate(prompts)]
     return torch.stack(rows).cpu().numpy()
 
 
@@ -577,6 +640,85 @@ def mesh_ops_rank(rank: int, world: int, dp: int, tp: int, cases,
             attn=attn.self_attention(p0["attn"], x, cfg, ctx=ctx),
             prefill=bundle.prefill_fn(local, {"tokens": tokens})[1]))
         out[-1] = {k: v.cpu().numpy() for k, v in out[-1].items()}
+    return out
+
+
+def mesh_stack_ops_rank(rank: int, world: int, dp: int, tp: int, cases,
+                        device) -> list:
+    """One rank of the SSM block's and cross-attention's checks over a
+    (dp, tp) mesh (the serving rules' shards of layer 0 of a reduced
+    arch; its default context). Cases (dicts, global inputs as numpy):
+      {"kind": "ssm", "cfg", "params", "x" (B, S, d), "x1" (B, 1, d)}:
+        `ssm.ssm_block` of x (every row; the state and conv tails
+        returned) on the rank's shard of layer 0's SSM weights, then one
+        `ssm_decode_step` of the rank's rows of x1 from the rank's shard
+        of that state and those tails (`serve.prefill_cache_shards`, as
+        the contiguous caches hold them): the prefill's output, the
+        decode output of every row (gathered over dp) and the rank's new
+        state and tails;
+      {"kind": "cross", "cfg", "params", "x" (B, Sq, d), "enc" (B, Senc,
+        d), "x1" (B, 1, d)}: `encode_cross_kv` and `cross_attention` of
+        x on layer 0's cross block, then `decode_cross_attention` of the
+        rank's rows of x1 against the cross-KV shard of each layout: the
+        rank's KV heads at every encoder position (paged) and every KV
+        head at its block of them (contiguous, merged over tp): the
+        prefill's output and both decodes' outputs of every row.
+    Each case's dict also holds the rank's (data, model) "coord"."""
+    from repro_torch.common.parallel import all_gather
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    from repro_torch.models.module import layer_slice
+
+    dev = torch.device(device)
+    mesh = _rank_mesh(dp, tp, device)
+    ctx = mesh_mod.ctx_for_mesh(mesh, remat="none")
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        x, x1 = (torch.as_tensor(case[n], device=dev) for n in ("x", "x1"))
+        B = x.shape[0]
+        r0, r1 = ctx.batch_rows(B)
+        enc_len = case["enc"].shape[1] if "enc" in case else 0
+        bundle = serve_rt.make_bundle(cfg, batch=B, max_seq=x.shape[1],
+                                      enc_len=enc_len, mesh=mesh, ctx=ctx)
+        local = shd.shard_tree(load_numpy_params(case["params"], device=dev),
+                               bundle.param_pspecs, mesh)
+        p0 = layer_slice(local["blocks"]["pos0"], 0)
+
+        def rows(y):
+            return y if y.shape[0] == B else all_gather(y, ctx, ctx.dp_axes,
+                                                        0)
+
+        if case["kind"] == "ssm":
+            y, (state, tails) = ssm.ssm_block(p0["ssm"], x, cfg,
+                                              return_state=True, ctx=ctx)
+            leaves = dict(zip(("state", "tail_x", "tail_B", "tail_C"),
+                              (state, *tails)))
+            shards = serve_rt.prefill_cache_shards(
+                {"pos0": {k: v[None] for k, v in leaves.items()}}, ctx,
+                cfg.num_kv_heads)["pos0"]
+            y1, (state1, tails1) = ssm.ssm_decode_step(
+                p0["ssm"], x1[r0:r1], cfg, shards["state"][0],
+                tuple(shards[k][0] for k in ("tail_x", "tail_B", "tail_C")),
+                ctx=ctx)
+            got = dict(prefill=y, decode=rows(y1), state=state1,
+                       **dict(zip(("tail_x", "tail_B", "tail_C"), tails1)))
+        else:
+            enc = torch.as_tensor(case["enc"], device=dev)
+            ck, cv = attn.encode_cross_kv(p0["cross"], enc, cfg, ctx)
+            y = attn.cross_attention(p0["cross"], x, (ck, cv), cfg, ctx)
+            paged = attn.decode_cross_attention(
+                p0["cross"], x1[r0:r1], (ck[r0:r1], cv[r0:r1]), cfg, ctx)
+            blocks = serve_rt.prefill_cache_shards(
+                {"pos0": {"cross_k": ck[None], "cross_v": cv[None]}}, ctx,
+                cfg.num_kv_heads)["pos0"]
+            contig = attn.decode_cross_attention(
+                p0["cross"], x1[r0:r1],
+                (blocks["cross_k"][0], blocks["cross_v"][0]), cfg, ctx,
+                seq_split=True)
+            got = dict(prefill=y, paged=rows(paged), contiguous=rows(contig))
+        out.append({k: v.float().cpu().numpy() for k, v in got.items()})
+        out[-1]["coord"] = (ctx.index("data"), ctx.index("model"))
     return out
 
 
@@ -719,7 +861,8 @@ def mesh_calls(rank: int, world: int, calls) -> list:
 
 
 def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
-               tp: int, runs, kv_split: bool) -> list:
+               tp: int, runs, kv_split: bool,
+               ref_resident_bytes: Optional[dict] = None) -> list:
     """The lane's gates over every rank's results of `mesh_rank` (rank
     order) against the meshless engine's tokens and pool bytes per run
     index: every rank's tokens equal rank 0's; fp pools equal the
@@ -730,11 +873,21 @@ def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
     them when they do not; placement gap 0 on every rank. A contiguous
     run (`paged` False) holds slots over `data` and positions over
     `model`: no replicas, and each rank holds 1/(dp tp) of the caches.
-    Returns the failures (empty: every gate held)."""
+    Where `ref_resident_bytes` gives the meshless engine's slot-resident
+    bytes of a run (SSM state, conv tails, cross-KV), each rank holds
+    1/(dp tp) of them (slots over `data`, heads or channels or encoder
+    positions over `model`). Returns the failures (empty: every gate
+    held)."""
     failed = []
     for i, run in enumerate(runs):
         per = [r[i] for r in results]
         name = run.get("name", f"run {i}")
+        ref_res = (ref_resident_bytes or {}).get(i)
+        if ref_res and any(p["resident_bytes"] * len(per) != ref_res
+                           for p in per):
+            failed.append(f"{name}: resident bytes "
+                          f"{[p['resident_bytes'] for p in per]} vs "
+                          f"{ref_res} / {len(per)}")
         if not run.get("paged", True):
             failed += _contiguous_gates(per, ref_tokens[i],
                                         ref_pool_bytes.get(i), name,
@@ -789,28 +942,39 @@ def _contiguous_gates(per, ref_tokens, ref_bytes, name,
 
 
 def mesh_parity(cfg, params, dp: int, tp: int, pool_dtype: str, *, device,
-                backend=None, threads: int = 0, paged: bool = True):
+                backend=None, threads: int = 0, paged: bool = True,
+                speculative: Optional[str] = None):
     """The sharded-parity lane of one arch: the meshless engine, then the
     mesh engine on dp x tp spawned ranks, on the same float32 weights
-    and prompts (`paged` False: the contiguous layout, fp). Returns (the
-    gates' failures, the meshless tokens, every rank's results)."""
+    and prompts (`paged` False: the contiguous layout, fp; `speculative`
+    "ngram" or "draft": the paged engine with speculation, whose
+    verify-step counts must equal the meshless engine's too). Returns
+    (the gates' failures, the meshless tokens, every rank's results)."""
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-    ecfg = mesh_ecfg(B, S, GEN, pool_dtype=pool_dtype, paged=paged)
+    spec = dict(speculative=speculative) if speculative else {}
+    ecfg = mesh_ecfg(B, S, GEN, pool_dtype=pool_dtype, paged=paged, **spec)
     ref = ServingEngine.build(cfg, ecfg, params=params, device=device)
     reqs = [Request(request_id=i, tokens=prompts[i], max_new_tokens=GEN,
                     arrival=0.0) for i in range(B)]
     ref.run(reqs)
     ref_tokens = np.stack([np.asarray(r.output) for r in reqs])
     np_params = _to_numpy(params)
-    runs = [dict(pool_dtype=pool_dtype, paged=paged,
-                 name=f"{'pool' if paged else 'contiguous'} {pool_dtype}")]
+    layout = "pool" if paged else "contiguous"
+    runs = [dict(pool_dtype=pool_dtype, paged=paged, **spec,
+                 name=f"{layout} {pool_dtype}"
+                 + (f" {speculative}" if speculative else ""))]
     results = mesh_mod.run_ranks(
         mesh_rank, dp * tp,
         (cfg, dp, tp, np_params, prompts, GEN, runs, device),
         device=device, backend=backend, threads=threads)
     failed = mesh_gates(results, {0: ref_tokens},
                         {0: pool_nbytes(ref.caches)}, tp, runs,
-                        cfg.num_kv_heads % tp == 0)
+                        cfg.num_kv_heads % tp == 0,
+                        {0: resident_nbytes(ref.caches)})
+    steps = [r[0]["spec_steps"] for r in results]
+    if any(n != ref.spec_verify_steps for n in steps):
+        failed.append(f"verify steps {steps} vs meshless "
+                      f"{ref.spec_verify_steps}")
     return failed, ref_tokens, results
 
 
@@ -849,6 +1013,9 @@ def main(argv=None) -> int:
         ap.error("--fault-plan needs --fleet N")
     if args.contiguous and (not args.mesh or args.pool_dtype != "fp"):
         ap.error("--contiguous needs --mesh and an fp pool")
+    if args.mesh and args.speculative and (args.contiguous
+                                           or len(args.speculative) > 1):
+        ap.error("--mesh takes one --speculative mode, on the paged pool")
     mesh = None
     if args.mesh:
         m = re.fullmatch(r"dp(\d+)tp(\d+)", args.mesh)
@@ -861,17 +1028,20 @@ def main(argv=None) -> int:
         params = M.init_model(cfg, device=args.device, seed=0)
         if mesh:
             dp, tp = mesh
+            mode = args.speculative[0] if args.speculative else None
             bad, _, results = mesh_parity(
                 cfg, params, dp, tp, args.pool_dtype, device=args.device,
                 backend=args.backend,
                 threads=1 if args.device == "cpu" else 0,
-                paged=not args.contiguous)
+                paged=not args.contiguous, speculative=mode)
             r0 = results[0][0]
             layout = "contiguous" if args.contiguous else "paged"
             print(f"{arch}: mesh=dp{dp}tp{tp} {layout} "
-                  f"pool={args.pool_dtype} "
+                  f"pool={args.pool_dtype} speculative={mode} "
                   f"substrate={r0['substrate']} pool_bytes/rank="
-                  f"{r0['pool_bytes']} launches={r0['launches']} "
+                  f"{r0['pool_bytes']} resident_bytes/rank="
+                  f"{r0['resident_bytes']} verify_steps={r0['spec_steps']} "
+                  f"launches={r0['launches']} "
                   f"{'OK' if not bad else 'FAIL ' + '; '.join(bad)}")
             failed += [f"{arch}: {b}" for b in bad]
             continue

@@ -33,9 +33,10 @@ decode; the context `ctx_for_mesh(mesh, fsdp=not --no-fsdp)`), every
 collective records its wire bytes under the ring model instead of
 running (`common.parallel`), and the roofline prices one card of
 `mesh.size`. A train cell's microbatches are the table's, capped at the
-rank's rows. A cell whose stack does not run over a mesh yet (SSM,
-hybrid and encoder-decoder stacks; the vision prefix in training) is an
-error naming ROADMAP A16d.
+rank's rows. Every stack's prefill and decode cells run over a mesh; a
+train cell whose stack does not train over a mesh yet (SSM, hybrid,
+vision-prefix and encoder-decoder stacks) is an error naming ROADMAP
+A16e.
 
 Writes one JSON per cell under results/dryrun_torch/ (the reference's
 TPU records under results/dryrun/ are never read), named by arch, shape
@@ -215,7 +216,7 @@ def part_cost(cfg, shape: ShapeConfig, m=None, *, remat: str = "block",
     them when None), or the prefill or decode step, of `cfg` at `shape`
     on meta tensors; over `mesh` (an `AbstractMesh`) the step of its
     rank at `mesh.coords` on that rank's shards (a stack that does not
-    run over a mesh yet raises, naming ROADMAP A16d)."""
+    train over a mesh yet raises, naming ROADMAP A16e)."""
     n_active = cfg.active_param_count()
     ctx = None
     if mesh is not None:

@@ -171,34 +171,68 @@ def self_attention(params, x, cfg: ModelConfig, positions=None,
     return out
 
 
-def cross_attention(params, x, enc_kv, cfg: ModelConfig):
+def cross_attention(params, x, enc_kv, cfg: ModelConfig,
+                    ctx: ParallelCtx = SINGLE, local_batch: bool = False):
     """Decoder states x (B, Sq, d) against the encoder's K/V
     (B, Senc, KV, hd) each, precomputed by `encode_cross_kv`; no RoPE, no
-    mask."""
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    mask. Over a mesh wq is column-parallel (the rank's query heads), the
+    K/V hold the rank's KV heads (`encode_cross_kv`), attention runs as
+    `sharded_mha(causal=False)` and wo is row-parallel."""
+    dt, d = x.dtype, x.shape[-1]
+    q = torch.einsum("bsd,dhk->bshk", x,
+                     gather_param(params["wq"].to(dt), ctx, 0, d))
     k, v = enc_kv
-    out = flash_ops.mha(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    out = sharded_mha(q, k, v, ctx, causal=False,
+                      heads=(cfg.num_heads, cfg.num_kv_heads),
+                      local_batch=local_batch)
+    return _out_proj(out, params, ctx, "bshk,hkd->bsd", cfg)
 
 
-def encode_cross_kv(params, enc_out, cfg: ModelConfig):
-    """Cross-attention K/V from the encoder output (once per request)."""
-    dt = enc_out.dtype
-    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(dt))
+def encode_cross_kv(params, enc_out, cfg: ModelConfig,
+                    ctx: ParallelCtx = SINGLE):
+    """Cross-attention K/V from the encoder output (once per request); over
+    a mesh the rank's KV heads where wk / wv split them."""
+    dt, d = enc_out.dtype, enc_out.shape[-1]
+    k, v = (torch.einsum("bsd,dhk->bshk", enc_out,
+                         gather_param(params[n].to(dt), ctx, 0, d))
+            for n in ("wk", "wv"))
     return k, v
 
 
-def decode_cross_attention(params, x, cross_kv, cfg: ModelConfig):
+def decode_cross_attention(params, x, cross_kv, cfg: ModelConfig,
+                           ctx: ParallelCtx = SINGLE,
+                           seq_split: bool = False):
     """Decode-time cross-attention of x (B, 1, d) against the fixed
     encoder K/V (B, S_enc, KV, hd): every row attends to all S_enc keys,
-    through the contiguous decode op."""
+    through the contiguous decode op.
+
+    Over a mesh the K/V are the rank's shard of the slot-resident
+    cross-KV. In the paged layout (`paged_cache_pspec`) they hold the
+    rank's KV heads at every encoder position: the rank decodes its query
+    heads against them (every query head, gathered, where its heads are
+    not whole GQA groups of the KV heads it holds). In the contiguous
+    layout (`cache_pspec`, `seq_split`) they hold every KV head at the
+    rank's block of S_enc / tp encoder positions, every one of them live:
+    q is gathered over tp, the rank decodes its block with the
+    log-sum-exp and the ranks' blocks merge by it
+    (`_merge_over_tp`, as `decode_self_attention` does). wo is
+    row-parallel."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k, v = cross_kv
-    out = decode_ops.decode_mha(q[:, 0], k, v, k.shape[1])
-    return torch.einsum("bhk,hkd->bd", out, params["wo"].to(dt))[:, None, :]
+    if seq_split and ctx.axis_size(ctx.tp_axis) > 1:
+        H_loc = q.shape[2]
+        if H_loc != cfg.num_heads:
+            q = all_gather(q, ctx, ctx.tp_axis, 2)
+        out, lse = decode_ops.decode_mha(q[:, 0], k, v, k.shape[1],
+                                         return_lse=True)
+        out = _merge_over_tp(out, lse, ctx, H_loc, q.dtype)
+    else:
+        q, unshard = _pool_heads(q, ctx, cfg, k)
+        out = decode_ops.decode_mha(q[:, 0], k, v, k.shape[1])
+        if unshard is not None:
+            out = unshard(out)
+    return _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)[:, None, :]
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -282,15 +316,25 @@ def decode_self_attention(params, x, cfg: ModelConfig, k_cache, v_cache, t,
     length = (t_vec + 1 - _seq_block(ctx, S_loc)).clamp(0, S_loc)
     out, lse = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, length,
                                      return_lse=True)
+    out = _merge_over_tp(out, lse, ctx, H_loc, q.dtype)
+    out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
+    return out[:, None, :], (k_cache, v_cache)
+
+
+def _merge_over_tp(out, lse, ctx: ParallelCtx, H_loc: int, dtype):
+    """The decode over the union of the tp ranks' key blocks from each
+    rank's (out (B, H, D), lse (B, H)) of every query head: one gather of
+    (out, lse) over tp in float32, merged in rank order
+    (`decode_ops.merge_blocks`); the rank keeps its own H_loc heads for
+    the row-parallel wo (all of them where wq does not split them)."""
     both = all_gather(torch.cat([out.float(), lse[..., None]], -1)[None],
                       ctx, ctx.tp_axis, 0)
     out = decode_ops.merge_blocks(both[..., :-1], both[..., -1],
-                                  dtype=q.dtype)
-    if H_loc != cfg.num_heads:
+                                  dtype=dtype)
+    if H_loc != out.shape[1]:
         s = ctx.index(ctx.tp_axis)
         out = out[:, s * H_loc:(s + 1) * H_loc]
-    out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
-    return out[:, None, :], (k_cache, v_cache)
+    return out
 
 
 def _t_vec(t, B: int, device) -> torch.Tensor:

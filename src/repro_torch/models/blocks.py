@@ -13,11 +13,13 @@ decoders, SSM stacks (mamba2), hybrid attention + SSM + MoE stacks
 stack non-causal, its decoder layers with cross-attention). Without a
 mesh an MoE layer is `moe.moe_dense`, as in the reference. The layer
 loops take the parallel context `ctx` (`common.parallel`) and hand it to
-attention, the MLP and `moe.moe_ep`; `SINGLE` (no mesh) is the default,
-so a meshless caller is unchanged. Slot-resident
-decode state never enters the page pool: an SSM layer's `state`,
-`tail_x`, `tail_B`, `tail_C` and a decoder layer's cross-attention
-`cross_k` / `cross_v` (extent `enc_len`).
+self- and cross-attention, the SSM block, the MLP and `moe.moe_ep`;
+`SINGLE` (no mesh) is the default, so a meshless caller is unchanged.
+Slot-resident decode state never enters the page pool: an SSM layer's
+`state`, `tail_x`, `tail_B`, `tail_C` and a decoder layer's
+cross-attention `cross_k` / `cross_v` (extent `enc_len`); over a mesh
+each rank holds its shard of them (`runtime.sharding.cache_pspec` /
+`paged_cache_pspec`).
 """
 
 from __future__ import annotations
@@ -127,12 +129,13 @@ def _apply_layer_train(p, x, cfg: ModelConfig, desc: LayerDesc,
         h = attn.self_attention(p["attn"], h, cfg, causal=desc.causal,
                                 ctx=ctx, local_batch=local_batch)
     else:
-        h = ssm_mod.ssm_block(p["ssm"], h, cfg)
+        h = ssm_mod.ssm_block(p["ssm"], h, cfg, ctx=ctx)
     x = x + h
     if desc.cross:
-        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-        enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
-        x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
+        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps, ctx)
+        enc_kv = attn.encode_cross_kv(p["cross"], enc_out, cfg, ctx)
+        x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg, ctx,
+                                     local_batch)
     h, a = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps, ctx), cfg, desc,
                 ctx, local_batch)
     if a is not None:
@@ -315,7 +318,7 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
     if desc.kind != "attn":
         h, (state, tails) = ssm_mod.ssm_decode_step(
             p["ssm"], h, cfg, c["state"],
-            tuple(c[k] for k in _SSM_LEAVES[1:]))
+            tuple(c[k] for k in _SSM_LEAVES[1:]), ctx=ctx)
         for key, leaf in zip(_SSM_LEAVES, (state, *tails)):
             c[key].copy_(leaf)
     elif attn_override is not None:
@@ -330,7 +333,8 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
     if desc.cross:
         h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         x = x + attn.decode_cross_attention(
-            p["cross"], h, (c["cross_k"], c["cross_v"]), cfg)
+            p["cross"], h, (c["cross_k"], c["cross_v"]), cfg, ctx,
+            seq_split=block_table is None)
     # the contiguous caches over a mesh hold the rank's slots: x holds
     # them (all of them where the dp axes do not split the slots)
     local = (x.shape[0] != block_table.shape[0] if block_table is not None
@@ -413,14 +417,16 @@ def stack_prefill(params, x, cfg: ModelConfig, max_seq: int, *,
                        "v": torch.nn.functional.pad(v, pad)}
             else:
                 h, (state, tails) = ssm_mod.ssm_block(p["ssm"], h, cfg,
-                                                      return_state=True)
+                                                      return_state=True,
+                                                      ctx=ctx)
                 new = dict(zip(_SSM_LEAVES, (state, *tails)))
             x = x + h
             if desc.cross:
                 hh = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-                ck, cv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+                ck, cv = attn.encode_cross_kv(p["cross"], enc_out, cfg, ctx)
                 new["cross_k"], new["cross_v"] = ck, cv
-                x = x + attn.cross_attention(p["cross"], hh, (ck, cv), cfg)
+                x = x + attn.cross_attention(p["cross"], hh, (ck, cv), cfg,
+                                             ctx)
             for key, leaf in new.items():
                 leaves[j].setdefault(key, []).append(leaf)
             h, _ = _ffn(p, rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg,

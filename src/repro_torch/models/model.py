@@ -81,12 +81,14 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _encode(params, frames, cfg: ModelConfig, remat: str = "none",
             ctx: ParallelCtx = SINGLE):
-    """The encoder stack (non-causal) over the frame embeddings."""
+    """The encoder stack (non-causal) over the frame embeddings; over a
+    mesh every rank runs every frame on its shard of the weights and
+    ends with the whole encoder output."""
     x, _ = blocks.stack_apply(params["encoder"]["blocks"], frames, cfg,
                               causal=False,
                               n_layers=cfg.num_encoder_layers, remat=remat,
                               ctx=ctx)
-    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps, ctx)
 
 
 def _decoder_inputs(params, batch, cfg: ModelConfig,
@@ -169,7 +171,9 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int,
     caches (seq extent `max_seq` plus the prefix; cross-KV extent the
     frames'), return last-token logits (B, V). Over a mesh every dp rank
     runs the whole batch (attention splits it where it divides) and the
-    caches hold the rank's KV heads."""
+    caches hold the rank's KV heads (k / v and cross_k / cross_v), SSM
+    heads (state) and channels (tail_x); tail_B / tail_C come back whole
+    (`runtime.serve` cuts them to the decode shard's channel block)."""
     x, n_prefix = _decoder_inputs(params, batch, cfg, ctx)
     cross = bool(cfg.num_encoder_layers)
     enc_out = None

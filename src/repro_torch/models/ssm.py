@@ -7,6 +7,32 @@ kernel on the card, the plain versions on the CPU); decode is one O(1)
 recurrence step per token, plain PyTorch. Decode keeps two small states
 per layer: the SSM state (B, H, P, N) in float32 and the conv tails
 (B, W-1, channels) in the activation dtype.
+
+Over a mesh (`ctx`, `common.parallel`; the serving rules) the block runs
+the rank's heads. `w_in_x`, `w_in_z`, `conv_x`, `norm_scale` and `w_out`
+hold its block of `d_inner` (`ssm_inner` over the model axis), which is
+its heads [r H/tp, (r + 1) H/tp) since `d_inner` is head-major;
+`w_in_dt`, `A_log`, `D` and `dt_bias` stay whole (`ssm_heads` is never
+sharded) and the rank takes its heads from them; `w_in_B` / `w_in_C` /
+`conv_B` / `conv_C` stay whole. The decode state is the rank's shard of
+`runtime.sharding.cache_pspec` / `paged_cache_pspec`: the state holds
+its heads, each conv tail its block of the channels where they divide.
+What the split costs:
+
+(a) the gated RMSNorm takes its mean over the WHOLE `d_inner`, as the
+    reference's does: the rank sums its squares, the sums go over the
+    model axis and are divided by `d_inner` (a mean over the rank's
+    channels alone would be another norm);
+(b) `w_out` is row-parallel: its partial sums go over the model axis;
+(c) `tail_B` / `tail_C` hold the rank's block of the B / C channels,
+    while B and C feed every head: the depthwise conv is channel-local,
+    so the rank convolves its block with its tail block, and one
+    all-gather over the model axis rebuilds the post-conv B and C;
+(d) where `H % tp != 0` but `d_inner % tp == 0` the rules would cut a
+    head across two ranks: `check_ssm_split` refuses that.
+
+With tp 1 (or without a mesh) nothing is split: the block is the
+meshless one, op for op.
 """
 
 from __future__ import annotations
@@ -14,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather, psum
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.module import Initializer, torch_dtype
 
@@ -39,6 +66,20 @@ def ssm_init(init: Initializer, cfg: ModelConfig):
     init.param("w_out", (di, d), ("ssm_inner", "embed"))
 
 
+def check_ssm_split(cfg: ModelConfig, ctx: ParallelCtx) -> None:
+    """Refuse a mesh whose model axis would cut an SSM head across two
+    ranks (trap (d) of the module docstring): the serving rules split
+    `d_inner` over it when `d_inner % tp == 0`, which keeps every head on
+    one rank only when `H % tp == 0` too."""
+    tp = ctx.axis_size(ctx.tp_axis)
+    if (cfg.sub_quadratic and tp > 1 and cfg.d_inner % tp == 0
+            and cfg.ssm_heads % tp):
+        raise ValueError(
+            f"{cfg.name}: d_inner {cfg.d_inner} splits over the "
+            f"{ctx.tp_axis!r} axis ({tp} ranks) but its {cfg.ssm_heads} SSM "
+            "heads do not: a head would be cut across two ranks")
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
     max(x, 0) + log1p(exp(-|x|)) (torch's softplus takes another formula
@@ -62,6 +103,29 @@ def _causal_conv(x, w, tail=None):
     return y, new_tail
 
 
+def _step_conv(xt, w, tail):
+    """One decode step of the causal conv: xt (B,1,C) against its tail
+    (B,W-1,C). Returns (y (B,1,C), new_tail)."""
+    xp = torch.cat([tail, xt], dim=1)                # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", xp, w)[:, None, :]
+    return y, xp[:, 1:, :]
+
+
+def _rank_params(params, cfg: ModelConfig, ctx: ParallelCtx):
+    """`params` with the whole per-head leaves (`w_in_dt`, `A_log`, `D`,
+    `dt_bias`) cut to the rank's heads, which its local `w_in_x` gives
+    (the leaves as they are where `d_inner` is whole)."""
+    di_loc = params["w_in_x"].shape[1]
+    if di_loc == cfg.d_inner:
+        return params
+    check_ssm_split(cfg, ctx)
+    H_loc = di_loc // cfg.ssm_head_dim
+    h0 = ctx.index(ctx.tp_axis) * H_loc
+    return dict(params, w_in_dt=params["w_in_dt"][:, h0:h0 + H_loc],
+                **{n: params[n][h0:h0 + H_loc]
+                   for n in ("A_log", "D", "dt_bias")})
+
+
 def _project(params, x):
     dt_ = x.dtype
     xs = torch.einsum("bsd,di->bsi", x, params["w_in_x"].to(dt_))
@@ -72,14 +136,56 @@ def _project(params, x):
     return xs, z, Bm, Cm, dt
 
 
-def _gated_norm(params, y, z, eps: float):
+def _conv_all(params, xs, Bm, Cm, tails, conv, ctx: ParallelCtx):
+    """The causal conv (`conv(x, w, tail)`: the block's or the decode
+    step's) of x, B and C against their tails (None: zeros). x's channels
+    and `conv_x` are the rank's. B and C are convolved whole where their
+    tails are whole (or absent); where a tail holds the rank's channel
+    block, the rank convolves that block and the post-conv B and C are
+    gathered over the model axis in one call (trap (c)). Returns (x, B,
+    C, (tail_x, tail_B, tail_C))."""
+    dt = xs.dtype
+    xs, tail_x = conv(xs, params["conv_x"].to(dt), tails[0])
+    wB, wC = params["conv_B"].to(dt), params["conv_C"].to(dt)
+    N = Bm.shape[-1]
+    n = tails[1].shape[-1] if tails[1] is not None else N
+    if n != N:
+        c0 = ctx.index(ctx.tp_axis) * n
+        Bm, Cm = Bm[..., c0:c0 + n], Cm[..., c0:c0 + n]
+        wB, wC = wB[:, c0:c0 + n], wC[:, c0:c0 + n]
+    Bm, tail_B = conv(Bm, wB, tails[1])
+    Cm, tail_C = conv(Cm, wC, tails[2])
+    if n != N:
+        both = all_gather(torch.stack([Bm, Cm]), ctx, ctx.tp_axis,
+                          Bm.dim())
+        Bm, Cm = both[0], both[1]
+    return xs, Bm, Cm, (tail_x, tail_B, tail_C)
+
+
+def _gated_norm(params, y, z, eps: float, d_inner: int = 0,
+                ctx: ParallelCtx = SINGLE):
     # silu(z) is cast to y's dtype BEFORE the product, as the reference
     # does, so bf16 activations round where the reference's round
     g = y * torch.nn.functional.silu(z.float()).to(y.dtype)
     g32 = g.float()
-    var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    if not d_inner or g.shape[-1] == d_inner:
+        var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    else:
+        # the rank holds d_inner / tp channels: the mean is the whole
+        # d_inner's (trap (a))
+        var = psum(torch.sum(g32 * g32, dim=-1, keepdim=True), ctx,
+                   ctx.tp_axis) / d_inner
     return (g32 * torch.rsqrt(var + eps)
             * params["norm_scale"].float()).to(y.dtype)
+
+
+def _out_proj(params, y, cfg: ModelConfig, ctx: ParallelCtx):
+    """`w_out`, row-parallel where it holds the rank's block of `d_inner`
+    (trap (b))."""
+    out = torch.einsum("bsi,id->bsd", y, params["w_out"].to(y.dtype))
+    if params["w_out"].shape[0] != cfg.d_inner:
+        out = psum(out, ctx, ctx.tp_axis)
+    return out
 
 
 def _dt_and_A(params, dt):
@@ -89,74 +195,84 @@ def _dt_and_A(params, dt):
 
 
 def ssm_block(params, x, cfg: ModelConfig, return_state: bool = False,
-              init_state=None, conv_tail=None):
+              init_state=None, conv_tail=None, ctx: ParallelCtx = SINGLE):
     """Full-sequence SSD block. x: (B, S, d). With `return_state`, also
     the final SSM state and the conv tails (state, (tail_x, tail_B,
-    tail_C))."""
+    tail_C)). Over a mesh (module docstring) the state and `tail_x` are
+    the rank's heads and channels; `tail_B` / `tail_C` come back whole
+    unless `conv_tail` held the rank's channel block of them."""
+    params = _rank_params(params, cfg, ctx)
     B, S, _ = x.shape
-    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
     xs, z, Bm, Cm, dt = _project(params, x)
-    tails = conv_tail or (None, None, None)
-    xs, tail_x = _causal_conv(xs, params["conv_x"].to(x.dtype), tails[0])
-    Bm, tail_B = _causal_conv(Bm, params["conv_B"].to(x.dtype), tails[1])
-    Cm, tail_C = _causal_conv(Cm, params["conv_C"].to(x.dtype), tails[2])
+    xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm,
+                                  conv_tail or (None, None, None),
+                                  _causal_conv, ctx)
     silu = torch.nn.functional.silu
     xs, Bm, Cm = silu(xs), silu(Bm), silu(Cm)
     dtp, A = _dt_and_A(params, dt)
 
     y, state = ssd_ops.ssd(
-        xs.reshape(B, S, H, Pd), dtp, A,
+        xs.reshape(B, S, xs.shape[-1] // Pd, Pd), dtp, A,
         Bm.reshape(B, S, NGROUPS, N), Cm.reshape(B, S, NGROUPS, N),
         params["D"], init_state,
     )
-    y = _gated_norm(params, y.reshape(B, S, cfg.d_inner), z, cfg.norm_eps)
-    out = torch.einsum("bsi,id->bsd", y, params["w_out"].to(x.dtype))
+    y = _gated_norm(params, y.reshape(B, S, xs.shape[-1]), z, cfg.norm_eps,
+                    cfg.d_inner, ctx)
+    out = _out_proj(params, y, cfg, ctx)
     if return_state:
-        return out, (state, (tail_x, tail_B, tail_C))
+        return out, (state, tails)
     return out
 
 
-def ssm_decode_step(params, x, cfg: ModelConfig, state, conv_tail):
+def ssm_decode_step(params, x, cfg: ModelConfig, state, conv_tail,
+                    ctx: ParallelCtx = SINGLE):
     """One-token decode. x (B,1,d); state (B,H,P,N); conv_tail the
     3-tuple of (B, W-1, C) tails. Returns (out (B,1,d), (new_state,
-    new_tails))."""
+    new_tails)). Over a mesh state and tails are the rank's shards
+    (module docstring) and x holds the rows of its slots."""
+    params = _rank_params(params, cfg, ctx)
     B = x.shape[0]
-    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
     xs, z, Bm, Cm, dt = _project(params, x)
-
-    def step_conv(xt, w, tail):
-        xp = torch.cat([tail, xt], dim=1)            # (B, W, C)
-        y = torch.einsum("bwc,wc->bc", xp, w)[:, None, :]
-        return y, xp[:, 1:, :]
-
-    xs, tail_x = step_conv(xs, params["conv_x"].to(x.dtype), conv_tail[0])
-    Bm, tail_B = step_conv(Bm, params["conv_B"].to(x.dtype), conv_tail[1])
-    Cm, tail_C = step_conv(Cm, params["conv_C"].to(x.dtype), conv_tail[2])
+    xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm, conv_tail,
+                                  _step_conv, ctx)
     silu = torch.nn.functional.silu
     xs, Bm, Cm = silu(xs), silu(Bm), silu(Cm)
     dtp, A = _dt_and_A(params, dt)
     y, new_state = ssd_ops.ssd_decode(
-        xs[:, 0].reshape(B, H, Pd), dtp[:, 0], A,
+        xs[:, 0].reshape(B, xs.shape[-1] // Pd, Pd), dtp[:, 0], A,
         Bm[:, 0].reshape(B, NGROUPS, N), Cm[:, 0].reshape(B, NGROUPS, N),
         params["D"], state,
     )
-    y = _gated_norm(params, y.reshape(B, 1, cfg.d_inner), z, cfg.norm_eps)
-    out = torch.einsum("bsi,id->bsd", y, params["w_out"].to(x.dtype))
-    return out, (new_state, (tail_x, tail_B, tail_C))
+    y = _gated_norm(params, y.reshape(B, 1, xs.shape[-1]), z, cfg.norm_eps,
+                    cfg.d_inner, ctx)
+    out = _out_proj(params, y, cfg, ctx)
+    return out, (new_state, tails)
 
 
 def make_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, *,
-                   device=None):
+                   device=None, ctx: ParallelCtx = SINGLE):
     """Zeroed decode state of `n_layers` SSM layers: the float32 SSM
     state (n_layers, batch, H, P, N) (float32 for recurrence stability)
-    and the three conv tails (n_layers, batch, W-1, C) in cfg.dtype."""
+    and the three conv tails (n_layers, batch, W-1, C) in cfg.dtype. Over
+    a mesh, the rank's shard of `runtime.sharding.cache_pspec`: its rows
+    of `batch` over the dp axes, its heads and its block of each tail's
+    channels over the model axis where they divide."""
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     gn = NGROUPS * N
     cdt = torch_dtype(cfg.dtype)
     W = cfg.conv_width
-    state = torch.zeros((n_layers, batch, H, Pd, N), dtype=torch.float32,
-                        device=device)
+    tp = ctx.axis_size(ctx.tp_axis)
+    r0, r1 = ctx.batch_rows(batch)
+
+    def split(n):
+        return n // tp if n % tp == 0 else n
+
+    state = torch.zeros((n_layers, r1 - r0, split(H), Pd, N),
+                        dtype=torch.float32, device=device)
     tails = tuple(
-        torch.zeros((n_layers, batch, W - 1, c), dtype=cdt, device=device)
+        torch.zeros((n_layers, r1 - r0, W - 1, split(c)), dtype=cdt,
+                    device=device)
         for c in (cfg.d_inner, gn, gn))
     return state, tails

@@ -55,10 +55,19 @@ over the dp axes, the sequence over `model` (every KV head at the rank's
 block of positions); its decode merges the ranks' blocks by their
 log-sum-exp (`models.attention.decode_self_attention`) and its insert
 turns a prefill's KV heads into the rank's block of positions
-(`build_cache_insert`). Over a mesh the cells serve decoder stacks of
-attention layers (dense, MoE, the vision prefix) on either layout; SSM,
-hybrid and encoder-decoder stacks and speculative decoding are refused
-(ROADMAP A16d).
+(`build_cache_insert`). Every stack of the catalog serves over a mesh on
+either layout: dense, MoE, the vision prefix, SSM (mamba2), hybrid
+(jamba) and encoder-decoder (seamless). Their slot-resident leaves are
+the rank's shard of the same specs: its slots over the dp axes; the SSM
+state its heads over `model`, each conv tail its block of the channels;
+cross_k / cross_v its KV heads in the paged layout and every head at its
+block of the encoder positions in the contiguous one (the inserts cut a
+prefill's leaves to these shards: `_resident_shard`). A model axis that
+would cut an SSM head across two ranks is refused
+(`models.ssm.check_ssm_split`). Speculative decoding runs over a mesh on
+the paged layout: the verify cell's S*k rows split over the dp axes as
+their slots do, and its (S, k) greedy picks come back gathered; the
+draft model is replicated and runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.page_io import ops as page_ops
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import cast_params
 from repro_torch.runtime import sharding as shd
 
@@ -179,7 +189,7 @@ def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
         return ServeBundle(build_prefill(cfg, max_seq), build_decode(cfg),
                            abstract_params(cfg),
                            abstract_caches(cfg, batch, max_seq, enc_len))
-    check_mesh_stack(cfg)
+    ssm_mod.check_ssm_split(cfg, ctx)
     rules = rules or shd.ShardingRules.for_serving(
         data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
     aparams, axes = abstract_params(cfg, with_axes=True)
@@ -195,9 +205,11 @@ def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
 
 def prefill_cache_shards(caches, ctx: ParallelCtx, n_kv: int):
     """The rank's shard (`cache_pspec`) of the contiguous caches a mesh
-    prefill returned (every prompt, the rank's KV heads of `n_kv`, the
-    whole sequence): its rows over the dp axes, every KV head at its
-    block of positions over the tp axis."""
+    prefill returned (every prompt; the rank's KV heads of `n_kv` over
+    the whole sequence or encoder; the rank's SSM heads and `tail_x`
+    channels; `tail_B` / `tail_C` whole): its rows over the dp axes, and
+    over the tp axis every KV head at its block of positions, its block
+    of the tails' channels (`_resident_shard`)."""
     tp = ctx.axis_size(ctx.tp_axis)
     out = {}
     for pos, c in caches.items():
@@ -205,10 +217,36 @@ def prefill_cache_shards(caches, ctx: ParallelCtx, n_kv: int):
         for key, x in c.items():
             r0, r1 = ctx.batch_rows(x.shape[1])
             x = x[:, r0:r1]
-            if key in ("k", "v") and tp > 1:
-                x = _kv_block(x, ctx, n_kv, x.shape[2] // tp)
-            out[pos][key] = x.contiguous()
+            C = x.shape[-1]
+            out[pos][key] = _resident_shard(
+                key, x, ctx, C // tp if C % tp == 0 else C,
+                seq=(n_kv, x.shape[2] // tp)).contiguous()
     return out
+
+
+# the contiguous layout's leaves whose sequence (or encoder positions)
+# the tp axis splits, and the leaves a prefill returns whole while the
+# decode shard holds its block of their channels over tp
+_SEQ_LEAVES = ("k", "v", "cross_k", "cross_v")
+_CHANNEL_LEAVES = ("tail_B", "tail_C")
+
+
+def _resident_shard(key, x, ctx: ParallelCtx, C_loc: int, seq=None):
+    """A prefill's leaf `x` (its slot rows kept) as the decode shard's
+    layout past the rows: on the contiguous layout (`seq` = (n_kv,
+    S_loc)) a K / V leaf as every one of the n_kv KV heads at the rank's
+    S_loc positions (`_kv_block`, a collective over tp where wk / wv
+    split the heads); `tail_B` / `tail_C` as the rank's block of C_loc
+    channels; every other leaf (the SSM state and `tail_x`, already the
+    rank's heads and channels; the paged layout's cross-KV, already its
+    KV heads) as it is."""
+    if seq is not None and key in _SEQ_LEAVES \
+            and ctx.axis_size(ctx.tp_axis) > 1:
+        return _kv_block(x, ctx, *seq)
+    if key in _CHANNEL_LEAVES and x.shape[-1] != C_loc:
+        c0 = ctx.index(ctx.tp_axis) * C_loc
+        return x[..., c0:c0 + C_loc]
+    return x
 
 
 def _kv_block(x, ctx: ParallelCtx, n_kv: int, S_loc: int):
@@ -223,16 +261,19 @@ def _kv_block(x, ctx: ParallelCtx, n_kv: int, S_loc: int):
 
 
 def check_seq_split(caches, ctx: ParallelCtx) -> None:
-    """The contiguous decode over a mesh reads a rank's attention KV as
-    its block of the sequence over the tp axis (`cache_pspec`); where
-    the extent does not divide, the reference's rule would keep the
-    sequence whole, which the port's decode does not take: refuse it."""
+    """The contiguous decode over a mesh reads a rank's attention KV (self
+    and cross) as its block of the sequence (the encoder positions) over
+    the tp axis (`cache_pspec`); where the extent does not divide, the
+    reference's rule would keep it whole, which the port's decode does
+    not take: refuse it."""
     tp = ctx.axis_size(ctx.tp_axis)
     for c in caches.values():
-        if "k" in c and tp > 1 and c["k"].shape[2] % tp:
-            raise ValueError(
-                f"the contiguous caches' sequence ({c['k'].shape[2]}) must "
-                f"divide over the {ctx.tp_axis!r} axis ({tp} ranks)")
+        for key in ("k", "cross_k"):
+            if key in c and tp > 1 and c[key].shape[2] % tp:
+                raise ValueError(
+                    f"the contiguous caches' {key} extent "
+                    f"({c[key].shape[2]}) must divide over the "
+                    f"{ctx.tp_axis!r} axis ({tp} ranks)")
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -310,7 +351,8 @@ def build_decode_greedy_paged(cfg: ModelConfig, page_tokens: int,
     return cell
 
 
-def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int):
+def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int,
+                              ctx: ParallelCtx = SINGLE):
     """SPECULATIVE VERIFY cell: score k candidate tokens per slot in ONE
     paged-decode call. `cand` (S, k) int32 with cand[s, 0] the slot's
     last emitted (not yet inserted) token and cand[s, 1:] the proposer's
@@ -320,7 +362,13 @@ def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int):
     k times), so the insert lands all k candidates before attention and
     row j's length t+j+1 lets it see candidates 0..j. Returns (greedy
     (S, k) int32, finite (S,), caches), greedy[s, j] being the model's
-    pick for position t[s]+j+1."""
+    pick for position t[s]+j+1.
+
+    Over a mesh the rows are slot-major, so where the dp axes split the
+    S slots a rank decodes its slots' k rows each (`M.decode_step` takes
+    its block of the S*k rows); the picks and flags of every row come
+    back gathered over the dp axes (`_greedy_rows`), the same on every
+    rank."""
 
     def cell(params, cand, caches, t, block_table):
         S = cand.shape[0]
@@ -331,11 +379,10 @@ def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int):
         bt_flat = torch.repeat_interleave(block_table, k, dim=0)
         logits, caches = M.decode_step(
             params, tok_flat, caches, t_flat, cfg,
-            block_table=bt_flat, page_tokens=page_tokens,
+            block_table=bt_flat, page_tokens=page_tokens, ctx=ctx,
         )
-        finite = torch.isfinite(logits).all(dim=-1).reshape(S, k).all(dim=1)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-        return greedy.reshape(S, k), finite, caches
+        greedy, finite = _greedy_rows(logits, S * k, ctx)
+        return greedy.reshape(S, k), finite.reshape(S, k).all(dim=1), caches
 
     return cell
 
@@ -347,22 +394,21 @@ def build_cache_insert(ctx: ParallelCtx = SINGLE, n_slots: int = 0):
 
     Over a mesh the slot caches are the rank's shard of `cache_pspec`
     (its block of the `n_slots` slots over the dp axes, every KV head at
-    its block of positions over tp), while the prefill's caches hold the
-    rank's KV heads over the whole bucket: the KV heads are gathered over
-    tp (every rank calls it) and each rank keeps the positions of its
-    block, on the dp rank that holds the slot."""
-    tp = ctx.axis_size(ctx.tp_axis)
-    r0, r1 = ctx.batch_rows(n_slots)
+    its block of positions (encoder positions for the cross-KV) over tp,
+    the SSM state's heads and the tails' channels over tp), while the
+    prefill's caches hold the rank's KV heads over the whole bucket: the
+    KV heads are gathered over tp (every rank calls it) and each rank
+    keeps the positions of its block, and of its tail channels
+    (`_resident_shard`), on the dp rank that holds the slot."""
+    row_of = _slot_row(ctx, n_slots)
 
     def insert(caches, slot_caches, slot):
-        row = int(slot)
-        if (r0, r1) != (0, n_slots):        # the dp axes split the slots
-            row = row - r0 if r0 <= row < r1 else None
+        row = row_of(slot)
         for pos, c in caches.items():
             for key, big in c.items():
-                small = slot_caches[pos][key]
-                if tp > 1 and key in ("k", "v"):
-                    small = _kv_block(small, ctx, big.shape[3], big.shape[2])
+                small = _resident_shard(key, slot_caches[pos][key], ctx,
+                                        big.shape[-1],
+                                        seq=(big.shape[3], big.shape[2]))
                 if row is not None:
                     big[:, row, :small.shape[2]] = small[:, 0].to(big.dtype)
         return caches
@@ -370,12 +416,28 @@ def build_cache_insert(ctx: ParallelCtx = SINGLE, n_slots: int = 0):
     return insert
 
 
+def _slot_row(ctx: ParallelCtx, n_slots: int):
+    """slot -> its row in the rank's block of the `n_slots` slots over the
+    dp axes, None on a rank that does not hold it (the slot itself where
+    the dp axes do not split the slots)."""
+    r0, r1 = ctx.batch_rows(n_slots)
+
+    def row_of(slot):
+        row = int(slot)
+        if (r0, r1) != (0, n_slots):        # the dp axes split the slots
+            return row - r0 if r0 <= row < r1 else None
+        return row
+
+    return row_of
+
+
 def build_decode_draft(cfg: ModelConfig):
     """Draft-model decode cell for the speculative "draft" proposer: one
     greedy token per slot against the draft's own CONTIGUOUS caches (the
     draft prefix is short-lived scratch, so it skips the paged pool).
     The finite flag is dropped: a non-finite draft can only propose
-    tokens the verify cell rejects."""
+    tokens the verify cell rejects. Over a mesh the draft's weights and
+    caches are replicated and every rank runs this cell whole."""
 
     def cell(params, token, caches, t):
         logits, caches = M.decode_step(params, token, caches, t, cfg)
@@ -386,7 +448,8 @@ def build_decode_draft(cfg: ModelConfig):
 
 def build_paged_cache_insert(bucket_total: int, page_tokens: int,
                              pool_dtype: str = "fp",
-                             sz_granularity: str = "page"):
+                             sz_granularity: str = "page",
+                             ctx: ParallelCtx = SINGLE, n_slots: int = 0):
     """Land a prefilled request's caches in the PAGED layout: its
     `bucket_total` tokens of K/V go whole-page into the pool at the pages
     the block table assigns to the slot, through the grouped page writer
@@ -396,7 +459,12 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
     `quantize_tokens` for per-token sub-scales). The partial last page is
     zero-padded: masked out of attention, and under int8 it cannot widen
     the page's range. Resident leaves (SSM state, conv tails, cross-KV)
-    are copied densely into the slot."""
+    are copied densely into the slot. Over a mesh (`paged_cache_pspec`)
+    the pool holds the rank's KV heads, which its prefill computed, and
+    every dp rank writes it; a resident leaf holds the rank's block of
+    the `n_slots` slots over the dp axes, so only the rank that holds the
+    slot writes it, at its local row, `tail_B` / `tail_C` cut to its
+    channel block (`_resident_shard`)."""
     n_wp = -(-bucket_total // page_tokens)     # pages the prompt spans
     pad = n_wp * page_tokens - bucket_total
     quantized = pool_dtype == "int8"
@@ -408,14 +476,18 @@ def build_paged_cache_insert(bucket_total: int, page_tokens: int,
         nb, _, kv, hd = sm.shape
         return sm.reshape(nb, n_wp, page_tokens, kv, hd)
 
+    row_of = _slot_row(ctx, n_slots)
+
     def insert(caches, slot_caches, slot, block_table):
         phys = block_table[int(slot), :n_wp]
+        row = row_of(slot)
         pools, writes = [], []
         for pos, c in caches.items():
             for key, big in c.items():
-                if key not in blk.PAGED_LEAF_NAMES:
-                    big[:, int(slot)] = slot_caches[pos][key][:, 0].to(
-                        big.dtype)
+                if key not in blk.PAGED_LEAF_NAMES and row is not None:
+                    small = _resident_shard(key, slot_caches[pos][key],
+                                            ctx, big.shape[-1])
+                    big[:, row] = small[:, 0].to(big.dtype)
             if "k" not in c:
                 continue
             for key in ("k", "v"):
@@ -511,20 +583,6 @@ class EngineCells:
     cache_pspecs: Any = None       # (mesh) specs of the caches' shards
 
 
-def check_mesh_stack(cfg: ModelConfig, speculative: str = "off") -> None:
-    """Raise for what the cells do not serve over a mesh yet (ROADMAP
-    A16d): SSM, hybrid and encoder-decoder stacks, speculative decoding."""
-    descs = blk.pattern(cfg, bool(cfg.num_encoder_layers))
-    if any(d.kind != "attn" or d.cross for d in descs):
-        raise NotImplementedError(
-            f"{cfg.name}: serving SSM, hybrid or encoder-decoder stacks over "
-            "a mesh (slot-resident state split over the dp axes) ports "
-            "with ROADMAP A16d")
-    if speculative != "off":
-        raise NotImplementedError(
-            "speculative decoding over a mesh ports with ROADMAP A16d")
-
-
 def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                       buckets: Sequence[int], enc_len: int = 0,
                       paged: bool = True,
@@ -551,7 +609,7 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
     if mesh is None and rules is not None:
         raise ValueError("rules shard over a mesh; none was given")
     if mesh is not None:
-        check_mesh_stack(cfg, speculative)
+        ssm_mod.check_ssm_split(cfg, ctx)
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
     if pool_dtype != "fp" and not paged:
         raise ValueError("pool_dtype applies to the paged layout only")
@@ -641,7 +699,7 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         sz_granularity=sz_granularity, device="meta",
     )
     inserts = {b: build_paged_cache_insert(b + npfx, page_tokens, pool_dtype,
-                                           sz_granularity)
+                                           sz_granularity, ctx, n_slots)
                for b in prefills}
     param_pspecs = cache_pspecs = None
     if mesh is not None:
@@ -675,7 +733,7 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
         chunk_fn=(build_prefill_chunk(cfg, page_tokens, ctx)
                   if prefill_chunk else None),
         chunk=prefill_chunk,
-        verify_fn=(build_decode_verify_paged(cfg, page_tokens, spec_k)
+        verify_fn=(build_decode_verify_paged(cfg, page_tokens, spec_k, ctx)
                    if speculative != "off" else None),
         spec_k=spec_k if speculative != "off" else 0,
         draft_fn=draft_fn,

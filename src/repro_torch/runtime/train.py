@@ -23,7 +23,7 @@ the dp size, which gives the reference's gradient of the mean loss over
 the global batch. The global norm sums each leaf's local sum of squares
 over exactly the axes that split it, AdamW runs on the local shards, and
 the metrics are averaged over the dp ranks. SSM, hybrid, vision-prefix
-and encoder-decoder stacks over a mesh port with ROADMAP A16d.
+and encoder-decoder stacks over a mesh port with ROADMAP A16e.
 """
 
 from __future__ import annotations
@@ -117,13 +117,13 @@ def _as_tensors(batch: dict, device) -> dict:
 
 
 def check_mesh_stack(cfg: ModelConfig) -> None:
-    """Raise for a stack the mesh step does not run yet (ROADMAP A16d)."""
+    """Raise for a stack the mesh step does not run yet (ROADMAP A16e)."""
     if cfg.family not in ("dense", "moe") or cfg.frontend \
             or cfg.num_encoder_layers:
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.family}) over a mesh: SSM, hybrid, "
             "vision-prefix and encoder-decoder stacks over a mesh port with "
-            "ROADMAP A16d")
+            "ROADMAP A16e")
 
 
 class _MeshReduce:

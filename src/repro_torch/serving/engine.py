@@ -77,7 +77,12 @@ dp axes, its block of every slot's positions over `model`;
 `runtime.serve.make_engine_cells`), and each decode step hands every
 rank the tokens of all slots, so every rank's pager takes the same
 decisions. The pager and the substrate price global bytes; each rank's
-pinned twin holds its shard of the pool.
+pinned twin holds its shard of the pool. Every stack serves so: an SSM
+or hybrid stack's state and conv tails and an enc-dec stack's cross-KV
+are slot-resident shards of the rank. With speculation every rank runs
+the same proposer (the draft model replicated, whole on every rank) and
+the same acceptance on the verify cell's gathered picks, so the host
+loops stay identical.
 """
 
 from __future__ import annotations

@@ -251,20 +251,27 @@ def test_speculative_decoding_builds(mode):
 
 @pytest.mark.parametrize("case", ["mamba2_780m", "jamba_1_5_large_398b",
                                   "seamless_m4t_large_v2", "speculative",
-                                  "contiguous"])
+                                  "contiguous", "train"])
 def test_unported_archs_raise(case):
     """Every arch of the reference's catalog is ported, and an MoE arch's
-    expert-parallel layer runs without a mesh as `moe_dense`; what the
-    engine still refuses over a mesh is an SSM, hybrid or enc-dec stack
-    and speculative decoding (ROADMAP A16d), while the contiguous layout
-    builds over one since A16c (its caches' specs `cache_pspec`'s: slots
-    over `data`, positions over `model`). The mesh is a stand-in with
-    axis sizes only: the refusal comes before any collective."""
+    expert-parallel layer runs without a mesh as `moe_dense`. The engine
+    builds every stack over a mesh since A16d: SSM, hybrid and enc-dec
+    stacks on both layouts (the slot-resident leaves' specs those of
+    `paged_cache_pspec` / `cache_pspec`: the SSM state's heads and the
+    conv tails' channels over `model`, the cross-KV's heads in the pool,
+    its encoder positions in the contiguous caches) and speculative
+    decoding (the verify cell over the mesh, the draft replicated). What
+    still raises is training those stacks over a mesh (ROADMAP A16e). The
+    mesh is a stand-in with axis sizes only: the cells and the refusal
+    come before any collective."""
     from types import SimpleNamespace
 
+    from repro_torch.common.config import TrainConfig
     from repro_torch.models import moe as moe_mod
     from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train as train_rt
 
+    P = shd.P
     assert len(configs.list_archs()) == 10
     configs.get("jamba_1_5_large_398b")
     moe = dataclasses.replace(_cfg(), num_experts=4, experts_per_token=2,
@@ -275,19 +282,43 @@ def test_unported_archs_raise(case):
     assert moe_mod.moe_ep(layer, x, moe)[0].shape == x.shape
     stub = SimpleNamespace(shape={"data": 1, "model": 2}, get_group=None)
     kw = dict(n_slots=2, max_seq=16, buckets=(8,), device="cpu", mesh=stub)
+    if case == "train":
+        with pytest.raises(NotImplementedError, match="A16e"):
+            train_rt.make_bundle(configs.reduced("mamba2_780m"),
+                                 TrainConfig(), mesh=stub)
+        return
     if case == "contiguous":
         cells = serve_rt.make_engine_cells(configs.reduced("smollm_360m"),
                                            paged=False, **kw)
         assert not cells.paged and cells.ctx.mesh is stub
-        assert cells.cache_pspecs["pos0"]["k"] == shd.P(
+        assert cells.cache_pspecs["pos0"]["k"] == P(
             None, None, "model", None, None)
         return
-    arch, extra = ((case, {}) if case != "speculative" else
-                   ("smollm_360m", dict(speculative="ngram",
-                                        pool_dtype="int8",
-                                        sz_granularity="token")))
-    with pytest.raises(NotImplementedError, match="A16d"):
-        serve_rt.make_engine_cells(configs.reduced(arch), **kw, **extra)
+    if case == "speculative":
+        cells = serve_rt.make_engine_cells(
+            configs.reduced("smollm_360m"), speculative="ngram",
+            pool_dtype="int8", sz_granularity="token", **kw)
+        assert cells.verify_fn is not None and cells.spec_k == 4
+        assert cells.cache_pspecs["pos0"]["k_sz"] == P(None, None, None,
+                                                       None, None)
+        return
+    cfg = configs.reduced(case)
+    enc = 8 if cfg.num_encoder_layers else 0
+    for paged in (True, False):
+        cells = serve_rt.make_engine_cells(cfg, paged=paged, enc_len=enc,
+                                           **kw)
+        specs = [c for c in cells.cache_pspecs.values()]
+        assert cells.ctx.mesh is stub and cells.paged == paged
+        for c in specs:
+            if "state" in c:
+                assert c["state"] == P(None, None, "model", None, None)
+                assert c["tail_x"] == c["tail_B"] == P(None, None, None,
+                                                       "model")
+            if "cross_k" in c:
+                assert c["cross_k"] == (P(None, None, None, "model", None)
+                                        if paged else
+                                        P(None, None, "model", None, None))
+        assert any("state" in c or "cross_k" in c for c in specs)
 
 
 def test_engine_defaults_match_reference_main_path():

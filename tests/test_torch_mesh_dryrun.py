@@ -16,10 +16,10 @@ mesh record), on the CPU.
   cards: `analyze(n_chips=256)` reads the 16x16 record's `t_compute_s`,
   as the reference's `analyze` reads its 16x16 record (levels 1-3 to
   1e-9 with the reference's chip, topology and the same record).
-* Every reduced arch's decode step on a (2, 2) mesh: dense, MoE and the
-  vision prefix trace with collectives; SSM, hybrid and encoder-decoder
-  stacks raise naming ROADMAP A16d (the vision prefix's train step
-  too)."""
+* Every reduced arch's decode step on a (2, 2) mesh traces with
+  collectives and the meshless cell's kernel units; the train step of
+  SSM, hybrid, vision-prefix and encoder-decoder stacks raises naming
+  ROADMAP A16e."""
 
 import dataclasses
 import json
@@ -218,30 +218,35 @@ def _close(a, b):
 
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_mesh_decode_per_arch(arch):
+    """Every arch's decode step traces on a (2, 2) mesh: the same kernel
+    units as its meshless cell (a rank runs every layer), with
+    collectives on the wire; a train step of a stack that does not train
+    over a mesh yet (SSM, hybrid, vision prefix, enc-dec) raises naming
+    ROADMAP A16e."""
     cfg = tconfigs.reduced(arch)
     mesh = tmesh.AbstractMesh((2, 2), ("data", "model"))
     shape = ShapeConfig("decode_t", 16, 4, "decode")
-    attn_only = not (cfg.num_encoder_layers or cfg.family in ("ssm",
-                                                               "hybrid"))
-    if not attn_only:
-        with pytest.raises(NotImplementedError, match="A16d"):
-            dryrun.part_cost(cfg, shape, mesh=mesh)
-        return
     c = dryrun.part_cost(cfg, shape, mesh=mesh)[0]
-    assert c.units == {"flash_decode": cfg.num_layers}
+    assert c.units == dryrun.part_cost(cfg, shape)[0].units
+    if not (cfg.num_encoder_layers or cfg.family in ("ssm", "hybrid")):
+        assert c.units == {"flash_decode": cfg.num_layers}
     assert c.wire_bytes > 0 and c.collective_counts["all-gather"] > 0
-    if cfg.frontend:
-        with pytest.raises(NotImplementedError, match="A16d"):
+    if cfg.family not in ("dense", "moe") or cfg.frontend:
+        with pytest.raises(NotImplementedError, match="A16e"):
             dryrun.part_cost(cfg, ShapeConfig("train_t", 16, 4, "train"),
                              mesh=mesh)
 
 
 def test_refused_cells_write_errors_naming_a16d(tmp_path, capsys):
+    """A train cell of a stack that does not train over a mesh yet writes
+    an error record naming ROADMAP A16e (the next module; A16d's serving
+    half runs), and the dry-run exits 1; its decode cell over the same
+    mesh is `ok`."""
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
+        dryrun.main(["--arch", "mamba2-780m", "--shape", "train_4k",
                      "--mesh", "2x2", "--outdir", str(tmp_path)])
     assert e.value.code == 1
-    rec = json.loads((tmp_path / "mamba2_780m_decode_32k_2x2.json")
+    rec = json.loads((tmp_path / "mamba2_780m_train_4k_2x2.json")
                      .read_text())
-    assert rec["status"] == "error" and "A16d" in rec["error"]
-    assert "FAIL mamba2_780m decode_32k" in capsys.readouterr().out
+    assert rec["status"] == "error" and "A16e" in rec["error"]
+    assert "FAIL mamba2_780m train_4k" in capsys.readouterr().out

@@ -271,7 +271,7 @@ def test_train_config_and_bundle_refuse_the_mesh():
     accepted and, as in the reference, changes no step; a (1, 1) mesh is
     accepted (one gloo rank in this process, destroyed after) and its
     step is bit-equal to the meshless one; an SSM stack over a mesh
-    raises naming A16d (before any collective: the mesh is a stand-in);
+    raises naming A16e (before any collective: the mesh is a stand-in);
     the abstract state is the reference's tree."""
     from repro_torch.launch import mesh as tmesh
 
@@ -300,7 +300,7 @@ def test_train_config_and_bundle_refuse_the_mesh():
         for (n, a), (_, b) in zip(tnamed(got[0]), tnamed(plain[0])):
             assert torch.equal(a, b), n
         assert all(torch.equal(got[1][k], v) for k, v in plain[1].items())
-    with pytest.raises(NotImplementedError, match="A16d"):
+    with pytest.raises(NotImplementedError, match="A16e"):
         ttrain.make_bundle(tconfigs.reduced("mamba2_780m"), TrainConfig(),
                            mesh=object())
     bundle = ttrain.make_bundle(cfg, TrainConfig())
