@@ -219,7 +219,7 @@ Phases (any failure raises and exits non-zero):
                seamless-m4t-large-v2's decode_32k (rank 0 of 256, ok,
                wire bytes and collectives printed).
  18. mesh    — serving on a mesh (`mesh_phase`): granite-3-2b at published
-               widths cut to 16 of its 40 layers on the engine phase's
+               widths cut to 8 of its 40 layers on the engine phase's
                bucket cell, 8 chat requests: the three bucket kernels,
                ssd_scan and flash_decode_lse at one dp2tp2 rank's shard
                shapes against their plain versions and timed; a (1, 1)
@@ -233,9 +233,9 @@ Phases (any failure raises and exits non-zero):
                kernels launched on every rank; the contiguous layout
                (sequence-sharded caches, flash_decode_lse and the
                cross-rank merge): (1, 1) bf16 bit-equal to the meshless
-               contiguous engine, dp2tp2 float32 tokens equal, bf16
-               printed, the serve bundle's decode logits within bf16's
-               own drift; on the same ranks moe_ep
+               contiguous engine, dp2tp2 float32 tokens equal, the
+               serve bundle's decode logits within bf16's own drift; on
+               the same ranks moe_ep
                at granite-moe-1b-a400m's widths within 1e-4 of moe_dense
                with nothing dropped; then training on the same ranks
                (granite-3-2b cut to 8 layers, batch 8 x 256, two steps):
@@ -252,8 +252,16 @@ Phases (any failure raises and exits non-zero):
                rank a quarter of the resident state, ssd_scan /
                flash_decode_lse launched on every rank, no plain version,
                bf16 prompt-pass drift within bf16's own, (1, 1) bf16 int8
-               bit-equal; and ngram speculation (k 4) on granite over
-               dp2tp2, float32 tokens equal to the greedy mesh engine's.
+               bit-equal; ngram speculation (k 4) on granite over
+               dp2tp2, float32 tokens equal to the greedy mesh engine's;
+               and, last, the other stacks' training (ROADMAP A16e):
+               mamba2-780m (2 of 48 layers), paligemma-3b (2 of 18, its
+               256 patches) and seamless-m4t-large-v2 (2 + 2) at
+               published widths, one step of 4 x 128: dp2tp2 float32
+               within 1e-5 of the meshless step, every shard's update
+               against it, replicas bit-equal, ssd_scan or flash_mha and
+               its backward launched on every rank, bf16 printed; (1, 1)
+               mamba2 bf16 bit-equal to the meshless bundle.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 
@@ -4689,8 +4697,8 @@ MESH_CELL = dict(n_slots=8, max_seq=256, prefill_buckets=(64, 128),
 # must match bit for bit
 # the contiguous layout over the mesh (ROADMAP A16c): its float32 run
 # gated token-equal to the meshless contiguous engine (and its weights
-# give the serve bundle's decode-step logits in float32 and bf16), its
-# bf16 run printed; the (1, 1) rank's bf16 run bit-equal
+# give the serve bundle's decode-step logits in float32 and bf16); the
+# (1, 1) rank's bf16 run bit-equal to the meshless engine's
 CONTIG_F32 = dict(name="f32 contiguous", dtype="float32", pool_dtype="fp",
                   paged=False, decode_logits=True)
 CONTIG_BF16 = dict(name="bf16 contiguous", dtype="bfloat16", pool_dtype="fp",
@@ -4698,16 +4706,16 @@ CONTIG_BF16 = dict(name="bf16 contiguous", dtype="bfloat16", pool_dtype="fp",
 MESH_RUNS = (dict(name="f32 fp", dtype="float32", pool_dtype="fp",
                   logits=True),
              dict(name="f32 int8", dtype="float32", pool_dtype="int8"),
-             CONTIG_F32, dict(CONTIG_BF16, gate=False))
+             CONTIG_F32)
 MAIN_RUN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
 ONE_RUNS = (MAIN_RUN, CONTIG_BF16)
 CONTIG_KERNELS = ("flash_mha", "flash_decode_lse")
 MOE_CAPS = (("no drops", 8.0), ("config", None))
-# granite-3-2b's serving runs on the mesh are cut to 16 of its 40 layers
+# granite-3-2b's serving runs on the mesh are cut to 8 of its 40 layers
 # (widths kept): their gates (float32 equality and agreement, bf16
 # relative drift, bit-equality) hold at any depth, and the cut pays for
-# the stacks below
-MESH_SERVE_LAYERS = 16
+# the stacks below and their training
+MESH_SERVE_LAYERS = 8
 
 # the other stacks over the mesh (ROADMAP A16d), after granite's runs on
 # the same ranks: mamba2-780m (d 1536, 48 SSM heads of 64, state 128) cut
@@ -4747,7 +4755,9 @@ MESH_SPEC_RUNS = (dict(name="f32 greedy", dtype="float32", pool_dtype="fp"),
 # training on the mesh: granite-3-2b at published widths cut to 8 of its
 # 40 layers (the four dp2tp2 ranks, the (1, 1) rank, the meshless twin
 # and the serving engines share one card, and gloo moves every FSDP
-# gather through host memory), batch 8 x 256, remat by block
+# gather through host memory), batch 8 x 256, remat by block. At 4
+# layers the compressed_psum gate read 1.0000029 of its bound (ROADMAP
+# §C): the depth stays where that gate has held
 MESH_TRAIN_LAYERS = 8
 MESH_TRAIN_SHAPE = (8, 256)             # batch, seq
 MESH_TRAIN_TCFG = dict(total_steps=10, warmup_steps=2, remat="block")
@@ -4979,6 +4989,194 @@ def mesh_train_gates(inp, one, four, gate) -> dict:
     gate(d_split <= d_own, f"mesh train bf16: per-token drift from the "
          f"split meshless forward {d_split} > bf16's own {d_own}")
     return f32[0]["launches"]
+
+
+# the other stacks' training on the same ranks (ROADMAP A16e), after
+# granite's: published widths, depth cut, seeded float32 masters (the
+# serving stacks' first layers where they exist) by CUDA IPC, one step of
+# batch 4 x 128 tokens (paligemma adds its 256 patch embeddings, seamless
+# its 128 frames), remat by block. dp2tp2: float32 gated against the
+# meshless float32 step taken here, bf16 printed; (1, 1) on NCCL: mamba2
+# in bf16 bit-equal to the meshless bundle in the rank's process
+MESH_TRAIN_STACKS = {"mamba2_780m": dict(num_layers=2),
+                     "paligemma_3b": dict(num_layers=2),
+                     "seamless_m4t_large_v2": dict(num_layers=2,
+                                                   num_encoder_layers=2)}
+MESH_TRAIN_STACK_SHAPE = (4, 128)           # batch, seq
+MESH_TRAIN_STACK_KERNELS = {
+    "mamba2_780m": ("ssd_scan",),
+    "paligemma_3b": ("flash_mha", "flash_mha_bwd"),
+    "seamless_m4t_large_v2": ("flash_mha", "flash_mha_bwd")}
+MESH_TRAIN_STACK_ONE = "mamba2_780m"
+
+
+def mesh_train_stack_inputs(torch, arch, serve_params=None,
+                            device="cuda") -> dict:
+    """One stack's mesh train inputs: its published config cut by
+    MESH_TRAIN_STACKS, float32 masters (the first layers of
+    `serve_params`, views, or drawn from seed 0 on `device`) and one
+    synthetic batch of MESH_TRAIN_STACK_SHAPE."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = dataclasses.replace(configs.get(arch), **MESH_TRAIN_STACKS[arch])
+    if serve_params is None:
+        params = M.init_model(cfg, torch.Generator(device).manual_seed(0))
+    else:
+        params = dict(serve_params, blocks=tree_map(
+            lambda x: x[:cfg.num_layers], serve_params["blocks"]))
+        if cfg.num_encoder_layers:
+            enc = serve_params["encoder"]
+            params["encoder"] = dict(enc, blocks=tree_map(
+                lambda x: x[:cfg.num_encoder_layers], enc["blocks"]))
+    B, S = MESH_TRAIN_STACK_SHAPE
+    return dict(cfg=cfg, device=device, params=params,
+                batches=[make_batch_for(cfg, S, B, 0)])
+
+
+def mesh_train_stack_reference(torch, inp) -> None:
+    """The meshless bundle's step on `inp`'s masters and batch in this
+    process, float32 and bf16, into inp["ref"]: loss, grad norm, lr and
+    wall ms; the float32 state after the step, for the ranks to hold
+    their shards against."""
+    import dev_train_torch as dtt
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.runtime import train as train_rt
+
+    ref = {}
+    for dt in ("float32", "bfloat16"):
+        bundle = train_rt.make_bundle(
+            dataclasses.replace(inp["cfg"], dtype=dt),
+            TrainConfig(**MESH_TRAIN_TCFG))
+        state = dtt.global_state(inp["params"], inp["device"])
+        if inp["device"] == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = bundle.step_fn(state, inp["batches"][0])
+        r = dict(loss=float(m["loss"]),
+                 ms=(time.perf_counter() - t0) * 1e3,
+                 gnorm=float(m["grad_norm"]), lr=float(m["lr"]))
+        if dt == "float32":
+            r["state"] = state
+        ref[dt] = r
+        del state, bundle
+    inp["ref"] = ref
+    if inp["device"] == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_train_stack_four(inp) -> tuple:
+    """The dp2tp2 ranks' call for one stack, under deterministic
+    algorithms: a float32 step held against the meshless float32 state
+    of `mesh_train_stack_reference`, then a bf16 step (printed)."""
+    import dev_train_torch as dtt
+
+    f32 = inp["ref"]["float32"]
+    return (dtt.mesh_train_rank, (
+        inp["cfg"], 2, 2, inp["params"], inp["batches"],
+        [dict(name="f32", dtype="float32", tcfg=MESH_TRAIN_TCFG,
+              deterministic=True,
+              compare=dict(state=f32["state"], lr_sum=f32["lr"])),
+         dict(name="bf16", dtype="bfloat16", tcfg=MESH_TRAIN_TCFG,
+              deterministic=True)], inp["device"]))
+
+
+def mesh_train_stack_one(inp) -> tuple:
+    """The (1, 1) rank's call for one stack: a bf16 step under
+    deterministic algorithms beside the meshless bundle's step in the
+    rank's process."""
+    import dev_train_torch as dtt
+
+    return (dtt.mesh_train_rank, (
+        inp["cfg"], 1, 1, inp["params"], inp["batches"],
+        [dict(name="bf16 (1, 1)", dtype="bfloat16", tcfg=MESH_TRAIN_TCFG,
+              deterministic=True, against_meshless=True)], inp["device"]))
+
+
+def mesh_train_stack_gates(arch, inp, four, gate, one=None) -> None:
+    """Prints and gates one stack's mesh train runs (`four`: each dp2tp2
+    rank's [f32, bf16] runs; `one`: the (1, 1) rank's run, where it ran):
+    the float32 loss and grad norm within 1e-5 relative of the meshless
+    float32 step, every shard after it against the meshless state
+    (updates within 1e-2 lr on 99.9% of a leaf's elements and 2.2 lr
+    everywhere, moments 1e-4 of their max), replicas bit-equal, a rank's
+    state bytes its spec share, MESH_TRAIN_STACK_KERNELS launched on
+    every rank and no plain version; (1, 1) bit-equal. The bf16 loss
+    drift and the wall ms are printed only."""
+    import dev_train_torch as dtt
+
+    cfg, ref32, ref16 = inp["cfg"], inp["ref"]["float32"], \
+        inp["ref"]["bfloat16"]
+    want = MESH_TRAIN_STACK_KERNELS[arch]
+    B, S = MESH_TRAIN_STACK_SHAPE
+    enc = (f" + {cfg.num_encoder_layers} encoder"
+           if cfg.num_encoder_layers else "")
+    print(f"  mesh train {cfg.name}: {cfg.num_layers}{enc} layers (depth "
+          f"cut), d {cfg.d_model}, vocab {cfg.vocab_size}; batch {B} x {S}"
+          f"{f' + {cfg.num_prefix_tokens} patches' if cfg.num_prefix_tokens else ''}"
+          f", remat block, seed-0 float32 masters; meshless float32 loss "
+          f"{ref32['loss']} grad norm {ref32['gnorm']} ({ref32['ms']:.1f} "
+          f"ms), bf16 loss {ref16['loss']} ({ref16['ms']:.1f} ms)")
+    f32, bf16 = [r[0] for r in four], [r[1] for r in four]
+    for name, runs in (("f32", f32), ("bf16", bf16)):
+        bad = dtt.replicas_equal([r["digests"] for r in runs])
+        sizes = {(r["state_bytes"], r["share_bytes"]) for r in runs}
+        print(f"  mesh train {arch} dp2tp2 {name}: replicas bit-equal "
+              f"{not bad} {bad[:4]}; state bytes a rank / spec share "
+              f"{sorted(sizes)}")
+        gate(not bad, f"mesh train {arch} {name}: replicas differ {bad[:4]}")
+        gate(all(a == b for a, b in sizes),
+             f"mesh train {arch} {name}: state bytes {sorted(sizes)}")
+        for r in runs:
+            gate(all(r["launches"].get(k, 0) > 0 for k in want)
+                 and not r["plain"], f"mesh train {arch} {name} rank "
+                 f"{r['coord']}: launches {r['launches']} plain {r['plain']}")
+    for r in f32:
+        d_loss = abs(r["losses"][0] - ref32["loss"]) / abs(ref32["loss"])
+        d_norm = abs(r["grad_norms"][0] - ref32["gnorm"]) / ref32["gnorm"]
+        c = r["compare"]
+        peak = ("not measured" if r["peak_gb"] is None
+                else f"{r['peak_gb']:.2f} GB")
+        print(f"    rank {r['coord']} f32: loss rel err {d_loss:.2e}, grad "
+              f"norm {d_norm:.2e}; state vs meshless: updates within 1e-2 "
+              f"lr on {c['update_share']:.5f} of the worst leaf, worst "
+              f"{c['update_err_over_lr']:.3e} lr, moments "
+              f"{c['moment_err']:.2e} of their max; "
+              f"{r['step_ms'][0]:.1f} ms a step wall; peak {peak}; "
+              f"launches {r['launches']}")
+        gate(d_loss <= 1e-5 and d_norm <= 1e-5,
+             f"mesh train {arch} f32 rank {r['coord']}: loss {d_loss}, "
+             f"grad norm {d_norm}")
+        gate(c["update_share"] >= 0.999 and c["update_err_over_lr"] <= 2.2
+             and c["moment_err"] <= 1e-4 and c["counts_equal"],
+             f"mesh train {arch} f32 rank {r['coord']}: state {c}")
+    ms = [r["step_ms"][0] for r in bf16]
+    print(f"  mesh train {arch} dp2tp2 bf16 (printed only): loss "
+          f"{bf16[0]['losses'][0]}, |mesh - meshless bf16| "
+          f"{abs(bf16[0]['losses'][0] - ref16['loss']):.3e}, |meshless bf16 "
+          f"- float32| {abs(ref16['loss'] - ref32['loss']):.3e}; wall ms a "
+          f"step {min(ms):.1f}-{max(ms):.1f} over the ranks (gloo through "
+          f"host memory, 4 ranks on one card) vs meshless "
+          f"{ref16['ms']:.1f}; launches rank 0 {bf16[0]['launches']}")
+    gate(len({tuple(r["losses"]) for r in bf16}) == 1,
+         f"mesh train {arch} bf16: the ranks' losses differ")
+    if one is not None:
+        m = one["meshless"]
+        print(f"  mesh train {arch} (1, 1) nccl bf16, deterministic: loss "
+              f"{one['losses']} grad norm {one['grad_norms']} vs the "
+              f"meshless bundle's {m['steps']} in the rank's process: equal "
+              f"{m['steps_equal']}; state leaves bit-equal "
+              f"{m['leaves_equal']} of {m['leaves']}; "
+              f"{one['step_ms'][0]:.1f} ms a step wall; launches "
+              f"{one['launches']} plain {one['plain']}")
+        gate(m["steps_equal"] and m["leaves_equal"] == m["leaves"],
+             f"mesh train {arch} (1, 1): not bit-equal to the meshless "
+             "bundle")
+        gate(all(one["launches"].get(k, 0) > 0 for k in want)
+             and not one["plain"], f"mesh train {arch} (1, 1): launches "
+             f"{one['launches']} plain {one['plain']}")
 
 
 def moe_grad_gate(torch, per, moe_params, x, cot, cfg, gate,
@@ -5298,7 +5496,7 @@ def mesh_phase(torch, timer):
     per rank, `dev_serve_torch.mesh_rank`): granite-3-2b at published
     widths (d 2048, 32 / 8 heads, head_dim 64, ff 8192, vocab 49155;
     seeded random weights, float32 masters; its depth cut to
-    MESH_SERVE_LAYERS = 16 of its 40 layers for serving) on the
+    MESH_SERVE_LAYERS = 8 of its 40 layers for serving) on the
     engine phase's bucket cell (8 slots, max_seq 256, buckets 64 / 128,
     16-token pages; half the pool local, so pages move through the
     substrate) over 8 chat requests of 32 new tokens.
@@ -5335,7 +5533,7 @@ def mesh_phase(torch, timer):
       version; the serve bundle's last decode-step logits over 64
       prefilled + 4 decoded positions (`dev_serve_torch.bundle_logits`:
       every step merges both ranks' blocks) no further from the meshless
-      bundle's in bf16 than bf16 is from float32; bf16 tokens printed;
+      bundle's in bf16 than bf16 is from float32;
     * on the same ranks, `moe_ep` at granite-moe-1b-a400m's widths (d
       1024, 32 experts, top 8, ff 512; EP over `model`), x (4, 128,
       1024) float32: with capacity 8.0 no pair drops and y is within 1e-4
@@ -5376,6 +5574,18 @@ def mesh_phase(torch, timer):
     * ngram speculation (k 4) on granite's float32 weights over dp2tp2:
       every rank's tokens equal the greedy mesh engine's on the same
       requests, the verify steps equal across ranks.
+    The other stacks' training on the same ranks, last (ROADMAP A16e;
+    MESH_TRAIN_STACKS at published widths, depth cut: mamba2-780m 2 of
+    48 layers, paligemma-3b 2 of 18 with its 256 patches, seamless 2 + 2;
+    one step of batch 4 x 128, remat block; `mesh_train_stack_gates`):
+    * dp2tp2 float32: loss and grad norm within 1e-5 of the meshless
+      float32 step taken here, every shard after it against the meshless
+      state (the rule above), replicas bit-equal, a rank's state bytes
+      its spec share, ssd_scan (mamba2) or flash_mha and its backward
+      launched on every rank, no plain version; bf16: the loss drift
+      from meshless bf16 and the wall ms printed only;
+    * (1, 1) on NCCL, mamba2 bf16 under deterministic algorithms: loss,
+      grad norm and every state leaf bit-equal to the meshless bundle.
     Returns the launches of rank 0's float32 int8 run, of its float32
     contiguous run (flash_decode_lse) and of its float32 train run."""
     import numpy as np
@@ -5461,10 +5671,15 @@ def mesh_phase(torch, timer):
               f"buckets {MESH_STACK_BUCKETS[arch]}")
     spec_cell = dict(MESH_CELL, n_slots=4)
     spec_prompts = prompts[:4]
+    # the other stacks' training (ROADMAP A16e): mamba2's and seamless's
+    # masters are their serving masters' first layers
+    train_stacks = {arch: mesh_train_stack_inputs(
+        torch, arch, stacks[arch]["params"] if arch in stacks else None)
+        for arch in MESH_TRAIN_STACKS}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         # the (1, 1) rank starts at once; the dp2tp2 ranks after the
-        # meshless train steps, whose float32 state they compare with
+        # meshless train steps, whose float32 states they compare with
         train_inp = mesh_train_inputs(cfg, params)
         f_one = pool.submit(
             mesh_mod.run_ranks, dst.mesh_calls, 1,
@@ -5475,10 +5690,13 @@ def mesh_phase(torch, timer):
              + [(dst.mesh_rank, (st["cfg"], 1, 1, st["params"],
                                  st["prompts"], 16,
                                  [dict(MESH_STACK_MAIN, **st["cell"])],
-                                 "cuda")) for st in stacks.values()],),
+                                 "cuda")) for st in stacks.values()]
+             + [mesh_train_stack_one(train_stacks[MESH_TRAIN_STACK_ONE])],),
             device="cuda", backend="nccl", wall_s=600, threads=1)
         t_train = time.perf_counter()
         mesh_train_reference(torch, train_inp)
+        for inp in train_stacks.values():
+            mesh_train_stack_reference(torch, inp)
         print(f"  meshless train steps done, {since()} "
               f"({time.perf_counter() - t_train:.1f} s)")
         f_four = pool.submit(
@@ -5499,12 +5717,14 @@ def mesh_phase(torch, timer):
                 for st in stacks.values()]
              + [(dst.mesh_rank, (cfg32, 2, 2, params, spec_prompts, 16,
                                  [dict(r, **spec_cell)
-                                  for r in MESH_SPEC_RUNS], "cuda"))],),
+                                  for r in MESH_SPEC_RUNS], "cuda"))]
+             + [mesh_train_stack_four(inp)
+                for inp in train_stacks.values()],),
             device="cuda", backend="gloo", wall_s=900, threads=1)
 
         # --- the meshless engine, this process ------------------------
         ref = {}
-        for i, run in enumerate((*MESH_RUNS, MAIN_RUN)):
+        for i, run in enumerate((*MESH_RUNS, MAIN_RUN, CONTIG_BF16)):
             rcfg = dataclasses.replace(cfg, dtype=run["dtype"])
             ecfg = dst.mesh_ecfg(8, 128, 32, pool_dtype=run["pool_dtype"],
                                  paged=run.get("paged", True), **MESH_CELL)
@@ -5581,6 +5801,14 @@ def mesh_phase(torch, timer):
     moe_grad_gate(torch, [g[3] for g in got], moe_params, x, cot,
                   dataclasses.replace(mcfg, capacity_factor=8.0), gate)
     del train_inp
+    # the other stacks' training (ROADMAP A16e), after the speculative
+    # runs in each rank's calls; the (1, 1) rank's last call
+    n_stack_train = 5 + len(stacks)
+    for j, (arch, inp) in enumerate(train_stacks.items()):
+        mesh_train_stack_gates(
+            arch, inp, [g[n_stack_train + j] for g in got], gate,
+            one_all[-1][0] if arch == MESH_TRAIN_STACK_ONE else None)
+    del train_stacks
     torch.cuda.empty_cache()
     print(f"  mesh train gates done, {since()}")
 
@@ -5596,7 +5824,7 @@ def mesh_phase(torch, timer):
     gate(all(one["launches"].get(k, 0) > 0 for k in BUCKET_KERNELS)
          and not one["plain"], f"(1, 1): launches {one['launches']}")
     # the contiguous layout: with tp 1 no merge runs, the plain decode
-    i_c = MESH_RUNS.index(dict(CONTIG_BF16, gate=False))
+    i_c = i_main + 1
     same = np.array_equal(one_c["tokens"], ref[i_c]["tokens"])
     print(f"  (1, 1) nccl bf16 contiguous: tokens equal {same}, cache "
           f"leaves bit-equal {one_c['digests'] == ref[i_c]['digests']} "
@@ -5622,8 +5850,7 @@ def mesh_phase(torch, timer):
         per = [r[i] for r in results]
         agree = dst.compare(per[0]["tokens"], ref[i]["tokens"])
         tok_s = [8 * 32 / p["wall_s"] for p in per]
-        print(f"  dp2tp2 {run['name']}: vs meshless {agree}"
-              f"{'' if run.get('gate', True) else ' (printed only)'}; "
+        print(f"  dp2tp2 {run['name']}: vs meshless {agree}; "
               f"ranks' tokens equal "
               f"{all(np.array_equal(p['tokens'], per[0]['tokens']) for p in per)}"
               f"; data replicas equal per model shard; pool "

@@ -16,6 +16,8 @@ process per rank; they must be importable by name), which
   (`runtime.tiering`) and `optim.compress.compressed_psum` on the rank;
 * `moe_grad_rank`: `moe.moe_ep`'s gradients with the expert weights split
   under the training rules;
+* `ssm_grad_rank`: `ssm.ssm_block`'s gradients with its weights split
+  under the training rules;
 * `collective_grad_rank`: each autograd collective's forward and backward.
 
 The CLI runs the meshless step and the mesh step side by side:
@@ -456,6 +458,50 @@ def moe_grad_rank(rank: int, world: int, dp: int, tp: int, params, x, cot,
                                               for k, v in specs.items()})
 
 
+def ssm_grad_rank(rank: int, world: int, dp: int, tp: int, params, x, cot,
+                  cfg, fsdp: bool, device) -> dict:
+    """`ssm.ssm_block` with grad on a (dp, tp) mesh, one SSM layer's
+    global params (numpy) cut by the training rules: with `fsdp` the
+    rows of x and `cot` (B, S, d) over `data`, every `embed` dim over it
+    and the grads of the leaves it does not split summed over it (as the
+    train step sums them); without, no dp axis (`data`'s ranks are
+    replicas, each a dp1 x tp mesh) and only `model` splits. The
+    gradient of <y, cot> for every weight (whole, rank 0) and for x
+    (gathered), and y (gathered)."""
+    from repro_torch.common.parallel import ParallelCtx, all_gather, psum
+    from repro_torch.models import ssm
+    from repro_torch.models.module import Initializer
+
+    dev = torch.device(device)
+    mesh = rank_mesh(dp, tp, device)
+    ctx = ParallelCtx(mesh=mesh, dp_axes=("data",) if fsdp else (),
+                      fsdp_axis="data" if fsdp else None, tp_axis="model",
+                      remat="none")
+    init = Initializer(None)
+    ssm.ssm_init(init, cfg)
+    full = load_numpy_params(params, device=dev)
+    rules = shd.ShardingRules.for_training(ctx.fsdp_axis, ctx.tp_axis)
+    specs = shd.pspecs_for_tree(full, init.axes(), rules, mesh)
+    local = {k: v.detach().clone().requires_grad_() for k, v in
+             shd.shard_tree(full, specs, mesh).items()}
+    rows = train_rt.rank_batch({"x": np.asarray(x), "c": np.asarray(cot)},
+                               ctx)
+    xl = torch.as_tensor(rows["x"], device=dev).requires_grad_()
+    y = ssm.ssm_block(local, xl, cfg, ctx=ctx)
+    (y.float() * torch.as_tensor(rows["c"], device=dev)).sum().backward()
+    grads = {}
+    for k, v in local.items():
+        g = v.grad
+        if ctx.dp_axes and "data" not in [e for e in specs[k] if e]:
+            g = psum(g.clone(), ctx, ctx.dp_axes)
+        grads[k] = g
+    whole = shd.unshard_tree(grads, specs, mesh)
+    return dict(grads=to_numpy(whole) if rank == 0 else None,
+                x_grad=all_gather(xl.grad, ctx, ctx.dp_axes, 0).cpu().numpy(),
+                y=all_gather(y.detach(), ctx, ctx.dp_axes, 0).cpu().numpy(),
+                specs={k: tuple(v) for k, v in specs.items()})
+
+
 def compress_rank(rank: int, world: int, dp: int, tp: int, grads, errors,
                   axis_sets, device) -> list:
     """`optim.compress.compressed_psum` on this rank of a (dp, tp) mesh,
@@ -542,6 +588,10 @@ def main(argv=None) -> int:
     dp, tp = args.mesh
     dev = torch.device(args.device)
     cfg = dataclasses.replace(configs.reduced(args.arch), dtype="float32")
+    if cfg.num_experts:
+        # the meshless step runs `moe_dense`, which drops no pair: at
+        # capacity 8.0 `moe_ep` drops none either
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     tcfg = dict(total_steps=10, warmup_steps=2, remat="block")
     params = to_numpy(M.init_model(cfg, torch.Generator(dev).manual_seed(0)))
     batches = [make_batch_for(cfg, 16, 4 * dp, s) for s in range(args.steps)]

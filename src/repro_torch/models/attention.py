@@ -177,8 +177,11 @@ def cross_attention(params, x, enc_kv, cfg: ModelConfig,
     (B, Senc, KV, hd) each, precomputed by `encode_cross_kv`; no RoPE, no
     mask. Over a mesh wq is column-parallel (the rank's query heads), the
     K/V hold the rank's KV heads (`encode_cross_kv`), attention runs as
-    `sharded_mha(causal=False)` and wo is row-parallel."""
+    `sharded_mha(causal=False)` and wo is row-parallel. A split of the
+    query heads is a TP region, which x enters."""
     dt, d = x.dtype, x.shape[-1]
+    if params["wq"].shape[1] != cfg.num_heads:
+        x = enter_region(x, ctx, ctx.tp_axis)
     q = torch.einsum("bsd,dhk->bshk", x,
                      gather_param(params["wq"].to(dt), ctx, 0, d))
     k, v = enc_kv
@@ -191,8 +194,17 @@ def cross_attention(params, x, enc_kv, cfg: ModelConfig,
 def encode_cross_kv(params, enc_out, cfg: ModelConfig,
                     ctx: ParallelCtx = SINGLE):
     """Cross-attention K/V from the encoder output (once per request); over
-    a mesh the rank's KV heads where wk / wv split them."""
+    a mesh the rank's KV heads where wk / wv split them. Where wq splits
+    the query heads the K/V feed the rank's heads only (a TP region, as
+    in `self_attention`): enc_out enters it, and wk / wv too where they
+    are replicated."""
     dt, d = enc_out.dtype, enc_out.shape[-1]
+    if params["wq"].shape[1] != cfg.num_heads:
+        enc_out = enter_region(enc_out, ctx, ctx.tp_axis)
+        if params["wk"].shape[1] == cfg.num_kv_heads:   # KV replicated
+            params = dict(params, **{n: enter_region(params[n], ctx,
+                                                     ctx.tp_axis)
+                                     for n in ("wk", "wv")})
     k, v = (torch.einsum("bsd,dhk->bshk", enc_out,
                          gather_param(params[n].to(dt), ctx, 0, d))
             for n in ("wk", "wv"))

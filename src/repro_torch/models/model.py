@@ -80,14 +80,16 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def _encode(params, frames, cfg: ModelConfig, remat: str = "none",
-            ctx: ParallelCtx = SINGLE):
+            ctx: ParallelCtx = SINGLE, local_batch: bool = False):
     """The encoder stack (non-causal) over the frame embeddings; over a
-    mesh every rank runs every frame on its shard of the weights and
-    ends with the whole encoder output."""
+    mesh every rank runs its frames on its shard of the weights and ends
+    with their whole encoder output: every row's (attention splits the
+    rows over the dp axes where they divide and gathers them back), or
+    with `local_batch` (the train step) the rank's own rows."""
     x, _ = blocks.stack_apply(params["encoder"]["blocks"], frames, cfg,
                               causal=False,
                               n_layers=cfg.num_encoder_layers, remat=remat,
-                              ctx=ctx)
+                              ctx=ctx, local_batch=local_batch)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps, ctx)
 
 
@@ -125,7 +127,8 @@ def forward(params, batch, cfg: ModelConfig, remat: str = "none",
     enc_out = None
     if cross:
         frames = torch.as_tensor(batch["frames"], device=x.device)
-        enc_out = _encode(params, frames.to(x.dtype), cfg, remat, ctx)
+        enc_out = _encode(params, frames.to(x.dtype), cfg, remat, ctx,
+                          local_batch)
     x, aux = blocks.stack_apply(params["blocks"], x, cfg, cross=cross,
                                 enc_out=enc_out, remat=remat, ctx=ctx,
                                 local_batch=local_batch)

@@ -31,6 +31,18 @@ What the split costs:
 (d) where `H % tp != 0` but `d_inner % tp == 0` the rules would cut a
     head across two ranks: `check_ssm_split` refuses that.
 
+In training (the training rules; with grad) the same split runs as a
+TP region, and every leaf's `embed` dim is split over the fsdp axis:
+the block gathers `w_in_*` on dim 0 and `w_out` on dim 1 after the cast
+(`parallel.gather_param`, a reduce-scatter backward). Where `d_inner`
+is split x enters the region (`parallel.enter_region`), and so do the
+whole leaves that feed only the rank's heads (`w_in_B`, `w_in_C`,
+`conv_B`, `conv_C`, `w_in_dt`, `A_log`, `D`, `dt_bias`): a rank's
+cotangent of each holds its heads' part, and the sum over the model
+axis is the whole gradient. The gated norm's summed squares are read
+by every rank's channels, so their cotangent is summed over the model
+axis too (trap (a)'s psum has an identity backward there).
+
 With tp 1 (or without a mesh) nothing is split: the block is the
 meshless one, op for op.
 """
@@ -40,7 +52,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.common.parallel import SINGLE, ParallelCtx, all_gather, psum
+from repro_torch.common.parallel import (
+    SINGLE,
+    ParallelCtx,
+    all_gather,
+    enter_region,
+    gather_param,
+    psum,
+)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.module import Initializer, torch_dtype
 
@@ -111,28 +130,41 @@ def _step_conv(xt, w, tail):
     return y, xp[:, 1:, :]
 
 
+# the whole leaves a rank's heads read (module docstring): each enters
+# the TP region where `d_inner` is split
+_WHOLE = ("w_in_B", "w_in_C", "conv_B", "conv_C", "w_in_dt", "A_log", "D",
+          "dt_bias")
+
+
 def _rank_params(params, cfg: ModelConfig, ctx: ParallelCtx):
     """`params` with the whole per-head leaves (`w_in_dt`, `A_log`, `D`,
-    `dt_bias`) cut to the rank's heads, which its local `w_in_x` gives
-    (the leaves as they are where `d_inner` is whole)."""
+    `dt_bias`) cut to the rank's heads, which its local `w_in_x` gives,
+    and every whole leaf in the TP region (the leaves as they are where
+    `d_inner` is whole)."""
     di_loc = params["w_in_x"].shape[1]
     if di_loc == cfg.d_inner:
         return params
     check_ssm_split(cfg, ctx)
     H_loc = di_loc // cfg.ssm_head_dim
     h0 = ctx.index(ctx.tp_axis) * H_loc
-    return dict(params, w_in_dt=params["w_in_dt"][:, h0:h0 + H_loc],
-                **{n: params[n][h0:h0 + H_loc]
-                   for n in ("A_log", "D", "dt_bias")})
+    whole = {n: enter_region(params[n], ctx, ctx.tp_axis) for n in _WHOLE}
+    whole["w_in_dt"] = whole["w_in_dt"][:, h0:h0 + H_loc]
+    for n in ("A_log", "D", "dt_bias"):
+        whole[n] = whole[n][h0:h0 + H_loc]
+    return dict(params, **whole)
 
 
-def _project(params, x):
-    dt_ = x.dtype
-    xs = torch.einsum("bsd,di->bsi", x, params["w_in_x"].to(dt_))
-    z = torch.einsum("bsd,di->bsi", x, params["w_in_z"].to(dt_))
-    Bm = torch.einsum("bsd,dn->bsn", x, params["w_in_B"].to(dt_))
-    Cm = torch.einsum("bsd,dn->bsn", x, params["w_in_C"].to(dt_))
-    dt = torch.einsum("bsd,dh->bsh", x, params["w_in_dt"].to(dt_))
+def _project(params, x, ctx: ParallelCtx = SINGLE):
+    dt_, d = x.dtype, x.shape[-1]
+
+    def w(name):        # FSDP: the embed dim gathered after the cast
+        return gather_param(params[name].to(dt_), ctx, 0, d)
+
+    xs = torch.einsum("bsd,di->bsi", x, w("w_in_x"))
+    z = torch.einsum("bsd,di->bsi", x, w("w_in_z"))
+    Bm = torch.einsum("bsd,dn->bsn", x, w("w_in_B"))
+    Cm = torch.einsum("bsd,dn->bsn", x, w("w_in_C"))
+    dt = torch.einsum("bsd,dh->bsh", x, w("w_in_dt"))
     return xs, z, Bm, Cm, dt
 
 
@@ -172,9 +204,11 @@ def _gated_norm(params, y, z, eps: float, d_inner: int = 0,
         var = torch.mean(g32 * g32, dim=-1, keepdim=True)
     else:
         # the rank holds d_inner / tp channels: the mean is the whole
-        # d_inner's (trap (a))
-        var = psum(torch.sum(g32 * g32, dim=-1, keepdim=True), ctx,
-                   ctx.tp_axis) / d_inner
+        # d_inner's (trap (a)); every rank's channels read it, so its
+        # cotangent sums over the model axis
+        var = enter_region(psum(torch.sum(g32 * g32, dim=-1, keepdim=True),
+                                ctx, ctx.tp_axis), ctx,
+                           ctx.tp_axis) / d_inner
     return (g32 * torch.rsqrt(var + eps)
             * params["norm_scale"].float()).to(y.dtype)
 
@@ -182,7 +216,8 @@ def _gated_norm(params, y, z, eps: float, d_inner: int = 0,
 def _out_proj(params, y, cfg: ModelConfig, ctx: ParallelCtx):
     """`w_out`, row-parallel where it holds the rank's block of `d_inner`
     (trap (b))."""
-    out = torch.einsum("bsi,id->bsd", y, params["w_out"].to(y.dtype))
+    out = torch.einsum("bsi,id->bsd", y, gather_param(
+        params["w_out"].to(y.dtype), ctx, 1, cfg.d_model))
     if params["w_out"].shape[0] != cfg.d_inner:
         out = psum(out, ctx, ctx.tp_axis)
     return out
@@ -201,10 +236,12 @@ def ssm_block(params, x, cfg: ModelConfig, return_state: bool = False,
     tail_C)). Over a mesh (module docstring) the state and `tail_x` are
     the rank's heads and channels; `tail_B` / `tail_C` come back whole
     unless `conv_tail` held the rank's channel block of them."""
+    if params["w_in_x"].shape[1] != cfg.d_inner:   # d_inner split: TP region
+        x = enter_region(x, ctx, ctx.tp_axis)
     params = _rank_params(params, cfg, ctx)
     B, S, _ = x.shape
     Pd, N = cfg.ssm_head_dim, cfg.ssm_state
-    xs, z, Bm, Cm, dt = _project(params, x)
+    xs, z, Bm, Cm, dt = _project(params, x, ctx)
     xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm,
                                   conv_tail or (None, None, None),
                                   _causal_conv, ctx)
@@ -234,7 +271,7 @@ def ssm_decode_step(params, x, cfg: ModelConfig, state, conv_tail,
     params = _rank_params(params, cfg, ctx)
     B = x.shape[0]
     Pd, N = cfg.ssm_head_dim, cfg.ssm_state
-    xs, z, Bm, Cm, dt = _project(params, x)
+    xs, z, Bm, Cm, dt = _project(params, x, ctx)
     xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm, conv_tail,
                                   _step_conv, ctx)
     silu = torch.nn.functional.silu

@@ -22,8 +22,11 @@ reduced over a dp axis is summed over it, and every gradient divided by
 the dp size, which gives the reference's gradient of the mean loss over
 the global batch. The global norm sums each leaf's local sum of squares
 over exactly the axes that split it, AdamW runs on the local shards, and
-the metrics are averaged over the dp ranks. SSM, hybrid, vision-prefix
-and encoder-decoder stacks over a mesh port with ROADMAP A16e.
+the metrics are averaged over the dp ranks. Every stack of the catalog
+trains so: dense and MoE decoders, SSM and hybrid stacks (the SSM block
+on the rank's heads), the vision prefix (the rank's rows of `patches`)
+and the encoder-decoder (the rank's rows of `frames` through the
+encoder).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from repro_torch.common.parallel import SINGLE, ParallelCtx, axis_sizes, psum
 from repro_torch.common.pytree import named_leaves
 from repro_torch.models import model as M
 from repro_torch.models.module import torch_dtype
+from repro_torch.models.ssm import check_ssm_split
 from repro_torch.optim import adamw, schedule
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.runtime import sharding as shd
@@ -112,18 +116,16 @@ def rank_batch(batch: dict, ctx: ParallelCtx, microbatches: int = 1):
     return {name: one(x) for name, x in batch.items()}
 
 
+def batch_keys(cfg: ModelConfig) -> tuple:
+    """The inputs of a train batch: the tokens, and the frontend's
+    embeddings (`patches` for the vision prefix, `frames` for the
+    encoder), every one with the rows on dim 0."""
+    return ("tokens",) + {"vision_stub": ("patches",),
+                          "audio_stub": ("frames",)}.get(cfg.frontend, ())
+
+
 def _as_tensors(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-
-
-def check_mesh_stack(cfg: ModelConfig) -> None:
-    """Raise for a stack the mesh step does not run yet (ROADMAP A16e)."""
-    if cfg.family not in ("dense", "moe") or cfg.frontend \
-            or cfg.num_encoder_layers:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) over a mesh: SSM, hybrid, "
-            "vision-prefix and encoder-decoder stacks over a mesh port with "
-            "ROADMAP A16e")
 
 
 class _MeshReduce:
@@ -225,7 +227,7 @@ def build_train_step(cfg: ModelConfig, ctx, tcfg: Optional[TrainConfig]
     compute_dtype = torch_dtype(cfg.dtype)
     mesh_red = None
     if ctx.mesh is not None:
-        check_mesh_stack(cfg)
+        check_ssm_split(cfg, ctx)     # refused by name before any step
         mesh_red = _MeshReduce(cfg, ctx, rules or shd.ShardingRules
                                .for_training(ctx.fsdp_axis, ctx.tp_axis))
     local = ctx.mesh is not None
@@ -330,7 +332,6 @@ def make_bundle(cfg: ModelConfig, tcfg: TrainConfig, *,
         if rules is not None:
             raise ValueError("rules shard over a mesh; none was given")
         return TrainBundle(build_train_step(cfg, tcfg), astate, axes)
-    check_mesh_stack(cfg)
     if ctx is None:
         from repro_torch.launch.mesh import ctx_for_mesh
 
@@ -342,5 +343,6 @@ def make_bundle(cfg: ModelConfig, tcfg: TrainConfig, *,
     return TrainBundle(
         build_train_step(cfg, ctx, tcfg, rules=rules), astate, axes,
         state_pspecs=state_pspecs(astate, axes, rules, mesh),
-        batch_pspecs={"tokens": shd.P(ctx.dp_axes or None)},
+        batch_pspecs={k: shd.P(ctx.dp_axes or None)
+                      for k in batch_keys(cfg)},
         mesh=mesh, ctx=ctx)

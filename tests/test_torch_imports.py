@@ -260,10 +260,10 @@ def test_unported_archs_raise(case):
     `paged_cache_pspec` / `cache_pspec`: the SSM state's heads and the
     conv tails' channels over `model`, the cross-KV's heads in the pool,
     its encoder positions in the contiguous caches) and speculative
-    decoding (the verify cell over the mesh, the draft replicated). What
-    still raises is training those stacks over a mesh (ROADMAP A16e). The
-    mesh is a stand-in with axis sizes only: the cells and the refusal
-    come before any collective."""
+    decoding (the verify cell over the mesh, the draft replicated). The
+    train bundle builds every arch over a mesh since A16e. The mesh is a
+    stand-in with axis sizes only: the cells and the bundles come before
+    any collective."""
     from types import SimpleNamespace
 
     from repro_torch.common.config import TrainConfig
@@ -283,9 +283,12 @@ def test_unported_archs_raise(case):
     stub = SimpleNamespace(shape={"data": 1, "model": 2}, get_group=None)
     kw = dict(n_slots=2, max_seq=16, buckets=(8,), device="cpu", mesh=stub)
     if case == "train":
-        with pytest.raises(NotImplementedError, match="A16e"):
-            train_rt.make_bundle(configs.reduced("mamba2_780m"),
-                                 TrainConfig(), mesh=stub)
+        for arch in configs.list_archs():
+            b = train_rt.make_bundle(configs.reduced(arch), TrainConfig(),
+                                     mesh=stub)
+            assert b.ctx.mesh is stub and b.ctx.tp_axis == "model"
+            assert set(b.batch_pspecs) == set(
+                train_rt.batch_keys(configs.reduced(arch)))
         return
     if case == "contiguous":
         cells = serve_rt.make_engine_cells(configs.reduced("smollm_360m"),

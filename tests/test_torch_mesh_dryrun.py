@@ -16,10 +16,11 @@ mesh record), on the CPU.
   cards: `analyze(n_chips=256)` reads the 16x16 record's `t_compute_s`,
   as the reference's `analyze` reads its 16x16 record (levels 1-3 to
   1e-9 with the reference's chip, topology and the same record).
-* Every reduced arch's decode step on a (2, 2) mesh traces with
-  collectives and the meshless cell's kernel units; the train step of
-  SSM, hybrid, vision-prefix and encoder-decoder stacks raises naming
-  ROADMAP A16e."""
+* Every reduced arch's decode step and train step (two microbatches,
+  remat by block) on a (2, 2) mesh traces with collectives and the
+  meshless cell's kernel units; the train cells of the SSM, hybrid,
+  encoder-decoder and vision-prefix stacks at published widths (depth
+  cut to one layer period) write `ok` records over `--mesh 2x2`."""
 
 import dataclasses
 import json
@@ -220,9 +221,7 @@ def _close(a, b):
 def test_mesh_decode_per_arch(arch):
     """Every arch's decode step traces on a (2, 2) mesh: the same kernel
     units as its meshless cell (a rank runs every layer), with
-    collectives on the wire; a train step of a stack that does not train
-    over a mesh yet (SSM, hybrid, vision prefix, enc-dec) raises naming
-    ROADMAP A16e."""
+    collectives on the wire."""
     cfg = tconfigs.reduced(arch)
     mesh = tmesh.AbstractMesh((2, 2), ("data", "model"))
     shape = ShapeConfig("decode_t", 16, 4, "decode")
@@ -231,22 +230,54 @@ def test_mesh_decode_per_arch(arch):
     if not (cfg.num_encoder_layers or cfg.family in ("ssm", "hybrid")):
         assert c.units == {"flash_decode": cfg.num_layers}
     assert c.wire_bytes > 0 and c.collective_counts["all-gather"] > 0
-    if cfg.family not in ("dense", "moe") or cfg.frontend:
-        with pytest.raises(NotImplementedError, match="A16e"):
-            dryrun.part_cost(cfg, ShapeConfig("train_t", 16, 4, "train"),
-                             mesh=mesh)
 
 
-def test_refused_cells_write_errors_naming_a16d(tmp_path, capsys):
-    """A train cell of a stack that does not train over a mesh yet writes
-    an error record naming ROADMAP A16e (the next module; A16d's serving
-    half runs), and the dry-run exits 1; its decode cell over the same
-    mesh is `ok`."""
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "mamba2-780m", "--shape", "train_4k",
-                     "--mesh", "2x2", "--outdir", str(tmp_path)])
-    assert e.value.code == 1
-    rec = json.loads((tmp_path / "mamba2_780m_train_4k_2x2.json")
-                     .read_text())
-    assert rec["status"] == "error" and "A16e" in rec["error"]
-    assert "FAIL mamba2_780m train_4k" in capsys.readouterr().out
+@pytest.mark.parametrize("arch", tconfigs.list_archs())
+def test_mesh_train_per_arch(arch):
+    """Every arch's train step (two microbatches, remat by block) traces
+    on a (2, 2) mesh: the meshless step's kernel units (a rank runs
+    every layer of every microbatch on its rows), the FSDP gathers and
+    their reduce-scatter backward on the wire."""
+    cfg = tconfigs.reduced(arch)
+    mesh = tmesh.AbstractMesh((2, 2), ("data", "model"))
+    shape = ShapeConfig("train_t", 16, 4, "train")
+    c, _, _, mb = dryrun.part_cost(cfg, shape, microbatches=2, mesh=mesh)
+    assert mb == 2
+    assert c.units == dryrun.part_cost(cfg, shape, microbatches=2)[0].units
+    assert c.wire_bytes > 0
+    assert c.collective_counts["all-gather"] > 0
+    assert c.collective_counts["reduce-scatter"] > 0
+
+
+def _one_period(cfg):
+    """`cfg` cut to one period of its layer pattern (widths kept)."""
+    from repro_torch.models import blocks
+
+    n = blocks.super_period(cfg)
+    return dataclasses.replace(cfg, num_layers=n, num_encoder_layers=min(
+        cfg.num_encoder_layers, n))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2", "paligemma-3b"])
+def test_stack_train_cells_write_ok_records(arch, tmp_path, monkeypatch):
+    """The train_4k cells of the SSM, hybrid, encoder-decoder and
+    vision-prefix stacks over `--mesh 2x2` (published widths, depth cut
+    to one layer period, two microbatches: one piece, traced in this
+    process) write `ok` records with wire bytes and exit 0; each
+    SSM-bearing cell launches the scan, each attention-bearing one the
+    flash forward and its backward."""
+    get = tconfigs.get
+    monkeypatch.setattr(tconfigs, "get", lambda a: _one_period(get(a)))
+    (rec,) = dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh",
+                          "2x2", "--microbatches", "2",
+                          "--outdir", str(tmp_path)])
+    name = tconfigs.canonical(arch)
+    assert rec == json.loads((tmp_path / f"{name}_train_4k_2x2.json")
+                             .read_text())
+    assert rec["status"] == "ok" and rec["n_devices"] == 4
+    assert rec["hlo_cost"]["wire_bytes_per_device"] > 0
+    units = rec["dispatch_cost"]["units"]
+    cfg = get(name)
+    assert ("ssd_scan" in units) == cfg.sub_quadratic
+    assert ("flash_mha_bwd" in units) == (cfg.family != "ssm")

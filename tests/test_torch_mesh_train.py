@@ -12,7 +12,12 @@ projections), qwen2_5_32b (an untied head, qkv biases),
 granite_moe_1b_a400m (`moe_ep`, capacity 8.0 so nothing drops), and
 granite with its heads changed to 4 / 1 (the `group` layout: KV
 replicated, one group a rank) and 12 / 3 (`whole`: every query head
-gathered).
+gathered); and the other stacks: mamba2_780m (the SSM block on the
+rank's 4 of 8 heads), jamba_1_5_large_398b (SSM, attention and
+`moe_ep` layers, capacity 8.0), paligemma_3b (the vision prefix: the
+rank's rows of `patches`; 4 / 1 heads, the `group` layout) and
+seamless_m4t_large_v2 (the encoder over the rank's rows of `frames`,
+cross-attention in every decoder layer).
 
 * One step's gradients of every leaf (gathered whole with
   `unshard_tree`) within 1e-5 of the leaf's largest magnitude of JAX's
@@ -31,8 +36,17 @@ gathered).
   mesh in a subprocess with 4 forced host devices: the losses and grad
   norms within 1e-5 relative, the moments within 1e-4 of their largest
   magnitude, the params as above with the three steps' lr summed. For
-  the MoE arch the reference runs `moe_fsdp_mode="gather"`: its default
-  "rowcol" sums other data ranks' tokens (ROADMAP §C).
+  the MoE archs the reference runs `moe_fsdp_mode="gather"`: its default
+  "rowcol" sums other data ranks' tokens (ROADMAP §C). Its state is laid
+  out again by its shardings after every step (an SSM stack's step
+  returns its per-head leaves split otherwise than its in_shardings,
+  which jit then refuses).
+* `ssm_block` alone on the same ranks (`dev_train_torch.ssm_grad_rank`,
+  one layer of reduced mamba2 with perturbed per-head leaves): y and
+  the gradients of every weight and of x within 1e-5 of their largest
+  magnitude of `jax.vjp` of the reference's meshless block, over dp1tp2
+  (`data`'s two ranks replicas of one tp2 group) and over dp2tp2 with
+  FSDP.
 * After every run the replicas of every leaf bit-equal across the ranks
   and each rank's state bytes equal to its share under `state_pspecs`.
 * granite's three steps also run the tiered step (`runtime.tiering`,
@@ -42,13 +56,14 @@ gathered).
   per-token NLL) bit-equal to the meshless bf16 forward with the
   row-parallel products split as dp2tp2 splits them.
 
-In this process: the training rules' specs (granite-moe's expert
+In this process: the refusals left over a mesh (ROADMAP A16f); the
+training rules' specs (granite-moe's expert
 weights: w_gate / w_up split on their embed dim over `data`, w_down on
 its ff dim, the first of its dims to ask) against the reference's; the
 tiering's `shard_counts` and `per_device_profile` against the
 reference's with a stand-in (2, 2) mesh; the train launcher through the
-(1, 1) smoke mesh bit-equal to the meshless bundle, its process group
-gone afterwards."""
+(1, 1) smoke mesh (granite and mamba2) bit-equal to the meshless bundle,
+its process group gone afterwards."""
 
 import concurrent.futures
 import dataclasses
@@ -105,9 +120,17 @@ ARCHS = {
                           num_kv_heads=1),
     "granite_whole": dict(arch="granite_3_2b", num_heads=12,
                           num_kv_heads=3),
+    "mamba2_780m": dict(arch="mamba2_780m"),
+    "jamba_1_5_large_398b": dict(arch="jamba_1_5_large_398b",
+                                 capacity_factor=8.0),
+    "paligemma_3b": dict(arch="paligemma_3b"),
+    "seamless_m4t_large_v2": dict(arch="seamless_m4t_large_v2"),
 }
 STEPPED = ("granite_3_2b", "smollm_360m", "qwen2_5_32b",
-           "granite_moe_1b_a400m")
+           "granite_moe_1b_a400m", "mamba2_780m", "jamba_1_5_large_398b",
+           "paligemma_3b", "seamless_m4t_large_v2")
+# ssm_block alone: (dp, fsdp) of each case
+SSM_CASES = {"dp1tp2": False, "dp2tp2 fsdp": True}
 GRAD_RUNS = [(mb, remat) for mb in (1, 2) for remat in ("none", "block")]
 HEAD_RUNS = [(1, "none")]
 TIERED = "granite_3_2b"
@@ -187,6 +210,23 @@ def _jax_step(name):
             jax.tree.map(np.asarray, metrics))
 
 
+def _ssm_inputs():
+    """One SSM layer of reduced mamba2 (the reference's init, layer 0, its
+    per-head leaves and norm scale perturbed so that none is at its
+    init's constant), x and a cotangent (B, S, d), float32 numpy."""
+    params, _ = _inputs("mamba2_780m")
+    rng = np.random.default_rng(3)
+    layer = {k: np.array(v[0]) for k, v in
+             params["blocks"]["pos0"]["ssm"].items()}
+    for k in ("A_log", "D", "dt_bias", "norm_scale"):
+        layer[k] = (layer[k] + 0.3 * rng.standard_normal(layer[k].shape)
+                    ).astype(np.float32)
+    d = layer["w_in_x"].shape[0]
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    cot = rng.standard_normal((B, S, d)).astype(np.float32)
+    return layer, x, cot
+
+
 SHARDED_CODE = r"""
 import dataclasses, sys
 import numpy as np
@@ -217,6 +257,9 @@ for name, over in ARCHS.items():
     state, _ = train_rt.init_train_state(cfg, jax.random.PRNGKey(0))
     for step in range({STEPS}):
         state, m = bundle.step_fn(state, make_batch_for(cfg, {S}, {B}, step))
+        # the step's outputs may come back laid out otherwise than its
+        # in_shardings (an SSM stack's per-head leaves): lay them out again
+        state = jax.device_put(state, bundle.state_shardings)
         out[f"{{name}}|loss|{{step}}"] = np.asarray(m["loss"])
         out[f"{{name}}|grad_norm|{{step}}"] = np.asarray(m["grad_norm"])
         out[f"{{name}}|lr|{{step}}"] = np.asarray(m["lr"])
@@ -247,6 +290,10 @@ def mesh_runs(tmp_path_factory):
             calls.append((dtt.mesh_train_rank,
                           (_cfgs(name)[1], DP, TP, params, batches,
                            _runs(name), "cpu")))
+        layer, x, cot = _ssm_inputs()
+        calls += [(dtt.ssm_grad_rank, (DP, TP, layer, x, cot,
+                                       _cfgs("mamba2_780m")[1], fsdp, "cpu"))
+                  for fsdp in SSM_CASES.values()]
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             fut = pool.submit(tmesh.run_ranks, dst.mesh_calls, DP * TP,
                               (calls,), device="cpu", threads=1,
@@ -261,7 +308,10 @@ def mesh_runs(tmp_path_factory):
     sharded = dict(np.load(tmp / "sharded.npz"))
     results = {n: [got[r][i] for r in range(DP * TP)]
                for i, n in enumerate(ARCHS)}
-    return dict(results=results, ref=ref, steps=steps, sharded=sharded)
+    ssm = {c: [got[r][len(ARCHS) + i] for r in range(DP * TP)]
+           for i, c in enumerate(SSM_CASES)}
+    return dict(results=results, ref=ref, steps=steps, sharded=sharded,
+                ssm=ssm)
 
 
 def _run(mesh_runs, name, label):
@@ -397,6 +447,39 @@ def test_bf16_forward_is_the_split_products(mesh_runs, name):
         np.testing.assert_array_equal(p["token_nll"][0], want)
 
 
+@pytest.mark.parametrize("case", list(SSM_CASES))
+def test_ssm_block_grads_match_jax(mesh_runs, case):
+    """`ssm_block` with its heads split over `model` (4 of 8 a rank): the
+    whole leaves a rank's heads read (`w_in_B`, `w_in_C`, `conv_B`,
+    `conv_C`, `w_in_dt`, `A_log`, `D`, `dt_bias`) and x enter the TP
+    region, and the gated norm's summed squares take their cotangent
+    summed over it; with FSDP every `w_in_*` and `w_out` is gathered
+    over `data`. Every gradient, x's and y within 1e-5 of their largest
+    magnitude of the reference's meshless block."""
+    from repro.models import ssm as jssm
+
+    jc, _ = _cfgs("mamba2_780m")
+    layer, x, cot = _ssm_inputs()
+    y, vjp = jax.vjp(lambda p, x_: jssm.ssm_block(p, x_, jc),
+                     jax.tree.map(jnp.asarray, layer), jnp.asarray(x))
+    gp, gx = vjp(jnp.asarray(cot))
+    per = mesh_runs["ssm"][case]
+    specs = per[0]["specs"]
+    assert specs["w_in_x"] == (("data", "model") if SSM_CASES[case]
+                               else (None, "model"))
+    assert specs["A_log"] == (None,)
+    want = dict(jax.tree.map(np.asarray, gp), x=np.asarray(gx),
+                y=np.asarray(y))
+    got = dict(per[0]["grads"], x=per[0]["x_grad"], y=per[0]["y"])
+    assert set(got) == set(want)
+    for leaf, w in want.items():
+        np.testing.assert_allclose(
+            got[leaf], w, rtol=0,
+            atol=1e-5 * max(float(np.abs(w).max()), 1e-30), err_msg=leaf)
+    for p in per[1:]:
+        np.testing.assert_array_equal(p["x_grad"], per[0]["x_grad"])
+
+
 def test_tiered_step_bit_equal_on_every_rank(mesh_runs):
     per = _run(mesh_runs, TIERED, "three steps")
     for p in per:
@@ -459,21 +542,54 @@ def test_tiering_shard_counts_and_profile_match_the_reference(arch):
             bundle.abstract_state, tc, shape, "block"))
 
 
-def test_launcher_trains_through_the_smoke_mesh(tmp_path):
-    """`launch.train.main` through the (1, 1) smoke mesh (gloo here):
-    its losses bit-equal to the meshless bundle's steps on the same
-    seed and batches, and no process group left."""
+def test_a16f_refusals_still_raise():
+    """What stays refused by name over a mesh (ROADMAP A16f), before any
+    collective (the mesh is a stand-in): an SSM head cut across two
+    ranks (`d_inner` splits over tp, the heads do not), in the train
+    bundle as in the engine; contiguous caches whose extent does not
+    divide over tp (`serve.check_seq_split`); `moe_ep` with grad whose
+    sequence does not split over the EP axis."""
+    from repro_torch.common.parallel import ParallelCtx
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as tmoe
+    from repro_torch.runtime import serve as tserve
+
+    stub = SimpleNamespace(shape={"data": 1, "model": 2}, get_group=None)
+    cut = dataclasses.replace(tconfigs.reduced("mamba2_780m"),
+                              ssm_head_dim=128)
+    with pytest.raises(ValueError, match="cut across two ranks"):
+        ttrain.make_bundle(cut, TrainConfig(), mesh=stub)
+    ctx = ParallelCtx(mesh=stub, tp_axis="model")
+    caches = TM.make_decode_caches(tconfigs.reduced("granite_3_2b"), 2, 15,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="must divide"):
+        tserve.check_seq_split(caches, ctx)
+    cfg = tconfigs.reduced("granite_moe_1b_a400m")
+    layer = {k: v[0] for k, v in TM.init_model(
+        cfg, device="cpu")["blocks"]["pos0"]["moe"].items()}
+    half = {k: (v if k == "router" else v[:cfg.num_experts // 2])
+            for k, v in layer.items()}
+    x = torch.zeros(2, 3, cfg.d_model, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="needs the sequence"):
+        tmoe.moe_ep(half, x, cfg, ctx, local_batch=True)
+
+
+def _launcher_against_the_bundle(arch, tmp_path):
+    """`launch.train.main` of the reduced `arch` (3 steps, batch 2 x 16)
+    through the (1, 1) smoke mesh (gloo here): its losses, and no
+    process group left; with the meshless bundle's losses on the same
+    seed and batches."""
     from repro_torch.data.synthetic import make_batch_for
     from repro_torch.launch import train as tlaunch
 
     assert not torch.distributed.is_initialized()
-    losses = tlaunch.main(["--arch", "granite_3_2b", "--reduced",
+    losses = tlaunch.main(["--arch", arch, "--reduced",
                            "--steps", "3", "--batch", "2", "--seq", "16",
                            "--device", "cpu", "--log-every", "100",
                            "--ckpt-dir", str(tmp_path / "ck"),
                            "--ckpt-every", "100"])
     assert not torch.distributed.is_initialized()
-    cfg = tconfigs.reduced("granite_3_2b")
+    cfg = tconfigs.reduced(arch)
     tcfg = TrainConfig(learning_rate=3e-4, total_steps=3, warmup_steps=1,
                        remat="block")
     bundle = ttrain.make_bundle(cfg, tcfg)
@@ -487,4 +603,19 @@ def test_launcher_trains_through_the_smoke_mesh(tmp_path):
             want.append(float(m["loss"]))
     finally:
         torch.use_deterministic_algorithms(deterministic)
+    return losses, want
+
+
+def test_launcher_trains_through_the_smoke_mesh(tmp_path):
+    """`launch.train.main` through the (1, 1) smoke mesh (gloo here):
+    its losses bit-equal to the meshless bundle's steps on the same
+    seed and batches, and no process group left."""
+    losses, want = _launcher_against_the_bundle("granite_3_2b", tmp_path)
+    assert losses == want
+
+
+def test_launcher_trains_an_ssm_stack_through_the_smoke_mesh(tmp_path):
+    """The same for reduced mamba2: the SSM block under the training
+    rules over the (1, 1) mesh, bit-equal to the meshless bundle."""
+    losses, want = _launcher_against_the_bundle("mamba2_780m", tmp_path)
     assert losses == want

@@ -270,9 +270,12 @@ def test_train_config_and_bundle_refuse_the_mesh():
     """The config and the bundle as the reference's: `compress_grads` is
     accepted and, as in the reference, changes no step; a (1, 1) mesh is
     accepted (one gloo rank in this process, destroyed after) and its
-    step is bit-equal to the meshless one; an SSM stack over a mesh
-    raises naming A16e (before any collective: the mesh is a stand-in);
-    the abstract state is the reference's tree."""
+    step is bit-equal to the meshless one; an SSM stack's bundle over a
+    mesh builds, its SSM leaves split as the training rules split them
+    (a stand-in mesh: nothing runs); the abstract state is the
+    reference's tree."""
+    from types import SimpleNamespace
+
     from repro_torch.launch import mesh as tmesh
 
     assert dataclasses.asdict(TrainConfig()) == \
@@ -300,9 +303,14 @@ def test_train_config_and_bundle_refuse_the_mesh():
         for (n, a), (_, b) in zip(tnamed(got[0]), tnamed(plain[0])):
             assert torch.equal(a, b), n
         assert all(torch.equal(got[1][k], v) for k, v in plain[1].items())
-    with pytest.raises(NotImplementedError, match="A16e"):
-        ttrain.make_bundle(tconfigs.reduced("mamba2_780m"), TrainConfig(),
-                           mesh=object())
+    stub = SimpleNamespace(shape={"data": 2, "model": 2})
+    ssm = ttrain.make_bundle(tconfigs.reduced("mamba2_780m"), TrainConfig(),
+                             mesh=stub)
+    specs = ssm.state_pspecs["params"]["blocks"]["pos0"]["ssm"]
+    assert specs["w_in_x"] == (None, "data", "model")
+    assert specs["w_in_B"] == (None, "data", None)
+    assert specs["A_log"] == (None, None)
+    assert ssm.ctx.mesh is stub and ssm.ctx.fsdp_axis == "data"
     bundle = ttrain.make_bundle(cfg, TrainConfig())
     cfg = tconfigs.reduced("smollm_360m")
     jstate, _ = jtrain.abstract_train_state(jconfigs.reduced("smollm_360m"))
