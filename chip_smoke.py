@@ -4703,14 +4703,28 @@ CONTIG_F32 = dict(name="f32 contiguous", dtype="float32", pool_dtype="fp",
                   paged=False, decode_logits=True)
 CONTIG_BF16 = dict(name="bf16 contiguous", dtype="bfloat16", pool_dtype="fp",
                    paged=False)
+# caches of 255 positions (ROADMAP A16f): the extent does not divide over
+# the model axis, so they stay whole on every rank, which decodes its own
+# query heads with flash_decode and no lse or merge (each rank holds half
+# of the caches' bytes, its slots over data); float32 tokens gated equal
+# to the meshless engine's on the same cell
+CONTIG_WHOLE = dict(name="f32 contiguous 255", dtype="float32",
+                    pool_dtype="fp", paged=False, max_seq=255,
+                    whole=("k", "v"))
 MESH_RUNS = (dict(name="f32 fp", dtype="float32", pool_dtype="fp",
                   logits=True),
              dict(name="f32 int8", dtype="float32", pool_dtype="int8"),
-             CONTIG_F32)
+             CONTIG_F32, CONTIG_WHOLE)
 MAIN_RUN = dict(name="bf16 int8", dtype="bfloat16", pool_dtype="int8")
 ONE_RUNS = (MAIN_RUN, CONTIG_BF16)
 CONTIG_KERNELS = ("flash_mha", "flash_decode_lse")
+CONTIG_WHOLE_KERNELS = ("flash_mha", "flash_decode")
+# moe_ep at granite-moe's widths with capacity 8.0 (no pair drops, as
+# moe_dense) and with the config's capacity (the dispatch drops pairs past
+# it); its gradients also at an odd sequence (S 127 on an EP axis of 2:
+# every rank routes every token)
 MOE_CAPS = (("no drops", 8.0), ("config", None))
+MOE_ODD_SHAPE = (2, 127)
 # granite-3-2b's serving runs on the mesh are cut to 8 of its 40 layers
 # (widths kept): their gates (float32 equality and agreement, bf16
 # relative drift, bit-equality) hold at any depth, and the cut pays for
@@ -5037,16 +5051,17 @@ def mesh_train_stack_inputs(torch, arch, serve_params=None,
 
 
 def mesh_train_stack_reference(torch, inp) -> None:
-    """The meshless bundle's step on `inp`'s masters and batch in this
-    process, float32 and bf16, into inp["ref"]: loss, grad norm, lr and
-    wall ms; the float32 state after the step, for the ranks to hold
-    their shards against."""
+    """The meshless bundle's float32 step on `inp`'s masters and batch in
+    this process, into inp["ref"]: loss, grad norm, lr and wall ms, and
+    the state after the step, for the ranks to hold their shards against
+    (the meshless bf16 step, printed only, was cut for the script's
+    time)."""
     import dev_train_torch as dtt
     from repro_torch.common.config import TrainConfig
     from repro_torch.runtime import train as train_rt
 
     ref = {}
-    for dt in ("float32", "bfloat16"):
+    for dt in ("float32",):
         bundle = train_rt.make_bundle(
             dataclasses.replace(inp["cfg"], dtype=dt),
             TrainConfig(**MESH_TRAIN_TCFG))
@@ -5104,11 +5119,10 @@ def mesh_train_stack_gates(arch, inp, four, gate, one=None) -> None:
     everywhere, moments 1e-4 of their max), replicas bit-equal, a rank's
     state bytes its spec share, MESH_TRAIN_STACK_KERNELS launched on
     every rank and no plain version; (1, 1) bit-equal. The bf16 loss
-    drift and the wall ms are printed only."""
+    and the wall ms are printed only."""
     import dev_train_torch as dtt
 
-    cfg, ref32, ref16 = inp["cfg"], inp["ref"]["float32"], \
-        inp["ref"]["bfloat16"]
+    cfg, ref32 = inp["cfg"], inp["ref"]["float32"]
     want = MESH_TRAIN_STACK_KERNELS[arch]
     B, S = MESH_TRAIN_STACK_SHAPE
     enc = (f" + {cfg.num_encoder_layers} encoder"
@@ -5118,7 +5132,7 @@ def mesh_train_stack_gates(arch, inp, four, gate, one=None) -> None:
           f"{f' + {cfg.num_prefix_tokens} patches' if cfg.num_prefix_tokens else ''}"
           f", remat block, seed-0 float32 masters; meshless float32 loss "
           f"{ref32['loss']} grad norm {ref32['gnorm']} ({ref32['ms']:.1f} "
-          f"ms), bf16 loss {ref16['loss']} ({ref16['ms']:.1f} ms)")
+          f"ms)")
     f32, bf16 = [r[0] for r in four], [r[1] for r in four]
     for name, runs in (("f32", f32), ("bf16", bf16)):
         bad = dtt.replicas_equal([r["digests"] for r in runs])
@@ -5154,12 +5168,11 @@ def mesh_train_stack_gates(arch, inp, four, gate, one=None) -> None:
              f"mesh train {arch} f32 rank {r['coord']}: state {c}")
     ms = [r["step_ms"][0] for r in bf16]
     print(f"  mesh train {arch} dp2tp2 bf16 (printed only): loss "
-          f"{bf16[0]['losses'][0]}, |mesh - meshless bf16| "
-          f"{abs(bf16[0]['losses'][0] - ref16['loss']):.3e}, |meshless bf16 "
-          f"- float32| {abs(ref16['loss'] - ref32['loss']):.3e}; wall ms a "
+          f"{bf16[0]['losses'][0]}, |mesh bf16 - meshless float32| "
+          f"{abs(bf16[0]['losses'][0] - ref32['loss']):.3e}; wall ms a "
           f"step {min(ms):.1f}-{max(ms):.1f} over the ranks (gloo through "
-          f"host memory, 4 ranks on one card) vs meshless "
-          f"{ref16['ms']:.1f}; launches rank 0 {bf16[0]['launches']}")
+          f"host memory, 4 ranks on one card); launches rank 0 "
+          f"{bf16[0]['launches']}")
     gate(len({tuple(r["losses"]) for r in bf16}) == 1,
          f"mesh train {arch} bf16: the ranks' losses differ")
     if one is not None:
@@ -5197,19 +5210,79 @@ def moe_grad_gate(torch, per, moe_params, x, cot, cfg, gate,
     dtt.moe_objective(y, aux, torch.tensor(cot, device=device),
                       n_aux=2).backward()
     got = per[0]
+    print(f"  kernels moe_ep grads x {tuple(x.shape)}: none (moe_ep's "
+          f"products are PyTorch's, as the reference's are jnp einsums)")
     errs = {"y": (got["y"], y.detach().cpu().numpy()),
             "x": (got["x_grad"], xt.grad.cpu().numpy())}
     errs.update({k: (got["grads"][k], w[k].grad.cpu().numpy()) for k in w})
     rel = {k: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
            for k, (a, b) in errs.items()}
     aux_err = abs(got["aux"] - float(aux.detach()))
-    print(f"  moe_ep grads at {cfg.name}'s widths (capacity "
+    print(f"  moe_ep grads at {cfg.name}'s widths, x {tuple(x.shape)} "
+          f"(sequence split over the EP axis: {x.shape[1] % 2 == 0}; capacity "
           f"{cfg.capacity_factor}, expert weights {got['specs']}): err / max "
           f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, aux err "
           f"{aux_err:.2e}; {max(p['ms'] for p in per):.1f} ms forward + "
           f"backward (gloo)")
     gate(max(rel.values()) <= 1e-4 and aux_err <= 1e-4,
          f"moe_ep grads: {rel}, aux {aux_err}")
+
+
+SSD_CUT_TP = 32          # the witness's ranks: mamba2-780m over tp 32
+
+
+def ssd_cut_witness(torch) -> list:
+    """One process's witness of a head cut over SSD_CUT_TP ranks
+    (ROADMAP A16f): one mamba2-780m layer (published widths, seed-0
+    float32 weights) gives its meshless scan inputs for a 128-token
+    prompt (`models.ssm.scan_inputs`); each rank's block of `d_inner`
+    (96 of 3072 channels, 1.5 heads) runs through the kernel as the
+    virtual heads `models.ssm.virtual_heads` gives it (the helper the
+    block's `_rank_params` uses), and the ranks' y and final states,
+    concatenated on the channels, must equal the meshless kernel's scan
+    within 1e-5 of their largest magnitude (float32). Returns the
+    failures; prints the errors and the kernel's launches."""
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.models.module import layer_slice
+
+    cfg = dataclasses.replace(configs.get("mamba2_780m"), num_layers=1,
+                              dtype="float32")
+    gen = torch.Generator("cuda").manual_seed(0)
+    p = layer_slice(M.init_model(cfg, gen)["blocks"]["pos0"], 0)["ssm"]
+    x = torch.randn((1, 128, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        xs, _, Bm, Cm, dt, A, _ = ssm.scan_inputs(p, x)
+        B_, S_ = xs.shape[:2]
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        bc = (Bm.reshape(B_, S_, 1, N), Cm.reshape(B_, S_, 1, N))
+        y, h = sops.ssd(xs.reshape(B_, S_, H, P), dt, A, *bc, p["D"],
+                        impl="cuda")
+        di = cfg.d_inner // SSD_CUT_TP
+        ys, hs = [], []
+        n0 = kernels.LAUNCHES["ssd_scan"]
+        for r in range(SSD_CUT_TP):
+            g, heads = ssm.virtual_heads(cfg, di, r)
+            idx = torch.tensor(heads, device="cuda")
+            yr, hr = sops.ssd(
+                xs[..., r * di:(r + 1) * di].reshape(B_, S_, di // g, g),
+                dt[..., idx], A[idx], *bc, p["D"][idx], impl="cuda")
+            ys.append(yr.reshape(B_, S_, di))
+            hs.append(hr.reshape(B_, di, N))
+        launches = kernels.LAUNCHES["ssd_scan"] - n0
+    y_cut = torch.cat(ys, -1).reshape(y.shape)
+    h_cut = torch.cat(hs, 1).reshape(h.shape)
+    err_y = float((y_cut - y).abs().max() / y.abs().max())
+    err_h = float((h_cut - h).abs().max() / h.abs().max())
+    print(f"  ssd_scan head cut witness: mamba2-780m layer 0 (seed 0), "
+          f"{SSD_CUT_TP} ranks of {di} channels ({g}-channel virtual heads)"
+          f", {launches} launches, vs the meshless scan: y err / max "
+          f"{err_y:.3e}, state {err_h:.3e} (gate 1e-5)")
+    ok = err_y <= 1e-5 and err_h <= 1e-5 and launches == SSD_CUT_TP
+    return [] if ok else [f"ssd_scan head cut witness: y {err_y}, state "
+                          f"{err_h}, launches {launches}"]
 
 
 def shard_shape_cases(torch, timer) -> list:
@@ -5222,9 +5295,14 @@ def shard_shape_cases(torch, timer) -> list:
     of the 8 slots (int8 per-page pool, 16-token pages, 16 pages a slot);
     one admission's grouped write_pages (k,
     k_sz, v, v_sz over 40 layers, 128 rows); ssd_scan over a 128-token
-    admission on a rank's 24 of mamba2-780m's 48 heads; flash_decode_lse
-    on seamless-m4t-large-v2's contiguous cross-KV shard (2 slots, every
-    one of its 16 heads at 64 of 128 encoder positions). Each is held
+    admission on a rank's 24 of mamba2-780m's 48 heads, and on the
+    virtual heads of a rank whose block of `d_inner` cuts a head (ROADMAP
+    A16f: 3 of 32 at tp 32, 3 of 16 at tp 64), with the 32-rank witness
+    (`ssd_cut_witness`); flash_decode_lse on seamless-m4t-large-v2's
+    contiguous cross-KV shard (2 slots, every one of its 16 heads at 64
+    of 128 encoder positions); flash_decode over granite's contiguous
+    caches of 255 positions, whole over `model` (4 slots, the rank's 16
+    heads against their 4 KV heads). Each is held
     against its plain version (float32 atol=rtol=1e-5, bf16 atol=2e-2,
     the write bit for bit; ssd_scan against its plain version evaluated
     in float64 at the ssd sweep's tolerances; the lse at LSE_TOL) and
@@ -5426,35 +5504,48 @@ def shard_shape_cases(torch, timer) -> list:
 
     Hs, Ps, Ns, Ss = 24, 64, 128, 128
 
-    def ssd_inputs(dt):
+    def ssd_inputs(dt, H=Hs, P=Ps):
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
 
-        return (rn(1, Ss, Hs, Ps).to(dt), F.softplus(rn(1, Ss, Hs)),
-                -torch.exp(rn(Hs) * 0.5), rn(1, Ss, 1, Ns).to(dt),
-                rn(1, Ss, 1, Ns).to(dt), rn(Hs), None)
+        return (rn(1, Ss, H, P).to(dt), F.softplus(rn(1, Ss, H)),
+                -torch.exp(rn(H) * 0.5), rn(1, Ss, 1, Ns).to(dt),
+                rn(1, Ss, 1, Ns).to(dt), rn(H), None)
 
-    for dt in (torch.float32, torch.bfloat16):
-        args = ssd_inputs(dt)
-        y, h = sops.ssd(*args, impl="cuda")
-        y64, h64 = chunked.ssd_chunked(
-            *(None if a_ is None else a_.double() for a_ in args), chunk=128)
-        case = f"B=1 S={Ss} H={Hs} P={Ps} N={Ns} {str(dt)[6:]}"
-        err = check("ssd_scan", case, y, y64.to(y.dtype),
-                    dict(atol=2e-4, rtol=2e-4) if dt == torch.float32
-                    else dict(atol=2e-2, rtol=8e-3))
-        check("ssd_scan", f"{case} state", h, h64, dict(atol=2e-4,
-                                                        rtol=2e-4))
-    n_ops, nbytes = sops.ssd_cost(args[0].shape, args[3].shape, itemsize=2,
-                                  b_itemsize=2, has_D=True, has_init=False)
-    record("ssd_scan", f"bf16 B=1 S={Ss} H={Hs} of 48 P={Ps} N={Ns} "
-           "(a dp2tp2 rank's heads of mamba2-780m, one 128-token "
-           "admission); library = none: no single PyTorch call computes "
-           "the chunked SSD",
-           lambda: sops.ssd(*args, impl="cuda"),
-           lambda: chunked.ssd_chunked(*args), lambda: None, nbytes, n_ops,
-           err)
-    del args, y, h, y64, h64
+    def ssd_case(label, H, P, note):
+        """ssd_scan at (B 1, S Ss, H heads of P, N Ns) against its plain
+        version in float64, float32 and bf16, then timed in bf16."""
+        for dt in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(dt, H, P)
+            y, h = sops.ssd(*args, impl="cuda")
+            y64, h64 = chunked.ssd_chunked(
+                *(None if a_ is None else a_.double() for a_ in args),
+                chunk=128)
+            case = f"B=1 S={Ss} H={H} P={P} N={Ns} {str(dt)[6:]}"
+            err = check("ssd_scan", case, y, y64.to(y.dtype),
+                        dict(atol=2e-4, rtol=2e-4) if dt == torch.float32
+                        else dict(atol=2e-2, rtol=8e-3))
+            check("ssd_scan", f"{case} state", h, h64,
+                  dict(atol=2e-4, rtol=2e-4))
+        n_ops, nbytes = sops.ssd_cost(args[0].shape, args[3].shape,
+                                      itemsize=2, b_itemsize=2, has_D=True,
+                                      has_init=False)
+        record("ssd_scan", f"bf16 B=1 S={Ss} H={H}{label} P={P} N={Ns} "
+               f"({note}); library = none: no single PyTorch call "
+               "computes the chunked SSD",
+               lambda: sops.ssd(*args, impl="cuda"),
+               lambda: chunked.ssd_chunked(*args), lambda: None, nbytes,
+               n_ops, err)
+
+    ssd_case(" of 48", Hs, Ps, "a dp2tp2 rank's heads of mamba2-780m, one "
+             "128-token admission")
+    # a head cut across ranks (ROADMAP A16f): mamba2-780m over tp 32 (a
+    # rank's 96 of 3072 channels, 1.5 heads: 3 virtual heads of 32) and
+    # tp 64 (48 channels: 3 virtual heads of 16)
+    for P_v, tp_v in ((32, 32), (16, 64)):
+        ssd_case(" virtual", 3, P_v, f"head cut: a tp-{tp_v} rank of "
+                 "mamba2-780m, one 128-token admission")
+    failures.extend(ssd_cut_witness(torch))
 
     # --- flash_decode_lse: seamless's contiguous cross-KV shard --------
     # every head at the rank's 64 of 128 encoder positions, every key
@@ -5483,6 +5574,33 @@ def shard_shape_cases(torch, timer) -> list:
                                    return_lse=True),
            lambda: dops.decode_mha(q, k, v, lens, impl="reference",
                                    return_lse=True),
+           lambda: sdpa_decode_ms(torch, timer, q, k, v, lens), bytes_, ops_,
+           err)
+    # --- flash_decode: granite's contiguous caches of 255, whole --------
+    # (ROADMAP A16f) a dp2tp2 rank's 4 slots decode every one of the 32
+    # query heads (gathered over model) against the whole cache's 8 KV
+    # heads, read in place, over every position a slot has (prompts of
+    # 64-128 tokens plus up to 32 decoded); the rank keeps its 16 heads
+    Bw, Hw, KVw, Dw, Sw = 4, 32, 8, 64, 255
+    lens = torch.tensor([96, 160, 129, 65], dtype=torch.int32,
+                        device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(Bw, Hw, Dw, dtype=dt)
+        k = randn(Bw, Sw, KVw, Dw, dtype=dt)
+        v = randn(Bw, Sw, KVw, Dw, dtype=dt, scale=0.5)
+        case = f"B={Bw} H={Hw} KV={KVw} D={Dw} S={Sw} {str(dt)[6:]}"
+        err = check("flash_decode", case,
+                    dops.decode_mha(q, k, v, lens, impl="cuda"),
+                    dops.decode_mha(q, k, v, lens, impl="reference"),
+                    F32_TOL if dt == torch.float32 else BF16_TOL)
+    ops_, bytes_ = dops.decode_cost(q.shape, k.shape, int(lens.sum()),
+                                    q.element_size())
+    record("flash_decode", f"bf16 B={Bw} H={Hw} KV={KVw} D={Dw} S={Sw} "
+           "lengths 65-160 (granite-3-2b's contiguous caches of 255 on a "
+           "dp2tp2 rank, whole over model: every query head, gathered, "
+           "against every KV head); library = SDPA with a length mask",
+           lambda: dops.decode_mha(q, k, v, lens, impl="cuda"),
+           lambda: dops.decode_mha(q, k, v, lens, impl="reference"),
            lambda: sdpa_decode_ms(torch, timer, q, k, v, lens), bytes_, ops_,
            err)
     if failures:
@@ -5533,12 +5651,20 @@ def mesh_phase(torch, timer):
       version; the serve bundle's last decode-step logits over 64
       prefilled + 4 decoded positions (`dev_serve_torch.bundle_logits`:
       every step merges both ranks' blocks) no further from the meshless
-      bundle's in bf16 than bf16 is from float32;
+      bundle's in bf16 than bf16 is from float32; caches of 255
+      positions (ROADMAP A16f: the extent does not divide over `model`,
+      so every rank holds them whole and decodes every query head,
+      gathered, with flash_decode, keeping its own, no lse, no merge):
+      float32 tokens of every rank equal the meshless engine's, each
+      rank half the caches, flash_mha and flash_decode launched
+      (flash_decode once a layer a decode step) and flash_decode_lse not
+      at all;
     * on the same ranks, `moe_ep` at granite-moe-1b-a400m's widths (d
       1024, 32 experts, top 8, ff 512; EP over `model`), x (4, 128,
       1024) float32: with capacity 8.0 no pair drops and y is within 1e-4
       of `moe_dense` (relative to its largest entry), aux within 1e-4;
-      with the config's capacity the dropped pairs are printed.
+      with the config's capacity the dispatch drops pairs (some on some
+      rank, y finite) and their count is printed.
     Training on the same ranks, after their serving runs (ROADMAP A16b,
     `runtime.train.make_bundle(mesh=)`; granite-3-2b cut to
     MESH_TRAIN_LAYERS layers, batch 8 x 256, remat block, the seed-0
@@ -5557,7 +5683,9 @@ def mesh_phase(torch, timer):
       float32; replicas bit-equal, a rank's state bytes its spec share,
       flash_mha and its backward launched on every rank, no plain
       version; `moe_ep`'s gradients at granite-moe's widths (capacity
-      8.0, the training rules' layout) within 1e-4 of `moe_dense`'s.
+      8.0, the training rules' layout) within 1e-4 of `moe_dense`'s, at
+      x (4, 128, 1024) and at an odd sequence, x (2, 127, 1024), which
+      does not split over the EP axis (ROADMAP A16f).
     The other stacks on the same ranks after those runs (ROADMAP A16d;
     MESH_STACKS, 4 chat requests of 16 new tokens on 4 slots, their
     float32 masters by CUDA IPC):
@@ -5644,10 +5772,12 @@ def mesh_phase(torch, timer):
                                        ("w_down", (E, ff, d), ff ** -0.5))}
     x = rng.normal(0, 1, (4, 128, d)).astype(np.float32)
     cot = rng.normal(0, 1, (4, 128, d)).astype(np.float32)
+    x_odd, cot_odd = (rng.normal(0, 1, (*MOE_ODD_SHAPE, d)).astype(
+        np.float32) for _ in range(2))
     cases = [(dataclasses.replace(mcfg, capacity_factor=c or
                                   mcfg.capacity_factor), None, "rowcol")
              for _, c in MOE_CAPS]
-    runs = [dict(r, **MESH_CELL) for r in MESH_RUNS]
+    runs = [dict(MESH_CELL, **r) for r in MESH_RUNS]
     # the other stacks and the speculative engine: 4 chat requests of 16
     # new tokens each, float32 masters drawn here from seed 0
     stacks = {}
@@ -5719,7 +5849,11 @@ def mesh_phase(torch, timer):
                                  [dict(r, **spec_cell)
                                   for r in MESH_SPEC_RUNS], "cuda"))]
              + [mesh_train_stack_four(inp)
-                for inp in train_stacks.values()],),
+                for inp in train_stacks.values()]
+             + [(dtt.moe_grad_rank, (2, 2, moe_params, x_odd, cot_odd,
+                                     dataclasses.replace(
+                                         mcfg, capacity_factor=8.0),
+                                     "cuda"))],),
             device="cuda", backend="gloo", wall_s=900, threads=1)
 
         # --- the meshless engine, this process ------------------------
@@ -5727,7 +5861,9 @@ def mesh_phase(torch, timer):
         for i, run in enumerate((*MESH_RUNS, MAIN_RUN, CONTIG_BF16)):
             rcfg = dataclasses.replace(cfg, dtype=run["dtype"])
             ecfg = dst.mesh_ecfg(8, 128, 32, pool_dtype=run["pool_dtype"],
-                                 paged=run.get("paged", True), **MESH_CELL)
+                                 paged=run.get("paged", True),
+                                 **dict(MESH_CELL, max_seq=run.get(
+                                     "max_seq", MESH_CELL["max_seq"])))
             eng = ServingEngine.build(rcfg, ecfg, params=params)
             reqs = [Request(request_id=j, tokens=p, max_new_tokens=32,
                             arrival=0.0) for j, p in enumerate(prompts)]
@@ -5800,6 +5936,9 @@ def mesh_phase(torch, timer):
                                       gate)
     moe_grad_gate(torch, [g[3] for g in got], moe_params, x, cot,
                   dataclasses.replace(mcfg, capacity_factor=8.0), gate)
+    # S 127 on the EP axis of 2: the sequence does not split over it
+    moe_grad_gate(torch, [g[-1] for g in got], moe_params, x_odd, cot_odd,
+                  dataclasses.replace(mcfg, capacity_factor=8.0), gate)
     del train_inp
     # the other stacks' training (ROADMAP A16e), after the speculative
     # runs in each rank's calls; the (1, 1) rank's last call
@@ -5861,13 +6000,31 @@ def mesh_phase(torch, timer):
               f" host memory, 4 ranks on one card) vs meshless "
               f"{8 * 32 / ref[i]['wall_s']:.1f}")
         paged = run.get("paged", True)
+        want = (BUCKET_KERNELS if paged else CONTIG_WHOLE_KERNELS
+                if run is CONTIG_WHOLE else CONTIG_KERNELS)
         for r, p in enumerate(per):
             print(f"    rank {r} {p['coord']}: launches {p['launches']} "
                   f"plain {p['plain']}")
-            gate(all(p["launches"].get(k, 0) > 0 for k in
-                     (BUCKET_KERNELS if paged else CONTIG_KERNELS))
+            gate(all(p["launches"].get(k, 0) > 0 for k in want)
                  and not p["plain"], f"dp2tp2 {run['name']} rank {r}: "
                  f"launches {p['launches']}, plain {p['plain']}")
+        if run is CONTIG_WHOLE:
+            # every layer's decode in every step is one flash_decode
+            steps = {p["summary"]["steps"] for p in per}
+            n_dec = {p["launches"].get("flash_decode", 0) for p in per}
+            print(f"  kernels dp2tp2 {run['name']} (caches of 255 whole over"
+                  f" model; every query head gathered, no merge): "
+                  f"flash_mha and flash_decode, launches a rank "
+                  f"{sorted(n_dec)} for {sorted(steps)} decode steps x "
+                  f"{cfg.num_layers} layers; flash_decode_lse "
+                  f"{[p['launches'].get('flash_decode_lse', 0) for p in per]}"
+                  f"; cache bytes a rank {per[0]['pool_bytes'] / 1e6:.2f} MB"
+                  f" vs {ref[i]['pool_bytes'] / 1e6:.2f} meshless")
+            gate(len(steps) == 1 and n_dec == {cfg.num_layers * steps.pop()}
+                 and not any("flash_decode_lse" in p["launches"]
+                             for p in per),
+                 f"dp2tp2 {run['name']}: flash_decode launches {n_dec}, "
+                 f"lse {[p['launches'].get('flash_decode_lse') for p in per]}")
         gate(per[0]["substrate"] == ("physical" if paged else "off"),
              f"dp2tp2 {run['name']}: substrate {per[0]['substrate']}")
         if run.get("decode_logits"):
@@ -6008,12 +6165,22 @@ def mesh_phase(torch, timer):
         if label == "no drops":
             gate(dropped == 0 and err < 1e-4 and aux_err < 1e-4,
                  f"moe_ep: dropped {dropped}, y {err}, aux {aux_err}")
+        else:
+            gate(dropped > 0 and all(np.isfinite(p["y"]).all() for p in per),
+                 f"moe_ep at the config's capacity: dropped {dropped}")
     for rec in shard_records:
+        if "head cut" in rec["case"]:
+            print(f"  {rec['name']}: {rec['ms']:.4f} ms at a head cut's "
+                  f"shard shape ({rec['case']}); no mesh here cuts a head "
+                  "(the witness above runs the cut's shapes)")
+            continue
         # (which rank result, which run, its label) holds the launches of
         # the shard shape's kernel on the main path
         src, i, label = {
             "ssd_scan": (n_fixed, 0, "mamba2 f32 fp"),
             "flash_decode_lse": (n_fixed + 1, 1, "seamless f32 contiguous"),
+            "flash_decode": (0, MESH_RUNS.index(CONTIG_WHOLE),
+                             "granite f32 contiguous 255"),
         }.get(rec["name"], (0, 1, "granite f32 int8"))
         if "train shard" in rec["case"]:
             src, i, label = 2, 1, "granite bf16 train"

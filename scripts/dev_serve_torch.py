@@ -387,6 +387,33 @@ def resident_nbytes(caches) -> int:
     return sum(leaf_bytes(x) for x in resident_leaves(caches).values())
 
 
+def leaf_nbytes(caches) -> dict:
+    """{leaf name: bytes of that leaf summed over the layer positions}."""
+    out = {}
+    for c in caches.values():
+        for k, x in c.items():
+            out[k] = out.get(k, 0) + leaf_bytes(x)
+    return out
+
+
+def spec_shares(cells, mesh) -> dict:
+    """The bytes a rank's shard of an engine's caches holds under its
+    specs (`EngineCells.cache_pspecs`: `runtime.sharding.local_shape` of
+    each leaf of the global `abstract_caches`), and the global tree's:
+    {"pool": (share, global), "resident": (share, global)}, the pool
+    being the K / V leaves and their int8 (scale, zero) (the contiguous
+    layout's K / V caches), the resident leaves the rest."""
+    out = {"pool": [0, 0], "resident": [0, 0]}
+    for pos, c in cells.abstract_caches.items():
+        for key, x in c.items():
+            part = out["pool" if key in blk.PAGED_LEAF_NAMES else "resident"]
+            size = x.element_size()
+            part[0] += size * int(np.prod(shd.local_shape(
+                x.shape, cells.cache_pspecs[pos][key], mesh)))
+            part[1] += size * x.numel()
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def mesh_ecfg(n_req: int, n: int, gen: int, **kw) -> EngineConfig:
     """The reference lane's engine: n_req slots, one bucket n, pages of
     PAGE tokens, half the pool local (pages move through the substrate),
@@ -410,8 +437,8 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     engine from the global float32 master weights `params` (the tree as
     numpy, or as the caller's tensors on the rank's card, shared with the
     rank by CUDA IPC). A run is a dict of `EngineConfig` fields plus
-    "dtype" (the model's compute dtype), "name" and "gate" (read by
-    `mesh_gates` only), "logits" (see below), "resident" (True: return
+    "dtype" (the model's compute dtype), "name", "gate" and "whole"
+    (read by `mesh_gates` only), "logits" (see below), "resident" (True: return
     the rank's slot-resident leaves after the run as numpy), "extras"
     ({request id: {"frames" or "patches": numpy}}: the frontend
     embeddings of each request in place of the engine's own draws) and
@@ -448,8 +475,9 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
         want_resident = run.get("resident", False)
         extras, draft = run.get("extras"), run.get("draft_params")
         run = {k: v for k, v in run.items()
-               if k not in ("name", "gate", "logits", "decode_logits",
-                            "resident", "extras", "draft_params")}
+               if k not in ("name", "gate", "whole", "logits",
+                            "decode_logits", "resident", "extras",
+                            "draft_params")}
         rcfg = dataclasses.replace(cfg, dtype=run.pop("dtype", cfg.dtype))
         ecfg = mesh_ecfg(n_req, n, gen, **run)
         t_build = time.perf_counter()
@@ -498,6 +526,8 @@ def mesh_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
             pool_bytes=pool_nbytes(eng.caches),
             resident_digests=resident_digests(eng.caches),
             resident_bytes=resident_nbytes(eng.caches),
+            leaf_bytes=leaf_nbytes(eng.caches),
+            shares=spec_shares(eng.cells, mesh),
             resident=({k: x.float().cpu().numpy() for k, x in
                        resident_leaves(eng.caches).items()}
                       if want_resident else None),
@@ -569,8 +599,9 @@ def bundle_logits(cfg, params, dtype: str, device, mesh=None) -> np.ndarray:
     caches, logits = sb.prefill_fn(params,
                                    {"tokens": tokens[:, :d["prompt"]]})
     if ctx is not None:
-        caches = serve_rt.prefill_cache_shards(caches, ctx,
-                                               cfg.num_kv_heads)
+        caches = serve_rt.prefill_cache_shards(
+            caches, ctx, cfg.num_kv_heads,
+            serve_rt.seq_split_leaves(sb.cache_pspecs))
     for i in range(d["prompt"], d["total"]):
         logits, caches = sb.decode_fn(params, tokens[:, i], caches, i)
     if logits.shape[0] != d["batch"]:
@@ -696,7 +727,8 @@ def mesh_stack_ops_rank(rank: int, world: int, dp: int, tp: int, cases,
                               (state, *tails)))
             shards = serve_rt.prefill_cache_shards(
                 {"pos0": {k: v[None] for k, v in leaves.items()}}, ctx,
-                cfg.num_kv_heads)["pos0"]
+                cfg.num_kv_heads,
+                serve_rt.seq_split_leaves(bundle.cache_pspecs))["pos0"]
             y1, (state1, tails1) = ssm.ssm_decode_step(
                 p0["ssm"], x1[r0:r1], cfg, shards["state"][0],
                 tuple(shards[k][0] for k in ("tail_x", "tail_B", "tail_C")),
@@ -709,13 +741,14 @@ def mesh_stack_ops_rank(rank: int, world: int, dp: int, tp: int, cases,
             y = attn.cross_attention(p0["cross"], x, (ck, cv), cfg, ctx)
             paged = attn.decode_cross_attention(
                 p0["cross"], x1[r0:r1], (ck[r0:r1], cv[r0:r1]), cfg, ctx)
+            split = serve_rt.seq_split_leaves(bundle.cache_pspecs)
             blocks = serve_rt.prefill_cache_shards(
                 {"pos0": {"cross_k": ck[None], "cross_v": cv[None]}}, ctx,
-                cfg.num_kv_heads)["pos0"]
+                cfg.num_kv_heads, split)["pos0"]
             contig = attn.decode_cross_attention(
                 p0["cross"], x1[r0:r1],
                 (blocks["cross_k"][0], blocks["cross_v"][0]), cfg, ctx,
-                seq_split=True)
+                seq_split=split["cross_k"])
             got = dict(prefill=y, paged=rows(paged), contiguous=rows(contig))
         out.append({k: v.float().cpu().numpy() for k, v in got.items()})
         out[-1]["coord"] = (ctx.index("data"), ctx.index("model"))
@@ -771,14 +804,16 @@ def mesh_moe_rank(rank: int, world: int, dp: int, tp: int, params, x,
 
 
 def mesh_bundle_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
-                     prompts, steps, max_seq: int, device) -> dict:
+                     prompts, steps, max_seq: int, device,
+                     frames=None) -> dict:
     """One rank of the serve bundle over a (dp, tp) mesh
     (`runtime.serve.make_bundle(mesh=)`, its default context and the
     serving rules): the global params (numpy) cut into the rank's shard,
-    the prefill step over `prompts` (B, S0), its caches turned into the
-    decode step's shards (`serve.prefill_cache_shards`), then one decode
-    step per row of `steps` (n, B) at positions S0, S0 + 1, ... (scalar
-    t). Returns the prefill's logits and each decode step's (every row,
+    the prefill step over `prompts` (B, S0) (and, for an encoder-decoder
+    arch, `frames` (B, S_enc, d), which set the cross-KV's extent), its
+    caches turned into the decode step's shards
+    (`serve.prefill_cache_shards`), then one decode step per row of
+    `steps` (n, B) at positions S0, S0 + 1, ... (scalar t). Returns the prefill's logits and each decode step's (every row,
     gathered over the dp axes; float32 numpy), the rank's cache shards
     after the last step ({"pos0/k": numpy}), its (data, model)
     coordinate and the kernels' launch and plain-call counts."""
@@ -789,13 +824,19 @@ def mesh_bundle_rank(rank: int, world: int, cfg, dp: int, tp: int, params,
     ctx = mesh_mod.ctx_for_mesh(mesh, remat="none")
     prompts = torch.as_tensor(np.asarray(prompts), device=dev)
     B, S0 = prompts.shape
-    bundle = serve_rt.make_bundle(cfg, batch=B, max_seq=max_seq, mesh=mesh,
-                                  ctx=ctx)
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(np.asarray(frames), device=dev)
+    bundle = serve_rt.make_bundle(
+        cfg, batch=B, max_seq=max_seq, mesh=mesh, ctx=ctx,
+        enc_len=0 if frames is None else batch["frames"].shape[1])
     local = shd.shard_tree(load_numpy_params(params, device=dev),
                            bundle.param_pspecs, mesh)
     kernels.reset_counters()
-    caches, logits = bundle.prefill_fn(local, {"tokens": prompts})
-    caches = serve_rt.prefill_cache_shards(caches, ctx, cfg.num_kv_heads)
+    caches, logits = bundle.prefill_fn(local, batch)
+    caches = serve_rt.prefill_cache_shards(
+        caches, ctx, cfg.num_kv_heads,
+        serve_rt.seq_split_leaves(bundle.cache_pspecs))
     out = [logits]
     for i, tok in enumerate(np.asarray(steps)):
         logits, caches = bundle.decode_fn(
@@ -876,22 +917,23 @@ def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
     Where `ref_resident_bytes` gives the meshless engine's slot-resident
     bytes of a run (SSM state, conv tails, cross-KV), each rank holds
     1/(dp tp) of them (slots over `data`, heads or channels or encoder
-    positions over `model`). Returns the failures (empty: every gate
-    held)."""
+    positions over `model`). A run's "whole" names the leaves it expects
+    whole over `model` (1/dp a rank: K / V whose extent does not divide
+    over tp, an SSM state whose heads a rank cuts). The global cache
+    tree's bytes (`spec_shares`) equal the meshless engine's. Returns
+    the failures (empty: every gate held)."""
     failed = []
     for i, run in enumerate(runs):
         per = [r[i] for r in results]
         name = run.get("name", f"run {i}")
+        fraction = _fractions(run.get("whole", ()), len(per) // tp, tp)
         ref_res = (ref_resident_bytes or {}).get(i)
-        if ref_res and any(p["resident_bytes"] * len(per) != ref_res
-                           for p in per):
-            failed.append(f"{name}: resident bytes "
-                          f"{[p['resident_bytes'] for p in per]} vs "
-                          f"{ref_res} / {len(per)}")
+        if ref_res:
+            failed += _bytes_gates(per, "resident", ref_res, fraction, name)
         if not run.get("paged", True):
             failed += _contiguous_gates(per, ref_tokens[i],
                                         ref_pool_bytes.get(i), name,
-                                        run.get("gate", True))
+                                        run.get("gate", True), fraction)
             continue
         if any(not np.array_equal(p["tokens"], per[0]["tokens"])
                for p in per):
@@ -921,12 +963,36 @@ def mesh_gates(results: list, ref_tokens: dict, ref_pool_bytes: dict,
     return failed
 
 
-def _contiguous_gates(per, ref_tokens, ref_bytes, name,
-                      gate: bool = True) -> list:
+def _fractions(whole, dp: int, tp: int):
+    """leaf name -> the number of ranks that split it: dp for a leaf of
+    `whole` (whole over `model`), dp tp for every other."""
+    return lambda key: dp if key in whole else dp * tp
+
+
+def _bytes_gates(per, part: str, ref_bytes: int, fraction, name) -> list:
+    """Each rank's bytes of `part` ("pool": the K / V leaves and their
+    int8 (scale, zero); "resident": the rest) are the meshless engine's
+    `ref_bytes` cut by the expected `fraction` of every leaf, and the
+    global tree's (`spec_shares`) are `ref_bytes`."""
+    failed = []
+    scaled = [sum(n * fraction(k) for k, n in p["leaf_bytes"].items()
+                  if (k in blk.PAGED_LEAF_NAMES) == (part == "pool"))
+              for p in per]
+    if any(s != ref_bytes for s in scaled):
+        failed.append(f"{name}: {part} bytes a rank "
+                      f"{[p[part + '_bytes'] for p in per]}, scaled by the "
+                      f"ranks that split each leaf {scaled}, vs {ref_bytes}")
+    if any(p["shares"][part][1] != ref_bytes for p in per):
+        failed.append(f"{name}: the global {part} tree's bytes "
+                      f"{[p['shares'][part][1] for p in per]} vs {ref_bytes}")
+    return failed
+
+
+def _contiguous_gates(per, ref_tokens, ref_bytes, name, gate: bool,
+                      fraction) -> list:
     """`mesh_gates` of a contiguous run: every rank's tokens equal rank
-    0's and (`gate`) the meshless engine's; each rank holds the same
-    share of the meshless caches' bytes, world of them adding up to
-    all."""
+    0's and (`gate`) the meshless engine's; each rank holds the caches'
+    bytes cut by the expected `fraction` of each leaf (`_bytes_gates`)."""
     failed = []
     if any(not np.array_equal(p["tokens"], per[0]["tokens"]) for p in per):
         failed.append(f"{name}: the ranks' tokens differ")
@@ -934,10 +1000,8 @@ def _contiguous_gates(per, ref_tokens, ref_bytes, name,
     if gate and not agree["exact"]:
         failed.append(f"{name}: tokens differ from the meshless engine's "
                       f"{agree}")
-    if ref_bytes and any(p["pool_bytes"] * len(per) != ref_bytes
-                         for p in per):
-        failed.append(f"{name}: cache bytes {[p['pool_bytes'] for p in per]}"
-                      f" vs {ref_bytes} / {len(per)}")
+    if ref_bytes:
+        failed += _bytes_gates(per, "pool", ref_bytes, fraction, name)
     return failed
 
 

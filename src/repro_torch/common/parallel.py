@@ -30,6 +30,10 @@ ranks hold different rows and the step sums their gradients
   or tokens: FSDP, the MoE router) the sum over the ranks first, a
   reduce-scatter;
 * `all_to_all`: backward the inverse exchange, which is the same call;
+* `count_once` (identity forward) where every rank of an axis computes
+  the same value from the same inputs, and those inputs entered the
+  region: backward the cotangent divided by the axis size, so that the
+  ranks' gradients, summed over the axis, count the work once;
 * `local_slice` is a view, whose backward is zeros around the cotangent.
 
 `torch.distributed.nn.functional.all_reduce` is not used: its backward
@@ -302,6 +306,28 @@ def enter_region(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
     if not _grad_path(x) or not _live(ctx, axes):
         return x
     return _Reduce.apply(x, ctx, (), _axes(axes))
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, n):
+        fctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.n, None
+
+
+def count_once(x: torch.Tensor, ctx: ParallelCtx, axes) -> torch.Tensor:
+    """The identity; with grad, its backward divides the cotangent by the
+    size of `axes`: every rank of them computed `x` alike (replicated
+    work on replicated inputs that entered the region), and each rank's
+    cotangent is the whole one."""
+    n = math.prod(ctx.axis_size(a) for a in _axes(axes))
+    if not _grad_path(x) or n == 1:
+        return x
+    return _CountOnce.apply(x, n)
 
 
 def all_gather(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int, *,

@@ -10,6 +10,7 @@ Usage:
   python -m repro_torch.launch.dryrun --mesh 16x16 --arch qwen2.5-32b \\
       --shape decode_32k
   python -m repro_torch.launch.dryrun --all --multi-pod [--no-fsdp]
+  python -m repro_torch.launch.dryrun --mesh 1x32 --arch mamba2-780m
 
 Every cell runs at its published widths on the meta device: the serve
 bundle's meta params and caches (`runtime.serve.make_bundle`), the train
@@ -33,10 +34,10 @@ decode; the context `ctx_for_mesh(mesh, fsdp=not --no-fsdp)`), every
 collective records its wire bytes under the ring model instead of
 running (`common.parallel`), and the roofline prices one card of
 `mesh.size`. A train cell's microbatches are the table's, capped at the
-rank's rows. Every stack's prefill and decode cells run over a mesh; a
-train cell whose stack does not train over a mesh yet (SSM, hybrid,
-vision-prefix and encoder-decoder stacks) is an error naming ROADMAP
-A16e.
+rank's rows. Every stack's cells run over a mesh, one whose model axis
+cuts an SSM head across two ranks included (`models.ssm`, trap (d): a
+decode step gathers each layer's state over it). `--arch` without
+`--shape` traces every cell of the arch.
 
 Writes one JSON per cell under results/dryrun_torch/ (the reference's
 TPU records under results/dryrun/ are never read), named by arch, shape
@@ -215,8 +216,7 @@ def part_cost(cfg, shape: ShapeConfig, m=None, *, remat: str = "block",
     piece of `cell_parts`: the train step over `m` microbatches (all of
     them when None), or the prefill or decode step, of `cfg` at `shape`
     on meta tensors; over `mesh` (an `AbstractMesh`) the step of its
-    rank at `mesh.coords` on that rank's shards (a stack that does not
-    train over a mesh yet raises, naming ROADMAP A16e)."""
+    rank at `mesh.coords` on that rank's shards."""
     n_active = cfg.active_param_count()
     ctx = None
     if mesh is not None:
@@ -416,8 +416,11 @@ def main(argv=None):
                        key=lambda c: SHAPES[c[1]].kind != "train")
     elif args.arch and args.shape:
         cells = [(configs.canonical(args.arch), args.shape)]
+    elif args.arch:
+        arch = configs.canonical(args.arch)
+        cells = [(arch, s.name) for s in configs.shapes_for(arch)]
     else:
-        _parser().error("give --arch and --shape, or --all")
+        _parser().error("give --arch (and --shape), or --all")
     tasks = [(a, s, m) for a, s in cells for m in _parts_of(a, s, args)]
     if len(tasks) > 1:
         with concurrent.futures.ProcessPoolExecutor(

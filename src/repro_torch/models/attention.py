@@ -220,15 +220,18 @@ def decode_cross_attention(params, x, cross_kv, cfg: ModelConfig,
 
     Over a mesh the K/V are the rank's shard of the slot-resident
     cross-KV. In the paged layout (`paged_cache_pspec`) they hold the
-    rank's KV heads at every encoder position: the rank decodes its query
-    heads against them (every query head, gathered, where its heads are
-    not whole GQA groups of the KV heads it holds). In the contiguous
-    layout (`cache_pspec`, `seq_split`) they hold every KV head at the
-    rank's block of S_enc / tp encoder positions, every one of them live:
-    q is gathered over tp, the rank decodes its block with the
-    log-sum-exp and the ranks' blocks merge by it
-    (`_merge_over_tp`, as `decode_self_attention` does). wo is
-    row-parallel."""
+    rank's KV heads at every encoder position (every KV head where they
+    do not divide over tp); in the contiguous one (`cache_pspec`) every
+    KV head, at every encoder position where S_enc does not divide over
+    tp. The rank decodes its query heads against them (`_pool_heads`:
+    every query head, gathered, where they hold every KV head and its
+    heads are not whole GQA groups of them). Where the contiguous layout
+    splits S_enc (`seq_split`, read from the leaf's spec) the K/V hold
+    every KV head at the rank's block of
+    S_enc / tp encoder positions, every one of them live: q is gathered
+    over tp, the rank decodes its block with the log-sum-exp and the
+    ranks' blocks merge by it (`_merge_over_tp`, as
+    `decode_self_attention` does). wo is row-parallel."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k, v = cross_kv
@@ -240,8 +243,8 @@ def decode_cross_attention(params, x, cross_kv, cfg: ModelConfig,
                                          return_lse=True)
         out = _merge_over_tp(out, lse, ctx, H_loc, q.dtype)
     else:
-        q, unshard = _pool_heads(q, ctx, cfg, k)
-        out = decode_ops.decode_mha(q[:, 0], k, v, k.shape[1])
+        q, unshard = _pool_heads(q[:, 0], ctx, cfg, k)
+        out = decode_ops.decode_mha(q, k, v, k.shape[1])
         if unshard is not None:
             out = unshard(out)
     return _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)[:, None, :]
@@ -257,27 +260,19 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _seq_block(ctx: ParallelCtx, S_loc: int) -> int:
-    """The first position of the rank's block of a contiguous cache whose
-    sequence (S_loc positions a rank) is split over the tp axis
-    (`runtime.sharding.cache_pspec`); 0 without a split."""
-    if ctx.axis_size(ctx.tp_axis) == 1:
-        return 0
-    return ctx.index(ctx.tp_axis) * S_loc
-
-
-def _cache_insert(cache, new, t, ctx: ParallelCtx = SINGLE):
+def _cache_insert(cache, new, t, base: int = 0):
     """Write `new` (B, 1, KV, hd) into the contiguous cache (B, S, KV, hd)
     at position(s) t — a scalar shared by the batch or a (B,) vector of
     per-slot positions — in place. A position >= S writes nothing
     (parked slots), as the reference's iota mask does: the row at the
     clamped position is read back and rewritten unchanged, so no host
     sync is needed to find the live rows. Over a mesh whose tp axis
-    splits the sequence the cache holds the rank's block of positions
-    and t is global: a position outside the block writes nothing (the
-    reference's iota mask on the sharded cache). Returns `cache`."""
+    splits the sequence the cache holds the rank's block of positions,
+    starting at `base`, and t is global: a position outside the block
+    writes nothing (the reference's iota mask on the sharded cache).
+    Returns `cache`."""
     B, S = cache.shape[0], cache.shape[1]
-    t_vec = _t_vec(t, B, cache.device) - _seq_block(ctx, S)
+    t_vec = _t_vec(t, B, cache.device) - base
     pos = t_vec.clamp(0, S - 1)
     rows = torch.arange(B, device=cache.device)
     live = ((t_vec >= 0) & (t_vec < S))[:, None, None]
@@ -287,7 +282,8 @@ def _cache_insert(cache, new, t, ctx: ParallelCtx = SINGLE):
 
 
 def decode_self_attention(params, x, cfg: ModelConfig, k_cache, v_cache, t,
-                          rope: bool = True, ctx: ParallelCtx = SINGLE):
+                          rope: bool = True, ctx: ParallelCtx = SINGLE,
+                          seq_split: bool = False):
     """Single-token decode against the contiguous caches: insert the new
     K/V at position(s) t (in place), then attend to the prefix through
     the decode op with valid lengths t + 1. x (B, 1, d); k/v_cache
@@ -296,39 +292,46 @@ def decode_self_attention(params, x, cfg: ModelConfig, k_cache, v_cache, t,
     (k_cache, v_cache)).
 
     Over a mesh (`runtime.sharding.cache_pspec`) x, t and the caches
-    hold the rank's slots, and a tp axis of size n > 1 splits the
-    caches' sequence: rank r holds every KV head at positions
-    [r S_loc, (r + 1) S_loc). The new token's q, k and v are gathered
-    over tp on their head dim where wq / wk / wv split it; each rank
-    writes k and v where t falls in its block, decodes its block with
-    lengths clamp(t + 1 - r S_loc, 0, S_loc) and the log-sum-exp, and
-    the ranks' outputs merge by it (`decode_ops.merge_blocks`: one
-    gather of (out, lse) over tp, float32, in rank order). Rank 0 holds
-    position 0, so every row has a block with a key. The rank keeps its
-    own query heads for the row-parallel wo and its sum over tp. With tp
-    1 this is the meshless decode, op for op."""
+    hold the rank's slots, and the caches every KV head. The new token's
+    k and v are gathered over tp on their head dim where wk / wv split
+    it. Where the caches' extent does not divide over tp (`seq_split`
+    False, read from the leaves' spec) they hold every position: the
+    rank writes k and v at t and decodes every query head, gathered over
+    tp, against them, keeping its own (`_pool_heads`; no log-sum-exp, no
+    merge). Where it divides (`seq_split`), rank r holds positions
+    [r S_loc, (r + 1) S_loc): q is gathered over tp too, the rank writes
+    k and v where t
+    falls in its block, decodes its block with lengths clamp(t + 1 - r
+    S_loc, 0, S_loc) and the log-sum-exp, and the ranks' outputs merge
+    by it (`decode_ops.merge_blocks`: one gather of (out, lse) over tp,
+    float32, in rank order). Rank 0 holds position 0, so every row has a
+    block with a key. The rank keeps its own query heads for the
+    row-parallel wo and its sum over tp. With tp 1 this is the meshless
+    decode, op for op."""
     B = x.shape[0]
     t_vec = _t_vec(t, B, x.device)
     q, k, v = _qkv(params, x, cfg, t_vec[:, None], rope)
-    tp = ctx.axis_size(ctx.tp_axis)
-    if tp == 1:
-        _cache_insert(k_cache, k, t_vec)
-        _cache_insert(v_cache, v, t_vec)
-        out = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, t_vec + 1)
-        out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
-        return out[:, None, :], (k_cache, v_cache)
-    H_loc = q.shape[2]
-    if H_loc != cfg.num_heads:
-        q = all_gather(q, ctx, ctx.tp_axis, 2)
     if k.shape[2] != cfg.num_kv_heads:
         k, v = all_gather(torch.stack([k, v]), ctx, ctx.tp_axis, 3)
-    _cache_insert(k_cache, k, t_vec, ctx)
-    _cache_insert(v_cache, v, t_vec, ctx)
-    S_loc = k_cache.shape[1]
-    length = (t_vec + 1 - _seq_block(ctx, S_loc)).clamp(0, S_loc)
-    out, lse = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, length,
-                                     return_lse=True)
-    out = _merge_over_tp(out, lse, ctx, H_loc, q.dtype)
+    if not seq_split or ctx.axis_size(ctx.tp_axis) == 1:
+        _cache_insert(k_cache, k, t_vec)
+        _cache_insert(v_cache, v, t_vec)
+        q, unshard = _pool_heads(q[:, 0], ctx, cfg, k_cache)
+        out = decode_ops.decode_mha(q, k_cache, v_cache, t_vec + 1)
+        if unshard is not None:
+            out = unshard(out)
+    else:
+        H_loc = q.shape[2]
+        if H_loc != cfg.num_heads:
+            q = all_gather(q, ctx, ctx.tp_axis, 2)
+        S_loc = k_cache.shape[1]
+        base = ctx.index(ctx.tp_axis) * S_loc
+        _cache_insert(k_cache, k, t_vec, base)
+        _cache_insert(v_cache, v, t_vec, base)
+        length = (t_vec + 1 - base).clamp(0, S_loc)
+        out, lse = decode_ops.decode_mha(q[:, 0], k_cache, v_cache, length,
+                                         return_lse=True)
+        out = _merge_over_tp(out, lse, ctx, H_loc, q.dtype)
     out = _out_proj(out, params, ctx, "bhk,hkd->bd", cfg)
     return out[:, None, :], (k_cache, v_cache)
 

@@ -301,7 +301,7 @@ def init_pool_twin(caches: dict, *, pinned: bool = False) -> dict:
 # ------------------------------------------------------------------ apply
 def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
                         block_table, page_tokens: int, attn_override=None,
-                        ctx: ParallelCtx = SINGLE):
+                        ctx: ParallelCtx = SINGLE, seq_split=None):
     """One layer, one token per slot (or, via `attn_override`, one prompt
     chunk), against the cache views `c` (updated in place): the paged
     pool through `block_table`, or the contiguous per-slot caches when
@@ -313,7 +313,10 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
     so the chunked and the decode streams cannot diverge in a layer
     change. Over a mesh x may hold only this rank's rows of the slots
     (`block_table` has them all; see `attention.
-    paged_decode_self_attention`)."""
+    paged_decode_self_attention`), and `seq_split` ({leaf name: bool},
+    the contiguous caches' only) says which attention leaves hold the
+    rank's block of positions over tp."""
+    split = seq_split or {}
     h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
     if desc.kind != "attn":
         h, (state, tails) = ssm_mod.ssm_decode_step(
@@ -328,13 +331,14 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
             p["attn"], h, cfg, c, t, block_table, page_tokens, ctx=ctx)
     else:
         h, _ = attn.decode_self_attention(p["attn"], h, cfg, c["k"], c["v"],
-                                          t, ctx=ctx)
+                                          t, ctx=ctx,
+                                          seq_split=split.get("k", False))
     x = x + h
     if desc.cross:
         h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         x = x + attn.decode_cross_attention(
             p["cross"], h, (c["cross_k"], c["cross_v"]), cfg, ctx,
-            seq_split=block_table is None)
+            seq_split=block_table is None and split.get("cross_k", False))
     # the contiguous caches over a mesh hold the rank's slots: x holds
     # them (all of them where the dp axes do not split the slots)
     local = (x.shape[0] != block_table.shape[0] if block_table is not None
@@ -346,13 +350,20 @@ def _apply_layer_decode(p, c, x, t, cfg: ModelConfig, desc: LayerDesc,
 
 def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
                  page_tokens: int, cross: bool = False,
-                 ctx: ParallelCtx = SINGLE):
+                 ctx: ParallelCtx = SINGLE, seq_split=None):
     """One decode step through the whole stack, x (B, 1, d), against the
     caches (written in place, layer by layer): the paged pool through
     `block_table`, or the contiguous (nb, B, S, KV, hd) caches when
     `block_table` is None. Over a mesh x may hold only this rank's rows
-    of the block table's slots, or of the contiguous caches' slots
-    (sequence-sharded: `attention.decode_self_attention`)."""
+    of the block table's slots, or of the contiguous caches' slots, whose
+    attention leaves named True in `seq_split` hold the rank's block of
+    positions over tp (`attention.decode_self_attention`) and the others
+    every position: over a tp axis the contiguous decode needs it."""
+    if block_table is None and seq_split is None \
+            and ctx.axis_size(ctx.tp_axis) > 1:
+        raise ValueError("the contiguous decode over a tp axis needs "
+                         "seq_split (runtime.serve.seq_split_leaves of the "
+                         "caches' specs)")
     descs = pattern(cfg, cross)
     nb = cfg.num_layers // len(descs)
     for i in range(nb):
@@ -360,7 +371,8 @@ def stack_decode(params, caches, x, t, cfg: ModelConfig, block_table,
             c = layer_slice(caches[f"pos{j}"], i)
             x = _apply_layer_decode(layer_slice(params[f"pos{j}"], i), c,
                                     x, t, cfg, desc, block_table,
-                                    page_tokens, ctx=ctx)
+                                    page_tokens, ctx=ctx,
+                                    seq_split=seq_split)
     return x, caches
 
 

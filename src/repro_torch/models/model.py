@@ -193,7 +193,7 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int,
 
 def decode_step(params, token, caches, t, cfg: ModelConfig,
                 block_table=None, page_tokens: int = 0,
-                ctx: ParallelCtx = SINGLE):
+                ctx: ParallelCtx = SINGLE, seq_split=None):
     """One decode step. token (B,) int; t a scalar position shared by the
     batch or a (B,) vector of per-slot positions. With `block_table`
     (B, n_pages) int32, `caches` is the paged physical page pool
@@ -206,7 +206,10 @@ def decode_step(params, token, caches, t, cfg: ModelConfig,
     The contiguous caches over a mesh hold the rank's slots
     (`runtime.sharding.cache_pspec`): token and t hold every slot (the
     rank takes its rows) or, as many as the caches' rows, the rank's
-    own; the logits are the rank's rows."""
+    own; the logits are the rank's rows. `seq_split` ({leaf name: bool},
+    `runtime.serve.seq_split_leaves` of the caches' specs) names the
+    attention leaves that hold the rank's block of positions over tp;
+    the others hold every position."""
     B = token.shape[0]
     r0, r1 = ctx.batch_rows(B) if block_table is not None else (0, B)
     if block_table is None and ctx.mesh is not None \
@@ -219,7 +222,7 @@ def decode_step(params, token, caches, t, cfg: ModelConfig,
     x, caches = blocks.stack_decode(params["blocks"], caches, x, t, cfg,
                                     block_table, page_tokens,
                                     cross=bool(cfg.num_encoder_layers),
-                                    ctx=ctx)
+                                    ctx=ctx, seq_split=seq_split)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg, params.get("head"), ctx)
     return logits[:, 0, :], caches

@@ -24,7 +24,15 @@ backward), the router's experts over the EP axis with a summed backward
 rank takes its block of the sequence, and `all_to_all`'s backward is the
 inverse exchange. The load-balance statistics' `psum` over every axis
 sums their cotangent over the dp axes, whose ranks' losses all read the
-global aux.
+global aux. Where the sequence does not split over the EP axis (S % ep
+!= 0) every rank routes every token, as the forward without grad does:
+the router logits, the aux and the expert outputs of every token are
+then computed alike on every rank, each receiving the whole cotangent.
+So that this replicated work counts once, y's cotangent is divided by
+the EP size (`parallel.count_once`) before the ranks' parts are summed
+over the axis (x entering the region, the router's reduce-scatter); the
+aux needs no division, its statistics already summing ep copies of each
+token.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from repro_torch.common.parallel import (
     ParallelCtx,
     all_gather,
     all_to_all,
+    count_once,
     enter_region,
     gather_param,
     local_slice,
@@ -224,9 +233,9 @@ def moe_ep(params, x, cfg: ModelConfig, ctx: ParallelCtx = SINGLE, *,
     training rules give w_gate / w_up's embed dim to the fsdp axis and
     w_down's ff dim, the first of its dims to ask). Weights split on
     their embed dim are gathered whole over the fsdp axis first. With
-    grad, the EP axis must split the sequence (S % ep == 0): each rank
-    then routes its own tokens, which the router's and x's backward sums
-    assume."""
+    grad, x enters the EP region: each rank routes its own block of the
+    sequence, or every token where S % ep != 0, and then y's cotangent
+    is counted once over the EP axis (module docstring)."""
     if ctx.mesh is None:
         return moe_dense(params, x, cfg)
     B, S, d = x.shape
@@ -257,19 +266,17 @@ def moe_ep(params, x, cfg: ModelConfig, ctx: ParallelCtx = SINGLE, *,
         mode = "gather"
     seq_split = (ctx.shard_seq_moe and ep_axis is not None and ep_size > 1
                  and S % ep_size == 0 and S >= ep_size)
-    if torch.is_grad_enabled() and x.requires_grad and ep_size > 1 \
-            and not seq_split:
-        raise NotImplementedError(
-            f"moe_ep with grad needs the sequence ({S}) split over the EP "
-            f"axis ({ep_size} ranks)")
     xs = x
     if dp_split:
         xs = local_slice(xs, ctx, ctx.dp_axes, 0)
+    xs = enter_region(xs, ctx, ep_axis)
     if seq_split:
-        xs = local_slice(enter_region(xs, ctx, ep_axis), ctx, ep_axis, 1)
+        xs = local_slice(xs, ctx, ep_axis, 1)
     bs, ss = xs.shape[0], xs.shape[1]
     y, aux = _moe_local(params, xs.reshape(-1, d), cfg, ctx, ep_axis, fsdp,
                         ep_size, fsdp_mode=mode)
+    if not seq_split:               # every rank routed every token
+        y = count_once(y, ctx, ep_axis)
     y = y.reshape(bs, ss, d)
     if seq_split:
         y = all_gather(y, ctx, ep_axis, 1)

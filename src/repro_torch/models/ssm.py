@@ -9,15 +9,16 @@ per layer: the SSM state (B, H, P, N) in float32 and the conv tails
 (B, W-1, channels) in the activation dtype.
 
 Over a mesh (`ctx`, `common.parallel`; the serving rules) the block runs
-the rank's heads. `w_in_x`, `w_in_z`, `conv_x`, `norm_scale` and `w_out`
-hold its block of `d_inner` (`ssm_inner` over the model axis), which is
-its heads [r H/tp, (r + 1) H/tp) since `d_inner` is head-major;
+the rank's block of `d_inner`. `w_in_x`, `w_in_z`, `conv_x`,
+`norm_scale` and `w_out` hold channels [c0, c0 + d_inner / tp) of it
+(`ssm_inner` over the model axis; `d_inner` is head-major);
 `w_in_dt`, `A_log`, `D` and `dt_bias` stay whole (`ssm_heads` is never
 sharded) and the rank takes its heads from them; `w_in_B` / `w_in_C` /
 `conv_B` / `conv_C` stay whole. The decode state is the rank's shard of
 `runtime.sharding.cache_pspec` / `paged_cache_pspec`: the state holds
-its heads, each conv tail its block of the channels where they divide.
-What the split costs:
+its heads where they divide over the model axis and every head where
+they do not, each conv tail its block of the channels where they
+divide. What the split costs:
 
 (a) the gated RMSNorm takes its mean over the WHOLE `d_inner`, as the
     reference's does: the rank sums its squares, the sums go over the
@@ -28,8 +29,17 @@ What the split costs:
     while B and C feed every head: the depthwise conv is channel-local,
     so the rank convolves its block with its tail block, and one
     all-gather over the model axis rebuilds the post-conv B and C;
-(d) where `H % tp != 0` but `d_inner % tp == 0` the rules would cut a
-    head across two ranks: `check_ssm_split` refuses that.
+(d) where `H % tp != 0` but `d_inner % tp == 0` the rank's block starts
+    or ends inside a head. The scan is independent per channel of a
+    head given the head's dt, A and D, so the rank runs its block as
+    virtual heads of g = gcd(P, d_inner / tp) channels, virtual head j
+    reading real head (c0 + j g) // P's `w_in_dt` column, `A_log`, `D`
+    and `dt_bias` (`_rank_params`). The state then stays whole on every
+    rank (`cache_pspec`): the prompt pass and each decode step gather
+    the ranks' channel blocks of their final state over the model axis,
+    (B, d_inner / tp, N) float32 a rank and a layer, and a decode step
+    reads its own channels out of the whole state. Where the heads
+    divide, g = P and the virtual heads are the rank's heads.
 
 In training (the training rules; with grad) the same split runs as a
 TP region, and every leaf's `embed` dim is split over the fsdp axis:
@@ -38,8 +48,9 @@ the block gathers `w_in_*` on dim 0 and `w_out` on dim 1 after the cast
 is split x enters the region (`parallel.enter_region`), and so do the
 whole leaves that feed only the rank's heads (`w_in_B`, `w_in_C`,
 `conv_B`, `conv_C`, `w_in_dt`, `A_log`, `D`, `dt_bias`): a rank's
-cotangent of each holds its heads' part, and the sum over the model
-axis is the whole gradient. The gated norm's summed squares are read
+cotangent of each holds its heads' part (a virtual head's scattered
+back onto its real head), and the sum over the model axis is the whole
+gradient. The gated norm's summed squares are read
 by every rank's channels, so their cotangent is summed over the model
 axis too (trap (a)'s psum has an identity backward there).
 
@@ -48,6 +59,8 @@ meshless one, op for op.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -83,20 +96,6 @@ def ssm_init(init: Initializer, cfg: ModelConfig):
     init.param("dt_bias", (h,), ("ssm_heads",), init="zeros")
     init.param("norm_scale", (di,), ("ssm_inner",), init="ones")
     init.param("w_out", (di, d), ("ssm_inner", "embed"))
-
-
-def check_ssm_split(cfg: ModelConfig, ctx: ParallelCtx) -> None:
-    """Refuse a mesh whose model axis would cut an SSM head across two
-    ranks (trap (d) of the module docstring): the serving rules split
-    `d_inner` over it when `d_inner % tp == 0`, which keeps every head on
-    one rank only when `H % tp == 0` too."""
-    tp = ctx.axis_size(ctx.tp_axis)
-    if (cfg.sub_quadratic and tp > 1 and cfg.d_inner % tp == 0
-            and cfg.ssm_heads % tp):
-        raise ValueError(
-            f"{cfg.name}: d_inner {cfg.d_inner} splits over the "
-            f"{ctx.tp_axis!r} axis ({tp} ranks) but its {cfg.ssm_heads} SSM "
-            "heads do not: a head would be cut across two ranks")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -136,22 +135,62 @@ _WHOLE = ("w_in_B", "w_in_C", "conv_B", "conv_C", "w_in_dt", "A_log", "D",
           "dt_bias")
 
 
+def virtual_heads(cfg: ModelConfig, di_loc: int, rank: int):
+    """(g, heads) of the block [rank di_loc, (rank + 1) di_loc) of
+    `d_inner` (trap (d)): it runs as di_loc / g virtual heads of g =
+    gcd(P, di_loc) channels, virtual head j reading real head (rank di_loc
+    + j g) // P; `heads` indexes the per-head leaves' head dim by
+    virtual head (a slice of the whole heads where g = P)."""
+    P = cfg.ssm_head_dim
+    g, c0 = math.gcd(P, di_loc), rank * di_loc
+    if g == P:
+        return g, slice(c0 // P, (c0 + di_loc) // P)
+    return g, [(c0 + j * g) // P for j in range(di_loc // g)]
+
+
 def _rank_params(params, cfg: ModelConfig, ctx: ParallelCtx):
-    """`params` with the whole per-head leaves (`w_in_dt`, `A_log`, `D`,
-    `dt_bias`) cut to the rank's heads, which its local `w_in_x` gives,
-    and every whole leaf in the TP region (the leaves as they are where
-    `d_inner` is whole)."""
+    """(params, g): `params` with the whole per-head leaves (`w_in_dt`,
+    `A_log`, `D`, `dt_bias`) cut to the rank's virtual heads of g
+    channels (`virtual_heads` of its block of `d_inner`, which its local
+    `w_in_x` gives) and every whole leaf in the TP region; the leaves as
+    they are, and g = P, where `d_inner` is whole."""
     di_loc = params["w_in_x"].shape[1]
     if di_loc == cfg.d_inner:
-        return params
-    check_ssm_split(cfg, ctx)
-    H_loc = di_loc // cfg.ssm_head_dim
-    h0 = ctx.index(ctx.tp_axis) * H_loc
+        return params, cfg.ssm_head_dim
+    g, heads = virtual_heads(cfg, di_loc, ctx.index(ctx.tp_axis))
+    if not isinstance(heads, slice):
+        heads = torch.tensor(heads, device=params["A_log"].device)
     whole = {n: enter_region(params[n], ctx, ctx.tp_axis) for n in _WHOLE}
-    whole["w_in_dt"] = whole["w_in_dt"][:, h0:h0 + H_loc]
+    whole["w_in_dt"] = whole["w_in_dt"][:, heads]
     for n in ("A_log", "D", "dt_bias"):
-        whole[n] = whole[n][h0:h0 + H_loc]
-    return dict(params, **whole)
+        whole[n] = whole[n][heads]
+    return dict(params, **whole), g
+
+
+def _own_state(state, ctx: ParallelCtx, di_loc: int, g: int):
+    """The rank's block of an SSM state as (B, di_loc / g, g, N): the
+    state as it is where it holds the rank's channels (its heads, or
+    every head without a split), else the rank's channels of the whole
+    state (trap (d)). None stays None."""
+    if state is None:
+        return None
+    Bz, N = state.shape[0], state.shape[-1]
+    if state.shape[1] * state.shape[2] != di_loc:
+        c0 = ctx.index(ctx.tp_axis) * di_loc
+        state = state.reshape(Bz, -1, N)[:, c0:c0 + di_loc]
+    return state.reshape(Bz, di_loc // g, g, N)
+
+
+def _whole_state(state, cfg: ModelConfig, ctx: ParallelCtx):
+    """The SSM state a cache holds from the rank's final state (B, Hv, g,
+    N): as it is where g = P (its heads, or every head); else (trap (d))
+    the ranks' channel blocks gathered over the model axis into the whole
+    (B, H, P, N), the same on every rank of the axis."""
+    Bz, Hv, g, N = state.shape
+    if g == cfg.ssm_head_dim:
+        return state
+    whole = all_gather(state.reshape(Bz, Hv * g, N), ctx, ctx.tp_axis, 1)
+    return whole.reshape(Bz, cfg.ssm_heads, cfg.ssm_head_dim, N)
 
 
 def _project(params, x, ctx: ParallelCtx = SINGLE):
@@ -229,36 +268,48 @@ def _dt_and_A(params, dt):
     return dtp, A
 
 
+def scan_inputs(params, x, tails=(None, None, None),
+                ctx: ParallelCtx = SINGLE, conv=_causal_conv):
+    """The SSD scan's inputs from the block's input x (B, S, d): the
+    projections, the causal conv (`conv`: the prompt pass's, or the
+    decode step's `_step_conv`) against `tails` and the SiLU of x, B and
+    C, dt through softplus and A. Returns (x (B, S, C_x), z, B (B, S,
+    N), C, dt (B, S, H), A (H,), new tails), over a mesh for the rank's
+    channels and heads of `params` (`_rank_params`)."""
+    xs, z, Bm, Cm, dt = _project(params, x, ctx)
+    xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm, tails, conv, ctx)
+    silu = torch.nn.functional.silu
+    dtp, A = _dt_and_A(params, dt)
+    return silu(xs), z, silu(Bm), silu(Cm), dtp, A, tails
+
+
 def ssm_block(params, x, cfg: ModelConfig, return_state: bool = False,
               init_state=None, conv_tail=None, ctx: ParallelCtx = SINGLE):
     """Full-sequence SSD block. x: (B, S, d). With `return_state`, also
     the final SSM state and the conv tails (state, (tail_x, tail_B,
-    tail_C)). Over a mesh (module docstring) the state and `tail_x` are
-    the rank's heads and channels; `tail_B` / `tail_C` come back whole
-    unless `conv_tail` held the rank's channel block of them."""
+    tail_C)). Over a mesh (module docstring) the state is the rank's
+    heads (every head where they do not divide over the model axis, trap
+    (d); `init_state` likewise) and `tail_x` its channels; `tail_B` /
+    `tail_C` come back whole unless `conv_tail` held the rank's channel
+    block of them."""
     if params["w_in_x"].shape[1] != cfg.d_inner:   # d_inner split: TP region
         x = enter_region(x, ctx, ctx.tp_axis)
-    params = _rank_params(params, cfg, ctx)
+    params, g = _rank_params(params, cfg, ctx)
     B, S, _ = x.shape
-    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
-    xs, z, Bm, Cm, dt = _project(params, x, ctx)
-    xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm,
-                                  conv_tail or (None, None, None),
-                                  _causal_conv, ctx)
-    silu = torch.nn.functional.silu
-    xs, Bm, Cm = silu(xs), silu(Bm), silu(Cm)
-    dtp, A = _dt_and_A(params, dt)
-
+    N = cfg.ssm_state
+    xs, z, Bm, Cm, dtp, A, tails = scan_inputs(
+        params, x, conv_tail or (None, None, None), ctx)
+    di = xs.shape[-1]
     y, state = ssd_ops.ssd(
-        xs.reshape(B, S, xs.shape[-1] // Pd, Pd), dtp, A,
+        xs.reshape(B, S, di // g, g), dtp, A,
         Bm.reshape(B, S, NGROUPS, N), Cm.reshape(B, S, NGROUPS, N),
-        params["D"], init_state,
+        params["D"], _own_state(init_state, ctx, di, g),
     )
-    y = _gated_norm(params, y.reshape(B, S, xs.shape[-1]), z, cfg.norm_eps,
+    y = _gated_norm(params, y.reshape(B, S, di), z, cfg.norm_eps,
                     cfg.d_inner, ctx)
     out = _out_proj(params, y, cfg, ctx)
     if return_state:
-        return out, (state, tails)
+        return out, (_whole_state(state, cfg, ctx), tails)
     return out
 
 
@@ -267,25 +318,24 @@ def ssm_decode_step(params, x, cfg: ModelConfig, state, conv_tail,
     """One-token decode. x (B,1,d); state (B,H,P,N); conv_tail the
     3-tuple of (B, W-1, C) tails. Returns (out (B,1,d), (new_state,
     new_tails)). Over a mesh state and tails are the rank's shards
-    (module docstring) and x holds the rows of its slots."""
-    params = _rank_params(params, cfg, ctx)
+    (module docstring; the state whole where the heads do not divide
+    over the model axis, and the new state whole too) and x holds the
+    rows of its slots."""
+    params, g = _rank_params(params, cfg, ctx)
     B = x.shape[0]
-    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
-    xs, z, Bm, Cm, dt = _project(params, x, ctx)
-    xs, Bm, Cm, tails = _conv_all(params, xs, Bm, Cm, conv_tail,
-                                  _step_conv, ctx)
-    silu = torch.nn.functional.silu
-    xs, Bm, Cm = silu(xs), silu(Bm), silu(Cm)
-    dtp, A = _dt_and_A(params, dt)
+    N = cfg.ssm_state
+    xs, z, Bm, Cm, dtp, A, tails = scan_inputs(params, x, conv_tail, ctx,
+                                               _step_conv)
+    di = xs.shape[-1]
     y, new_state = ssd_ops.ssd_decode(
-        xs[:, 0].reshape(B, xs.shape[-1] // Pd, Pd), dtp[:, 0], A,
+        xs[:, 0].reshape(B, di // g, g), dtp[:, 0], A,
         Bm[:, 0].reshape(B, NGROUPS, N), Cm[:, 0].reshape(B, NGROUPS, N),
-        params["D"], state,
+        params["D"], _own_state(state, ctx, di, g),
     )
-    y = _gated_norm(params, y.reshape(B, 1, xs.shape[-1]), z, cfg.norm_eps,
+    y = _gated_norm(params, y.reshape(B, 1, di), z, cfg.norm_eps,
                     cfg.d_inner, ctx)
     out = _out_proj(params, y, cfg, ctx)
-    return out, (new_state, tails)
+    return out, (_whole_state(new_state, cfg, ctx), tails)
 
 
 def make_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, *,
@@ -295,7 +345,8 @@ def make_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, *,
     and the three conv tails (n_layers, batch, W-1, C) in cfg.dtype. Over
     a mesh, the rank's shard of `runtime.sharding.cache_pspec`: its rows
     of `batch` over the dp axes, its heads and its block of each tail's
-    channels over the model axis where they divide."""
+    channels over the model axis where they divide (every head where the
+    heads do not, trap (d))."""
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     gn = NGROUPS * N
     cdt = torch_dtype(cfg.dtype)

@@ -51,20 +51,25 @@ run whole on every dp rank. The engine cuts its weights and pool into
 the rank's shards with `runtime.sharding.shard_tree` (`EngineCells.
 param_pspecs` / `cache_pspecs`). The contiguous layout over a mesh keeps
 the caches of `runtime.sharding.cache_pspec`, the serve bundle's: slots
-over the dp axes, the sequence over `model` (every KV head at the rank's
-block of positions); its decode merges the ranks' blocks by their
-log-sum-exp (`models.attention.decode_self_attention`) and its insert
-turns a prefill's KV heads into the rank's block of positions
-(`build_cache_insert`). Every stack of the catalog serves over a mesh on
-either layout: dense, MoE, the vision prefix, SSM (mamba2), hybrid
-(jamba) and encoder-decoder (seamless). Their slot-resident leaves are
-the rank's shard of the same specs: its slots over the dp axes; the SSM
-state its heads over `model`, each conv tail its block of the channels;
-cross_k / cross_v its KV heads in the paged layout and every head at its
-block of the encoder positions in the contiguous one (the inserts cut a
-prefill's leaves to these shards: `_resident_shard`). A model axis that
-would cut an SSM head across two ranks is refused
-(`models.ssm.check_ssm_split`). Speculative decoding runs over a mesh on
+over the dp axes and, where the extent divides over `model`, the
+sequence over it (every KV head at the rank's block of positions),
+decided per leaf (`seq_split_leaves`): its decode merges the ranks'
+blocks by their log-sum-exp (`models.attention.decode_self_attention`);
+an extent that does not divide stays whole (every KV head at every
+position), decoded with every query head gathered over `model` (the
+rank keeps its own) and no merge. Its
+insert turns a prefill's KV heads into the rank's block of positions or
+the whole extent (`build_cache_insert`). Every stack of the catalog
+serves over a mesh on either layout: dense, MoE, the vision prefix, SSM
+(mamba2), hybrid (jamba) and encoder-decoder (seamless). Their
+slot-resident leaves are the rank's shard of the same specs: its slots
+over the dp axes; the SSM state its heads over `model` (every head,
+where the rules cut a head across two ranks: `models.ssm`, trap (d)),
+each conv tail its block of the channels; cross_k / cross_v its KV
+heads in the paged layout and, in the contiguous one, every head at its
+block of the encoder positions (at every position where they do not
+divide) (the inserts cut a prefill's leaves to these shards:
+`_resident_shard`). Speculative decoding runs over a mesh on
 the paged layout: the verify cell's S*k rows split over the dp axes as
 their slots do, and its (S, k) greedy picks come back gathered; the
 draft model is replicated and runs whole on every rank.
@@ -84,7 +89,6 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.page_io import ops as page_ops
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
-from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import cast_params
 from repro_torch.runtime import sharding as shd
 
@@ -122,15 +126,18 @@ def build_prefill(cfg: ModelConfig, max_seq: int,
     return prefill_step
 
 
-def build_decode(cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
+def build_decode(cfg: ModelConfig, ctx: ParallelCtx = SINGLE,
+                 seq_split=None):
     """decode_step(params, token, caches, t) -> (logits, caches): one
     decode step over the contiguous caches at position(s) t, the caches
     written in place. Over a mesh (`ctx.mesh`) params and caches are the
-    rank's shards (the specs of `make_bundle`), token and t every slot's
-    or the rank's, and the logits the rank's slots' (`M.decode_step`)."""
+    rank's shards (the specs of `make_bundle`; `seq_split` the caches'
+    `seq_split_leaves`), token and t every slot's or the rank's, and the
+    logits the rank's slots' (`M.decode_step`)."""
 
     def decode_step(params, token, caches, t):
-        return M.decode_step(params, token, caches, t, cfg, ctx=ctx)
+        return M.decode_step(params, token, caches, t, cfg, ctx=ctx,
+                             seq_split=seq_split)
 
     return decode_step
 
@@ -177,11 +184,11 @@ def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
     `launch.mesh.AbstractMesh` for the dry-run; `ctx` defaults to
     `ctx_for_mesh(mesh)`): the params' specs from `rules` (default
     `for_serving(ctx.fsdp_axis, ctx.tp_axis)`), the caches' from
-    `cache_pspec`, and both steps over the rank's shards; the caches'
-    sequence must divide over the tp axis (`check_seq_split`). The
-    prefill step's caches are the mesh prefill's (every prompt, the
-    rank's KV heads, the whole sequence); `prefill_cache_shards` turns
-    them into the decode step's shards."""
+    `cache_pspec` (each attention leaf's sequence over the tp axis where
+    it divides, whole where it does not), and both steps over the rank's
+    shards. The prefill step's caches are the mesh prefill's (every
+    prompt, the rank's KV heads, the whole sequence);
+    `prefill_cache_shards` turns them into the decode step's shards."""
     ctx, mesh = _check_mesh(ctx, mesh)
     if mesh is None:
         if rules is not None:
@@ -189,27 +196,52 @@ def make_bundle(cfg: ModelConfig, *, batch: int, max_seq: int,
         return ServeBundle(build_prefill(cfg, max_seq), build_decode(cfg),
                            abstract_params(cfg),
                            abstract_caches(cfg, batch, max_seq, enc_len))
-    ssm_mod.check_ssm_split(cfg, ctx)
     rules = rules or shd.ShardingRules.for_serving(
         data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
     aparams, axes = abstract_params(cfg, with_axes=True)
     acaches = abstract_caches(cfg, batch, max_seq, enc_len)
-    check_seq_split(acaches, ctx)
+    cache_pspecs = shd.cache_pspec(acaches, ctx.dp_axes, ctx.tp_axis, mesh)
     return ServeBundle(
-        build_prefill(cfg, max_seq, ctx), build_decode(cfg, ctx), aparams,
+        build_prefill(cfg, max_seq, ctx),
+        build_decode(cfg, ctx, seq_split_leaves(cache_pspecs)), aparams,
         acaches,
         param_pspecs=shd.pspecs_for_tree(aparams, axes, rules, mesh),
-        cache_pspecs=shd.cache_pspec(acaches, ctx.dp_axes, ctx.tp_axis,
-                                     mesh))
+        cache_pspecs=cache_pspecs)
 
 
-def prefill_cache_shards(caches, ctx: ParallelCtx, n_kv: int):
+def _seq_split(seq_split, ctx: ParallelCtx) -> dict:
+    """`seq_split` ({leaf name: bool}) of a contiguous decode or insert,
+    required where a tp axis of size > 1 may split the caches' positions
+    (it says which leaves it splits: `seq_split_leaves`)."""
+    if seq_split is None:
+        if ctx.axis_size(ctx.tp_axis) > 1:
+            raise ValueError("the contiguous caches over a tp axis need "
+                             "seq_split (seq_split_leaves of their specs)")
+        return {}
+    return seq_split
+
+
+def seq_split_leaves(cache_pspecs) -> dict:
+    """{leaf name: True where the contiguous caches' spec splits its
+    positions over an axis} for the attention leaves ("k", "v",
+    "cross_k", "cross_v") of a `cache_pspec` tree: the decode reads each
+    such leaf as the rank's block of positions or, where `cache_pspec`
+    keeps an extent that does not divide over tp whole, as every
+    position."""
+    return {key: c[key][2] is not None for c in cache_pspecs.values()
+            for key in _SEQ_LEAVES if key in c}
+
+
+def prefill_cache_shards(caches, ctx: ParallelCtx, n_kv: int,
+                         seq_split: dict):
     """The rank's shard (`cache_pspec`) of the contiguous caches a mesh
     prefill returned (every prompt; the rank's KV heads of `n_kv` over
-    the whole sequence or encoder; the rank's SSM heads and `tail_x`
-    channels; `tail_B` / `tail_C` whole): its rows over the dp axes, and
-    over the tp axis every KV head at its block of positions, its block
-    of the tails' channels (`_resident_shard`)."""
+    the whole sequence or encoder; the rank's SSM heads, or every head
+    where the rules cut one, and `tail_x` channels; `tail_B` / `tail_C`
+    whole): its rows over the dp axes, and over the tp axis every KV
+    head at its block of positions where `seq_split` (the caches'
+    `seq_split_leaves`) names the leaf and at every position where it
+    does not, its block of the tails' channels (`_resident_shard`)."""
     tp = ctx.axis_size(ctx.tp_axis)
     out = {}
     for pos, c in caches.items():
@@ -217,29 +249,31 @@ def prefill_cache_shards(caches, ctx: ParallelCtx, n_kv: int):
         for key, x in c.items():
             r0, r1 = ctx.batch_rows(x.shape[1])
             x = x[:, r0:r1]
-            C = x.shape[-1]
+            C, S = x.shape[-1], x.shape[2]
+            split = seq_split.get(key, False)
             out[pos][key] = _resident_shard(
                 key, x, ctx, C // tp if C % tp == 0 else C,
-                seq=(n_kv, x.shape[2] // tp)).contiguous()
+                seq=(n_kv, S // tp if split else S, split)).contiguous()
     return out
 
 
 # the contiguous layout's leaves whose sequence (or encoder positions)
-# the tp axis splits, and the leaves a prefill returns whole while the
-# decode shard holds its block of their channels over tp
+# the tp axis splits where it divides, and the leaves a prefill returns
+# whole while the decode shard holds its block of their channels over tp
 _SEQ_LEAVES = ("k", "v", "cross_k", "cross_v")
 _CHANNEL_LEAVES = ("tail_B", "tail_C")
 
 
 def _resident_shard(key, x, ctx: ParallelCtx, C_loc: int, seq=None):
     """A prefill's leaf `x` (its slot rows kept) as the decode shard's
-    layout past the rows: on the contiguous layout (`seq` = (n_kv,
-    S_loc)) a K / V leaf as every one of the n_kv KV heads at the rank's
-    S_loc positions (`_kv_block`, a collective over tp where wk / wv
-    split the heads); `tail_B` / `tail_C` as the rank's block of C_loc
-    channels; every other leaf (the SSM state and `tail_x`, already the
-    rank's heads and channels; the paged layout's cross-KV, already its
-    KV heads) as it is."""
+    layout past the rows: on the contiguous layout (`seq` = (n_kv, S_loc,
+    split)) a K / V leaf as every one of the n_kv KV heads at the rank's
+    S_loc positions, or at the first S_loc where `split` is False (the
+    leaf's extent stays whole) (`_kv_block`, a collective over tp where
+    wk / wv split the heads); `tail_B` / `tail_C` as the rank's block of
+    C_loc channels; every other leaf (the SSM state and `tail_x`, already
+    the rank's heads and channels, or every head where the rules cut
+    one; the paged layout's cross-KV, already its KV heads) as it is."""
     if seq is not None and key in _SEQ_LEAVES \
             and ctx.axis_size(ctx.tp_axis) > 1:
         return _kv_block(x, ctx, *seq)
@@ -249,31 +283,16 @@ def _resident_shard(key, x, ctx: ParallelCtx, C_loc: int, seq=None):
     return x
 
 
-def _kv_block(x, ctx: ParallelCtx, n_kv: int, S_loc: int):
+def _kv_block(x, ctx: ParallelCtx, n_kv: int, S_loc: int, split: bool):
     """A prefill's K or V leaf (nb, B, S, KV_loc, hd) as every one of the
     `n_kv` KV heads (gathered over tp where wk / wv split them: every
     rank of the axis calls it) at the rank's block [r S_loc, (r + 1)
-    S_loc) of the sequence; positions past S are not there."""
+    S_loc) of the sequence (`split`), or at its first S_loc positions
+    (the whole extent); positions past S are not there."""
     if x.shape[3] != n_kv:
         x = all_gather(x, ctx, ctx.tp_axis, 3)
-    base = ctx.index(ctx.tp_axis) * S_loc
+    base = ctx.index(ctx.tp_axis) * S_loc if split else 0
     return x[:, :, base:base + S_loc]
-
-
-def check_seq_split(caches, ctx: ParallelCtx) -> None:
-    """The contiguous decode over a mesh reads a rank's attention KV (self
-    and cross) as its block of the sequence (the encoder positions) over
-    the tp axis (`cache_pspec`); where the extent does not divide, the
-    reference's rule would keep it whole, which the port's decode does
-    not take: refuse it."""
-    tp = ctx.axis_size(ctx.tp_axis)
-    for c in caches.values():
-        for key in ("k", "cross_k"):
-            if key in c and tp > 1 and c[key].shape[2] % tp:
-                raise ValueError(
-                    f"the contiguous caches' {key} extent "
-                    f"({c[key].shape[2]}) must divide over the "
-                    f"{ctx.tp_axis!r} axis ({tp} ranks)")
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -302,16 +321,18 @@ def build_prefill_greedy(cfg: ModelConfig, bucket: int,
     return cell
 
 
-def build_decode_greedy(cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
+def build_decode_greedy(cfg: ModelConfig, ctx: ParallelCtx = SINGLE,
+                        seq_split=None):
     """Greedy decode cell over the CONTIGUOUS caches: one token per slot,
     the argmax and a per-slot finiteness flag computed on the device
     (parked slots carry garbage, so the engine masks them). Over a mesh
-    the rank decodes the slots its caches hold and the tokens and flags
-    of every slot are gathered over the dp axes, as the paged cell does."""
+    the rank decodes the slots its caches hold (`seq_split`: the caches'
+    `seq_split_leaves`) and the tokens and flags of every slot are
+    gathered over the dp axes, as the paged cell does."""
 
     def cell(params, token, caches, t):
         logits, caches = M.decode_step(params, token, caches, t, cfg,
-                                       ctx=ctx)
+                                       ctx=ctx, seq_split=seq_split)
         return (*_greedy_rows(logits, token.shape[0], ctx), caches)
 
     return cell
@@ -387,20 +408,24 @@ def build_decode_verify_paged(cfg: ModelConfig, page_tokens: int, k: int,
     return cell
 
 
-def build_cache_insert(ctx: ParallelCtx = SINGLE, n_slots: int = 0):
+def build_cache_insert(ctx: ParallelCtx = SINGLE, n_slots: int = 0,
+                       seq_split=None):
     """Copy a prefilled request's caches (batch 1, seq extent `bucket`)
     into the CONTIGUOUS slot caches at slot index `slot`, positions
     [0, bucket), in place.
 
     Over a mesh the slot caches are the rank's shard of `cache_pspec`
     (its block of the `n_slots` slots over the dp axes, every KV head at
-    its block of positions (encoder positions for the cross-KV) over tp,
-    the SSM state's heads and the tails' channels over tp), while the
-    prefill's caches hold the rank's KV heads over the whole bucket: the
-    KV heads are gathered over tp (every rank calls it) and each rank
-    keeps the positions of its block, and of its tail channels
-    (`_resident_shard`), on the dp rank that holds the slot."""
+    its block of positions (encoder positions for the cross-KV) over tp
+    where `seq_split` (the caches' `seq_split_leaves`) names the leaf and
+    at every position where it does not, the SSM state's heads and the
+    tails' channels over tp), while the prefill's caches hold the rank's
+    KV heads over the whole bucket: the KV heads are gathered over tp
+    (every rank calls it) and each rank keeps the positions of its block
+    or all of them, and its tail channels (`_resident_shard`), on the dp
+    rank that holds the slot."""
     row_of = _slot_row(ctx, n_slots)
+    split = _seq_split(seq_split, ctx)
 
     def insert(caches, slot_caches, slot):
         row = row_of(slot)
@@ -408,7 +433,8 @@ def build_cache_insert(ctx: ParallelCtx = SINGLE, n_slots: int = 0):
             for key, big in c.items():
                 small = _resident_shard(key, slot_caches[pos][key], ctx,
                                         big.shape[-1],
-                                        seq=(big.shape[3], big.shape[2]))
+                                        seq=(big.shape[3], big.shape[2],
+                                             split.get(key, False)))
                 if row is not None:
                     big[:, row, :small.shape[2]] = small[:, 0].to(big.dtype)
         return caches
@@ -604,12 +630,12 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
     the cells run the rank's shard (module docstring): the params' specs
     from `rules` (default `ShardingRules.for_serving(data_axis=
     ctx.fsdp_axis, tp_axis=ctx.tp_axis)`), the pool's from
-    `paged_cache_pspec`, the contiguous caches' from `cache_pspec`."""
+    `paged_cache_pspec`, the contiguous caches' from `cache_pspec` (each
+    attention leaf's positions over the tp axis where its extent divides,
+    every position where it does not)."""
     ctx, mesh = _check_mesh(ctx, mesh)
     if mesh is None and rules is not None:
         raise ValueError("rules shard over a mesh; none was given")
-    if mesh is not None:
-        ssm_mod.check_ssm_split(cfg, ctx)
     blk.pool_kv_dtype(cfg, pool_dtype)         # validate early
     if pool_dtype != "fp" and not paged:
         raise ValueError("pool_dtype applies to the paged layout only")
@@ -669,19 +695,19 @@ def make_engine_cells(cfg: ModelConfig, *, n_slots: int, max_seq: int,
                 for b in sorted(set(buckets))}
     if not paged:
         acaches = abstract_caches(cfg, n_slots, max_seq_total, enc_len)
-        param_pspecs = cache_pspecs = None
+        param_pspecs = cache_pspecs = split = None
         if mesh is not None:
-            check_seq_split(acaches, ctx)
             rules = rules or shd.ShardingRules.for_serving(
                 data_axis=ctx.fsdp_axis, tp_axis=ctx.tp_axis)
             aparams, axes = abstract_params(cfg, with_axes=True)
             param_pspecs = shd.pspecs_for_tree(aparams, axes, rules, mesh)
             cache_pspecs = shd.cache_pspec(acaches, ctx.dp_axes,
                                            ctx.tp_axis, mesh)
+            split = seq_split_leaves(cache_pspecs)
         return EngineCells(
-            decode_fn=build_decode_greedy(cfg, ctx),
+            decode_fn=build_decode_greedy(cfg, ctx, split),
             prefill_fns=prefills,
-            insert_fns={b: build_cache_insert(ctx, n_slots)
+            insert_fns={b: build_cache_insert(ctx, n_slots, split)
                         for b in prefills},
             abstract_caches=acaches,
             n_prefix=npfx,

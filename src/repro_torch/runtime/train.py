@@ -24,7 +24,8 @@ the global batch. The global norm sums each leaf's local sum of squares
 over exactly the axes that split it, AdamW runs on the local shards, and
 the metrics are averaged over the dp ranks. Every stack of the catalog
 trains so: dense and MoE decoders, SSM and hybrid stacks (the SSM block
-on the rank's heads), the vision prefix (the rank's rows of `patches`)
+on the rank's block of `d_inner`, as virtual heads where it cuts a
+head), the vision prefix (the rank's rows of `patches`)
 and the encoder-decoder (the rank's rows of `frames` through the
 encoder).
 """
@@ -41,7 +42,6 @@ from repro_torch.common.parallel import SINGLE, ParallelCtx, axis_sizes, psum
 from repro_torch.common.pytree import named_leaves
 from repro_torch.models import model as M
 from repro_torch.models.module import torch_dtype
-from repro_torch.models.ssm import check_ssm_split
 from repro_torch.optim import adamw, schedule
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.runtime import sharding as shd
@@ -227,7 +227,6 @@ def build_train_step(cfg: ModelConfig, ctx, tcfg: Optional[TrainConfig]
     compute_dtype = torch_dtype(cfg.dtype)
     mesh_red = None
     if ctx.mesh is not None:
-        check_ssm_split(cfg, ctx)     # refused by name before any step
         mesh_red = _MeshReduce(cfg, ctx, rules or shd.ShardingRules
                                .for_training(ctx.fsdp_axis, ctx.tp_axis))
     local = ctx.mesh is not None

@@ -20,7 +20,11 @@ mesh record), on the CPU.
   remat by block) on a (2, 2) mesh traces with collectives and the
   meshless cell's kernel units; the train cells of the SSM, hybrid,
   encoder-decoder and vision-prefix stacks at published widths (depth
-  cut to one layer period) write `ok` records over `--mesh 2x2`."""
+  cut to one layer period) write `ok` records over `--mesh 2x2`.
+* mamba2-780m over a 1x32 mesh, whose model axis cuts its heads (1.5 of
+  48 a rank, run as virtual heads of 32): every cell traces, and the
+  decode step gathers each layer's SSM state over `model`, priced by the
+  ring model."""
 
 import dataclasses
 import json
@@ -281,3 +285,36 @@ def test_stack_train_cells_write_ok_records(arch, tmp_path, monkeypatch):
     cfg = get(name)
     assert ("ssd_scan" in units) == cfg.sub_quadratic
     assert ("flash_mha_bwd" in units) == (cfg.family != "ssm")
+
+
+def test_ssm_head_cut_mesh_gathers_the_state_each_layer():
+    """mamba2-780m (48 heads of 64, d_inner 3072, state 128) over a 1x32
+    `AbstractMesh`, depth cut to 2 layers: a rank holds 96 channels of
+    `d_inner`, 1.5 heads, run as 3 virtual heads of 32. Every cell of
+    the arch (train with one microbatch) traces with collectives and
+    the meshless cell's scan units; the decode step issues one
+    all-gather of the rank's (B, 96, 128) float32 state block over
+    `model` a layer, each priced n (n - 1) / n of its input's bytes
+    (the ring model, n 32), and its state stays whole: every head at
+    the rank's slots."""
+    cfg = dataclasses.replace(tconfigs.get("mamba2_780m"), num_layers=2)
+    mesh = tmesh.AbstractMesh((1, 32), ("data", "model"))
+    assert cfg.d_inner // 32 == 96 and cfg.ssm_heads % 32
+    for shape in tconfigs.shapes_for("mamba2_780m"):
+        kw = dict(microbatches=1) if shape.kind == "train" else {}
+        c = dryrun.part_cost(cfg, shape, mesh=mesh, **kw)[0]
+        assert c.wire_bytes > 0, shape.name
+        assert c.units == dryrun.part_cost(cfg, shape, **kw)[0].units
+        if shape.kind != "decode":
+            continue
+        B, N = shape.global_batch, cfg.ssm_state
+        gathers = [g for g in c.collectives
+                   if g == ("all-gather", (B, 96, N), "model")]
+        assert len(gathers) == cfg.num_layers, c.collectives
+        wire = 4 * B * 96 * N * 32 * 31 / 32
+        assert c.collective_by_kind["all-gather"] >= cfg.num_layers * wire
+    from repro_torch.runtime import serve as tserve
+
+    sb = tserve.make_bundle(cfg, batch=4, max_seq=16, mesh=mesh)
+    assert sb.cache_pspecs["pos0"]["state"] == (None, None, None, None,
+                                                None)

@@ -9,9 +9,16 @@ as numpy) and prompts.
 * `ssm_block` and `ssm_decode_step` of reduced mamba2 (8 heads, 4 a
   rank; the B / C tails' 16 channels split too) within 1e-5 of meshless:
   outputs, and the rank's state and tails against the meshless ones cut
-  by `cache_pspec`; a model axis that would cut an SSM head across two
-  ranks (d_inner % tp == 0, H % tp != 0) is refused by name, and
-  `make_ssm_state(ctx=)` gives the spec's local shapes.
+  by `cache_pspec`; `make_ssm_state(ctx=)` gives the spec's local
+  shapes.
+* An SSM head cut across two ranks (d_inner % tp == 0, H % tp != 0; the
+  rank runs its block of `d_inner` as virtual heads): reduced mamba2
+  with d_model 48 and heads of 32 (3 heads, 1.5 a rank) and reduced
+  jamba with heads of 128 (1 head, half a rank). `ssm_block` and
+  `ssm_decode_step` within 1e-5 of meshless, the state whole and
+  bit-equal on both tp ranks; their paged fp and contiguous engines'
+  tokens equal the JAX meshless engine's, and their resident leaves the
+  port's meshless engine's cut by the specs (the state whole).
 * Cross-attention of reduced seamless: the prefill and the decode on the
   paged layout's cross-KV (the rank's KV heads) and on the contiguous
   one's (every head at the rank's block of encoder positions, merged
@@ -56,7 +63,6 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.module import layer_slice  # noqa: E402
 from repro_torch.models.module import load_numpy_params  # noqa: E402
-from repro_torch.runtime import serve as tserve  # noqa: E402
 from repro_torch.runtime import sharding as tshd  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.engine import INT8_TOKEN_AGREEMENT  # noqa: E402
@@ -70,10 +76,15 @@ ARCHS = ("mamba2_780m", "jamba_1_5_large_398b", "seamless_m4t_large_v2")
 DP, TP = 2, 2
 N_REQ, S, GEN = 4, 8, 6
 TOL = dict(atol=1e-5, rtol=1e-5)
+# the SSM head cut across the tp ranks: (arch, overrides)
+CUT = {"mamba2_cut": ("mamba2_780m", dict(d_model=48, ssm_head_dim=32)),
+       "jamba_cut": ("jamba_1_5_large_398b", dict(ssm_head_dim=128))}
 RUNS = (dict(pool_dtype="fp", name="pool fp", resident=True),
         dict(pool_dtype="int8", name="pool int8"),
         dict(paged=False, pool_dtype="fp", name="contiguous fp",
              resident=True))
+# a head cut keeps the state whole over model (1/dp of it a rank)
+CUT_RUNS = tuple(dict(r, whole=("state",)) for r in (RUNS[0], RUNS[2]))
 ONE_RUNS = (dict(pool_dtype="int8", name="pool int8"),
             dict(paged=False, pool_dtype="fp", name="contiguous fp"))
 STUB = SimpleNamespace(shape={"data": DP, "model": TP})
@@ -86,6 +97,14 @@ def _cfgs(arch, **over):
                                 **over),
             dataclasses.replace(tconfigs.reduced(arch), dtype="float32",
                                 **over))
+
+
+def _any_cfgs(name):
+    """`_cfgs` of an arch of ARCHS or a head-cut variant of CUT."""
+    if name in CUT:
+        arch, over = CUT[name]
+        return _cfgs(arch, **over)
+    return _cfgs(name)
 
 
 def _weights(jc):
@@ -111,7 +130,7 @@ def _jax_extras(jc):
 
 def _run_fields(run):
     return {k: v for k, v in run.items()
-            if k not in ("name", "resident", "extras")}
+            if k not in ("name", "resident", "extras", "whole")}
 
 
 def _port_engine(tc, np_params, run, extras):
@@ -150,16 +169,18 @@ def _jax_tokens(jc, jp, run):
 
 
 def _op_cases():
-    """The SSM case (reduced mamba2) and the cross case (reduced
-    seamless): global weights and inputs as numpy."""
+    """The SSM case (reduced mamba2), the cross case (reduced seamless)
+    and the head-cut SSM cases (CUT): global weights and inputs as
+    numpy."""
     rng = np.random.default_rng(2)
     out = {}
     for arch, kind in (("mamba2_780m", "ssm"),
-                       ("seamless_m4t_large_v2", "cross")):
-        jc, tc = _cfgs(arch)
+                       ("seamless_m4t_large_v2", "cross"),
+                       *((name, f"ssm {name}") for name in CUT)):
+        jc, tc = _any_cfgs(arch)
         _, np_params = _weights(jc)
         d = tc.d_model
-        case = dict(kind=kind, cfg=tc, params=np_params,
+        case = dict(kind=kind.split()[0], cfg=tc, params=np_params,
                     x=rng.normal(0, 1, (4, S, d)).astype(np.float32),
                     x1=rng.normal(0, 1, (4, 1, d)).astype(np.float32))
         if kind == "cross":
@@ -172,17 +193,19 @@ def _op_cases():
 def runs():
     ops = _op_cases()
     arch_runs, inputs = {}, {}
-    for arch in ARCHS:
-        jc, tc = _cfgs(arch)
+    for arch in (*ARCHS, *CUT):
+        jc, tc = _any_cfgs(arch)
         jp, np_params = _weights(jc)
         ex = _jax_extras(jc)
-        arch_runs[arch] = [dict(r, extras=ex) if ex else r for r in RUNS]
+        arch_runs[arch] = [dict(r, extras=ex) if ex else r
+                           for r in (CUT_RUNS if arch in CUT else RUNS)]
         inputs[arch] = (jc, tc, jp, np_params, ex)
     calls = {4: [(dst.mesh_stack_ops_rank, (DP, TP, list(ops.values()),
                                             "cpu"))]
              + [(dst.mesh_rank, (inputs[a][1], DP, TP, inputs[a][3],
                                  _prompts(inputs[a][1].vocab_size), GEN,
-                                 arch_runs[a], "cpu")) for a in ARCHS],
+                                 arch_runs[a], "cpu"))
+                for a in (*ARCHS, *CUT)],
              1: [(dst.mesh_rank, (inputs[a][1], 1, 1, inputs[a][3],
                                   _prompts(inputs[a][1].vocab_size), GEN,
                                   [dict(r, extras=inputs[a][4])
@@ -203,9 +226,10 @@ def runs():
     for t in threads:
         t.start()
     meshless, jax_tok = {}, {}
-    for arch in ARCHS:
+    for arch in (*ARCHS, *CUT):
         jc, tc, jp, np_params, ex = inputs[arch]
-        for run in RUNS:        # ONE_RUNS' names are among RUNS'
+        # ONE_RUNS' names are among RUNS'
+        for run in (CUT_RUNS if arch in CUT else RUNS):
             meshless[(arch, run["name"])] = _port_engine(tc, np_params, run,
                                                          ex)
             jax_tok[(arch, run["name"])] = _jax_tokens(jc, jp, run)
@@ -215,7 +239,7 @@ def runs():
         raise errors[0]
     return dict(ops=ops, op_results=[r[0] for r in got[4]],
                 mesh={a: [r[i + 1] for r in got[4]]
-                      for i, a in enumerate(ARCHS)},
+                      for i, a in enumerate((*ARCHS, *CUT))},
                 one={a: got[1][0][i] for i, a in enumerate(ARCHS)},
                 meshless=meshless, jax=jax_tok, inputs=inputs)
 
@@ -254,7 +278,7 @@ def test_ssm_block_and_decode_equal_meshless(runs):
                   if k not in ("prefill", "decode")}},
         ("data",), "model", STUB)["pos0"]
     for rank in runs["op_results"]:
-        got = rank[0]
+        got = rank[list(runs["ops"]).index("ssm")]
         coord = tuple(got["coord"])
         np.testing.assert_allclose(got["prefill"], y.numpy(), **TOL)
         np.testing.assert_allclose(got["decode"], y1.numpy(), **TOL)
@@ -276,7 +300,7 @@ def test_cross_attention_equal_meshless(runs):
                 decode=tattn.decode_cross_attention(p0["cross"], x1, kv,
                                                     cfg))
     for rank in runs["op_results"]:
-        got = rank[1]
+        got = rank[list(runs["ops"]).index("cross")]
         np.testing.assert_allclose(got["prefill"], want["prefill"].numpy(),
                                    **TOL)
         for layout in ("paged", "contiguous"):
@@ -284,24 +308,44 @@ def test_cross_attention_equal_meshless(runs):
                                        **TOL)
 
 
-def test_ssm_head_split_refused():
-    """d_inner 128 splits over tp 2 but one head of 128 does not: refused
-    by name, by the check and by the engine's cells (before any
-    collective: the mesh is a stand-in); the reduced config's 8 heads
-    pass."""
-    cfg = dataclasses.replace(tconfigs.reduced("mamba2_780m"),
-                              ssm_head_dim=128)
+@pytest.mark.parametrize("name", list(CUT))
+def test_ssm_head_cut_equals_meshless(runs, name):
+    """A head cut across the two tp ranks (mamba2: 3 heads of 32, 1.5 a
+    rank, virtual heads of 16; jamba: 1 head of 128, half a rank, one
+    virtual head of 64): `ssm_block` and `ssm_decode_step` within 1e-5 of
+    meshless; the state, gathered over tp, whole (every head) on every
+    rank, within 1e-5 of the meshless state at the rank's rows and
+    bit-equal across the tp ranks of a row; the tails the rank's channels
+    of the meshless ones (`cache_pspec`)."""
+    case = runs["ops"][f"ssm {name}"]
+    cfg = case["cfg"]
     assert cfg.d_inner % TP == 0 and cfg.ssm_heads % TP
-    stub = SimpleNamespace(shape={"data": 1, "model": TP}, get_group=None)
-    ctx = ParallelCtx(mesh=stub, tp_axis="model")
-    with pytest.raises(ValueError, match="cut across two ranks"):
-        tssm.check_ssm_split(cfg, ctx)
-    for paged in (True, False):
-        with pytest.raises(ValueError, match="cut across two ranks"):
-            tserve.make_engine_cells(cfg, n_slots=2, max_seq=16,
-                                     buckets=(8,), paged=paged, device="cpu",
-                                     mesh=stub)
-    tssm.check_ssm_split(tconfigs.reduced("mamba2_780m"), ctx)
+    p0 = layer_slice(load_numpy_params(case["params"],
+                                       device="cpu")["blocks"]["pos0"], 0)
+    x, x1 = torch.as_tensor(case["x"]), torch.as_tensor(case["x1"])
+    y, (state, tails) = tssm.ssm_block(p0["ssm"], x, cfg, return_state=True)
+    y1, (state1, tails1) = tssm.ssm_decode_step(p0["ssm"], x1, cfg, state,
+                                                tails)
+    want = dict(state=state1, **dict(zip(("tail_x", "tail_B", "tail_C"),
+                                         tails1)))
+    specs = tshd.cache_pspec({"pos0": {k: v[None] for k, v in want.items()}},
+                             ("data",), "model", STUB)["pos0"]
+    assert specs["state"] == tshd.P(None, "data", None, None, None)
+    got = [rank[list(runs["ops"]).index(f"ssm {name}")]
+           for rank in runs["op_results"]]
+    for g in got:
+        np.testing.assert_allclose(g["prefill"], y.numpy(), **TOL)
+        np.testing.assert_allclose(g["decode"], y1.numpy(), **TOL)
+        for k, spec in specs.items():
+            mine = _cut(want[k].numpy()[None], spec, g["coord"])[0]
+            assert g[k].shape == mine.shape, k
+            np.testing.assert_allclose(g[k], mine, **TOL)
+        assert g["state"].shape[1:] == (cfg.ssm_heads, cfg.ssm_head_dim,
+                                        cfg.ssm_state)
+    for a in got:
+        for b in got:
+            if a["coord"][0] == b["coord"][0]:
+                np.testing.assert_array_equal(a["state"], b["state"])
 
 
 @pytest.mark.parametrize("coord", [(0, 0), (1, 1)])
@@ -331,12 +375,21 @@ def test_make_ssm_state_is_the_specs_shard(coord):
 
 # -------------------------------------------------------------- engine
 def _per(runs, arch, name):
-    i = [r["name"] for r in RUNS].index(name)
-    return [r[i] for r in runs["mesh"][arch]], RUNS[i]
+    arch_runs = CUT_RUNS if arch in CUT else RUNS
+    i = [r["name"] for r in arch_runs].index(name)
+    return [r[i] for r in runs["mesh"][arch]], arch_runs[i]
 
 
-@pytest.mark.parametrize("name", [r["name"] for r in RUNS])
-@pytest.mark.parametrize("arch", ARCHS)
+def _engine_cases(resident: bool = False):
+    """(arch, run name) of every engine run over dp2tp2: each arch of
+    ARCHS with RUNS, each head-cut variant of CUT with CUT_RUNS (only the
+    runs that return their resident leaves, with `resident`)."""
+    return [(a, r["name"]) for a in (*ARCHS, *CUT)
+            for r in (CUT_RUNS if a in CUT else RUNS)
+            if r.get("resident") or not resident]
+
+
+@pytest.mark.parametrize("arch,name", _engine_cases())
 def test_mesh_engine_against_jax(runs, arch, name):
     per, run = _per(runs, arch, name)
     want = runs["jax"][(arch, name)]
@@ -349,14 +402,15 @@ def test_mesh_engine_against_jax(runs, arch, name):
             INT8_TOKEN_AGREEMENT
 
 
-@pytest.mark.parametrize("name", [r["name"] for r in RUNS])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,name", _engine_cases())
 def test_mesh_engine_gates(runs, arch, name):
     """Against the port's meshless engine: the lane's gates
     (`dev_serve_torch.mesh_gates`: ranks equal, fp tokens equal, int8
-    agreement, data replicas of the pool bit-equal, pool bytes, a quarter
-    of the resident bytes a rank, placement gap 0), the plain versions on
-    every rank and no kernel launched."""
+    agreement, data replicas of the pool bit-equal, pool bytes, each
+    rank its specs' share of the resident bytes, placement gap 0), the
+    plain versions on every rank and no kernel launched. The specs'
+    share is a quarter of them for ARCHS; with a head cut the state is
+    whole on every rank (its slots over `data` only)."""
     _, tc, _, _, _ = runs["inputs"][arch]
     per, run = _per(runs, arch, name)
     ref = runs["meshless"][(arch, name)]
@@ -366,19 +420,23 @@ def test_mesh_engine_gates(runs, arch, name):
                             tc.num_kv_heads % TP == 0,
                             {0: ref["resident_bytes"]})
     assert not failed
+    share = {r["shares"]["resident"][0] for r in per}
+    if arch in CUT:
+        assert share.pop() * DP * TP > ref["resident_bytes"]
+    else:
+        assert share == {ref["resident_bytes"] // (DP * TP)}
     assert all(r["plain"] and not r["launches"] for r in per)
     assert sorted(r["coord"] for r in per) == [
         (d, m) for d in range(DP) for m in range(TP)]
 
 
-@pytest.mark.parametrize("name", [r["name"] for r in RUNS
-                                  if r.get("resident")])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,name", _engine_cases(resident=True))
 def test_mesh_engine_resident_shards(runs, arch, name):
     """Each rank's slot-resident leaves after the run equal the meshless
     engine's cut by the layout's specs (1e-5); on seamless's paged
     layout the cross-KV holds the rank's heads, on the contiguous one
-    its block of encoder positions."""
+    its block of encoder positions; a head-cut variant's state is whole
+    (every head at the rank's slots)."""
     per, _ = _per(runs, arch, name)
     ref = runs["meshless"][(arch, name)]
     assert ref["resident"]
@@ -391,6 +449,10 @@ def test_mesh_engine_resident_shards(runs, arch, name):
             assert r["resident"][key].shape == mine.shape, key
             np.testing.assert_allclose(r["resident"][key], mine, **TOL,
                                        err_msg=key)
+    if arch in CUT:
+        assert all(spec["state"] == tshd.P(None, "data", None, None, None)
+                   for spec in ref["cache_pspecs"].values()
+                   if "state" in spec)
     if arch == "seamless_m4t_large_v2":
         spec = ref["cache_pspecs"]["pos0"]["cross_k"]
         assert spec == (tshd.P(None, "data", None, "model", None)

@@ -17,7 +17,10 @@ rank's 4 of 8 heads), jamba_1_5_large_398b (SSM, attention and
 `moe_ep` layers, capacity 8.0), paligemma_3b (the vision prefix: the
 rank's rows of `patches`; 4 / 1 heads, the `group` layout) and
 seamless_m4t_large_v2 (the encoder over the rank's rows of `frames`,
-cross-attention in every decoder layer).
+cross-attention in every decoder layer); and an SSM head cut across the
+two `model` ranks (the rank's block of `d_inner` run as virtual heads):
+mamba2 with d_model 48 and heads of 32 (3 heads, 1.5 a rank) and jamba
+with heads of 128 (1 head, half a rank).
 
 * One step's gradients of every leaf (gathered whole with
   `unshard_tree`) within 1e-5 of the leaf's largest magnitude of JAX's
@@ -46,7 +49,13 @@ cross-attention in every decoder layer).
   the gradients of every weight and of x within 1e-5 of their largest
   magnitude of `jax.vjp` of the reference's meshless block, over dp1tp2
   (`data`'s two ranks replicas of one tp2 group) and over dp2tp2 with
-  FSDP.
+  FSDP, and over dp2tp2 with FSDP on the mamba2 head cut.
+* `moe_ep` with grad whose sequence does not split over the EP axis (x
+  (2, 3, d), S 3 on `model`'s 2 ranks: every rank routes every token) on
+  the same ranks (`dev_train_torch.moe_grad_rank`, reduced granite-moe
+  at capacity 8.0): y, aux and the gradients of x and of every weight
+  within 1e-5 of their largest magnitude of `moe_dense`'s and of
+  `jax.grad` of the reference's `moe_ep` on its (2, 2) mesh.
 * After every run the replicas of every leaf bit-equal across the ranks
   and each rank's state bytes equal to its share under `state_pspecs`.
 * granite's three steps also run the tiered step (`runtime.tiering`,
@@ -56,8 +65,7 @@ cross-attention in every decoder layer).
   per-token NLL) bit-equal to the meshless bf16 forward with the
   row-parallel products split as dp2tp2 splits them.
 
-In this process: the refusals left over a mesh (ROADMAP A16f); the
-training rules' specs (granite-moe's expert
+In this process: the training rules' specs (granite-moe's expert
 weights: w_gate / w_up split on their embed dim over `data`, w_down on
 its ff dim, the first of its dims to ask) against the reference's; the
 tiering's `shard_counts` and `per_device_profile` against the
@@ -125,12 +133,21 @@ ARCHS = {
                                  capacity_factor=8.0),
     "paligemma_3b": dict(arch="paligemma_3b"),
     "seamless_m4t_large_v2": dict(arch="seamless_m4t_large_v2"),
+    # an SSM head cut across the two model ranks
+    "mamba2_cut": dict(arch="mamba2_780m", d_model=48, ssm_head_dim=32),
+    "jamba_cut": dict(arch="jamba_1_5_large_398b", capacity_factor=8.0,
+                      ssm_head_dim=128),
 }
+CUT = ("mamba2_cut", "jamba_cut")
 STEPPED = ("granite_3_2b", "smollm_360m", "qwen2_5_32b",
            "granite_moe_1b_a400m", "mamba2_780m", "jamba_1_5_large_398b",
-           "paligemma_3b", "seamless_m4t_large_v2")
-# ssm_block alone: (dp, fsdp) of each case
-SSM_CASES = {"dp1tp2": False, "dp2tp2 fsdp": True}
+           "paligemma_3b", "seamless_m4t_large_v2", *CUT)
+# ssm_block alone: (arch, fsdp) of each case
+SSM_CASES = {"dp1tp2": ("mamba2_780m", False),
+             "dp2tp2 fsdp": ("mamba2_780m", True),
+             "dp2tp2 fsdp head cut": ("mamba2_cut", True)}
+# moe_ep with grad, S % ep != 0: x and its cotangent (B, S, d)
+MOE_SHAPE = (2, 3)
 GRAD_RUNS = [(mb, remat) for mb in (1, 2) for remat in ("none", "block")]
 HEAD_RUNS = [(1, "none")]
 TIERED = "granite_3_2b"
@@ -147,7 +164,7 @@ def _cfgs(name):
 
 
 def _grad_runs(name):
-    return GRAD_RUNS if name in STEPPED else HEAD_RUNS
+    return GRAD_RUNS if name in STEPPED and name not in CUT else HEAD_RUNS
 
 
 def _runs(name):
@@ -210,11 +227,12 @@ def _jax_step(name):
             jax.tree.map(np.asarray, metrics))
 
 
-def _ssm_inputs():
-    """One SSM layer of reduced mamba2 (the reference's init, layer 0, its
-    per-head leaves and norm scale perturbed so that none is at its
-    init's constant), x and a cotangent (B, S, d), float32 numpy."""
-    params, _ = _inputs("mamba2_780m")
+def _ssm_inputs(name="mamba2_780m"):
+    """One SSM layer of reduced mamba2, or of its variant `name` (the
+    reference's init, layer 0, its per-head leaves and norm scale
+    perturbed so that none is at its init's constant), x and a
+    cotangent (B, S, d), float32 numpy."""
+    params, _ = _inputs(name)
     rng = np.random.default_rng(3)
     layer = {k: np.array(v[0]) for k, v in
              params["blocks"]["pos0"]["ssm"].items()}
@@ -227,10 +245,26 @@ def _ssm_inputs():
     return layer, x, cot
 
 
+def _moe_inputs():
+    """Reduced granite-moe at capacity 8.0 (no pair drops, as
+    `moe_dense`): its cfgs, the MoE layer's params, x and a cotangent of
+    MOE_SHAPE, float32 numpy."""
+    jc, tc = (dataclasses.replace(c, capacity_factor=8.0)
+              for c in _cfgs("granite_moe_1b_a400m"))
+    rng = np.random.default_rng(7)
+    d, E, ff = tc.d_model, tc.num_experts, tc.moe_d_ff
+    params = {k: rng.normal(0, d ** -0.5, shape).astype(np.float32)
+              for k, shape in (("router", (d, E)), ("w_gate", (E, d, ff)),
+                               ("w_up", (E, d, ff)), ("w_down", (E, ff, d)))}
+    x, cot = (rng.normal(0, 1, (*MOE_SHAPE, d)).astype(np.float32)
+              for _ in range(2))
+    return jc, tc, params, x, cot
+
+
 SHARDED_CODE = r"""
 import dataclasses, sys
 import numpy as np
-import jax
+import jax, jax.numpy as jnp
 from repro import configs
 from repro.common.config import TrainConfig
 from repro.common.pytree import named_leaves
@@ -265,6 +299,27 @@ for name, over in ARCHS.items():
         out[f"{{name}}|lr|{{step}}"] = np.asarray(m["lr"])
     for leaf, v in named_leaves(state):
         out[f"{{name}}|state|{{leaf}}"] = np.asarray(v)
+# moe_ep with grad, S % ep != 0: every rank routes every token
+from repro.models import moe
+d = dict(np.load(sys.argv[2]))
+mcfg = dataclasses.replace(configs.reduced("granite_moe_1b_a400m"),
+                           dtype="float32", capacity_factor=8.0)
+ctx = dataclasses.replace(ctx_for_mesh(mesh, fsdp=True),
+                          moe_fsdp_mode="gather")
+w = {{k: jnp.asarray(d[k]) for k in ("router", "w_gate", "w_up", "w_down")}}
+
+
+def objective(w, x):
+    y, aux = moe.moe_ep(w, x, mcfg, ctx)
+    return (jnp.sum(y.astype(jnp.float32) * d["cot"]) + {DP} * 0.01 * aux,
+            (y, aux))
+
+
+(_, (y, aux)), (gw, gx) = jax.jit(jax.value_and_grad(
+    objective, argnums=(0, 1), has_aux=True))(w, jnp.asarray(d["x"]))
+out["moe|y"], out["moe|aux"], out["moe|x"] = map(np.asarray, (y, aux, gx))
+for k, g in gw.items():
+    out[f"moe|{{k}}"] = np.asarray(g)
 np.savez(sys.argv[1], **out)
 print("SHARDED_OK")
 """
@@ -274,13 +329,16 @@ print("SHARDED_OK")
 def mesh_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_train")
     code = SHARDED_CODE.format(
-        archs={n: ARCHS[n] for n in STEPPED}, S=S, B=B, STEPS=STEPS)
+        archs={n: ARCHS[n] for n in STEPPED}, S=S, B=B, STEPS=STEPS, DP=DP)
+    _, mcfg, mparams, mx, mcot = _moe_inputs()
+    np.savez(tmp / "moe.npz", x=mx, cot=mcot, **mparams)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") +
                           " --xla_force_host_platform_device_count=4")
                .strip())
     proc = subprocess.Popen([sys.executable, "-c", code,
-                             str(tmp / "sharded.npz")], env=env,
+                             str(tmp / "sharded.npz"), str(tmp / "moe.npz")],
+                            env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
@@ -290,10 +348,11 @@ def mesh_runs(tmp_path_factory):
             calls.append((dtt.mesh_train_rank,
                           (_cfgs(name)[1], DP, TP, params, batches,
                            _runs(name), "cpu")))
-        layer, x, cot = _ssm_inputs()
-        calls += [(dtt.ssm_grad_rank, (DP, TP, layer, x, cot,
-                                       _cfgs("mamba2_780m")[1], fsdp, "cpu"))
-                  for fsdp in SSM_CASES.values()]
+        calls += [(dtt.ssm_grad_rank, (DP, TP, *_ssm_inputs(arch),
+                                       _cfgs(arch)[1], fsdp, "cpu"))
+                  for arch, fsdp in SSM_CASES.values()]
+        calls.append((dtt.moe_grad_rank, (DP, TP, mparams, mx, mcot, mcfg,
+                                          "cpu")))
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             fut = pool.submit(tmesh.run_ranks, dst.mesh_calls, DP * TP,
                               (calls,), device="cpu", threads=1,
@@ -310,8 +369,9 @@ def mesh_runs(tmp_path_factory):
                for i, n in enumerate(ARCHS)}
     ssm = {c: [got[r][len(ARCHS) + i] for r in range(DP * TP)]
            for i, c in enumerate(SSM_CASES)}
+    moe_ranks = [got[r][-1] for r in range(DP * TP)]
     return dict(results=results, ref=ref, steps=steps, sharded=sharded,
-                ssm=ssm)
+                ssm=ssm, moe=moe_ranks)
 
 
 def _run(mesh_runs, name, label):
@@ -449,23 +509,25 @@ def test_bf16_forward_is_the_split_products(mesh_runs, name):
 
 @pytest.mark.parametrize("case", list(SSM_CASES))
 def test_ssm_block_grads_match_jax(mesh_runs, case):
-    """`ssm_block` with its heads split over `model` (4 of 8 a rank): the
-    whole leaves a rank's heads read (`w_in_B`, `w_in_C`, `conv_B`,
-    `conv_C`, `w_in_dt`, `A_log`, `D`, `dt_bias`) and x enter the TP
-    region, and the gated norm's summed squares take their cotangent
-    summed over it; with FSDP every `w_in_*` and `w_out` is gathered
-    over `data`. Every gradient, x's and y within 1e-5 of their largest
-    magnitude of the reference's meshless block."""
+    """`ssm_block` with `d_inner` split over `model` (mamba2: 4 of 8
+    heads a rank; the head cut: 1.5 of 3, as virtual heads): the whole
+    leaves a rank's heads read (`w_in_B`, `w_in_C`, `conv_B`, `conv_C`,
+    `w_in_dt`, `A_log`, `D`, `dt_bias`) and x enter the TP region, and
+    the gated norm's summed squares take their cotangent summed over it;
+    with FSDP every `w_in_*` and `w_out` is gathered over `data`. Every
+    gradient, x's and y within 1e-5 of their largest magnitude of the
+    reference's meshless block."""
     from repro.models import ssm as jssm
 
-    jc, _ = _cfgs("mamba2_780m")
-    layer, x, cot = _ssm_inputs()
+    arch, fsdp = SSM_CASES[case]
+    jc, _ = _cfgs(arch)
+    layer, x, cot = _ssm_inputs(arch)
     y, vjp = jax.vjp(lambda p, x_: jssm.ssm_block(p, x_, jc),
                      jax.tree.map(jnp.asarray, layer), jnp.asarray(x))
     gp, gx = vjp(jnp.asarray(cot))
     per = mesh_runs["ssm"][case]
     specs = per[0]["specs"]
-    assert specs["w_in_x"] == (("data", "model") if SSM_CASES[case]
+    assert specs["w_in_x"] == (("data", "model") if fsdp
                                else (None, "model"))
     assert specs["A_log"] == (None,)
     want = dict(jax.tree.map(np.asarray, gp), x=np.asarray(gx),
@@ -478,6 +540,45 @@ def test_ssm_block_grads_match_jax(mesh_runs, case):
             atol=1e-5 * max(float(np.abs(w).max()), 1e-30), err_msg=leaf)
     for p in per[1:]:
         np.testing.assert_array_equal(p["x_grad"], per[0]["x_grad"])
+
+
+@pytest.mark.parametrize("against", ["moe_dense", "reference moe_ep"])
+def test_moe_ep_grads_with_an_unsplit_sequence(mesh_runs, against):
+    """`moe_ep` with grad at S 3 on an EP axis of 2 (the sequence does not
+    split over it: every rank routes every token, and y's cotangent is
+    counted once over the axis) over dp2tp2 under the training rules:
+    y, aux and the gradients of x and of every weight within 1e-5 of
+    their largest magnitude of the port's `moe_dense` on the whole
+    weights, or of `jax.grad` of the reference's `moe_ep` on its (2, 2)
+    mesh (its "gather" schedule, ROADMAP §C)."""
+    _, tc, params, x, cot = _moe_inputs()
+    per = mesh_runs["moe"]
+    got = per[0]
+    assert MOE_SHAPE[1] % TP and got["specs"]["w_up"] == ("model", "data",
+                                                          None)
+    if against == "moe_dense":
+        from repro_torch.models import moe as tmoe
+
+        w = {k: torch.tensor(v, requires_grad=True) for k, v in
+             params.items()}
+        xt = torch.tensor(x, requires_grad=True)
+        y, aux = tmoe.moe_dense(w, xt, tc)
+        dtt.moe_objective(y, aux, torch.tensor(cot), n_aux=DP).backward()
+        want = dict(y=y.detach().numpy(), aux=float(aux.detach()),
+                    x=xt.grad.numpy(),
+                    **{k: w[k].grad.numpy() for k in params})
+    else:
+        ref = mesh_runs["sharded"]
+        want = {k: ref[f"moe|{k}"] for k in ("y", "x", *params)}
+        want["aux"] = float(ref["moe|aux"])
+    have = dict(got["grads"], y=got["y"], x=got["x_grad"])
+    for leaf in ("y", "x", *params):
+        np.testing.assert_allclose(
+            have[leaf], want[leaf], rtol=0,
+            atol=1e-5 * float(np.abs(want[leaf]).max()), err_msg=leaf)
+    for p in per:
+        assert abs(p["aux"] - want["aux"]) <= 1e-5 * abs(want["aux"])
+        np.testing.assert_array_equal(p["y"], got["y"])
 
 
 def test_tiered_step_bit_equal_on_every_rank(mesh_runs):
@@ -540,38 +641,6 @@ def test_tiering_shard_counts_and_profile_match_the_reference(arch):
     assert sum(a.bytes for a in got) < sum(
         a.bytes for a in ttiering.per_device_profile(
             bundle.abstract_state, tc, shape, "block"))
-
-
-def test_a16f_refusals_still_raise():
-    """What stays refused by name over a mesh (ROADMAP A16f), before any
-    collective (the mesh is a stand-in): an SSM head cut across two
-    ranks (`d_inner` splits over tp, the heads do not), in the train
-    bundle as in the engine; contiguous caches whose extent does not
-    divide over tp (`serve.check_seq_split`); `moe_ep` with grad whose
-    sequence does not split over the EP axis."""
-    from repro_torch.common.parallel import ParallelCtx
-    from repro_torch.models import model as TM
-    from repro_torch.models import moe as tmoe
-    from repro_torch.runtime import serve as tserve
-
-    stub = SimpleNamespace(shape={"data": 1, "model": 2}, get_group=None)
-    cut = dataclasses.replace(tconfigs.reduced("mamba2_780m"),
-                              ssm_head_dim=128)
-    with pytest.raises(ValueError, match="cut across two ranks"):
-        ttrain.make_bundle(cut, TrainConfig(), mesh=stub)
-    ctx = ParallelCtx(mesh=stub, tp_axis="model")
-    caches = TM.make_decode_caches(tconfigs.reduced("granite_3_2b"), 2, 15,
-                                   device="cpu")
-    with pytest.raises(ValueError, match="must divide"):
-        tserve.check_seq_split(caches, ctx)
-    cfg = tconfigs.reduced("granite_moe_1b_a400m")
-    layer = {k: v[0] for k, v in TM.init_model(
-        cfg, device="cpu")["blocks"]["pos0"]["moe"].items()}
-    half = {k: (v if k == "router" else v[:cfg.num_experts // 2])
-            for k, v in layer.items()}
-    x = torch.zeros(2, 3, cfg.d_model, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="needs the sequence"):
-        tmoe.moe_ep(half, x, cfg, ctx, local_batch=True)
 
 
 def _launcher_against_the_bundle(arch, tmp_path):

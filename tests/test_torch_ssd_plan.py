@@ -36,12 +36,15 @@ from repro_torch.kernels.ssd_scan import ssd_scan as tks  # noqa: E402
 Y_TOL = dict(atol=2e-2, rtol=8e-3)
 STATE_TOL = dict(atol=2e-4, rtol=2e-4)
 
-# chip_smoke.py's ssd sweep: (B, S, H, P, G, N)
+# chip_smoke.py's ssd sweep: (B, S, H, P, G, N); then its shard shapes
+# of a head cut across ranks (mamba2-780m over tp 32 and 64: 3 virtual
+# heads of 32 and of 16)
 SWEEP = ([(2, 256, 4, 16, 1, 32), (1, 128, 4, 32, 2, 16),
           (2, 128, 8, 16, 1, 64), (1, 192, 2, 8, 1, 8)]
          + [(B, S, 48, 64, 1, 128) for B in (1, 8) for S in (64, 128, 256)]
          + [(1, 100, 48, 64, 1, 128), (2, 128, 48, 64, 2, 128),
-            (2, 160, 48, 64, 1, 128)])
+            (2, 160, 48, 64, 1, 128)]
+         + [(1, 128, 3, 32, 1, 128), (1, 128, 3, 16, 1, 128)])
 
 
 # ------------------------------------------------------------ the plan
