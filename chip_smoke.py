@@ -683,8 +683,8 @@ def kernel_cases(torch, timer):
     # table entries all garbage), the split's span edges (1, span - 1,
     # span, span + 1), a page edge, the capacity and a parked row, over
     # three spans of keys, at every head dim up to 256 and GQA rep up to 8
-    span = dpaged.SPAN
     for D_ in (16, 20, 64, 112, 128, 256):
+        span = dpaged.default_span(D_)
         for page_ in (16, 64):
             for rep in (1, 3, 8):
                 for pool in ("bf16", "f32", "int8/page", "int8/token"):
@@ -779,6 +779,7 @@ def kernel_cases(torch, timer):
     records.append(w8a8_cases(torch, timer, randn, report, timed))
     records.append(ssd_cases(torch, timer, gen, report, timed))
     shapes = arch_shape_cases(torch, timer, gen, randn, report)
+    long_slots = long_slot_cases(torch, timer, gen, randn, report)
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree: "
                              f"{failures}")
@@ -793,6 +794,7 @@ def kernel_cases(torch, timer):
         " (CUDA events behind a queued spin where a trace was incomplete)")
         + ", L2 flushed before each call")
     print("arch shape records " + json.dumps(shapes))
+    print("long slot records " + json.dumps(long_slots))
     return records
 
 
@@ -1233,6 +1235,100 @@ def arch_shape_cases(torch, timer, gen, randn, report) -> list:
     return records
 
 
+# paged_flash_decode at long slots on the main arch's shape (SmolLM-360M:
+# int8/page pool, page 16, 15 / 5 heads, D 64): (label, B, capacity in
+# keys, lengths), one slot of 16384 keys (past MAX_SPANS spans of 64 keys)
+# and 8 of about 2048
+LONG_SLOTS = (
+    ("B 1 at 16384", 1, 16384, (16384,)),
+    ("B 8 at 2048", 8, 2048, (2048, 2048, 2047, 1985, 1700, 1200, 1025, 64)),
+)
+
+
+def long_slot_cases(torch, timer, gen, randn, report) -> list:
+    """paged_flash_decode at LONG_SLOTS, the partition past the span cap
+    (longer spans walked as tiles of the ring): against its plain version
+    with q in float32 (F32_TOL) and bf16 (each element within BF16_TOL's
+    atol times the reference's largest |value|, plus one bf16 ulp of the
+    element: the outputs, averages of many V rows, are far below 1, so an
+    absolute 2e-2 would pass almost anything), timed in bf16 beside
+    its bound (the run's lengths), the plain version and SDPA over the K/V
+    gathered and dequantized to bf16 beforehand (the gather excluded).
+    Returns the timing records."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+
+    print("long slots: paged_flash_decode (f32 atol=rtol=1e-5; bf16 "
+          "2e-2 * max|ref| + 1 ulp)")
+    H, KV, D, page = 15, 5, 64, 16
+    records = []
+    for label, B, cap, lengths in LONG_SLOTS:
+        n_pages = cap // page
+        P = B * n_pages
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        bt = torch.stack([torch.randperm(P, generator=gen, device="cuda")
+                          [:n_pages] for _ in range(B)]).to(torch.int32)
+        kp, vp = (torch.randint(-127, 128, (P, page, KV, D), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        szs = {n: torch.stack([
+            0.005 + 0.015 * torch.rand((P, KV), generator=gen, device="cuda"),
+            torch.rand((P, KV), generator=gen, device="cuda") - 0.5], -1)
+            for n in ("k_sz", "v_sz")}
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(B, H, D, dtype=dt)
+            out = dops.paged_decode_mha(q, kp, vp, bt, lens, impl="cuda",
+                                        **szs)
+            ref = dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                        impl="reference", **szs)
+            case = f"long slot {label} int8/page H={H} KV={KV} D={D} q="
+            if dt == torch.float32:
+                errs[dt], ok = max_err(torch, out, ref, F32_TOL)
+                report("paged_flash_decode", case + "float32", errs[dt], ok,
+                       F32_TOL)
+                continue
+            ref_max = float(ref.float().abs().max())
+            tol = dict(atol=BF16_TOL["atol"] * ref_max, rtol=0.0)
+            r32 = ref.float()
+            ulp = torch.ldexp(torch.ones_like(r32),
+                              torch.frexp(r32).exponent - 8)
+            err = (out.float() - r32).abs()
+            ok = bool((err <= tol["atol"] + ulp).all()
+                      and torch.isfinite(out).all())
+            errs[dt] = float(err.max())
+            report("paged_flash_decode", case + f"bfloat16 max|ref|="
+                   f"{ref_max:.3e} +1ulp", errs[dt], ok, tol)
+        n_keys = int(lens.sum())
+        n_page_reads = int((-(-lens // page)).sum())
+        bytes_ = (2 * n_keys * KV * D + 2 * n_page_reads * KV * 2 * 4
+                  + 2 * q.numel() * 2 + n_page_reads * 4 + B * 4)
+        ops_ = 4 * D * H * n_keys
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / PEAK_OPS["bfloat16"]
+        kd = dref.gather_pages_q8(kp, szs["k_sz"], bt).to(torch.bfloat16)
+        vd = dref.gather_pages_q8(vp, szs["v_sz"], bt).to(torch.bfloat16)
+        rec = dict(
+            name="paged_flash_decode",
+            case=(f"long slot {label}: int8/page B={B} H={H} KV={KV} D={D} "
+                  f"page={page} lengths={list(lengths)}; library = SDPA, "
+                  "gather excluded"),
+            ms=timer(lambda: dops.paged_decode_mha(q, kp, vp, bt, lens,
+                                                   impl="cuda", **szs)),
+            plain_ms=timer(lambda: dops.paged_decode_mha(
+                q, kp, vp, bt, lens, impl="reference", **szs)),
+            bound_ms=max(t_b, t_o) * 1e3,
+            bound_by="bytes" if t_b >= t_o else "operations",
+            library_ms=sdpa_decode_ms(torch, timer, q, kd, vd, lens),
+            max_abs_err_bf16=errs[torch.bfloat16])
+        print(f"  time paged_flash_decode long slot {label}: kernel "
+              f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms library "
+              f"{rec['library_ms']} ms bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}) on {smi_line()}")
+        records.append(rec)
+        del kp, vp, kd, vd
+    return records
+
+
 def sdpa_decode_ms(torch, timer, q, k, v, lengths):
     """Time of `scaled_dot_product_attention` (with `enable_gqa`) for one
     query token per row against dense K/V (B, S, KV, D) in q's dtype,
@@ -1273,11 +1369,11 @@ def flash_decode_cases(torch, timer, randn, report, timed):
     from repro_torch.kernels.decode_attention import paged as dpaged
 
     print("kernel flash_decode (f32 atol=rtol=1e-5; bf16 atol=2e-2)")
-    span = dpaged.SPAN
     n_cases, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_lse = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for D in (16, 20, 64, 112, 128, 256):
+            span = dpaged.default_span(D)
             for rep in (1, 3, 8):
                 for S in (64, 256, 260):
                     lens = torch.tensor([0, 1, span - 1, span, span + 1,

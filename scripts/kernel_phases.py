@@ -14,7 +14,11 @@ plan and 64-row blocks); flash_mha's backward at smollm-360m's train
 shape, bf16 causal B=8, S=256, 15/5 heads, D=64 (its plan: 64 rows a dq
 block, 16 keys a dk/dv block); paged decode B=8, int8/page, page 16, 16 pages,
 lengths 70..257 (span 64 and 256, the latter without a split); the
-contiguous decode B=8, S=256, bf16, lengths 129..160; ssd_scan's
+contiguous decode B=8, S=256, bf16, lengths 129..160; at paligemma-3b's
+shapes flash_mha B=1, S=384, 8/1 heads, D=256 and the paged decode B=8,
+int8/page, 8/1 heads, D=256, lengths 320..400; the contiguous decode with
+its lse at qwen2.5-32b's 16x16 rank (B=8, 40/8 heads, D=128, S=2048) and
+a 16384-position block (B=1); ssd_scan's
 tensor-core body bf16 B=1, S=128, 48 heads of 64, state 128 (the default
 plan); matmul_w8a8 M=1024, K=960, N=2560 (the default plan); the page
 copy at one SmolLM-360M admission (k, k_sz, v, v_sz of the int8 pool, 32
@@ -106,8 +110,8 @@ PHASES = {
                 (5, 6, "write (warp 0)"),
                 (0, 6, "whole block (warp 0)")],
     "decode": [(0, 1, "length, table entries, q"),
-               (1, 2, "K/V and (scale, zero) copies"),
-               (2, 3, "products and softmax"),
+               (1, 2, "first round's K/V and (scale, zero)"),
+               (2, 3, "every round's products and softmax"),
                (3, 4, "partials and ticket"),
                (4, 6, "merge (last span block)"),
                (0, 6, "whole block (last or only span)")],
@@ -205,14 +209,17 @@ def decode_header(csrc: Path) -> str:
     h = (csrc / "decode_body.cuh").read_text()
     h = _insert(h, '#include "mma.cuh"\n', STAMPS)
     h = _insert(h, "  const int cap = rows.capacity();\n", "  STAMP(0);\n")
-    h = _insert(h, "  __syncthreads();  // s_row is written\n", "  STAMP(1);\n")
-    h = _insert(h, "  cp_async_commit();\n  cp_async_wait<0>();\n"
-                "  __syncthreads();\n", "  STAMP(2);\n")
+    h = _insert(h, "      __syncthreads();  // s_row of round tn\n",
+                "      if (tn == 0) STAMP(1);\n")
+    h = _insert(h, "        __syncthreads();  // ... landed for every thread\n",
+                "        if (t == 0 && tt == 0) STAMP(2);\n")
     h = _insert(h, "  const long long slot = b * s.KV + g;\n", "  STAMP(3);\n",
                 after=False)
     h = _insert(h, "      }\n    }\n    return;\n  }\n",
                 "    __syncthreads();\n    STAMP(6);\n", after=False)
     h = _insert(h, "  if (!s_last) return;\n", "  STAMP(4);\n", after=False)
+    h = _insert(h, "= M + logf(Lsum);\n    }\n",
+                "    __syncthreads();\n    STAMP(6);\n")
     i = h.index("template <typename Rows>\nstruct Args")
     j = h.rindex("}\n", 0, i)
     return h[:j] + "  __syncthreads();\n  STAMP(6);\n" + h[j:]
@@ -403,6 +410,14 @@ def main(argv=None) -> int:
             f"n_split={plan.n_split}",
             lambda plan=plan: fa.flash_mha_cuda(q, k, v, plan=plan),
             plan.grid[0] * plan.grid[1] * plan.grid[2])
+    # paligemma-3b's prefix + prompt: B 1, S 384, 8 heads on 1, D 256
+    qp, kp2 = randn(1, 384, 8, 256), randn(1, 384, 1, 256)
+    vp2 = randn(1, 384, 1, 256, scale=0.5)
+    plan = fa.launch_plan(1, 384, 384, 8, 1, 256, torch.bfloat16)
+    run("flash", f"paligemma S=384 8/1 D=256 rows={plan.rows} "
+        f"key_groups={plan.key_groups} n_split={plan.n_split}",
+        lambda: fa.flash_mha_cuda(qp, kp2, vp2, plan=plan),
+        plan.grid[0] * plan.grid[1] * plan.grid[2])
 
     from repro_torch.kernels.flash_attention import chunked
 
@@ -453,6 +468,38 @@ def main(argv=None) -> int:
     run("decode", f"contiguous bf16 span={dpaged.SPAN}",
         lambda: da.flash_decode_cuda(qd, kc, vc, lc),
         KV * B * dpaged.decode_plan(B, H, KV, D, S, torch.bfloat16).n_span)
+    # paligemma-3b's int8/page pool: B 8, 8 heads on 1, D 256, 26 pages
+    Hg, KVg, Dg, n_pg = 8, 1, 256, 26
+    Pg = B * n_pg
+    qg = randn(B, Hg, Dg)
+    btg = torch.stack([torch.randperm(Pg, generator=gen, device="cuda")
+                       [:n_pg] for _ in range(B)]).to(torch.int32)
+    kpg, vpg = (torch.randint(-127, 128, (Pg, page, KVg, Dg), generator=gen,
+                              device="cuda", dtype=torch.int8)
+                for _ in range(2))
+    szg = [torch.stack([0.005 + 0.015 * torch.rand((Pg, KVg), generator=gen,
+                                                   device="cuda"),
+                        torch.rand((Pg, KVg), generator=gen, device="cuda")
+                        - 0.5], -1) for _ in range(2)]
+    lg = torch.tensor([320, 330, 340, 350, 360, 370, 380, 400],
+                      dtype=torch.int32, device="cuda")
+    plan = dpaged.decode_plan(B, Hg, KVg, Dg, n_pg * page, torch.int8)
+    run("decode", f"paligemma int8/page B=8 8/1 D=256 span={plan.span}",
+        lambda: dpaged.paged_flash_decode_cuda(qg, kpg, vpg, btg, lg,
+                                               k_sz=szg[0], v_sz=szg[1]),
+        KVg * B * plan.n_span)
+    # the lse variant's long shapes (chip_smoke.LSE_SHAPES): qwen2.5-32b's
+    # 16x16 rank and a 16384-position block
+    for label, Bl, Hl, KVl, Dl, Sl, lengths in chip_smoke.LSE_SHAPES[1:]:
+        ql = randn(Bl, Hl, Dl)
+        kl, vl = randn(Bl, Sl, KVl, Dl), randn(Bl, Sl, KVl, Dl, scale=0.5)
+        ll = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        plan = dpaged.decode_plan(Bl, Hl, KVl, Dl, Sl, torch.bfloat16)
+        run("decode", f"contiguous bf16 lse {label} B={Bl} {Hl}/{KVl} "
+            f"D={Dl} S={Sl} span={plan.span} n_span={plan.n_span}",
+            lambda ql=ql, kl=kl, vl=vl, ll=ll: da.flash_decode_cuda(
+                ql, kl, vl, ll, return_lse=True),
+            KVl * Bl * plan.n_span)
 
     F = torch.nn.functional
     Hs, Ps, Ns = 48, 64, 128

@@ -11,11 +11,12 @@
 // Design: the same split body as the paged decode, shared through the
 // template of `decode_body.cuh` with the row addressing as its policy (row
 // b * S + t here, through the block table there): one block per (KV head,
-// batch row, span of 64 key positions) computes all rep = H / KV query
+// batch row, span of key positions) computes all rep = H / KV query
 // heads, so each K/V row leaves device memory once per step where the
 // Pallas grid (B, H, S / bk) re-reads it per query head; the span's K/V
-// rows are read in one round of copies, and the last block of each (row,
-// KV head) merges the spans in span order in the same launch. The span
+// rows stream through a double-buffered ring of 32-key tiles, and the last
+// block of each (row, KV head) merges the spans in span order in the same
+// launch. The span
 // partition is the paged decode's, so a contiguous engine and a paged fp
 // engine compute the same sums. Keys stop at min(length, S) — parked
 // rows arrive with length S + 1 and read the whole cache, never past it;
@@ -40,8 +41,8 @@ using repro::decode::launch_d;
 // q (B,H,D), k/v (B,S,KV,D), out (B,H,D), all in `dtype` (kF32 | kBF16);
 // lengths (B,) int32; lse (B,H) float32 or null (not written). All
 // contiguous, on the device. The launch plan, scratch and widths as for
-// `repro_paged_decode`, with n_span = ceil(S / span) (no (scale, zero)
-// rows). Returns cudaGetLastError() of the launch.
+// `repro_paged_decode`, with n_span = min(ceil(S / span), kMaxSpans) (no
+// (scale, zero) rows). Returns cudaGetLastError() of the launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, void* lse,
                                   void* part, void* part_ml, void* tickets,

@@ -51,6 +51,24 @@
 //   issuing the first copies, one tile's products and softmax with one
 //   warp per scheduler, and the write; SDPA stays faster at the main
 //   shape.
+// - What that body lost at D 256 (paligemma-3b's prefix + prompt, 384
+//   positions x 8 heads on one KV head; NVIDIA H100 80GB HBM3, 700 W):
+//   every warp owned all 256 output columns of its 16 rows, 128 float32
+//   accumulators a lane besides S and P's two halves, 255 registers; two
+//   key groups' tile rings did not fit, so the plan took 64-row blocks
+//   with one key group, 48 blocks, split 6 ways over the keys and merged
+//   by the combine kernel through float32 scratch: 0.046 ms against
+//   SDPA's 0.014, the combine a quarter of it.
+// - Above D 128 (D padded to 16) a row group's 16 rows belong to 4
+//   column warps over 32-key tiles: each warp computes the tile's S over
+//   a quarter of the depth (four independent 4-deep mma chains, q's
+//   fragments of that quarter held in registers), the four partial tiles
+//   meet in shared memory behind a named barrier of the four warps, every
+//   warp sums them in the same order and runs the same online softmax on
+//   the whole tile (so m and l agree bit for bit), then P V for its own
+//   64 columns (32 accumulators a lane). Blocks of 16 rows with two key
+//   groups, 256 threads: 192 blocks at paligemma's shape, no key split;
+//   causal blocks run in reverse order, the longest key ranges first.
 //
 // float32 (the sweep's 1e-5 gate, which bf16 products cannot meet; no
 // engine path): `flash_fma_kernel`, the first design, kept as it was.
@@ -175,50 +193,77 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // ------------------------------------------- bf16: tensor-core body
-constexpr int kBN = 64;          // keys per tile
-constexpr int kThreadsMma = 128;  // 4 warps
+constexpr int kBN = 64;          // keys per tile (D <= 128)
+constexpr int kThreadsMma = 128;  // 4 warps (D <= 128)
+constexpr int kBNWide = 32;      // keys per tile above D 128
+constexpr int kColGroups = 4;    // warps sharing a row group above D 128
+constexpr int kMaxThreadsWide = 256;
+constexpr int kSPitch = kBNWide + 8;  // f32 pitch of a row group's S tile
 
 // Shared-memory layout of the tensor-core body, in bytes; every region
 // starts 16-byte aligned. The launch plan in Python mirrors it.
 struct MmaSmem {
-  int q, ring, total;
-  __host__ __device__ MmaSmem(int rows_blk, int D) {
+  int q, ring, sx, total;
+  __host__ __device__ MmaSmem(int rows_blk, int D, int kp, int tile) {
     const int qp = 2 * (((D + 15) & ~15) + 8);  // bf16 row pitch, bytes
-    const int kp = 4 / (rows_blk / 16);          // key groups
     q = rows_blk * qp;                           // [rows_blk] q rows
-    ring = 2 * kp * 2 * kBN * qp;  // [round parity][key group][k, v][kBN]
-    total = q + ring;
+    ring = 2 * kp * 2 * tile * qp;  // [round parity][key group][k, v][tile]
+    // above D 128: [row group][key group][column warp][16][kSPitch] f32
+    // partial S tiles
+    sx = ((D + 15) & ~15) > 128
+             ? rows_blk / 16 * kp * kColGroups * 16 * kSPitch * 4
+             : 0;
+    total = q + ring + sx;
   }
 };
 
+// a barrier of `n` threads (whole warps) under id `id` (1..15)
+__device__ __forceinline__ void named_bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+
 struct MmaShape {
-  int Sq, Skv, H, KV, D, rows_blk, n_split, vb, causal, kv_offset;
+  int Sq, Skv, H, KV, D, rows_blk, kp, n_split, vb, causal, kv_offset;
   long long R;  // output rows B * Sq * H
   float scale;
 };
 
+// DMAX <= 128: 4 warps, each a row group's 16 rows over every output
+// column. DMAX 256: kColGroups warps share a row group over 32-key tiles:
+// each computes the tile's S over a quarter of the depth (four
+// independent 4-deep mma chains), the four partial tiles meet in shared
+// memory and every warp sums them in the same order, runs the same
+// online softmax on the whole tile (the same arithmetic, so m and l
+// agree bit for bit) and P V for its quarter of the columns.
 template <int DMAX>
-__global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
+__global__ void __launch_bounds__(DMAX > 128 ? kMaxThreadsWide : kThreadsMma)
+    flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, float* __restrict__ part,
     float* __restrict__ part_ml, MmaShape s) {
-  constexpr int kNT = DMAX / 8;          // 8-wide d tiles of the output
+  constexpr int kNCG = DMAX > 128 ? kColGroups : 1;  // column groups
+  constexpr int kTile = DMAX > 128 ? kBNWide : kBN;  // keys per tile
+  constexpr int kNT = DMAX / 8 / kNCG;   // 8-wide d tiles a warp owns
+  constexpr int kNP = DMAX / 16 / kNCG;  // 16-wide d tiles a warp owns
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int n_thr = kNCG == 1 ? kThreadsMma : blockDim.x;
   const int rows_blk = s.rows_blk;
   const int n_rg = rows_blk / 16;        // row groups of 16 rows
-  const int kp = 4 / n_rg;               // key groups
-  const int rg = warp % n_rg;            // this warp's rows ...
-  const int kg = warp / n_rg;            // ... and its share of the tiles
+  const int kp = kNCG == 1 ? 4 / n_rg : s.kp;  // key groups
+  const int cg = warp % kNCG;            // this warp's columns, ...
+  const int rg = warp / kNCG % n_rg;     // ... its rows ...
+  const int kg = warp / kNCG / n_rg;     // ... and its share of the tiles
   const int rep = s.H / s.KV;
   const int dp = (s.D + 15) & ~15;
   const int kd = dp / 16;                // 16-deep k steps of QK^T
   const int qp = dp + 8;                 // bf16 row pitch (elements)
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* ring = sq + rows_blk * qp;  // tile slots of [k, v][kBN][qp]
+  __nv_bfloat16* ring = sq + rows_blk * qp;  // tile slots of [k, v][kTile][qp]
+  float* s_x = reinterpret_cast<float*>(ring + 2 * kp * 2 * kTile * qp);
 
   const int g = blockIdx.y;
   const long long b = blockIdx.z / s.n_split;
@@ -226,29 +271,32 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
   // row slots of the block: rows row0 .. row0 + rows_blk - 1 of the head
   // group's Sq * rep rows, row = qi * rep + head
   const int n_rows = s.Sq * rep;
-  const int row0 = blockIdx.x * rows_blk;
+  // above D 128 the causal blocks run the longest key ranges first
+  const int bx = kNCG > 1 && s.causal ? gridDim.x - 1 - blockIdx.x
+                                      : blockIdx.x;
+  const int row0 = bx * rows_blk;
   const int q_last = (min(row0 + rows_blk, n_rows) - 1) / rep;
   const int k_end =
       s.causal ? max(0, min(s.Skv, s.kv_offset + q_last + 1)) : s.Skv;
-  const int n_tiles = (k_end + kBN - 1) / kBN;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
   const int t_lo = split * n_tiles / s.n_split;
   const int t_hi = (split + 1) * n_tiles / s.n_split;
 
   const char* any = reinterpret_cast<const char*>(k);  // for empty copies
   const int row_bytes = 2 * s.D;
   const int per = 2 * dp / s.vb;         // copies per staged row
-  // a thread's copies of a staged tile are chunks tid, tid + 128, ...:
+  // a thread's copies of a staged tile are chunks tid, tid + n_thr, ...:
   // its first (row, chunk) and the step, so the loop does not divide
   const int j0 = tid / per, c0 = tid - j0 * per;
-  const int dj = kThreadsMma / per, dc = kThreadsMma - dj * per;
+  const int dj = n_thr / per, dc = n_thr - dj * per;
   const long long kv0 = (b * s.Skv * s.KV + g) * s.D;  // key 0's row
   const long long kv_step = static_cast<long long>(s.KV) * s.D;
   // K/V rows of tile t into tile slot `slot`, zero-padded to dp columns
   auto issue = [&](int t, int slot) {
-    const int k0 = t * kBN;
-    char* kr = reinterpret_cast<char*>(ring + slot * 2 * kBN * qp);
-    char* vr = kr + 2 * kBN * qp;
-    for (int j = j0, c = c0; j < kBN;) {
+    const int k0 = t * kTile;
+    char* kr = reinterpret_cast<char*>(ring + slot * 2 * kTile * qp);
+    char* vr = kr + 2 * kTile * qp;
+    for (int j = j0, c = c0; j < kTile;) {
       const int off = c * s.vb;
       const int key = k0 + j;
       const char* ksrc = any;
@@ -304,10 +352,14 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m[2] = {repro::kNegInf, repro::kNegInf};
   float l[2] = {0.f, 0.f};
+  // above D 128 the q fragments of the warp's quarter of the depth stay
+  // in registers over the tiles
+  constexpr int kKQ = DMAX / 16 / kNCG;  // k-steps a column warp takes
+  uint32_t qa[kNCG > 1 ? kKQ : 1][4];
 
   if (t_hi > t_lo) {
     // q rows, zero-padded to dp columns and past the last row
-    for (int idx = tid; idx < rows_blk * per; idx += kThreadsMma) {
+    for (int idx = tid; idx < rows_blk * per; idx += n_thr) {
       const int r = idx / per;
       const int off = (idx - r * per) * s.vb;
       const int row = row0 + r;
@@ -341,36 +393,98 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
     }
     __syncthreads();  // round r (and, first, q) landed for every thread
     const int t = t_lo + r * kp + kg;
-    const __nv_bfloat16* kt = ring + ((r & 1) * kp + kg) * 2 * kBN * qp;
-    const __nv_bfloat16* vt = kt + kBN * qp;
-    const int k0 = t * kBN;
+    const __nv_bfloat16* kt = ring + ((r & 1) * kp + kg) * 2 * kTile * qp;
+    const __nv_bfloat16* vt = kt + kTile * qp;
+    const int k0 = t * kTile;
+    if constexpr (kNCG > 1) {
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < kKQ; ++j)
+          if (cg * kKQ + j < kd)
+            repro::ldsm_x4(qa[j], sq + (rg * 16 + (lane & 15)) * qp +
+                                      (cg * kKQ + j) * 16 + (lane >> 4) * 8);
+      }
+    }
     if (t < t_hi && k0 <= warp_kmax) {
-      // S = Q K^T for the warp's 16 rows x 64 keys
-      float sc[8][4];
+      // S = Q K^T for the warp's 16 rows x kTile keys
+      float sc[kTile / 8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < kTile / 8; ++i)
         sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+      if constexpr (kNCG > 1) {
+        // this warp's partial S over k-steps cg * kKQ .. (four n-tiles,
+        // four independent chains); the column warps' partial tiles meet
+        // in shared memory and each warp sums them in column-warp order,
+        // so all four hold the same S (the same condition holds for all
+        // four, so all four reach the barrier)
 #pragma unroll
-      for (int ks = 0; ks < DMAX / 16; ++ks) {
-        if (ks < kd) {
-          uint32_t a[4];
-          repro::ldsm_x4(a, sq + (rg * 16 + (lane & 15)) * qp + ks * 16 +
-                                (lane >> 4) * 8);
+        for (int j = 0; j < kKQ; ++j) {
+          const int ks = cg * kKQ + j;
+          if (ks < kd) {
 #pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t bb[4];
-            repro::ldsm_x4(bb, kt + (np * 16 + (lane & 7) +
-                                     ((lane >> 4) & 1) * 8) * qp +
-                                   ks * 16 + ((lane >> 3) & 1) * 8);
-            repro::mma_bf16(sc[2 * np], a, bb[0], bb[1]);
-            repro::mma_bf16(sc[2 * np + 1], a, bb[2], bb[3]);
+            for (int np = 0; np < kTile / 16; ++np) {
+              uint32_t bb[4];
+              repro::ldsm_x4(bb, kt + (np * 16 + (lane & 7) +
+                                       ((lane >> 4) & 1) * 8) * qp +
+                                     ks * 16 + ((lane >> 3) & 1) * 8);
+              repro::mma_bf16(sc[2 * np], qa[j], bb[0], bb[1]);
+              repro::mma_bf16(sc[2 * np + 1], qa[j], bb[2], bb[3]);
+            }
+          }
+        }
+        float* st = s_x + (rg * kp + kg) * kNCG * 16 * kSPitch;
+        const int gr = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+        for (int nt = 0; nt < kTile / 8; ++nt) {
+          float* o = st + cg * 16 * kSPitch + nt * 8 + c2;
+          *reinterpret_cast<float2*>(o + gr * kSPitch) =
+              make_float2(sc[nt][0], sc[nt][1]);
+          *reinterpret_cast<float2*>(o + (gr + 8) * kSPitch) =
+              make_float2(sc[nt][2], sc[nt][3]);
+        }
+        named_bar(1 + rg * kp + kg, 32 * kNCG);
+#pragma unroll
+        for (int nt = 0; nt < kTile / 8; ++nt) {
+          float2 x0 = make_float2(0.f, 0.f), x1 = x0;
+#pragma unroll
+          for (int c = 0; c < kNCG; ++c) {
+            const float* o = st + c * 16 * kSPitch + nt * 8 + c2;
+            const float2 a0 = *reinterpret_cast<const float2*>(o + gr * kSPitch);
+            const float2 a1 =
+                *reinterpret_cast<const float2*>(o + (gr + 8) * kSPitch);
+            x0.x += a0.x;
+            x0.y += a0.y;
+            x1.x += a1.x;
+            x1.y += a1.y;
+          }
+          sc[nt][0] = x0.x;
+          sc[nt][1] = x0.y;
+          sc[nt][2] = x1.x;
+          sc[nt][3] = x1.y;
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < DMAX / 16; ++ks) {
+          if (ks < kd) {
+            uint32_t a[4];
+            repro::ldsm_x4(a, sq + (rg * 16 + (lane & 15)) * qp + ks * 16 +
+                                  (lane >> 4) * 8);
+#pragma unroll
+            for (int np = 0; np < kTile / 16; ++np) {
+              uint32_t bb[4];
+              repro::ldsm_x4(bb, kt + (np * 16 + (lane & 7) +
+                                       ((lane >> 4) & 1) * 8) * qp +
+                                     ks * 16 + ((lane >> 3) & 1) * 8);
+              repro::mma_bf16(sc[2 * np], a, bb[0], bb[1]);
+              repro::mma_bf16(sc[2 * np + 1], a, bb[2], bb[3]);
+            }
           }
         }
       }
       // scale, mask, online softmax in the accumulator layout
       float mx[2] = {repro::kNegInf, repro::kNegInf};
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
@@ -390,7 +504,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
         m[h] = m_new;
       }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
@@ -411,9 +525,10 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
         acc[i][3] *= alpha[1];
       }
       // O += P V: P's accumulators are PV's A fragments, 16 keys a step,
-      // as a bf16 hi + lo pair (two products), so P keeps about 16 bits
+      // as a bf16 hi + lo pair (two products), so P keeps about 16 bits;
+      // the warp's own 16-wide d tiles cg * kNP + j
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kTile / 16; ++kk) {
         uint32_t ah[4], al[4];
         repro::pack_bf16_split(sc[2 * kk][0], sc[2 * kk][1], ah[0], al[0]);
         repro::pack_bf16_split(sc[2 * kk][2], sc[2 * kk][3], ah[1], al[1]);
@@ -422,16 +537,17 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
         repro::pack_bf16_split(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ah[3],
                                al[3]);
 #pragma unroll
-        for (int np = 0; np < DMAX / 16; ++np) {
+        for (int jp = 0; jp < kNP; ++jp) {
+          const int np = cg * kNP + jp;
           if (np < kd) {
             uint32_t bb[4];
             repro::ldsm_x4_t(bb, vt + (kk * 16 + (lane & 7) +
                                        ((lane >> 3) & 1) * 8) * qp +
                                      np * 16 + (lane >> 4) * 8);
-            repro::mma_bf16(acc[2 * np], ah, bb[0], bb[1]);
-            repro::mma_bf16(acc[2 * np], al, bb[0], bb[1]);
-            repro::mma_bf16(acc[2 * np + 1], ah, bb[2], bb[3]);
-            repro::mma_bf16(acc[2 * np + 1], al, bb[2], bb[3]);
+            repro::mma_bf16(acc[2 * jp], ah, bb[0], bb[1]);
+            repro::mma_bf16(acc[2 * jp], al, bb[0], bb[1]);
+            repro::mma_bf16(acc[2 * jp + 1], ah, bb[2], bb[3]);
+            repro::mma_bf16(acc[2 * jp + 1], al, bb[2], bb[3]);
           }
         }
       }
@@ -455,11 +571,11 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int slot = (kg - 1) * rows_blk + r0 + 8 * h;
-        if ((lane & 3) == 0)
+        if ((lane & 3) == 0 && cg == 0)
           *reinterpret_cast<float2*>(ml_s + slot * 2) = make_float2(m[h], l[h]);
 #pragma unroll
         for (int i = 0; i < kNT; ++i) {
-          const int d = i * 8 + 2 * (lane & 3);
+          const int d = (cg * kNT + i) * 8 + 2 * (lane & 3);
           if (d < dp)
             *reinterpret_cast<float2*>(acc_s + slot * dp + d) =
                 make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
@@ -480,7 +596,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
         m[h] = M;
 #pragma unroll
         for (int i = 0; i < kNT; ++i) {
-          const int d = i * 8 + 2 * (lane & 3);
+          const int d = (cg * kNT + i) * 8 + 2 * (lane & 3);
           if (d < dp) {
             const float2 a2 =
                 *reinterpret_cast<const float2*>(acc_s + slot * dp + d);
@@ -504,7 +620,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
       __nv_bfloat16* o = out + orow * s.D;
 #pragma unroll
       for (int i = 0; i < kNT; ++i) {
-        const int d = i * 8 + 2 * (lane & 3);
+        const int d = (cg * kNT + i) * 8 + 2 * (lane & 3);
         if (d + 1 < s.D && (s.D & 1) == 0) {  // a bf16 pair, 4-byte aligned
           *reinterpret_cast<uint32_t*>(o + d) =
               repro::pack_bf16(acc[i][2 * h] * inv, acc[i][2 * h + 1] * inv);
@@ -514,19 +630,19 @@ __global__ void __launch_bounds__(kThreadsMma) flash_mma_kernel(
             o[d + 1] = __float2bfloat16_rn(acc[i][2 * h + 1] * inv);
         }
       }
-      if ((lane & 3) == 0)
+      if ((lane & 3) == 0 && cg == 0)
         lse[(b * s.H + hq) * s.Sq + qi] = m[h] + logf(l_safe);
     } else {
       const long long base = split * s.R + orow;
       float* o = part + base * dp;
 #pragma unroll
       for (int i = 0; i < kNT; ++i) {
-        const int d = i * 8 + 2 * (lane & 3);
+        const int d = (cg * kNT + i) * 8 + 2 * (lane & 3);
         if (d < dp)
           *reinterpret_cast<float2*>(o + d) =
               make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
       }
-      if ((lane & 3) == 0)
+      if ((lane & 3) == 0 && cg == 0)
         *reinterpret_cast<float2*>(part_ml + base * 2) =
             make_float2(m[h], l[h]);
     }
@@ -572,7 +688,7 @@ struct Args {
   void *out, *lse;
   int B, Sq, Skv, H, KV, D;
   float scale;
-  int causal, kv_offset, rows_blk, n_split, vb, smem;
+  int causal, kv_offset, rows_blk, key_groups, n_split, vb, smem;
   void *part, *part_ml;
   cudaStream_t stream;
 };
@@ -601,18 +717,26 @@ int launch_mma(const Args& a) {
   if ((a.rows_blk != 16 && a.rows_blk != 32 && a.rows_blk != 64) ||
       a.n_split < 1 || (a.vb != 16 && a.vb != 4 && a.vb != 1))
     return bad;
-  const MmaSmem lay(a.rows_blk, a.D);
+  constexpr bool wide = DMAX > 128;
+  const int n_rg = a.rows_blk / 16;
+  const int threads =
+      wide ? 32 * kColGroups * n_rg * a.key_groups : kThreadsMma;
+  if (wide ? a.key_groups < 1 || threads > kMaxThreadsWide
+           : a.key_groups != 4 / n_rg)
+    return bad;
+  const MmaSmem lay(a.rows_blk, a.D, a.key_groups, wide ? kBNWide : kBN);
   if (lay.total != a.smem) return bad;
   auto kernel = flash_mma_kernel<DMAX>;
   cudaError_t err = repro::allow_smem(kernel, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long R = static_cast<long long>(a.B) * a.Sq * a.H;
-  MmaShape s{a.Sq,      a.Skv, a.H,      a.KV,        a.D, a.rows_blk,
-             a.n_split, a.vb,  a.causal, a.kv_offset, R,   a.scale};
+  MmaShape s{a.Sq,         a.Skv,     a.H,    a.KV,     a.D,
+             a.rows_blk,   a.key_groups, a.n_split, a.vb, a.causal,
+             a.kv_offset,  R,         a.scale};
   const int rep = a.H / a.KV;
   dim3 grid((a.Sq * rep + a.rows_blk - 1) / a.rows_blk, a.KV,
             a.B * a.n_split);
-  kernel<<<grid, kThreadsMma, lay.total, a.stream>>>(
+  kernel<<<grid, threads, lay.total, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
@@ -634,7 +758,9 @@ int launch_mma(const Args& a) {
 // q (B,Sq,H,D), k/v (B,Skv,KV,D) contiguous in `dtype` (kF32 | kBF16);
 // out (B,Sq,H,D) in `dtype`, lse (B,H,Sq) f32. The launch plan
 // (`launch_plan` in kernels/flash_attention/flash_attention.py): bf16
-// takes rows_blk (32 | 64) row slots per block, n_split key splits
+// takes rows_blk (16 | 32 | 64) row slots per block in key_groups groups
+// of warps (4 / (rows_blk / 16) at D <= 128; above it 1 or 2, each of
+// kColGroups warps per row group), n_split key splits
 // (part (n_split, B*Sq*H, D padded to 16) and part_ml (n_split, B*Sq*H, 2)
 // f32 scratch when n_split > 1) and the cp.async width vb (16, 4 or 1:
 // synchronous) of q, k and v rows; float32 ignores them. `smem` is the
@@ -645,13 +771,15 @@ extern "C" int repro_flash_mha(const void* q, const void* k, const void* v,
                                void* out, void* lse, int B, int Sq, int Skv,
                                int H, int KV, int D, int dtype, float scale,
                                int causal, int kv_offset, int rows_blk,
-                               int n_split, int vb, int smem, void* part,
+                               int key_groups, int n_split, int vb,
+                               int smem, void* part,
                                void* part_ml, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  const Args a{q,         k,        v,       out,  lse,  B,
-               Sq,        Skv,      H,       KV,   D,    scale,
-               causal,    kv_offset, rows_blk, n_split, vb, smem,
-               part,      part_ml,  static_cast<cudaStream_t>(stream)};
+  const Args a{q,         k,         v,        out,        lse,
+               B,         Sq,        Skv,      H,          KV,
+               D,         scale,     causal,   kv_offset,  rows_blk,
+               key_groups, n_split,  vb,       smem,       part,
+               part_ml,   static_cast<cudaStream_t>(stream)};
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == repro::kF32) {
     switch (repro::lane_width(D)) {

@@ -8,11 +8,12 @@
 // (scale, zero) rows on the serving pool), read once.
 //
 // Design: the split decode body of `decode_body.cuh` (one block per (KV
-// head, slot, span of 64 key positions) computing all rep query heads;
-// the span's table entries, (scale, zero) rows and K/V rows read in one
-// round of copies; online softmax in registers; the partial spans merged
-// in span order by the last block of each (slot, KV head), in the same
-// launch), with rows located through the block table. The key range is
+// head, slot, span of key positions) computing all rep query heads; the
+// span's table entries, (scale, zero) rows and K/V rows staged 32 keys a
+// tile through a double-buffered cp.async ring; online softmax in
+// registers; the partial spans merged in span order by the last block of
+// each (slot, KV head), in the same launch), with rows located through
+// the block table. The key range is
 // bounded by min(length, n_pages * page), so a parked slot never reads
 // past its table. Three sub-scale modes, chosen by the sz rank as in the
 // reference: none (fp pool), per page (P, KV, 2), per token
@@ -49,8 +50,10 @@ int launch_kv(const Args<PagedRows>& a, int kv_dtype, int sz_mode) {
 // (P,page,KV,2) (sz_mode 2), unused for sz_mode 0; bt (B,n_pages) and
 // lengths (B,) int32; out (B,H,D) in `q_dtype`. All contiguous, on the
 // device. The launch plan (`decode_plan` in kernels/decode_attention/
-// paged.py): `span` key positions per block, n_span = ceil(n_pages * page /
-// span) blocks per (slot, KV head); scratch part (B*KV*n_span*rep, D) and
+// paged.py): spans of `span` key positions while a slot needs at most
+// `kMaxSpans` (32) of them (else longer spans, `span_len`), n_span =
+// min(ceil(n_pages * page / span), kMaxSpans) blocks per (slot, KV head);
+// scratch part (B*KV*n_span*rep, D) and
 // part_ml (B*KV*n_span*rep, 2) f32, tickets (B*KV) int32, zero on entry
 // and left zero; cp.async widths vb (K/V rows: 16, 4 or 1, synchronous)
 // and sz_vb (8, or 1: synchronous); `smem` the plan's dynamic

@@ -17,7 +17,6 @@ from repro_torch.kernels.build import SMEM_LIMIT, copy_width
 from repro_torch.kernels.decode_attention.paged import (
     MAX_HEAD_DIM,
     MAX_REP,
-    SPAN,
     decode_plan,
     scratch,
 )
@@ -34,13 +33,13 @@ def _check(cond: bool, msg: str) -> None:
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: torch.Tensor, *,
                       scale: Optional[float] = None,
-                      span: int = SPAN, return_lse: bool = False):
+                      span: Optional[int] = None, return_lse: bool = False):
     """q (B,H,D) vs the contiguous cache k/v (B,S,KV,D), all float32 or
     all bfloat16; lengths (B,) int32 valid keys per row (values past S
     read the whole cache). All contiguous on one CUDA device. Returns
     (B,H,D) in q's dtype, launched on the current stream, and with
     `return_lse` also the (B,H) float32 log-sum-exp of the scaled logits
-    (-1e30 for a row of length 0); `span` other than the default only
+    (-1e30 for a row of length 0); a `span` other than the default only
     times the options."""
     dev = q.device
     tensors = [q, k, v, lengths]

@@ -22,8 +22,15 @@ from repro_torch.kernels.build import SMEM_LIMIT, copy_width
 
 MAX_HEAD_DIM = 256
 MAX_REP = 16             # query heads per KV head one block computes
-SPAN = 64                # key positions per block of the split body
-MAX_SPAN = 256           # two keys per thread of its 128
+SPAN = 64                # key positions per span of the split body, D <= 128
+WIDE_SPAN = 32           # ... above D 128 (one KV head: twice the blocks)
+MAX_SPANS = 32           # spans a slot uses at most (`kMaxSpans`); longer
+                         # slots take spans of a multiple of `span` keys
+MAX_SPAN = 256           # the longest base span timed as an option
+KEY_TILE = 32            # keys a tile: one a lane (4 a warp step above D 128)
+WARPS = 4                # a block's warps above D 128 and up to rep 4
+MAX_WARPS = 5            # ... else (up to D 128 from rep 5)
+STAGES = 2               # rounds of tiles in the cp.async ring
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -31,11 +38,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float]
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     """Launch geometry of one decode call: block (g, b, s) computes the
-    query heads of KV head g for slot b over key positions
-    [s * span, s * span + span) of the slot's key range."""
+    query heads of KV head g for slot b over span s of the slot's key
+    range (`key_spans`: `span` keys a span while the slot needs at most
+    `MAX_SPANS` of them, else longer spans)."""
 
     span: int
-    n_span: int          # spans the capacity holds
+    n_span: int          # span blocks per (slot, KV head)
     grid: tuple          # (KV, B, n_span)
     threads: int
     smem_bytes: int
@@ -45,33 +53,78 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def default_span(D: int) -> int:
+    """The base span at head dim D: `SPAN`, or `WIDE_SPAN` above D 128,
+    where the body scores a key with 8 lanes and the one KV head of the
+    archs that have such heads leaves the card short of blocks. A
+    function of the shape only, so every caller of a model (paged or
+    dense, any batch) splits a length alike."""
+    return SPAN if D <= 128 else WIDE_SPAN
+
+
+def span_len(n_keys: int, span: int) -> int:
+    """Keys a span of a slot with `n_keys` keys covers (`span_len` in
+    `csrc/decode_body.cuh`): `span` while ceil(n_keys / span) <=
+    MAX_SPANS, else the least multiple of `span` that keeps the count at
+    MAX_SPANS."""
+    nb = _ceil(n_keys, span)
+    return span if nb <= MAX_SPANS else span * _ceil(nb, MAX_SPANS)
+
+
+def block_warps(D: int, rep: int) -> int:
+    """Warps of a block (`block_warps` in the kernel): 5 from rep 5 up
+    to D 128 (one warp a query row at rep 5, where 4 warps left one warp
+    two rows), else 4."""
+    return WARPS if D > 128 or rep <= WARPS else MAX_WARPS
+
+
+def round_keys(D: int, esize: int) -> int:
+    """Keys a round of the ring stages (`round_keys` in the kernel): two
+    tiles, one for a float32 pool above D 128."""
+    return KEY_TILE if esize == 4 and D > 128 else 2 * KEY_TILE
+
+
 def decode_plan(B: int, H: int, KV: int, D: int, capacity: int,
-                kv_dtype, span: int = SPAN) -> DecodePlan:
+                kv_dtype, span: Optional[int] = None) -> DecodePlan:
     """The launch geometry `csrc/decode_body.cuh` takes: n_span =
-    ceil(capacity / span) blocks per (slot, KV head), from the capacity
-    alone (n_pages * page or S), so the host never reads the lengths; the
-    shared memory mirrors the kernel's `Smem` layout."""
+    min(ceil(capacity / span), MAX_SPANS) blocks per (slot, KV head),
+    from the capacity alone (n_pages * page or S), so the host never reads
+    the lengths; the shared memory mirrors the kernel's `Smem` layout (a
+    ring of two rounds of `round_keys` keys, which the merge's factors
+    reuse, the int8 pool's (scale, zero) rows, the keys' cache rows, q,
+    and above D 128 each warp's scores). `span` defaults to
+    `default_span(D)`; other values only time the options."""
+    span = default_span(D) if span is None else span
     if span % 32 or not 32 <= span <= MAX_SPAN:
         raise ValueError(f"span {span} (a multiple of 32 up to {MAX_SPAN})")
     esize = torch.empty((), dtype=kv_dtype).element_size()
     chunks = _ceil(D * esize, 16)
     pitch = 16 * (chunks | 1)
     dq = chunks * (16 // esize)
-    smem = (2 * span * pitch + span * 16 + span * 8
-            + (H // KV) * dq * 4)
-    n_span = max(1, _ceil(capacity, span))
-    return DecodePlan(span, n_span, (KV, B, n_span), 128, smem)
+    rep = H // KV
+    rk = round_keys(D, esize)
+    ring = STAGES * 2 * rk * pitch
+    cw = _ceil(rep * (MAX_SPANS + 1) * 8, 16) * 16   # over the ring
+    smem = (max(ring, cw) + (STAGES * rk * 16 if esize == 1 else 0)
+            + STAGES * rk * 8 + rep * dq * 4
+            + (4 * 4 * (KEY_TILE + 4) * 4 if D > 128 else 0))
+    n_span = max(1, min(_ceil(capacity, span), MAX_SPANS))
+    return DecodePlan(span, n_span, (KV, B, n_span), 32 * block_warps(D, rep),
+                      smem)
 
 
 def key_spans(length: int, capacity: int, span: int = SPAN) -> list:
     """The kernel's partition of one slot's keys: [lo, hi) of each span
     block that computes (the key range is [0, min(length, capacity));
     at least span 0, whose empty range writes the mean of V, as the
-    reference's all-masked softmax does). Depends only on the
-    length, the capacity's clamp and the span."""
+    reference's all-masked softmax does). Depends only on the length,
+    the capacity's clamp, the span and the span cap: a slot keeps spans
+    of `span` keys up to MAX_SPANS * span keys, and beyond that uses
+    MAX_SPANS spans or fewer of a multiple of `span` keys."""
     n_keys = max(0, min(length, capacity))
-    n_used = max(1, _ceil(n_keys, span))
-    return [(u * span, min(u * span + span, n_keys)) for u in range(n_used)]
+    L = span_len(n_keys, span)
+    n_used = max(1, _ceil(n_keys, L))
+    return [(u * L, min(u * L + L, n_keys)) for u in range(n_used)]
 
 
 _SCRATCH: dict = {}
@@ -104,14 +157,14 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                             k_sz: Optional[torch.Tensor] = None,
                             v_sz: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None,
-                            span: int = SPAN) -> torch.Tensor:
+                            span: Optional[int] = None) -> torch.Tensor:
     """q (B,H,D) float32/bfloat16 vs the physical pool k/v
     (P_phys, page, KV, D) float32/bfloat16, or int8 with float32
     `k_sz`/`v_sz` of rank 3 (per page, (P_phys, KV, 2)) or rank 4 (per
     token, (P_phys, page, KV, 2)); block_tables (B, n_pages) int32 whose
     entries below each slot's length name real pages (the kernel reads
     the others but never dereferences them), lengths (B,) int32. All contiguous on one CUDA device. Returns (B,H,D) in q's
-    dtype, launched on the current stream; `span` other than the default
+    dtype, launched on the current stream; a `span` other than the default
     only times the options."""
     dev = q.device
     tensors = [q, k_pages, v_pages, block_tables, lengths]

@@ -22,11 +22,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import N_SM, SMEM_LIMIT, copy_width
 
 MAX_HEAD_DIM = 256
-KEY_TILE = 64            # keys per tile of the tensor-core body
+KEY_TILE = 64            # keys per tile of the tensor-core body, D <= 128
 ROWS = 32                # (query, head) row slots per tensor-core block
 THREADS = 128            # 4 warps: rows / 16 row groups x key groups
+# above D 128 (D padded to 16): each row group's output columns split
+# over COL_GROUPS warps, 32-key tiles, at most WIDE_THREADS a block
+COL_GROUPS = 4
+WIDE_KEY_TILE = 32
+WIDE_THREADS = 256
+WIDE_ROWS = 16
+WIDE_KEY_GROUPS = 2
+S_PITCH = WIDE_KEY_TILE + 8  # f32 pitch of a partial S tile above D 128
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,18 +42,22 @@ class Plan:
     """Launch geometry of one call. bf16: block (x, y, z) computes rows
     [x * rows, x * rows + rows) of KV head y's Sq * rep rows (row = query
     position * rep + head of the group), batch row z // n_split, over key
-    split z % n_split of its causal key range; its 4 warps are rows / 16
+    split z % n_split of its causal key range; its warps are rows / 16
     row groups times `key_groups`, which take the split's key tiles in
-    turn and merge in shared memory. float32: block (x, y, z) computes 16
-    query positions of query head y, batch row z."""
+    turn and merge in shared memory, times `col_groups` (above D 128),
+    which split the output's columns; causal blocks above D 128 run in
+    reverse x order (the longest key ranges first). float32: block (x, y,
+    z) computes 16 query positions of query head y, batch row z."""
 
     tensor_core: bool    # bf16: mma body; float32: FMA body
-    rows: int            # row slots a block computes (16 per warp)
-    key_groups: int      # warps that share a row group's key tiles
+    rows: int            # row slots a block computes (16 per row group)
+    key_groups: int      # warp groups that share a row group's key tiles
     threads: int
     grid: tuple          # (x, y, z)
     n_split: int         # key splits merged by the combine kernel
     smem_bytes: int
+    col_groups: int = 1  # warps splitting a row group's output columns
+    key_tile: int = KEY_TILE
 
 
 def _ceil(a: int, b: int) -> int:
@@ -57,10 +69,11 @@ def launch_plan(B: int, Sq: int, Skv: int, H: int, KV: int, D: int, dtype,
     """The launch geometry `csrc/flash_attention.cu` takes for these
     shapes: float32 runs the FMA body (16 query positions per block per
     query head, 32-key tiles staged as f32); bfloat16 the tensor-core
-    body with 32 row slots and two key groups per block (64 rows and one
-    where two groups' tiles do not fit), its key range split across
+    body with 32 row slots and two key groups of 64-key tiles per block
+    up to D 128; above it 16 row slots whose output columns split over 4
+    warps, two key groups of 32-key tiles; its key range split across
     blocks only where the blocks are fewer than the SMs and the split
-    keeps both groups busy (PERF.md, `scripts/attention_plans.py`)."""
+    keeps every key group busy (PERF.md, `scripts/attention_plans.py`)."""
     if dtype == torch.float32:
         pitch = D + 1 if D % 2 == 0 else D
         return Plan(False, 16, 1, 128, (_ceil(Sq, 16), H, B), 1,
@@ -68,45 +81,82 @@ def launch_plan(B: int, Sq: int, Skv: int, H: int, KV: int, D: int, dtype,
     return _mma_plan(B, Sq, Skv, H, KV, D, causal, kv_offset)
 
 
+def _col_groups(D: int) -> int:
+    """Warps that split a row group's output columns: 4 above D 128 (D
+    padded to 16), else 1."""
+    return COL_GROUPS if _ceil(D, 16) * 16 > 128 else 1
+
+
+def _key_tile(D: int) -> int:
+    return WIDE_KEY_TILE if _col_groups(D) > 1 else KEY_TILE
+
+
 def _key_groups(rows: int) -> int:
-    """Warps of a block that share one row group: 4 warps / (rows / 16)."""
+    """Warps of a block that share one row group up to D 128: 4 warps /
+    (rows / 16)."""
     return THREADS // 32 // (rows // 16)
 
 
-def _mma_smem(rows: int, D: int) -> int:
-    """Dynamic shared memory of the tensor-core body (`MmaSmem`): q rows
-    and two rounds of one K/V tile slot per key group."""
+def mma_options(D: int) -> list:
+    """The (rows, key_groups) geometries the tensor-core body takes at
+    head dim D: up to D 128 four warps as rows / 16 row groups x key
+    groups; above it 4 column warps a row group and at most 256
+    threads."""
+    if _col_groups(D) == 1:
+        return [(r, _key_groups(r)) for r in (16, 32, 64)]
+    return [(r, kg) for r in (16, 32, 64) for kg in (1, 2, 4)
+            if 32 * COL_GROUPS * (r // 16) * kg <= WIDE_THREADS]
+
+
+def _mma_smem(rows: int, D: int, key_groups: Optional[int] = None) -> int:
+    """Dynamic shared memory of the tensor-core body (`MmaSmem`): q rows,
+    two rounds of one K/V tile slot per key group and, above D 128, a
+    float32 partial S tile per (row group, key group, column warp)."""
+    kp = key_groups if key_groups is not None else _key_groups(rows)
     qp = 2 * (_ceil(D, 16) * 16 + 8)     # bf16 row pitch, bytes
-    return rows * qp + 2 * _key_groups(rows) * 2 * KEY_TILE * qp
+    cgs = _col_groups(D)
+    sx = rows // 16 * kp * cgs * 16 * S_PITCH * 4 if cgs > 1 else 0
+    return rows * qp + 2 * kp * 2 * _key_tile(D) * qp + sx
 
 
 def _mma_plan(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
               causal: bool = True, kv_offset: int = 0,
               rows: Optional[int] = None,
-              n_split: Optional[int] = None) -> Plan:
+              n_split: Optional[int] = None,
+              key_groups: Optional[int] = None) -> Plan:
     """The tensor-core body's plan with `rows` (16, 32 or 64) row slots
-    per block (default: `ROWS`, or 64 where two key groups' tiles do not
-    fit, D > 192) and `n_split` key splits (default: none where the
-    blocks fill the card, else about two blocks per SM, each split keeping
-    every key group busy); other values than the defaults only time the
-    options (`scripts/attention_plans.py`)."""
-    if rows is None:
-        rows = ROWS if _mma_smem(ROWS, D) <= SMEM_LIMIT else 64
-    if rows not in (16, 32, 64):
-        raise ValueError(f"rows {rows} per block")
+    per block and `key_groups` groups of warps sharing them (up to D 128
+    four warps in all: default `ROWS`, or 64 rows where two key groups'
+    tiles do not fit; above D 128 `WIDE_ROWS` rows and `WIDE_KEY_GROUPS`
+    groups of 4 column warps) and `n_split` key splits (default: none
+    where the blocks fill the card, else about two blocks per SM, each
+    split keeping every key group busy); other values than the defaults
+    only time the options (`scripts/attention_plans.py`)."""
+    cgs = _col_groups(D)
+    if cgs > 1:
+        rows = WIDE_ROWS if rows is None else rows
+        kp = WIDE_KEY_GROUPS if key_groups is None else key_groups
+    else:
+        if rows is None:
+            rows = ROWS if _mma_smem(ROWS, D) <= SMEM_LIMIT else 64
+        kp = _key_groups(rows) if rows in (16, 32, 64) else 0
+        if key_groups not in (None, kp):
+            raise ValueError(f"key_groups {key_groups} at rows {rows}")
+    if (rows, kp) not in mma_options(D):
+        raise ValueError(f"rows {rows} x key groups {kp} per block at D {D}")
     rep = H // KV
-    kp = _key_groups(rows)
     blocks = _ceil(Sq * rep, rows) * KV * B
+    tile = _key_tile(D)
     # keys any row can see: the last query position's causal frontier
     n_keys = max(0, min(Skv, kv_offset + Sq)) if causal else Skv
-    n_tiles = max(1, _ceil(n_keys, KEY_TILE))
+    n_tiles = max(1, _ceil(n_keys, tile))
     if n_split is None:
         n_split = min(_ceil(2 * N_SM, blocks) if blocks < N_SM else 1,
                       max(1, n_tiles // kp))
     n_split = max(1, min(n_split, n_tiles))
-    return Plan(True, rows, kp, THREADS,
+    return Plan(True, rows, kp, 32 * cgs * (rows // 16) * kp,
                 (_ceil(Sq * rep, rows), KV, B * n_split), n_split,
-                _mma_smem(rows, D))
+                _mma_smem(rows, D, kp), cgs, tile)
 
 
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -154,7 +204,7 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B, Sq, Skv, H, KV, D, build.dtype_code(q.dtype),
              float(scale), int(causal), int(kv_offset), plan.rows,
-             plan.n_split, vb, plan.smem_bytes,
+             plan.key_groups, plan.n_split, vb, plan.smem_bytes,
              part.data_ptr() if part is not None else None,
              part_ml.data_ptr() if part_ml is not None else None,
              torch.cuda.current_stream(q.device).cuda_stream)

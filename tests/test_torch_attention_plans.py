@@ -38,6 +38,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 
 TOL = dict(atol=1e-6, rtol=1e-6)
+# head dim 256: 256-long float32 dot products in another order move the
+# softmax's exponents further; the card's float32 gate (chip_smoke F32_TOL)
+TOL_WIDE = dict(atol=1e-5, rtol=1e-5)
 
 
 # ------------------------------------------------------- flash_mha plan
@@ -46,10 +49,12 @@ TOL = dict(atol=1e-6, rtol=1e-6)
 @pytest.mark.parametrize("D", [16, 20, 64, 112, 128, 256])
 def test_flash_plan_covers_every_row_and_fits(D, rep, Sq):
     """Both bodies' plans (float32 FMA, bf16 tensor-core with the default
-    and the 32-row plan, split or not) fit a block's shared memory and
-    thread limit and the grid's limits; every (query position, head) row
-    is computed by exactly one block; the key splits partition each
-    block's causal key tiles."""
+    and every (rows, key groups) option at the head dim, split or not)
+    fit a block's shared memory and thread limit and the grid's limits;
+    every (query position, head) row is computed by exactly one block
+    (above D 128 causal blocks run in reverse order); the key splits
+    partition each block's causal key tiles (64 keys up to D 128, 32
+    above it)."""
     B, KV = 2, 2
     H = KV * rep
     for Skv, causal, off in ((Sq, True, 0), (Sq + 40, True, 40),
@@ -59,9 +64,9 @@ def test_flash_plan_covers_every_row_and_fits(D, rep, Sq):
                  fa.launch_plan(B, Sq, Skv, H, KV, D, torch.bfloat16, causal,
                                 off)]
         plans += [fa._mma_plan(B, Sq, Skv, H, KV, D, causal, off, rows=r,
-                               n_split=n) for r in (16, 32, 64)
-                  for n in (1, 4)
-                  if fa._mma_smem(r, D) <= fa.SMEM_LIMIT]
+                               n_split=n, key_groups=kg)
+                  for r, kg in fa.mma_options(D) for n in (1, 4)
+                  if fa._mma_smem(r, D, kg) <= fa.SMEM_LIMIT]
         for plan in plans:
             assert plan.smem_bytes <= fa.SMEM_LIMIT, plan
             assert plan.threads <= 1024 and plan.threads % 32 == 0
@@ -76,20 +81,31 @@ def test_flash_plan_covers_every_row_and_fits(D, rep, Sq):
                 assert len(covered) == Sq * H
                 assert set(covered.values()) == {1}
                 continue
-            assert plan.threads == 128 and plan.rows in (16, 32, 64)
-            assert plan.key_groups * plan.rows == 64
+            assert plan.rows in (16, 32, 64)
+            if -(-D // 16) * 16 <= 128:
+                assert plan.threads == 128 and plan.col_groups == 1
+                assert plan.key_groups * plan.rows == 64
+                assert plan.key_tile == fa.KEY_TILE
+            else:
+                assert plan.col_groups == 4 and plan.key_tile == 32
+                assert plan.threads == (32 * 4 * plan.rows // 16
+                                        * plan.key_groups) <= 256
             assert plan.grid[1] == KV and plan.grid[2] == B * plan.n_split
             n_rows = Sq * rep
             for x in range(plan.grid[0]):
-                rows = range(x * plan.rows, min(x * plan.rows + plan.rows,
-                                                n_rows))
+                # the kernel's block index: the longest causal key ranges
+                # first above D 128
+                bx = (plan.grid[0] - 1 - x if plan.col_groups > 1 and causal
+                      else x)
+                rows = range(bx * plan.rows, min(bx * plan.rows + plan.rows,
+                                                 n_rows))
                 for row in rows:
                     covered[divmod(row, rep)] += 1
                 # the kernel's split of the block's key tiles
                 q_last = rows[-1] // rep
                 k_end = (max(0, min(Skv, off + q_last + 1)) if causal
                          else Skv)
-                n_tiles = -(-k_end // fa.KEY_TILE)
+                n_tiles = -(-k_end // plan.key_tile)
                 tiles = []
                 for s in range(plan.n_split):
                     lo = s * n_tiles // plan.n_split
@@ -106,19 +122,33 @@ def test_flash_plan_covers_every_row_and_fits(D, rep, Sq):
 
 
 def test_flash_plan_defaults():
-    """The default bf16 plan: 32 row slots and two key groups per block
-    while two groups' tile rings fit (D <= 192), else 64 rows and one;
-    at the main shape (B=1, Sq=Skv=128, 15/5 heads) 60 blocks whose two
-    key groups take the two key tiles, no split across blocks; a split
-    only where the blocks are fewer than the SMs and each split keeps
-    both groups busy; never more splits than tiles."""
+    """The default bf16 plan: up to D 128 32 row slots and two key groups
+    of 4 warps in all per block, 64-key tiles; above D 128 (D padded to
+    16) 16 row slots whose output columns split over 4 warps, two key
+    groups of 32-key tiles, 256 threads. At the main shape (B=1,
+    Sq=Skv=128, 15/5 heads) 60 blocks whose two key groups take the two
+    key tiles, no split across blocks; at paligemma-3b's prefix + prompt
+    (S 384, 8/1 heads, D 256) 192 blocks, no split. A split only where
+    the blocks are fewer than the SMs and each split keeps both groups
+    busy; never more splits than tiles."""
     main = fa.launch_plan(1, 128, 128, 15, 5, 64, torch.bfloat16)
     assert (main.rows, main.key_groups) == (32, 2)
     assert main.grid == (12, 5, 1) and main.n_split == 1
-    wide = fa.launch_plan(1, 128, 128, 8, 1, 256, torch.bfloat16)
-    assert (wide.rows, wide.key_groups) == (64, 1)
-    assert fa.launch_plan(1, 128, 128, 8, 1, 192,
-                          torch.bfloat16).rows == 32
+    assert (main.col_groups, main.key_tile, main.threads) == (1, 64, 128)
+    for D in (144, 192, 256):
+        wide = fa.launch_plan(1, 128, 128, 8, 1, D, torch.bfloat16)
+        assert (wide.rows, wide.key_groups, wide.col_groups) == (16, 2, 4)
+        assert (wide.key_tile, wide.threads) == (32, 256)
+        qp = 2 * (-(-D // 16) * 16 + 8)
+        assert wide.smem_bytes == (16 * qp + 2 * 2 * 2 * 32 * qp
+                                   + 2 * 4 * 16 * fa.S_PITCH * 4)
+    assert fa.launch_plan(1, 128, 128, 8, 1, 128,
+                          torch.bfloat16).col_groups == 1
+    pali = fa.launch_plan(1, 384, 384, 8, 1, 256, torch.bfloat16)
+    assert pali.grid == (192, 1, 1) and pali.n_split == 1
+    assert fa.mma_options(256) == [(16, 1), (16, 2), (32, 1)]
+    with pytest.raises(ValueError):
+        fa._mma_plan(1, 384, 384, 8, 1, 256, rows=64)
     assert fa.launch_plan(8, 512, 512, 15, 5, 64,
                           torch.bfloat16).n_split == 1
     few = fa.launch_plan(1, 512, 512, 3, 1, 64, torch.bfloat16)
@@ -161,67 +191,120 @@ def _lengths(cap: int, span: int):
 @pytest.mark.parametrize("span", [32, 64, 128])
 @pytest.mark.parametrize("page", [16, 64])
 def test_decode_partition_same_for_paged_and_dense(page, span):
-    """The split body's key partition depends on the length and the
-    capacity's clamp only: a paged capacity (n_pages * page) and a dense
-    capacity (S) of the same size give the same spans at every length,
-    parked rows included, and at lengths below both capacities any two
+    """The split body's key partition depends on the length, the
+    capacity's clamp and the span cap only: a paged capacity (n_pages *
+    page) and a dense capacity (S) of the same size give the same spans
+    at every length, parked rows and slots past the span cap (longer
+    spans) included, and at lengths below both capacities any two
     capacities do. The spans tile [0, min(length, capacity)) in order,
-    each inside its own span block, and the plan's grid holds them."""
-    for n_pages in (1, 3, 9, 16):
+    each inside its own span block, all of one length (a multiple of the
+    span) but the last, at most `MAX_SPANS` of them, and the plan's grid
+    holds them."""
+    max_spans = dplan.MAX_SPANS
+    for n_pages in (1, 3, 9, 16, 16384 // page + 1, 4 * 16384 // page + 3):
         cap = n_pages * page
-        for length in _lengths(cap, span):
+        lengths = _lengths(cap, span) + [
+            n for n in (max_spans * span - 1, max_spans * span,
+                        max_spans * span + 1, 3 * max_spans * span + 5,
+                        16384, 16384 + 1, 4 * 16384 + 7) if n <= cap]
+        for length in lengths:
             paged = dplan.key_spans(length, n_pages * page, span)
             dense = dplan.key_spans(length, cap, span)
             assert paged == dense
             n_keys = min(length, cap)
+            L = dplan.span_len(n_keys, span)
+            assert L % span == 0 and (L == span) == (
+                n_keys <= max_spans * span)
             assert paged[0][0] == 0 and paged[-1][1] == n_keys
-            assert all(lo == u * span and hi <= lo + span and (
-                hi > lo or n_keys == 0) for u, (lo, hi) in enumerate(paged))
+            assert len(paged) <= max_spans
+            assert all(lo == u * L and hi <= lo + L and (
+                hi > lo or n_keys == 0)
+                for u, (lo, hi) in enumerate(paged))
             assert all(a[1] == b[0] for a, b in zip(paged, paged[1:]))
-            for plan_cap in (cap, cap + 4):      # draft caches: S + k
+            for plan_cap in (cap, cap + 4):          # draft caches: S + k
                 if length <= cap:
                     assert dplan.key_spans(length, plan_cap, span) == paged
             plan = dplan.decode_plan(8, 24, 3, 64, cap, torch.int8, span)
             assert len(paged) <= plan.n_span == plan.grid[2]
+            assert plan.n_span == min(-(-cap // span), max_spans)
             assert plan.grid[:2] == (3, 8)
+
+
+@pytest.mark.parametrize("span", [32, 64])
+def test_decode_partition_unchanged_up_to_the_span_cap(span):
+    """Every length up to MAX_SPANS spans keeps the first split body's
+    partition, spans of `span` keys from 0 (and so its sums: the body at
+    D <= 128 runs each span's keys in the same order); one key past the
+    cap, the spans double and their count halves (rounded up)."""
+    cap = dplan.MAX_SPANS * span
+    for length in range(cap + 1):
+        n_used = max(1, -(-length // span))
+        assert dplan.key_spans(length, cap + 64, span) == [
+            (u * span, min(u * span + span, length)) for u in range(n_used)]
+    past = dplan.key_spans(cap + 1, 4 * cap, span)
+    assert past[0] == (0, 2 * span) and len(past) == dplan.MAX_SPANS // 2 + 1
+    assert dplan.default_span(128) == dplan.SPAN == 64
+    assert dplan.default_span(144) == dplan.default_span(256) == 32
 
 
 @pytest.mark.parametrize("dt", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [16, 20, 64, 112, 128, 256])
 def test_decode_plan_smem_layout(D, dt):
-    """The plan's shared memory mirrors the kernel's layout: K and V rows
-    at a pitch of an odd number of 16-byte chunks (so 32 lanes reading 16
-    bytes of 32 rows meet every bank once), a (scale, zero) row and a
-    cache row per key, and rep f32 q rows padded to the staged chunks."""
+    """The plan's shared memory mirrors the kernel's layout, whatever the
+    span: a ring of two rounds of K and V rows (64 keys a round, 32 for a
+    float32 pool above D 128) at a pitch of an odd number of 16-byte
+    chunks (so 32 lanes reading 16 bytes of 32 rows meet every bank
+    once), a (scale, zero) row and a cache row per key of the ring, rep
+    f32 q rows padded to the staged chunks, the merge's (rescale,
+    weight) per (row, span) and (M, L) per row over the ring, and above
+    D 128 each warp's scores and (m, l, alpha) of up to 4 rows; (scale,
+    zero) rows only for int8 pools. Every plan fits."""
     esize = torch.empty((), dtype=dt).element_size()
     for span in (32, 64, 128, 256):
         for rep in (1, 3, 16):
             plan = dplan.decode_plan(4, 2 * rep, 2, D, 1000, dt, span)
             chunks = -(-D * esize // 16)
             pitch = 16 * (chunks | 1)
+            rk = 32 if esize == 4 and D > 128 else 64
             assert (pitch // 16) % 2 == 1 and pitch >= D * esize
-            assert plan.smem_bytes == (2 * span * pitch + 24 * span
-                                       + rep * chunks * (16 // esize) * 4)
+            cw = -(-rep * (dplan.MAX_SPANS + 1) * 8 // 16) * 16
+            assert plan.smem_bytes == (
+                max(2 * 2 * rk * pitch, cw)
+                + (2 * rk * 16 if esize == 1 else 0) + 2 * rk * 8
+                + rep * chunks * (16 // esize) * 4
+                + (4 * 4 * 36 * 4 if D > 128 else 0))
             assert plan.smem_bytes % 16 == 0
-            # the default span fits every head dim, rep and cache type;
-            # wider spans (timed as options) only where the wrapper finds
-            # them within the limit
-            assert span > dplan.SPAN or plan.smem_bytes <= dplan.SMEM_LIMIT
+            assert plan.smem_bytes <= dplan.SMEM_LIMIT
     with pytest.raises(ValueError):
         dplan.decode_plan(1, 1, 1, D, 64, dt, span=48)
+
+
+def test_decode_plan_block_warps():
+    """A block's warps: 4 up to rep 4 and above D 128, else 5 (qwen2.5-32b's
+    40 / 8 heads at D 128: one warp a query row); the plan's threads say
+    so."""
+    for D, rep, warps in ((64, 3, 4), (64, 4, 4), (128, 5, 5), (128, 8, 5),
+                          (64, 16, 5), (256, 8, 4), (144, 16, 4),
+                          (20, 1, 4)):
+        assert dplan.block_warps(D, rep) == warps
+        plan = dplan.decode_plan(2, 2 * rep, 2, D, 512, torch.bfloat16)
+        assert plan.threads == 32 * warps
 
 
 # ----------------------------------------- split decode, emulated
 def _split_decode(q, k, v, lengths, span, n_span, scale=None,
                   empty_v=None):
-    """float32 emulation of the split body on a dense cache: every span
-    block of the grid past its slot's length exits; a slot of length 0
-    writes the mean of V over the rows its policy names (`empty_v`
-    (rows, KV, D), physical page 0 of a paged pool dequantized; by
-    default the slot's own S rows); each used span computes its (acc, m,
-    l) over its keys; a slot with one used span writes acc / max(l,
-    1e-30), otherwise the spans merge online in span order (the running
-    max rescales the sums so far)."""
+    """float32 emulation of the split body on a dense cache: a slot's
+    spans are `span_len` keys long (`span`, or a multiple of it past
+    `MAX_SPANS` spans); every span block of the grid past its slot's
+    length exits; a slot of length 0 writes the mean of V over the rows
+    its policy names (`empty_v` (rows, KV, D), physical page 0 of a
+    paged pool dequantized; by default the slot's own S rows); each used
+    span computes its (acc, m, l) over its keys in 32-key tiles, online
+    (the tile's max rescales the sums so far), as the ring's rounds feed
+    them; a slot with one used span writes acc / max(l, 1e-30), otherwise
+    the spans merge online in span order (the running max rescales the
+    sums so far)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -230,6 +313,7 @@ def _split_decode(q, k, v, lengths, span, n_span, scale=None,
     for b in range(B):
         n_keys = max(0, min(int(lengths[b]), S))
         spans = dplan.key_spans(int(lengths[b]), S, span)
+        span_keys = dplan.span_len(n_keys, span)
         assert len(spans) <= n_span
         for g in range(KV):
             if n_keys == 0:
@@ -239,15 +323,23 @@ def _split_decode(q, k, v, lengths, span, n_span, scale=None,
             qg = q[b, g * rep:(g + 1) * rep].float()      # (rep, D)
             parts = []
             for sp in range(n_span):
-                if sp > 0 and sp * span >= n_keys:
+                if sp > 0 and sp * span_keys >= n_keys:
                     continue                              # past the length
                 lo, hi = spans[sp]
-                kk, vv = k[b, lo:hi, g].float(), v[b, lo:hi, g].float()
-                s = (qg @ kk.T) * scale                   # (rep, keys)
-                m = (s.amax(-1) if hi > lo
-                     else torch.full((rep,), tdref.NEG_INF))
-                p = torch.exp(s - m[:, None])
-                parts.append((p @ vv, m, p.sum(-1)))
+                m = torch.full((rep,), tdref.NEG_INF)
+                l_ = torch.zeros(rep)
+                acc = torch.zeros(rep, D)
+                for t0 in range(lo, hi, dplan.KEY_TILE):  # the span's tiles
+                    t1 = min(t0 + dplan.KEY_TILE, hi)
+                    kk, vv = k[b, t0:t1, g].float(), v[b, t0:t1, g].float()
+                    s = (qg @ kk.T) * scale               # (rep, keys)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    p = torch.exp(s - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l_ = l_ * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + p @ vv
+                    m = m_new
+                parts.append((acc, m, l_))
             if len(parts) == 1:
                 acc, _, l_ = parts[0]
                 o = acc / torch.clamp_min(l_, 1e-30)[:, None]
@@ -342,6 +434,57 @@ def test_split_decode_emulation_matches_plain(page, rep, pool):
     for n_span in (used + 1, n_full, n_full + 5):
         assert torch.equal(_split_decode(t["q"], kd, vd, t["len"], span,
                                          n_span, empty_v=page0), emu)
+    # slots past the span cap (longer spans walked as tiles) at a reduced
+    # head dim, and paligemma-3b's head dim 256 (span 32) at rep 8
+    _check_against_plain(page, rep, pool, 16 if rep != 8 else 20, span,
+                         (4096, 4097, 9000, 16384, 1), 16384 + page)
+    if rep == 8:
+        _check_against_plain(page, rep, pool, 256, dplan.default_span(256),
+                             (1, 31, 33, 700, 2049), 2048 + page)
+
+
+def _check_against_plain(page, rep, pool, D, span, lengths, cap_keys):
+    """`_split_decode` at these lengths (>= 1; the default span cap)
+    against the plain paged decode, the plain dense decode of the
+    gathered cache and the reference package's plain paged decode, within
+    1e-6 (1e-5 above D 128). (At length 0 and a long capacity the plain versions average
+    page 0's rows repeated over the whole table, whose float32 sum drifts
+    from the mean of the page's own rows: the short test covers it.)"""
+    KV = 2
+    H = KV * rep
+    n_pages = -(-cap_keys // page)
+    cap = n_pages * page
+    lengths = np.array(lengths, np.int32)
+    q, kp, vp, bt, ksz, vsz = _inputs(page + rep + D, len(lengths), H, KV,
+                                      D, page, n_pages, pool)
+    t = {n: (torch.from_numpy(a) if a is not None else None) for n, a in
+         dict(q=q, kp=kp, vp=vp, bt=bt, ksz=ksz, vsz=vsz,
+              len=lengths).items()}
+    plain = tdops.paged_decode_mha(t["q"], t["kp"], t["vp"], t["bt"],
+                                   t["len"], k_sz=t["ksz"], v_sz=t["vsz"])
+    if ksz is None:
+        kd = tdref.gather_pages(t["kp"], t["bt"])
+        vd = tdref.gather_pages(t["vp"], t["bt"])
+    else:
+        kd = tdref.gather_pages_q8(t["kp"], t["ksz"], t["bt"])
+        vd = tdref.gather_pages_q8(t["vp"], t["vsz"], t["bt"])
+    dense = tdops.decode_mha(t["q"], kd, vd, t["len"])
+    jkw = {} if ksz is None else dict(k_sz=jnp.asarray(ksz),
+                                      v_sz=jnp.asarray(vsz))
+    jplain = torch.from_numpy(np.array(jdref.paged_decode_mha(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lengths), **jkw)))
+    n_span = dplan.decode_plan(len(lengths), H, KV, D, cap, t["kp"].dtype,
+                               span).n_span
+    assert n_span == min(-(-cap // span), dplan.MAX_SPANS)
+    emu = _split_decode(t["q"], kd, vd, t["len"], span, n_span,
+                        empty_v=_page0_v(t["vp"], t["vsz"]))
+    tol = TOL if D <= 128 else TOL_WIDE
+    torch.testing.assert_close(emu, plain.float(), **tol)
+    torch.testing.assert_close(emu, jplain.float(), **tol)
+    torch.testing.assert_close(
+        _split_decode(t["q"], kd, vd, t["len"], span, n_span),
+        dense.float(), **tol)
 
 
 def _page0_v(vp, vsz):
